@@ -1,0 +1,557 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (`src/repro_torch`).
+
+Run from the root of a checkout on a machine with one NVIDIA GPU and the
+CUDA toolkit:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+  build     compile the slot-engine kernels from
+            `src/repro_torch/kernels/csrc/netsim_kernels.cu` (nvcc).
+  kernels   each of the five kernels at the main path's shapes (fig9 and
+            the giga AR point), float32 and float64, against its plain
+            PyTorch version on the same GPU tensors; CUDA-event times of
+            kernel and plain version (each captured in a CUDA graph of
+            20 calls, so host launch overhead is excluded) beside the
+            least time the card needs for the bytes moved.
+  sync      the slot loop runs with CUDA sync debugging set to "error":
+            nothing in it makes the host wait for the device.
+  registry  fig9_victim_noise, fig11_degraded_leaf and fig12_plane_flap
+            through `compile_scenario(...).run(device="cuda")` in float64,
+            held against the CPU plain path (1e-5, exact completion
+            slots, equal distilled rows) and against
+            `tests/golden/scenarios.json` (1e-5); every kernel must have
+            launched slots x (1, 1, 4, 2, 1) times.
+  scale     giga_fabric_storage under AR (4096 hosts, 102,400 flows, 8
+            random link kills, 60 slots) in float32 and float64 on the
+            GPU; the float64 run is held against the CPU plain path with
+            the contained-fork contract used for giga-scale parity.
+  profile   torch.profiler over 12 giga slots: device busy share and the
+            kernels that take the device time.
+
+Prints the card's name and power limit first, a `{"kernels": [...]}`
+line before the last, and `{"ok": true, "device": {...}}` last.
+`--report PATH` also writes the full report (every kernel row, the
+registry, scale and profile results) as JSON.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+TOL = 1e-5
+HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
+REGISTRY = ("fig9_victim_noise", "fig11_degraded_leaf", "fig12_plane_flap")
+# launches per slot of (plane_split, pair_fractions, bottleneck,
+# queue_update, nic_update) on the leaf-spine AR/WAR path
+PER_SLOT = {"plane_split": 1, "pair_fractions": 1, "bottleneck": 4,
+            "queue_update": 2, "nic_update": 1}
+REPLACES = {
+    "plane_split": "src/repro/kernels/plb_select.py:47",
+    "pair_fractions": "src/repro/kernels/jsq_route.py:42",
+    "bottleneck": "src/repro/kernels/link_load.py:101",
+    "queue_update": "src/repro/kernels/queue_ecn.py:31",
+    "nic_update": "src/repro/kernels/queue_ecn.py:73",
+}
+SOURCE = "src/repro_torch/kernels/csrc/netsim_kernels.cu"
+# fabric shapes the main path hands the kernels
+SHAPES = {"fig9": dict(F=2496, P=1, L=8, S=8, H=64),
+          "giga": dict(F=102400, P=2, L=256, S=16, H=4096)}
+# approximate flops per element, for the operations bound
+FLOPS_PER_ELEM = {"plane_split": 8, "pair_fractions": 30, "bottleneck": 2,
+                  "queue_update": 7, "nic_update": 20}
+NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
+              target_rtt_us=12.0, min_rate=0.01, md=0.7, ai=0.08,
+              rtt_gain=0.15, dcqcn_ai=0.01, alpha_g=0.0625)
+
+
+def fail(msg: str) -> None:
+    raise AssertionError(msg)
+
+
+def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
+    """Median device time of one `fn()` call: `reps` calls captured in a
+    CUDA graph, replayed `repeats` times between CUDA events."""
+    import torch
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()                                     # warm-up outside capture
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def kernel_cases(shape: dict, dtype, seed: int):
+    """(kernel, mode, wrapper call, plain call, bytes, elements) for every
+    kernel and mode at one shape, inputs drawn from numpy with `seed`."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import jsq_route, link_load, plb_select, \
+        queue_ecn, ref
+
+    rng = np.random.default_rng(seed)
+    F, P, L, S, H = (shape[k] for k in "FPLSH")
+    isz = torch.empty((), dtype=dtype).element_size()
+
+    def f(*sh, lo=0.0, hi=1.0, zero_frac=0.0):
+        a = rng.uniform(lo, hi, sh)
+        if zero_frac:
+            a[rng.random(sh) < zero_frac] = 0.0
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    def b(*sh, p=0.9):
+        return torch.tensor(rng.random(sh) < p, device="cuda")
+
+    rate = f(F, P, lo=0.01, hi=1.0)
+    rate[rate < 0.1] = 0.01                      # some planes at MIN_RATE
+    elig, demand = b(F, P), f(F)
+    q, cap = f(P, L, L, S, hi=20.0), f(P, L, L, S, zero_frac=0.1)
+    w = cap * f(P, L, L, S)
+    link_cap, link_load_ = f(P, L, S, zero_frac=0.1), f(P, L, S, hi=2.0)
+    acc_cap, acc_load = f(H, P, zero_frac=0.05), f(H, P, hi=2.0)
+    q_link = f(P, L, S, hi=70.0)
+    qmean, alpha, esr = f(F, P, hi=8.0), f(F, P), b(F, 1, p=0.5)
+    n_pair, n_link = P * L * L * S, P * L * S
+    out = []
+    for mode in ("spx", "dcqcn", "agg", "swlb"):
+        out.append((
+            "plane_split", mode,
+            lambda m=mode: plb_select.plane_split(
+                rate, elig, demand, mode=m, min_rate=0.01),
+            lambda m=mode: ref.plane_split_ref(
+                rate, elig, demand, mode=m, min_rate=0.01),
+            F * P * (2 * isz + 1) + F * isz, F * P))
+    out.append((
+        "pair_fractions", "",
+        lambda: jsq_route.pair_fractions(q, cap, w, nbins=16,
+                                         temperature=0.25),
+        lambda: ref.pair_score_softmax_ref(q, cap, w, nbins=16,
+                                           temperature=0.25),
+        4 * n_pair * isz, n_pair))
+    for name, c, ld in (("links", link_cap, link_load_),
+                        ("access", acc_cap, acc_load)):
+        out.append((
+            "bottleneck", name,
+            lambda c=c, ld=ld: link_load.bottleneck(c, ld),
+            lambda c=c, ld=ld: ref.bottleneck_ref(c, ld),
+            3 * c.numel() * isz, c.numel()))
+    out.append((
+        "queue_update", "",
+        lambda: queue_ecn.queue_update(q_link, link_load_, link_cap,
+                                       q_cap=64.0),
+        lambda: ref.queue_update_ref(q_link, link_load_, link_cap,
+                                     q_cap=64.0),
+        5 * n_link * isz, n_link))
+    for mode in ("spx", "dcqcn", "agg"):
+        out.append((
+            "nic_update", mode,
+            lambda m=mode: queue_ecn.nic_update(qmean, rate, alpha, esr,
+                                                mode=m, **NIC_KW),
+            lambda m=mode: ref.nic_update_ref(qmean, rate, alpha, esr,
+                                              mode=m, **NIC_KW),
+            7 * F * P * isz + F, F * P))
+    return out
+
+
+def max_errors(got, want):
+    """(max |a-b|, max |a-b| / |b| over normal |b|) across outputs."""
+    import torch
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    abs_err, rel_err = 0.0, 0.0
+    for g, w in zip(got, want):
+        d = (g - w).abs()
+        abs_err = max(abs_err, float(d.max()))
+        tiny = torch.finfo(w.dtype).tiny
+        rel = d / w.abs().clamp_min(tiny)
+        rel_err = max(rel_err, float(rel[w.abs() >= tiny].max())
+                      if bool((w.abs() >= tiny).any()) else 0.0)
+    return abs_err, rel_err
+
+
+def kernel_phase(report: dict) -> dict:
+    """Every kernel vs its plain version; returns the per-kernel summary
+    at the giga shape in float64 (the scale phase's parity mode)."""
+    import torch
+    from repro_torch.kernels import build
+
+    rows, summary = [], {}
+    for sname, shape in SHAPES.items():
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[1]
+            for kernel, mode, run, plain, nbytes, elems in kernel_cases(
+                    shape, dtype, seed=len(rows)):
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                abs_err, rel_err = max_errors(got, want)
+                if kernel == "pair_fractions":
+                    rtol = 1e-12 if dtype == torch.float64 else 1e-6
+                    if rel_err > rtol:
+                        fail(f"{kernel} {sname} {dname}: rel err "
+                             f"{rel_err:.3g} > {rtol}")
+                elif abs_err != 0.0:
+                    fail(f"{kernel}[{mode}] {sname} {dname}: max abs err "
+                         f"{abs_err:.3g}, expected bit-equal")
+                row = dict(kernel=kernel, mode=mode, shape=sname,
+                           dtype=dname, max_abs_err=abs_err,
+                           max_rel_err=rel_err, bytes=nbytes)
+                if mode in ("", "spx", "links", "access"):
+                    ms, plain_ms = graph_ms(run), graph_ms(plain)
+                    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                    ops_ms = (elems * FLOPS_PER_ELEM[kernel]
+                              / PEAK_FLOPS[dname] * 1e3)
+                    row.update(ms=ms, plain_ms=plain_ms,
+                               bound_ms=max(bytes_ms, ops_ms),
+                               bound_by="bytes" if bytes_ms >= ops_ms
+                               else "operations")
+                    print(f"kernel {kernel}{'[' + mode + ']' if mode else ''}"
+                          f" {sname} {dname}: ms={ms:.6f} "
+                          f"plain_ms={plain_ms:.6f} "
+                          f"bound_ms={row['bound_ms']:.6f} "
+                          f"max_abs_err={abs_err:.3g} "
+                          f"max_rel_err={rel_err:.3g}", flush=True)
+                    key = kernel if mode in ("", "spx", "links") else None
+                    if key and sname == "giga" and dname == "float64":
+                        summary[key] = row
+                rows.append(row)
+    for row in rows:
+        s = summary[row["kernel"]]
+        s["max_abs_err_all"] = max(s.get("max_abs_err_all", 0.0),
+                                   row["max_abs_err"])
+    report["kernels"] = rows
+    build.reset_launches()
+    return summary
+
+
+def sync_phase() -> None:
+    """The slot loop never waits for the device."""
+    import torch
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import compile_scenario, get_scenario
+
+    c = compile_scenario(get_scenario("fig11_degraded_leaf")
+                         .with_sim(slots=24))
+    cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = engine._simulate(cfg, ops)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not all(bool(o.isfinite().all()) for o in out
+               if o.is_floating_point()):
+        fail("sync phase: non-finite output")
+    print("sync: slot loop ran with sync debug mode 'error'", flush=True)
+
+
+def check_launches(what: str, slots: int, counts: dict, total: dict):
+    want = {k: slots * n for k, n in PER_SLOT.items()}
+    if counts != want:
+        fail(f"{what}: launches {counts}, expected {want}")
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def assert_parity(spec, c, ref, got) -> None:
+    """`tests/test_jx_parity.py::_assert_parity`'s contract."""
+    import numpy as np
+    from repro_torch.scenarios import distill_metrics
+    np.testing.assert_allclose(got.mean_goodput, ref.mean_goodput,
+                               atol=TOL, rtol=TOL)
+    np.testing.assert_array_equal(got.completion_slot, ref.completion_slot)
+    np.testing.assert_allclose(got.total_goodput, ref.total_goodput,
+                               atol=TOL * len(ref.mean_goodput), rtol=TOL)
+    np.testing.assert_allclose(got.util_up_last, ref.util_up_last,
+                               atol=TOL, rtol=TOL)
+    assert got.groups == ref.groups
+    np.testing.assert_array_equal(got.group_of, ref.group_of)
+    m_ref, m_got = (distill_metrics(spec, c, r) for r in (ref, got))
+    for t in m_ref.tenant_mean:
+        for field in ("tenant_mean", "tenant_p01", "tenant_p99"):
+            a, b = getattr(m_got, field)[t], getattr(m_ref, field)[t]
+            if abs(a - b) > TOL:
+                fail(f"{spec.name}: {field}[{t}] {a} vs {b}")
+    if abs(m_got.isolation_index - m_ref.isolation_index) > TOL:
+        fail(f"{spec.name}: isolation_index")
+    if m_got.recovery_slots != m_ref.recovery_slots:
+        fail(f"{spec.name}: recovery_slots {m_got.recovery_slots} vs "
+             f"{m_ref.recovery_slots}")
+
+
+def assert_golden(name: str, m, golden: dict) -> None:
+    """Distilled metrics vs the NumPy engine's golden snapshot."""
+    import math
+    want = golden[name]
+    got = {"mean_goodput": m.mean_goodput, "tenant_mean": m.tenant_mean,
+           "tenant_p01": m.tenant_p01, "tenant_p99": m.tenant_p99,
+           "isolation_index": m.isolation_index,
+           "recovery_slots": [list(r) for r in m.recovery_slots],
+           "completion_tail": (None if math.isnan(m.completion_tail)
+                               else m.completion_tail),
+           "symmetry_cv": m.symmetry_cv,
+           "symmetry_uniform": m.symmetry_uniform}
+
+    def close(a, b, path):
+        if isinstance(b, dict):
+            if set(a) != set(b):
+                fail(f"golden {path}: keys differ")
+            for k in b:
+                close(a[k], b[k], f"{path}.{k}")
+        elif isinstance(b, list):
+            if len(a) != len(b):
+                fail(f"golden {path}: length")
+            for i, (x, y) in enumerate(zip(a, b)):
+                close(x, y, f"{path}[{i}]")
+        elif isinstance(b, float) and not isinstance(b, bool):
+            if abs(a - b) > TOL:
+                fail(f"golden {path}: {a} vs {b}")
+        elif a != b:
+            fail(f"golden {path}: {a!r} vs {b!r}")
+
+    close(got, want, name)
+
+
+def registry_phase(report: dict, total: dict) -> None:
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.scenarios import (compile_scenario, distill_metrics,
+                                       get_scenario)
+
+    golden = json.loads((ROOT / "tests/golden/scenarios.json").read_text())
+    report["registry"] = []
+    for name in REGISTRY:
+        spec = get_scenario(name)
+        c = compile_scenario(spec)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        gpu = c.run(device="cuda")               # float64 parity mode
+        wall = time.perf_counter() - t0
+        check_launches(name, spec.sim.slots, dict(build.LAUNCHES), total)
+        cpu = compile_scenario(spec).run(device="cpu")
+        assert_parity(spec, c, cpu, gpu)
+        m = distill_metrics(spec, c, gpu)
+        assert_golden(name, m, golden)
+        report["registry"].append(dict(
+            scenario=name, slots=spec.sim.slots, flows=len(c.flows),
+            wall_s=wall, mean_goodput=m.mean_goodput))
+        print(f"registry {name}: {spec.sim.slots} slots, {len(c.flows)} "
+              f"flows, GPU f64 {wall:.3f} s; parity with CPU plain path "
+              f"and golden metrics: ok; mean_goodput={m.mean_goodput!r}",
+              flush=True)
+
+
+def assert_contained_fork(spec, c, ref, got, fork_frac=0.05) -> dict:
+    """`tests/test_jx_parity.py::_assert_parity_chaotic`'s contract."""
+    import numpy as np
+    from repro_torch.scenarios import distill_metrics
+    r, j = np.asarray(ref.mean_goodput), np.asarray(got.mean_goodput)
+    forked = ~np.isclose(j, r, atol=TOL, rtol=TOL)
+    stats = dict(forked_frac=float(forked.mean()),
+                 max_abs_diff=float(np.abs(j - r).max()),
+                 completion_diff_frac=float(np.mean(
+                     got.completion_slot != ref.completion_slot)))
+    if forked.mean() > fork_frac:
+        fail(f"{forked.sum()}/{forked.size} flows forked")
+    if np.abs(j - r).max() > 0.05 or abs(j.mean() - r.mean()) > 1e-3:
+        fail("giga: goodput spread")
+    if stats["completion_diff_frac"] > fork_frac:
+        fail("giga: completion slots")
+    np.testing.assert_allclose(got.total_goodput, ref.total_goodput,
+                               rtol=2e-2, atol=1e-3 * len(r))
+    util_diff = np.abs(np.asarray(got.util_up_last)
+                       - np.asarray(ref.util_up_last))
+    if not ((util_diff > TOL).mean() <= 3 * fork_frac
+            and np.quantile(util_diff, 0.99) <= 0.01
+            and util_diff.mean() <= 1e-3):
+        fail("giga: util spread")
+    assert got.groups == ref.groups
+    m_ref, m_got = (distill_metrics(spec, c, x) for x in (ref, got))
+    for t in m_ref.tenant_mean:
+        if not (abs(m_got.tenant_mean[t] - m_ref.tenant_mean[t]) <= 1e-3
+                and abs(m_got.tenant_p01[t] - m_ref.tenant_p01[t]) <= 2e-2
+                and abs(m_got.tenant_p99[t] - m_ref.tenant_p99[t]) <= 2e-2):
+            fail(f"giga: tenant {t} metrics")
+    if abs(m_got.isolation_index - m_ref.isolation_index) > 1e-2:
+        fail("giga: isolation_index")
+    for (s_j, k_j, n_j), (s_r, k_r, n_r) in zip(m_got.recovery_slots,
+                                                m_ref.recovery_slots):
+        if (s_j, k_j) != (s_r, k_r) or abs(n_j - n_r) > 2:
+            fail("giga: recovery_slots")
+    return stats
+
+
+def scale_phase(report: dict, total: dict) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.scenarios import compile_scenario, get_scenario
+
+    spec = get_scenario("giga_fabric_storage").with_sim(routing="ar")
+    report["scale"] = {}
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        c = compile_scenario(spec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = c.run(device="cuda", dtype=dtype)
+        wall = time.perf_counter() - t0
+        check_launches(f"giga {dname}", spec.sim.slots,
+                       dict(build.LAUNCHES), total)
+        if res.mean_goodput.shape != (len(c.flows),) or not np.isfinite(
+                res.mean_goodput).all():
+            fail(f"giga {dname}: bad mean_goodput")
+        mem = torch.cuda.max_memory_allocated()
+        runs[dname] = (c, res)
+        report["scale"][dname] = dict(
+            wall_s=wall, slots_per_s=spec.sim.slots / wall,
+            max_memory_allocated=mem, flows=len(c.flows),
+            mean_goodput=float(res.mean_goodput.mean()))
+        print(f"scale giga_fabric_storage[ar] {dname}: {len(c.flows)} "
+              f"flows x {spec.sim.slots} slots, wall {wall:.3f} s "
+              f"(host prep included), {spec.sim.slots / wall:.2f} slots/s, "
+              f"max_memory_allocated {mem / 2**20:.1f} MiB, mean goodput "
+              f"{res.mean_goodput.mean()!r}", flush=True)
+    t0 = time.perf_counter()
+    cpu = compile_scenario(spec).run(device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    c64, gpu64 = runs["float64"]
+    stats = assert_contained_fork(spec, c64, cpu, gpu64)
+    f32_diff = float(np.abs(runs["float32"][1].mean_goodput
+                            - gpu64.mean_goodput).max())
+    report["scale"]["parity"] = dict(cpu_wall_s=cpu_wall,
+                                     f32_vs_f64_max_abs=f32_diff, **stats)
+    print(f"scale parity: GPU f64 vs CPU plain path ({cpu_wall:.1f} s): "
+          f"{stats}; f32 vs f64 max |diff| {f32_diff:.3g}", flush=True)
+
+
+def profile_phase(report: dict) -> None:
+    """Where a giga slot's time goes: `torch.profiler` over the float64
+    slot loop (12 slots, host prep excluded).  Device busy share = summed
+    kernel time / loop wall.  Prints "not measured" when the profiler
+    records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import compile_scenario, get_scenario
+
+    slots = 12
+    c = compile_scenario(get_scenario("giga_fabric_storage")
+                         .with_sim(routing="ar", slots=slots))
+    cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
+    engine._simulate(cfg, ops)                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine._simulate(cfg, ops)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine._simulate(cfg, ops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    report["profile"] = dict(
+        scenario="giga_fabric_storage[ar] float64", slots=slots,
+        loop_wall_s=plain_wall, profiled_wall_s=wall,
+        device_busy_s=busy_s,
+        launches_per_slot=sum(e.count for e in kernels) / slots,
+        top=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
+                  count=e.count) for e in top])
+    if busy_s == 0.0:
+        print("profile: device time not measured (profiler saw no "
+              "device activity)", flush=True)
+        return
+    print(f"profile giga f64 loop: {plain_wall / slots * 1e3:.3f} ms/slot "
+          f"unprofiled, {wall / slots * 1e3:.3f} ms/slot profiled, device "
+          f"busy {busy_s / wall:.1%} of the profiled wall, "
+          f"{report['profile']['launches_per_slot']:.0f} kernels/slot",
+          flush=True)
+    for e in top[:5]:
+        print(f"  {e.self_device_time_total / 1e3 / slots:.4f} ms/slot "
+              f"x{e.count // slots} {e.key[:90]}", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--report", type=Path, default=None,
+                        help="also write the full report as JSON here")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build.library()
+    print(f"build: nvcc {build.build_seconds:.2f} s, library loaded after "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
+    summary = kernel_phase(report)
+    sync_phase()
+    total: dict = {}
+    registry_phase(report, total)
+    scale_phase(report, total)
+    profile_phase(report)
+
+    kernels = [dict(
+        name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+        launches=total[k], max_abs_err=summary[k]["max_abs_err_all"],
+        ms=summary[k]["ms"], plain_ms=summary[k]["plain_ms"],
+        bound_ms=summary[k]["bound_ms"], bound_by=summary[k]["bound_by"],
+        library_ms=None, status="ok") for k in PER_SLOT]
+    report["summary"] = kernels
+    if args.report is not None:
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,465 @@
+// Slot-engine kernels of the fluid network simulator, for Hopper (sm_90a).
+//
+// Five kernels, each the CUDA twin of one Pallas kernel of the JAX
+// package and of one plain PyTorch function in `kernels/ref.py`:
+//
+//   plane_split     <- repro/kernels/plb_select.py  _plane_split_kernel
+//   pair_fractions  <- repro/kernels/jsq_route.py   _pair_score_kernel
+//   bottleneck      <- repro/kernels/link_load.py   _bottleneck_kernel
+//   queue_update    <- repro/kernels/queue_ecn.py   _queue_update_kernel
+//   nic_update      <- repro/kernels/queue_ecn.py   _nic_update_kernel
+//
+// All five do a handful of flops per element, so bytes bound them on the
+// card: each reads its inputs once and writes its outputs once.  The
+// designs are the simple ones that reach that: one thread per element
+// (bottleneck, queue_update, and pair_fractions, whose row max and row
+// sum go through shared memory) or per flow (plane_split, nic_update:
+// the plane axis P <= 8 lives in registers), in grid-stride loops.
+//
+// Unlike the Pallas bodies, which cast to float32, every kernel computes
+// in its input type, so the float64 parity mode runs through the kernels
+// themselves.  Built with --fmad=false: a fused multiply-add rounds once
+// where the plain version rounds twice, and a last-ulp difference in a
+// queue integrator forks a trajectory at an ECN threshold.  Sums over
+// the plane and spine axes run left to right, as in the plain versions,
+// so kernels without exp agree with them bit for bit.
+//
+// Plain C interface (loaded with ctypes): every entry point takes raw
+// pointers and the CUDA stream, launches on that stream, allocates
+// nothing, and returns cudaGetLastError() so the caller sees a refused
+// launch.  Booleans travel as uint8.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxPlanes = 8;
+constexpr int64_t kMaxBlocks = 1 << 20;
+
+enum SplitMode { kSpx = 0, kDcqcn = 1, kAgg = 2, kSwlb = 3 };
+
+template <typename T>
+__device__ __forceinline__ T min_(T a, T b) { return b < a ? b : a; }
+
+template <typename T>
+__device__ __forceinline__ T max_(T a, T b) { return b > a ? b : a; }
+
+template <typename T>
+__device__ __forceinline__ T clip_(T x, T lo, T hi) {
+  return min_(max_(x, lo), hi);
+}
+
+inline unsigned grid_for(int64_t n) {
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  return static_cast<unsigned>(blocks);
+}
+
+#define GRID_STRIDE(i, n)                                              \
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;    \
+       i < (n); i += (int64_t)gridDim.x * blockDim.x)
+
+// ---- plane_split: one thread per flow --------------------------------
+// rate/elig/out (F, P), demand (F,).  thresh = min_rate + 1e-9 and
+// fallback = 1.0 / P arrive computed in double, as the Python scalars
+// of the plain version are.
+template <typename T, int MODE>
+__global__ void plane_split_kernel(const T* __restrict__ rate,
+                                   const uint8_t* __restrict__ elig,
+                                   const T* __restrict__ demand,
+                                   T* __restrict__ out, int64_t F, int P,
+                                   T thresh, T fallback) {
+  GRID_STRIDE(f, F) {
+    const T* r = rate + f * P;
+    const uint8_t* e = elig + f * P;
+    T* o = out + f * P;
+    const T d = demand[f];
+    T rr[kMaxPlanes];
+    bool ee[kMaxPlanes];
+#pragma unroll
+    for (int p = 0; p < kMaxPlanes; ++p) {
+      if (p < P) {
+        rr[p] = r[p];
+        ee[p] = e[p] != 0;
+      }
+    }
+    if (MODE == kDcqcn) {
+      const T w = T(1) / T(P);
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p)
+        if (p < P) o[p] = min_(d * w, rr[p]);
+    } else if (MODE == kSwlb || MODE == kAgg) {
+      int n_up = 0;
+      T shared = rr[0];
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p) {
+        if (p < P) {
+          n_up += ee[p] ? 1 : 0;
+          shared = min_(shared, rr[p]);
+        }
+      }
+      const T n = T(n_up > 1 ? n_up : 1);
+      const T v = MODE == kSwlb ? d / n : d * shared / n;
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p)
+        if (p < P) o[p] = ee[p] ? v : T(0);
+    } else {  // spx: rate filter (E2E precedence) then allowance weights
+      bool ok[kMaxPlanes];
+      bool any_ok = false;
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p) {
+        if (p < P) {
+          ok[p] = ee[p] && rr[p] > thresh;
+          any_ok = any_ok || ok[p];
+        }
+      }
+      T s = T(0);
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p) {
+        if (p < P) {
+          ok[p] = any_ok ? ok[p] : ee[p];
+          const T w = ok[p] ? rr[p] : T(0);
+          s = p == 0 ? w : s + w;
+        }
+      }
+      const T denom = max_(s, T(1e-12));
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p) {
+        if (p < P) {
+          const T alive = ok[p] ? rr[p] : T(0);
+          const T w = s > T(0) ? alive / denom : fallback;
+          o[p] = min_(d * w, alive);
+        }
+      }
+    }
+  }
+}
+
+// ---- pair_fractions: one thread per (row, spine) element -------------
+// q/cap/w/out (R, S), a row being one (plane, src leaf, dst leaf).  A
+// block holds `rows` whole rows, rows * S threads: each thread computes
+// one logit from coalesced loads, takes its row's max and then the
+// left-to-right sum of exp(logit - max) from shared memory (every thread
+// of a row reads the same values in the same order), and writes its
+// normalised fraction.
+template <typename T>
+__device__ __forceinline__ T pair_logit(T q, T cap, T w, T hi, T qmax,
+                                        T nbins, T temperature) {
+  const T qbin = floor(clip_(q / qmax, T(0), hi) * nbins) + T(1);
+  const T score = qbin / max_(w, T(1e-9));
+  return cap > T(1e-9) ? -score / temperature : T(-1e30);
+}
+
+template <typename T>
+__global__ void pair_fractions_kernel(const T* __restrict__ q,
+                                      const T* __restrict__ cap,
+                                      const T* __restrict__ w,
+                                      T* __restrict__ out, int64_t R,
+                                      int S, int rows, T hi, T qmax,
+                                      T nbins, T temperature) {
+  extern __shared__ unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);
+  const int s = threadIdx.x % S;
+  const int row_base = threadIdx.x - s;          // this row's first slot
+  // the loop bound is uniform across the block, so every thread reaches
+  // every barrier
+  for (int64_t first = (int64_t)blockIdx.x * rows; first < R;
+       first += (int64_t)gridDim.x * rows) {
+    const int64_t row = first + threadIdx.x / S;
+    const bool live = row < R;
+    const int64_t i = row * S + s;
+    const T l = live ? pair_logit(q[i], cap[i], w[i], hi, qmax, nbins,
+                                  temperature)
+                     : T(-1e30);
+    buf[threadIdx.x] = l;
+    __syncthreads();
+    T m = buf[row_base];
+    for (int k = 1; k < S; ++k) m = max_(m, buf[row_base + k]);
+    const T e = exp(l - m);
+    __syncthreads();                             // logits all read
+    buf[threadIdx.x] = e;
+    __syncthreads();
+    T sum = buf[row_base];
+    for (int k = 1; k < S; ++k) sum = sum + buf[row_base + k];
+    if (live) out[i] = sum > T(0) ? e / max_(sum, T(1e-30)) : T(0);
+    __syncthreads();                             // sums all read
+  }
+}
+
+// ---- bottleneck: elementwise min(1, cap / max(load, eps)) ------------
+template <typename T>
+__global__ void bottleneck_kernel(const T* __restrict__ cap,
+                                  const T* __restrict__ load,
+                                  T* __restrict__ out, int64_t n, T eps) {
+  GRID_STRIDE(i, n) { out[i] = min_(cap[i] / max_(load[i], eps), T(1)); }
+}
+
+// ---- queue_update: elementwise fluid queue integrator + util ---------
+template <typename T>
+__global__ void queue_update_kernel(const T* __restrict__ q,
+                                    const T* __restrict__ load,
+                                    const T* __restrict__ cap,
+                                    T* __restrict__ q_new,
+                                    T* __restrict__ util, int64_t n,
+                                    T q_cap, T eps) {
+  GRID_STRIDE(i, n) {
+    const T c = cap[i];
+    const T l = load[i];
+    const T denom = max_(c, eps);
+    const T qn = clip_(q[i] + (l - c) / denom, T(0), q_cap);
+    q_new[i] = c <= eps ? T(0) : qn;
+    util[i] = l / denom;
+  }
+}
+
+// ---- nic_update: one thread per flow, RTT/ECN + one CC step ---------
+// qmean/rate/alpha and the four outputs (F, P); esr (F, 1).  Constants
+// arrive as the plain version's Python scalars: `four_thresh` is
+// 4 * ecn_thresh and `one_minus_*` are 1 - md and 1 - alpha_g.
+template <typename T>
+struct NicConsts {
+  T base_rtt, slot_us, half, ecn_thresh, four_thresh, target_rtt,
+      min_rate, md, one_minus_md, ai, rtt_gain, dcqcn_ai, alpha_g,
+      one_minus_alpha_g;
+};
+
+enum NicMode { kNicSpx = 0, kNicDcqcn = 1, kNicAgg = 2 };
+
+template <typename T, int MODE>
+__global__ void nic_update_kernel(const T* __restrict__ qmean,
+                                  const T* __restrict__ rate,
+                                  const T* __restrict__ alpha,
+                                  const uint8_t* __restrict__ esr,
+                                  T* __restrict__ rtt_out,
+                                  T* __restrict__ ecn_out,
+                                  T* __restrict__ rate_out,
+                                  T* __restrict__ alpha_out, int64_t F,
+                                  int P, NicConsts<T> c) {
+  GRID_STRIDE(f, F) {
+    const int64_t base = f * P;
+    T rtt[kMaxPlanes], ecn[kMaxPlanes];
+    T max_ecn = T(0), max_rtt = T(0);
+#pragma unroll
+    for (int p = 0; p < kMaxPlanes; ++p) {
+      if (p < P) {
+        const T qm = qmean[base + p];
+        rtt[p] = c.base_rtt + qm * c.slot_us * c.half;
+        ecn[p] = qm > c.ecn_thresh ? min_(qm / c.four_thresh, T(1)) : T(0);
+        rtt_out[base + p] = rtt[p];
+        ecn_out[base + p] = ecn[p];
+        max_ecn = p == 0 ? ecn[p] : max_(max_ecn, ecn[p]);
+        max_rtt = p == 0 ? rtt[p] : max_(max_rtt, rtt[p]);
+      }
+    }
+    const bool marked = max_ecn > T(0);
+    if (MODE == kNicDcqcn) {
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p) {
+        if (p < P) {
+          const T r = rate[base + p];
+          const T a = c.one_minus_alpha_g * alpha[base + p] +
+                      c.alpha_g * (marked ? T(1) : T(0));
+          const T cut = r * (T(1) - a / T(2));
+          const T grow = min_(r + c.dcqcn_ai, T(1));
+          rate_out[base + p] = clip_(marked ? cut : grow, c.min_rate, T(1));
+          alpha_out[base + p] = a;
+        }
+      }
+    } else if (MODE == kNicAgg) {
+      const T rtt_err = (max_rtt - c.target_rtt) / c.target_rtt;
+      const bool esr_cut = esr[f] != 0 && marked;
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p) {
+        if (p < P) {
+          const T r = rate[base + p];
+          const T cut = r * c.md;
+          const T trim = r * (T(1) - c.rtt_gain * clip_(rtt_err, T(0), T(2)));
+          const T grow = min_(r + c.ai, T(1));
+          T v = marked ? cut : (rtt_err > T(0.25) ? trim : grow);
+          if (esr_cut) v = v * T(0.85);
+          rate_out[base + p] = clip_(v, c.min_rate, T(1));
+          alpha_out[base + p] = alpha[base + p];
+        }
+      }
+    } else {  // spx: per-plane AIMD, ECN-proportional cut, RTT trim
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p) {
+        if (p < P) {
+          const T r = rate[base + p];
+          const T rtt_err = (rtt[p] - c.target_rtt) / c.target_rtt;
+          const T cut =
+              r * (c.md + c.one_minus_md * clip_(T(1) - ecn[p], T(0), T(1)));
+          const T trim = r * (T(1) - c.rtt_gain * clip_(rtt_err, T(0), T(2)));
+          const T grow = min_(r + c.ai, T(1));
+          const T v = ecn[p] > T(0) ? cut : (rtt_err > T(0.25) ? trim : grow);
+          rate_out[base + p] = clip_(v, c.min_rate, T(1));
+          alpha_out[base + p] = alpha[base + p];
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_plane_split(const void* rate, const void* elig,
+                       const void* demand, void* out, int64_t F, int P,
+                       int mode, double thresh, double fallback,
+                       void* stream) {
+  if (P < 1 || P > kMaxPlanes) return cudaErrorInvalidValue;
+  if (F == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* r = static_cast<const T*>(rate);
+  const uint8_t* e = static_cast<const uint8_t*>(elig);
+  const T* d = static_cast<const T*>(demand);
+  T* o = static_cast<T*>(out);
+  const unsigned g = grid_for(F);
+  switch (mode) {
+    case kSpx:
+      plane_split_kernel<T, kSpx><<<g, kThreads, 0, s>>>(
+          r, e, d, o, F, P, T(thresh), T(fallback));
+      break;
+    case kDcqcn:
+      plane_split_kernel<T, kDcqcn><<<g, kThreads, 0, s>>>(
+          r, e, d, o, F, P, T(thresh), T(fallback));
+      break;
+    case kAgg:
+      plane_split_kernel<T, kAgg><<<g, kThreads, 0, s>>>(
+          r, e, d, o, F, P, T(thresh), T(fallback));
+      break;
+    case kSwlb:
+      plane_split_kernel<T, kSwlb><<<g, kThreads, 0, s>>>(
+          r, e, d, o, F, P, T(thresh), T(fallback));
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_pair_fractions(const void* q, const void* cap, const void* w,
+                          void* out, int64_t R, int S, double hi,
+                          double qmax, double nbins, double temperature,
+                          void* stream) {
+  if (S < 1 || S > 1024) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  const int rows = S >= kThreads ? 1 : kThreads / S;
+  const int threads = rows * S;
+  int64_t blocks = (R + rows - 1) / rows;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  pair_fractions_kernel<T><<<static_cast<unsigned>(blocks), threads,
+                             threads * sizeof(T),
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(cap),
+      static_cast<const T*>(w), static_cast<T*>(out), R, S, rows, T(hi),
+      T(qmax), T(nbins), T(temperature));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bottleneck(const void* cap, const void* load, void* out,
+                      int64_t n, double eps, void* stream) {
+  if (n == 0) return cudaSuccess;
+  bottleneck_kernel<T><<<grid_for(n), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(cap), static_cast<const T*>(load),
+      static_cast<T*>(out), n, T(eps));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_queue_update(const void* q, const void* load, const void* cap,
+                        void* q_new, void* util, int64_t n, double q_cap,
+                        double eps, void* stream) {
+  if (n == 0) return cudaSuccess;
+  queue_update_kernel<T><<<grid_for(n), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(load),
+      static_cast<const T*>(cap), static_cast<T*>(q_new),
+      static_cast<T*>(util), n, T(q_cap), T(eps));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_nic_update(const void* qmean, const void* rate,
+                      const void* alpha, const void* esr, void* rtt,
+                      void* ecn, void* rate_new, void* alpha_new,
+                      int64_t F, int P, int mode, const double* k,
+                      void* stream) {
+  if (P < 1 || P > kMaxPlanes) return cudaErrorInvalidValue;
+  if (F == 0) return cudaSuccess;
+  const NicConsts<T> c{T(k[0]), T(k[1]), T(k[2]), T(k[3]), T(k[4]),
+                       T(k[5]), T(k[6]), T(k[7]), T(k[8]), T(k[9]),
+                       T(k[10]), T(k[11]), T(k[12]), T(k[13])};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned g = grid_for(F);
+  const T* qm = static_cast<const T*>(qmean);
+  const T* r = static_cast<const T*>(rate);
+  const T* a = static_cast<const T*>(alpha);
+  const uint8_t* e = static_cast<const uint8_t*>(esr);
+  T* o0 = static_cast<T*>(rtt);
+  T* o1 = static_cast<T*>(ecn);
+  T* o2 = static_cast<T*>(rate_new);
+  T* o3 = static_cast<T*>(alpha_new);
+  switch (mode) {
+    case kNicSpx:
+      nic_update_kernel<T, kNicSpx><<<g, kThreads, 0, s>>>(
+          qm, r, a, e, o0, o1, o2, o3, F, P, c);
+      break;
+    case kNicDcqcn:
+      nic_update_kernel<T, kNicDcqcn><<<g, kThreads, 0, s>>>(
+          qm, r, a, e, o0, o1, o2, o3, F, P, c);
+      break;
+    case kNicAgg:
+      nic_update_kernel<T, kNicAgg><<<g, kThreads, 0, s>>>(
+          qm, r, a, e, o0, o1, o2, o3, F, P, c);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+#define NETSIM_EXPORT(SUFFIX, T)                                          \
+  extern "C" int netsim_plane_split_##SUFFIX(                             \
+      const void* rate, const void* elig, const void* demand, void* out,  \
+      int64_t F, int P, int mode, double thresh, double fallback,         \
+      void* stream) {                                                     \
+    return launch_plane_split<T>(rate, elig, demand, out, F, P, mode,     \
+                                 thresh, fallback, stream);               \
+  }                                                                       \
+  extern "C" int netsim_pair_fractions_##SUFFIX(                          \
+      const void* q, const void* cap, const void* w, void* out,           \
+      int64_t R, int S, double hi, double qmax, double nbins,             \
+      double temperature, void* stream) {                                 \
+    return launch_pair_fractions<T>(q, cap, w, out, R, S, hi, qmax,       \
+                                    nbins, temperature, stream);          \
+  }                                                                       \
+  extern "C" int netsim_bottleneck_##SUFFIX(                              \
+      const void* cap, const void* load, void* out, int64_t n,            \
+      double eps, void* stream) {                                         \
+    return launch_bottleneck<T>(cap, load, out, n, eps, stream);          \
+  }                                                                       \
+  extern "C" int netsim_queue_update_##SUFFIX(                            \
+      const void* q, const void* load, const void* cap, void* q_new,      \
+      void* util, int64_t n, double q_cap, double eps, void* stream) {    \
+    return launch_queue_update<T>(q, load, cap, q_new, util, n, q_cap,    \
+                                  eps, stream);                           \
+  }                                                                       \
+  extern "C" int netsim_nic_update_##SUFFIX(                              \
+      const void* qmean, const void* rate, const void* alpha,             \
+      const void* esr, void* rtt, void* ecn, void* rate_new,              \
+      void* alpha_new, int64_t F, int P, int mode, const double* k,       \
+      void* stream) {                                                     \
+    return launch_nic_update<T>(qmean, rate, alpha, esr, rtt, ecn,        \
+                                rate_new, alpha_new, F, P, mode, k,       \
+                                stream);                                  \
+  }
+
+NETSIM_EXPORT(f32, float)
+NETSIM_EXPORT(f64, double)

@@ -1,0 +1,149 @@
+"""Plain PyTorch versions of the slot engine's five kernels.
+
+Each function computes, operation for operation, what its CUDA kernel in
+`csrc/netsim_kernels.cu` computes, and what the reference package's jnp
+oracle computes.  The kernel wrappers run these for tensors on the CPU;
+the tests and `chip_smoke.py` hold the kernels against them.
+
+Sums over the short trailing axes (planes, spines) run left to right
+(`lsum`), the order the CUDA kernels use, so a kernel and its plain
+version agree bit for bit wherever the math is + - * / min max.  Python
+scalars are cast to the tensor's dtype before they meet it, as both
+frameworks do, and divisions by a scalar stay true divisions (`sdiv`).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def sdiv(x: torch.Tensor, c: float) -> torch.Tensor:
+    """`x / c`, correctly rounded on every device: PyTorch's CUDA
+    division by a Python scalar multiplies by the scalar's reciprocal,
+    which can land one ulp off the quotient; a 0-d device tensor as the
+    divisor keeps a true division."""
+    return x / x.new_full((), c)
+
+
+def lsum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis strictly left to right (contiguous
+    result, whatever the layout of `x`)."""
+    s = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        s = s + x[..., i]
+    return s.contiguous()
+
+
+def plane_split_ref(rate, eligible, demand, *, mode: str,
+                    min_rate: float = 0.0) -> torch.Tensor:
+    """Fluid NIC plane split.  `rate`/`eligible`: (F, P) per-plane CC
+    allowance and PLB eligibility; `demand`: (F,) offered rate.
+
+    mode:
+      'spx'   — rate-filter planes (allowance > min_rate), then weight
+                by allowance.
+      'dcqcn' — plane-oblivious equal split, capped by allowance.
+      'agg'   — one aggregate context ('global'/'esr' NICs): min
+                allowance shared equally across eligible planes.
+      'swlb'  — software LB: equal split over eligible planes only.
+    """
+    P = rate.shape[-1]
+    d = demand[:, None]
+    if mode == "dcqcn":
+        w = sdiv(torch.ones_like(rate), P)
+        return torch.minimum(d * w, rate)
+    if mode in ("swlb", "agg"):
+        n_up = eligible.sum(1, keepdim=True).clamp_min(1)
+        if mode == "swlb":
+            return torch.where(eligible, d / n_up, 0.0)
+        shared = rate.amin(1, keepdim=True)
+        return torch.where(eligible, d * shared / n_up, 0.0)
+    if mode != "spx":
+        raise ValueError(f"unknown plane-split mode {mode!r}")
+    elig = eligible & (rate > min_rate + 1e-9)
+    any_ok = elig.any(1, keepdim=True)
+    elig = torch.where(any_ok, elig, eligible)
+    w = torch.where(elig, rate, 0.0)
+    s = lsum(w)[:, None]
+    w = torch.where(s > 0, w / s.clamp_min(1e-12), 1.0 / P)
+    return torch.minimum(d * w, torch.where(elig, rate, 0.0))
+
+
+def pair_score_softmax_ref(q, cap, w, *, nbins: int, temperature: float,
+                           qmax: float = 8.0) -> torch.Tensor:
+    """Quantized-JSQ spine scoring + softmax over the trailing spine
+    axis.  `q`/`cap`/`w`: (..., S) summed pair queue, path capacity, and
+    path weight; returns (..., S) spine fractions."""
+    up = cap > 1e-9
+    qbin = torch.floor(torch.clamp(sdiv(q, qmax), 0.0, 1 - 1e-9) * nbins) + 1.0
+    score = qbin / w.clamp_min(1e-9)
+    logit = torch.where(up, sdiv(-score, temperature), NEG_INF)
+    logit = logit - logit.amax(-1, keepdim=True)
+    e = torch.exp(logit)
+    sums = lsum(e)[..., None]
+    return torch.where(sums > 0, e / sums.clamp_min(1e-30), 0.0)
+
+
+def bottleneck_ref(cap, load, *, eps: float = 1e-12) -> torch.Tensor:
+    """Per-link bottleneck scaling factor min(1, cap/load)."""
+    return torch.clamp_max(cap / load.clamp_min(eps), 1.0)
+
+
+def queue_update_ref(q, load, cap, *, q_cap: float, eps: float = 1e-12):
+    """Fluid queue integrator: one slot of (load - cap)/cap growth,
+    clipped to [0, q_cap], dead links (cap <= eps) pinned to empty.
+    Returns `(q_new, util)` with util = load/cap."""
+    denom = cap.clamp_min(eps)
+    q_new = torch.clamp(q + (load - cap) / denom, 0.0, q_cap)
+    q_new = torch.where(cap <= eps, 0.0, q_new)
+    return q_new, load / denom
+
+
+def nic_update_ref(qmean, rate, alpha, esr, *, mode: str,
+                   base_rtt_us: float, slot_us: float, ecn_thresh: float,
+                   target_rtt_us: float, min_rate: float, md: float,
+                   ai: float, rtt_gain: float, dcqcn_ai: float,
+                   alpha_g: float):
+    """Queue-derived RTT/ECN signals plus one step of the CC rate law.
+    All inputs (F, P) except `esr` (F, 1) bool, ESR's extra
+    multiplicative cut read only by 'agg'.  Returns
+    `(rtt, ecn, rate_new, alpha_new)`; alpha changes only under 'dcqcn'.
+
+    mode: 'spx' (per-plane AIMD with ECN-proportional cut and RTT trim;
+    also swlb's law), 'dcqcn' (EWMA alpha, cut on any-plane ECN) or
+    'agg' (one aggregate context across planes, 'global'/'esr')."""
+    rtt = base_rtt_us + qmean * slot_us * 0.5
+    ecn = torch.where(qmean > ecn_thresh,
+                      torch.clamp_max(sdiv(qmean, 4 * ecn_thresh), 1.0), 0.0)
+    if mode == "dcqcn":
+        marked = ecn.amax(-1, keepdim=True) > 0
+        alpha_new = ((1 - alpha_g) * alpha
+                     + alpha_g * marked.to(alpha.dtype))
+        cut = rate * (1 - sdiv(alpha_new, 2))
+        grow = torch.clamp_max(rate + dcqcn_ai, 1.0)
+        new = torch.clamp(torch.where(marked, cut, grow), min_rate, 1.0)
+        return rtt, ecn, new, alpha_new
+    if mode == "agg":
+        marked = ecn.amax(-1, keepdim=True) > 0
+        agg_rtt = rtt.amax(-1, keepdim=True)
+        cut = rate * md
+        rtt_err = sdiv(agg_rtt - target_rtt_us, target_rtt_us)
+        trim = rate * (1 - rtt_gain * torch.clamp(rtt_err, 0.0, 2.0))
+        grow = torch.clamp_max(rate + ai, 1.0)
+        new = torch.where(marked, cut,
+                          torch.where(rtt_err > 0.25, trim, grow))
+        # x * 1.0 == x exactly, so cutting only where it applies is the
+        # reference's multiply by where(esr & marked, 0.85, 1.0)
+        new = torch.where(esr & marked, new * 0.85, new)
+        return rtt, ecn, torch.clamp(new, min_rate, 1.0), alpha
+    if mode != "spx":
+        raise ValueError(f"unknown nic-update mode {mode!r}")
+    rtt_err = sdiv(rtt - target_rtt_us, target_rtt_us)
+    cut = rate * (md + (1 - md) * torch.clamp(1 - ecn, 0.0, 1.0))
+    trim = rate * (1 - rtt_gain * torch.clamp(rtt_err, 0.0, 2.0))
+    grow = torch.clamp_max(rate + ai, 1.0)
+    new = torch.clamp(
+        torch.where(ecn > 0, cut, torch.where(rtt_err > 0.25, trim, grow)),
+        min_rate, 1.0)
+    return rtt, ecn, new, alpha
