@@ -10,9 +10,9 @@ to the Pallas kernels run in interpret mode in float32 (1e-6), over every
 mode and shapes with non-power-of-two block tails.  Inputs come from
 numpy with a seed and reach both frameworks as the same arrays.
 
-The CUDA kernels themselves run only on a GPU: `test_kernel_vs_plain_gpu`
-is marked `gpu` and skips here; `chip_smoke.py` runs the same comparison
-at the main path's shapes.
+The CUDA kernels themselves run only on a GPU: `tests/test_torch_gpu.py`
+holds them against these plain versions there, and `chip_smoke.py` does
+so at the main path's shapes.
 """
 import jax
 import jax.numpy as jnp
@@ -256,39 +256,3 @@ def test_build_key_tracks_source_and_flags():
     assert path.name.startswith("libnetsim_kernels_")
     assert "--fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-
-
-# ---------------------------------------------------------------------------
-# on the card (skips without one)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernel_vs_plain_gpu(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU; chip_smoke.py runs this on the card")
-    dev = "cuda"
-    rate, elig, demand = _plane_inputs(0, 1000, 2)
-    args = [t.to(dev) for t in _th(rate, elig, demand, dtype=dtype)]
-    for mode in ("spx", "dcqcn", "agg", "swlb"):
-        assert torch.equal(
-            plb_select.plane_split(*args, mode=mode, min_rate=0.01),
-            ref.plane_split_ref(*args, mode=mode, min_rate=0.01))
-    pq = [t.to(dev) for t in _th(*_pair_inputs(0, (2, 9, 9, 16)),
-                                 dtype=dtype)]
-    torch.testing.assert_close(
-        jsq_route.pair_fractions(*pq, nbins=16, temperature=0.25),
-        ref.pair_score_softmax_ref(*pq, nbins=16, temperature=0.25),
-        rtol=1e-12 if dtype == torch.float64 else 1e-6, atol=0.0)
-    q, load, cap = [t.to(dev) for t in _th(*_link_inputs(0, (2, 9, 16)),
-                                           dtype=dtype)]
-    assert torch.equal(link_load.bottleneck(cap, load),
-                       ref.bottleneck_ref(cap, load))
-    for g, w in zip(queue_ecn.queue_update(q, load, cap, q_cap=64.0),
-                    ref.queue_update_ref(q, load, cap, q_cap=64.0)):
-        assert torch.equal(g, w)
-    nic = [t.to(dev) for t in _th(*_nic_inputs(0, 1000, 2), dtype=dtype)]
-    for mode in ("spx", "dcqcn", "agg"):
-        for g, w in zip(queue_ecn.nic_update(*nic, mode=mode, **NIC_KW),
-                        ref.nic_update_ref(*nic, mode=mode, **NIC_KW)):
-            assert torch.equal(g, w)
