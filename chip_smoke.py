@@ -8,33 +8,44 @@ CUDA toolkit:
 
 Phases, each fatal on failure:
 
-  build     compile the slot-engine kernels from
+  build     compile the port's kernels from
             `src/repro_torch/kernels/csrc/netsim_kernels.cu` (nvcc).
-  kernels   each of the five kernels at the main path's shapes (fig9 and
-            the giga AR point), float32 and float64, against its plain
-            PyTorch version on the same GPU tensors; CUDA-event times of
-            kernel and plain version (each captured in a CUDA graph of
-            20 calls, so host launch overhead is excluded) beside the
-            least time the card needs for the bytes moved.
-  sync      the slot loop runs with CUDA sync debugging set to "error":
-            nothing in it makes the host wait for the device.
+  kernels   each of the eight kernels against its plain PyTorch version
+            on the same GPU tensors: the five AR/WAR slot kernels at the
+            fig9 and giga AR shapes, bucket_load_bottleneck on the
+            engine's own ECMP plans of fig11 and the giga point, all in
+            float32 and float64, and the per-packet jsq_route and
+            plb_select at the `kernels_bench.py` shapes plus a block
+            tail; CUDA-event times of kernel and plain version (each
+            captured in a CUDA graph of 20 calls, so host launch
+            overhead is excluded) beside the least time the card needs
+            for the bytes moved or the operations done.
+  sync      the AR and the ECMP slot loops run with CUDA sync debugging
+            set to "error": nothing in them makes the host wait.
   registry  fig9_victim_noise, fig11_degraded_leaf and fig12_plane_flap
-            through `compile_scenario(...).run(device="cuda")` in float64,
-            held against the CPU plain path (1e-5, exact completion
-            slots, equal distilled rows) and against
-            `tests/golden/scenarios.json` (1e-5); every kernel must have
-            launched slots x (1, 1, 4, 2, 1) times.
-  scale     giga_fabric_storage under AR (4096 hosts, 102,400 flows, 8
-            random link kills, 60 slots) in float32 and float64 on the
-            GPU; the float64 run is held against the CPU plain path with
-            the contained-fork contract used for giga-scale parity.
-  profile   torch.profiler over 12 giga slots: device busy share and the
-            kernels that take the device time.
+            under their own routing (AR/WAR), and fig12_plane_flap and
+            cascading_spine_loss under ECMP, through
+            `compile_scenario(...).run(device="cuda")` in float64, held
+            against the CPU plain path (1e-5, exact completion slots,
+            equal distilled rows) and, for the registry's own specs,
+            against `tests/golden/scenarios.json` (1e-5); every kernel
+            must have launched `PER_SLOT[routing]` times per slot.
+  scale     giga_fabric_storage (4096 hosts, 102,400 flows, 8 random
+            link kills, 60 slots) under AR and under its own ECMP, in
+            float32 and float64 on the GPU; each float64 run is held
+            against the CPU plain path with the contained-fork contract
+            used for giga-scale parity, and the ECMP one against the
+            golden row (1e-5).
+  packets   the per-packet path: `repro_torch.kernels.ops.jsq_route` and
+            `ops.plb_select` route batches of 4096 packets, each batch
+            equal to the plain versions.
+  profile   torch.profiler over 12 giga slots under AR and under ECMP:
+            device busy share and the kernels that take the device time.
 
 Prints the card's name and power limit first, a `{"kernels": [...]}`
 line before the last, and `{"ok": true, "device": {...}}` last.
 `--report PATH` also writes the full report (every kernel row, the
-registry, scale and profile results) as JSON.
+registry, scale, packet and profile results) as JSON.
 """
 from __future__ import annotations
 
@@ -48,30 +59,63 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 TOL = 1e-5
+# float32 bucket sums: the kernel sums in flow order, the plain version
+# in PyTorch's reduction order; 47 non-negative terms differ by at most
+# ~47 ulp of the sum
+F32_SUM_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
-REGISTRY = ("fig9_victim_noise", "fig11_degraded_leaf", "fig12_plane_flap")
-# launches per slot of (plane_split, pair_fractions, bottleneck,
-# queue_update, nic_update) on the leaf-spine AR/WAR path
-PER_SLOT = {"plane_split": 1, "pair_fractions": 1, "bottleneck": 4,
-            "queue_update": 2, "nic_update": 1}
+REGISTRY = (("fig9_victim_noise", None), ("fig11_degraded_leaf", None),
+            ("fig12_plane_flap", None), ("fig12_plane_flap", "ecmp"),
+            ("cascading_spine_loss", "ecmp"))
+# hand-written kernel launches per slot on each leaf-spine routing path
+AR_SLOT = {"plane_split": 1, "pair_fractions": 1, "bottleneck": 4,
+           "queue_update": 2, "nic_update": 1}
+ECMP_SLOT = {"plane_split": 1, "bucket_load_bottleneck": 1,
+             "bottleneck": 2, "queue_update": 2, "nic_update": 1}
+PER_SLOT = {"ar": AR_SLOT, "war": AR_SLOT, "ecmp": ECMP_SLOT}
 REPLACES = {
     "plane_split": "src/repro/kernels/plb_select.py:47",
     "pair_fractions": "src/repro/kernels/jsq_route.py:42",
     "bottleneck": "src/repro/kernels/link_load.py:101",
+    "bucket_load_bottleneck": "src/repro/kernels/link_load.py:38",
     "queue_update": "src/repro/kernels/queue_ecn.py:31",
     "nic_update": "src/repro/kernels/queue_ecn.py:73",
+    "jsq_route": "src/repro/kernels/jsq_route.py:22",
+    "plb_select": "src/repro/kernels/plb_select.py:24",
 }
 SOURCE = "src/repro_torch/kernels/csrc/netsim_kernels.cu"
 # fabric shapes the main path hands the kernels
 SHAPES = {"fig9": dict(F=2496, P=1, L=8, S=8, H=64),
           "giga": dict(F=102400, P=2, L=256, S=16, H=4096)}
-# approximate flops per element, for the operations bound
+# scenarios whose ECMP plans the bucket_load_bottleneck cases use
+ECMP_SHAPES = {"fig11": "fig11_degraded_leaf", "giga": "giga_fabric_storage"}
+# per-packet shapes: (lanes, packets) for jsq_route (ports) and
+# plb_select (planes), as `benchmarks/kernels_bench.py` runs them, plus
+# a block tail
+PACKET_SHAPES = {"jsq_route": ((256, 4096), (256, 4097)),
+                 "plb_select": ((4, 4096), (4, 4097))}
+PACKET_BATCHES = 16
+# approximate operations per element (per (packet, lane) for the
+# per-packet kernels: hash multiply-add, xor-shift, mask, convert,
+# scale, score add, compare), for the operations bound
 FLOPS_PER_ELEM = {"plane_split": 8, "pair_fractions": 30, "bottleneck": 2,
-                  "queue_update": 7, "nic_update": 20}
+                  "bucket_load_bottleneck": 1, "queue_update": 7,
+                  "nic_update": 20, "jsq_route": 11, "plb_select": 14}
 NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
               target_rtt_us=12.0, min_rate=0.01, md=0.7, ai=0.08,
               rtt_gain=0.15, dcqcn_ai=0.01, alpha_g=0.0625)
+
+
+def scenario(name: str, routing=None):
+    """The port's registry spec, with `routing` overridden if given."""
+    from repro_torch.scenarios import get_scenario
+    spec = get_scenario(name)
+    return spec if routing is None else spec.with_sim(routing=routing)
+
+
+def label(name: str, routing=None) -> str:
+    return name if routing is None else f"{name}[{routing}]"
 
 
 def fail(msg: str) -> None:
@@ -106,9 +150,22 @@ def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def kernel_cases(shape: dict, dtype, seed: int):
-    """(kernel, mode, wrapper call, plain call, bytes, elements) for every
-    kernel and mode at one shape, inputs drawn from numpy with `seed`."""
+def case(kernel, mode, shape, dtype, run, plain, nbytes, ops, *,
+         rtol=None, loose=None, summary=False, extra=None) -> dict:
+    """One kernel-vs-plain comparison.  The kernel must equal `plain`
+    bit for bit unless `rtol` is set (then: relative error); `loose` is
+    a further (plain call, rtol) the result must meet; `summary` marks
+    the case reported in the `{"kernels": [...]}` line; `extra` names
+    further calls to time beside the kernel."""
+    return dict(kernel=kernel, mode=mode, shape=shape,
+                dtype=str(dtype).split(".")[1], run=run, plain=plain,
+                bytes=nbytes, ops=ops, rtol=rtol, loose=loose,
+                summary=summary, extra=extra or {})
+
+
+def kernel_cases(sname: str, shape: dict, dtype, seed: int):
+    """The five AR/WAR slot kernels, every mode, at one fabric shape,
+    inputs drawn from numpy with `seed`."""
     import numpy as np
     import torch
     from repro_torch.kernels import jsq_route, link_load, plb_select, \
@@ -137,44 +194,143 @@ def kernel_cases(shape: dict, dtype, seed: int):
     q_link = f(P, L, S, hi=70.0)
     qmean, alpha, esr = f(F, P, hi=8.0), f(F, P), b(F, 1, p=0.5)
     n_pair, n_link = P * L * L * S, P * L * S
+    big = sname == "giga" and dtype == torch.float64
+    fl = FLOPS_PER_ELEM
     out = []
     for mode in ("spx", "dcqcn", "agg", "swlb"):
-        out.append((
-            "plane_split", mode,
+        out.append(case(
+            "plane_split", mode, sname, dtype,
             lambda m=mode: plb_select.plane_split(
                 rate, elig, demand, mode=m, min_rate=0.01),
             lambda m=mode: ref.plane_split_ref(
                 rate, elig, demand, mode=m, min_rate=0.01),
-            F * P * (2 * isz + 1) + F * isz, F * P))
-    out.append((
-        "pair_fractions", "",
+            F * P * (2 * isz + 1) + F * isz, F * P * fl["plane_split"],
+            summary=big and mode == "spx"))
+    out.append(case(
+        "pair_fractions", "", sname, dtype,
         lambda: jsq_route.pair_fractions(q, cap, w, nbins=16,
                                          temperature=0.25),
         lambda: ref.pair_score_softmax_ref(q, cap, w, nbins=16,
                                            temperature=0.25),
-        4 * n_pair * isz, n_pair))
+        4 * n_pair * isz, n_pair * fl["pair_fractions"],
+        rtol=1e-12 if dtype == torch.float64 else 1e-6, summary=big))
     for name, c, ld in (("links", link_cap, link_load_),
                         ("access", acc_cap, acc_load)):
-        out.append((
-            "bottleneck", name,
+        out.append(case(
+            "bottleneck", name, sname, dtype,
             lambda c=c, ld=ld: link_load.bottleneck(c, ld),
             lambda c=c, ld=ld: ref.bottleneck_ref(c, ld),
-            3 * c.numel() * isz, c.numel()))
-    out.append((
-        "queue_update", "",
+            3 * c.numel() * isz, c.numel() * fl["bottleneck"],
+            summary=big and name == "links"))
+    out.append(case(
+        "queue_update", "", sname, dtype,
         lambda: queue_ecn.queue_update(q_link, link_load_, link_cap,
                                        q_cap=64.0),
         lambda: ref.queue_update_ref(q_link, link_load_, link_cap,
                                      q_cap=64.0),
-        5 * n_link * isz, n_link))
+        5 * n_link * isz, n_link * fl["queue_update"], summary=big))
     for mode in ("spx", "dcqcn", "agg"):
-        out.append((
-            "nic_update", mode,
+        out.append(case(
+            "nic_update", mode, sname, dtype,
             lambda m=mode: queue_ecn.nic_update(qmean, rate, alpha, esr,
                                                 mode=m, **NIC_KW),
             lambda m=mode: ref.nic_update_ref(qmean, rate, alpha, esr,
                                               mode=m, **NIC_KW),
-            7 * F * P * isz + F, F * P))
+            7 * F * P * isz + F, F * P * fl["nic_update"],
+            summary=big and mode == "spx"))
+    return out
+
+
+def ecmp_plan(sname: str):
+    """(ECMP link-bucket plan, stacked link capacities) of the last
+    capacity segment of `ECMP_SHAPES[sname]` under ECMP, from the
+    port's own host prep, on the card."""
+    import torch
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import compile_scenario
+    c = compile_scenario(scenario(ECMP_SHAPES[sname], "ecmp"))
+    _, fa, ops = engine.prepare(c, "cuda", torch.float64)
+    return len(fa), ops.ecmp_load[-1], ops.link_cap[-1]
+
+
+def ecmp_cases(sname: str, plan, cap64, F: int, dtype, seed: int):
+    """bucket_load_bottleneck on a real plan: in float64 bit-equal to the
+    (ordered) plain version; in float32 bit-equal to the ordered plain
+    sum and within F32_SUM_RTOL of the default (unordered) one."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import link_load, ref
+
+    rng = np.random.default_rng(seed)
+    P, R, C = plan.shape
+    rate = rng.uniform(0.0, 1.0, (F, P))
+    rate[rng.random((F, P)) < 0.1] = 0.0
+    rate = torch.tensor(rate, dtype=dtype, device="cuda")
+    cap = cap64.to(dtype)
+    isz = rate.element_size()
+    pidx = torch.arange(P, device="cuda")[:, None, None]
+    g = torch.cat([rate, rate.new_zeros((1, P))], 0).T[pidx, plan.long()]
+    terms = int((plan < F).sum())
+    f64 = dtype == torch.float64
+    return [case(
+        "bucket_load_bottleneck", "", sname, dtype,
+        lambda: link_load.bucket_load_bottleneck(rate, plan, cap),
+        lambda: ref.load_bottleneck_ref(rate, plan, cap, ordered=True),
+        plan.numel() * 4 + rate.numel() * isz + 3 * P * R * isz,
+        terms + 4 * P * R,
+        loose=None if f64 else (
+            lambda: ref.load_bottleneck_ref(rate, plan, cap,
+                                            ordered=False), F32_SUM_RTOL),
+        summary=sname == "giga" and f64,
+        extra={"gathered_sum_ms": lambda: g.sum(-1)})]
+
+
+def packet_inputs(lanes: int, N: int, seed: int):
+    """Per-lane float32 vectors (lane 0 up) and N packets: tx rates and
+    32-bit hashes over the full range (int32 bits, as the kernels read
+    them)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.jsq_route import hash32
+
+    rng = np.random.default_rng(seed)
+
+    def f(a):
+        return torch.tensor(a, dtype=torch.float32, device="cuda")
+
+    q = rng.uniform(0.0, 1.2, lanes)
+    q[rng.random(lanes) < 0.2] = 0.5             # equal queues: ties
+    mask = (rng.random(lanes) > 0.2).astype(np.float64)
+    mask[0] = 1.0
+    h = torch.tensor(rng.integers(0, 1 << 32, N), device="cuda")
+    return (f(q), f(mask), f(rng.uniform(0.25, 1.0, lanes)),
+            f(rng.uniform(0.0, 0.6, N)), hash32("pkt_hash", h))
+
+
+def packet_cases(seed: int):
+    """jsq_route and plb_select at the PACKET_SHAPES, equal to their
+    plain versions index for index."""
+    import torch
+    from repro_torch.kernels import jsq_route, plb_select, ref
+
+    out = []
+    for lanes, N in PACKET_SHAPES["jsq_route"]:
+        q, up, w, _, h = packet_inputs(lanes, N, seed + N)
+        out.append(case(
+            "jsq_route", "", f"{lanes}x{N}", torch.float32,
+            lambda q=q, up=up, w=w, h=h: jsq_route.jsq_route(q, up, w, h),
+            lambda q=q, up=up, w=w, h=h: ref.jsq_route_ref(q, up, w, h),
+            3 * lanes * 4 + 2 * N * 4,
+            N * lanes * FLOPS_PER_ELEM["jsq_route"], summary=N == 4096))
+    for lanes, N in PACKET_SHAPES["plb_select"]:
+        ra, el, lq, tx, h = packet_inputs(lanes, N, seed + N + 1)
+        args = (ra, el, lq, tx, h)
+        out.append(case(
+            "plb_select", "", f"{lanes}x{N}", torch.float32,
+            lambda a=args: plb_select.plb_select(*a),
+            lambda a=args: ref.plb_select_ref(*a),
+            3 * lanes * 4 + 3 * N * 4,
+            N * lanes * FLOPS_PER_ELEM["plb_select"], summary=N == 4096))
     return out
 
 
@@ -185,6 +341,9 @@ def max_errors(got, want):
         got, want = (got,), (want,)
     abs_err, rel_err = 0.0, 0.0
     for g, w in zip(got, want):
+        if not w.is_floating_point():            # indices
+            abs_err = max(abs_err, float((g.long() - w.long()).abs().max()))
+            continue
         d = (g - w).abs()
         abs_err = max(abs_err, float(d.max()))
         tiny = torch.finfo(w.dtype).tiny
@@ -194,51 +353,69 @@ def max_errors(got, want):
     return abs_err, rel_err
 
 
+def all_cases():
+    import torch
+    cases = []
+    for sname, shape in SHAPES.items():
+        for dtype in (torch.float32, torch.float64):
+            cases += kernel_cases(sname, shape, dtype, seed=len(cases))
+    for sname in ECMP_SHAPES:
+        F, plan, cap = ecmp_plan(sname)
+        for dtype in (torch.float32, torch.float64):
+            cases += ecmp_cases(sname, plan, cap, F, dtype, seed=len(cases))
+    return cases + packet_cases(seed=len(cases))
+
+
 def kernel_phase(report: dict) -> dict:
     """Every kernel vs its plain version; returns the per-kernel summary
-    at the giga shape in float64 (the scale phase's parity mode)."""
+    row (the giga float64 shape for the slot kernels, 4096 packets for
+    the per-packet ones)."""
     import torch
     from repro_torch.kernels import build
 
     rows, summary = [], {}
-    for sname, shape in SHAPES.items():
-        for dtype in (torch.float32, torch.float64):
-            dname = str(dtype).split(".")[1]
-            for kernel, mode, run, plain, nbytes, elems in kernel_cases(
-                    shape, dtype, seed=len(rows)):
-                got, want = run(), plain()
-                torch.cuda.synchronize()
-                abs_err, rel_err = max_errors(got, want)
-                if kernel == "pair_fractions":
-                    rtol = 1e-12 if dtype == torch.float64 else 1e-6
-                    if rel_err > rtol:
-                        fail(f"{kernel} {sname} {dname}: rel err "
-                             f"{rel_err:.3g} > {rtol}")
-                elif abs_err != 0.0:
-                    fail(f"{kernel}[{mode}] {sname} {dname}: max abs err "
-                         f"{abs_err:.3g}, expected bit-equal")
-                row = dict(kernel=kernel, mode=mode, shape=sname,
-                           dtype=dname, max_abs_err=abs_err,
-                           max_rel_err=rel_err, bytes=nbytes)
-                if mode in ("", "spx", "links", "access"):
-                    ms, plain_ms = graph_ms(run), graph_ms(plain)
-                    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                    ops_ms = (elems * FLOPS_PER_ELEM[kernel]
-                              / PEAK_FLOPS[dname] * 1e3)
-                    row.update(ms=ms, plain_ms=plain_ms,
-                               bound_ms=max(bytes_ms, ops_ms),
-                               bound_by="bytes" if bytes_ms >= ops_ms
-                               else "operations")
-                    print(f"kernel {kernel}{'[' + mode + ']' if mode else ''}"
-                          f" {sname} {dname}: ms={ms:.6f} "
-                          f"plain_ms={plain_ms:.6f} "
-                          f"bound_ms={row['bound_ms']:.6f} "
-                          f"max_abs_err={abs_err:.3g} "
-                          f"max_rel_err={rel_err:.3g}", flush=True)
-                    key = kernel if mode in ("", "spx", "links") else None
-                    if key and sname == "giga" and dname == "float64":
-                        summary[key] = row
-                rows.append(row)
+    for c in all_cases():
+        kernel, mode, sname, dname = (c[k] for k in
+                                      ("kernel", "mode", "shape", "dtype"))
+        what = f"{kernel}{'[' + mode + ']' if mode else ''} {sname} {dname}"
+        got, want = c["run"](), c["plain"]()
+        torch.cuda.synchronize()
+        abs_err, rel_err = max_errors(got, want)
+        if c["rtol"] is not None:
+            if rel_err > c["rtol"]:
+                fail(f"{what}: rel err {rel_err:.3g} > {c['rtol']}")
+        elif abs_err != 0.0:
+            fail(f"{what}: max abs err {abs_err:.3g}, expected bit-equal")
+        row = dict(kernel=kernel, mode=mode, shape=sname, dtype=dname,
+                   max_abs_err=abs_err, max_rel_err=rel_err,
+                   bytes=c["bytes"], ops=c["ops"])
+        if c["loose"] is not None:
+            plain, rtol = c["loose"]
+            _, loose_rel = max_errors(got, plain())
+            if loose_rel > rtol:
+                fail(f"{what}: rel err {loose_rel:.3g} > {rtol} against "
+                     "the default plain version")
+            row["default_plain_rel_err"] = loose_rel
+        if mode not in ("dcqcn", "agg", "swlb"):
+            ms, plain_ms = graph_ms(c["run"]), graph_ms(c["plain"])
+            bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
+            ops_ms = c["ops"] / PEAK_FLOPS[dname] * 1e3
+            row.update(ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms
+                       else "operations")
+            row.update({k: graph_ms(fn) for k, fn in c["extra"].items()})
+            print(f"kernel {what}: ms={ms:.6f} plain_ms={plain_ms:.6f} "
+                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+                  + "".join(f"{k}={row[k]:.6f} " for k in c["extra"])
+                  + f"max_abs_err={abs_err:.3g} max_rel_err={rel_err:.3g}"
+                  + (f" default_plain_rel_err="
+                     f"{row['default_plain_rel_err']:.3g}"
+                     if "default_plain_rel_err" in row else ""),
+                  flush=True)
+        if c["summary"]:
+            summary[kernel] = row
+        rows.append(row)
     for row in rows:
         s = summary[row["kernel"]]
         s["max_abs_err_all"] = max(s.get("max_abs_err_all", 0.0),
@@ -249,33 +426,44 @@ def kernel_phase(report: dict) -> dict:
 
 
 def sync_phase() -> None:
-    """The slot loop never waits for the device."""
+    """The slot loop never waits for the device, under AR/WAR or ECMP."""
     import torch
     from repro_torch.netsim import engine
-    from repro_torch.scenarios import compile_scenario, get_scenario
+    from repro_torch.scenarios import compile_scenario
 
-    c = compile_scenario(get_scenario("fig11_degraded_leaf")
-                         .with_sim(slots=24))
-    cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = engine._simulate(cfg, ops)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    if not all(bool(o.isfinite().all()) for o in out
-               if o.is_floating_point()):
-        fail("sync phase: non-finite output")
-    print("sync: slot loop ran with sync debug mode 'error'", flush=True)
+    for routing in (None, "ecmp"):
+        c = compile_scenario(scenario("fig11_degraded_leaf", routing)
+                             .with_sim(slots=24))
+        cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = engine._simulate(cfg, ops)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if not all(bool(o.isfinite().all()) for o in out
+                   if o.is_floating_point()):
+            fail("sync phase: non-finite output")
+        print(f"sync: {cfg.routing} slot loop ran with sync debug mode "
+              "'error'", flush=True)
 
 
-def check_launches(what: str, slots: int, counts: dict, total: dict):
-    want = {k: slots * n for k, n in PER_SLOT.items()}
+def check_launches(what: str, counts: dict, want: dict,
+                   total: dict) -> None:
+    """`counts` (every kernel's launches in one run of a path) must be
+    `want` exactly, zero for kernels the path does not run; they add to
+    `total`."""
+    from repro_torch.kernels import build
+    want = {k: want.get(k, 0) for k in build.KERNELS}
     if counts != want:
         fail(f"{what}: launches {counts}, expected {want}")
     for k, n in counts.items():
         total[k] = total.get(k, 0) + n
+
+
+def slot_launches(routing: str, slots: int) -> dict:
+    return {k: slots * n for k, n in PER_SLOT[routing].items()}
 
 
 def assert_parity(spec, c, ref, got) -> None:
@@ -340,31 +528,34 @@ def assert_golden(name: str, m, golden: dict) -> None:
 def registry_phase(report: dict, total: dict) -> None:
     import torch
     from repro_torch.kernels import build
-    from repro_torch.scenarios import (compile_scenario, distill_metrics,
-                                       get_scenario)
+    from repro_torch.scenarios import compile_scenario, distill_metrics
 
     golden = json.loads((ROOT / "tests/golden/scenarios.json").read_text())
     report["registry"] = []
-    for name in REGISTRY:
-        spec = get_scenario(name)
+    for name, routing in REGISTRY:
+        spec, what = scenario(name, routing), label(name, routing)
         c = compile_scenario(spec)
         torch.cuda.synchronize()
         build.reset_launches()
         t0 = time.perf_counter()
         gpu = c.run(device="cuda")               # float64 parity mode
         wall = time.perf_counter() - t0
-        check_launches(name, spec.sim.slots, dict(build.LAUNCHES), total)
+        check_launches(what, dict(build.LAUNCHES),
+                       slot_launches(spec.sim.routing, spec.sim.slots),
+                       total)
         cpu = compile_scenario(spec).run(device="cpu")
         assert_parity(spec, c, cpu, gpu)
         m = distill_metrics(spec, c, gpu)
-        assert_golden(name, m, golden)
+        # the golden rows are the registry's own specs
+        if routing is None:
+            assert_golden(name, m, golden)
         report["registry"].append(dict(
-            scenario=name, slots=spec.sim.slots, flows=len(c.flows),
+            scenario=what, slots=spec.sim.slots, flows=len(c.flows),
             wall_s=wall, mean_goodput=m.mean_goodput))
-        print(f"registry {name}: {spec.sim.slots} slots, {len(c.flows)} "
-              f"flows, GPU f64 {wall:.3f} s; parity with CPU plain path "
-              f"and golden metrics: ok; mean_goodput={m.mean_goodput!r}",
-              flush=True)
+        print(f"registry {what}: {spec.sim.slots} slots, {len(c.flows)} "
+              f"flows, GPU f64 {wall:.3f} s; parity with CPU plain path"
+              f"{' and golden metrics' if routing is None else ''}: ok; "
+              f"mean_goodput={m.mean_goodput!r}", flush=True)
 
 
 def assert_contained_fork(spec, c, ref, got, fork_frac=0.05) -> dict:
@@ -408,102 +599,165 @@ def assert_contained_fork(spec, c, ref, got, fork_frac=0.05) -> dict:
 
 
 def scale_phase(report: dict, total: dict) -> None:
+    """The giga point under AR and under its own ECMP, float32 and
+    float64, each float64 run against the CPU plain path; the ECMP one
+    also against the golden row."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
-    from repro_torch.scenarios import compile_scenario, get_scenario
+    from repro_torch.scenarios import compile_scenario, distill_metrics
 
-    spec = get_scenario("giga_fabric_storage").with_sim(routing="ar")
+    golden = json.loads((ROOT / "tests/golden/scenarios.json").read_text())
     report["scale"] = {}
-    runs = {}
-    for dtype in (torch.float32, torch.float64):
-        dname = str(dtype).split(".")[1]
-        c = compile_scenario(spec)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        build.reset_launches()
+    for routing in ("ar", None):
+        spec = scenario("giga_fabric_storage", routing)
+        what = label("giga_fabric_storage", spec.sim.routing)
+        out = report["scale"][what] = {}
+        runs = {}
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[1]
+            c = compile_scenario(spec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            res = c.run(device="cuda", dtype=dtype)
+            wall = time.perf_counter() - t0
+            counts = dict(build.LAUNCHES)
+            check_launches(f"{what} {dname}", counts,
+                           slot_launches(spec.sim.routing, spec.sim.slots),
+                           total)
+            if res.mean_goodput.shape != (len(c.flows),) or not np.isfinite(
+                    res.mean_goodput).all():
+                fail(f"{what} {dname}: bad mean_goodput")
+            mem = torch.cuda.max_memory_allocated()
+            per_slot = sum(counts.values()) / spec.sim.slots
+            runs[dname] = (c, res)
+            out[dname] = dict(
+                wall_s=wall, slots_per_s=spec.sim.slots / wall,
+                kernel_launches_per_slot=per_slot,
+                max_memory_allocated=mem, flows=len(c.flows),
+                mean_goodput=float(res.mean_goodput.mean()))
+            print(f"scale {what} {dname}: {len(c.flows)} flows x "
+                  f"{spec.sim.slots} slots, wall {wall:.3f} s (host prep "
+                  f"included), {spec.sim.slots / wall:.2f} slots/s, "
+                  f"{per_slot:g} hand-written kernel launches/slot, "
+                  f"max_memory_allocated {mem / 2**20:.1f} MiB, mean "
+                  f"goodput {res.mean_goodput.mean()!r}", flush=True)
         t0 = time.perf_counter()
-        res = c.run(device="cuda", dtype=dtype)
-        wall = time.perf_counter() - t0
-        check_launches(f"giga {dname}", spec.sim.slots,
-                       dict(build.LAUNCHES), total)
-        if res.mean_goodput.shape != (len(c.flows),) or not np.isfinite(
-                res.mean_goodput).all():
-            fail(f"giga {dname}: bad mean_goodput")
-        mem = torch.cuda.max_memory_allocated()
-        runs[dname] = (c, res)
-        report["scale"][dname] = dict(
-            wall_s=wall, slots_per_s=spec.sim.slots / wall,
-            max_memory_allocated=mem, flows=len(c.flows),
-            mean_goodput=float(res.mean_goodput.mean()))
-        print(f"scale giga_fabric_storage[ar] {dname}: {len(c.flows)} "
-              f"flows x {spec.sim.slots} slots, wall {wall:.3f} s "
-              f"(host prep included), {spec.sim.slots / wall:.2f} slots/s, "
-              f"max_memory_allocated {mem / 2**20:.1f} MiB, mean goodput "
-              f"{res.mean_goodput.mean()!r}", flush=True)
+        cpu = compile_scenario(spec).run(device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        c64, gpu64 = runs["float64"]
+        stats = assert_contained_fork(spec, c64, cpu, gpu64)
+        if routing is None:
+            assert_golden(spec.name, distill_metrics(spec, c64, gpu64),
+                          golden)
+        f32_diff = float(np.abs(runs["float32"][1].mean_goodput
+                                - gpu64.mean_goodput).max())
+        out["parity"] = dict(cpu_wall_s=cpu_wall,
+                             f32_vs_f64_max_abs=f32_diff, **stats)
+        print(f"scale {what} parity: GPU f64 vs CPU plain path "
+              f"({cpu_wall:.1f} s): {stats}"
+              f"{'; golden metrics: ok' if routing is None else ''}; "
+              f"f32 vs f64 max |diff| {f32_diff:.3g}", flush=True)
+
+
+def packet_phase(report: dict, total: dict) -> None:
+    """The per-packet path through its entry points
+    (`repro_torch.kernels.ops`): PACKET_BATCHES batches of 4096 packets
+    routed to switch ports by jsq_route and to NIC planes by plb_select,
+    each batch equal to the plain versions and never on a down port or
+    an ineligible plane."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+
+    (ports, n), (planes, _) = (PACKET_SHAPES[k][0]
+                               for k in ("jsq_route", "plb_select"))
+    batches = [(packet_inputs(ports, n, 1000 + i),
+                packet_inputs(planes, n, 2000 + i))
+               for i in range(PACKET_BATCHES)]
+    torch.cuda.synchronize()
+    build.reset_launches()
     t0 = time.perf_counter()
-    cpu = compile_scenario(spec).run(device="cpu")
-    cpu_wall = time.perf_counter() - t0
-    c64, gpu64 = runs["float64"]
-    stats = assert_contained_fork(spec, c64, cpu, gpu64)
-    f32_diff = float(np.abs(runs["float32"][1].mean_goodput
-                            - gpu64.mean_goodput).max())
-    report["scale"]["parity"] = dict(cpu_wall_s=cpu_wall,
-                                     f32_vs_f64_max_abs=f32_diff, **stats)
-    print(f"scale parity: GPU f64 vs CPU plain path ({cpu_wall:.1f} s): "
-          f"{stats}; f32 vs f64 max |diff| {f32_diff:.3g}", flush=True)
+    outs = [(ops.jsq_route(q, up, w, h),
+             ops.plb_select(ra, el, lq, tx, hp))
+            for (q, up, w, _, h), (ra, el, lq, tx, hp) in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("packets", dict(build.LAUNCHES),
+                   {"jsq_route": PACKET_BATCHES,
+                    "plb_select": PACKET_BATCHES}, total)
+    for ((q, up, w, _, h), (ra, el, lq, tx, hp)), (port, plane) in zip(
+            batches, outs):
+        if not (torch.equal(port, ref.jsq_route_ref(q, up, w, h))
+                and torch.equal(plane,
+                                ref.plb_select_ref(ra, el, lq, tx, hp))):
+            fail("packets: a batch differs from the plain versions")
+        if bool((up[port.long()] == 0).any()) or \
+                bool((el[plane.long()] == 0).any()):
+            fail("packets: a packet went to a down port or plane")
+    report["packets"] = dict(batches=PACKET_BATCHES, packets=n,
+                             ports=ports, planes=planes, wall_s=wall)
+    print(f"packets: {PACKET_BATCHES} batches of {n} packets through "
+          f"ops.jsq_route ({ports} ports) and ops.plb_select ({planes} "
+          f"planes) in {wall * 1e3:.3f} ms; equal to the plain versions",
+          flush=True)
 
 
 def profile_phase(report: dict) -> None:
     """Where a giga slot's time goes: `torch.profiler` over the float64
-    slot loop (12 slots, host prep excluded).  Device busy share = summed
-    kernel time / loop wall.  Prints "not measured" when the profiler
-    records no device activity."""
+    slot loop (12 slots, host prep excluded) under AR and under ECMP.
+    Device busy share = summed kernel time / loop wall.  Prints "not
+    measured" when the profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.netsim import engine
-    from repro_torch.scenarios import compile_scenario, get_scenario
+    from repro_torch.scenarios import compile_scenario
 
     slots = 12
-    c = compile_scenario(get_scenario("giga_fabric_storage")
-                         .with_sim(routing="ar", slots=slots))
-    cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
-    engine._simulate(cfg, ops)                   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine._simulate(cfg, ops)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    report["profile"] = {}
+    for routing in ("ar", "ecmp"):
+        what = label("giga_fabric_storage", routing)
+        c = compile_scenario(scenario("giga_fabric_storage", routing)
+                             .with_sim(slots=slots))
+        cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
+        engine._simulate(cfg, ops)               # warm-up
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine._simulate(cfg, ops)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    report["profile"] = dict(
-        scenario="giga_fabric_storage[ar] float64", slots=slots,
-        loop_wall_s=plain_wall, profiled_wall_s=wall,
-        device_busy_s=busy_s,
-        launches_per_slot=sum(e.count for e in kernels) / slots,
-        top=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
-                  count=e.count) for e in top])
-    if busy_s == 0.0:
-        print("profile: device time not measured (profiler saw no "
-              "device activity)", flush=True)
-        return
-    print(f"profile giga f64 loop: {plain_wall / slots * 1e3:.3f} ms/slot "
-          f"unprofiled, {wall / slots * 1e3:.3f} ms/slot profiled, device "
-          f"busy {busy_s / wall:.1%} of the profiled wall, "
-          f"{report['profile']['launches_per_slot']:.0f} kernels/slot",
-          flush=True)
-    for e in top[:5]:
-        print(f"  {e.self_device_time_total / 1e3 / slots:.4f} ms/slot "
-              f"x{e.count // slots} {e.key[:90]}", flush=True)
+        plain_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine._simulate(cfg, ops)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        out = report["profile"][what] = dict(
+            scenario=f"{what} float64", slots=slots,
+            loop_wall_s=plain_wall, profiled_wall_s=wall,
+            device_busy_s=busy_s,
+            launches_per_slot=sum(e.count for e in kernels) / slots,
+            top=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
+                      count=e.count) for e in top])
+        if busy_s == 0.0:
+            print(f"profile {what}: device time not measured (profiler "
+                  "saw no device activity)", flush=True)
+            continue
+        print(f"profile {what} f64 loop: "
+              f"{plain_wall / slots * 1e3:.3f} ms/slot unprofiled, "
+              f"{wall / slots * 1e3:.3f} ms/slot profiled, device busy "
+              f"{busy_s / wall:.1%} of the profiled wall "
+              f"({busy_s / slots * 1e3:.3f} ms/slot), "
+              f"{out['launches_per_slot']:.0f} kernels/slot", flush=True)
+        for e in top[:5]:
+            print(f"  {e.self_device_time_total / 1e3 / slots:.4f} ms/slot "
+                  f"x{e.count // slots} {e.key[:90]}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -534,18 +788,25 @@ def main(argv=None) -> int:
     total: dict = {}
     registry_phase(report, total)
     scale_phase(report, total)
+    packet_phase(report, total)
     profile_phase(report)
+    idle = [k for k in build.KERNELS if not total.get(k)]
+    if idle:
+        fail(f"kernels never launched on the main paths: {idle}")
 
     kernels = [dict(
         name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
         launches=total[k], max_abs_err=summary[k]["max_abs_err_all"],
         ms=summary[k]["ms"], plain_ms=summary[k]["plain_ms"],
         bound_ms=summary[k]["bound_ms"], bound_by=summary[k]["bound_by"],
-        library_ms=None, status="ok") for k in PER_SLOT]
+        library_ms=None, status="ok") for k in build.KERNELS]
     report["summary"] = kernels
+    report["wall_s"] = time.perf_counter() - t0
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
+    print(f"total: {report['wall_s']:.1f} s after the start of the build",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Build and load the slot-engine CUDA kernels.
+"""Build and load the port's CUDA kernels.
 
 `csrc/netsim_kernels.cu` has a plain C interface, so it compiles with
 `nvcc` alone (no PyTorch headers) into a shared library that `ctypes`
@@ -28,8 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("plane_split", "pair_fractions", "bottleneck", "queue_update",
-           "nic_update")
+KERNELS = ("plane_split", "pair_fractions", "bottleneck",
+           "bucket_load_bottleneck", "queue_update", "nic_update",
+           "jsq_route", "plb_select")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 # wall seconds of the last build in this process (0.0 = loaded a cached
@@ -42,11 +43,17 @@ _ARGTYPES = {
     "plane_split": (_P, _P, _P, _P, _I64, _I, _I, _D, _D, _P),
     "pair_fractions": (_P, _P, _P, _P, _I64, _I, _D, _D, _D, _D, _P),
     "bottleneck": (_P, _P, _P, _I64, _D, _P),
+    "bucket_load_bottleneck": (_P, _P, _P, _P, _P, _I64, _I, _I64, _I, _D,
+                               _P),
     "queue_update": (_P, _P, _P, _P, _P, _I64, _D, _D, _P),
     "nic_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
                    ctypes.POINTER(_D), _P),
+    "jsq_route": (_P, _P, _P, _P, _P, _I64, _I, _D, _D, _D, _P),
+    "plb_select": (_P, _P, _P, _P, _P, _P, _I64, _I, _P),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# the per-packet kernels compute in float32 only, as their Pallas bodies
+_FLOAT32_ONLY = ("jsq_route", "plb_select")
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -105,7 +112,8 @@ def library() -> ctypes.CDLL:
                            "on the GPU (CPU tensors take the plain path)")
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _ARGTYPES.items():
-        for suffix in _SUFFIX.values():
+        for suffix in (("f32",) if name in _FLOAT32_ONLY
+                       else _SUFFIX.values()):
             fn = getattr(lib, f"netsim_{name}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -1,28 +1,37 @@
-// Slot-engine kernels of the fluid network simulator, for Hopper (sm_90a).
+// Kernels of the fluid network simulator, for Hopper (sm_90a).
 //
-// Five kernels, each the CUDA twin of one Pallas kernel of the JAX
-// package and of one plain PyTorch function in `kernels/ref.py`:
+// Eight kernels, each the CUDA twin of one Pallas kernel of the JAX
+// package (in `repro/kernels/`) and of one plain PyTorch function in
+// `kernels/ref.py`:
 //
-//   plane_split     <- repro/kernels/plb_select.py  _plane_split_kernel
-//   pair_fractions  <- repro/kernels/jsq_route.py   _pair_score_kernel
-//   bottleneck      <- repro/kernels/link_load.py   _bottleneck_kernel
-//   queue_update    <- repro/kernels/queue_ecn.py   _queue_update_kernel
-//   nic_update      <- repro/kernels/queue_ecn.py   _nic_update_kernel
+//   plane_split            <- plb_select.py _plane_split_kernel
+//   pair_fractions         <- jsq_route.py  _pair_score_kernel
+//   bottleneck             <- link_load.py  _bottleneck_kernel
+//   bucket_load_bottleneck <- link_load.py  _load_bottleneck_kernel
+//   queue_update           <- queue_ecn.py  _queue_update_kernel
+//   nic_update             <- queue_ecn.py  _nic_update_kernel
+//   jsq_route              <- jsq_route.py  _jsq_kernel
+//   plb_select             <- plb_select.py _plb_kernel
 //
-// All five do a handful of flops per element, so bytes bound them on the
-// card: each reads its inputs once and writes its outputs once.  The
-// designs are the simple ones that reach that: one thread per element
-// (bottleneck, queue_update, and pair_fractions, whose row max and row
-// sum go through shared memory) or per flow (plane_split, nic_update:
-// the plane axis P <= 8 lives in registers), in grid-stride loops.
+// All but jsq_route do a handful of flops per element, so bytes bound
+// them on the card: each reads its inputs once and writes its outputs
+// once (jsq_route does a hash and a compare per packet and port, so
+// operations bound it).  The designs are the simple ones: one thread
+// per element (bottleneck, queue_update, and pair_fractions, whose row
+// max and row sum go through shared memory), per flow (plane_split,
+// nic_update: the plane axis P <= 8 lives in registers), per link
+// bucket (bucket_load_bottleneck) or per packet (jsq_route,
+// plb_select), in grid-stride loops.
 //
-// Unlike the Pallas bodies, which cast to float32, every kernel computes
-// in its input type, so the float64 parity mode runs through the kernels
-// themselves.  Built with --fmad=false: a fused multiply-add rounds once
-// where the plain version rounds twice, and a last-ulp difference in a
-// queue integrator forks a trajectory at an ECN threshold.  Sums over
-// the plane and spine axes run left to right, as in the plain versions,
-// so kernels without exp agree with them bit for bit.
+// Unlike the Pallas bodies, which cast to float32, the six slot-engine
+// kernels compute in their input type, so the float64 parity mode runs
+// through the kernels themselves; the per-packet jsq_route and
+// plb_select compute in float32 and uint32, as their Pallas bodies do.
+// Built with --fmad=false: a fused multiply-add rounds once where the
+// plain version rounds twice, and a last-ulp difference in a queue
+// integrator forks a trajectory at an ECN threshold.  Sums over the
+// plane, spine and bucket axes run left to right, as in the plain
+// versions, so kernels without exp agree with them bit for bit.
 //
 // Plain C interface (loaded with ctypes): every entry point takes raw
 // pointers and the CUDA stream, launches on that stream, allocates
@@ -303,6 +312,133 @@ __global__ void nic_update_kernel(const T* __restrict__ qmean,
   }
 }
 
+// ---- bucket_load_bottleneck: one thread per (plane, link bucket) -----
+// rate (F, P); plan (P, R, C) int32 flow indices, F = pad (reads +0.0);
+// cap/load/frac (P, R).  Each thread sums its bucket's C rates strictly
+// left to right from column 0 (flow order: bit-equal to the ordered
+// plain sum and to the NumPy engine's np.add.at), then writes the
+// bottleneck scale with a true division.  Bytes bound it: the plan is
+// read once, the rates gathered once per plan entry.  The index loads of
+// a block of kChunk columns are issued before their gathers, and the
+// gathers before the adds, so each thread keeps several loads in flight
+// although the adds stay sequential.
+constexpr int kChunk = 8;
+
+template <typename T>
+__global__ void bucket_load_bottleneck_kernel(
+    const T* __restrict__ rate, const int32_t* __restrict__ plan,
+    const T* __restrict__ cap, T* __restrict__ load, T* __restrict__ frac,
+    int64_t F, int P, int64_t R, int C, T eps) {
+  GRID_STRIDE(i, (int64_t)P * R) {
+    const int p = static_cast<int>(i / R);
+    const int32_t* row = plan + i * C;
+    T acc = T(0);
+    for (int c0 = 0; c0 < C; c0 += kChunk) {
+      int32_t idx[kChunk];
+      T v[kChunk];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        idx[k] = c0 + k < C ? row[c0 + k] : static_cast<int32_t>(F);
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        v[k] = idx[k] < F ? rate[(int64_t)idx[k] * P + p] : T(0);
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        if (c0 + k < C) acc = c0 + k == 0 ? v[k] : acc + v[k];
+    }
+    load[i] = acc;
+    frac[i] = min_(cap[i] / max_(acc, eps), T(1));
+  }
+}
+
+// ---- per-packet decisions (float32, uint32 hash) ---------------------
+// The hashed tie-break of both kernels: the low 16 bits of
+// mix ^ (mix >> 16), mix = h * 2654435761 + lane * step (uint32 wrap),
+// scaled to [0, 1).
+__device__ __forceinline__ float hash_tie(uint32_t h, uint32_t lane,
+                                          uint32_t step) {
+  uint32_t mix = h * 2654435761u + lane * step;
+  mix ^= mix >> 16;
+  return static_cast<float>(mix & 0xFFFFu) / 65536.0f;
+}
+
+// jsq_route: queues/up/w (ports,) float32, hash (N,), port (N,) int32.
+// Each block first scores every port into shared memory (quantized
+// queue over weight, +1e30 where down), then each thread takes the first
+// port of least score + 0.5 x tie for its packet.  Operations bound it:
+// ports hash-and-compare steps per packet against 4 + 4 bytes moved.
+__global__ void jsq_route_kernel(const float* __restrict__ queues,
+                                 const float* __restrict__ up,
+                                 const float* __restrict__ w,
+                                 const uint32_t* __restrict__ hash,
+                                 int32_t* __restrict__ port, int64_t N,
+                                 int ports, float qmax, float nbins,
+                                 float hi) {
+  extern __shared__ float score[];
+  for (int j = threadIdx.x; j < ports; j += blockDim.x) {
+    const float qbin = floorf(clip_(queues[j] / qmax, 0.0f, hi) * nbins);
+    const float s = (qbin + 1.0f) / max_(w[j], static_cast<float>(1e-6));
+    score[j] = up[j] > 0.0f ? s : static_cast<float>(1e30);
+  }
+  __syncthreads();
+  GRID_STRIDE(n, N) {
+    const uint32_t h = hash[n];
+    int best = 0;
+    float best_v = 0.0f;
+    for (int j = 0; j < ports; ++j) {
+      const float v = score[j] + hash_tie(h, j, 40503u) * 0.5f;
+      if (j == 0 || v < best_v) {
+        best = j;
+        best_v = v;
+      }
+    }
+    port[n] = best;
+  }
+}
+
+// plb_select: rate/elig/queue (P,) float32, tx (N,) float32, hash (N,),
+// plane (N,) int32.  One thread per packet, the P <= 8 planes in
+// registers: the rate filter (allowance >= the packet's rate, falling
+// back to every eligible plane), then the first plane of least
+// queue + 1e-3 x tie (1e30 where filtered out).
+__global__ void plb_select_kernel(const float* __restrict__ rate,
+                                  const float* __restrict__ elig,
+                                  const float* __restrict__ queue,
+                                  const float* __restrict__ tx,
+                                  const uint32_t* __restrict__ hash,
+                                  int32_t* __restrict__ plane, int64_t N,
+                                  int P) {
+  GRID_STRIDE(n, N) {
+    const float t = tx[n];
+    const uint32_t h = hash[n];
+    bool ok[kMaxPlanes];
+    bool any_ok = false;
+#pragma unroll
+    for (int p = 0; p < kMaxPlanes; ++p) {
+      if (p < P) {
+        ok[p] = elig[p] > 0.0f && rate[p] >= t;
+        any_ok = any_ok || ok[p];
+      }
+    }
+    int best = 0;
+    float best_v = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kMaxPlanes; ++p) {
+      if (p < P) {
+        const bool sel = any_ok ? ok[p] : elig[p] > 0.0f;
+        const float v =
+            sel ? queue[p] + static_cast<float>(1e-3) * hash_tie(h, p, 97u)
+                : static_cast<float>(1e30);
+        if (p == 0 || v < best_v) {
+          best = p;
+          best_v = v;
+        }
+      }
+    }
+    plane[n] = best;
+  }
+}
+
 template <typename T>
 int launch_plane_split(const void* rate, const void* elig,
                        const void* demand, void* out, int64_t F, int P,
@@ -371,6 +507,25 @@ int launch_bottleneck(const void* cap, const void* load, void* out,
 }
 
 template <typename T>
+int launch_bucket_load_bottleneck(const void* rate, const void* plan,
+                                  const void* cap, void* load, void* frac,
+                                  int64_t F, int P, int64_t R, int C,
+                                  double eps, void* stream) {
+  if (P < 1 || C < 1) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  // 128 threads a block: a giga-scale plan (2 x 8192 buckets) still
+  // spreads over all 132 SMs
+  int64_t blocks = ((int64_t)P * R + 127) / 128;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  bucket_load_bottleneck_kernel<T><<<static_cast<unsigned>(blocks), 128,
+                                     0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(rate), static_cast<const int32_t*>(plan),
+      static_cast<const T*>(cap), static_cast<T*>(load),
+      static_cast<T*>(frac), F, P, R, C, T(eps));
+  return cudaGetLastError();
+}
+
+template <typename T>
 int launch_queue_update(const void* q, const void* load, const void* cap,
                         void* q_new, void* util, int64_t n, double q_cap,
                         double eps, void* stream) {
@@ -423,7 +578,52 @@ int launch_nic_update(const void* qmean, const void* rate,
   return cudaGetLastError();
 }
 
+int launch_jsq_route(const void* queues, const void* up, const void* w,
+                     const void* hash, void* port, int64_t N, int ports,
+                     double qmax, double nbins, double hi, void* stream) {
+  if (ports < 1 || ports > 8192) return cudaErrorInvalidValue;
+  if (N == 0) return cudaSuccess;
+  jsq_route_kernel<<<grid_for(N), kThreads, ports * sizeof(float),
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(queues), static_cast<const float*>(up),
+      static_cast<const float*>(w), static_cast<const uint32_t*>(hash),
+      static_cast<int32_t*>(port), N, ports, static_cast<float>(qmax),
+      static_cast<float>(nbins), static_cast<float>(hi));
+  return cudaGetLastError();
+}
+
+int launch_plb_select(const void* rate, const void* elig,
+                      const void* queue, const void* tx, const void* hash,
+                      void* plane, int64_t N, int P, void* stream) {
+  if (P < 1 || P > kMaxPlanes) return cudaErrorInvalidValue;
+  if (N == 0) return cudaSuccess;
+  plb_select_kernel<<<grid_for(N), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rate), static_cast<const float*>(elig),
+      static_cast<const float*>(queue), static_cast<const float*>(tx),
+      static_cast<const uint32_t*>(hash), static_cast<int32_t*>(plane), N,
+      P);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int netsim_jsq_route_f32(const void* queues, const void* up,
+                                    const void* w, const void* hash,
+                                    void* port, int64_t N, int ports,
+                                    double qmax, double nbins, double hi,
+                                    void* stream) {
+  return launch_jsq_route(queues, up, w, hash, port, N, ports, qmax, nbins,
+                          hi, stream);
+}
+
+extern "C" int netsim_plb_select_f32(const void* rate, const void* elig,
+                                     const void* queue, const void* tx,
+                                     const void* hash, void* plane,
+                                     int64_t N, int P, void* stream) {
+  return launch_plb_select(rate, elig, queue, tx, hash, plane, N, P,
+                           stream);
+}
 
 #define NETSIM_EXPORT(SUFFIX, T)                                          \
   extern "C" int netsim_plane_split_##SUFFIX(                             \
@@ -444,6 +644,13 @@ int launch_nic_update(const void* qmean, const void* rate,
       const void* cap, const void* load, void* out, int64_t n,            \
       double eps, void* stream) {                                         \
     return launch_bottleneck<T>(cap, load, out, n, eps, stream);          \
+  }                                                                       \
+  extern "C" int netsim_bucket_load_bottleneck_##SUFFIX(                  \
+      const void* rate, const void* plan, const void* cap, void* load,    \
+      void* frac, int64_t F, int P, int64_t R, int C, double eps,         \
+      void* stream) {                                                     \
+    return launch_bucket_load_bottleneck<T>(rate, plan, cap, load, frac,  \
+                                            F, P, R, C, eps, stream);     \
   }                                                                       \
   extern "C" int netsim_queue_update_##SUFFIX(                            \
       const void* q, const void* load, const void* cap, void* q_new,      \

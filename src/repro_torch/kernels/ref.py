@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the slot engine's five kernels.
+"""Plain PyTorch versions of the port's eight kernels: the slot engine's
+six and the per-packet `jsq_route` and `plb_select`.
 
 Each function computes, operation for operation, what its CUDA kernel in
 `csrc/netsim_kernels.cu` computes, and what the reference package's jnp
@@ -147,3 +148,71 @@ def nic_update_ref(qmean, rate, alpha, esr, *, mode: str,
         torch.where(ecn > 0, cut, torch.where(rtt_err > 0.25, trim, grow)),
         min_rate, 1.0)
     return rtt, ecn, new, alpha
+
+
+def load_bottleneck_ref(rate, plan, cap, *, eps: float = 1e-12,
+                        ordered: bool = False):
+    """ECMP link loads and their bottleneck scale.  `rate`: (F, P) flow
+    rates; `plan`: (P, rows, C) flow indices per link bucket, padded with
+    F (which reads an appended zero row); `cap`: (P, rows).  Returns
+    `(load, frac)`, both (P, rows).  `ordered=True` sums each bucket
+    strictly left to right from column 0 (flow order, float64 parity
+    mode); `ordered=False` takes PyTorch's reduction."""
+    P = rate.shape[1]
+    padT = torch.cat([rate, rate.new_zeros((1, P))], 0).T     # (P, F+1)
+    g = padT[torch.arange(P, device=rate.device)[:, None, None],
+             plan.long()]                                     # (P, rows, C)
+    load = lsum(g) if ordered else g.sum(-1)
+    return load, bottleneck_ref(cap, load, eps=eps)
+
+
+_MASK32 = 0xFFFFFFFF
+_HASH_MUL = 2654435761
+
+
+def _hash_tie(pkt_hash, lanes: int, step: int) -> torch.Tensor:
+    """(N, lanes) float32 tie-break in [0, 1): the low 16 bits of
+    `mix ^ (mix >> 16)`, `mix = h * 2654435761 + lane * step` in uint32
+    arithmetic, carried out in int64 (the product is split at bit 16 so
+    no int64 product overflows)."""
+    h = pkt_hash.to(torch.int64)[:, None] & _MASK32
+    lo, hi = h & 0xFFFF, h >> 16
+    hm = (lo * _HASH_MUL + (((hi * _HASH_MUL) & 0xFFFF) << 16)) & _MASK32
+    lane = torch.arange(lanes, dtype=torch.int64, device=h.device)[None]
+    mix = (hm + lane * step) & _MASK32
+    mix = mix ^ (mix >> 16)
+    return sdiv((mix & 0xFFFF).to(torch.float32), 65536.0)
+
+
+def jsq_route_ref(queues, up_mask, weights, pkt_hash, *, nbins: int = 16,
+                  qmax: float = 1.0) -> torch.Tensor:
+    """Per-packet quantized-JSQ egress port.  `queues`/`up_mask`/
+    `weights`: (ports,); `pkt_hash`: (N,) 32-bit hashes.  Returns (N,)
+    int32: the first port of least score + 0.5 x hashed tie-break,
+    computed in float32; down ports score 1e30."""
+    q = queues.to(torch.float32)
+    w = weights.to(torch.float32)
+    up = up_mask.to(torch.float32) > 0
+    qbin = torch.floor(torch.clamp(sdiv(q, qmax), 0.0, 1.0 - 1e-6) * nbins)
+    score = (qbin + 1.0) / w.clamp_min(1e-6)
+    score = torch.where(up, score, 1e30)
+    tie = _hash_tie(pkt_hash, q.shape[0], 40503)
+    return torch.argmin(score[None, :] + tie * 0.5, dim=1).to(torch.int32)
+
+
+def plb_select_ref(rate_allow, eligible, local_queue, tx_rate,
+                   pkt_hash) -> torch.Tensor:
+    """Per-packet NIC plane choice (the paper's two-stage PLB).
+    `rate_allow`/`eligible`/`local_queue`: (P,); `tx_rate`/`pkt_hash`:
+    (N,).  Planes whose allowance covers the packet's rate (or, if none
+    does, every eligible plane) compete on local queue + 1e-3 x hashed
+    tie-break, in float32.  Returns (N,) int32, first index on ties."""
+    rate = rate_allow.to(torch.float32)
+    elig = eligible.to(torch.float32) > 0
+    queue = local_queue.to(torch.float32)
+    tx = tx_rate.to(torch.float32)
+    ok = elig[None, :] & (rate[None, :] >= tx[:, None])
+    ok = torch.where(ok.any(1, keepdim=True), ok, elig[None, :])
+    tie = _hash_tie(pkt_hash, rate.shape[0], 97)
+    score = torch.where(ok, queue[None, :] + 1e-3 * tie, 1e30)
+    return torch.argmin(score, dim=1).to(torch.int32)

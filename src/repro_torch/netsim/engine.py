@@ -2,28 +2,30 @@
 `(SimCarry, t)`, run in a Python loop over slots.
 
 One slot reproduces, operation for operation, the reference engine's
-static-dispatch slot on a leaf-spine fabric under AR or weighted AR:
+static-dispatch slot on a leaf-spine fabric under AR, weighted AR or
+ECMP:
 
-  PLB plane split -> AR/WAR spine fractions from the queue carry ->
-  per-link bottleneck scaling -> queue/ECN/RTT evolution -> NIC control
-  update (`spx|dcqcn|global|esr|swlb`) -> loss-stall masking ->
-  transfer completion.
+  PLB plane split -> routing (AR/WAR: spine fractions from the queue
+  carry; ECMP: the hashed spine of each (flow, plane) from the
+  assignment replay) -> per-link bottleneck scaling -> queue/ECN/RTT
+  evolution -> NIC control update (`spx|dcqcn|global|esr|swlb`) ->
+  loss-stall masking -> transfer completion.
 
-The five per-slot hot spots go through the `repro_torch.kernels`
-wrappers (hand-written CUDA on the GPU, the plain PyTorch versions on
-the CPU).  Faults arrive as a piecewise-constant capacity timeline
-(`events.py`) compressed to per-segment snapshots; the slot→segment map
-stays on the host, so the loop never waits for the device.
+The per-slot hot spots go through the `repro_torch.kernels` wrappers
+(hand-written CUDA on the GPU, the plain PyTorch versions on the CPU).
+Faults arrive as a piecewise-constant capacity timeline (`events.py`)
+compressed to per-segment snapshots, and ECMP's path assignment as one
+table per segment; the slot→segment map stays on the host, so the loop
+never waits for the device.
 
-Every sum that feeds the queue integrators (flows into host and
-leaf-pair buckets, pair rates times fractions into link loads) runs left
-to right in flow order, as the NumPy engine's `np.add.at` does; the
+Every sum that feeds the queue integrators (flows into host, leaf-pair
+and ECMP link buckets, pair rates times fractions into link loads) runs
+left to right in flow order, as the NumPy engine's `np.add.at` does; the
 short plane and spine sums run left to right too.  The CPU and GPU runs
 therefore differ only where `exp` does.
 
-ECMP routing, the fat-tree fabric, failure reaction, traces and
-schedule phases are later slices of the port and raise
-`NotImplementedError`.
+The fat-tree fabric, failure reaction, traces and schedule phases are
+later slices of the port and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.jsq_route import pair_fractions
-from repro_torch.kernels.link_load import bottleneck
+from repro_torch.kernels.link_load import bottleneck, bucket_load_bottleneck
 from repro_torch.kernels.plb_select import plane_split
 from repro_torch.kernels.queue_ecn import nic_update, queue_update
 from repro_torch.kernels.ref import lsum, sdiv
@@ -42,7 +44,8 @@ from repro_torch.kernels.ref import lsum, sdiv
 from .carry import SlotOperands, operands_from_numpy
 from .cc import (DCQCN_AI, DCQCN_ALPHA_G, MIN_RATE, PROBE_TIMEOUT, SPX_AI,
                  SPX_MD, SPX_RTT_GAIN, TARGET_RTT_US)
-from .events import FaultTimeline, compile_fault_timeline
+from .events import FaultTimeline, compile_fault_timeline, \
+    ecmp_assign_segments
 from .fabric import AR_TEMPERATURE, ECN_QUEUE_THRESH, JSQ_BINS, Q_CAP, \
     FlowArrays
 from .sim import SimConfig
@@ -86,10 +89,8 @@ class EngineConfig:
             raise NotImplementedError(
                 "fat-tree fabrics arrive with the fat-tree slice of the "
                 "port")
-        if cfg.routing not in ("ar", "war"):
-            raise NotImplementedError(
-                f"routing {cfg.routing!r} arrives with the ECMP slices of "
-                "the port")
+        if cfg.routing not in ("ar", "war", "ecmp"):
+            raise ValueError(f"unknown routing {cfg.routing!r}")
         if cfg.trace.enabled:
             raise NotImplementedError(
                 "traces arrive with the trace slice of the port")
@@ -293,6 +294,28 @@ def _route_pair(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
     return load_up, load_down, through, qmean
 
 
+def _route_ecmp(cfg: EngineConfig, carry: SimCarry, fabric_rate,
+                ops: SlotOperands, seg: int):
+    """ECMP: each (flow, plane) rides the spine of this segment's
+    assignment.  One `bucket_load_bottleneck` launch sums the flows of
+    every up and down link bucket in flow order and scales them; each
+    flow then reads the fractions and queues of its two links."""
+    P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_spines
+    LS = L * S
+    loads, fracs = bucket_load_bottleneck(
+        fabric_rate, ops.ecmp_load[seg], ops.link_cap[seg], eps=_EPS)
+    load_up = loads[:, :LS].reshape(P, L, S).contiguous()
+    load_down = loads[:, LS:].reshape(P, S, L).contiguous()
+    up_idx, down_idx = ops.ecmp_up[seg], ops.ecmp_down[seg]   # (F, P)
+    scale_f = torch.minimum(
+        torch.take(fracs[:, :LS], up_idx),
+        torch.take(fracs[:, LS:], down_idx))
+    through = fabric_rate * scale_f
+    qmean = torch.take(carry.q_up, up_idx) + \
+        torch.take(carry.q_down, down_idx)
+    return load_up, load_down, through, qmean
+
+
 # ---------------------------------------------------------------------------
 # one slot
 # ---------------------------------------------------------------------------
@@ -310,8 +333,12 @@ def _slot_step(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry,
     same_leaf = fb.same_leaf[:, None]
     fabric_rate = torch.where(same_leaf, 0.0, offered)
 
-    load_up, load_down, through, qmean = _route_pair(
-        cfg, carry, fabric_rate, up, down, ops, cfg.routing == "war")
+    if cfg.routing == "ecmp":
+        load_up, load_down, through, qmean = _route_ecmp(
+            cfg, carry, fabric_rate, ops, seg)
+    else:
+        load_up, load_down, through, qmean = _route_pair(
+            cfg, carry, fabric_rate, up, down, ops, cfg.routing == "war")
 
     load_acc_tx = _seg_sum(offered, ops.agg_src)          # (H, P)
     load_acc_rx = _seg_sum(offered, ops.agg_dst)
@@ -378,11 +405,15 @@ def _simulate(cfg: EngineConfig, ops: SlotOperands,
 # ---------------------------------------------------------------------------
 
 class AggPerms(NamedTuple):
-    """Flow→bucket gather plans: `(n_buckets, width)` flow indices,
-    padded with F (the index of an appended zero row)."""
+    """Flow→bucket gather plans: flow indices padded with F (the index
+    of an appended zero row), flow order kept within each bucket."""
     src: np.ndarray         # (H, Cs) flows by src host
     dst: np.ndarray         # (H, Cd) flows by dst host
     pair: np.ndarray        # (L*L, Cp) flows by (src_leaf, dst_leaf)
+    # (n_seg, P, 2*L*S, Cu) flows by ECMP link: L*S up buckets
+    # (src_leaf*S + spine), then S*L down buckets (spine*L + dst_leaf);
+    # a (1, P, 1, 1) placeholder of F under AR/WAR
+    ecmp_load: np.ndarray
 
 
 def _prepared(compiled) -> Tuple[EngineConfig, FlowArrays, FaultTimeline]:
@@ -407,23 +438,64 @@ def _seg_caps(tl: FaultTimeline, boundaries
     return tl.up[b], tl.down[b], tl.access[b]
 
 
-def _agg_widths(cfg: EngineConfig, fa: FlowArrays) -> Tuple[int, int, int]:
-    """Largest bucket of each aggregation axis (the plan widths)."""
+def _assign_for(cfg: EngineConfig, fa: FlowArrays, tl: FaultTimeline,
+                seed: int, boundaries) -> np.ndarray:
+    """(n_seg, F, P) int32 ECMP spine per (flow, plane) and capacity
+    segment; a (1, F, P) zero placeholder under AR/WAR."""
+    if cfg.routing == "ecmp":
+        return ecmp_assign_segments(
+            fa.src_leaf, fa.dst_leaf, tl, seed, cfg.n_spines, boundaries,
+            uplink_cap=cfg.uplink_cap)
+    return np.zeros((1, len(fa), cfg.n_planes), np.int32)
+
+
+def _agg_widths(cfg: EngineConfig, fa: FlowArrays,
+                assign: np.ndarray) -> Tuple[int, int, int, int]:
+    """Largest bucket of each aggregation axis (the plan widths): src
+    host, dst host, leaf pair, and ECMP link over every (segment,
+    plane) assignment (1 under AR/WAR)."""
     def w(keys, n):
         return max(1, int(np.bincount(keys, minlength=n).max()))
-    H, L = cfg.n_hosts, cfg.n_leaves
+    H, L, S, P = cfg.n_hosts, cfg.n_leaves, cfg.n_spines, cfg.n_planes
+    wu = 1
+    if cfg.routing == "ecmp":
+        for g in range(assign.shape[0]):
+            for p in range(P):
+                wu = max(wu,
+                         w(fa.src_leaf * S + assign[g][:, p], L * S),
+                         w(assign[g][:, p] * L + fa.dst_leaf, S * L))
     return (w(fa.src, H), w(fa.dst, H),
-            w(fa.src_leaf * L + fa.dst_leaf, L * L))
+            w(fa.src_leaf * L + fa.dst_leaf, L * L), wu)
 
 
-def _aggs_for(cfg: EngineConfig, fa: FlowArrays,
-              widths: Tuple[int, int, int]) -> AggPerms:
-    ws, wd, wp = widths
-    H, L, F = cfg.n_hosts, cfg.n_leaves, len(fa)
+def _ecmp_load_plan(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
+                    wu: int, pad: int) -> np.ndarray:
+    """(n_seg, P, 2*L*S, wu) ECMP link-bucket plan (see `AggPerms`)."""
+    P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_spines
+
+    def plane(g, p):
+        return np.concatenate([
+            _perm_matrix(fa.src_leaf * S + assign[g][:, p], L * S, wu, pad),
+            _perm_matrix(assign[g][:, p] * L + fa.dst_leaf, S * L, wu,
+                         pad)])
+
+    return np.stack([np.stack([plane(g, p) for p in range(P)])
+                     for g in range(assign.shape[0])])
+
+
+def _aggs_for(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
+              widths: Tuple[int, int, int, int]) -> AggPerms:
+    ws, wd, wp, wu = widths
+    H, L, P, F = cfg.n_hosts, cfg.n_leaves, cfg.n_planes, len(fa)
+    if cfg.routing == "ecmp":
+        load = _ecmp_load_plan(cfg, fa, assign, wu, F)
+    else:
+        load = np.full((1, P, 1, 1), F, np.int32)
     return AggPerms(
         src=_perm_matrix(fa.src, H, ws, F),
         dst=_perm_matrix(fa.dst, H, wd, F),
-        pair=_perm_matrix(fa.src_leaf * L + fa.dst_leaf, L * L, wp, F))
+        pair=_perm_matrix(fa.src_leaf * L + fa.dst_leaf, L * L, wp, F),
+        ecmp_load=load)
 
 
 def prepare(compiled, device=None, dtype=torch.float64
@@ -433,10 +505,12 @@ def prepare(compiled, device=None, dtype=torch.float64
     device = resolve_device(device)
     cfg, fa, tl = _prepared(compiled)
     boundaries = tuple(tl.change_slots())
+    assign = _assign_for(cfg, fa, tl, compiled.cfg.seed, boundaries)
     up, down, acc = _seg_caps(tl, boundaries)
     ops = operands_from_numpy(
-        cfg, fa, _aggs_for(cfg, fa, _agg_widths(cfg, fa)), up, down, acc,
-        _seg_id(boundaries, cfg.slots), device=device, dtype=dtype)
+        cfg, fa, _aggs_for(cfg, fa, assign, _agg_widths(cfg, fa, assign)),
+        up, down, acc, _seg_id(boundaries, cfg.slots), assign=assign,
+        device=device, dtype=dtype)
     return cfg, fa, ops
 
 

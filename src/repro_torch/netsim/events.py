@@ -7,14 +7,18 @@ every uplink `(T, P, L, S)`, downlink `(T, P, S, L)`, and access port
 do (kills multiply, restores reset to 1), and every random draw uses the
 same derived seed as the reference timeline compiler, so the arrays are
 equal to the reference's element for element.
+
+`ecmp_assign_segments` replays ECMP's initial hash and dead-path re-hash
+against such a timeline, once per capacity segment.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.netsim.sim import rehash_dead_assign
 from repro_torch.scenarios.spec import (FAULT_KINDS, FaultSpec,
                                         ScenarioSpec, fault_planes,
                                         flap_phase)
@@ -226,3 +230,56 @@ def compile_fault_timeline(spec: ScenarioSpec) -> FaultTimeline:
             out_down2[t] = down2
     return FaultTimeline(up=out_up, down=out_down, access=out_access,
                          up2=out_up2, down2=out_down2)
+
+
+# ---------------------------------------------------------------------------
+# ECMP assignment replay
+# ---------------------------------------------------------------------------
+
+def timeline_path_capacity(timeline: FaultTimeline, b: int,
+                           src_leaf: np.ndarray, dst_leaf: np.ndarray,
+                           uplink_cap: float = 1.0) -> np.ndarray:
+    """(F, P, S) per-path capacity at boundary slot `b` on a leaf-spine
+    timeline: the narrower of the flow's uplink and downlink through
+    each spine."""
+    if timeline.up2 is not None:
+        raise NotImplementedError(
+            "fat-tree path capacity arrives with the fat-tree slice of "
+            "the port")
+    cap = np.minimum(
+        timeline.up[b][:, src_leaf, :],
+        np.swapaxes(timeline.down[b], 1, 2)[:, dst_leaf, :])      # (P, F, S)
+    return cap.transpose(1, 0, 2) * uplink_cap                    # (F, P, S)
+
+
+def ecmp_assign_segments(src_leaf: np.ndarray, dst_leaf: np.ndarray,
+                         timeline: FaultTimeline, seed: int,
+                         n_paths: int, boundaries: Sequence[int],
+                         uplink_cap: float = 1.0,
+                         vis_timeline: Optional[FaultTimeline] = None,
+                         mode: str = "instant") -> np.ndarray:
+    """Replay the per-slot ECMP path assignment (initial hash + dead-path
+    re-hash) against the static capacity timeline: (n_seg, F, P) int32,
+    one assignment per capacity segment.
+
+    A per-slot check draws from its RNG only on slots where an assigned
+    path died with an alive alternative, which can only happen when
+    capacity changed; replaying the check at each change boundary
+    therefore consumes `np.random.default_rng(seed)` identically.
+    Failure reaction (`vis_timeline`, `mode="backup"`) arrives with the
+    reaction slice of the port."""
+    if vis_timeline is not None or mode != "instant":
+        raise NotImplementedError(
+            "ECMP under failure reaction arrives with the reaction slice "
+            "of the port")
+    F = src_leaf.shape[0]
+    P = timeline.up.shape[1]
+    rng = np.random.default_rng(seed)
+    assign = rng.integers(0, n_paths, size=(F, P))
+    segments = []
+    for b in boundaries:
+        cap = timeline_path_capacity(timeline, b, src_leaf, dst_leaf,
+                                     uplink_cap=uplink_cap)
+        assign = rehash_dead_assign(cap > 1e-12, assign, rng, n_paths)
+        segments.append(np.asarray(assign).copy())
+    return np.stack(segments).astype(np.int32)

@@ -7,8 +7,11 @@ and `run(backend="jax")` (under `jax.enable_x64(True)`) with the contract
 of `tests/test_jx_parity.py::_assert_parity`: goodput, utilization and
 total-goodput series within 1e-5, completion slots exactly equal, and
 equal distilled metric rows.  Tier-1 covers fig9_victim_noise at 80 slots
-across ar|war x spx|dcqcn|global|esr|swlb, and fig11_degraded_leaf and
-fig12_plane_flap at full length; the full-length registry cross is
+across ar|war|ecmp x spx|dcqcn|global|esr|swlb, fig11_degraded_leaf and
+fig12_plane_flap at full length, and fig12_plane_flap and
+cascading_spine_loss under ECMP at full length (capacity changes
+mid-run; the spine cascade makes the ECMP re-hash draw).  The
+full-length registry cross and the giga-scale point under ECMP are
 marked `slow`.
 
 `test_slot_handover` hands the JAX engine's state after slot k to the
@@ -35,6 +38,7 @@ from repro.scenarios import compile_scenario as jx_compile
 from repro.scenarios import distill_metrics as jx_distill
 from repro.scenarios import get_scenario as jx_get
 from repro.scenarios import list_scenarios as jx_list
+from repro_torch.kernels import build
 from repro_torch.netsim import engine
 from repro_torch.netsim.carry import carry_from_numpy, operands_from_numpy
 from repro_torch.scenarios import compile_scenario, distill_metrics, \
@@ -42,6 +46,15 @@ from repro_torch.scenarios import compile_scenario, distill_metrics, \
 
 TOL = 1e-5
 NICS = ("spx", "dcqcn", "global", "esr", "swlb")
+
+
+def _split(name):
+    """`name[routing]` -> (name, {"routing": routing}); plain names
+    pass with no override."""
+    if name.endswith("]"):
+        base, routing = name[:-1].split("[")
+        return base, {"routing": routing}
+    return name, {}
 
 
 def _run_refs(name, **sim):
@@ -94,7 +107,7 @@ def _assert_parity(port, ref):
                        jx_distill(rspec, rc, want))
 
 
-@pytest.mark.parametrize("routing", ["ar", "war"])
+@pytest.mark.parametrize("routing", ["ar", "war", "ecmp"])
 @pytest.mark.parametrize("nic", NICS)
 def test_fig9_routing_nic_cross(routing, nic):
     rspec, rc, ref_np, ref_jx = _run_refs("fig9_victim_noise", slots=80,
@@ -115,12 +128,32 @@ def test_registry_full_length(name):
     _assert_parity(port, (rspec, rc, ref_jx))
 
 
+@pytest.mark.parametrize("name", ["fig12_plane_flap",
+                                  "cascading_spine_loss"])
+def test_ecmp_full_length(name):
+    rspec, rc, ref_np, ref_jx = _run_refs(name, routing="ecmp")
+    port = _run_port(name, routing="ecmp")
+    _assert_parity(port, (rspec, rc, ref_np))
+    _assert_parity(port, (rspec, rc, ref_jx))
+
+
 def test_run_point_distills_the_reference_row():
     spec = get_scenario("fig12_plane_flap").with_sim(slots=120)
     rspec = jx_get("fig12_plane_flap").with_sim(slots=120)
     rc = jx_compile(rspec)
     _assert_rows_equal(run_point(spec, device="cpu"),
                        jx_distill(rspec, rc, rc.run(backend="numpy")))
+
+
+def test_run_point_distills_the_reference_row_under_ecmp():
+    spec = get_scenario("cascading_spine_loss").with_sim(routing="ecmp",
+                                                         slots=200)
+    rspec = jx_get("cascading_spine_loss").with_sim(routing="ecmp",
+                                                    slots=200)
+    rc = jx_compile(rspec)
+    row = run_point(spec, device="cpu")
+    assert row.routing == "ecmp"
+    _assert_rows_equal(row, jx_distill(rspec, rc, rc.run(backend="numpy")))
 
 
 def test_float32_fast_mode_tracks_float64():
@@ -140,14 +173,18 @@ def test_float32_fast_mode_tracks_float64():
 
 @pytest.mark.parametrize("name,nic", [("fig11_degraded_leaf", "spx"),
                                       ("fig12_plane_flap", "dcqcn"),
-                                      ("fig9_victim_noise", "global")])
+                                      ("fig9_victim_noise", "global"),
+                                      ("fig12_plane_flap[ecmp]", "swlb"),
+                                      ("fig11_degraded_leaf[ecmp]", "esr")])
 def test_kernel_calls_per_slot(monkeypatch, name, nic):
-    """Every slot calls plane_split, pair_fractions, bottleneck x4,
-    queue_update x2 and nic_update once each, with contiguous tensors
+    """Every AR/WAR slot calls plane_split, pair_fractions, bottleneck
+    x4, queue_update x2 and nic_update once each; every ECMP slot
+    plane_split, bucket_load_bottleneck, bottleneck x2 (access),
+    queue_update x2 and nic_update once each — with contiguous tensors
     (the CUDA wrappers refuse anything else)."""
     calls = {}
     for fn in ("plane_split", "pair_fractions", "bottleneck",
-               "queue_update", "nic_update"):
+               "bucket_load_bottleneck", "queue_update", "nic_update"):
         def counted(*args, _fn=fn, _orig=getattr(engine, fn), **kw):
             assert all(a.is_contiguous() for a in args
                        if isinstance(a, torch.Tensor)), _fn
@@ -155,10 +192,15 @@ def test_kernel_calls_per_slot(monkeypatch, name, nic):
             return _orig(*args, **kw)
         monkeypatch.setattr(engine, fn, counted)
     slots = 30
-    _run_port(name, slots=slots, nic=nic)
-    assert calls == {"plane_split": slots, "pair_fractions": slots,
-                     "bottleneck": 4 * slots, "queue_update": 2 * slots,
-                     "nic_update": slots}
+    base, sim = _split(name)
+    _run_port(base, slots=slots, nic=nic, **sim)
+    if sim.get("routing") == "ecmp":
+        want = {"plane_split": slots, "bucket_load_bottleneck": slots,
+                "bottleneck": 2 * slots}
+    else:
+        want = {"plane_split": slots, "pair_fractions": slots,
+                "bottleneck": 4 * slots}
+    assert calls == dict(want, queue_update=2 * slots, nic_update=slots)
 
 
 # ---------------------------------------------------------------------------
@@ -182,33 +224,39 @@ def _jax_steps(rspec, k):
     fb = JxFlowBatch.from_arrays(fa)
     operands = [jnp.asarray(a) for a in
                 caps + (jx_engine._seg_dem(pm, boundaries),) + vis]
+    jaggs = jax.tree_util.tree_map(jnp.asarray, aggs)
     step = jax.jit(partial(
         jx_engine._slot_step, cfg, fb,
         fb.src_leaf * cfg.n_leaves + fb.dst_leaf,
-        jax.tree_util.tree_map(jnp.asarray, aggs), jnp.asarray(segs),
-        *operands, None, lambda seg: None))
+        jaggs, jnp.asarray(segs), *operands, None,
+        lambda seg: jaggs.ecmp_load[seg]))
     carry = jx_init_carry(fb, cfg)
     for t in range(k):
         carry, _ = step(carry, (t, seg_id[t]))
     nxt, total = step(carry, (k, seg_id[k]))
-    return (fa, aggs, caps, seg_id), carry, nxt, total
+    return (fa, aggs, segs, caps, seg_id), carry, nxt, total
 
 
-@pytest.mark.parametrize("name,nic,k", [("fig11_degraded_leaf", "spx", 37),
-                                        ("fig12_plane_flap", "swlb", 55),
-                                        ("fig9_victim_noise", "dcqcn", 21)])
+@pytest.mark.parametrize("name,nic,k", [
+    ("fig11_degraded_leaf", "spx", 37),
+    ("fig12_plane_flap", "swlb", 55),
+    ("fig9_victim_noise", "dcqcn", 21),
+    ("cascading_spine_loss[ecmp]", "spx", 185)])   # after two spine kills
 def test_slot_handover(name, nic, k):
-    rspec = jx_get(name).with_sim(nic=nic, slots=k + 5)
+    base, sim = _split(name)
+    rspec = jx_get(base).with_sim(nic=nic, slots=k + 5, **sim)
     with jax.enable_x64(True):
-        (fa, aggs, caps, seg_id), carry_k, want, want_total = \
+        (fa, aggs, segs, caps, seg_id), carry_k, want, want_total = \
             _jax_steps(rspec, k)
         carry_k = jax.tree_util.tree_map(np.asarray, carry_k)
         want = jax.tree_util.tree_map(np.asarray, want)
-    c = compile_scenario(get_scenario(name).with_sim(nic=nic, slots=k + 5))
+    c = compile_scenario(get_scenario(base).with_sim(nic=nic, slots=k + 5,
+                                                     **sim))
     cfg, _, own = engine.prepare(c, "cpu", torch.float64)
     up, down, acc = caps[:3]               # leaf-spine: no stage B
     ops = operands_from_numpy(cfg, fa, aggs, up, down, acc, seg_id,
-                              device="cpu", dtype=torch.float64)
+                              assign=segs, device="cpu",
+                              dtype=torch.float64)
     for a, b in zip(ops, own):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b)
@@ -255,17 +303,20 @@ def test_entry_points_refuse_cuda_without_gpu(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def _slice():
+    """The slice's registry scenarios below giga scale (the giga point
+    has its own test)."""
     return sorted(
         n for n in jx_list()
         if jx_get(n).topo.kind == "leaf_spine"
-        and jx_get(n).sim.routing in ("ar", "war")
+        and jx_get(n).sim.routing in ("ar", "war", "ecmp")
+        and jx_get(n).topo.n_hosts < 4096
         and jx_get(n).reaction is None
         and all(w.kind != "schedule" for w in jx_get(n).workloads))
 
 
 @pytest.mark.slow
 @pytest.mark.parametrize("name", _slice())
-@pytest.mark.parametrize("routing", ["ar", "war"])
+@pytest.mark.parametrize("routing", ["ar", "war", "ecmp"])
 @pytest.mark.parametrize("nic", ["spx", "dcqcn"])
 def test_registry_cross_full_length(name, routing, nic):
     """The port is held to the JAX engine everywhere, and to the NumPy
@@ -279,6 +330,26 @@ def test_registry_cross_full_length(name, routing, nic):
     except AssertionError:
         return
     _assert_parity(port, (rspec, rc, ref_np))
+
+
+@pytest.mark.slow
+def test_giga_ecmp_equals_golden_and_numpy():
+    """giga_fabric_storage under its own routing (ECMP, SPX, 102,400
+    flows, 60 slots): the plain path against the NumPy engine and the
+    golden row.  Every ECMP link sum is ordered in both, so the runs
+    agree under the strict contract, not only the contained-fork one."""
+    spec = get_scenario("giga_fabric_storage")
+    port = (spec,) + _run_port("giga_fabric_storage")[1:]
+    rspec = jx_get("giga_fabric_storage")
+    rc = jx_compile(rspec)
+    with jax.enable_x64(True):
+        ref_np = rc.run(backend="numpy")
+    _assert_parity(port, (rspec, rc, ref_np))
+    golden = json.loads((Path(__file__).parent / "golden" /
+                         "scenarios.json").read_text())
+    _chip_smoke().assert_golden(spec.name,
+                                distill_metrics(spec, port[1], port[2]),
+                                golden)
 
 
 # ---------------------------------------------------------------------------
@@ -305,10 +376,19 @@ def test_chip_smoke_contracts_hold_on_cpu(capsys):
                          "scenarios.json").read_text())
     smoke.assert_golden(spec.name, distill_metrics(spec, c, res), golden)
     smoke.assert_parity(spec, c, res, res)
-    smoke.check_launches("x", 3, {k: 3 * n for k, n in
-                                  smoke.PER_SLOT.items()}, {})
-    with pytest.raises(AssertionError):
-        smoke.check_launches("x", 3, dict.fromkeys(smoke.PER_SLOT, 3), {})
+    for routing in ("ar", "war", "ecmp"):
+        want = smoke.slot_launches(routing, 3)
+        counts = {k: want.get(k, 0) for k in build.KERNELS}
+        total = {}
+        smoke.check_launches("x", counts, want, total)
+        assert total == counts
+        with pytest.raises(AssertionError):
+            smoke.check_launches("x", dict.fromkeys(build.KERNELS, 3), want,
+                                 {})
+    assert smoke.PER_SLOT["ecmp"] == {
+        "plane_split": 1, "bucket_load_bottleneck": 1, "bottleneck": 2,
+        "queue_update": 2, "nic_update": 1}
+    assert set(smoke.REPLACES) == set(build.KERNELS)
     if not torch.cuda.is_available():
         assert smoke.main([]) != 0
         assert capsys.readouterr().out == ""

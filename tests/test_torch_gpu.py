@@ -8,15 +8,17 @@ only PyTorch is installed:
 
 Each kernel must equal its plain PyTorch version on the same GPU tensors
 bit for bit (pair_fractions: 1e-12 relative in float64, 1e-6 in
-float32, for `exp`), and the GPU engine must reproduce the CPU plain
-path of the same scenario.
+float32, for `exp`; bucket_load_bottleneck in float32 against the
+ordered plain sum, which is the order the kernel keeps), and the GPU
+engine must reproduce the CPU plain path of the same scenario under
+AR/WAR and under ECMP.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, jsq_route, link_load, plb_select, \
-    queue_ecn, ref
+from repro_torch.kernels import build, jsq_route, link_load, ops, \
+    plb_select, queue_ecn, ref
 from repro_torch.scenarios import compile_scenario, get_scenario
 
 NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
@@ -80,6 +82,42 @@ def test_kernels_equal_plain_versions(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bucket_load_bottleneck_equals_plain_version(cuda, dtype):
+    rng = np.random.default_rng(1)
+    F, P, R, C = 1001, 3, 37, 13                 # odd sizes: ragged tails
+    rate = _uniform(rng, (F, P), dtype, cuda, zero_frac=0.1)
+    plan = rng.integers(0, F + 1, (P, R, C)).astype(np.int32)  # F = pad
+    plan = torch.tensor(plan, device=cuda)
+    cap = _uniform(rng, (P, R), dtype, cuda, hi=2.0, zero_frac=0.1)
+    got = link_load.bucket_load_bottleneck(rate, plan, cap)
+    for g, want in zip(got, ref.load_bottleneck_ref(rate, plan, cap,
+                                                    ordered=True)):
+        assert torch.equal(g, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [37, 4096, 4097])
+def test_packet_kernels_equal_plain_versions(cuda, N):
+    rng = np.random.default_rng(N)
+    h = torch.tensor(rng.integers(0, 1 << 32, N), device=cuda)
+    for lanes in (16, 256):
+        q = _uniform(rng, (lanes,), torch.float32, cuda, hi=1.2)
+        up = (_uniform(rng, (lanes,), torch.float32, cuda) > 0.2).float()
+        up[0] = 1.0
+        w = _uniform(rng, (lanes,), torch.float32, cuda, lo=0.25)
+        assert torch.equal(ops.jsq_route(q, up, w, h),
+                           ref.jsq_route_ref(q, up, w, h)), lanes
+    for planes in (2, 4, 8):
+        ra = _uniform(rng, (planes,), torch.float32, cuda)
+        el = (_uniform(rng, (planes,), torch.float32, cuda) > 0.2).float()
+        lq = _uniform(rng, (planes,), torch.float32, cuda)
+        tx = _uniform(rng, (N,), torch.float32, cuda, hi=0.6)
+        assert torch.equal(ops.plb_select(ra, el, lq, tx, h),
+                           ref.plb_select_ref(ra, el, lq, tx, h)), planes
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_bad_operands(cuda):
     x = torch.zeros(8, 4, dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -96,16 +134,24 @@ def test_wrappers_refuse_bad_operands(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,nic", [("fig11_degraded_leaf", "spx"),
-                                      ("fig12_plane_flap", "swlb"),
-                                      ("fig9_victim_noise", "dcqcn")])
-def test_gpu_engine_reproduces_cpu_path(cuda, name, nic):
+@pytest.mark.parametrize("name,nic,routing", [
+    ("fig11_degraded_leaf", "spx", None),
+    ("fig12_plane_flap", "swlb", None),
+    ("fig9_victim_noise", "dcqcn", None),
+    ("fig11_degraded_leaf", "esr", "ecmp"),
+    ("fig12_plane_flap", "spx", "ecmp")])
+def test_gpu_engine_reproduces_cpu_path(cuda, name, nic, routing):
     spec = get_scenario(name).with_sim(slots=60, nic=nic)
+    if routing is not None:
+        spec = spec.with_sim(routing=routing)
     build.reset_launches()
     gpu = compile_scenario(spec).run(device=cuda)
-    assert build.LAUNCHES == {"plane_split": 60, "pair_fractions": 60,
-                              "bottleneck": 240, "queue_update": 120,
-                              "nic_update": 60}
+    route = ({"bucket_load_bottleneck": 60, "bottleneck": 120}
+             if routing == "ecmp" else
+             {"pair_fractions": 60, "bottleneck": 240})
+    assert build.LAUNCHES == dict(
+        dict.fromkeys(build.KERNELS, 0), plane_split=60, queue_update=120,
+        nic_update=60, **route)
     cpu = compile_scenario(spec).run(device="cpu")
     np.testing.assert_allclose(gpu.mean_goodput, cpu.mean_goodput,
                                rtol=1e-12, atol=1e-15)

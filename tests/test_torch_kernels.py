@@ -1,4 +1,4 @@
-"""The PyTorch port's slot-engine kernels on the CPU.
+"""The PyTorch port's kernels on the CPU.
 
 On the CPU every wrapper in `repro_torch.kernels` runs its plain PyTorch
 version (`repro_torch.kernels.ref`).  Those are held here to the JAX
@@ -7,8 +7,10 @@ except the softmax of `pair_fractions`, whose `exp` differs between the
 frameworks (relative 1e-12; XLA on the CPU also flushes subnormal
 results to zero, hence the absolute floor at the smallest normal) — and
 to the Pallas kernels run in interpret mode in float32 (1e-6), over every
-mode and shapes with non-power-of-two block tails.  Inputs come from
-numpy with a seed and reach both frameworks as the same arrays.
+mode and shapes with non-power-of-two block tails.  The per-packet
+`jsq_route` and `plb_select` return indices, which must equal both
+exactly.  Inputs come from numpy with a seed and reach both frameworks
+as the same arrays.
 
 The CUDA kernels themselves run only on a GPU: `tests/test_torch_gpu.py`
 holds them against these plain versions there, and `chip_smoke.py` does
@@ -25,8 +27,8 @@ from repro.kernels import link_load as jx_link
 from repro.kernels import plb_select as jx_plb
 from repro.kernels import queue_ecn as jx_queue
 from repro.kernels import ref as jx_ref
-from repro_torch.kernels import build, jsq_route, link_load, plb_select, \
-    queue_ecn, ref
+from repro_torch.kernels import build, jsq_route, link_load, ops, \
+    plb_select, queue_ecn, ref
 
 NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
               target_rtt_us=12.0, min_rate=0.01, md=0.7, ai=0.08,
@@ -66,6 +68,43 @@ def _nic_inputs(seed, F, P):
     rng = np.random.default_rng(seed)
     return (rng.uniform(0.0, 16.0, (F, P)), rng.uniform(0.0, 1.0, (F, P)),
             rng.uniform(0.0, 1.0, (F, P)), rng.random((F, 1)) < 0.5)
+
+
+def _plan_inputs(seed, F, P, R, C):
+    """(F, P) rates with exact zeros, a (P, R, C) int32 plan of flow
+    indices padded with F (ragged bucket fills, one empty bucket) and
+    (P, R) capacities with dead links."""
+    rng = np.random.default_rng(seed)
+    rate = rng.uniform(0.0, 1.0, (F, P))
+    rate[rng.random((F, P)) < 0.1] = 0.0
+    plan = rng.integers(0, F, (P, R, C)).astype(np.int32)
+    fill = rng.integers(0, C + 1, (P, R))
+    fill[0, 0] = 0
+    plan[np.arange(C)[None, None, :] >= fill[..., None]] = F
+    cap = rng.uniform(0.0, 2.0, (P, R))
+    cap[rng.random((P, R)) < 0.1] = 0.0
+    return rate, plan, cap
+
+
+def _gathered(rate, plan):
+    """The reference's (P, R, C) gather of `rate` through `plan`."""
+    padT = np.concatenate([rate, np.zeros((1, rate.shape[1]))], 0).T
+    return padT[np.arange(rate.shape[1])[:, None, None], plan]
+
+
+def _packet_inputs(seed, lanes, N):
+    """Per-port (or per-plane) vectors and N packets: float64 queues,
+    a 0/1 mask with lane 0 up, weights, tx rates, and uint32 hashes
+    over the full 32 bits."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(0.0, 1.2, lanes)                # past qmax too
+    q[rng.random(lanes) < 0.2] = 0.5               # equal queues: ties
+    mask = (rng.random(lanes) > 0.2).astype(np.float64)
+    mask[0] = 1.0
+    w = rng.uniform(0.25, 1.0, lanes)
+    tx = rng.uniform(0.0, 0.6, N)
+    h = rng.integers(0, 1 << 32, N, dtype=np.uint64).astype(np.uint32)
+    return q, mask, w, tx, h
 
 
 def _jx(*arrays):
@@ -136,6 +175,91 @@ def test_nic_update_f64_bit_equal(mode, F, P):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+@pytest.mark.parametrize("F,P,R,C", [(50, 1, 16, 7), (300, 2, 64, 47),
+                                     (129, 3, 37, 11)])
+def test_bucket_load_bottleneck_f64_bit_equal(F, P, R, C):
+    """The plain version in parity mode (ordered, the default in
+    float64) against the ordered jnp oracle on the gathered plan."""
+    rate, plan, cap = _plan_inputs(F + R, F, P, R, C)
+    with jax.enable_x64(True):
+        want = [np.asarray(a) for a in jx_ref.load_bottleneck_ref(
+            *_jx(_gathered(rate, plan), cap), eps=link_load.EPS,
+            ordered=True)]
+    got = link_load.bucket_load_bottleneck(
+        *_th(rate), torch.from_numpy(plan), *_th(cap))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        np.testing.assert_array_equal(g.numpy(), w)
+    # the ordered sum starts from column 0, as `ref.bucket_sum_ref` does
+    ordered = ref.load_bottleneck_ref(*_th(rate), torch.from_numpy(plan),
+                                      *_th(cap), ordered=True)
+    for g, o in zip(got, ordered):
+        assert torch.equal(g, o)
+
+
+def test_bucket_load_bottleneck_on_engine_plans():
+    """On the engine's own plans (fig11 under ECMP) the loads are the
+    flow-ordered link sums of the plane's rates, bucket by bucket."""
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import compile_scenario, get_scenario
+    c = compile_scenario(get_scenario("fig11_degraded_leaf")
+                         .with_sim(routing="ecmp"))
+    cfg, fa, ops_ = engine.prepare(c, "cpu", torch.float64)
+    rng = np.random.default_rng(11)
+    rate = torch.as_tensor(rng.uniform(0.0, 1.0, (len(fa), cfg.n_planes)))
+    load, frac = link_load.bucket_load_bottleneck(
+        rate, ops_.ecmp_load[0], ops_.link_cap[0])
+    L, S = cfg.n_leaves, cfg.n_spines
+    a = ops_.assign[0].numpy()
+    for p in range(cfg.n_planes):
+        want_up = np.zeros(L * S)
+        np.add.at(want_up, fa.src_leaf * S + a[:, p], rate[:, p].numpy())
+        np.testing.assert_array_equal(load[p, :L * S].numpy(), want_up)
+    assert torch.equal(frac, ref.bottleneck_ref(ops_.link_cap[0], load))
+
+
+@pytest.mark.parametrize("ports,N", [(16, 37), (64, 256), (256, 4097)])
+def test_jsq_route_equals_jnp_oracle(ports, N):
+    q, up, w, _, h = _packet_inputs(ports + N, ports, N)
+    want = np.asarray(jx_ref.jsq_route_ref(*_jx(q.astype(np.float32), up,
+                                                w.astype(np.float32), h)))
+    got = jsq_route.jsq_route(*_th(q, up, w), torch.from_numpy(h))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not set(got.numpy()) & set(np.flatnonzero(up == 0))
+    # the ops entry point and int64 hashes give the same ports
+    assert torch.equal(ops.jsq_route(*_th(q, up, w),
+                                     torch.from_numpy(h.astype(np.int64))),
+                       got)
+
+
+@pytest.mark.parametrize("P,N", [(2, 37), (4, 300), (8, 4097)])
+def test_plb_select_equals_jnp_oracle(P, N):
+    ra, el, lq, tx, h = _packet_inputs(P * N, P, N)
+    want = np.asarray(jx_ref.plb_select_ref(*_jx(
+        ra.astype(np.float32), el, lq.astype(np.float32),
+        tx.astype(np.float32), h)))
+    got = plb_select.plb_select(*_th(ra, el, lq, tx), torch.from_numpy(h))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not set(got.numpy()) & set(np.flatnonzero(el == 0))
+    assert torch.equal(ops.plb_select(*_th(ra, el, lq, tx),
+                                      torch.from_numpy(h)), got)
+
+
+def test_hash_tie_is_uint32_arithmetic():
+    """The int64 emulation of the uint32 multiply-xorshift hash, at the
+    edges of the 32-bit range."""
+    h = np.array([0, 1, 65535, 65536, 2**31 - 1, 2**31, 2**32 - 1],
+                 np.uint64)
+    lanes = np.arange(5, dtype=np.uint64)
+    mix = (h[:, None] * 2654435761 + lanes[None] * 40503) % 2**32
+    mix ^= mix >> 16
+    want = (mix & 0xFFFF).astype(np.float32) / np.float32(65536.0)
+    got = ref._hash_tie(torch.from_numpy(h.astype(np.int64)), 5, 40503)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # float32: plain versions vs the Pallas kernels in interpret mode
 # ---------------------------------------------------------------------------
@@ -196,6 +320,39 @@ def test_nic_update_vs_pallas_interpret(mode, F, P, bp):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL)
 
 
+@pytest.mark.parametrize("P,R,C,br", [(3, 37, 11, 16), (2, 64, 8, 128)])
+def test_bucket_load_bottleneck_vs_pallas_interpret(P, R, C, br):
+    F = 3 * R
+    rate, plan, cap = (a.astype(np.float32) if a.dtype == np.float64
+                       else a for a in _plan_inputs(P + R, F, P, R, C))
+    want = jx_link.bucket_load_bottleneck(
+        *_jx(_gathered(rate, plan).astype(np.float32), cap),
+        ordered=False, br=br, use_pallas=True, interpret=True)
+    got = link_load.bucket_load_bottleneck(
+        *_th(rate, dtype=torch.float32), torch.from_numpy(plan),
+        *_th(cap, dtype=torch.float32))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL)
+
+
+@pytest.mark.parametrize("N,bp", [(37, 16), (512, 256), (300, 256)])
+def test_jsq_route_vs_pallas_interpret(N, bp):
+    q, up, w, _, h = _packet_inputs(N, 16, N)
+    want = jx_jsq.jsq_route(*_jx(q, up, w, h), bp=bp, interpret=True)
+    got = jsq_route.jsq_route(*_th(q, up, w), torch.from_numpy(h))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("N,bp", [(37, 16), (300, 256), (4097, 256)])
+def test_plb_select_vs_pallas_interpret(N, bp):
+    ra, el, lq, tx, h = _packet_inputs(N, 4, N)
+    want = jx_plb.plb_select(*_jx(ra, el, lq, tx, h), bp=bp,
+                             interpret=True)
+    got = plb_select.plb_select(*_th(ra, el, lq, tx), torch.from_numpy(h))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain versions, nothing else falls back
 # ---------------------------------------------------------------------------
@@ -222,11 +379,17 @@ def _meta(*shape, dtype=torch.float64):
     lambda: jsq_route.pair_fractions(_meta(1, 2, 2, 4), _meta(1, 2, 2, 4),
                                      _meta(1, 2, 2, 4)),
     lambda: link_load.bottleneck(_meta(8), _meta(8)),
+    lambda: link_load.bucket_load_bottleneck(
+        _meta(5, 2), _meta(2, 4, 3, dtype=torch.int32), _meta(2, 4)),
     lambda: queue_ecn.queue_update(_meta(8), _meta(8), _meta(8),
                                    q_cap=64.0),
     lambda: queue_ecn.nic_update(_meta(4, 2), _meta(4, 2), _meta(4, 2),
                                  _meta(4, 1, dtype=bool), mode="spx",
                                  **NIC_KW),
+    lambda: jsq_route.jsq_route(_meta(8), _meta(8), _meta(8),
+                                _meta(16, dtype=torch.int32)),
+    lambda: plb_select.plb_select(_meta(4), _meta(4), _meta(4), _meta(16),
+                                  _meta(16, dtype=torch.int32)),
 ], ids=list(build.KERNELS))
 def test_non_cpu_tensor_never_falls_back(call):
     build.reset_launches()

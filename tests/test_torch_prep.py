@@ -2,13 +2,15 @@
 equality.
 
 The port keeps its own copies of the scenario schema and registry, the
-scenario compiler, the fault-timeline compiler and the slot engine's
-operand builders.  For every leaf-spine AR/WAR registry scenario without
-failure reaction or schedule workloads (plus the giga-scale point under
-AR) the copies must produce exactly the reference's flows, tenants,
-fault transitions, `FlowArrays`, capacity timelines, segment maps and
-aggregation plans — so both engines start every run from the same
-operands.  The last tests pin the import boundary (the port imports
+scenario compiler, the fault-timeline compiler, the ECMP assignment
+replay and the slot engine's operand builders.  For every leaf-spine
+AR/WAR/ECMP registry scenario without failure reaction or schedule
+workloads (among them the giga-scale point under its own ECMP), the
+giga point under AR and three registry scenarios under ECMP, the copies
+must produce exactly the reference's flows, tenants, fault transitions,
+`FlowArrays`, capacity timelines, segment maps, ECMP assignment
+segments and aggregation plans — so both engines start every run from
+the same operands.  The last tests pin the import boundary (the port imports
 neither `jax` nor `repro`) and the `NotImplementedError`s of the parts
 later slices bring.
 """
@@ -39,20 +41,28 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def _in_slice(name: str) -> bool:
     s = jx_get(name)
-    return (s.topo.kind == "leaf_spine" and s.sim.routing in ("ar", "war")
+    return (s.topo.kind == "leaf_spine"
+            and s.sim.routing in ("ar", "war", "ecmp")
             and s.reaction is None
             and all(w.kind != "schedule" for w in s.workloads))
 
 
 SLICE = sorted(n for n in jx_list() if _in_slice(n))
 GIGA_AR = "giga_fabric_storage[ar]"
+# registry scenarios under ECMP: a link-kill set from slot 0, an access
+# kill mid-run (a segment without re-hash draws) and a spine cascade
+# (re-hash draws at every kill)
+ECMP = ["fig11_degraded_leaf[ecmp]", "fig12_plane_flap[ecmp]",
+        "cascading_spine_loss[ecmp]"]
 
 
 def _pair(name):
-    """(reference spec, port spec) for a slice scenario name."""
-    if name == GIGA_AR:
-        return (jx_get("giga_fabric_storage").with_sim(routing="ar"),
-                get_scenario("giga_fabric_storage").with_sim(routing="ar"))
+    """(reference spec, port spec) for a slice scenario name; a
+    `name[routing]` suffix overrides the scenario's routing."""
+    if name.endswith("]"):
+        base, routing = name[:-1].split("[")
+        return (jx_get(base).with_sim(routing=routing),
+                get_scenario(base).with_sim(routing=routing))
     return jx_get(name), get_scenario(name)
 
 
@@ -62,9 +72,9 @@ def _flow_rows(flows):
 
 
 def test_slice_covers_the_leaf_spine_ar_war_registry():
-    assert len(SLICE) == 17
+    assert len(SLICE) == 18
     assert {"fig9_victim_noise", "fig11_degraded_leaf",
-            "fig12_plane_flap"} <= set(SLICE)
+            "fig12_plane_flap", "giga_fabric_storage"} <= set(SLICE)
 
 
 def test_registry_specs_equal_the_reference():
@@ -74,7 +84,7 @@ def test_registry_specs_equal_the_reference():
             dataclasses.asdict(jx_get(name)), name
 
 
-@pytest.mark.parametrize("name", SLICE + [GIGA_AR])
+@pytest.mark.parametrize("name", SLICE + [GIGA_AR] + ECMP)
 def test_host_prep_equals_reference(name):
     ref_spec, spec = _pair(name)
     rc, c = jx_compile(ref_spec), compile_scenario(spec)
@@ -112,13 +122,18 @@ def test_host_prep_equals_reference(name):
     cfg = engine.EngineConfig.from_sim(c.cfg, spec.topo)
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(rcfg, f.name), f.name
-    segs = jx_engine._assign_for(rcfg, rfa, rtl, rc.cfg.seed, boundaries)
-    raggs = jx_engine._aggs_for(rcfg, rfa, segs,
-                                jx_engine._agg_widths(rcfg, rfa, segs))
-    aggs = engine._aggs_for(cfg, fa, engine._agg_widths(cfg, fa))
-    for field in ("src", "dst", "pair"):
-        np.testing.assert_array_equal(getattr(aggs, field),
-                                      getattr(raggs, field), err_msg=field)
+    rsegs = jx_engine._assign_for(rcfg, rfa, rtl, rc.cfg.seed, boundaries)
+    segs = engine._assign_for(cfg, fa, tl, c.cfg.seed, boundaries)
+    assert segs.dtype == np.int32
+    np.testing.assert_array_equal(segs, rsegs)
+    widths = engine._agg_widths(cfg, fa, segs)
+    assert widths == jx_engine._agg_widths(rcfg, rfa, rsegs)
+    raggs = jx_engine._aggs_for(rcfg, rfa, rsegs, widths)
+    aggs = engine._aggs_for(cfg, fa, segs, widths)
+    for field in ("src", "dst", "pair", "ecmp_load"):
+        got, want = getattr(aggs, field), getattr(raggs, field)
+        assert got.dtype == want.dtype, field
+        np.testing.assert_array_equal(got, want, err_msg=field)
 
 
 def test_operands_carry_the_numpy_arrays():
@@ -134,11 +149,45 @@ def test_operands_carry_the_numpy_arrays():
                                   fa.src_leaf * cfg.n_leaves + fa.dst_leaf)
     assert ops.agg_pair.dtype == torch.int64
     assert all(t.is_contiguous() for t in (ops.up, ops.down, ops.acc))
+    assign = engine._assign_for(cfg, fa, tl, c.cfg.seed, b)
     f32 = operands_from_numpy(cfg, fa, engine._aggs_for(
-        cfg, fa, engine._agg_widths(cfg, fa)), tl.up[b], tl.down[b],
-        tl.access[b], engine._seg_id(b, cfg.slots), device="cpu",
-        dtype=torch.float32)
+        cfg, fa, assign, engine._agg_widths(cfg, fa, assign)), tl.up[b],
+        tl.down[b], tl.access[b], engine._seg_id(b, cfg.slots),
+        device="cpu", dtype=torch.float32)
     assert f32.up.dtype == f32.fb.demand.dtype == torch.float32
+    # AR/WAR carry the reference's inert ECMP placeholders
+    assert f32.assign.shape == (1, len(fa), cfg.n_planes)
+    assert f32.ecmp_load.shape == (1, cfg.n_planes, 1, 1)
+    assert bool((f32.ecmp_load == len(fa)).all())
+
+
+def test_ecmp_operands_index_the_reference_layout():
+    """The ECMP operands: int32 assignment and plans, the stacked link
+    capacities in the plans' row order, and each flow's up/down link as
+    a flat index."""
+    c = compile_scenario(get_scenario("cascading_spine_loss")
+                         .with_sim(routing="ecmp"))
+    cfg, fa, ops = engine.prepare(c, "cpu", torch.float64)
+    P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_spines
+    assert ops.assign.dtype == ops.ecmp_load.dtype == torch.int32
+    n_seg = ops.assign.shape[0]
+    assert n_seg == len(compile_fault_timeline(c.spec).change_slots()) == 4
+    assert ops.ecmp_load.shape[:3] == (n_seg, P, 2 * L * S)
+    np.testing.assert_array_equal(
+        ops.link_cap.numpy(),
+        np.concatenate([ops.up.reshape(n_seg, P, -1).numpy(),
+                        ops.down.reshape(n_seg, P, -1).numpy()], -1))
+    a = ops.assign.long()
+    p = torch.arange(P)[None, None, :]
+    src, dst = ops.fb.src_leaf[None, :, None], ops.fb.dst_leaf[None, :, None]
+    assert torch.equal(ops.ecmp_up, (p * L + src) * S + a)
+    assert torch.equal(ops.ecmp_down, (p * S + a) * L + dst)
+    with pytest.raises(ValueError, match="assignment"):
+        operands_from_numpy(cfg, fa, engine._aggs_for(
+            cfg, fa, a.numpy(), engine._agg_widths(cfg, fa, a.numpy())),
+            np.ones((1, P, L, S)), np.ones((1, P, S, L)),
+            np.ones((1, P, cfg.n_hosts)), np.zeros(cfg.slots, np.int32),
+            device="cpu", dtype=torch.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -167,13 +216,13 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 @pytest.mark.parametrize("name,stage", [
-    ("giga_fabric_storage", "run"),          # ECMP
+    ("ft_cross_pod_all2all[ecmp]", "run"),   # ECMP on a fat tree
     ("bisection_fat_tree", "run"),           # fat-tree fabric
     ("reroute_random_failures", "compile"),  # failure reaction
     ("train_step_baseline", "compile"),      # schedule workload
 ])
 def test_later_slices_raise_not_implemented(name, stage):
-    spec = get_scenario(name)
+    spec = _pair(name)[1]
     if stage == "compile":
         with pytest.raises(NotImplementedError):
             compile_scenario(spec)
@@ -181,6 +230,31 @@ def test_later_slices_raise_not_implemented(name, stage):
     c = compile_scenario(spec.with_sim(slots=4))
     with pytest.raises(NotImplementedError):
         c.run(device="cpu")
+
+
+def test_ecmp_replay_raises_outside_the_slice():
+    """Fat-tree path capacity and the reaction modes of the replay are
+    later slices; the leaf-spine replay equals the reference's draw for
+    draw (including re-hash draws at each spine kill)."""
+    from repro.netsim.jx.events import ecmp_assign_segments as jx_assign
+    from repro_torch.netsim.events import ecmp_assign_segments
+    spec = get_scenario("cascading_spine_loss").with_sim(routing="ecmp")
+    tl = compile_fault_timeline(spec)
+    fa = FlowArrays.build(compile_scenario(spec).flows, spec.topo)
+    b = tl.change_slots()
+    args = (fa.src_leaf, fa.dst_leaf, tl, 5, spec.topo.n_spines, b)
+    np.testing.assert_array_equal(ecmp_assign_segments(*args),
+                                  jx_assign(*args))
+    with pytest.raises(NotImplementedError, match="reaction"):
+        ecmp_assign_segments(*args, vis_timeline=tl)
+    with pytest.raises(NotImplementedError, match="reaction"):
+        ecmp_assign_segments(*args, mode="backup")
+    ft = get_scenario("ft_cross_pod_all2all")
+    ftl = compile_fault_timeline(ft)
+    ffa = FlowArrays.build(compile_scenario(ft).flows, ft.topo)
+    with pytest.raises(NotImplementedError, match="fat-tree"):
+        ecmp_assign_segments(ffa.src_leaf, ffa.dst_leaf, ftl, 0,
+                             ft.topo.n_cores, [0])
 
 
 def test_poisson_flap_and_trace_raise_not_implemented():
