@@ -9,7 +9,8 @@ CUDA toolkit:
 Phases, each fatal on failure:
 
   build     compile the port's kernels from
-            `src/repro_torch/kernels/csrc/netsim_kernels.cu` (nvcc).
+            `src/repro_torch/kernels/csrc/{netsim,model}_kernels.cu`
+            (one nvcc per source, started together, then one link).
   kernels   each of the eight kernels against its plain PyTorch version
             on the same GPU tensors: the five AR/WAR slot kernels at the
             fig9 and giga AR shapes, bucket_load_bottleneck on the
@@ -39,6 +40,16 @@ Phases, each fatal on failure:
   packets   the per-packet path: `repro_torch.kernels.ops.jsq_route` and
             `ops.plb_select` route batches of 4096 packets, each batch
             equal to the plain versions.
+  model_kernels
+            the attention and int8-codec entry points of
+            `repro_torch.kernels.ops` at full model widths (MODEL_CASES):
+            llama3-8b prefill (4096 tokens, causal, bf16 and f32) and
+            decode (8 x 8192-slot cache), a gemma3-12b local layer
+            (window 1024), and the int8 codec on a llama3-8b MLP
+            gradient leaf; each kernel held to its plain version on the
+            card (attention within ATTN_TOL, the codec bit for bit) and
+            timed beside the plain version and one PyTorch call
+            (`scaled_dot_product_attention`, `q * scale`).
   profile   torch.profiler over 12 giga slots under AR and under ECMP:
             device busy share and the kernels that take the device time.
 
@@ -64,7 +75,8 @@ TOL = 1e-5
 # ~47 ulp of the sum
 F32_SUM_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
+# non-tensor-core peaks for float32/float64; bfloat16 on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 REGISTRY = (("fig9_victim_noise", None), ("fig11_degraded_leaf", None),
             ("fig12_plane_flap", None), ("fig12_plane_flap", "ecmp"),
             ("cascading_spine_loss", "ecmp"))
@@ -83,8 +95,11 @@ REPLACES = {
     "nic_update": "src/repro/kernels/queue_ecn.py:73",
     "jsq_route": "src/repro/kernels/jsq_route.py:22",
     "plb_select": "src/repro/kernels/plb_select.py:24",
+    "flash_attention": "src/repro/kernels/flash_attention.py:26",
+    "decode_attention": "src/repro/kernels/decode_attention.py:20",
+    "int8_encode": "src/repro/kernels/int8_codec.py:17",
+    "int8_decode": "src/repro/kernels/int8_codec.py:26",
 }
-SOURCE = "src/repro_torch/kernels/csrc/netsim_kernels.cu"
 # fabric shapes the main path hands the kernels
 SHAPES = {"fig9": dict(F=2496, P=1, L=8, S=8, H=64),
           "giga": dict(F=102400, P=2, L=256, S=16, H=4096)}
@@ -105,6 +120,25 @@ FLOPS_PER_ELEM = {"plane_split": 8, "pair_fractions": 30, "bottleneck": 2,
 NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
               target_rtt_us=12.0, min_rate=0.01, md=0.7, ai=0.08,
               rtt_gain=0.15, dcqcn_ai=0.01, alpha_g=0.0625)
+# full widths of the model_kernels phase: configs/llama3_8b.py (32 query
+# heads, 8 kv heads, head_dim 128, d_model 4096, d_ff 14336) and
+# configs/gemma3_12b.py (16 query heads, 8 kv heads, head_dim 256, local
+# layers with a 1024-token window); bfloat16 is the models' compute
+# dtype (models/config.py)
+LLAMA = dict(Hq=32, Hkv=8, D=128, window=0)
+GEMMA = dict(Hq=16, Hkv=8, D=256, window=1024)
+PREFILL_S = 4096
+DECODE_B, DECODE_S = 8, 8192
+CODEC_SHAPE = (4096, 14336)          # a llama3-8b MLP weight's gradient
+# attention kernels vs their plain versions on the card, max abs error:
+# the sums run over 4096-8192 keys in another order than the einsums
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# launches of one model_kernels main-path run
+MODEL_LAUNCHES = {"flash_attention": 3, "decode_attention": 1,
+                  "int8_encode": 1, "int8_decode": 1}
+# operations per element of the codec (|x|, max, divide, add, round,
+# clamp; decode: convert, multiply), for the operations bound
+CODEC_FLOPS = {"int8_encode": 6, "int8_decode": 2}
 
 
 def scenario(name: str, routing=None):
@@ -704,6 +738,192 @@ def packet_phase(report: dict, total: dict) -> None:
           flush=True)
 
 
+def event_ms(fn, repeats: int = 3) -> float:
+    """Median device time of one `fn()` call between CUDA events, after
+    a warm-up call; for calls too large to capture 20 times in a graph
+    (the plain attention builds (heads, 4096, 4096) float32 scores)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def attn_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """Query-key pairs that the masks keep (the attention's real work):
+    query i sees keys max(0, i - window + 1)..(i if causal else Sk - 1)."""
+    import numpy as np
+    i = np.arange(Sq, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = np.minimum(i, Sk - 1) if causal else np.full_like(i, Sk - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def model_cases(seed: int) -> list:
+    """The model_kernels cases, inputs on the card from a seeded
+    generator, in main-path order: three prefills through
+    `ops.flash_attention_bshd`, one decode, then the int8 codec."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def prefill(name, cfg, dtype):
+        S, D, window = PREFILL_S, cfg["D"], cfg["window"]
+        q = randn(1, S, cfg["Hq"], D, dtype=dtype)
+        k, v = (randn(1, S, cfg["Hkv"], D, dtype=dtype) for _ in range(2))
+        pos = torch.arange(S, device="cuda")
+        mask = None if not window else (
+            (pos[:, None] >= pos[None, :])
+            & (pos[:, None] - pos[None, :] < window))
+        dname = str(dtype).split(".")[1]
+        return dict(
+            kernel="flash_attention", what=f"{name} {dname}", dtype=dname,
+            run=lambda: ops.flash_attention_bshd(q, k, v, causal=True,
+                                                 window=window),
+            plain=lambda: ref.flash_attention_bshd_ref(
+                q, k, v, causal=True, window=window),
+            library=lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, is_causal=mask is None, enable_gqa=True),
+            bytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
+            ops=4 * D * cfg["Hq"] * attn_pairs(S, S, True, window),
+            tol=ATTN_TOL[dname],
+            summary=name.startswith("llama") and dtype == torch.bfloat16)
+
+    cases = [prefill("llama3-8b prefill", LLAMA, torch.bfloat16),
+             prefill("llama3-8b prefill", LLAMA, torch.float32),
+             prefill("gemma3-12b local", GEMMA, torch.bfloat16)]
+
+    B, S, H, D = DECODE_B, DECODE_S, LLAMA["Hq"], LLAMA["D"]
+    q = randn(B, H, 1, D, dtype=torch.bfloat16)
+    k, v = (randn(B, H, S, D, dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.tensor(np.linspace(1, S, B).round().astype(np.int32),
+                        device="cuda")
+    valid = (torch.arange(S, device="cuda")[None, None, None, :]
+             < lens[:, None, None, None])
+    keys = int(lens.sum())
+    cases.append(dict(
+        kernel="decode_attention", what=f"llama3-8b decode B={B} S={S}",
+        dtype="bfloat16",
+        run=lambda: ops.decode_attention(q, k, v, lens),
+        plain=lambda: ref.decode_attention_ref(q, k, v, lens),
+        library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=valid),
+        bytes=(2 * q.numel() + 2 * H * D * keys) * q.element_size() + 4 * B,
+        ops=4 * D * H * keys, tol=ATTN_TOL["bfloat16"], summary=True))
+
+    R, C = CODEC_SHAPE
+    grad = randn(R, C) * 1e-3
+    noise = torch.rand((R, C), generator=gen, device="cuda") - 0.5
+    # the decode reads the plain version's codes, which the encode
+    # kernel must equal bit for bit
+    codes, scale = ref.int8_encode_ref(grad, noise)
+    cases.append(dict(
+        kernel="int8_encode", what=f"int8_encode {R}x{C}", dtype="float32",
+        run=lambda: ops.int8_encode(grad, noise),
+        plain=lambda: ref.int8_encode_ref(grad, noise), library=None,
+        bytes=R * C * (4 + 4 + 1) + R * 4,
+        ops=CODEC_FLOPS["int8_encode"] * R * C, tol=None, summary=True))
+    cases.append(dict(
+        kernel="int8_decode", what=f"int8_decode {R}x{C}", dtype="float32",
+        run=lambda: ops.int8_decode(codes, scale),
+        plain=lambda: ref.int8_decode_ref(codes, scale),
+        library=lambda: codes * scale,
+        bytes=R * C * (1 + 4) + R * 4,
+        ops=CODEC_FLOPS["int8_decode"] * R * C, tol=None, summary=True))
+    return cases
+
+
+def model_phase(report: dict, total: dict, summary: dict) -> None:
+    """The attention and codec entry points of `repro_torch.kernels.ops`
+    at full model widths: one main-path run (launches counted), then
+    each kernel against its plain version on the same tensors (attention
+    within ATTN_TOL, the codec bit for bit) and timed beside the plain
+    version, one PyTorch call and the bound."""
+    import torch
+    from repro_torch.kernels import build
+
+    # the plain versions' float32 einsums run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = model_cases(seed=14)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    outs = [c["run"]() for c in cases]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("model_kernels", dict(build.LAUNCHES), MODEL_LAUNCHES,
+                   total)
+    rows = []
+    for c, got in zip(cases, outs):
+        want = c["plain"]()
+        torch.cuda.synchronize()
+        what = c["what"]
+        if c["tol"] is None:                     # the codec: bit for bit
+            for g, w in zip(*((x,) if isinstance(x, torch.Tensor) else x
+                              for x in (got, want))):
+                if g.shape != w.shape or g.dtype != w.dtype or not \
+                        torch.equal(g.view(torch.uint8),
+                                    w.view(torch.uint8)):
+                    fail(f"{what}: differs from the plain version")
+            err = 0.0
+        else:
+            if got.shape != want.shape or got.dtype != want.dtype or not \
+                    bool(got.isfinite().all()):
+                fail(f"{what}: shape, dtype or non-finite output")
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= c["tol"]:
+                fail(f"{what}: max abs err {err:.3g} > {c['tol']}")
+        del got, want
+        ms = graph_ms(c["run"], reps=5)
+        plain_ms = event_ms(c["plain"])
+        library_ms = (None if c["library"] is None
+                      else graph_ms(c["library"], reps=5))
+        bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = c["ops"] / PEAK_FLOPS[c["dtype"]] * 1e3
+        row = dict(kernel=c["kernel"], case=what, dtype=c["dtype"],
+                   max_abs_err=err, tol=c["tol"], bytes=c["bytes"],
+                   ops=c["ops"], ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"model {what}: ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"library_ms="
+              f"{'none' if library_ms is None else f'{library_ms:.6f}'} "
+              f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+              f"max_abs_err={err:.3g} (bound "
+              f"{'bit-equal' if c['tol'] is None else c['tol']})",
+              flush=True)
+        rows.append(row)
+        if c["summary"]:
+            summary[c["kernel"]] = dict(row)
+    for row in rows:
+        s = summary[row["kernel"]]
+        s["max_abs_err_all"] = max(s.get("max_abs_err_all", 0.0),
+                                   row["max_abs_err"])
+    report["model_kernels"] = dict(rows=rows, main_path_wall_s=wall)
+    print(f"model_kernels: main path (3 prefills, 1 decode, encode + "
+          f"decode) in {wall * 1e3:.3f} ms of host wall; every kernel "
+          "within its bound of the plain version", flush=True)
+    del cases, outs
+    build.reset_launches()
+    torch.cuda.empty_cache()
+
+
 def profile_phase(report: dict) -> None:
     """Where a giga slot's time goes: `torch.profiler` over the float64
     slot loop (12 slots, host prep excluded) under AR and under ECMP.
@@ -779,7 +999,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     build.library()
-    print(f"build: nvcc {build.build_seconds:.2f} s, library loaded after "
+    print(f"build: nvcc {build.build_seconds:.2f} s (both sources), "
+          f"library loaded after "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
@@ -789,17 +1010,20 @@ def main(argv=None) -> int:
     registry_phase(report, total)
     scale_phase(report, total)
     packet_phase(report, total)
+    model_phase(report, total, summary)
     profile_phase(report)
     idle = [k for k in build.KERNELS if not total.get(k)]
     if idle:
         fail(f"kernels never launched on the main paths: {idle}")
 
     kernels = [dict(
-        name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+        name=k, route="cuda",
+        source=str(build.source(k).relative_to(ROOT)), replaces=REPLACES[k],
         launches=total[k], max_abs_err=summary[k]["max_abs_err_all"],
         ms=summary[k]["ms"], plain_ms=summary[k]["plain_ms"],
         bound_ms=summary[k]["bound_ms"], bound_by=summary[k]["bound_by"],
-        library_ms=None, status="ok") for k in build.KERNELS]
+        library_ms=summary[k].get("library_ms"), status="ok")
+        for k in build.KERNELS]
     report["summary"] = kernels
     report["wall_s"] = time.perf_counter() - t0
     if args.report is not None:

@@ -1,13 +1,17 @@
 """Build and load the port's CUDA kernels.
 
-`csrc/netsim_kernels.cu` has a plain C interface, so it compiles with
-`nvcc` alone (no PyTorch headers) into a shared library that `ctypes`
-loads.  The build happens at first use, into `build/repro_torch/` at the
-root of the checkout, under a name keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+The sources in `csrc/` (`netsim_kernels.cu`, the simulator's kernels, and
+`model_kernels.cu`, attention and the int8 codec) have a plain C
+interface, so they compile with `nvcc` alone (no PyTorch headers), one
+`nvcc` per source started together, and link into one shared library
+that `ctypes` loads.  The build happens at first use, into
+`build/repro_torch/` at the root of the checkout, under a name keyed by
+a hash of every source and the flags, so an edited source rebuilds and
+an unchanged one loads at once.
 
-Every wrapper counts its launches in `LAUNCHES`: one per kernel launch,
-and nowhere else, so a run can show that it went through the kernels.
+Every wrapper counts its launches in `LAUNCHES`: one per call of a
+kernel's C entry point, and nowhere else, so a run can show that it went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -22,39 +26,70 @@ from typing import Dict, Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "netsim_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "netsim_kernels.cu", CSRC / "model_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "--fmad=false", "-std=c++17", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 
-KERNELS = ("plane_split", "pair_fractions", "bottleneck",
-           "bucket_load_bottleneck", "queue_update", "nic_update",
-           "jsq_route", "plb_select")
+_P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
+    ctypes.c_double
+_F32_F64 = (torch.float32, torch.float64)
+_F32_BF16 = (torch.float32, torch.bfloat16)
+# kernel -> (C symbol prefix, dtypes it is built for, argument types);
+# the entry point of `kernel` in `dtype` is `{prefix}_{kernel}_{suffix}`
+_ENTRIES = {
+    "plane_split": ("netsim", _F32_F64,
+                    (_P, _P, _P, _P, _I64, _I, _I, _D, _D, _P)),
+    "pair_fractions": ("netsim", _F32_F64,
+                       (_P, _P, _P, _P, _I64, _I, _D, _D, _D, _D, _P)),
+    "bottleneck": ("netsim", _F32_F64, (_P, _P, _P, _I64, _D, _P)),
+    "bucket_load_bottleneck": ("netsim", _F32_F64,
+                               (_P, _P, _P, _P, _P, _I64, _I, _I64, _I,
+                                _D, _P)),
+    "queue_update": ("netsim", _F32_F64,
+                     (_P, _P, _P, _P, _P, _I64, _D, _D, _P)),
+    "nic_update": ("netsim", _F32_F64,
+                   (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
+                    ctypes.POINTER(_D), _P)),
+    # the per-packet kernels compute in float32 only, as their Pallas
+    # bodies do
+    "jsq_route": ("netsim", (torch.float32,),
+                  (_P, _P, _P, _P, _P, _I64, _I, _D, _D, _D, _P)),
+    "plb_select": ("netsim", (torch.float32,),
+                   (_P, _P, _P, _P, _P, _P, _I64, _I, _P)),
+    "flash_attention": ("model", _F32_BF16,
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64,
+                         _I64, _I64, _I64, _I64, _I64, _I, _I, _D, _P)),
+    "decode_attention": ("model", _F32_BF16,
+                         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _D, _P)),
+    # int8_encode in the type of x, int8_decode in the output type
+    "int8_encode": ("model", _F32_BF16, (_P, _P, _P, _P, _I64, _I64, _P)),
+    "int8_decode": ("model", _F32_BF16, (_P, _P, _P, _I64, _I64, _P)),
+}
+KERNELS = tuple(_ENTRIES)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.bfloat16: "bf16"}
+MAX_GRID_Y = 65535              # CUDA's limit on gridDim.y
 
 # wall seconds of the last build in this process (0.0 = loaded a cached
 # library or never built)
 build_seconds = 0.0
-
-_P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
-    ctypes.c_double
-_ARGTYPES = {
-    "plane_split": (_P, _P, _P, _P, _I64, _I, _I, _D, _D, _P),
-    "pair_fractions": (_P, _P, _P, _P, _I64, _I, _D, _D, _D, _D, _P),
-    "bottleneck": (_P, _P, _P, _I64, _D, _P),
-    "bucket_load_bottleneck": (_P, _P, _P, _P, _P, _I64, _I, _I64, _I, _D,
-                               _P),
-    "queue_update": (_P, _P, _P, _P, _P, _I64, _D, _D, _P),
-    "nic_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
-                   ctypes.POINTER(_D), _P),
-    "jsq_route": (_P, _P, _P, _P, _P, _I64, _I, _D, _D, _D, _P),
-    "plb_select": (_P, _P, _P, _P, _P, _P, _I64, _I, _P),
-}
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-# the per-packet kernels compute in float32 only, as their Pallas bodies
-_FLOAT32_ONLY = ("jsq_route", "plb_select")
 _LIB: Optional[ctypes.CDLL] = None
+
+
+def symbol(kernel: str, dtype: torch.dtype) -> str:
+    """The C entry point of `kernel` for `dtype`."""
+    return f"{_ENTRIES[kernel][0]}_{kernel}_{_SUFFIX[dtype]}"
+
+
+def source(kernel: str) -> Path:
+    """The source that defines `kernel`: `csrc/{prefix}_kernels.cu`."""
+    return CSRC / f"{_ENTRIES[kernel][0]}_kernels.cu"
 
 
 def reset_launches() -> None:
@@ -74,29 +109,52 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libnetsim_kernels_{key}.so"
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels if no library for this source exists yet.
-    The compiler's resource report (`-Xptxas -v`) is kept beside the
+    """Compile the kernels if no library for these sources exists yet:
+    one `nvcc -c` per source, all started together, then one link.  The
+    compiler's resource reports (`-Xptxas -v`) are kept beside the
     library as `<name>.log`."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{text[-4000:]}")
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    if not failed:
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n"
+                          f"{link.stderr[-4000:]}")
     build_seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    out.with_suffix(".log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -108,13 +166,12 @@ def library() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the netsim kernels run only "
+        raise RuntimeError("no CUDA device: the port's kernels run only "
                            "on the GPU (CPU tensors take the plain path)")
     lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _ARGTYPES.items():
-        for suffix in (("f32",) if name in _FLOAT32_ONLY
-                       else _SUFFIX.values()):
-            fn = getattr(lib, f"netsim_{name}_{suffix}")
+    for kernel, (_, dtypes, argtypes) in _ENTRIES.items():
+        for dtype in dtypes:
+            fn = getattr(lib, symbol(kernel, dtype))
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     _LIB = lib
@@ -136,11 +193,21 @@ def check(name: str, t: torch.Tensor, *, device: torch.device,
         raise ValueError(f"{name}: not contiguous")
 
 
-def float_dtype(name: str, t: torch.Tensor) -> torch.dtype:
-    if t.dtype not in _SUFFIX:
-        raise ValueError(f"{name}: dtype {t.dtype}; the kernels take "
-                         "float32 or float64")
+def float_dtype(kernel: str, t: torch.Tensor) -> torch.dtype:
+    """`t`'s dtype when `kernel` is built for it; raises otherwise."""
+    dtypes = _ENTRIES[kernel][1]
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).split(".")[1] for d in dtypes)
+        raise ValueError(f"{kernel}: dtype {t.dtype}; the kernel takes "
+                         f"{names}")
     return t.dtype
+
+
+def aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless `t`'s data starts on a 16-byte boundary (the
+    kernels' vector loads need it)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data not aligned to 16 bytes")
 
 
 def cuda_device(name: str, t: torch.Tensor) -> torch.device:
@@ -157,7 +224,7 @@ def launch(kernel: str, dtype: torch.dtype, device: torch.device,
            *args) -> None:
     """Launch one kernel on the current stream of `device`, raise if
     the launch was refused, and count it."""
-    fn = getattr(library(), f"netsim_{kernel}_{_SUFFIX[dtype]}")
+    fn = getattr(library(), symbol(kernel, dtype))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(*args, stream)

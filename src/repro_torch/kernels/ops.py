@@ -4,16 +4,21 @@ package's `repro.kernels.ops`.
 Each name dispatches on its operands' device: CPU tensors take the plain
 PyTorch version (`ref`), CUDA tensors launch the hand-written kernel or
 raise.  PyTorch runs eagerly, so there is nothing to jit; block-size
-arguments of the Pallas entry points have no counterpart.  The
-attention and int8-codec entry points arrive with their kernels.
+arguments of the Pallas entry points have no counterpart.
+`flash_attention_bshd` takes GQA by reading kv head h // (Hq / Hkv) in
+the kernel instead of repeating the kv heads.
 """
 from __future__ import annotations
 
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention, flash_attention_bshd
+from .int8_codec import int8_decode, int8_encode
 from .jsq_route import jsq_route, pair_fractions
 from .link_load import bottleneck, bucket_load_bottleneck
 from .plb_select import plane_split, plb_select
 from .queue_ecn import nic_update, queue_update
 
-__all__ = ["bottleneck", "bucket_load_bottleneck", "jsq_route",
-           "nic_update", "pair_fractions", "plane_split", "plb_select",
-           "queue_update"]
+__all__ = ["bottleneck", "bucket_load_bottleneck", "decode_attention",
+           "flash_attention", "flash_attention_bshd", "int8_decode",
+           "int8_encode", "jsq_route", "nic_update", "pair_fractions",
+           "plane_split", "plb_select", "queue_update"]

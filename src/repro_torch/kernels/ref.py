@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the port's eight kernels: the slot engine's
-six and the per-packet `jsq_route` and `plb_select`.
+"""Plain PyTorch versions of the port's twelve kernels: the slot engine's
+six, the per-packet `jsq_route` and `plb_select`, the prefill and decode
+attention, and the int8 gradient codec.
 
-Each function computes, operation for operation, what its CUDA kernel in
-`csrc/netsim_kernels.cu` computes, and what the reference package's jnp
-oracle computes.  The kernel wrappers run these for tensors on the CPU;
-the tests and `chip_smoke.py` hold the kernels against them.
+Each function computes, operation for operation, what the reference
+package's jnp oracle computes, and what its CUDA kernel in
+`csrc/netsim_kernels.cu` or `csrc/model_kernels.cu` computes.  The
+kernel wrappers run these for tensors on the CPU; the tests and
+`chip_smoke.py` hold the kernels against them.
 
 Sums over the short trailing axes (planes, spines) run left to right
 (`lsum`), the order the CUDA kernels use, so a kernel and its plain
@@ -216,3 +218,70 @@ def plb_select_ref(rate_allow, eligible, local_queue, tx_rate,
     tie = _hash_tie(pkt_hash, rate.shape[0], 97)
     score = torch.where(ok, queue[None, :] + 1e-3 * tie, 1e30)
     return torch.argmin(score, dim=1).to(torch.int32)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, H, Sk, D).  Softmax attention in
+    float32, output in q's dtype.  The causal mask is top-left aligned
+    (query i sees keys 0..i, whatever Sk is); `window > 0` keeps keys
+    with q_pos - k_pos < window.  Masked scores are the finite NEG_INF,
+    so a row with no key left averages v uniformly."""
+    D = q.shape[-1]
+    Sq, Sk = q.shape[2], k.shape[2]
+    s = sdiv(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()),
+             D ** 0.5)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= (qp - kp) < window
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_bshd_ref(q, k, v, *, causal: bool = True,
+                             window: int = 0) -> torch.Tensor:
+    """Model layout, as the JAX package's `ops.flash_attention_bshd`:
+    q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D); the kv heads are repeated to
+    Hq and the result is (B, Sq, Hq, D), contiguous."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    if Hkv != Hq:
+        k = k.repeat_interleave(Hq // Hkv, dim=2)
+        v = v.repeat_interleave(Hq // Hkv, dim=2)
+    out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window)
+    return out.transpose(1, 2).contiguous()
+
+
+def decode_attention_ref(q, k, v, lengths) -> torch.Tensor:
+    """q: (B, H, 1, D); k/v: (B, H, S, D); lengths: (B,) valid cache
+    sizes.  Keys at or past `lengths[b]` score NEG_INF, so a row of
+    length 0 averages v uniformly."""
+    D, S = q.shape[-1], k.shape[2]
+    s = sdiv(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()),
+             D ** 0.5)
+    valid = (torch.arange(S, device=q.device)[None, None, None, :]
+             < lengths.to(q.device)[:, None, None, None])
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def int8_encode_ref(x, noise):
+    """Per-row int8 code with stochastic rounding.  x, noise: (R, C),
+    noise ~ U(-0.5, 0.5).  Returns (q int8 (R, C), scale float32
+    (R, 1)): scale = max(|x| row max, 1e-12) / 127 (a true division),
+    q = clip(round_half_even(x / scale + noise), -127, 127)."""
+    xf = x.float()
+    amax = xf.abs().amax(1, keepdim=True)
+    scale = sdiv(amax.clamp_min(1e-12), 127.0)
+    q = torch.clamp(torch.round(xf / scale + noise.float()), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def int8_decode_ref(q, scale, dtype=torch.float32) -> torch.Tensor:
+    """q int8 (R, C) times the per-row scale (R, 1), cast to `dtype`."""
+    return (q.float() * scale.float()).to(dtype)

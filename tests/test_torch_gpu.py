@@ -9,9 +9,11 @@ only PyTorch is installed:
 Each kernel must equal its plain PyTorch version on the same GPU tensors
 bit for bit (pair_fractions: 1e-12 relative in float64, 1e-6 in
 float32, for `exp`; bucket_load_bottleneck in float32 against the
-ordered plain sum, which is the order the kernel keeps), and the GPU
-engine must reproduce the CPU plain path of the same scenario under
-AR/WAR and under ECMP.
+ordered plain sum, which is the order the kernel keeps; the attention
+kernels within 1e-5 in float32 and 2e-2 in bfloat16, as the CPU tests
+hold the plain versions to the JAX package, since they sum in another
+order), and the GPU engine must reproduce the CPU plain path of the
+same scenario under AR/WAR and under ECMP.
 """
 import numpy as np
 import pytest
@@ -115,6 +117,119 @@ def test_packet_kernels_equal_plain_versions(cuda, N):
         tx = _uniform(rng, (N,), torch.float32, cuda, hi=0.6)
         assert torch.equal(ops.plb_select(ra, el, lq, tx, h),
                            ref.plb_select_ref(ra, el, lq, tx, h)), planes
+
+
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _normal(rng, shape, dtype, dev):
+    return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=dev).to(dtype)
+
+
+def _launched(kernel, fn):
+    """fn()'s result; fn must launch `kernel` once and nothing else."""
+    build.reset_launches()
+    out = fn()
+    assert build.LAUNCHES == dict(dict.fromkeys(build.KERNELS, 0),
+                                  **{kernel: 1})
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (100, 100, True, 0), (100, 100, False, 0), (130, 130, True, 17),
+    (70, 150, True, 0),                          # Sq < Sk, top-left
+    (150, 70, False, 20), (150, 70, True, 20)])  # rows that see no key
+def test_flash_attention_equals_plain_version(cuda, dtype, D, Sq, Sk,
+                                              causal, window):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq + Sk + D)
+    q = _normal(rng, (2, 3, Sq, D), dtype, cuda)
+    k, v = (_normal(rng, (2, 3, Sk, D), dtype, cuda) for _ in range(2))
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window))
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bshd_reads_gqa_heads_in_place(cuda, dtype):
+    rng = np.random.default_rng(3)
+    B, S, Hq, Hkv, D = 2, 77, 8, 2, 128
+    q = _normal(rng, (B, S, Hq, D), dtype, cuda)
+    k, v = (_normal(rng, (B, S, Hkv, D), dtype, cuda) for _ in range(2))
+    got = _launched("flash_attention", lambda: ops.flash_attention_bshd(
+        q, k, v, window=30))
+    assert got.shape == (B, S, Hq, D) and got.is_contiguous()
+    kr, vr = (t.repeat_interleave(Hq // Hkv, 2).transpose(1, 2)
+              for t in (k, v))
+    want = ref.flash_attention_ref(q.transpose(1, 2), kr, vr,
+                                   window=30).transpose(1, 2)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("S,lengths", [(300, [0, 5, 257]),
+                                       (1000, [999, 1000, 1])])
+def test_decode_attention_equals_plain_version(cuda, dtype, D, S, lengths):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(S + D)
+    q = _normal(rng, (3, 4, 1, D), dtype, cuda)
+    k, v = (_normal(rng, (3, 4, S, D), dtype, cuda) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = _launched("decode_attention",
+                    lambda: ops.decode_attention(q, k, v, lens))
+    want = ref.decode_attention_ref(q, k, v, lens)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(37, 1001), (4, 14336)])
+def test_int8_codec_equals_plain_version(cuda, dtype, R, C):
+    rng = np.random.default_rng(R)
+    x = _normal(rng, (R, C), dtype, cuda) * 5
+    x[0] = 0.0                                   # scale from the 1e-12 floor
+    noise = torch.tensor(rng.uniform(-0.5, 0.5, (R, C)),
+                         dtype=torch.float32, device=cuda)
+    q, scale = _launched("int8_encode", lambda: ops.int8_encode(x, noise))
+    q_ref, scale_ref = ref.int8_encode_ref(x, noise)
+    assert torch.equal(q, q_ref)
+    assert torch.equal(scale.view(torch.int32), scale_ref.view(torch.int32))
+    got = _launched("int8_decode",
+                    lambda: ops.int8_decode(q, scale, dtype=dtype))
+    want = ref.int8_decode_ref(q, scale, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_model_wrappers_refuse_bad_operands(cuda):
+    x = torch.zeros(1, 2, 8, 64, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(x, x, x)
+    y = torch.zeros(1, 2, 8, 96, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(y, y, y)
+    z = torch.zeros(1 + 2 * 8 * 64, dtype=torch.float32,
+                    device=cuda)[1:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.decode_attention(x[:, :, :1], x, x,
+                             torch.zeros(1, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="dtype"):
+        ops.int8_decode(torch.zeros(4, 8, dtype=torch.int8, device=cuda),
+                        torch.ones(4, 1, device=cuda), dtype=torch.float64)
 
 
 @pytest.mark.gpu

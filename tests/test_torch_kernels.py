@@ -357,20 +357,59 @@ def test_plb_select_vs_pallas_interpret(N, bp):
 # dispatch: CPU tensors take the plain versions, nothing else falls back
 # ---------------------------------------------------------------------------
 
-def test_cpu_tensors_take_plain_version_without_launching():
+def _cpu(seed, *shape, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(shape), dtype=dtype)
+
+
+_LENGTHS = torch.tensor([3, 0], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("call,plain", [
+    (lambda: plb_select.plane_split(*_th(*_plane_inputs(0, 16, 2)),
+                                    mode="spx", min_rate=0.01),
+     lambda: ref.plane_split_ref(*_th(*_plane_inputs(0, 16, 2)),
+                                 mode="spx", min_rate=0.01)),
+    (lambda: ops.flash_attention(_cpu(1, 1, 2, 8, 64), _cpu(2, 1, 2, 8, 64),
+                                 _cpu(3, 1, 2, 8, 64), window=3),
+     lambda: ref.flash_attention_ref(_cpu(1, 1, 2, 8, 64),
+                                     _cpu(2, 1, 2, 8, 64),
+                                     _cpu(3, 1, 2, 8, 64), window=3)),
+    (lambda: ops.flash_attention_bshd(_cpu(1, 1, 8, 2, 64),
+                                      _cpu(2, 1, 8, 2, 64),
+                                      _cpu(3, 1, 8, 2, 64)),
+     lambda: ref.flash_attention_ref(
+         _cpu(1, 1, 8, 2, 64).transpose(1, 2),
+         _cpu(2, 1, 8, 2, 64).transpose(1, 2),
+         _cpu(3, 1, 8, 2, 64).transpose(1, 2)).transpose(1, 2)),
+    (lambda: ops.decode_attention(_cpu(1, 2, 2, 1, 64), _cpu(2, 2, 2, 9, 64),
+                                  _cpu(3, 2, 2, 9, 64), _LENGTHS),
+     lambda: ref.decode_attention_ref(_cpu(1, 2, 2, 1, 64),
+                                      _cpu(2, 2, 2, 9, 64),
+                                      _cpu(3, 2, 2, 9, 64), _LENGTHS)),
+    (lambda: ops.int8_encode(_cpu(1, 4, 33), _cpu(2, 4, 33) * 0.1),
+     lambda: ref.int8_encode_ref(_cpu(1, 4, 33), _cpu(2, 4, 33) * 0.1)),
+    (lambda: ops.int8_decode(_cpu(1, 4, 33).to(torch.int8), _cpu(2, 4, 1),
+                             dtype=torch.bfloat16),
+     lambda: ref.int8_decode_ref(_cpu(1, 4, 33).to(torch.int8),
+                                 _cpu(2, 4, 1), torch.bfloat16)),
+], ids=["plane_split", "flash_attention", "flash_attention_bshd",
+        "decode_attention", "int8_encode", "int8_decode"])
+def test_cpu_tensors_take_plain_version_without_launching(call, plain):
     build.reset_launches()
-    rate, elig, demand = _plane_inputs(0, 16, 2)
-    got = plb_select.plane_split(*_th(rate, elig, demand), mode="spx",
-                                 min_rate=0.01)
-    want = ref.plane_split_ref(*_th(rate, elig, demand), mode="spx",
-                               min_rate=0.01)
-    assert torch.equal(got, want)
+    got, want = call(), plain()
+    for g, w in zip(*((x,) if isinstance(x, torch.Tensor) else x
+                      for x in (got, want))):
+        assert g.device.type == "cpu" and torch.equal(g, w)
     assert set(build.LAUNCHES) == set(build.KERNELS)
     assert all(n == 0 for n in build.LAUNCHES.values())
 
 
 def _meta(*shape, dtype=torch.float64):
     return torch.empty(shape, dtype=dtype, device="meta")
+
+
+_F32, _BF16 = torch.float32, torch.bfloat16
 
 
 @pytest.mark.parametrize("call", [
@@ -390,7 +429,18 @@ def _meta(*shape, dtype=torch.float64):
                                 _meta(16, dtype=torch.int32)),
     lambda: plb_select.plb_select(_meta(4), _meta(4), _meta(4), _meta(16),
                                   _meta(16, dtype=torch.int32)),
-], ids=list(build.KERNELS))
+    lambda: ops.flash_attention(*(_meta(1, 2, 8, 64, dtype=_BF16),) * 3),
+    lambda: ops.decode_attention(_meta(1, 2, 1, 64, dtype=_BF16),
+                                 _meta(1, 2, 8, 64, dtype=_BF16),
+                                 _meta(1, 2, 8, 64, dtype=_BF16),
+                                 _meta(1, dtype=torch.int32)),
+    lambda: ops.int8_encode(_meta(4, 8, dtype=_F32), _meta(4, 8, dtype=_F32)),
+    lambda: ops.int8_decode(_meta(4, 8, dtype=torch.int8),
+                            _meta(4, 1, dtype=_F32)),
+    lambda: ops.flash_attention_bshd(_meta(1, 8, 4, 64, dtype=_BF16),
+                                     _meta(1, 8, 2, 64, dtype=_BF16),
+                                     _meta(1, 8, 2, 64, dtype=_BF16)),
+], ids=list(build.KERNELS) + ["flash_attention_bshd"])
 def test_non_cpu_tensor_never_falls_back(call):
     build.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -413,9 +463,46 @@ def test_unknown_modes_raise():
                              **NIC_KW)
 
 
-def test_build_key_tracks_source_and_flags():
+def test_build_key_tracks_source_and_flags(tmp_path, monkeypatch):
     path = build.library_path()
     assert path.parent == build.BUILD_DIR
-    assert path.name.startswith("libnetsim_kernels_")
+    assert path.name.startswith("librepro_torch_kernels_")
     assert "--fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert [s.name for s in build.SOURCES] == ["netsim_kernels.cu",
+                                               "model_kernels.cu"]
+    assert all(s.exists() for s in build.SOURCES)
+    # the key covers every source and the flags
+    copies = []
+    for src in build.SOURCES:
+        copies.append(tmp_path / src.name)
+        copies[-1].write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "SOURCES", tuple(copies))
+    assert build.library_path() == path
+    seen = {path}
+    for copy in copies:
+        copy.write_bytes(copy.read_bytes() + b"// edited\n")
+        seen.add(build.library_path())
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    seen.add(build.library_path())
+    assert len(seen) == 4
+
+
+def test_every_kernel_has_an_entry_point_per_dtype():
+    """Each wrapper's kernel names a C entry point for each dtype it is
+    built for, and refuses the others."""
+    assert build.symbol("plane_split", torch.float64) == \
+        "netsim_plane_split_f64"
+    assert build.symbol("flash_attention", torch.bfloat16) == \
+        "model_flash_attention_bf16"
+    for kernel in ("flash_attention", "decode_attention", "int8_encode",
+                   "int8_decode"):
+        assert build.float_dtype(kernel, _meta(1, dtype=_BF16)) == _BF16
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            build.float_dtype(kernel, _meta(1))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        build.float_dtype("bottleneck", _meta(1, dtype=_BF16))
+    # ... and each entry point is defined in exactly one source
+    for kernel in build.KERNELS:
+        stem = build.symbol(kernel, torch.float32)[:-len("f32")]
+        assert sum(stem in s.read_text() for s in build.SOURCES) == 1, kernel
