@@ -10,7 +10,10 @@ Phases, each fatal on failure:
 
   build     compile the port's kernels from
             `src/repro_torch/kernels/csrc/{netsim,model}_kernels.cu`
-            (one nvcc per source, started together, then one link).
+            (one nvcc per source, started together, then one link), and
+            count the tensor-core instructions (HGMMA) that
+            `cuobjdump -sass` lists in the bf16 flash_attention kernel
+            (fatal if there are none; "not measured" without cuobjdump).
   kernels   each of the eight kernels against its plain PyTorch version
             on the same GPU tensors: the five AR/WAR slot kernels at the
             fig9 and giga AR shapes, bucket_load_bottleneck on the
@@ -49,7 +52,9 @@ Phases, each fatal on failure:
             gradient leaf; each kernel held to its plain version on the
             card (attention within ATTN_TOL, the codec bit for bit) and
             timed beside the plain version and one PyTorch call
-            (`scaled_dot_product_attention`, `q * scale`).
+            (`scaled_dot_product_attention`, `q * scale`); attention
+            lines also give TFLOP/s of unmasked work and the ratio of
+            the kernel's time to SDPA's.
   profile   torch.profiler over 12 giga slots under AR and under ECMP:
             device busy share and the kernels that take the device time.
 
@@ -61,6 +66,7 @@ registry, scale, packet and profile results) as JSON.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -195,6 +201,34 @@ def case(kernel, mode, shape, dtype, run, plain, nbytes, ops, *,
                 dtype=str(dtype).split(".")[1], run=run, plain=plain,
                 bytes=nbytes, ops=ops, rtol=rtol, loose=loose,
                 summary=summary, extra=extra or {})
+
+
+def sass_hgmma() -> str:
+    """The HGMMA (wgmma) instructions of each bf16 flash_attention kernel
+    in the built library's SASS, as `cuobjdump -sass` lists them; fails
+    if one has none."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "HGMMA in the bf16 flash kernels: not measured (no cuobjdump)"
+    sass = subprocess.run([tool, "-sass", str(build.library_path())],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    counts, head_dim = {}, None          # head_dim -> HGMMA lines
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", line)
+            head_dim = int(m.group(1)) if m else None
+            if head_dim is not None:
+                counts[head_dim] = 0
+        elif head_dim is not None and "HGMMA" in line:
+            counts[head_dim] += 1
+    if not counts or not all(counts.values()):
+        fail(f"bf16 flash kernels without HGMMA in their SASS: {counts}")
+    return ("HGMMA instructions in the bf16 flash kernel's SASS "
+            "(cuobjdump -sass), by head_dim: " + ", ".join(
+                f"{d}: {n}" for d, n in sorted(counts.items())))
 
 
 def kernel_cases(sname: str, shape: dict, dtype, seed: int):
@@ -901,11 +935,17 @@ def model_phase(report: dict, total: dict, summary: dict) -> None:
                    ops=c["ops"], ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        attn = ""
+        if c["kernel"] == "flash_attention":
+            row.update(tflops=c["ops"] / ms / 1e9,
+                       sdpa_ratio=ms / library_ms)
+            attn = (f"tflops={row['tflops']:.1f} "
+                    f"ms/sdpa_ms={row['sdpa_ratio']:.3f} ")
         print(f"model {what}: ms={ms:.6f} plain_ms={plain_ms:.6f} "
               f"library_ms="
               f"{'none' if library_ms is None else f'{library_ms:.6f}'} "
               f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
-              f"max_abs_err={err:.3g} (bound "
+              + attn + f"max_abs_err={err:.3g} (bound "
               f"{'bit-equal' if c['tol'] is None else c['tol']})",
               flush=True)
         rows.append(row)
@@ -1002,6 +1042,7 @@ def main(argv=None) -> int:
     print(f"build: nvcc {build.build_seconds:.2f} s (both sources), "
           f"library loaded after "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: {sass_hgmma()}", flush=True)
 
     report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
     summary = kernel_phase(report)

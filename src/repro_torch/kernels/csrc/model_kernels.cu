@@ -10,19 +10,51 @@
 //   int8_decode      <- int8_codec.py       _decode_kernel
 //
 // flash_attention is bound by operations (4 D flops per unmasked
-// query-key pair); this first version runs them on CUDA cores in
-// float32, not on the tensor cores, so it sits far above its bf16
-// bound.  One block of 256 threads owns 64 query rows of one (batch,
-// head) and walks the key tiles of 64 in a loop, which takes the place
-// of the Pallas grid's sequential k axis: Q (transposed), K
-// (transposed), V and the probabilities sit in shared memory as
-// float32; each thread holds a 4x4 tile of scores and a 4 x D/16 tile
-// of the output, and the 16 threads of a row group (one half warp)
-// reduce the row max and sum with shuffles.  Key tiles that no row of
-// the block may see are skipped, unless some row of the block sees no
-// key at all: that row averages v uniformly, as the reference does, so
-// it needs every tile.  GQA reads kv head h / (Hq / Hkv); strides let
-// one kernel read (B, H, S, D) and (B, S, H, D) without a copy.
+// query-key pair), which only the tensor cores deliver: 989 TFLOP/s in
+// bf16 against 67 in float32 on CUDA cores.  A llama3-8b prefill (4096
+// tokens, causal, 32 heads, head_dim 128) is 137 GFLOP: 0.139 ms on the
+// tensor cores, 2.05 ms on CUDA cores.  Two kernels:
+//
+// * bf16 (flash_attention_wgmma_kernel): warp-specialised for Hopper.
+//   A block owns 128 query rows of one (batch, head) and has three
+//   warpgroups.  One thread of the third (the producer, which gives its
+//   registers away with setmaxnreg) brings Q in once and the K and V
+//   tiles of BK keys (128 at head_dim <= 128, 64 above) through a ring of
+//   two stages in shared memory, by TMA with 128-byte swizzle, each stage
+//   guarded by full and free mbarriers, K of tile i requested ahead of V
+//   of tile i - 1.
+//   The two consumer warpgroups own 64 query rows each.  S = Q K^T is a
+//   wgmma chain (A = Q and B = K both K-major in shared memory); P,
+//   rounded to bf16 in place, is the register A operand of O += P V,
+//   whose B = V is MN-major (the descriptor's transpose bit).  Step i
+//   starts S_i and O += P_{i-1} V_{i-1} together and runs the online
+//   softmax of S_i on the accumulator fragment (a row lives in the 4
+//   threads of a quad) while the second product is on the tensor cores.
+//   P in bf16 is the usual flash-attention trade against the Pallas
+//   kernel's f32 P; the sums stay f32 and the row sums add the rounded
+//   P.  The causal and window masks run only on the tiles that cross the
+//   diagonal, the window's edge or the ragged tail; TMA zero-fills rows
+//   past the end.  Shared memory: 160 / 144 / 192 KiB at head_dim 128 /
+//   192 / 256, one block per SM; blocks are ordered heavy causal tiles
+//   first across all heads.  Registers: the consumers take 240 a thread
+//   (at head_dim 256 the output accumulator alone is 128); ptxas keeps
+//   every wgmma chain asynchronous only while no path it cannot rule out
+//   writes an accumulator in flight (hence the first tile is peeled) and
+//   the waits carry no time-out.
+// * float32 (flash_attention_kernel): CUDA cores, float32 FMAs, kept
+//   for its 1e-4 tolerance, which rules out TF32.  One block of 256
+//   threads owns 64 query rows of one (batch, head) and walks the key
+//   tiles of 64 in a loop, which takes the place of the Pallas grid's
+//   sequential k axis: Q (transposed), K (transposed), V and the
+//   probabilities sit in shared memory; each thread holds a 4x4 tile of
+//   scores and a 4 x D/16 tile of the output, and the 16 threads of a
+//   row group (one half warp) reduce the row max and sum with shuffles.
+//
+// Both skip the key tiles that no row of the block may see, unless some
+// row of the block sees no key at all: that row averages v uniformly, as
+// the reference does, so it needs every tile.  GQA reads kv head
+// h / (Hq / Hkv); strides let one kernel read (B, H, S, D) and
+// (B, S, H, D) without a copy.
 //
 // decode_attention, int8_encode and int8_decode are bound by bytes.
 // decode splits each (batch, head) row into chunks of 256 keys, one
@@ -34,15 +66,21 @@
 //
 // Masked scores are the finite NEG_INF = -1e30, as in the reference;
 // keys past the end of a tile (ragged tails) score -inf and weigh 0.
-// Built with --fmad=false like the other kernels: the products of the
-// attention kernels use explicit fmaf; the codec has no multiply-add.
+// Built with --fmad=false like the other kernels: the CUDA-core products
+// use explicit fmaf (wgmma is not touched by the flag); the codec has no
+// multiply-add.
 //
 // Plain C interface (loaded with ctypes): every entry point takes raw
 // pointers and the CUDA stream, launches on that stream, allocates
 // nothing (decode's partials arrive from the caller), and returns
-// cudaGetLastError() so the caller sees a refused launch.
+// cudaGetLastError() so the caller sees a refused launch.  The bf16
+// flash entry point encodes its three TMA descriptors on the host at
+// each call (cuTensorMapEncodeTiled, fetched through
+// cudaGetDriverEntryPointByVersion, so the library needs no -lcuda) and
+// passes them by value: no sync, no allocation, capturable in a graph.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -95,7 +133,7 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p,
   for (int i = 0; i < E; ++i) out[i] = to_float(tmp[i]);
 }
 
-// ---- flash_attention --------------------------------------------------
+// ---- flash_attention, float32 (CUDA cores) ----------------------------
 constexpr int kBQ = 64;             // query rows per block
 constexpr int kBK = 64;             // keys per tile
 constexpr int kFlashThreads = 256;  // 16 row groups x 16 column lanes
@@ -115,19 +153,19 @@ struct FlashArgs {
 };
 
 // rows [0, kBQ) x D of `src` (row stride `stride`, n_rows valid) into
-// dst[d * kBQ + r] as float: lanes take neighbouring rows, so the
-// transposed stores hit neighbouring banks.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_t(const T* __restrict__ src,
+// dst[d * kBQ + r]: lanes take neighbouring rows, so the transposed
+// stores hit neighbouring banks.
+template <int D>
+__device__ __forceinline__ void load_tile_t(const float* __restrict__ src,
                                             int64_t stride, int n_rows,
                                             float* __restrict__ dst) {
-  constexpr int E = 16 / sizeof(T);
+  constexpr int E = 4;
   constexpr int kChunks = kBQ * (D / E);
   for (int idx = threadIdx.x; idx < kChunks; idx += kFlashThreads) {
     const int r = idx % kBQ, d0 = (idx / kBQ) * E;
     float x[E];
     if (r < n_rows) {
-      load_vec<T, E>(src + r * stride + d0, x);
+      load_vec<float, E>(src + r * stride + d0, x);
     } else {
 #pragma unroll
       for (int u = 0; u < E; ++u) x[u] = 0.f;
@@ -137,19 +175,19 @@ __device__ __forceinline__ void load_tile_t(const T* __restrict__ src,
   }
 }
 
-// rows [0, kBK) x D of v into dst[c * D + d] as float (lanes take
-// neighbouring chunks of one row).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
+// rows [0, kBK) x D of v into dst[c * D + d] (lanes take neighbouring
+// chunks of one row).
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
                                           int64_t stride, int n_rows,
                                           float* __restrict__ dst) {
-  constexpr int E = 16 / sizeof(T);
+  constexpr int E = 4;
   constexpr int kChunks = kBK * (D / E);
   for (int idx = threadIdx.x; idx < kChunks; idx += kFlashThreads) {
     const int c = idx / (D / E), d0 = (idx % (D / E)) * E;
     float x[E];
     if (c < n_rows) {
-      load_vec<T, E>(src + c * stride + d0, x);
+      load_vec<float, E>(src + c * stride + d0, x);
     } else {
 #pragma unroll
       for (int u = 0; u < E; ++u) x[u] = 0.f;
@@ -159,10 +197,11 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFlashThreads, D <= 128 ? 2 : 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        FlashArgs a) {
   extern __shared__ float4 smem_v4[];          // 16-byte aligned
   float* qt = reinterpret_cast<float*>(smem_v4);  // [D][kBQ]
@@ -178,10 +217,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.group;
   const int q0 = qtile * kBQ;
   const int q_rows = min(kBQ, a.Sq - q0);
-  const T* qp = q + b * a.q_b + h * a.q_h + q0 * a.q_s;
-  const T* kp = k + b * a.k_b + hk * a.k_h;
-  const T* vp = v + b * a.k_b + hk * a.k_h;
-  T* op = o + b * a.q_b + h * a.q_h + q0 * a.q_s;
+  const float* qp = q + b * a.q_b + h * a.q_h + q0 * a.q_s;
+  const float* kp = k + b * a.k_b + hk * a.k_h;
+  const float* vp = v + b * a.k_b + hk * a.k_h;
+  float* op = o + b * a.q_b + h * a.q_h + q0 * a.q_s;
 
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int r0 = ty * 4;            // this thread's rows r0..r0+3
@@ -200,7 +239,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_end = all_live ? (k_hi + kBK - 1) / kBK
                              : (a.Sk + kBK - 1) / kBK;
 
-  load_tile_t<T, D>(qp, a.q_s, q_rows, qt);
+  load_tile_t<D>(qp, a.q_s, q_rows, qt);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -215,8 +254,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = t * kBK;
     const int k_rows = min(kBK, a.Sk - k0);
     __syncthreads();                // previous tile fully consumed
-    load_tile_t<T, D>(kp + k0 * a.k_s, a.k_s, k_rows, kt);
-    load_tile<T, D>(vp + k0 * a.k_s, a.k_s, k_rows, vs);
+    load_tile_t<D>(kp + k0 * a.k_s, a.k_s, k_rows, kt);
+    load_tile<D>(vp + k0 * a.k_s, a.k_s, k_rows, vs);
     __syncthreads();
 
     float s[4][4];
@@ -312,16 +351,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < kColVecs; ++g)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        op[r * a.q_s + g * 64 + c0 + e] =
-            from_float<T>(acc[i][g * 4 + e] / den);
+        op[r * a.q_s + g * 64 + c0 + e] = acc[i][g * 4 + e] / den;
   }
 }
 
-template <typename T, int D>
-int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 int B, const FlashArgs& a, void* stream) {
+template <int D>
+int launch_flash_f32(const void* q, const void* k, const void* v, void* o,
+                     int B, const FlashArgs& a, void* stream) {
   constexpr int kSmem = flash_smem_bytes<D>();
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -331,9 +369,527 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, B * a.Hq);
   kernel<<<grid, kFlashThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), a);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), a);
   return cudaGetLastError();
+}
+
+// ---- flash_attention, bf16 (wgmma + TMA) -------------------------------
+constexpr int kWgBQ = 128;            // query rows per block
+// keys per tile: the score and probability fragments (BK / 2 and BK / 4
+// registers) fit beside the D / 2 of the output accumulator while both
+// products are in flight, and two stages of K and V beside Q in shared
+// memory
+__host__ __device__ constexpr int wg_bk(int D) {
+  return D <= 128 ? 128 : 64;
+}
+constexpr int kWgThreads = 384;       // consumer warpgroups 0-1, producer 2
+constexpr int kConsumerWarps = 8;
+constexpr int kBoxCols = 64;          // bf16 columns of a 128-byte TMA box
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int kStages = 2;            // K/V ring (a third gained nothing)
+
+// shared memory: Q [D/64][128][64], K and V [stage][D/64][BK][64] (each
+// [rows][64] block is TMA's 128-byte-swizzled box), then 1 + 4 kStages
+// mbarriers; 1 KiB of slack to align the base to the swizzle atom
+template <int D>
+constexpr int wg_smem_bytes() {
+  return (kWgBQ + 2 * kStages * wg_bk(D)) * D * 2 + (1 + 4 * kStages) * 8 +
+         1024;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait for the phase of parity `parity` to complete.  A plain spin: a
+// time-out that traps (clock64, __trap) made ptxas hold the consumers to
+// the launch's 168 registers and spill.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// one TMA box of the 4-D map (D, S, H, B) at (c0, c1, c2, c3) into
+// shared memory; completion counts its bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptors for 128-byte-swizzled tiles whose rows
+// are 64 bf16 (128 B) and whose 8-row atoms are 1024 B apart (the stride
+// byte offset).  K-major (Q, K): the leading byte offset is unused.
+// MN-major (V): the leading byte offset is the step from one 64-column
+// block to the next.  The start address sits in the low bits in 16-byte
+// units, so a descriptor plus bytes / 16 addresses a later part of the
+// same tile.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+template <int N>
+__device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// accumulator operand lists of the wgmma wrappers below: %i in the
+// instruction, "+f"(d[i]) in the constraints
+#define WG_D0_31                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+  "%28, %29, %30, %31"
+#define WG_D32_63                                                           \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "       \
+  "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "       \
+  "%58, %59, %60, %61, %62, %63"
+#define WG_D64_95                                                           \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "       \
+  "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "       \
+  "%90, %91, %92, %93, %94, %95"
+#define WG_D96_127                                                          \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "    \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "      \
+  "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define WG_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F16(i) WG_F4(i), WG_F4(i + 4), WG_F4(i + 8), WG_F4(i + 12)
+#define WG_F32(i) WG_F16(i), WG_F16(i + 16)
+
+// S[64 x N] = (acc ? S : 0) + A[64 x 16] B[16 x N], A and B K-major in
+// shared memory (descriptors da, db)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_D0_31
+      "}, %32, %33, p, 1, 1, 0, 0;\n}"
+      : WG_F32(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D0_31
+      ", " WG_D32_63 "}, %64, %65, p, 1, 1, 0, 0;\n}"
+      : WG_F32(0), WG_F32(32)
+      : "l"(da), "l"(db), "r"(acc));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int acc) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
+  else wgmma_ss_n128(d, da, db, acc);
+}
+// O[64 x N] += A[64 x 16] B[16 x N], A in registers (4 bf16 pairs a
+// thread), B MN-major in shared memory (the last 1: transposed B)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_D0_31
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;"
+      : WG_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D0_31
+      ", " WG_D32_63 "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;"
+      : WG_F32(0), WG_F32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {" WG_D0_31
+      ", " WG_D32_63 ", " WG_D64_95
+      "}, {%96, %97, %98, %99}, %100, 1, 1, 1, 1;"
+      : WG_F32(0), WG_F32(32), WG_F32(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_D0_31
+      ", " WG_D32_63 ", " WG_D64_95 ", " WG_D96_127
+      "}, {%128, %129, %130, %131}, %132, 1, 1, 1, 1;"
+      : WG_F32(0), WG_F32(32), WG_F32(64), WG_F32(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+#undef WG_F32
+#undef WG_F16
+#undef WG_F4
+#undef WG_D0_31
+#undef WG_D32_63
+#undef WG_D64_95
+#undef WG_D96_127
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The accumulator fragment of a 64 x N wgmma: thread t of the warpgroup
+// holds rows 16 (t / 32) + (t % 32) / 4 (`lo`) and that + 8 (`hi`);
+// element i sits in row hi when bit 1 of i is set, at column
+// 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ o, FlashArgs a) {
+  constexpr int BK = wg_bk(D);
+  constexpr int kBlocks = D / kBoxCols;           // 64-column blocks
+  constexpr uint32_t kQBytes = kWgBQ * D * 2;
+  constexpr uint32_t kTileBytes = BK * D * 2;     // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + kQBytes;
+  const uint32_t sv = sk + kStages * kTileBytes;
+  // mbarriers: Q full, then per stage K full, V full, K free, V free
+  const uint32_t bars = sv + kStages * kTileBytes;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 + 32 * s; };
+  auto v_full = [&](int s) { return bars + 16 + 32 * s; };
+  auto k_free = [&](int s) { return bars + 24 + 32 * s; };
+  auto v_free = [&](int s) { return bars + 32 + 32 * s; };
+
+  const int qtile = gridDim.y - 1 - blockIdx.y;   // heavy causal tiles first
+  const int bh = blockIdx.x;
+  const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.group;
+  const int q0 = qtile * kWgBQ;
+
+  // key tiles any row of the block may see, and whether every row sees
+  // at least one key (then the tiles outside can be skipped)
+  const int q_last = min(q0 + kWgBQ, a.Sq) - 1;
+  int k_lo = 0, k_hi = a.Sk;
+  if (a.window > 0) k_lo = max(0, q0 - a.window + 1);
+  if (a.causal) k_hi = min(a.Sk, q_last + 1);
+  const int last_lo = a.window > 0 ? max(0, q_last - a.window + 1) : 0;
+  const int last_hi = a.causal ? min(q_last, a.Sk - 1) : a.Sk - 1;
+  const bool all_live = last_lo <= last_hi;
+  const int t_begin = all_live ? k_lo / BK : 0;
+  const int n = (all_live ? (k_hi + BK - 1) / BK : (a.Sk + BK - 1) / BK) -
+                t_begin;                          // tiles to walk
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_free(s), kConsumerWarps);
+      mbar_init(v_free(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread makes every TMA load, K of tile i ahead
+    // of V of tile i - 1, the order in which the consumers use them ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 256) {
+      auto load = [&](const CUtensorMap* map, uint32_t dst, uint32_t full,
+                      uint32_t empty, int i) {
+        mbar_wait(empty, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, kTileBytes);
+        for (int c = 0; c < kBlocks; ++c)
+          tma_load(dst + c * BK * 128, map, full, c * kBoxCols,
+                   (t_begin + i) * BK, hk, b);
+      };
+      mbar_expect_tx(q_full, kQBytes);
+      for (int c = 0; c < kBlocks; ++c)
+        tma_load(sq + c * kWgBQ * 128, &tq, q_full, c * kBoxCols, q0, h, b);
+      for (int i = 0; i <= n; ++i) {
+        const int s = i % kStages, sp = (i + kStages - 1) % kStages;
+        if (i < n)
+          load(&tk, sk + s * kTileBytes, k_full(s), k_free(s), i);
+        if (i > 0)
+          load(&tv, sv + sp * kTileBytes, v_full(sp), v_free(sp), i - 1);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup.  Step i starts
+    // S_i = Q K_i^T and O += P_{i-1} V_{i-1} together and runs the
+    // softmax of S_i while the second product is on the tensor cores ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int first = q0 + wg * 64, last = first + 63;
+    const int row_lo = first + 16 * (tid / 32) + lane / 4;
+    const float scale_log2 = a.scale * kLog2e;
+    float acc[D / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    uint32_t pa[BK / 16][4];                      // P_{i-1}, bf16 pairs
+    const uint64_t dq = wg_desc(sq + wg * 64 * 128, 16);  // this WG's rows
+    mbar_wait(q_full, 0);
+
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // S_i = Q K_i^T into sc, started and committed
+    auto start_s = [&](int i, float (&sc)[BK / 2]) {
+      const int s = i % kStages;
+      const uint64_t dk = wg_desc(sk + s * kTileBytes, 16);
+      mbar_wait(k_full(s), (i / kStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {       // 16 columns of D each
+        const int c = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss<BK>(sc, dq + (c * kWgBQ * 128 + off) / 16,
+                     dk + (c * BK * 128 + off) / 16, kk > 0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    };
+    // O += P_{i-1} V_{i-1} (P in pa), started and committed
+    auto start_pv = [&](int i) {
+      const int s = i % kStages;
+      const uint64_t dv = wg_desc(sv + s * kTileBytes, BK * 128);
+      mbar_wait(v_full(s), (i / kStages) & 1);
+      wg_fence_regs(acc);             // the rescale of O lands before
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)        // 16 keys each
+        wgmma_rs<D>(acc, pa[kk], dv + kk * 16 * 128 / 16);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    };
+    // the online softmax of tile i: sc becomes P_i, rounded to bf16 (the
+    // row sums add the rounded values, the weights P V applies); corr
+    // gets the factors that rescale O and l to the new row maxima
+    auto softmax = [&](int i, float (&sc)[BK / 2], float (&corr)[2]) {
+      const int k0 = (t_begin + i) * BK;
+      // a tile every row of the warpgroup sees whole needs no mask
+      const bool whole = k0 + BK <= a.Sk &&
+          (!a.causal || k0 + BK - 1 <= first) &&
+          (a.window <= 0 || last - k0 < a.window);
+      float mt[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {          // scores in log2 units
+        float x = sc[j] * scale_log2;
+        if (!whole) {
+          const int row = row_lo + 8 * ((j / 2) % 2);
+          const int col = k0 + 8 * (j / 4) + 2 * (lane % 4) + j % 2;
+          if ((a.causal && row < col) ||
+              (a.window > 0 && row - col >= a.window))
+            x = kNegInf;
+          if (col >= a.Sk) x = -INFINITY;
+        }
+        sc[j] = x;
+        mt[(j / 2) % 2] = fmaxf(mt[(j / 2) % 2], x);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float m_new = fmaxf(m[r], mt[r]);
+        corr[r] = fast_exp2(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        sc[j] = __bfloat162float(
+            __float2bfloat16_rn(fast_exp2(sc[j] - m[(j / 2) % 2])));
+        rs[(j / 2) % 2] += sc[j];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], corr[r], rs[r]);
+    };
+    // P_i as the A fragments of P V: scores j = 8 kk .. 8 kk + 7 are keys
+    // 16 kk .. 16 kk + 15
+    auto pack = [&](const float (&sc)[BK / 2]) {
+#pragma unroll
+      for (int j = 0; j < BK / 2; j += 2) {
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(sc[j], sc[j + 1]);
+        pa[j / 8][(j % 8) / 2] = *reinterpret_cast<const uint32_t*>(&pb);
+      }
+    };
+
+    {                                             // tile 0: O is still 0
+      float sc[BK / 2], corr[2];
+      start_s(0, sc);
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      wg_fence_regs(sc);
+      release(k_free(0));
+      softmax(0, sc, corr);
+      pack(sc);
+    }
+    // every wait below is unconditional: ptxas serialises the wgmmas when
+    // some path it cannot rule out writes O while P V is in flight
+    for (int i = 1; i < n; ++i) {
+      float sc[BK / 2], corr[2];
+      start_s(i, sc);
+      start_pv(i - 1);
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      wg_fence_regs(sc);
+      release(k_free(i % kStages));
+      softmax(i, sc, corr);                       // while P V runs
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      wg_fence_regs(acc);
+      release(v_free((i - 1) % kStages));
+      pack(sc);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] *= corr[(j / 2) % 2];
+    }
+    start_pv(n - 1);
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    wg_fence_regs(acc);
+    release(v_free((n - 1) % kStages));
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+    __nv_bfloat16* op = o + b * a.q_b + h * a.q_h;
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int r = (j / 2) % 2, row = row_lo + 8 * r;
+      const int col = 8 * (j / 4) + 2 * (lane % 4);
+      if (row < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(op + row * a.q_s + col) =
+            __floats2bfloat162_rn(acc[j] / l[r], acc[j + 1] / l[r]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from libcuda, looked up once
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the 4-D map (D, S, H, B) of a bf16 tensor with element strides s_st,
+// h_st, b_st (d contiguous), read in boxes of 64 columns x `rows` rows
+// with 128-byte swizzle; rows past S read as zeros
+bool encode_map(CUtensorMap* map, const void* ptr, int D, int S, int H,
+                int B, int64_t s_st, int64_t h_st, int64_t b_st,
+                int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_st) * 2,
+                                 static_cast<cuuint64_t>(h_st) * 2,
+                                 static_cast<cuuint64_t>(b_st) * 2};
+  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_flash_bf16(const void* q, const void* k, const void* v, void* o,
+                      int B, const FlashArgs& a, void* stream) {
+  constexpr int kSmem = wg_smem_bytes<D>();
+  const int Hkv = a.Hq / a.group;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, D, a.Sq, a.Hq, B, a.q_s, a.q_h, a.q_b, kWgBQ) ||
+      !encode_map(&tk, k, D, a.Sk, Hkv, B, a.k_s, a.k_h, a.k_b, wg_bk(D)) ||
+      !encode_map(&tv, v, D, a.Sk, Hkv, B, a.k_s, a.k_h, a.k_b, wg_bk(D)))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attention_wgmma_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * a.Hq, (a.Sq + kWgBQ - 1) / kWgBQ);
+  kernel<<<grid, kWgThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_flash(const void* q, const void* k, const void* v, void* o,
+                 int B, const FlashArgs& a, void* stream) {
+  if constexpr (sizeof(T) == 2)
+    return launch_flash_bf16<D>(q, k, v, o, B, a, stream);
+  else
+    return launch_flash_f32<D>(q, k, v, o, B, a, stream);
 }
 
 template <typename T>

@@ -3,16 +3,28 @@
   * `flash_attention` ((B, H, S, D) layout) replaces the Pallas kernel
     `repro/kernels/flash_attention.py::_flash_kernel`.  CPU tensors take
     `ref.flash_attention_ref`; CUDA tensors launch
-    `model_flash_attention` (one block per (batch x head, 64 query
-    rows), a loop over key tiles of 64 with the online softmax in
-    registers and shared memory, float32 math on CUDA cores).  Operations
-    bound it; this first version runs them off the tensor cores.
+    `model_flash_attention`.  Operations bound it (4 D flops per
+    query-key pair the masks keep: 137 GFLOP, 0.139 ms at the bf16
+    tensor-core peak, for a llama3-8b prefill of 4096 tokens), so bf16
+    runs on the tensor cores: a warp-specialised Hopper kernel in which
+    one producer thread brings Q and a two-stage ring of K and V tiles
+    (128 keys at head_dim <= 128, 64 above) in by TMA and two consumer
+    warpgroups (64 query rows each, 128 a block) run S = Q K^T and
+    O += P V as `wgmma`, the online softmax of one tile in registers
+    while the previous tile's P V is on the tensor cores, P rounded to
+    bf16 (within 2e-2 of the float32 plain version).  float32 stays on
+    CUDA cores (64 query rows a block, float32 FMAs), since its 1e-4
+    tolerance rules out TF32.
   * `flash_attention_bshd` is the model-layout entry of
     `repro.kernels.ops`: q (B, S, Hq, D), k/v (B, S, Hkv, D).  CPU tensors
     take `ref.flash_attention_bshd_ref`, which repeats the kv heads and
     transposes as the JAX wrapper does; on the GPU the same kernel reads
     that layout through its strides and kv head h // (Hq / Hkv), so
     nothing is copied.
+
+TMA reads a bf16 tensor through a descriptor whose strides must be
+multiples of 16 bytes and whose base is 16-byte aligned; the wrapper
+raises on any other layout rather than copy or fall back.
 """
 from __future__ import annotations
 
@@ -70,6 +82,8 @@ def _launch(q, k, v, kv_shape, h_ax, s_ax, causal, window):
                          f"{build.MAX_GRID_Y} and non-empty sequences")
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.aligned(name, t)
+        if dt == torch.bfloat16:
+            _tma_strides(name, t)
     out = torch.empty_like(q)
     qs, ks = q.stride(), k.stride()
     build.launch("flash_attention", dt, dev, q.data_ptr(), k.data_ptr(),
@@ -77,3 +91,12 @@ def _launch(q, k, v, kv_shape, h_ax, s_ax, causal, window):
                  qs[0], qs[h_ax], qs[s_ax], ks[0], ks[h_ax], ks[s_ax],
                  int(bool(causal)), int(window), 1.0 / D ** 0.5)
     return out
+
+
+def _tma_strides(name: str, t: torch.Tensor) -> None:
+    """Raise unless TMA can read `t`: unit stride along D and every other
+    stride a multiple of 8 bf16 elements (16 bytes)."""
+    if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]):
+        raise ValueError(f"flash_attention: {name} strides {t.stride()}; "
+                         "TMA needs stride 1 along D and the others "
+                         "multiples of 8 elements")

@@ -12,8 +12,9 @@ float32, for `exp`; bucket_load_bottleneck in float32 against the
 ordered plain sum, which is the order the kernel keeps; the attention
 kernels within 1e-5 in float32 and 2e-2 in bfloat16, as the CPU tests
 hold the plain versions to the JAX package, since they sum in another
-order), and the GPU engine must reproduce the CPU plain path of the
-same scenario under AR/WAR and under ECMP.
+order and the bf16 flash kernel rounds the probabilities to bf16 for
+its second product), and the GPU engine must reproduce the CPU plain
+path of the same scenario under AR/WAR and under ECMP.
 """
 import numpy as np
 import pytest
@@ -143,7 +144,14 @@ def _launched(kernel, fn):
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
     (100, 100, True, 0), (100, 100, False, 0), (130, 130, True, 17),
     (70, 150, True, 0),                          # Sq < Sk, top-left
-    (150, 70, False, 20), (150, 70, True, 20)])  # rows that see no key
+    (150, 70, False, 20), (150, 70, True, 20),   # rows that see no key
+    # the bf16 kernel's tiling: several 128-row blocks and ring stages,
+    # a window across tile edges, Sq != Sk both ways, and rows >= 299
+    # that see no key with one 128-row block straddling them
+    (1000, 1000, True, 0), (4096, 4096, True, 0), (1000, 1000, True, 300),
+    (1000, 1000, False, 300), (300, 1000, True, 0), (1000, 300, True, 0),
+    (300, 1000, False, 128), (1000, 300, False, 0), (1000, 200, True, 100),
+    (1000, 200, False, 100)])
 def test_flash_attention_equals_plain_version(cuda, dtype, D, Sq, Sk,
                                               causal, window):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -173,6 +181,43 @@ def test_flash_attention_bshd_reads_gqa_heads_in_place(cuda, dtype):
                                    window=30).transpose(1, 2)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 300])
+def test_flash_attention_bshd_gqa_head_dim_256(cuda, window):
+    rng = np.random.default_rng(window + 5)
+    B, S, Hq, Hkv, D = 1, 1000, 8, 2, 256
+    q = _normal(rng, (B, S, Hq, D), torch.bfloat16, cuda)
+    k, v = (_normal(rng, (B, S, Hkv, D), torch.bfloat16, cuda)
+            for _ in range(2))
+    got = _launched("flash_attention", lambda: ops.flash_attention_bshd(
+        q, k, v, window=window))
+    want = ref.flash_attention_bshd_ref(q, k, v, window=window)
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_layouts_tma_cannot_read(cuda):
+    """bf16 operands go through TMA descriptors: a stride that is not a
+    multiple of 16 bytes raises before anything launches, as do a
+    non-contiguous view and a misaligned base."""
+    x = torch.zeros(2 * 64 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    # contiguous for PyTorch (the batch axis has size 1), but its batch
+    # stride is 7 elements
+    odd = x.as_strided((1, 2, 64, 64), (7, 64 * 64, 64, 1))
+    assert odd.is_contiguous()
+    good = x[:2 * 64 * 64].view(1, 2, 64, 64)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="TMA"):
+        ops.flash_attention(odd, good, good)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(good, good.transpose(2, 3), good)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(good, good, x[1:1 + 2 * 64 * 64].view(
+            1, 2, 64, 64))
+    assert build.LAUNCHES["flash_attention"] == 0
 
 
 @pytest.mark.gpu
