@@ -16,14 +16,16 @@ Phases, each fatal on failure:
             (fatal if there are none; "not measured" without cuobjdump).
   kernels   each of the eight kernels against its plain PyTorch version
             on the same GPU tensors: the five AR/WAR slot kernels at the
-            fig9 and giga AR shapes, bucket_load_bottleneck on the
-            engine's own ECMP plans of fig11 and the giga point, all in
-            float32 and float64, and the per-packet jsq_route and
-            plb_select at the `kernels_bench.py` shapes plus a block
-            tail; CUDA-event times of kernel and plain version (each
-            captured in a CUDA graph of 20 calls, so host launch
-            overhead is excluded) beside the least time the card needs
-            for the bytes moved or the operations done.
+            fig9 and giga AR shapes (bottleneck on one pair of links and
+            as a slot's grouped launch of four and of two pairs),
+            bucket_load_bottleneck on the engine's own ECMP plans of
+            fig11 and the giga point, all in float32 and float64, and
+            the per-packet jsq_route and plb_select at the
+            `kernels_bench.py` shapes plus a block tail; CUDA-event
+            times of kernel and plain version (each captured in a CUDA
+            graph of 20 calls, so host launch overhead is excluded)
+            beside the least time the card needs for the bytes moved or
+            the operations done.
   sync      the AR and the ECMP slot loops run with CUDA sync debugging
             set to "error": nothing in them makes the host wait.
   registry  fig9_victim_noise, fig11_degraded_leaf and fig12_plane_flap
@@ -87,10 +89,11 @@ REGISTRY = (("fig9_victim_noise", None), ("fig11_degraded_leaf", None),
             ("fig12_plane_flap", None), ("fig12_plane_flap", "ecmp"),
             ("cascading_spine_loss", "ecmp"))
 # hand-written kernel launches per slot on each leaf-spine routing path
-AR_SLOT = {"plane_split": 1, "pair_fractions": 1, "bottleneck": 4,
+# (bottleneck: one grouped launch scales every link of a slot)
+AR_SLOT = {"plane_split": 1, "pair_fractions": 1, "bottleneck": 1,
            "queue_update": 2, "nic_update": 1}
 ECMP_SLOT = {"plane_split": 1, "bucket_load_bottleneck": 1,
-             "bottleneck": 2, "queue_update": 2, "nic_update": 1}
+             "bottleneck": 1, "queue_update": 2, "nic_update": 1}
 PER_SLOT = {"ar": AR_SLOT, "war": AR_SLOT, "ecmp": ECMP_SLOT}
 REPLACES = {
     "plane_split": "src/repro/kernels/plb_select.py:47",
@@ -261,6 +264,13 @@ def kernel_cases(sname: str, shape: dict, dtype, seed: int):
     acc_cap, acc_load = f(H, P, zero_frac=0.05), f(H, P, hi=2.0)
     q_link = f(P, L, S, hi=70.0)
     qmean, alpha, esr = f(F, P, hi=8.0), f(F, P), b(F, 1, p=0.5)
+    # a slot's grouped bottleneck launch: up and down links, then the
+    # access links toward and from the hosts (ECMP: the last two only)
+    down_cap, down_load = f(P, S, L, zero_frac=0.1), f(P, S, L, hi=2.0)
+    rx_load = f(H, P, hi=2.0)
+    groups = {"slot x4": ((link_cap, link_load_), (down_cap, down_load),
+                          (acc_cap, acc_load), (acc_cap, rx_load)),
+              "slot x2": ((acc_cap, acc_load), (acc_cap, rx_load))}
     n_pair, n_link = P * L * L * S, P * L * S
     big = sname == "giga" and dtype == torch.float64
     fl = FLOPS_PER_ELEM
@@ -288,8 +298,15 @@ def kernel_cases(sname: str, shape: dict, dtype, seed: int):
             "bottleneck", name, sname, dtype,
             lambda c=c, ld=ld: link_load.bottleneck(c, ld),
             lambda c=c, ld=ld: ref.bottleneck_ref(c, ld),
-            3 * c.numel() * isz, c.numel() * fl["bottleneck"],
-            summary=big and name == "links"))
+            3 * c.numel() * isz, c.numel() * fl["bottleneck"]))
+    for name, group in groups.items():
+        n = sum(c.numel() for c, _ in group)
+        out.append(case(
+            "bottleneck", name, sname, dtype,
+            lambda g=group: link_load.bottleneck_many(g),
+            lambda g=group: tuple(ref.bottleneck_ref(c, ld) for c, ld in g),
+            3 * n * isz, n * fl["bottleneck"],
+            summary=big and name == "slot x4"))
     out.append(case(
         "queue_update", "", sname, dtype,
         lambda: queue_ecn.queue_update(q_link, link_load_, link_cap,

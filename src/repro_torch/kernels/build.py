@@ -36,6 +36,7 @@ LINK_FLAGS = (*ARCH, "-shared")
 
 _P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
     ctypes.c_double
+_PP, _PI64 = ctypes.POINTER(_P), ctypes.POINTER(_I64)
 _F32_F64 = (torch.float32, torch.float64)
 _F32_BF16 = (torch.float32, torch.bfloat16)
 # kernel -> (C symbol prefix, dtypes it is built for, argument types);
@@ -45,7 +46,9 @@ _ENTRIES = {
                     (_P, _P, _P, _P, _I64, _I, _I, _D, _D, _P)),
     "pair_fractions": ("netsim", _F32_F64,
                        (_P, _P, _P, _P, _I64, _I, _D, _D, _D, _D, _P)),
-    "bottleneck": ("netsim", _F32_F64, (_P, _P, _P, _I64, _D, _P)),
+    # arrays of up to four (cap, load, out) pointers and lengths, and
+    # their count: one launch for all of them
+    "bottleneck": ("netsim", _F32_F64, (_PP, _PP, _PP, _PI64, _I, _D, _P)),
     "bucket_load_bottleneck": ("netsim", _F32_F64,
                                (_P, _P, _P, _P, _P, _I64, _I, _I64, _I,
                                 _D, _P)),

@@ -16,12 +16,23 @@
 // All but jsq_route do a handful of flops per element, so bytes bound
 // them on the card: each reads its inputs once and writes its outputs
 // once (jsq_route does a hash and a compare per packet and port, so
-// operations bound it).  The designs are the simple ones: one thread
-// per element (bottleneck, queue_update, and pair_fractions, whose row
-// max and row sum go through shared memory), per flow (plane_split,
-// nic_update: the plane axis P <= 8 lives in registers), per link
-// bucket (bucket_load_bottleneck) or per packet (jsq_route,
-// plb_select), in grid-stride loops.
+// operations bound it).  Most designs are the simple ones: one thread
+// per element (queue_update), per flow (plane_split, nic_update: the
+// plane axis P <= 8 lives in registers), per link bucket
+// (bucket_load_bottleneck) or per packet (jsq_route, plb_select), in
+// grid-stride loops.  Two are shaped by what held them back:
+//
+//   pair_fractions  the bytes of a 2M-element giga call bound it, but
+//                   its exp, IEEE divisions and per-row chains make the
+//                   math nearly as long as the traffic, and a design
+//                   where every element walked its row's max and sum
+//                   spent 16x the chain work.  Rows of S <= 32 spines
+//                   now live in groups of lanes of one warp, and one
+//                   lane a row walks each chain once.
+//   bottleneck      a slot's link and access scales are 8,192 elements
+//                   each at giga scale: launch latency, not bytes,
+//                   bounds one such call.  One launch takes up to four
+//                   (cap, load, out) entries, passed by value.
 //
 // Unlike the Pallas bodies, which cast to float32, the six slot-engine
 // kernels compute in their input type, so the float64 parity mode runs
@@ -38,6 +49,7 @@
 // nothing, and returns cudaGetLastError() so the caller sees a refused
 // launch.  Booleans travel as uint8.
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -147,28 +159,151 @@ __global__ void plane_split_kernel(const T* __restrict__ rate,
   }
 }
 
-// ---- pair_fractions: one thread per (row, spine) element -------------
-// q/cap/w/out (R, S), a row being one (plane, src leaf, dst leaf).  A
-// block holds `rows` whole rows, rows * S threads: each thread computes
-// one logit from coalesced loads, takes its row's max and then the
-// left-to-right sum of exp(logit - max) from shared memory (every thread
-// of a row reads the same values in the same order), and writes its
-// normalised fraction.
+// ---- pair_fractions --------------------------------------------------
+// q/cap/w/out (R, S), a row being one (plane, src leaf, dst leaf): per
+// element a logit, per row its max, exp(logit - max), the left-to-right
+// row sum, and the normalised fraction.  Three inputs read and one
+// output written bound it: at giga scale (R = 131,072, S = 16) 67 MB in
+// float64, 0.020 ms at the HBM rate.  But its math (an exp, IEEE
+// divisions, the row chains) takes nearly as long on this card, and the
+// two add up more than they overlap, so the design cuts instructions.
+
+// x / y, or x * inv where inv != 0 is y's exact reciprocal (y a power
+// of two): the same correctly rounded value, without a division.
 template <typename T>
-__device__ __forceinline__ T pair_logit(T q, T cap, T w, T hi, T qmax,
-                                        T nbins, T temperature) {
-  const T qbin = floor(clip_(q / qmax, T(0), hi) * nbins) + T(1);
-  const T score = qbin / max_(w, T(1e-9));
-  return cap > T(1e-9) ? -score / temperature : T(-1e30);
+__device__ __forceinline__ T div_(T x, T y, T inv) {
+  return inv != T(0) ? x * inv : x / y;
 }
 
+// inv_qmax / inv_temperature: see div_ (0 = divide)
+template <typename T>
+__device__ __forceinline__ T pair_logit(T q, T cap, T w, T hi, T qmax,
+                                        T nbins, T temperature, T inv_qmax,
+                                        T inv_temperature) {
+  const T qbin =
+      floor(clip_(div_(q, qmax, inv_qmax), T(0), hi) * nbins) + T(1);
+  const T score = qbin / max_(w, T(1e-9));
+  return cap > T(1e-9) ? div_(-score, temperature, inv_temperature)
+                       : T(-1e30);
+}
+
+// S <= 32 (every registry fabric: S = 2, 8, 16).  A row is a group of
+// G lanes (S rounded up to a power of two), one element a lane, so a
+// warp's loads and stores cover 32 / G consecutive rows, coalesced.  A
+// warp takes tiles of kPairUnroll such row groups: all of a tile's
+// loads are issued before its math, so each thread has kPairUnroll
+// loads of each input in flight.
+//
+// The row max and the left-to-right row sum are serial chains over S
+// values.  Taken by every lane of a row (through shared memory behind
+// block barriers, or by S shuffles a lane) they cost S steps an element
+// and, with the exp and the IEEE divisions, make the math as long as
+// the memory traffic.  Here each warp stages its tile in its own slice
+// of shared memory and one lane a row walks each chain once: the
+// tile's logits go in, each row lane writes its row's max into the
+// row's padding slot, every lane takes exp(logit - max) of its element,
+// and the row lanes add the row left to right, the order of the plain
+// version.  Rows are padded to G + 1 values, so the row lanes' column
+// reads hit distinct banks; only __syncwarp orders the warp's steps.
+// Divisions by a power-of-two qmax or temperature (the engine's 8 and
+// 0.25) become the exactly equal multiplications by the reciprocal.
+constexpr int kPairUnroll = 4;
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads) pair_fractions_warp_kernel(
+    const T* __restrict__ q, const T* __restrict__ cap,
+    const T* __restrict__ w, T* __restrict__ out, int64_t R, int S, T hi,
+    T qmax, T nbins, T temperature, T inv_qmax, T inv_temperature) {
+  constexpr int kRowsPerPass = 32 / G;
+  constexpr int kTileRows = kPairUnroll * kRowsPerPass;
+  constexpr int kStride = G + 1;                 // slot G: the row's max/sum
+  __shared__ T tiles[kThreads / 32][kTileRows * kStride];
+  const int lane = threadIdx.x & 31;
+  const int s = lane % G;
+  const int sub = lane / G;
+  T* tile = tiles[threadIdx.x / 32];
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x / 32 * kTileRows;
+  // the loop bound is uniform across the warp, so every lane reaches
+  // every __syncwarp
+  for (int64_t first = warp * kTileRows; first < R; first += step) {
+    const int64_t base = first * S;              // the tile's first element
+    const int64_t rows = R - first;              // live rows from `first`
+    int row[kPairUnroll];
+    bool live[kPairUnroll];
+    T vq[kPairUnroll], vc[kPairUnroll], vw[kPairUnroll];
+#pragma unroll
+    for (int u = 0; u < kPairUnroll; ++u) {
+      row[u] = u * kRowsPerPass + sub;
+      live[u] = s < S && row[u] < rows;
+    }
+#pragma unroll
+    for (int u = 0; u < kPairUnroll; ++u) {
+      const int64_t i = base + row[u] * S + s;
+      vq[u] = live[u] ? __ldg(q + i) : T(0);
+      vc[u] = live[u] ? __ldg(cap + i) : T(0);
+      vw[u] = live[u] ? __ldg(w + i) : T(0);
+    }
+    T l[kPairUnroll], e[kPairUnroll];
+#pragma unroll
+    for (int u = 0; u < kPairUnroll; ++u) {
+      l[u] = live[u] ? pair_logit(vq[u], vc[u], vw[u], hi, qmax, nbins,
+                                  temperature, inv_qmax, inv_temperature)
+                     : T(-1e30);
+      tile[row[u] * kStride + s] = l[u];
+    }
+    __syncwarp();
+    for (int r = lane; r < kTileRows; r += 32) {
+      const T* v = tile + r * kStride;
+      T m = v[0];
+#pragma unroll
+      for (int k = 1; k < G; ++k)
+        if (k < S) m = max_(m, v[k]);
+      tile[r * kStride + G] = m;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kPairUnroll; ++u)
+      e[u] = exp(l[u] - tile[row[u] * kStride + G]);
+    __syncwarp();                                // every max read
+#pragma unroll
+    for (int u = 0; u < kPairUnroll; ++u) tile[row[u] * kStride + s] = e[u];
+    __syncwarp();
+    for (int r = lane; r < kTileRows; r += 32) {
+      const T* v = tile + r * kStride;
+      T sum = v[0];
+#pragma unroll
+      for (int k = 1; k < G; ++k)
+        if (k < S) sum = sum + v[k];
+      tile[r * kStride + G] = sum;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kPairUnroll; ++u) {
+      const T sum = tile[row[u] * kStride + G];
+      if (live[u])
+        out[base + row[u] * S + s] =
+            sum > T(0) ? e[u] / max_(sum, T(1e-30)) : T(0);
+    }
+    __syncwarp();                                // every sum read
+  }
+}
+
+// S > 32, the generic path (no registry fabric reaches it; the tests
+// do): one thread per (row, spine) element, `rows` whole rows per
+// block, rows * S threads.  Each thread computes one logit from
+// coalesced loads, takes its row's max and then the left-to-right sum
+// of exp(logit - max) from shared memory (every thread of a row reads
+// the same values in the same order), and writes its normalised
+// fraction.
 template <typename T>
 __global__ void pair_fractions_kernel(const T* __restrict__ q,
                                       const T* __restrict__ cap,
                                       const T* __restrict__ w,
                                       T* __restrict__ out, int64_t R,
                                       int S, int rows, T hi, T qmax,
-                                      T nbins, T temperature) {
+                                      T nbins, T temperature, T inv_qmax,
+                                      T inv_temperature) {
   extern __shared__ unsigned char smem[];
   T* buf = reinterpret_cast<T*>(smem);
   const int s = threadIdx.x % S;
@@ -181,7 +316,7 @@ __global__ void pair_fractions_kernel(const T* __restrict__ q,
     const bool live = row < R;
     const int64_t i = row * S + s;
     const T l = live ? pair_logit(q[i], cap[i], w[i], hi, qmax, nbins,
-                                  temperature)
+                                  temperature, inv_qmax, inv_temperature)
                      : T(-1e30);
     buf[threadIdx.x] = l;
     __syncthreads();
@@ -199,11 +334,47 @@ __global__ void pair_fractions_kernel(const T* __restrict__ q,
 }
 
 // ---- bottleneck: elementwise min(1, cap / max(load, eps)) ------------
+// One launch covers up to kMaxGroup (cap, load, out) entries: a slot
+// scales its up, down and access links in one launch instead of four.
+// The entries travel by value in the kernel's arguments (no device-side
+// table, no host-to-device copy, so a CUDA graph can capture the
+// launch); the grid covers the entries' summed length, and each thread
+// finds its entry from the prefix offsets with compile-time indices
+// only (a run-time index into the arguments would copy them to local
+// memory).  Bytes bound the work, but at giga scale a slot's four
+// entries are 786 KB, 0.24 us at the HBM rate, well below one launch's
+// latency.
+constexpr int kMaxGroup = 4;
+
 template <typename T>
-__global__ void bottleneck_kernel(const T* __restrict__ cap,
-                                  const T* __restrict__ load,
-                                  T* __restrict__ out, int64_t n, T eps) {
-  GRID_STRIDE(i, n) { out[i] = min_(cap[i] / max_(load[i], eps), T(1)); }
+struct BottleneckGroup {
+  const T* cap[kMaxGroup];
+  const T* load[kMaxGroup];
+  T* out[kMaxGroup];
+  int64_t start[kMaxGroup];     // entry k covers [start[k], start[k + 1])
+  int64_t total;
+  int count;
+};
+
+template <typename T>
+__global__ void bottleneck_kernel(const BottleneckGroup<T> g, T eps) {
+  GRID_STRIDE(i, g.total) {
+    const T* c = g.cap[0];
+    const T* l = g.load[0];
+    T* o = g.out[0];
+    int64_t base = 0;
+#pragma unroll
+    for (int k = 1; k < kMaxGroup; ++k) {
+      if (k < g.count && i >= g.start[k]) {
+        c = g.cap[k];
+        l = g.load[k];
+        o = g.out[k];
+        base = g.start[k];
+      }
+    }
+    const int64_t j = i - base;
+    o[j] = min_(c[j] / max_(l[j], eps), T(1));
+  }
 }
 
 // ---- queue_update: elementwise fluid queue integrator + util ---------
@@ -475,34 +646,90 @@ int launch_plane_split(const void* rate, const void* elig,
   return cudaGetLastError();
 }
 
+template <typename T, int G>
+int launch_pair_fractions_warp(const T* q, const T* cap, const T* w,
+                               T* out, int64_t R, int S, T hi, T qmax,
+                               T nbins, T temperature, T inv_qmax,
+                               T inv_temperature, cudaStream_t s) {
+  constexpr int64_t kBlockRows =
+      (kThreads / 32) * kPairUnroll * (32 / G);   // one tile per warp
+  int64_t blocks = (R + kBlockRows - 1) / kBlockRows;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  pair_fractions_warp_kernel<T, G>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+          q, cap, w, out, R, S, hi, qmax, nbins, temperature, inv_qmax,
+          inv_temperature);
+  return cudaGetLastError();
+}
+
+// 1 / x when x is a power of two whose reciprocal is a normal T (then
+// multiplying by it rounds exactly as dividing by x does), else 0.
 template <typename T>
-int launch_pair_fractions(const void* q, const void* cap, const void* w,
-                          void* out, int64_t R, int S, double hi,
-                          double qmax, double nbins, double temperature,
+T exact_reciprocal(T x) {
+  int e = 0;
+  const T m = std::frexp(x, &e);
+  const T inv = T(1) / x;
+  return (m == T(0.5) || m == T(-0.5)) && std::isnormal(inv) ? inv : T(0);
+}
+
+template <typename T>
+int launch_pair_fractions(const void* q_, const void* cap_, const void* w_,
+                          void* out_, int64_t R, int S, double hi_,
+                          double qmax_, double nbins_, double temperature_,
                           void* stream) {
   if (S < 1 || S > 1024) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* q = static_cast<const T*>(q_);
+  const T* cap = static_cast<const T*>(cap_);
+  const T* w = static_cast<const T*>(w_);
+  T* out = static_cast<T*>(out_);
+  const T hi = T(hi_), qmax = T(qmax_), nbins = T(nbins_),
+          temperature = T(temperature_);
+  const T inv_qmax = exact_reciprocal(qmax),
+          inv_temperature = exact_reciprocal(temperature);
+#define PAIR_WARP(G)                                                    \
+  return launch_pair_fractions_warp<T, G>(q, cap, w, out, R, S, hi, qmax, \
+                                          nbins, temperature, inv_qmax,  \
+                                          inv_temperature, st)
+  if (S == 1) PAIR_WARP(1);
+  if (S == 2) PAIR_WARP(2);
+  if (S <= 4) PAIR_WARP(4);
+  if (S <= 8) PAIR_WARP(8);
+  if (S <= 16) PAIR_WARP(16);
+  if (S <= 32) PAIR_WARP(32);
+#undef PAIR_WARP
   const int rows = S >= kThreads ? 1 : kThreads / S;
   const int threads = rows * S;
   int64_t blocks = (R + rows - 1) / rows;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   pair_fractions_kernel<T><<<static_cast<unsigned>(blocks), threads,
-                             threads * sizeof(T),
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(cap),
-      static_cast<const T*>(w), static_cast<T*>(out), R, S, rows, T(hi),
-      T(qmax), T(nbins), T(temperature));
+                             threads * sizeof(T), st>>>(
+      q, cap, w, out, R, S, rows, hi, qmax, nbins, temperature, inv_qmax,
+      inv_temperature);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch_bottleneck(const void* cap, const void* load, void* out,
-                      int64_t n, double eps, void* stream) {
-  if (n == 0) return cudaSuccess;
-  bottleneck_kernel<T><<<grid_for(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(cap), static_cast<const T*>(load),
-      static_cast<T*>(out), n, T(eps));
+int launch_bottleneck(const void* const* cap, const void* const* load,
+                      void* const* out, const int64_t* n, int count,
+                      double eps, void* stream) {
+  if (count < 1 || count > kMaxGroup) return cudaErrorInvalidValue;
+  BottleneckGroup<T> g{};
+  int64_t total = 0;
+  for (int k = 0; k < count; ++k) {
+    if (n[k] < 0) return cudaErrorInvalidValue;
+    g.cap[k] = static_cast<const T*>(cap[k]);
+    g.load[k] = static_cast<const T*>(load[k]);
+    g.out[k] = static_cast<T*>(out[k]);
+    g.start[k] = total;
+    total += n[k];
+  }
+  g.total = total;
+  g.count = count;
+  if (total == 0) return cudaSuccess;
+  bottleneck_kernel<T><<<grid_for(total), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(g, T(eps));
   return cudaGetLastError();
 }
 
@@ -641,9 +868,9 @@ extern "C" int netsim_plb_select_f32(const void* rate, const void* elig,
                                     nbins, temperature, stream);          \
   }                                                                       \
   extern "C" int netsim_bottleneck_##SUFFIX(                              \
-      const void* cap, const void* load, void* out, int64_t n,            \
-      double eps, void* stream) {                                         \
-    return launch_bottleneck<T>(cap, load, out, n, eps, stream);          \
+      const void* const* cap, const void* const* load, void* const* out,  \
+      const int64_t* n, int count, double eps, void* stream) {            \
+    return launch_bottleneck<T>(cap, load, out, n, count, eps, stream);   \
   }                                                                       \
   extern "C" int netsim_bucket_load_bottleneck_##SUFFIX(                  \
       const void* rate, const void* plan, const void* cap, void* load,    \

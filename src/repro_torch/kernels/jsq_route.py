@@ -4,9 +4,14 @@
     spines), replaces the Pallas kernel
     `repro/kernels/jsq_route.py::_pair_score_kernel`.  CPU tensors take
     `ref.pair_score_softmax_ref`; CUDA tensors launch
-    `netsim_pair_fractions` (one thread per (row, spine) element, whole
-    rows per block; the row max and the left-to-right row sum go through
-    shared memory).
+    `netsim_pair_fractions`.  Bytes bound it (three inputs read, one
+    output written), though its math (exp, two IEEE divisions, the row
+    chains) takes nearly as long.  For S <= 32 spines, every registry
+    fabric, a row is a group of lanes of one warp, one element a lane,
+    so the loads stay coalesced; each warp stages its tile in shared
+    memory, where one lane a row takes the row max and the left-to-right
+    row sum once for the whole row.  Wider rows (S > 32) take one thread
+    per element, each walking its row in shared memory.
   * `jsq_route`, the switch's per-packet egress port, replaces
     `_jsq_kernel`.  CPU tensors take `ref.jsq_route_ref`; CUDA tensors
     launch `netsim_jsq_route` (one thread per packet, the port scores

@@ -1,8 +1,12 @@
 """Link loads and their bottleneck scale min(1, cap / max(load, eps)):
 
-  * `bottleneck` replaces the Pallas kernel
+  * `bottleneck` and `bottleneck_many` replace the Pallas kernel
     `repro/kernels/link_load.py::_bottleneck_kernel` (CPU tensors:
-    `ref.bottleneck_ref`; CUDA: `netsim_bottleneck`, elementwise);
+    `ref.bottleneck_ref`; CUDA: `netsim_bottleneck`, elementwise).  One
+    call of the kernel is a few thousand elements a slot, so its launch,
+    not its bytes, costs the time: `bottleneck_many` scales up to four
+    (cap, load) pairs in one launch, and `bottleneck` is its one-pair
+    case;
   * `bucket_load_bottleneck` replaces `_load_bottleneck_kernel`, ECMP's
     fused link-bucket sum + bottleneck (CPU tensors:
     `ref.load_bottleneck_ref`; CUDA: `netsim_bucket_load_bottleneck`,
@@ -10,28 +14,66 @@
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import build, ref
 
 EPS = 1e-12
+MAX_GROUP = 4                   # (cap, load) pairs one launch takes
+
+
+def bottleneck_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], *,
+                    eps: float = EPS) -> Tuple[torch.Tensor, ...]:
+    """`min(1, cap / max(load, eps))` for each of 1-4 `(cap, load)` pairs
+    (each pair of matching shape, every tensor of one dtype and on one
+    device), in one kernel launch.  Returns one result per pair, in
+    order, each bit-equal to `ref.bottleneck_ref` of its pair."""
+    pairs = tuple(pairs)
+    if not 1 <= len(pairs) <= MAX_GROUP:
+        raise ValueError(f"bottleneck_many: {len(pairs)} (cap, load) "
+                         f"pairs; the kernel takes 1-{MAX_GROUP}")
+    first = pairs[0][0]
+    for k, (cap, load) in enumerate(pairs):
+        for name, t in ((f"cap[{k}]", cap), (f"load[{k}]", load)):
+            if t.device != first.device:
+                raise ValueError(f"{name}: on {t.device}, expected "
+                                 f"{first.device}")
+            if t.dtype != first.dtype:
+                raise ValueError(f"{name}: dtype {t.dtype}, expected "
+                                 f"{first.dtype}")
+        if load.shape != cap.shape:
+            raise ValueError(f"load[{k}]: shape {tuple(load.shape)}, "
+                             f"expected {tuple(cap.shape)}")
+    if first.device.type == "cpu":
+        return tuple(ref.bottleneck_ref(cap, load, eps=eps)
+                     for cap, load in pairs)
+    dev = build.cuda_device("bottleneck", first)
+    dt = build.float_dtype("bottleneck", first)
+    for k, (cap, load) in enumerate(pairs):
+        build.check(f"cap[{k}]", cap, device=dev, dtype=dt, shape=cap.shape)
+        build.check(f"load[{k}]", load, device=dev, dtype=dt,
+                    shape=cap.shape)
+    outs = tuple(torch.empty_like(cap) for cap, _ in pairs)
+    n = len(pairs)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+
+    build.launch("bottleneck", dt, dev, ptrs(c for c, _ in pairs),
+                 ptrs(ld for _, ld in pairs), ptrs(outs),
+                 (ctypes.c_int64 * n)(*(c.numel() for c, _ in pairs)), n,
+                 eps)
+    return outs
 
 
 def bottleneck(cap: torch.Tensor, load: torch.Tensor, *,
                eps: float = EPS) -> torch.Tensor:
-    """Elementwise scale factor, any matching shape."""
-    if cap.device.type == "cpu":
-        return ref.bottleneck_ref(cap, load, eps=eps)
-    dev = build.cuda_device("bottleneck", cap)
-    dt = build.float_dtype("bottleneck", cap)
-    build.check("cap", cap, device=dev, dtype=dt, shape=cap.shape)
-    build.check("load", load, device=dev, dtype=dt, shape=cap.shape)
-    out = torch.empty_like(cap)
-    build.launch("bottleneck", dt, dev, cap.data_ptr(), load.data_ptr(),
-                 out.data_ptr(), cap.numel(), eps)
-    return out
+    """Elementwise scale factor, any matching shape: `bottleneck_many`
+    with one pair."""
+    return bottleneck_many(((cap, load),), eps=eps)[0]
 
 
 def bucket_load_bottleneck(rate: torch.Tensor, plan: torch.Tensor,

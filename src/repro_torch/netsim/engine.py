@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.jsq_route import pair_fractions
-from repro_torch.kernels.link_load import bottleneck, bucket_load_bottleneck
+from repro_torch.kernels.link_load import bottleneck_many, \
+    bucket_load_bottleneck
 from repro_torch.kernels.plb_select import plane_split
 from repro_torch.kernels.queue_ecn import nic_update, queue_update
 from repro_torch.kernels.ref import lsum, sdiv
@@ -270,9 +271,10 @@ def _pair_rate_sum(cfg: EngineConfig, fabric_rate: torch.Tensor,
 
 def _route_pair(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
                 ops: SlotOperands, use_war: bool):
-    """AR / weighted-AR: leaf-pair spine fractions, link loads, and the
-    per-flow fabric throughput and mean path queue."""
-    P, L = cfg.n_planes, cfg.n_leaves
+    """AR / weighted-AR, up to the link loads: leaf-pair spine
+    fractions, the pair queues they were scored on, and the up and down
+    link loads.  `_pair_through` finishes the routing once the loads
+    are scaled."""
     # kernel operands are contiguous whatever layout broadcasting picks
     cap = torch.minimum(up[:, :, None, :],
                         down.transpose(1, 2)[:, None, :, :]).contiguous()
@@ -284,14 +286,20 @@ def _route_pair(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
     # einsum("plm,plms->pls") / ("plm,plms->psm") as ordered sums
     load_up = lsum(contrib.permute(0, 1, 3, 2))            # (P, L, S)
     load_down = lsum(contrib.permute(0, 3, 2, 1))          # (P, S, L)
-    f_up = bottleneck(up, load_up, eps=_EPS)
-    f_down = bottleneck(down, load_down, eps=_EPS)
+    return pair, q, load_up, load_down
+
+
+def _pair_through(cfg: EngineConfig, fabric_rate, pair, q, f_up, f_down,
+                  ops: SlotOperands):
+    """AR / weighted-AR, from the links' bottleneck scales: the per-flow
+    fabric throughput and mean path queue."""
+    P, L = cfg.n_planes, cfg.n_leaves
     scale_pair = torch.minimum(f_up[:, :, None, :],
                                f_down.transpose(1, 2)[:, None, :, :])
     path_scale = lsum(pair * scale_pair).reshape(P, L * L)
     through = fabric_rate * path_scale[:, ops.pair_idx].T
     qmean = lsum(pair * q).reshape(P, L * L)[:, ops.pair_idx].T
-    return load_up, load_down, through, qmean
+    return through, qmean
 
 
 def _route_ecmp(cfg: EngineConfig, carry: SimCarry, fabric_rate,
@@ -333,17 +341,23 @@ def _slot_step(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry,
     same_leaf = fb.same_leaf[:, None]
     fabric_rate = torch.where(same_leaf, 0.0, offered)
 
+    # every link scale of the slot in one bottleneck launch: the access
+    # links', and under AR/WAR the fabric links' too (ECMP's come from
+    # bucket_load_bottleneck)
+    load_acc_tx = _seg_sum(offered, ops.agg_src)          # (H, P)
+    load_acc_rx = _seg_sum(offered, ops.agg_dst)
+    access = ((acc, load_acc_tx), (acc, load_acc_rx))
     if cfg.routing == "ecmp":
         load_up, load_down, through, qmean = _route_ecmp(
             cfg, carry, fabric_rate, ops, seg)
+        f_acc_tx, f_acc_rx = bottleneck_many(access, eps=_EPS)
     else:
-        load_up, load_down, through, qmean = _route_pair(
+        pair, q, load_up, load_down = _route_pair(
             cfg, carry, fabric_rate, up, down, ops, cfg.routing == "war")
-
-    load_acc_tx = _seg_sum(offered, ops.agg_src)          # (H, P)
-    load_acc_rx = _seg_sum(offered, ops.agg_dst)
-    f_acc_tx = bottleneck(acc, load_acc_tx, eps=_EPS)
-    f_acc_rx = bottleneck(acc, load_acc_rx, eps=_EPS)
+        f_up, f_down, f_acc_tx, f_acc_rx = bottleneck_many(
+            ((up, load_up), (down, load_down)) + access, eps=_EPS)
+        through, qmean = _pair_through(cfg, fabric_rate, pair, q, f_up,
+                                       f_down, ops)
     # access liveness doubles as the RTT probe result: a plane is
     # reachable iff both endpoints' access links on it are up
     alive = (acc[fb.src] > _EPS) & (acc[fb.dst] > _EPS)   # (F, P)

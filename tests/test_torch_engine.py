@@ -11,8 +11,8 @@ across ar|war|ecmp x spx|dcqcn|global|esr|swlb, fig11_degraded_leaf and
 fig12_plane_flap at full length, and fig12_plane_flap and
 cascading_spine_loss under ECMP at full length (capacity changes
 mid-run; the spine cascade makes the ECMP re-hash draw).  The
-full-length registry cross and the giga-scale point under ECMP are
-marked `slow`.
+full-length registry cross and the giga-scale point under ECMP and
+under AR are marked `slow`.
 
 `test_slot_handover` hands the JAX engine's state after slot k to the
 port's `_slot_step` (through `carry_from_numpy` / `operands_from_numpy`)
@@ -177,17 +177,25 @@ def test_float32_fast_mode_tracks_float64():
                                       ("fig12_plane_flap[ecmp]", "swlb"),
                                       ("fig11_degraded_leaf[ecmp]", "esr")])
 def test_kernel_calls_per_slot(monkeypatch, name, nic):
-    """Every AR/WAR slot calls plane_split, pair_fractions, bottleneck
-    x4, queue_update x2 and nic_update once each; every ECMP slot
-    plane_split, bucket_load_bottleneck, bottleneck x2 (access),
-    queue_update x2 and nic_update once each — with contiguous tensors
-    (the CUDA wrappers refuse anything else)."""
+    """Every AR/WAR slot calls plane_split, pair_fractions,
+    bottleneck_many (up, down and both access links in one launch),
+    queue_update x2 and nic_update once each; every ECMP slot
+    plane_split, bucket_load_bottleneck, bottleneck_many (both access
+    links), queue_update x2 and nic_update once each — with contiguous
+    tensors (the CUDA wrappers refuse anything else)."""
     calls = {}
-    for fn in ("plane_split", "pair_fractions", "bottleneck",
+
+    def tensors(args):
+        for a in args:
+            if isinstance(a, (tuple, list)):
+                yield from tensors(a)
+            elif isinstance(a, torch.Tensor):
+                yield a
+
+    for fn in ("plane_split", "pair_fractions", "bottleneck_many",
                "bucket_load_bottleneck", "queue_update", "nic_update"):
         def counted(*args, _fn=fn, _orig=getattr(engine, fn), **kw):
-            assert all(a.is_contiguous() for a in args
-                       if isinstance(a, torch.Tensor)), _fn
+            assert all(a.is_contiguous() for a in tensors(args)), _fn
             calls[_fn] = calls.get(_fn, 0) + 1
             return _orig(*args, **kw)
         monkeypatch.setattr(engine, fn, counted)
@@ -196,10 +204,10 @@ def test_kernel_calls_per_slot(monkeypatch, name, nic):
     _run_port(base, slots=slots, nic=nic, **sim)
     if sim.get("routing") == "ecmp":
         want = {"plane_split": slots, "bucket_load_bottleneck": slots,
-                "bottleneck": 2 * slots}
+                "bottleneck_many": slots}
     else:
         want = {"plane_split": slots, "pair_fractions": slots,
-                "bottleneck": 4 * slots}
+                "bottleneck_many": slots}
     assert calls == dict(want, queue_update=2 * slots, nic_update=slots)
 
 
@@ -352,6 +360,20 @@ def test_giga_ecmp_equals_golden_and_numpy():
                                 golden)
 
 
+@pytest.mark.slow
+def test_giga_ar_equals_numpy_and_jax():
+    """giga_fabric_storage under AR (SPX, 102,400 flows, 60 slots),
+    float64: the plain path that the card's kernels are held against,
+    held in turn to the NumPy engine and to the JAX engine under the
+    strict contract.  AR's leaf-pair sums are ordered in all three."""
+    spec = get_scenario("giga_fabric_storage").with_sim(routing="ar")
+    port = (spec,) + _run_port("giga_fabric_storage", routing="ar")[1:]
+    rspec, rc, ref_np, ref_jx = _run_refs("giga_fabric_storage",
+                                          routing="ar")
+    _assert_parity(port, (rspec, rc, ref_np))
+    _assert_parity(port, (rspec, rc, ref_jx))
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py's checks, on the CPU path
 # ---------------------------------------------------------------------------
@@ -386,7 +408,10 @@ def test_chip_smoke_contracts_hold_on_cpu(capsys):
             smoke.check_launches("x", dict.fromkeys(build.KERNELS, 3), want,
                                  {})
     assert smoke.PER_SLOT["ecmp"] == {
-        "plane_split": 1, "bucket_load_bottleneck": 1, "bottleneck": 2,
+        "plane_split": 1, "bucket_load_bottleneck": 1, "bottleneck": 1,
+        "queue_update": 2, "nic_update": 1}
+    assert smoke.PER_SLOT["ar"] == {
+        "plane_split": 1, "pair_fractions": 1, "bottleneck": 1,
         "queue_update": 2, "nic_update": 1}
     assert set(smoke.REPLACES) == set(build.KERNELS)
     if not torch.cuda.is_available():

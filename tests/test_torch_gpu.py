@@ -86,6 +86,78 @@ def test_kernels_equal_plain_versions(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S", [1, 2, 3, 8, 16, 17, 32, 33, 64, 1024])
+@pytest.mark.parametrize("size", ["small", "large"])
+@pytest.mark.parametrize("nbins,temperature,qmax", [(16, 0.25, 8.0),
+                                                    (10, 0.3, 6.0)])
+def test_pair_fractions_equals_plain_version(cuda, dtype, S, size, nbins,
+                                             temperature, qmax):
+    """Every row-group width of the warp kernel (S <= 32) and the
+    generic path (S > 32).  Row counts are odd, so the last tile and
+    the last warp are ragged; the large ones span thousands of blocks.
+    Every 7th row has no live spine (all logits -1e30: each fraction is
+    1/S), every 7th from the 3rd exactly one.  The engine's constants
+    (power-of-two qmax and temperature, which the kernel multiplies by
+    their exact reciprocals) and others (which it divides by)."""
+    R = 1001 if size == "small" else (1 << 22) // S + 3
+    rng = np.random.default_rng(S)
+    q = _uniform(rng, (R, S), dtype, cuda, hi=12.0)
+    cap = _uniform(rng, (R, S), dtype, cuda, zero_frac=0.15)
+    cap[::7] = 0.0
+    one = torch.arange(3, R, 7, device=cuda)
+    cap[one] = 0.0
+    cap[one, one % S] = 0.5
+    w = cap * _uniform(rng, (R, S), dtype, cuda)
+    kw = dict(nbins=nbins, temperature=temperature, qmax=qmax)
+    got = _launched("pair_fractions",
+                    lambda: jsq_route.pair_fractions(q, cap, w, **kw))
+    want = ref.pair_score_softmax_ref(q, cap, w, **kw)
+    torch.testing.assert_close(
+        got, want, rtol=1e-12 if dtype == torch.float64 else 1e-6,
+        atol=torch.finfo(dtype).tiny)
+    assert torch.equal(got[::7], torch.full_like(got[::7], 1.0 / S))
+    assert torch.equal(got[one, one % S], torch.ones_like(got[one, 0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shapes", [
+    [(2, 8, 16)],
+    [(1,), (37, 3)],
+    [(257,), (2, 256, 16), (1,)],
+    [(2, 256, 16), (2, 16, 256), (4096, 2), (1001,)]],
+    ids=["1", "2", "3", "4"])
+def test_bottleneck_many_equals_plain_version(cuda, dtype, shapes):
+    """One launch for 1-4 entries of different shapes (a one-element
+    entry, lengths that are not multiples of the block), each entry
+    bit-equal to the plain version."""
+    rng = np.random.default_rng(len(shapes))
+    pairs = [(_uniform(rng, sh, dtype, cuda, hi=2.0, zero_frac=0.1),
+              _uniform(rng, sh, dtype, cuda, hi=2.0, zero_frac=0.1))
+             for sh in shapes]
+    got = _launched("bottleneck", lambda: link_load.bottleneck_many(pairs))
+    assert len(got) == len(pairs)
+    for g, (c, ld) in zip(got, pairs):
+        assert g.shape == c.shape and torch.equal(g, ref.bottleneck_ref(c, ld))
+
+
+@pytest.mark.gpu
+def test_bottleneck_many_refuses_bad_groups(cuda):
+    x = torch.ones(8, 4, dtype=torch.float64, device=cuda)
+    build.reset_launches()
+    for pairs, match in (
+            ([], "pairs"), ([(x, x)] * 5, "pairs"),
+            ([(x, x), (x.float(), x.float())], "dtype"),
+            ([(x, x), (x.cpu(), x.cpu())], "on cpu"),
+            ([(x.cpu(), x.cpu()), (x, x)], "on cuda"),
+            ([(x, x), (x, x[:4])], "shape")):
+        with pytest.raises(ValueError, match=match):
+            link_load.bottleneck_many(pairs)
+    assert build.LAUNCHES["bottleneck"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_bucket_load_bottleneck_equals_plain_version(cuda, dtype):
     rng = np.random.default_rng(1)
     F, P, R, C = 1001, 3, 37, 13                 # odd sizes: ragged tails
@@ -306,9 +378,10 @@ def test_gpu_engine_reproduces_cpu_path(cuda, name, nic, routing):
         spec = spec.with_sim(routing=routing)
     build.reset_launches()
     gpu = compile_scenario(spec).run(device=cuda)
-    route = ({"bucket_load_bottleneck": 60, "bottleneck": 120}
+    # one grouped bottleneck launch a slot, under AR/WAR and ECMP
+    route = ({"bucket_load_bottleneck": 60, "bottleneck": 60}
              if routing == "ecmp" else
-             {"pair_fractions": 60, "bottleneck": 240})
+             {"pair_fractions": 60, "bottleneck": 60})
     assert build.LAUNCHES == dict(
         dict.fromkeys(build.KERNELS, 0), plane_split=60, queue_update=120,
         nic_update=60, **route)

@@ -162,6 +162,27 @@ def test_bottleneck_and_queue_update_f64_bit_equal(shape):
     np.testing.assert_array_equal(got_u.numpy(), want_u)
 
 
+# entries of one grouped bottleneck launch: a one-element entry and
+# lengths that are not multiples of the kernel's 256-thread block
+_GROUPS = {"1": [(2, 8, 16)], "2": [(1,), (37, 3)],
+           "3": [(257,), (2, 256, 16), (1,)],
+           "4": [(2, 256, 16), (2, 16, 256), (4096, 2), (1001,)]}
+
+
+@pytest.mark.parametrize("shapes", list(_GROUPS.values()), ids=list(_GROUPS))
+def test_bottleneck_many_f64_bit_equal(shapes):
+    pairs = [_link_inputs(10 + k, sh)[1:] for k, sh in enumerate(shapes)]
+    with jax.enable_x64(True):
+        want = [np.asarray(jx_ref.bottleneck_ref(*_jx(cap, load)))
+                for load, cap in pairs]
+    got = link_load.bottleneck_many(
+        [tuple(_th(cap, load)) for load, cap in pairs])
+    assert len(got) == len(shapes)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
 @pytest.mark.parametrize("mode", ["spx", "dcqcn", "agg"])
 @pytest.mark.parametrize("F,P", [(37, 1), (129, 2), (65, 4)])
 def test_nic_update_f64_bit_equal(mode, F, P):
@@ -307,6 +328,20 @@ def test_bottleneck_and_queue_update_vs_pallas_interpret():
                                **F32_TOL)
 
 
+@pytest.mark.parametrize("shapes", list(_GROUPS.values()), ids=list(_GROUPS))
+def test_bottleneck_many_vs_pallas_interpret(shapes):
+    pairs = [tuple(a.astype(np.float32)
+                   for a in _link_inputs(20 + k, sh)[1:][::-1])
+             for k, sh in enumerate(shapes)]
+    got = link_load.bottleneck_many(
+        [tuple(_th(cap, load, dtype=torch.float32)) for cap, load in pairs])
+    for g, (cap, load) in zip(got, pairs):
+        want = jx_link.bottleneck(*_jx(cap, load), bp=256, use_pallas=True,
+                                  interpret=True)
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), **F32_TOL)
+
+
 @pytest.mark.parametrize("mode", ["spx", "dcqcn", "agg"])
 @pytest.mark.parametrize("F,P,bp", [(37, 3, 16), (130, 2, 64)])
 def test_nic_update_vs_pallas_interpret(mode, F, P, bp):
@@ -440,11 +475,33 @@ _F32, _BF16 = torch.float32, torch.bfloat16
     lambda: ops.flash_attention_bshd(_meta(1, 8, 4, 64, dtype=_BF16),
                                      _meta(1, 8, 2, 64, dtype=_BF16),
                                      _meta(1, 8, 2, 64, dtype=_BF16)),
-], ids=list(build.KERNELS) + ["flash_attention_bshd"])
+    lambda: ops.bottleneck_many([(_meta(8), _meta(8)),
+                                 (_meta(3, 2), _meta(3, 2))]),
+], ids=list(build.KERNELS) + ["flash_attention_bshd", "bottleneck_many"])
 def test_non_cpu_tensor_never_falls_back(call):
     build.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensors"):
         call()
+    assert all(n == 0 for n in build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("pairs,match", [
+    ([], "1-4"),
+    ([(_meta(8), _meta(8))] * 5, "1-4"),
+    ([(_meta(8), _meta(8)), (_meta(8, dtype=_F32), _meta(8, dtype=_F32))],
+     "dtype"),
+    ([(_meta(8), _meta(8, dtype=_F32))], "dtype"),
+    ([(_meta(8), _meta(8)), (torch.ones(8), torch.ones(8))], "on cpu"),
+    ([(torch.ones(8), torch.ones(8)), (_meta(8), _meta(8))], "on meta"),
+    ([(_meta(8), _meta(8)), (_meta(8), _meta(4, 2))], "shape"),
+], ids=["0", "5", "mixed-dtype", "pair-dtype", "cpu-among-device",
+        "device-among-cpu", "shape"])
+def test_bottleneck_many_refuses_bad_groups(pairs, match):
+    """Whatever the device: 1-4 pairs, one dtype, one device, matching
+    shapes in each pair; nothing launches."""
+    build.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        link_load.bottleneck_many(pairs)
     assert all(n == 0 for n in build.LAUNCHES.values())
 
 
