@@ -17,7 +17,10 @@ Phases, each fatal on failure:
   kernels   each of the eight kernels against its plain PyTorch version
             on the same GPU tensors: the five AR/WAR slot kernels at the
             fig9 and giga AR shapes (bottleneck on one pair of links and
-            as a slot's grouped launch of four and of two pairs),
+            as a slot's grouped launch of four and of two pairs;
+            queue_update on one link array and as a slot's grouped
+            launch of its up and down links; plane_split also on 4
+            planes, fig12's flow and giga's flow count),
             bucket_load_bottleneck on the engine's own ECMP plans of
             fig11 and the giga point, all in float32 and float64, and
             the per-packet jsq_route and plb_select at the
@@ -25,7 +28,8 @@ Phases, each fatal on failure:
             times of kernel and plain version (each captured in a CUDA
             graph of 20 calls, so host launch overhead is excluded)
             beside the least time the card needs for the bytes moved or
-            the operations done.
+            the operations done; and the launch floor, `bottleneck` on
+            one element in the same harness.
   sync      the AR and the ECMP slot loops run with CUDA sync debugging
             set to "error": nothing in them makes the host wait.
   registry  fig9_victim_noise, fig11_degraded_leaf and fig12_plane_flap
@@ -89,11 +93,12 @@ REGISTRY = (("fig9_victim_noise", None), ("fig11_degraded_leaf", None),
             ("fig12_plane_flap", None), ("fig12_plane_flap", "ecmp"),
             ("cascading_spine_loss", "ecmp"))
 # hand-written kernel launches per slot on each leaf-spine routing path
-# (bottleneck: one grouped launch scales every link of a slot)
+# (bottleneck: one grouped launch scales every link of a slot;
+# queue_update: one grouped launch integrates its up and down links)
 AR_SLOT = {"plane_split": 1, "pair_fractions": 1, "bottleneck": 1,
-           "queue_update": 2, "nic_update": 1}
+           "queue_update": 1, "nic_update": 1}
 ECMP_SLOT = {"plane_split": 1, "bucket_load_bottleneck": 1,
-             "bottleneck": 1, "queue_update": 2, "nic_update": 1}
+             "bottleneck": 1, "queue_update": 1, "nic_update": 1}
 PER_SLOT = {"ar": AR_SLOT, "war": AR_SLOT, "ecmp": ECMP_SLOT}
 REPLACES = {
     "plane_split": "src/repro/kernels/plb_select.py:47",
@@ -112,6 +117,10 @@ REPLACES = {
 # fabric shapes the main path hands the kernels
 SHAPES = {"fig9": dict(F=2496, P=1, L=8, S=8, H=64),
           "giga": dict(F=102400, P=2, L=256, S=16, H=4096)}
+# further (flows, planes) of plane_split, so that every instance of the
+# planes the registry uses (P = 1, 2, 4) runs on the card: fig12's
+# single flow on 4 planes, and 4 planes at giga's flow count
+PLANE_SHAPES = {"fig12": dict(F=1, P=4), "giga x4": dict(F=102400, P=4)}
 # scenarios whose ECMP plans the bucket_load_bottleneck cases use
 ECMP_SHAPES = {"fig11": "fig11_degraded_leaf", "giga": "giga_fabric_storage"}
 # per-packet shapes: (lanes, packets) for jsq_route (ports) and
@@ -239,8 +248,7 @@ def kernel_cases(sname: str, shape: dict, dtype, seed: int):
     inputs drawn from numpy with `seed`."""
     import numpy as np
     import torch
-    from repro_torch.kernels import jsq_route, link_load, plb_select, \
-        queue_ecn, ref
+    from repro_torch.kernels import jsq_route, link_load, queue_ecn, ref
 
     rng = np.random.default_rng(seed)
     F, P, L, S, H = (shape[k] for k in "FPLSH")
@@ -274,16 +282,8 @@ def kernel_cases(sname: str, shape: dict, dtype, seed: int):
     n_pair, n_link = P * L * L * S, P * L * S
     big = sname == "giga" and dtype == torch.float64
     fl = FLOPS_PER_ELEM
-    out = []
-    for mode in ("spx", "dcqcn", "agg", "swlb"):
-        out.append(case(
-            "plane_split", mode, sname, dtype,
-            lambda m=mode: plb_select.plane_split(
-                rate, elig, demand, mode=m, min_rate=0.01),
-            lambda m=mode: ref.plane_split_ref(
-                rate, elig, demand, mode=m, min_rate=0.01),
-            F * P * (2 * isz + 1) + F * isz, F * P * fl["plane_split"],
-            summary=big and mode == "spx"))
+    out = plane_split_cases(sname, rate, elig, demand, dtype,
+                            summary=big)
     out.append(case(
         "pair_fractions", "", sname, dtype,
         lambda: jsq_route.pair_fractions(q, cap, w, nbins=16,
@@ -313,7 +313,7 @@ def kernel_cases(sname: str, shape: dict, dtype, seed: int):
                                        q_cap=64.0),
         lambda: ref.queue_update_ref(q_link, link_load_, link_cap,
                                      q_cap=64.0),
-        5 * n_link * isz, n_link * fl["queue_update"], summary=big))
+        5 * n_link * isz, n_link * fl["queue_update"]))
     for mode in ("spx", "dcqcn", "agg"):
         out.append(case(
             "nic_update", mode, sname, dtype,
@@ -324,6 +324,69 @@ def kernel_cases(sname: str, shape: dict, dtype, seed: int):
             7 * F * P * isz + F, F * P * fl["nic_update"],
             summary=big and mode == "spx"))
     return out
+
+
+def plane_split_cases(sname: str, rate, elig, demand, dtype, *,
+                      summary: bool = False) -> list:
+    """plane_split in its four modes on (F, P) `rate`, `elig` and (F,)
+    `demand`; `summary` marks the spx case."""
+    from repro_torch.kernels import plb_select, ref
+    F, P = rate.shape
+    isz = rate.element_size()
+    return [case(
+        "plane_split", mode, sname, dtype,
+        lambda m=mode: plb_select.plane_split(rate, elig, demand, mode=m,
+                                              min_rate=0.01),
+        lambda m=mode: ref.plane_split_ref(rate, elig, demand, mode=m,
+                                           min_rate=0.01),
+        F * P * (2 * isz + 1) + F * isz, F * P * FLOPS_PER_ELEM["plane_split"],
+        summary=summary and mode == "spx")
+        for mode in ("spx", "dcqcn", "agg", "swlb")]
+
+
+def plane_inputs(F: int, P: int, dtype, seed: int):
+    """(F, P) rates (some planes at MIN_RATE), eligibilities (about one
+    in ten planes out) and (F,) demands on the card, drawn from numpy
+    with `seed`."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    rate = rng.uniform(0.01, 1.0, (F, P))
+    rate[rate < 0.1] = 0.01
+    return (torch.tensor(rate, dtype=dtype, device="cuda"),
+            torch.tensor(rng.random((F, P)) < 0.9, device="cuda"),
+            torch.tensor(rng.uniform(0.0, 1.0, F), dtype=dtype,
+                         device="cuda"))
+
+
+def queue_slot_case(sname: str, shape: dict, dtype, seed: int) -> dict:
+    """queue_update as a slot's grouped launch: its up (P, L, S) and down
+    (P, S, L) links, drawn from numpy with `seed`; the summary case at
+    giga in float64."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import queue_ecn, ref
+
+    rng = np.random.default_rng(seed)
+    P, L, S = (shape[k] for k in "PLS")
+
+    def f(*sh, hi=1.0, zero_frac=0.0):
+        a = rng.uniform(0.0, hi, sh)
+        if zero_frac:
+            a[rng.random(sh) < zero_frac] = 0.0
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    slot = tuple((f(*sh, hi=70.0), f(*sh, hi=2.0), f(*sh, zero_frac=0.1))
+                 for sh in ((P, L, S), (P, S, L)))
+    n = 2 * P * L * S
+    isz = torch.empty((), dtype=dtype).element_size()
+    return case(
+        "queue_update", "slot x2", sname, dtype,
+        lambda: sum(queue_ecn.queue_update_many(slot, q_cap=64.0), ()),
+        lambda: sum((ref.queue_update_ref(*e, q_cap=64.0) for e in slot),
+                    ()),
+        5 * n * isz, n * FLOPS_PER_ELEM["queue_update"],
+        summary=sname == "giga" and dtype == torch.float64)
 
 
 def ecmp_plan(sname: str):
@@ -448,7 +511,19 @@ def all_cases():
         F, plan, cap = ecmp_plan(sname)
         for dtype in (torch.float32, torch.float64):
             cases += ecmp_cases(sname, plan, cap, F, dtype, seed=len(cases))
-    return cases + packet_cases(seed=len(cases))
+    cases += packet_cases(seed=len(cases))
+    # cases added after the first ones, so that their seeds do not move:
+    # queue_update as a slot's grouped launch, plane_split on 4 planes
+    for sname, shape in SHAPES.items():
+        for dtype in (torch.float32, torch.float64):
+            cases.append(queue_slot_case(sname, shape, dtype,
+                                         seed=len(cases)))
+    for sname, shape in PLANE_SHAPES.items():
+        for dtype in (torch.float32, torch.float64):
+            cases += plane_split_cases(
+                sname, *plane_inputs(shape["F"], shape["P"], dtype,
+                                     seed=len(cases)), dtype)
+    return cases
 
 
 def kernel_phase(report: dict) -> dict:
@@ -506,8 +581,21 @@ def kernel_phase(report: dict) -> dict:
         s["max_abs_err_all"] = max(s.get("max_abs_err_all", 0.0),
                                    row["max_abs_err"])
     report["kernels"] = rows
+    report["launch_floor_ms"] = launch_floor_ms()
     build.reset_launches()
     return summary
+
+
+def launch_floor_ms() -> float:
+    """What one launch costs on this card: `bottleneck` on a single
+    float64 element, in the harness that times the kernels."""
+    import torch
+    from repro_torch.kernels import link_load
+    one = torch.ones(1, dtype=torch.float64, device="cuda")
+    ms = graph_ms(lambda: link_load.bottleneck(one, one))
+    print(f"launch floor: bottleneck on one element ms={ms:.6f} (graph "
+          "of 20 calls; no kernel's bound)", flush=True)
+    return ms
 
 
 def sync_phase() -> None:

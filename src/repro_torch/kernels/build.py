@@ -52,8 +52,10 @@ _ENTRIES = {
     "bucket_load_bottleneck": ("netsim", _F32_F64,
                                (_P, _P, _P, _P, _P, _I64, _I, _I64, _I,
                                 _D, _P)),
+    # arrays of one or two (q, load, cap, q_new, util) pointers and
+    # lengths, and their count: one launch for both
     "queue_update": ("netsim", _F32_F64,
-                     (_P, _P, _P, _P, _P, _I64, _D, _D, _P)),
+                     (_PP, _PP, _PP, _PP, _PP, _PI64, _I, _D, _D, _P)),
     "nic_update": ("netsim", _F32_F64,
                    (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
                     ctypes.POINTER(_D), _P)),

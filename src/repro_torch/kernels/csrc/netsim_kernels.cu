@@ -17,10 +17,10 @@
 // them on the card: each reads its inputs once and writes its outputs
 // once (jsq_route does a hash and a compare per packet and port, so
 // operations bound it).  Most designs are the simple ones: one thread
-// per element (queue_update), per flow (plane_split, nic_update: the
-// plane axis P <= 8 lives in registers), per link bucket
-// (bucket_load_bottleneck) or per packet (jsq_route, plb_select), in
-// grid-stride loops.  Two are shaped by what held them back:
+// per flow (nic_update: the plane axis P <= 8 lives in registers), per
+// link bucket (bucket_load_bottleneck) or per packet (jsq_route,
+// plb_select), in grid-stride loops.  Four are shaped by what held them
+// back:
 //
 //   pair_fractions  the bytes of a 2M-element giga call bound it, but
 //                   its exp, IEEE divisions and per-row chains make the
@@ -29,10 +29,15 @@
 //                   spent 16x the chain work.  Rows of S <= 32 spines
 //                   now live in groups of lanes of one warp, and one
 //                   lane a row walks each chain once.
-//   bottleneck      a slot's link and access scales are 8,192 elements
-//                   each at giga scale: launch latency, not bytes,
-//                   bounds one such call.  One launch takes up to four
-//                   (cap, load, out) entries, passed by value.
+//   bottleneck,     a slot's links are 8,192 elements an array at giga
+//   queue_update    scale: launch latency, not bytes, bounds one call.
+//                   One bottleneck launch takes up to four (cap, load,
+//                   out) entries and one queue_update launch a slot's
+//                   up and down links, passed by value.
+//   plane_split     one thread a flow with P read at run time took four
+//                   times its bytes bound.  The planes are now a
+//                   template parameter, so its plane loops unroll with
+//                   no guards; still one row a thread.
 //
 // Unlike the Pallas bodies, which cast to float32, the six slot-engine
 // kernels compute in their input type, so the float64 parity mode runs
@@ -83,79 +88,105 @@ inline unsigned grid_for(int64_t n) {
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;    \
        i < (n); i += (int64_t)gridDim.x * blockDim.x)
 
-// ---- plane_split: one thread per flow --------------------------------
+// ---- plane_split: rows of P planes, P known at compile time ----------
 // rate/elig/out (F, P), demand (F,).  thresh = min_rate + 1e-9 and
 // fallback = 1.0 / P arrive computed in double, as the Python scalars
-// of the plain version are.
-template <typename T, int MODE>
+// of the plain version are.  Bytes bound it (a giga call, F = 102,400
+// and P = 2 in float64, moves 4.3 MB: 1.28 us at the HBM rate), but
+// the first kernel, one thread a flow with P a run-time argument, every
+// plane loop guarded by p < P, took about four times that.  Here the
+// planes the registry uses (P = 1, 2, 4) are a template parameter, so
+// the plane loops unroll without guards and the row strides are
+// constants; other P in 1-8 take the instance with P read at run time.
+// Rows are read element by element, one row a thread.  The math and its
+// order are the plain version's.  Timed side by side at giga on the
+// H100 (benchmarks/torch_plane_split_designs.py; PERF.md, section 6):
+// compile-time P made the gain; whole-row vector loads gained nothing
+// resolvable and several rows a thread were slower.
+
+// one flow's split over planes p < P of N (P == N when the planes are
+// known at compile time, and the guards fold away)
+template <typename T, int MODE, int N>
+__device__ __forceinline__ void split_row(const T (&rr)[N],
+                                          const uint8_t (&eb)[N], T d,
+                                          int P, T thresh, T fallback,
+                                          T (&o)[N]) {
+  bool ee[N];
+#pragma unroll
+  for (int p = 0; p < N; ++p) ee[p] = p < P && eb[p] != 0;
+  if (MODE == kDcqcn) {
+    const T w = T(1) / T(P);
+#pragma unroll
+    for (int p = 0; p < N; ++p)
+      if (p < P) o[p] = min_(d * w, rr[p]);
+  } else if (MODE == kSwlb || MODE == kAgg) {
+    int n_up = 0;
+    T shared = rr[0];
+#pragma unroll
+    for (int p = 0; p < N; ++p) {
+      if (p < P) {
+        n_up += ee[p] ? 1 : 0;
+        shared = min_(shared, rr[p]);
+      }
+    }
+    const T n = T(n_up > 1 ? n_up : 1);
+    const T v = MODE == kSwlb ? d / n : d * shared / n;
+#pragma unroll
+    for (int p = 0; p < N; ++p)
+      if (p < P) o[p] = ee[p] ? v : T(0);
+  } else {  // spx: rate filter (E2E precedence) then allowance weights
+    bool ok[N];
+    bool any_ok = false;
+#pragma unroll
+    for (int p = 0; p < N; ++p) {
+      ok[p] = ee[p] && rr[p] > thresh;
+      any_ok = any_ok || ok[p];
+    }
+    T s = T(0);
+#pragma unroll
+    for (int p = 0; p < N; ++p) {
+      if (p < P) {
+        ok[p] = any_ok ? ok[p] : ee[p];
+        const T w = ok[p] ? rr[p] : T(0);
+        s = p == 0 ? w : s + w;
+      }
+    }
+    const T denom = max_(s, T(1e-12));
+#pragma unroll
+    for (int p = 0; p < N; ++p) {
+      if (p < P) {
+        const T alive = ok[p] ? rr[p] : T(0);
+        const T w = s > T(0) ? alive / denom : fallback;
+        o[p] = min_(d * w, alive);
+      }
+    }
+  }
+}
+
+// NP = 1, 2, 4: the planes at compile time; NP = 0: P at run time
+// (<= kMaxPlanes).  One row a thread: a giga call's 400 blocks are all
+// on the card at once, so the longest thread's chain of loads,
+// divisions and stores sets the time.
+template <typename T, int MODE, int NP>
 __global__ void plane_split_kernel(const T* __restrict__ rate,
                                    const uint8_t* __restrict__ elig,
                                    const T* __restrict__ demand,
-                                   T* __restrict__ out, int64_t F, int P,
-                                   T thresh, T fallback) {
+                                   T* __restrict__ out, int64_t F,
+                                   int P_rt, T thresh, T fallback) {
+  constexpr int N = NP > 0 ? NP : kMaxPlanes;
+  const int P = NP > 0 ? NP : P_rt;
   GRID_STRIDE(f, F) {
-    const T* r = rate + f * P;
-    const uint8_t* e = elig + f * P;
-    T* o = out + f * P;
-    const T d = demand[f];
-    T rr[kMaxPlanes];
-    bool ee[kMaxPlanes];
+    T rr[N], o[N];
+    uint8_t eb[N];
 #pragma unroll
-    for (int p = 0; p < kMaxPlanes; ++p) {
-      if (p < P) {
-        rr[p] = r[p];
-        ee[p] = e[p] != 0;
-      }
+    for (int p = 0; p < N; ++p) {
+      rr[p] = p < P ? rate[f * P + p] : T(0);
+      eb[p] = p < P ? elig[f * P + p] : 0;
     }
-    if (MODE == kDcqcn) {
-      const T w = T(1) / T(P);
+    split_row<T, MODE, N>(rr, eb, demand[f], P, thresh, fallback, o);
 #pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p)
-        if (p < P) o[p] = min_(d * w, rr[p]);
-    } else if (MODE == kSwlb || MODE == kAgg) {
-      int n_up = 0;
-      T shared = rr[0];
-#pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p) {
-        if (p < P) {
-          n_up += ee[p] ? 1 : 0;
-          shared = min_(shared, rr[p]);
-        }
-      }
-      const T n = T(n_up > 1 ? n_up : 1);
-      const T v = MODE == kSwlb ? d / n : d * shared / n;
-#pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p)
-        if (p < P) o[p] = ee[p] ? v : T(0);
-    } else {  // spx: rate filter (E2E precedence) then allowance weights
-      bool ok[kMaxPlanes];
-      bool any_ok = false;
-#pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p) {
-        if (p < P) {
-          ok[p] = ee[p] && rr[p] > thresh;
-          any_ok = any_ok || ok[p];
-        }
-      }
-      T s = T(0);
-#pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p) {
-        if (p < P) {
-          ok[p] = any_ok ? ok[p] : ee[p];
-          const T w = ok[p] ? rr[p] : T(0);
-          s = p == 0 ? w : s + w;
-        }
-      }
-      const T denom = max_(s, T(1e-12));
-#pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p) {
-        if (p < P) {
-          const T alive = ok[p] ? rr[p] : T(0);
-          const T w = s > T(0) ? alive / denom : fallback;
-          o[p] = min_(d * w, alive);
-        }
-      }
-    }
+    for (int p = 0; p < N; ++p)
+      if (p < P) out[f * P + p] = o[p];
   }
 }
 
@@ -378,20 +409,57 @@ __global__ void bottleneck_kernel(const BottleneckGroup<T> g, T eps) {
 }
 
 // ---- queue_update: elementwise fluid queue integrator + util ---------
+// One launch covers up to kMaxQueueGroup (q, load, cap, q_new, util)
+// entries: a slot integrates its up and its down links in one launch
+// instead of two.  Bytes bound the work, but at giga scale one entry is
+// 8,192 links (five arrays: 328 KB in float64, 0.1 us at the HBM rate),
+// far below one launch's latency, so the launch is the cost, as it was
+// for bottleneck.  The entries travel by value in the kernel's
+// arguments, as BottleneckGroup's do, and each thread picks its entry
+// with compile-time indices only.  Two entries in one launch take about
+// what one took alone (PERF.md, section 6).
+constexpr int kMaxQueueGroup = 2;
+
 template <typename T>
-__global__ void queue_update_kernel(const T* __restrict__ q,
-                                    const T* __restrict__ load,
-                                    const T* __restrict__ cap,
-                                    T* __restrict__ q_new,
-                                    T* __restrict__ util, int64_t n,
-                                    T q_cap, T eps) {
-  GRID_STRIDE(i, n) {
-    const T c = cap[i];
-    const T l = load[i];
+struct QueueGroup {
+  const T* q[kMaxQueueGroup];
+  const T* load[kMaxQueueGroup];
+  const T* cap[kMaxQueueGroup];
+  T* q_new[kMaxQueueGroup];
+  T* util[kMaxQueueGroup];
+  int64_t start[kMaxQueueGroup];
+  int64_t total;
+  int count;
+};
+
+template <typename T>
+__global__ void queue_update_kernel(const QueueGroup<T> g, T q_cap,
+                                    T eps) {
+  GRID_STRIDE(i, g.total) {
+    const T* q = g.q[0];
+    const T* ld = g.load[0];
+    const T* cp = g.cap[0];
+    T* qn = g.q_new[0];
+    T* ut = g.util[0];
+    int64_t base = 0;
+#pragma unroll
+    for (int k = 1; k < kMaxQueueGroup; ++k) {
+      if (k < g.count && i >= g.start[k]) {
+        q = g.q[k];
+        ld = g.load[k];
+        cp = g.cap[k];
+        qn = g.q_new[k];
+        ut = g.util[k];
+        base = g.start[k];
+      }
+    }
+    const int64_t j = i - base;
+    const T c = cp[j];
+    const T l = ld[j];
     const T denom = max_(c, eps);
-    const T qn = clip_(q[i] + (l - c) / denom, T(0), q_cap);
-    q_new[i] = c <= eps ? T(0) : qn;
-    util[i] = l / denom;
+    const T qv = clip_(q[j] + (l - c) / denom, T(0), q_cap);
+    qn[j] = c <= eps ? T(0) : qv;
+    ut[j] = l / denom;
   }
 }
 
@@ -610,6 +678,30 @@ __global__ void plb_select_kernel(const float* __restrict__ rate,
   }
 }
 
+template <typename T, int MODE>
+void launch_split_planes(const T* r, const uint8_t* e, const T* d, T* o,
+                         int64_t F, int P, T thresh, T fallback,
+                         cudaStream_t s) {
+  const unsigned g = grid_for(F);
+  switch (P) {
+    case 1:
+      plane_split_kernel<T, MODE, 1><<<g, kThreads, 0, s>>>(
+          r, e, d, o, F, P, thresh, fallback);
+      break;
+    case 2:
+      plane_split_kernel<T, MODE, 2><<<g, kThreads, 0, s>>>(
+          r, e, d, o, F, P, thresh, fallback);
+      break;
+    case 4:
+      plane_split_kernel<T, MODE, 4><<<g, kThreads, 0, s>>>(
+          r, e, d, o, F, P, thresh, fallback);
+      break;
+    default:
+      plane_split_kernel<T, MODE, 0><<<g, kThreads, 0, s>>>(
+          r, e, d, o, F, P, thresh, fallback);
+  }
+}
+
 template <typename T>
 int launch_plane_split(const void* rate, const void* elig,
                        const void* demand, void* out, int64_t F, int P,
@@ -622,23 +714,22 @@ int launch_plane_split(const void* rate, const void* elig,
   const uint8_t* e = static_cast<const uint8_t*>(elig);
   const T* d = static_cast<const T*>(demand);
   T* o = static_cast<T*>(out);
-  const unsigned g = grid_for(F);
   switch (mode) {
     case kSpx:
-      plane_split_kernel<T, kSpx><<<g, kThreads, 0, s>>>(
-          r, e, d, o, F, P, T(thresh), T(fallback));
+      launch_split_planes<T, kSpx>(r, e, d, o, F, P, T(thresh),
+                                   T(fallback), s);
       break;
     case kDcqcn:
-      plane_split_kernel<T, kDcqcn><<<g, kThreads, 0, s>>>(
-          r, e, d, o, F, P, T(thresh), T(fallback));
+      launch_split_planes<T, kDcqcn>(r, e, d, o, F, P, T(thresh),
+                                     T(fallback), s);
       break;
     case kAgg:
-      plane_split_kernel<T, kAgg><<<g, kThreads, 0, s>>>(
-          r, e, d, o, F, P, T(thresh), T(fallback));
+      launch_split_planes<T, kAgg>(r, e, d, o, F, P, T(thresh),
+                                   T(fallback), s);
       break;
     case kSwlb:
-      plane_split_kernel<T, kSwlb><<<g, kThreads, 0, s>>>(
-          r, e, d, o, F, P, T(thresh), T(fallback));
+      launch_split_planes<T, kSwlb>(r, e, d, o, F, P, T(thresh),
+                                    T(fallback), s);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -753,15 +844,29 @@ int launch_bucket_load_bottleneck(const void* rate, const void* plan,
 }
 
 template <typename T>
-int launch_queue_update(const void* q, const void* load, const void* cap,
-                        void* q_new, void* util, int64_t n, double q_cap,
-                        double eps, void* stream) {
-  if (n == 0) return cudaSuccess;
-  queue_update_kernel<T><<<grid_for(n), kThreads, 0,
+int launch_queue_update(const void* const* q, const void* const* load,
+                        const void* const* cap, void* const* q_new,
+                        void* const* util, const int64_t* n, int count,
+                        double q_cap, double eps, void* stream) {
+  if (count < 1 || count > kMaxQueueGroup) return cudaErrorInvalidValue;
+  QueueGroup<T> g{};
+  int64_t total = 0;
+  for (int k = 0; k < count; ++k) {
+    if (n[k] < 0) return cudaErrorInvalidValue;
+    g.q[k] = static_cast<const T*>(q[k]);
+    g.load[k] = static_cast<const T*>(load[k]);
+    g.cap[k] = static_cast<const T*>(cap[k]);
+    g.q_new[k] = static_cast<T*>(q_new[k]);
+    g.util[k] = static_cast<T*>(util[k]);
+    g.start[k] = total;
+    total += n[k];
+  }
+  g.total = total;
+  g.count = count;
+  if (total == 0) return cudaSuccess;
+  queue_update_kernel<T><<<grid_for(total), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(load),
-      static_cast<const T*>(cap), static_cast<T*>(q_new),
-      static_cast<T*>(util), n, T(q_cap), T(eps));
+      g, T(q_cap), T(eps));
   return cudaGetLastError();
 }
 
@@ -880,10 +985,12 @@ extern "C" int netsim_plb_select_f32(const void* rate, const void* elig,
                                             F, P, R, C, eps, stream);     \
   }                                                                       \
   extern "C" int netsim_queue_update_##SUFFIX(                            \
-      const void* q, const void* load, const void* cap, void* q_new,      \
-      void* util, int64_t n, double q_cap, double eps, void* stream) {    \
-    return launch_queue_update<T>(q, load, cap, q_new, util, n, q_cap,    \
-                                  eps, stream);                           \
+      const void* const* q, const void* const* load,                      \
+      const void* const* cap, void* const* q_new, void* const* util,      \
+      const int64_t* n, int count, double q_cap, double eps,              \
+      void* stream) {                                                     \
+    return launch_queue_update<T>(q, load, cap, q_new, util, n, count,    \
+                                  q_cap, eps, stream);                    \
   }                                                                       \
   extern "C" int netsim_nic_update_##SUFFIX(                              \
       const void* qmean, const void* rate, const void* alpha,             \

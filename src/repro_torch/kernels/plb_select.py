@@ -4,7 +4,8 @@ and its per-packet form:
   * `plane_split` replaces the Pallas kernel
     `repro/kernels/plb_select.py::_plane_split_kernel`.  CPU tensors
     take `ref.plane_split_ref`; CUDA tensors launch `netsim_plane_split`
-    (one thread per flow, planes in registers).
+    (one thread per flow), whose planes are a template parameter for
+    P = 1, 2 and 4 and read at run time for other P.
   * `plb_select`, the plane of each packet, replaces `_plb_kernel`.
     CPU tensors take `ref.plb_select_ref`; CUDA tensors launch
     `netsim_plb_select` (one thread per packet, planes in registers).

@@ -39,7 +39,7 @@ from repro_torch.kernels.jsq_route import pair_fractions
 from repro_torch.kernels.link_load import bottleneck_many, \
     bucket_load_bottleneck
 from repro_torch.kernels.plb_select import plane_split
-from repro_torch.kernels.queue_ecn import nic_update, queue_update
+from repro_torch.kernels.queue_ecn import nic_update, queue_update_many
 from repro_torch.kernels.ref import lsum, sdiv
 
 from .carry import SlotOperands, operands_from_numpy
@@ -367,10 +367,11 @@ def _slot_step(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry,
     achieved_pp = torch.where(alive, (through + local) * acc_scale, 0.0)
     qmean = torch.where(same_leaf, 0.0, qmean).contiguous()
 
-    q_up, util = queue_update(carry.q_up, load_up, up, q_cap=cfg.q_cap,
-                              eps=_EPS)
-    q_down, _ = queue_update(carry.q_down, load_down, down,
-                             q_cap=cfg.q_cap, eps=_EPS)
+    # both link directions in one queue_update launch; only the up
+    # links' utilization is kept
+    (q_up, util), (q_down, _) = queue_update_many(
+        ((carry.q_up, load_up, up), (carry.q_down, load_down, down)),
+        q_cap=cfg.q_cap, eps=_EPS)
 
     nic, rtt, _ = _nic_update(cfg, carry.nic, qmean, alive, t, ops.esr)
 

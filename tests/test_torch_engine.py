@@ -179,10 +179,11 @@ def test_float32_fast_mode_tracks_float64():
 def test_kernel_calls_per_slot(monkeypatch, name, nic):
     """Every AR/WAR slot calls plane_split, pair_fractions,
     bottleneck_many (up, down and both access links in one launch),
-    queue_update x2 and nic_update once each; every ECMP slot
-    plane_split, bucket_load_bottleneck, bottleneck_many (both access
-    links), queue_update x2 and nic_update once each — with contiguous
-    tensors (the CUDA wrappers refuse anything else)."""
+    queue_update_many (up and down links in one launch) and nic_update
+    once each; every ECMP slot plane_split, bucket_load_bottleneck,
+    bottleneck_many (both access links), queue_update_many and
+    nic_update once each — with contiguous tensors (the CUDA wrappers
+    refuse anything else)."""
     calls = {}
 
     def tensors(args):
@@ -193,7 +194,7 @@ def test_kernel_calls_per_slot(monkeypatch, name, nic):
                 yield a
 
     for fn in ("plane_split", "pair_fractions", "bottleneck_many",
-               "bucket_load_bottleneck", "queue_update", "nic_update"):
+               "bucket_load_bottleneck", "queue_update_many", "nic_update"):
         def counted(*args, _fn=fn, _orig=getattr(engine, fn), **kw):
             assert all(a.is_contiguous() for a in tensors(args)), _fn
             calls[_fn] = calls.get(_fn, 0) + 1
@@ -208,7 +209,7 @@ def test_kernel_calls_per_slot(monkeypatch, name, nic):
     else:
         want = {"plane_split": slots, "pair_fractions": slots,
                 "bottleneck_many": slots}
-    assert calls == dict(want, queue_update=2 * slots, nic_update=slots)
+    assert calls == dict(want, queue_update_many=slots, nic_update=slots)
 
 
 # ---------------------------------------------------------------------------
@@ -409,10 +410,10 @@ def test_chip_smoke_contracts_hold_on_cpu(capsys):
                                  {})
     assert smoke.PER_SLOT["ecmp"] == {
         "plane_split": 1, "bucket_load_bottleneck": 1, "bottleneck": 1,
-        "queue_update": 2, "nic_update": 1}
+        "queue_update": 1, "nic_update": 1}
     assert smoke.PER_SLOT["ar"] == {
         "plane_split": 1, "pair_fractions": 1, "bottleneck": 1,
-        "queue_update": 2, "nic_update": 1}
+        "queue_update": 1, "nic_update": 1}
     assert set(smoke.REPLACES) == set(build.KERNELS)
     if not torch.cuda.is_available():
         assert smoke.main([]) != 0

@@ -158,6 +158,81 @@ def test_bottleneck_many_refuses_bad_groups(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shapes", [
+    [(1,)], [(255,)], [(2, 256, 16)], [(257,), (8193,)],
+    [(2, 256, 16), (2, 16, 256)], [(1,), (255,)], [(8193,), (1,)]],
+    ids=["1", "255", "8192", "257+8193", "slot", "1+255", "8193+1"])
+def test_queue_update_many_equals_plain_version(cuda, dtype, shapes):
+    """One launch for one or two entries of ragged lengths, each
+    bit-equal to the plain version of its entry; dead links (cap 0 and
+    cap just at eps) included."""
+    rng = np.random.default_rng(len(shapes) * 10 + shapes[0][0])
+    entries = []
+    for sh in shapes:
+        cap = _uniform(rng, sh, dtype, cuda, hi=1.5, zero_frac=0.15)
+        cap.view(-1)[0] = 1e-12
+        entries.append((_uniform(rng, sh, dtype, cuda, hi=70.0),
+                        _uniform(rng, sh, dtype, cuda, hi=2.0), cap))
+    got = _launched("queue_update", lambda: queue_ecn.queue_update_many(
+        entries, q_cap=64.0))
+    assert len(got) == len(entries)
+    for (q_new, u), e in zip(got, entries):
+        want_q, want_u = ref.queue_update_ref(*e, q_cap=64.0)
+        assert torch.equal(q_new, want_q)
+        assert torch.equal(u, want_u)
+
+
+@pytest.mark.gpu
+def test_queue_update_many_refuses_bad_groups(cuda):
+    x = torch.ones(8, 4, dtype=torch.float64, device=cuda)
+    e = (x, x, x)
+    build.reset_launches()
+    for entries, match in (
+            ([], "entries"), ([e] * 3, "entries"),
+            ([e, (x.float(),) * 3], "dtype"),
+            ([e, (x.cpu(),) * 3], "on cpu"),
+            ([(x.cpu(),) * 3, e], "on cuda"),
+            ([(x, x, x[:4])], "shape")):
+        with pytest.raises(ValueError, match=match):
+            queue_ecn.queue_update_many(entries, q_cap=64.0)
+    assert build.LAUNCHES["queue_update"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("F", [1, 255, 257, 102401])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset-1"])
+def test_plane_split_equals_plain_version(cuda, dtype, P, F, offset):
+    """Every mode, every P the kernel takes (compile-time instances for
+    1, 2 and 4; the run-time one for the rest), ragged flow counts, and
+    views one element past an aligned start.  Every 7th row has no eligible plane, about a
+    fifth of the planes sit at MIN_RATE (spx's rate filter) and every
+    5th row has all its planes there (spx falls back to eligibility)."""
+    rng = np.random.default_rng(F * 10 + P)
+
+    def view(a, dt):
+        store = torch.zeros(a.size + offset, dtype=dt, device=cuda)
+        out = store[offset:].view(a.shape)
+        out.copy_(torch.as_tensor(a, device=cuda))
+        return out
+
+    rate = rng.uniform(0.01, 1.0, (F, P))
+    rate[rng.random((F, P)) < 0.2] = 0.01
+    rate[::5] = 0.01
+    elig = rng.random((F, P)) < 0.75
+    elig[::7] = False
+    r, e = view(rate, dtype), view(elig, torch.bool)
+    d = view(rng.uniform(0.0, 1.0, F), dtype)
+    for mode in ("spx", "dcqcn", "agg", "swlb"):
+        got = _launched("plane_split", lambda: plb_select.plane_split(
+            r, e, d, mode=mode, min_rate=0.01))
+        assert torch.equal(got, ref.plane_split_ref(r, e, d, mode=mode,
+                                                    min_rate=0.01)), mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_bucket_load_bottleneck_equals_plain_version(cuda, dtype):
     rng = np.random.default_rng(1)
     F, P, R, C = 1001, 3, 37, 13                 # odd sizes: ragged tails
@@ -378,12 +453,13 @@ def test_gpu_engine_reproduces_cpu_path(cuda, name, nic, routing):
         spec = spec.with_sim(routing=routing)
     build.reset_launches()
     gpu = compile_scenario(spec).run(device=cuda)
-    # one grouped bottleneck launch a slot, under AR/WAR and ECMP
+    # one grouped bottleneck and one grouped queue_update launch a slot,
+    # under AR/WAR and ECMP
     route = ({"bucket_load_bottleneck": 60, "bottleneck": 60}
              if routing == "ecmp" else
              {"pair_fractions": 60, "bottleneck": 60})
     assert build.LAUNCHES == dict(
-        dict.fromkeys(build.KERNELS, 0), plane_split=60, queue_update=120,
+        dict.fromkeys(build.KERNELS, 0), plane_split=60, queue_update=60,
         nic_update=60, **route)
     cpu = compile_scenario(spec).run(device="cpu")
     np.testing.assert_allclose(gpu.mean_goodput, cpu.mean_goodput,

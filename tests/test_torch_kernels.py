@@ -183,6 +183,45 @@ def test_bottleneck_many_f64_bit_equal(shapes):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+# entries of one grouped queue_update launch: a slot's up (P, L, S) and
+# down (P, S, L) links at two widths, one entry alone, one-element
+# entries, and a one-element entry beside ragged ones
+_QUEUE_GROUPS = {"1": [(2, 8, 16)], "1-ragged": [(8193,)],
+                 "2": [(2, 8, 16), (2, 16, 8)],
+                 "2-narrow": [(1, 4, 2), (1, 2, 4)],
+                 "2-single": [(1,), (1,)], "2-ragged": [(1,), (37, 3)],
+                 "2-ragged-last": [(255,), (1,)]}
+
+
+def _queue_group(shapes, dtype):
+    """The (q, load, cap) entries as numpy and as torch tensors."""
+    arrays = [_link_inputs(30 + k, sh) for k, sh in enumerate(shapes)]
+    return arrays, [tuple(_th(*a, dtype=dtype)) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shapes", list(_QUEUE_GROUPS.values()),
+                         ids=list(_QUEUE_GROUPS))
+def test_queue_update_many_bit_equal(shapes, dtype):
+    """Each entry equals the plain version of its own entry bit for bit;
+    in float64 also the JAX package's oracle
+    (`repro.kernels.queue_ecn.queue_update` off Pallas)."""
+    arrays, entries = _queue_group(shapes, dtype)
+    got = queue_ecn.queue_update_many(entries, q_cap=64.0)
+    assert len(got) == len(shapes)
+    for (q_new, u), (q, load, cap) in zip(got, entries):
+        want_q, want_u = ref.queue_update_ref(q, load, cap, q_cap=64.0)
+        assert q_new.dtype == dtype and torch.equal(q_new, want_q)
+        assert torch.equal(u, want_u)
+    if dtype == torch.float64:
+        with jax.enable_x64(True):
+            for (q_new, u), a in zip(got, arrays):
+                want_q, want_u = jx_queue.queue_update(*_jx(*a), q_cap=64.0)
+                np.testing.assert_array_equal(q_new.numpy(),
+                                              np.asarray(want_q))
+                np.testing.assert_array_equal(u.numpy(), np.asarray(want_u))
+
+
 @pytest.mark.parametrize("mode", ["spx", "dcqcn", "agg"])
 @pytest.mark.parametrize("F,P", [(37, 1), (129, 2), (65, 4)])
 def test_nic_update_f64_bit_equal(mode, F, P):
@@ -342,6 +381,23 @@ def test_bottleneck_many_vs_pallas_interpret(shapes):
         np.testing.assert_allclose(g.numpy(), np.asarray(want), **F32_TOL)
 
 
+@pytest.mark.parametrize("shapes", list(_QUEUE_GROUPS.values()),
+                         ids=list(_QUEUE_GROUPS))
+def test_queue_update_many_vs_pallas_interpret(shapes):
+    """float32 entries against the Pallas kernel run in interpret mode,
+    one call per entry."""
+    arrays, entries = _queue_group(shapes, torch.float32)
+    got = queue_ecn.queue_update_many(entries, q_cap=64.0)
+    for (q_new, u), a in zip(got, arrays):
+        want_q, want_u = jx_queue.queue_update(
+            *_jx(*(x.astype(np.float32) for x in a)), q_cap=64.0, bp=256,
+            use_pallas=True, interpret=True)
+        np.testing.assert_allclose(q_new.numpy(), np.asarray(want_q),
+                                   **F32_TOL)
+        np.testing.assert_allclose(u.numpy(), np.asarray(want_u),
+                                   **F32_TOL)
+
+
 @pytest.mark.parametrize("mode", ["spx", "dcqcn", "agg"])
 @pytest.mark.parametrize("F,P,bp", [(37, 3, 16), (130, 2, 64)])
 def test_nic_update_vs_pallas_interpret(mode, F, P, bp):
@@ -477,7 +533,11 @@ _F32, _BF16 = torch.float32, torch.bfloat16
                                      _meta(1, 8, 2, 64, dtype=_BF16)),
     lambda: ops.bottleneck_many([(_meta(8), _meta(8)),
                                  (_meta(3, 2), _meta(3, 2))]),
-], ids=list(build.KERNELS) + ["flash_attention_bshd", "bottleneck_many"])
+    lambda: ops.queue_update_many([(_meta(2, 4), _meta(2, 4), _meta(2, 4)),
+                                   (_meta(4, 2), _meta(4, 2), _meta(4, 2))],
+                                  q_cap=64.0),
+], ids=list(build.KERNELS) + ["flash_attention_bshd", "bottleneck_many",
+                              "queue_update_many"])
 def test_non_cpu_tensor_never_falls_back(call):
     build.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -502,6 +562,30 @@ def test_bottleneck_many_refuses_bad_groups(pairs, match):
     build.reset_launches()
     with pytest.raises(ValueError, match=match):
         link_load.bottleneck_many(pairs)
+    assert all(n == 0 for n in build.LAUNCHES.values())
+
+
+_Q = (_meta(8), _meta(8), _meta(8))
+
+
+@pytest.mark.parametrize("entries,match", [
+    ([], "1-2"),
+    ([_Q] * 3, "1-2"),
+    ([_Q, (_meta(8, dtype=_F32),) * 3], "dtype"),
+    ([(_meta(8), _meta(8, dtype=_F32), _meta(8))], "dtype"),
+    ([_Q, (torch.ones(8),) * 3], "on cpu"),
+    ([(torch.ones(8),) * 3, _Q], "on meta"),
+    ([(_meta(8), _meta(8), _meta(4, 2))], "shape"),
+    ([_Q, (_meta(8), _meta(4), _meta(8))], "shape"),
+    ([_Q[:2]], "expected"),
+], ids=["0", "3", "mixed-dtype", "entry-dtype", "cpu-among-device",
+        "device-among-cpu", "shape", "shape-second-entry", "two-tensors"])
+def test_queue_update_many_refuses_bad_groups(entries, match):
+    """Whatever the device: 1-2 entries of three tensors, one dtype, one
+    device, one shape in each entry; nothing launches."""
+    build.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        queue_ecn.queue_update_many(entries, q_cap=64.0)
     assert all(n == 0 for n in build.LAUNCHES.values())
 
 
