@@ -55,9 +55,11 @@ Phases, each fatal on failure:
             llama3-8b prefill (4096 tokens, causal, bf16 and f32) and
             decode (8 x 8192-slot cache), a gemma3-12b local layer
             (window 1024), and the int8 codec on a llama3-8b MLP
-            gradient leaf; each kernel held to its plain version on the
-            card (attention within ATTN_TOL, the codec bit for bit) and
-            timed beside the plain version and one PyTorch call
+            gradient leaf (encode also in bf16 and at an odd row length
+            that takes element loads); each kernel held to its plain
+            version on the card (attention within ATTN_TOL, the codec
+            bit for bit) and timed beside the plain version and one
+            PyTorch call
             (`scaled_dot_product_attention`, `q * scale`); attention
             lines also give TFLOP/s of unmasked work and the ratio of
             the kernel's time to SDPA's.
@@ -148,12 +150,13 @@ GEMMA = dict(Hq=16, Hkv=8, D=256, window=1024)
 PREFILL_S = 4096
 DECODE_B, DECODE_S = 8, 8192
 CODEC_SHAPE = (4096, 14336)          # a llama3-8b MLP weight's gradient
+CODEC_ODD_C = 4095                    # rows no 16-byte load divides
 # attention kernels vs their plain versions on the card, max abs error:
 # the sums run over 4096-8192 keys in another order than the einsums
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # launches of one model_kernels main-path run
 MODEL_LAUNCHES = {"flash_attention": 3, "decode_attention": 1,
-                  "int8_encode": 1, "int8_decode": 1}
+                  "int8_encode": 3, "int8_decode": 1}
 # operations per element of the codec (|x|, max, divide, add, round,
 # clamp; decode: convert, multiply), for the operations bound
 CODEC_FLOPS = {"int8_encode": 6, "int8_decode": 2}
@@ -914,7 +917,7 @@ def model_cases(seed: int) -> list:
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import int8_codec, ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -972,12 +975,22 @@ def model_cases(seed: int) -> list:
     # the decode reads the plain version's codes, which the encode
     # kernel must equal bit for bit
     codes, scale = ref.int8_encode_ref(grad, noise)
-    cases.append(dict(
-        kernel="int8_encode", what=f"int8_encode {R}x{C}", dtype="float32",
-        run=lambda: ops.int8_encode(grad, noise),
-        plain=lambda: ref.int8_encode_ref(grad, noise), library=None,
-        bytes=R * C * (4 + 4 + 1) + R * 4,
-        ops=CODEC_FLOPS["int8_encode"] * R * C, tol=None, summary=True))
+    # the f32 gradient (the summary case), the same in bf16, and an odd
+    # row length whose rows take element loads
+    for x, nz in ((grad, noise), (grad.to(torch.bfloat16), noise),
+                  (grad[:, :CODEC_ODD_C].contiguous(),
+                   noise[:, :CODEC_ODD_C].contiguous())):
+        instance, width = int8_codec.encode_instance(x, nz)
+        dname = str(x.dtype).split(".")[1]
+        cases.append(dict(
+            kernel="int8_encode",
+            what=f"int8_encode {R}x{x.shape[1]} {dname} ({instance}, "
+                 f"{width} a load)", dtype=dname,
+            run=lambda x=x, nz=nz: ops.int8_encode(x, nz),
+            plain=lambda x=x, nz=nz: ref.int8_encode_ref(x, nz),
+            library=None, bytes=x.numel() * (x.element_size() + 4 + 1)
+            + R * 4, ops=CODEC_FLOPS["int8_encode"] * x.numel(), tol=None,
+            summary=x is grad))
     cases.append(dict(
         kernel="int8_decode", what=f"int8_decode {R}x{C}", dtype="float32",
         run=lambda: ops.int8_decode(codes, scale),
@@ -1061,8 +1074,8 @@ def model_phase(report: dict, total: dict, summary: dict) -> None:
         s["max_abs_err_all"] = max(s.get("max_abs_err_all", 0.0),
                                    row["max_abs_err"])
     report["model_kernels"] = dict(rows=rows, main_path_wall_s=wall)
-    print(f"model_kernels: main path (3 prefills, 1 decode, encode + "
-          f"decode) in {wall * 1e3:.3f} ms of host wall; every kernel "
+    print(f"model_kernels: main path (3 prefills, 1 decode, 3 encodes, "
+          f"1 decode) in {wall * 1e3:.3f} ms of host wall; every kernel "
           "within its bound of the plain version", flush=True)
     del cases, outs
     build.reset_launches()

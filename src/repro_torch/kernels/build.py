@@ -71,8 +71,11 @@ _ENTRIES = {
     "decode_attention": ("model", _F32_BF16,
                          (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _D, _P)),
-    # int8_encode in the type of x, int8_decode in the output type
-    "int8_encode": ("model", _F32_BF16, (_P, _P, _P, _P, _I64, _I64, _P)),
+    # int8_encode in the type of x, with its instance and whether it
+    # takes 16-byte loads (int8_codec.encode_instance); int8_decode in
+    # the output type
+    "int8_encode": ("model", _F32_BF16,
+                    (_P, _P, _P, _P, _I64, _I64, _I, _I, _P)),
     "int8_decode": ("model", _F32_BF16, (_P, _P, _P, _I64, _I64, _P)),
 }
 KERNELS = tuple(_ENTRIES)

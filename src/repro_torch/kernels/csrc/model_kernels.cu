@@ -60,9 +60,11 @@
 // decode splits each (batch, head) row into chunks of 256 keys, one
 // block each, reads only the keys below lengths[b] (all of them for a
 // row of length 0, which averages v), and writes a partial (max, sum,
-// acc); a second pass per (batch, head) combines the chunks.  The codec
-// runs one block per row: a max-reduce of |x|, the scale as a true
-// IEEE division, then rintf (round half to even) of x / scale + noise.
+// acc); a second pass per (batch, head) combines the chunks.  The
+// encoder runs one block a row and reads the row once, from registers
+// or shared memory by its length (the int8 codec section): a
+// max-reduce of |x|, the scale as a true IEEE division, then rintf
+// (round half to even) of x / scale + noise.
 //
 // Masked scores are the finite NEG_INF = -1e30, as in the reference;
 // keys past the end of a tile (ragged tails) score -inf and weigh 0.
@@ -80,6 +82,7 @@
 // passes them by value: no sync, no allocation, capturable in a graph.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1094,13 +1097,269 @@ int dispatch_decode(const void* q, const void* k, const void* v,
 }
 
 // ---- int8 codec -------------------------------------------------------
-constexpr int kCodecThreads = 256;
+// int8_encode is bound by bytes: x and the noise are read once and the
+// codes written once (4,096 x 14,336 f32: 528.5 MB, 0.158 ms at the HBM
+// rate).  The first kernel read each row twice, the max of |x| and then
+// the code, in 4-byte loads; with some 8 rows of 57 KB in flight an SM
+// (60 MB, more than the 50 MB L2) the second read came mostly from HBM
+// again.  Here one block a row reads the row once, in one of three
+// instances that the wrapper picks from C, the dtype and the pointers'
+// alignment (kernels/int8_codec.py::encode_instance):
+//   registers  the row lives in registers, VPT loads a thread (at
+//              compile time) of W elements each: one 16-byte load (4
+//              f32 or 8 bf16) when C and the pointers allow it, else
+//              one element.  The noise of the thread's elements is
+//              loaded before the block's max-reduce, so it is in flight
+//              across the barrier, and each load's W codes leave in one
+//              W-byte store.  A thread holds at most kEncMaxLoads loads
+//              and kEncMaxElems elements (rows of up to 8,192), which
+//              keeps it near 64 registers and two 512-thread blocks an
+//              SM; a wider tile (7 f32 loads a thread at 14,336) took
+//              124 registers, one block an SM, and lost to the shared
+//              instance (PERF.md, section 6).
+//   shared     longer rows are staged in dynamic shared memory: by one
+//              TMA bulk copy (cp.async.bulk, completion on an mbarrier)
+//              when C and the pointers allow 16-byte loads, else in
+//              element loads; the noise is read after the reduce.  Rows
+//              of up to kEncRowBytes.
+//   two-pass   longer still: the max of |x| and then the code, each a
+//              pass over the row in global memory (the first kernel).
+// The arithmetic is the plain version's: s = max(amax, 1e-12) / 127 as
+// an IEEE division, rintf(x / s + noise) with a true division (127 is
+// not a power of two, so a multiply by the reciprocal would change
+// bits), the clip to +-127.  The max of |x| is exact in any order.
+constexpr int kCodecThreads = 256;      // int8_decode, two-pass encode
+constexpr int kEncThreads = 512;        // threads of an encode block, most
+constexpr int kEncMaxLoads = 8;         // register instance, a thread:
+constexpr int kEncMaxElems = 16;        // loads and elements at most
+// the shared instance's shared memory: an mbarrier (padded to 16
+// bytes) and the reduce's scratch (a float a warp), then the row, up to
+// a block's 227 KB
+constexpr int kEncHeadBytes = 16 + kEncThreads / 32 * 4;
+constexpr int64_t kEncRowBytes = 232448 - kEncHeadBytes;
+
+enum EncodeInstance { kEncRegisters = 0, kEncShared = 1, kEncTwoPass = 2 };
+
+// the max of x over the block (any multiple of 32 threads); red holds a
+// float a warp
+__device__ __forceinline__ float block_max(float x, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = red[0];
+  for (int w = 1; w < static_cast<int>(blockDim.x / 32); ++w)
+    x = fmaxf(x, red[w]);
+  __syncthreads();                  // red is free again
+  return x;
+}
+
+// one load of x: W elements, 16 bytes when W > 1
+template <typename T, int W>
+using XLoad = typename std::conditional<W == 1, T, uint4>::type;
+
+template <typename T, int W>
+__device__ __forceinline__ XLoad<T, W> load_x(const T* __restrict__ row,
+                                              int64_t j) {
+  if constexpr (W == 1)
+    return row[j];
+  else
+    return __ldg(reinterpret_cast<const uint4*>(row) + j);
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void unpack_x(const XLoad<T, W>& v,
+                                         float (&out)[W]) {
+  if constexpr (W == 1) {
+    out[0] = to_float(v);
+  } else {
+    static_assert(W * sizeof(T) == 16, "a 16-byte load");
+    alignas(16) T tmp[W];
+    *reinterpret_cast<uint4*>(tmp) = v;
+#pragma unroll
+    for (int e = 0; e < W; ++e) out[e] = to_float(tmp[e]);
+  }
+}
+
+// the W noise values of load j (16-byte loads when W > 1)
+template <int W>
+__device__ __forceinline__ void load_noise(const float* __restrict__ row,
+                                           int64_t j, float (&out)[W]) {
+  if constexpr (W == 1) {
+    out[0] = row[j];
+  } else {
+#pragma unroll
+    for (int h = 0; h < W / 4; ++h) {
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(row + j * W) + h);
+      out[4 * h] = v.x;
+      out[4 * h + 1] = v.y;
+      out[4 * h + 2] = v.z;
+      out[4 * h + 3] = v.w;
+    }
+  }
+}
+
+// the code of x at scale s, as the byte of a wider store
+__device__ __forceinline__ uint32_t int8_code(float x, float s,
+                                              float noise) {
+  const float y = rintf(__fadd_rn(x / s, noise));
+  return static_cast<uint8_t>(
+      static_cast<int8_t>(fminf(fmaxf(y, -127.f), 127.f)));
+}
+
+// the W codes of load j in one W-byte store
+template <int W>
+__device__ __forceinline__ void store_codes(int8_t* __restrict__ row,
+                                            int64_t j, const float (&x)[W],
+                                            float s,
+                                            const float (&noise)[W]) {
+  if constexpr (W == 1) {
+    row[j] = static_cast<int8_t>(int8_code(x[0], s, noise[0]));
+  } else if constexpr (W == 4) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v |= int8_code(x[e], s, noise[e]) << (8 * e);
+    reinterpret_cast<uint32_t*>(row)[j] = v;
+  } else {
+    static_assert(W == 8, "4 or 8 codes a store");
+    uint2 v{0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v.x |= int8_code(x[e], s, noise[e]) << (8 * e);
+      v.y |= int8_code(x[e + 4], s, noise[e + 4]) << (8 * e);
+    }
+    reinterpret_cast<uint2*>(row)[j] = v;
+  }
+}
+
+template <typename T, int W, int VPT>
+__global__ void __launch_bounds__(kEncThreads)
+int8_encode_registers_kernel(const T* __restrict__ x,
+                             const float* __restrict__ noise,
+                             int8_t* __restrict__ q,
+                             float* __restrict__ scale, int64_t R,
+                             int64_t C) {
+  __shared__ float red[kEncThreads / 32];
+  const int64_t loads = C / W;
+  for (int64_t row = blockIdx.x; row < R; row += gridDim.x) {
+    const T* xr = x + row * C;
+    const float* nr = noise + row * C;
+    XLoad<T, W> xv[VPT];
+    float nz[VPT][W];
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int64_t j = threadIdx.x + (int64_t)k * blockDim.x;
+      if (j < loads) xv[k] = load_x<T, W>(xr, j);
+    }
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int64_t j = threadIdx.x + (int64_t)k * blockDim.x;
+      if (j < loads) load_noise<W>(nr, j, nz[k]);
+    }
+    float amax = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int64_t j = threadIdx.x + (int64_t)k * blockDim.x;
+      if (j < loads) {
+        float xf[W];
+        unpack_x<T, W>(xv[k], xf);
+#pragma unroll
+        for (int e = 0; e < W; ++e) amax = fmaxf(amax, fabsf(xf[e]));
+      }
+    }
+    amax = block_max(amax, red);
+    const float s = fmaxf(amax, 1e-12f) / 127.0f;   // IEEE division
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int64_t j = threadIdx.x + (int64_t)k * blockDim.x;
+      if (j < loads) {
+        float xf[W];
+        unpack_x<T, W>(xv[k], xf);
+        store_codes<W>(q + row * C, j, xf, s, nz[k]);
+      }
+    }
+    if (threadIdx.x == 0) scale[row] = s;
+  }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kEncThreads)
+int8_encode_shared_kernel(const T* __restrict__ x,
+                          const float* __restrict__ noise,
+                          int8_t* __restrict__ q, float* __restrict__ scale,
+                          int64_t R, int64_t C) {
+  // dynamic shared memory: the mbarrier, the reduce's scratch, the row
+  extern __shared__ __align__(16) unsigned char enc_smem[];
+  const uint32_t bar = smem_addr(enc_smem);
+  float* red = reinterpret_cast<float*>(enc_smem + 16);
+  XLoad<T, W>* xs =
+      reinterpret_cast<XLoad<T, W>*>(enc_smem + kEncHeadBytes);
+  if (W > 1 && threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int64_t loads = C / W;
+  uint32_t parity = 0;
+  for (int64_t row = blockIdx.x; row < R; row += gridDim.x) {
+    const T* xr = x + row * C;
+    float amax = 0.f;
+    if constexpr (W > 1) {
+      // the row in one TMA bulk copy (C * sizeof(T) is a multiple of 16)
+      if (threadIdx.x == 0) {
+        const uint32_t bytes = static_cast<uint32_t>(C * sizeof(T));
+        // the last row's reads of xs come before the copy's writes
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_expect_tx(bar, bytes);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+            "::bytes [%0], [%1], %2, [%3];" ::"r"(smem_addr(xs)),
+            "l"(xr), "r"(bytes), "r"(bar)
+            : "memory");
+      }
+      mbar_wait(bar, parity);
+      parity ^= 1;
+      for (int64_t j = threadIdx.x; j < loads; j += blockDim.x) {
+        float xf[W];
+        unpack_x<T, W>(xs[j], xf);
+#pragma unroll
+        for (int e = 0; e < W; ++e) amax = fmaxf(amax, fabsf(xf[e]));
+      }
+    } else {
+      // element loads; each thread reads back only what it staged
+#pragma unroll 4
+      for (int64_t j = threadIdx.x; j < loads; j += blockDim.x) {
+        const T v = xr[j];
+        xs[j] = v;
+        amax = fmaxf(amax, fabsf(to_float(v)));
+      }
+    }
+    amax = block_max(amax, red);
+    const float s = fmaxf(amax, 1e-12f) / 127.0f;   // IEEE division
+    const float* nr = noise + row * C;
+#pragma unroll 4
+    for (int64_t j = threadIdx.x; j < loads; j += blockDim.x) {
+      float nz[W], xf[W];
+      load_noise<W>(nr, j, nz);
+      unpack_x<T, W>(xs[j], xf);
+      store_codes<W>(q + row * C, j, xf, s, nz);
+    }
+    if (threadIdx.x == 0) scale[row] = s;
+    __syncthreads();                // every read of xs before the next copy
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kCodecThreads)
-int8_encode_kernel(const T* __restrict__ x, const float* __restrict__ noise,
-                   int8_t* __restrict__ q, float* __restrict__ scale,
-                   int64_t R, int64_t C) {
+int8_encode_two_pass_kernel(const T* __restrict__ x,
+                            const float* __restrict__ noise,
+                            int8_t* __restrict__ q,
+                            float* __restrict__ scale, int64_t R,
+                            int64_t C) {
   __shared__ float red[kCodecThreads / 32];
   for (int64_t row = blockIdx.x; row < R; row += gridDim.x) {
     const T* xr = x + row * C;
@@ -1111,10 +1370,8 @@ int8_encode_kernel(const T* __restrict__ x, const float* __restrict__ noise,
     const float s = fmaxf(amax, 1e-12f) / 127.0f;   // IEEE division
     const float* nr = noise + row * C;
     int8_t* qr = q + row * C;
-    for (int64_t c = threadIdx.x; c < C; c += kCodecThreads) {
-      const float y = rintf(__fadd_rn(to_float(xr[c]) / s, nr[c]));
-      qr[c] = static_cast<int8_t>(fminf(fmaxf(y, -127.f), 127.f));
-    }
+    for (int64_t c = threadIdx.x; c < C; c += kCodecThreads)
+      qr[c] = static_cast<int8_t>(int8_code(to_float(xr[c]), s, nr[c]));
     if (threadIdx.x == 0) scale[row] = s;
   }
 }
@@ -1137,14 +1394,105 @@ inline unsigned row_blocks(int64_t R) {
   return static_cast<unsigned>(R < (1 << 20) ? (R < 1 ? 1 : R) : (1 << 20));
 }
 
-template <typename T>
-int launch_int8_encode(const void* x, const void* noise, void* q,
-                       void* scale, int64_t R, int64_t C, void* stream) {
-  int8_encode_kernel<T><<<row_blocks(R), kCodecThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(noise),
-      static_cast<int8_t*>(q), static_cast<float*>(scale), R, C);
+template <typename T, int W, int VPT>
+int launch_encode_registers(const T* x, const float* noise, int8_t* q,
+                            float* scale, int64_t R, int64_t C,
+                            cudaStream_t st) {
+  // as few threads as hold the row's loads at VPT a thread
+  const int64_t loads = C / W;
+  const int64_t need = (loads + VPT - 1) / VPT;
+  const int threads = static_cast<int>((need + 31) / 32 * 32);
+  int8_encode_registers_kernel<T, W, VPT>
+      <<<row_blocks(R), threads, 0, st>>>(x, noise, q, scale, R, C);
   return cudaGetLastError();
+}
+
+template <typename T, int W>
+int launch_encode_registers_vpt(const T* x, const float* noise, int8_t* q,
+                                float* scale, int64_t R, int64_t C,
+                                cudaStream_t st) {
+  constexpr int kMax = kEncMaxElems / W < kEncMaxLoads ? kEncMaxElems / W
+                                                       : kEncMaxLoads;
+  const int64_t loads = C / W;
+  const int64_t vpt = (loads + kEncThreads - 1) / kEncThreads;
+  static_assert(kEncMaxLoads == 8, "one case a count of loads");
+#define ENC_REG_CASE(N)                                                   \
+  case N:                                                                 \
+    if constexpr (N <= kMax)                                              \
+      return launch_encode_registers<T, W, N>(x, noise, q, scale, R, C,   \
+                                              st);                        \
+    else                                                                  \
+      return cudaErrorInvalidValue;
+  switch (vpt) {
+    ENC_REG_CASE(1)
+    ENC_REG_CASE(2)
+    ENC_REG_CASE(3)
+    ENC_REG_CASE(4)
+    ENC_REG_CASE(5)
+    ENC_REG_CASE(6)
+    ENC_REG_CASE(7)
+    ENC_REG_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef ENC_REG_CASE
+}
+
+template <typename T, int W>
+int launch_encode_shared(const T* x, const float* noise, int8_t* q,
+                         float* scale, int64_t R, int64_t C,
+                         cudaStream_t st) {
+  if (C * (int64_t)sizeof(T) > kEncRowBytes) return cudaErrorInvalidValue;
+  const int64_t smem = kEncHeadBytes + C * (int64_t)sizeof(T);
+  auto kernel = int8_encode_shared_kernel<T, W>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<row_blocks(R), kEncThreads, static_cast<size_t>(smem), st>>>(
+      x, noise, q, scale, R, C);
+  return cudaGetLastError();
+}
+
+inline bool aligned_to(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// instance: an EncodeInstance; vec: 16-byte loads of x (W = 16 /
+// sizeof(T) elements) and W-byte code stores, which need C % W == 0, x
+// and noise on 16 bytes and q on W bytes (the two-pass instance takes
+// element loads only).
+template <typename T>
+int launch_int8_encode(const void* x_, const void* noise_, void* q_,
+                       void* scale_, int64_t R, int64_t C, int instance,
+                       int vec, void* stream) {
+  constexpr int W = 16 / sizeof(T);
+  if (R < 0 || C < 1) return cudaErrorInvalidValue;
+  if (vec && (C % W != 0 || !aligned_to(x_, 16) ||
+              !aligned_to(noise_, 16) || !aligned_to(q_, W) ||
+              instance == kEncTwoPass))
+    return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  const T* x = static_cast<const T*>(x_);
+  const float* noise = static_cast<const float*>(noise_);
+  int8_t* q = static_cast<int8_t*>(q_);
+  float* scale = static_cast<float*>(scale_);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (instance) {
+    case kEncRegisters:
+      return vec ? launch_encode_registers_vpt<T, W>(x, noise, q, scale, R,
+                                                     C, st)
+                 : launch_encode_registers_vpt<T, 1>(x, noise, q, scale, R,
+                                                     C, st);
+    case kEncShared:
+      return vec ? launch_encode_shared<T, W>(x, noise, q, scale, R, C, st)
+                 : launch_encode_shared<T, 1>(x, noise, q, scale, R, C, st);
+    case kEncTwoPass:
+      int8_encode_two_pass_kernel<T><<<row_blocks(R), kCodecThreads, 0,
+                                       st>>>(x, noise, q, scale, R, C);
+      return cudaGetLastError();
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -1177,11 +1525,11 @@ int launch_int8_decode(const void* q, const void* scale, void* out,
                               out, BH, H, S, D, n_split,                    \
                               static_cast<float>(scale), stream);           \
   }                                                                         \
-  extern "C" int model_int8_encode_##SUFFIX(const void* x,                  \
-                                            const void* noise, void* q,     \
-                                            void* scale, int64_t R,         \
-                                            int64_t C, void* stream) {      \
-    return launch_int8_encode<T>(x, noise, q, scale, R, C, stream);         \
+  extern "C" int model_int8_encode_##SUFFIX(                                \
+      const void* x, const void* noise, void* q, void* scale, int64_t R,    \
+      int64_t C, int instance, int vec, void* stream) {                     \
+    return launch_int8_encode<T>(x, noise, q, scale, R, C, instance, vec,   \
+                                 stream);                                   \
   }                                                                         \
   extern "C" int model_int8_decode_##SUFFIX(const void* q,                  \
                                             const void* scale, void* out,   \

@@ -17,10 +17,9 @@
 // them on the card: each reads its inputs once and writes its outputs
 // once (jsq_route does a hash and a compare per packet and port, so
 // operations bound it).  Most designs are the simple ones: one thread
-// per flow (nic_update: the plane axis P <= 8 lives in registers), per
-// link bucket (bucket_load_bottleneck) or per packet (jsq_route,
-// plb_select), in grid-stride loops.  Four are shaped by what held them
-// back:
+// per flow (nic_update: the plane axis P <= 8 lives in registers) or
+// per packet (jsq_route, plb_select), in grid-stride loops.  Five are
+// shaped by what held them back:
 //
 //   pair_fractions  the bytes of a 2M-element giga call bound it, but
 //                   its exp, IEEE divisions and per-row chains make the
@@ -38,6 +37,11 @@
 //                   times its bytes bound.  The planes are now a
 //                   template parameter, so its plane loops unroll with
 //                   no guards; still one row a thread.
+//   bucket_load_    one thread a bucket waited on a dozen dependent
+//   bottleneck      memory round trips with a few warps an SM to hide
+//                   them.  A group of lanes of one warp now takes a
+//                   bucket: coalesced plan loads, every gather of the
+//                   row in flight at once, one lane walks the sum.
 //
 // Unlike the Pallas bodies, which cast to float32, the six slot-engine
 // kernels compute in their input type, so the float64 parity mode runs
@@ -551,42 +555,113 @@ __global__ void nic_update_kernel(const T* __restrict__ qmean,
   }
 }
 
-// ---- bucket_load_bottleneck: one thread per (plane, link bucket) -----
+// ---- bucket_load_bottleneck: a group of lanes a link bucket ---------
 // rate (F, P); plan (P, R, C) int32 flow indices, F = pad (reads +0.0);
-// cap/load/frac (P, R).  Each thread sums its bucket's C rates strictly
-// left to right from column 0 (flow order: bit-equal to the ordered
-// plain sum and to the NumPy engine's np.add.at), then writes the
-// bottleneck scale with a true division.  Bytes bound it: the plan is
-// read once, the rates gathered once per plan entry.  The index loads of
-// a block of kChunk columns are issued before their gathers, and the
-// gathers before the adds, so each thread keeps several loads in flight
-// although the adds stay sequential.
-constexpr int kChunk = 8;
+// cap/load/frac (P, R).  Each bucket's C rates are summed strictly left
+// to right from column 0, pads adding +0.0 as in the plain version (flow
+// order: bit-equal to the ordered plain sum and to the NumPy engine's
+// np.add.at), then the bottleneck scale is written with a true division.
+// A giga plan (P = 2, R = 8,192, C = 47) moves 5.1 MB, 1.5 us at the HBM
+// rate.  The first kernel, one thread a bucket in 128 blocks of 128,
+// was held back by latency: each thread read its plan row at the row's
+// 188-byte stride and waited on about a dozen dependent round trips,
+// with some 4 warps an SM to hide them.  Here a group of kBucketLanes
+// lanes of one warp takes kBucketRows buckets at a time: its lanes read
+// a row's indices on neighbouring words (two requests for a giga row),
+// issue every gather of a pass of kBucketCols columns before any add,
+// and stage the values in the warp's slice of shared memory; after
+// __syncwarp one lane a bucket walks them in column order.  The grid
+// covers every bucket at once (giga: 512 blocks of 32 buckets, all
+// resident on 132 SMs), with a grid-stride loop past kMaxBlocks.  Timed
+// side by side at giga on the H100 (benchmarks/
+// torch_bucket_codec_designs.py; PERF.md, section 6), the lanes and
+// buckets a group and the order of the buckets moved the time by less
+// than a launch costs while the grid stayed one wave, and a walk by
+// shuffles was slower; what is left is the launch and some 410,000
+// scattered 8-byte gathers, each a 32-byte sector.
+constexpr int kBucketLanes = 16;      // lanes of a group
+constexpr int kBucketRows = 2;        // buckets a group takes at once
+constexpr int kBucketCols = 64;       // columns a pass gathers
 
 template <typename T>
-__global__ void bucket_load_bottleneck_kernel(
+__global__ void __launch_bounds__(kThreads) bucket_load_bottleneck_kernel(
     const T* __restrict__ rate, const int32_t* __restrict__ plan,
     const T* __restrict__ cap, T* __restrict__ load, T* __restrict__ frac,
     int64_t F, int P, int64_t R, int C, T eps) {
-  GRID_STRIDE(i, (int64_t)P * R) {
-    const int p = static_cast<int>(i / R);
-    const int32_t* row = plan + i * C;
-    T acc = T(0);
-    for (int c0 = 0; c0 < C; c0 += kChunk) {
-      int32_t idx[kChunk];
-      T v[kChunk];
+  constexpr int G = kBucketLanes;
+  constexpr int U = kBucketCols / G;          // columns a lane a pass
+  constexpr int kGroups = 32 / G;             // groups a warp
+  constexpr int kTile = kGroups * kBucketRows;  // buckets a warp at once
+  constexpr int kStride = kBucketCols + 1;    // a staged row, padded
+  static_assert(32 % G == 0 && kBucketCols % G == 0 && kBucketRows <= G,
+                "bucket tiling");
+  __shared__ T stage[kThreads / 32][kTile * kStride];
+  const int lane = threadIdx.x & 31;
+  const int g = lane % G;
+  const int sub = lane / G;
+  T* tile = stage[threadIdx.x / 32];
+  const int64_t n = (int64_t)P * R;
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x / 32 * kTile;
+  // the loop bounds are uniform across the warp, so every lane reaches
+  // every __syncwarp
+  for (int64_t first = warp * kTile; first < n; first += step) {
+    int64_t b[kBucketRows];                   // the group's buckets
+    int p[kBucketRows];
+    bool live[kBucketRows];
 #pragma unroll
-      for (int k = 0; k < kChunk; ++k)
-        idx[k] = c0 + k < C ? row[c0 + k] : static_cast<int32_t>(F);
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k)
-        v[k] = idx[k] < F ? rate[(int64_t)idx[k] * P + p] : T(0);
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k)
-        if (c0 + k < C) acc = c0 + k == 0 ? v[k] : acc + v[k];
+    for (int k = 0; k < kBucketRows; ++k) {
+      b[k] = first + k * kGroups + sub;
+      live[k] = b[k] < n;
+      p[k] = live[k] ? static_cast<int>(b[k] / R) : 0;
     }
-    load[i] = acc;
-    frac[i] = min_(cap[i] / max_(acc, eps), T(1));
+    // lane g < kBucketRows walks the group's bucket g
+    const int w = g < kBucketRows ? g : 0;
+    const int64_t mine = first + w * kGroups + sub;
+    const T* walk = tile + (w * kGroups + sub) * kStride;
+    T acc = T(0);
+    for (int c0 = 0; c0 < C; c0 += kBucketCols) {
+      int32_t idx[kBucketRows][U];
+      T v[kBucketRows][U];
+#pragma unroll
+      for (int k = 0; k < kBucketRows; ++k)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int c = c0 + u * G + g;
+          idx[k][u] = live[k] && c < C ? __ldg(plan + b[k] * C + c)
+                                       : static_cast<int32_t>(F);
+        }
+#pragma unroll
+      for (int k = 0; k < kBucketRows; ++k)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          v[k][u] = idx[k][u] < F
+                        ? __ldg(rate + (int64_t)idx[k][u] * P + p[k])
+                        : T(0);
+      // the pass's walk: stage the values, then one lane a bucket adds
+      // them in column order
+#pragma unroll
+      for (int k = 0; k < kBucketRows; ++k)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          tile[(k * kGroups + sub) * kStride + u * G + g] = v[k][u];
+      __syncwarp();
+      if (g < kBucketRows) {
+        const int m = min(kBucketCols, C - c0);
+        int c = 0;
+        if (c0 == 0) {
+          acc = walk[0];
+          c = 1;
+        }
+        for (; c < m; ++c) acc = acc + walk[c];
+      }
+      __syncwarp();                           // the stage is free again
+      // end of the pass's walk
+    }
+    if (g < kBucketRows && mine < n) {
+      load[mine] = acc;
+      frac[mine] = min_(cap[mine] / max_(acc, eps), T(1));
+    }
   }
 }
 
@@ -831,12 +906,14 @@ int launch_bucket_load_bottleneck(const void* rate, const void* plan,
                                   double eps, void* stream) {
   if (P < 1 || C < 1) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
-  // 128 threads a block: a giga-scale plan (2 x 8192 buckets) still
-  // spreads over all 132 SMs
-  int64_t blocks = ((int64_t)P * R + 127) / 128;
+  // kThreads / kBucketLanes * kBucketRows buckets a block: a giga plan's
+  // 16,384 buckets make 512 blocks, all resident at once on 132 SMs
+  constexpr int64_t kPerBlock = kThreads / kBucketLanes * kBucketRows;
+  int64_t blocks = ((int64_t)P * R + kPerBlock - 1) / kPerBlock;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  bucket_load_bottleneck_kernel<T><<<static_cast<unsigned>(blocks), 128,
-                                     0, static_cast<cudaStream_t>(stream)>>>(
+  bucket_load_bottleneck_kernel<T><<<static_cast<unsigned>(blocks),
+                                     kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(rate), static_cast<const int32_t*>(plan),
       static_cast<const T*>(cap), static_cast<T*>(load),
       static_cast<T*>(frac), F, P, R, C, T(eps));

@@ -3,8 +3,9 @@
   * `int8_encode` replaces the Pallas kernel
     `repro/kernels/int8_codec.py::_encode_kernel`.  CPU tensors take
     `ref.int8_encode_ref`; CUDA tensors launch `model_int8_encode` (one
-    block per row: a max-reduce of |x|, the scale as a true division,
-    rintf of x / scale + noise).
+    block per row, which reads the row once: a max-reduce of |x|, the
+    scale as a true division, rintf of x / scale + noise) in the
+    instance `encode_instance` picks.
   * `int8_decode` replaces `_decode_kernel`.  CPU tensors take
     `ref.int8_decode_ref`; CUDA tensors launch `model_int8_decode`.
 
@@ -14,9 +15,44 @@ bit.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from . import build, ref
+
+# the encode kernel's instances, as `model_kernels.cu` numbers them
+ENCODE_INSTANCES = ("registers", "shared", "two_pass")
+ENC_THREADS = 512               # threads of an encode block, most
+ENC_MAX_LOADS = 8               # the register instance's loads and
+ENC_MAX_ELEMS = 16              # elements a thread, at most
+# a row the shared instance stages: a block's 227 KB of shared memory
+# less an mbarrier (16 bytes) and the reduce's scratch (a float for each
+# of 16 warps)
+ENC_ROW_BYTES = 232_448 - 16 - ENC_THREADS // 32 * 4
+
+
+def encode_instance(x: torch.Tensor,
+                    noise: torch.Tensor) -> Tuple[str, int]:
+    """(instance, elements of x a load) of the encode kernel for these
+    (R, C) operands.  A load is 16 bytes (4 float32 or 8 bfloat16) when
+    C is a multiple of that and `x` and `noise` start on 16 bytes (the
+    codes, which `int8_encode` allocates, always start on 16), else one
+    element.  Rows of at most ENC_THREADS x ENC_MAX_LOADS loads and
+    ENC_THREADS x ENC_MAX_ELEMS elements (8,192) live in registers;
+    longer ones up to ENC_ROW_BYTES are staged in shared memory (by a TMA
+    bulk copy when a load is 16 bytes); longer still take two passes
+    over global memory, in element loads."""
+    C, isz = x.shape[1], x.element_size()
+    width = 16 // isz
+    if C % width or x.data_ptr() % 16 or noise.data_ptr() % 16:
+        width = 1
+    if C // width <= ENC_THREADS * ENC_MAX_LOADS and \
+            C <= ENC_THREADS * ENC_MAX_ELEMS:
+        return "registers", width
+    if C * isz <= ENC_ROW_BYTES:
+        return "shared", width
+    return "two_pass", 1
 
 
 def int8_encode(x: torch.Tensor, noise: torch.Tensor):
@@ -32,8 +68,10 @@ def int8_encode(x: torch.Tensor, noise: torch.Tensor):
                 shape=(R, C))
     q = torch.empty((R, C), dtype=torch.int8, device=dev)
     scale = torch.empty((R, 1), dtype=torch.float32, device=dev)
+    instance, width = encode_instance(x, noise)
     build.launch("int8_encode", dt, dev, x.data_ptr(), noise.data_ptr(),
-                 q.data_ptr(), scale.data_ptr(), R, C)
+                 q.data_ptr(), scale.data_ptr(), R, C,
+                 ENCODE_INSTANCES.index(instance), int(width > 1))
     return q, scale
 
 

@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, jsq_route, link_load, ops, \
-    plb_select, queue_ecn, ref
+from repro_torch.kernels import build, int8_codec, jsq_route, link_load, \
+    ops, plb_select, queue_ecn, ref
 from repro_torch.scenarios import compile_scenario, get_scenario
 
 NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
@@ -244,6 +244,108 @@ def test_bucket_load_bottleneck_equals_plain_version(cuda, dtype):
     for g, want in zip(got, ref.load_bottleneck_ref(rate, plan, cap,
                                                     ordered=True)):
         assert torch.equal(g, want)
+
+
+def _tail_padded_plan(rng, P, R, C):
+    """(P, R, C) plan as the engine builds it (`engine._perm_matrix`):
+    each bucket's flows in flow order, pads only at the tail; bucket
+    fills 0..C, so some rows are all pads.  Returns (plan, F)."""
+    from repro_torch.netsim.engine import _perm_matrix
+    keys = np.repeat(np.arange(R), rng.integers(0, C + 1, R))
+    F = len(keys)
+    return np.stack([_perm_matrix(rng.permutation(keys), R, C, F)
+                     for _ in range(P)]), F
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+# one lane group is 8, 16 or 32 lanes wide: C below, at and above each,
+# the giga plan's 47 and a C of several passes of 64 columns
+@pytest.mark.parametrize("C", [1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 47, 64,
+                               65, 200])
+@pytest.mark.parametrize("pads", ["anywhere", "tail"])
+def test_bucket_load_bottleneck_shapes_equal_plain_version(cuda, dtype, P,
+                                                           C, pads):
+    rng = np.random.default_rng(C * 8 + P)
+    R = 37                             # not a multiple of a block's buckets
+    if pads == "tail":
+        plan, F = _tail_padded_plan(rng, P, R, C)
+    else:
+        F = 501
+        plan = rng.integers(0, F + 1, (P, R, C))        # F = pad
+        plan[:, ::5] = F                                # rows of pads only
+    rate = _uniform(rng, (F, P), dtype, cuda, zero_frac=0.1)
+    plan = torch.tensor(plan.astype(np.int32), device=cuda)
+    cap = _uniform(rng, (P, R), dtype, cuda, hi=2.0, zero_frac=0.1)
+    got = _launched("bucket_load_bottleneck",
+                    lambda: link_load.bucket_load_bottleneck(rate, plan, cap))
+    for g, want in zip(got, ref.load_bottleneck_ref(rate, plan, cap,
+                                                    ordered=True)):
+        assert torch.equal(g.view(torch.uint8), want.view(torch.uint8))
+
+
+# (dtype, R, C, instance, elements a load) of each int8_encode instance
+_ENCODE_CASES = [
+    (torch.float32, 4, 8192, "registers", 4),      # the longest tile
+    (torch.bfloat16, 4, 8192, "registers", 8),
+    (torch.float32, 37, 1001, "registers", 1),     # element loads
+    (torch.bfloat16, 37, 1001, "registers", 1),
+    (torch.float32, 3, 4095, "registers", 1),
+    (torch.float32, 3, 1, "registers", 1),
+    (torch.bfloat16, 3, 1, "registers", 1),
+    (torch.float32, 3, 4, "registers", 4),
+    (torch.bfloat16, 3, 4, "registers", 1),
+    (torch.float32, 4, 14336, "shared", 4),        # a llama3-8b MLP row
+    (torch.bfloat16, 4, 14336, "shared", 8),
+    (torch.float32, 3, 8196, "shared", 4),
+    (torch.bfloat16, 3, 40000, "shared", 8),
+    (torch.float32, 3, 4097, "shared", 1),
+    (torch.float32, 3, 20001, "shared", 1),
+    (torch.float32, 3, 58092, "shared", 4),        # the longest staged row
+    (torch.float32, 3, 58096, "two_pass", 1),
+    (torch.float32, 3, 58117, "two_pass", 1),
+    (torch.bfloat16, 3, 116240, "two_pass", 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,R,C,instance,width", _ENCODE_CASES,
+                         ids=[f"{str(d).split('.')[1]}-{r}x{c}-{i}"
+                              for d, r, c, i, _ in _ENCODE_CASES])
+def test_int8_encode_instances_equal_plain_version(cuda, dtype, R, C,
+                                                   instance, width):
+    rng = np.random.default_rng(C)
+    x = _normal(rng, (R, C), dtype, cuda) * 3
+    x[0] = 0.0                                   # an all-zero row
+    noise = torch.tensor(rng.uniform(-0.5, 0.5, (R, C)),
+                         dtype=torch.float32, device=cuda)
+    assert int8_codec.encode_instance(x, noise) == (instance, width)
+    q, scale = _launched("int8_encode", lambda: ops.int8_encode(x, noise))
+    q_ref, scale_ref = ref.int8_encode_ref(x, noise)
+    assert torch.equal(q, q_ref)
+    assert torch.equal(scale.view(torch.int32), scale_ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_encode_unaligned_rows_take_element_loads(cuda, dtype):
+    rng = np.random.default_rng(5)
+    R, C = 5, 14336
+    base = _normal(rng, (R * C + 1,), dtype, cuda)
+    x = base[1:].view(R, C)                      # 2 or 4 bytes off 16
+    noise = torch.tensor(rng.uniform(-0.5, 0.5, (R, C)),
+                         dtype=torch.float32, device=cuda)
+    assert int8_codec.encode_instance(x, noise) == ("shared", 1)
+    q, scale = _launched("int8_encode", lambda: ops.int8_encode(x, noise))
+    q_ref, scale_ref = ref.int8_encode_ref(x, noise)
+    assert torch.equal(q, q_ref)
+    assert torch.equal(scale.view(torch.int32), scale_ref.view(torch.int32))
+    zeros = torch.zeros((2, 1001), dtype=dtype, device=cuda)
+    q, scale = ops.int8_encode(zeros, noise[:2, :1001].contiguous())
+    q_ref, scale_ref = ref.int8_encode_ref(zeros, noise[:2, :1001])
+    assert torch.equal(q, q_ref)
+    assert torch.equal(scale.view(torch.int32), scale_ref.view(torch.int32))
 
 
 @pytest.mark.gpu

@@ -27,8 +27,8 @@ from repro.kernels import link_load as jx_link
 from repro.kernels import plb_select as jx_plb
 from repro.kernels import queue_ecn as jx_queue
 from repro.kernels import ref as jx_ref
-from repro_torch.kernels import build, jsq_route, link_load, ops, \
-    plb_select, queue_ecn, ref
+from repro_torch.kernels import build, int8_codec, jsq_route, link_load, \
+    ops, plb_select, queue_ecn, ref
 
 NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
               target_rtt_us=12.0, min_rate=0.01, md=0.7, ai=0.08,
@@ -236,7 +236,8 @@ def test_nic_update_f64_bit_equal(mode, F, P):
 
 
 @pytest.mark.parametrize("F,P,R,C", [(50, 1, 16, 7), (300, 2, 64, 47),
-                                     (129, 3, 37, 11)])
+                                     (129, 3, 37, 11), (10, 2, 9, 1),
+                                     (200, 4, 37, 200)])
 def test_bucket_load_bottleneck_f64_bit_equal(F, P, R, C):
     """The plain version in parity mode (ordered, the default in
     float64) against the ordered jnp oracle on the gathered plan."""
@@ -647,3 +648,59 @@ def test_every_kernel_has_an_entry_point_per_dtype():
     for kernel in build.KERNELS:
         stem = build.symbol(kernel, torch.float32)[:-len("f32")]
         assert sum(stem in s.read_text() for s in build.SOURCES) == 1, kernel
+
+
+# (dtype, C, offset of x in elements, instance, elements a load)
+_ENCODE_PICKS = [
+    (_F32, 14336, 0, "shared", 4), (_BF16, 14336, 0, "shared", 8),
+    (_F32, 8192, 0, "registers", 4), (_BF16, 8192, 0, "registers", 8),
+    (_F32, 8196, 0, "shared", 4), (_BF16, 8200, 0, "shared", 8),
+    (_F32, 1001, 0, "registers", 1), (_F32, 4, 0, "registers", 4),
+    (_BF16, 4, 0, "registers", 1), (_F32, 1, 0, "registers", 1),
+    (_F32, 4095, 0, "registers", 1), (_F32, 4097, 0, "shared", 1),
+    (_F32, 14336, 1, "shared", 1), (_BF16, 4096, 1, "registers", 1),
+    (_F32, 58092, 0, "shared", 4), (_F32, 58096, 0, "two_pass", 1),
+    (_BF16, 116184, 0, "shared", 8), (_BF16, 116192, 0, "two_pass", 1),
+]
+
+
+@pytest.mark.parametrize("dtype,C,offset,instance,width", _ENCODE_PICKS)
+def test_encode_instance_follows_shape_dtype_and_alignment(dtype, C, offset,
+                                                           instance, width):
+    """The encode kernel takes 16-byte loads only where C and the
+    operands' alignment allow them, keeps rows of up to 512 x 8 loads
+    and 8,192 elements in registers, stages rows of up to 227 KB less
+    its scratch in shared memory, and reads longer ones in two passes."""
+    x = torch.zeros(C + offset, dtype=dtype)[offset:].view(1, C)
+    noise = torch.zeros(1, C)
+    assert int8_codec.encode_instance(x, noise) == (instance, width)
+    if not offset:                   # misaligned noise: element loads
+        assert int8_codec.encode_instance(
+            x, torch.zeros(C + 1)[1:].view(1, C)) == \
+            ("shared" if instance == "registers" and C > 4096 else instance,
+             1)
+
+
+def test_encode_limits_match_the_kernel_source():
+    """The wrapper's instance limits are the kernel's own constants."""
+    import re
+    src = build.source("int8_encode").read_text()
+
+    def const(name):
+        return re.search(rf"constexpr int(?:64_t)? {name} = ([^;]+);",
+                         src).group(1)
+
+    threads, loads = int(const("kEncThreads")), int(const("kEncMaxLoads"))
+    assert (threads, loads, int(const("kEncMaxElems"))) == (
+        int8_codec.ENC_THREADS, int8_codec.ENC_MAX_LOADS,
+        int8_codec.ENC_MAX_ELEMS)
+    head = re.fullmatch(r"(\d+) \+ kEncThreads / 32 \* 4",
+                        const("kEncHeadBytes")).group(1)
+    smem = re.fullmatch(r"(\d+) - kEncHeadBytes",
+                        const("kEncRowBytes")).group(1)
+    assert int(smem) - int(head) - threads // 32 * 4 == \
+        int8_codec.ENC_ROW_BYTES
+    assert re.search(r"enum EncodeInstance \{ kEncRegisters = 0, "
+                     r"kEncShared = 1, kEncTwoPass = 2 \};", src)
+    assert int8_codec.ENCODE_INSTANCES == ("registers", "shared",
+                                           "two_pass")
