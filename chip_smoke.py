@@ -11,9 +11,10 @@ Phases, each fatal on failure:
   build     compile the port's kernels from
             `src/repro_torch/kernels/csrc/{netsim,model}_kernels.cu`
             (one nvcc per source, started together, then one link), and
-            count the tensor-core instructions (HGMMA) that
-            `cuobjdump -sass` lists in the bf16 flash_attention kernel
-            (fatal if there are none; "not measured" without cuobjdump).
+            count the tensor-core instructions that `cuobjdump -sass`
+            lists in the flash_attention kernels: HGMMA (wgmma) in the
+            bf16 ones, HMMA (mma.sync, 3xTF32) in the float32 ones
+            (fatal if one has none; "not measured" without cuobjdump).
   kernels   each of the eight kernels against its plain PyTorch version
             on the same GPU tensors: the five AR/WAR slot kernels at the
             fig9 and giga AR shapes (bottleneck on one pair of links and
@@ -24,7 +25,8 @@ Phases, each fatal on failure:
             bucket_load_bottleneck on the engine's own ECMP plans of
             fig11 and the giga point, all in float32 and float64, and
             the per-packet jsq_route and plb_select at the
-            `kernels_bench.py` shapes plus a block tail; CUDA-event
+            `kernels_bench.py` shapes plus a block tail (jsq_route
+            also with every port scoring the same); CUDA-event
             times of kernel and plain version (each captured in a CUDA
             graph of 20 calls, so host launch overhead is excluded)
             beside the least time the card needs for the bytes moved or
@@ -47,19 +49,21 @@ Phases, each fatal on failure:
             used for giga-scale parity, and the ECMP one against the
             golden row (1e-5).
   packets   the per-packet path: `repro_torch.kernels.ops.jsq_route` and
-            `ops.plb_select` route batches of 4096 packets, each batch
-            equal to the plain versions.
+            `ops.plb_select` route batches of 4096 packets, and
+            jsq_route one more batch over ports that all score the
+            same (the hashed tie-break decides), each batch equal to
+            the plain versions.
   model_kernels
             the attention and int8-codec entry points of
             `repro_torch.kernels.ops` at full model widths (MODEL_CASES):
             llama3-8b prefill (4096 tokens, causal, bf16 and f32) and
             decode (8 x 8192-slot cache), a gemma3-12b local layer
-            (window 1024), and the int8 codec on a llama3-8b MLP
-            gradient leaf (encode also in bf16 and at an odd row length
-            that takes element loads); each kernel held to its plain
-            version on the card (attention within ATTN_TOL, the codec
-            bit for bit) and timed beside the plain version and one
-            PyTorch call
+            (window 1024, bf16 and f32), and the int8 codec on a
+            llama3-8b MLP gradient leaf (encode also in bf16 and at an
+            odd row length that takes element loads); each kernel held
+            to its plain version on the card (attention within
+            ATTN_TOL, the codec bit for bit) and timed beside the plain
+            version and one PyTorch call
             (`scaled_dot_product_attention`, `q * scale`); attention
             lines also give TFLOP/s of unmasked work and the ratio of
             the kernel's time to SDPA's.
@@ -155,7 +159,7 @@ CODEC_ODD_C = 4095                    # rows no 16-byte load divides
 # the sums run over 4096-8192 keys in another order than the einsums
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # launches of one model_kernels main-path run
-MODEL_LAUNCHES = {"flash_attention": 3, "decode_attention": 1,
+MODEL_LAUNCHES = {"flash_attention": 4, "decode_attention": 1,
                   "int8_encode": 3, "int8_decode": 1}
 # operations per element of the codec (|x|, max, divide, add, round,
 # clamp; decode: convert, multiply), for the operations bound
@@ -218,32 +222,47 @@ def case(kernel, mode, shape, dtype, run, plain, nbytes, ops, *,
                 summary=summary, extra=extra or {})
 
 
-def sass_hgmma() -> str:
-    """The HGMMA (wgmma) instructions of each bf16 flash_attention kernel
-    in the built library's SASS, as `cuobjdump -sass` lists them; fails
-    if one has none."""
+# flash_attention kernels and the tensor-core instruction each must
+# hold in its SASS: wgmma (HGMMA) in bf16, mma.sync (HMMA) in float32
+SASS_MMA = {"bf16": ("flash_attention_wgmma_kernel", "HGMMA"),
+            "float32": ("flash_attention_tf32_kernel", "HMMA")}
+
+
+def sass_mma(sass: str) -> str:
+    """The tensor-core instructions of each flash_attention kernel in
+    `sass` (the built library as `cuobjdump -sass` lists it), by dtype
+    and head_dim; fails if a kernel is missing or has none."""
+    out = []
+    for dname, (kernel, instr) in SASS_MMA.items():
+        counts, head_dim = {}, None      # head_dim -> instruction lines
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(kernel + r"ILi(\d+)E", line)
+                head_dim = int(m.group(1)) if m else None
+                if head_dim is not None:
+                    counts[head_dim] = 0
+            elif head_dim is not None and re.search(rf"\b{instr}\b", line):
+                counts[head_dim] += 1
+        if sorted(counts) != [64, 128, 192, 256] or not all(counts.values()):
+            fail(f"{dname} flash kernels without {instr} in their SASS: "
+                 f"{counts}")
+        out.append(f"{instr} in the {dname} flash kernels, by head_dim: "
+                   + ", ".join(f"{d}: {n}" for d, n in sorted(counts.items())))
+    return "; ".join(out)
+
+
+def sass_check() -> str:
+    """`sass_mma` of the built library, or "not measured" without
+    cuobjdump."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        return "HGMMA in the bf16 flash kernels: not measured (no cuobjdump)"
-    sass = subprocess.run([tool, "-sass", str(build.library_path())],
-                          capture_output=True, text=True,
-                          check=True).stdout
-    counts, head_dim = {}, None          # head_dim -> HGMMA lines
-    for line in sass.splitlines():
-        if "Function :" in line:
-            m = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", line)
-            head_dim = int(m.group(1)) if m else None
-            if head_dim is not None:
-                counts[head_dim] = 0
-        elif head_dim is not None and "HGMMA" in line:
-            counts[head_dim] += 1
-    if not counts or not all(counts.values()):
-        fail(f"bf16 flash kernels without HGMMA in their SASS: {counts}")
-    return ("HGMMA instructions in the bf16 flash kernel's SASS "
-            "(cuobjdump -sass), by head_dim: " + ", ".join(
-                f"{d}: {n}" for d, n in sorted(counts.items())))
+        return ("tensor-core instructions in the flash kernels: not "
+                "measured (no cuobjdump)")
+    return "cuobjdump -sass: " + sass_mma(subprocess.run(
+        [tool, "-sass", str(build.library_path())], capture_output=True,
+        text=True, check=True).stdout)
 
 
 def kernel_cases(sname: str, shape: dict, dtype, seed: int):
@@ -436,10 +455,11 @@ def ecmp_cases(sname: str, plan, cap64, F: int, dtype, seed: int):
         extra={"gathered_sum_ms": lambda: g.sum(-1)})]
 
 
-def packet_inputs(lanes: int, N: int, seed: int):
+def packet_inputs(lanes: int, N: int, seed: int, ties: bool = False):
     """Per-lane float32 vectors (lane 0 up) and N packets: tx rates and
     32-bit hashes over the full range (int32 bits, as the kernels read
-    them)."""
+    them).  `ties`: one queue and one weight for every lane, so that
+    jsq_route's hashed tie-break alone decides among the lanes up."""
     import numpy as np
     import torch
     from repro_torch.kernels.jsq_route import hash32
@@ -454,8 +474,11 @@ def packet_inputs(lanes: int, N: int, seed: int):
     mask = (rng.random(lanes) > 0.2).astype(np.float64)
     mask[0] = 1.0
     h = torch.tensor(rng.integers(0, 1 << 32, N), device="cuda")
-    return (f(q), f(mask), f(rng.uniform(0.25, 1.0, lanes)),
-            f(rng.uniform(0.0, 0.6, N)), hash32("pkt_hash", h))
+    w = rng.uniform(0.25, 1.0, lanes)
+    if ties:
+        q[:], w[:] = 0.5, 0.5
+    return (f(q), f(mask), f(w), f(rng.uniform(0.0, 0.6, N)),
+            hash32("pkt_hash", h))
 
 
 def packet_cases(seed: int):
@@ -465,14 +488,19 @@ def packet_cases(seed: int):
     from repro_torch.kernels import jsq_route, plb_select, ref
 
     out = []
-    for lanes, N in PACKET_SHAPES["jsq_route"]:
-        q, up, w, _, h = packet_inputs(lanes, N, seed + N)
+    for (lanes, N), ties in (*((s, False) for s in
+                               PACKET_SHAPES["jsq_route"]),
+                             (PACKET_SHAPES["jsq_route"][0], True)):
+        q, up, w, _, h = packet_inputs(lanes, N, seed + N + 2 * ties,
+                                       ties=ties)
         out.append(case(
-            "jsq_route", "", f"{lanes}x{N}", torch.float32,
+            "jsq_route", "ties" if ties else "", f"{lanes}x{N}",
+            torch.float32,
             lambda q=q, up=up, w=w, h=h: jsq_route.jsq_route(q, up, w, h),
             lambda q=q, up=up, w=w, h=h: ref.jsq_route_ref(q, up, w, h),
             3 * lanes * 4 + 2 * N * 4,
-            N * lanes * FLOPS_PER_ELEM["jsq_route"], summary=N == 4096))
+            N * lanes * FLOPS_PER_ELEM["jsq_route"],
+            summary=N == 4096 and not ties))
     for lanes, N in PACKET_SHAPES["plb_select"]:
         ra, el, lq, tx, h = packet_inputs(lanes, N, seed + N + 1)
         args = (ra, el, lq, tx, h)
@@ -842,6 +870,7 @@ def packet_phase(report: dict, total: dict) -> None:
     """The per-packet path through its entry points
     (`repro_torch.kernels.ops`): PACKET_BATCHES batches of 4096 packets
     routed to switch ports by jsq_route and to NIC planes by plb_select,
+    and one more jsq_route batch over ports that all score the same,
     each batch equal to the plain versions and never on a down port or
     an ineligible plane."""
     import torch
@@ -852,17 +881,23 @@ def packet_phase(report: dict, total: dict) -> None:
     batches = [(packet_inputs(ports, n, 1000 + i),
                 packet_inputs(planes, n, 2000 + i))
                for i in range(PACKET_BATCHES)]
+    tq, tup, tw, _, th = packet_inputs(ports, n, 3000, ties=True)
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
     outs = [(ops.jsq_route(q, up, w, h),
              ops.plb_select(ra, el, lq, tx, hp))
             for (q, up, w, _, h), (ra, el, lq, tx, hp) in batches]
+    tie_port = ops.jsq_route(tq, tup, tw, th)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check_launches("packets", dict(build.LAUNCHES),
-                   {"jsq_route": PACKET_BATCHES,
+                   {"jsq_route": PACKET_BATCHES + 1,
                     "plb_select": PACKET_BATCHES}, total)
+    if not torch.equal(tie_port, ref.jsq_route_ref(tq, tup, tw, th)) or \
+            bool((tup[tie_port.long()] == 0).any()):
+        fail("packets: the batch of equal port scores differs from the "
+             "plain version or went to a down port")
     for ((q, up, w, _, h), (ra, el, lq, tx, hp)), (port, plane) in zip(
             batches, outs):
         if not (torch.equal(port, ref.jsq_route_ref(q, up, w, h))
@@ -876,7 +911,8 @@ def packet_phase(report: dict, total: dict) -> None:
                              ports=ports, planes=planes, wall_s=wall)
     print(f"packets: {PACKET_BATCHES} batches of {n} packets through "
           f"ops.jsq_route ({ports} ports) and ops.plb_select ({planes} "
-          f"planes) in {wall * 1e3:.3f} ms; equal to the plain versions",
+          f"planes), and one of equal port scores through ops.jsq_route, "
+          f"in {wall * 1e3:.3f} ms; equal to the plain versions",
           flush=True)
 
 
@@ -912,7 +948,7 @@ def attn_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
 
 def model_cases(seed: int) -> list:
     """The model_kernels cases, inputs on the card from a seeded
-    generator, in main-path order: three prefills through
+    generator, in main-path order: four prefills through
     `ops.flash_attention_bshd`, one decode, then the int8 codec."""
     import numpy as np
     import torch
@@ -949,7 +985,8 @@ def model_cases(seed: int) -> list:
 
     cases = [prefill("llama3-8b prefill", LLAMA, torch.bfloat16),
              prefill("llama3-8b prefill", LLAMA, torch.float32),
-             prefill("gemma3-12b local", GEMMA, torch.bfloat16)]
+             prefill("gemma3-12b local", GEMMA, torch.bfloat16),
+             prefill("gemma3-12b local", GEMMA, torch.float32)]
 
     B, S, H, D = DECODE_B, DECODE_S, LLAMA["Hq"], LLAMA["D"]
     q = randn(B, H, 1, D, dtype=torch.bfloat16)
@@ -1074,7 +1111,7 @@ def model_phase(report: dict, total: dict, summary: dict) -> None:
         s["max_abs_err_all"] = max(s.get("max_abs_err_all", 0.0),
                                    row["max_abs_err"])
     report["model_kernels"] = dict(rows=rows, main_path_wall_s=wall)
-    print(f"model_kernels: main path (3 prefills, 1 decode, 3 encodes, "
+    print(f"model_kernels: main path (4 prefills, 1 decode, 3 encodes, "
           f"1 decode) in {wall * 1e3:.3f} ms of host wall; every kernel "
           "within its bound of the plain version", flush=True)
     del cases, outs
@@ -1160,7 +1197,7 @@ def main(argv=None) -> int:
     print(f"build: nvcc {build.build_seconds:.2f} s (both sources), "
           f"library loaded after "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    print(f"build: {sass_hgmma()}", flush=True)
+    print(f"build: {sass_check()}", flush=True)
 
     report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
     summary = kernel_phase(report)

@@ -11,9 +11,10 @@
 //
 // flash_attention is bound by operations (4 D flops per unmasked
 // query-key pair), which only the tensor cores deliver: 989 TFLOP/s in
-// bf16 against 67 in float32 on CUDA cores.  A llama3-8b prefill (4096
-// tokens, causal, 32 heads, head_dim 128) is 137 GFLOP: 0.139 ms on the
-// tensor cores, 2.05 ms on CUDA cores.  Two kernels:
+// bf16 and 495 in TF32, against 67 in float32 on CUDA cores.  A
+// llama3-8b prefill (4096 tokens, causal, 32 heads, head_dim 128) is 137
+// GFLOP: 0.139 ms in bf16 on the tensor cores, 0.83 ms as three TF32
+// products, 2.05 ms on CUDA cores.  Two kernels:
 //
 // * bf16 (flash_attention_wgmma_kernel): warp-specialised for Hopper.
 //   A block owns 128 query rows of one (batch, head) and has three
@@ -41,14 +42,31 @@
 //   every wgmma chain asynchronous only while no path it cannot rule out
 //   writes an accumulator in flight (hence the first tile is peeled) and
 //   the waits carry no time-out.
-// * float32 (flash_attention_kernel): CUDA cores, float32 FMAs, kept
-//   for its 1e-4 tolerance, which rules out TF32.  One block of 256
-//   threads owns 64 query rows of one (batch, head) and walks the key
-//   tiles of 64 in a loop, which takes the place of the Pallas grid's
-//   sequential k axis: Q (transposed), K (transposed), V and the
-//   probabilities sit in shared memory; each thread holds a 4x4 tile of
-//   scores and a 4 x D/16 tile of the output, and the 16 threads of a
-//   row group (one half warp) reduce the row max and sum with shuffles.
+// * float32 (flash_attention_tf32_kernel): the tensor cores in split
+//   "3xTF32".  One TF32 product keeps 11 bits of each operand, too few
+//   for the 1e-4 tolerance; each float32 operand x is split into
+//   hi = tf32(x) and lo = tf32(x - hi) (both cut by a mask: cvt.rna
+//   took a third more time), and a b is summed as lo_a hi_b +
+//   hi_a lo_b + hi_a hi_b (mma.sync m16n8k8, float32 accumulators),
+//   about 2^-20 of each product off.  The tensor cores' float32 adds
+//   cut rather than round, so a long chain of them drifts toward zero:
+//   S sums chunks of 32 head_dim columns, and P V one key tile, in
+//   chains of their own, joined by float32 adds (O = O x correction +
+//   tile sum, one fmaf), which took the error at a llama3-8b prefill
+//   from 7e-6 to 3e-6.  A
+//   block of 8 warps owns 128 query rows of one (batch, head), a warp
+//   16 of them, and walks the key tiles (64 keys at head_dim <= 128, 16
+//   above) in a loop, which takes the place of the Pallas grid's
+//   sequential k axis: Q and a ring of two K and V stages sit in shared
+//   memory, filled by cp.async, tile i + 1 in flight while tile i is
+//   multiplied.  Each warp splits its fragments as it reads them; S
+//   stays in the accumulator fragment, where the online softmax (in
+//   log2 units, exp2) reduces a row over the 4 lanes of a quad, and
+//   becomes the A fragment of P V with no trip through shared memory,
+//   since each k step takes its 8 columns in the order 0, 2, 4, 6, 1,
+//   3, 5, 7.  Registers (up to 255 a thread) hold the block to one an
+//   SM, and the kernel runs at about a third of the three products'
+//   peak (PERF.md, section 6).
 //
 // Both skip the key tiles that no row of the block may see, unless some
 // row of the block sees no key at all: that row averages v uniformly, as
@@ -68,9 +86,9 @@
 //
 // Masked scores are the finite NEG_INF = -1e30, as in the reference;
 // keys past the end of a tile (ragged tails) score -inf and weigh 0.
-// Built with --fmad=false like the other kernels: the CUDA-core products
-// use explicit fmaf (wgmma is not touched by the flag); the codec has no
-// multiply-add.
+// Built with --fmad=false like the other kernels: the CUDA-core
+// multiply-adds are explicit fmaf (wgmma and mma are not touched by the
+// flag); the codec has no multiply-add.
 //
 // Plain C interface (loaded with ctypes): every entry point takes raw
 // pointers and the CUDA stream, launches on that stream, allocates
@@ -136,15 +154,44 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p,
   for (int i = 0; i < E; ++i) out[i] = to_float(tmp[i]);
 }
 
-// ---- flash_attention, float32 (CUDA cores) ----------------------------
-constexpr int kBQ = 64;             // query rows per block
-constexpr int kBK = 64;             // keys per tile
-constexpr int kFlashThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kPStride = kBK + 4;   // padded row of the probability tile
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- flash_attention, float32 (3xTF32 on the tensor cores) ------------
+// Tiles: kTfWarps warps of 16 query rows each own a block's rows; key
+// tiles of tf_bk(D) keys pass through a ring of kTfStages stages.
+constexpr int kTfWarps = 8;
+constexpr int kTfBkNarrow = 64;       // keys a tile at head_dim <= 128
+constexpr int kTfBkWide = 16;         // ... above
+constexpr int kTfStages = 2;
+// head_dim steps of 8 whose products one chain of S sums before they
+// join S in a float32 add (the tensor cores' adds cut, so long chains
+// drift toward zero); D / 8 or more: one chain
+constexpr int kTfSChunk = 4;
+// chains of P V (column steps of 8 of a key tile) run interleaved
+constexpr int kTfColGroups = 8;
+
+__host__ __device__ constexpr int tf_bk(int D) {
+  return D <= 128 ? kTfBkNarrow : kTfBkWide;
+}
+// row strides in shared memory (floats): Q and K are read as float2
+// (bank 8 g + 2 t for quad lane t of row g), V as floats (bank 8 t + g)
+__host__ __device__ constexpr int tf_qk_stride(int D) { return D + 8; }
+__host__ __device__ constexpr int tf_v_stride(int D) { return D + 4; }
 
 template <int D>
-constexpr int flash_smem_bytes() {
-  return (2 * D * kBQ + kBK * D + kBQ * kPStride) * sizeof(float);
+constexpr int tf_smem_bytes() {
+  return (16 * kTfWarps * tf_qk_stride(D) +
+          kTfStages * tf_bk(D) * (tf_qk_stride(D) + tf_v_stride(D))) * 4;
 }
 
 struct FlashArgs {
@@ -155,82 +202,101 @@ struct FlashArgs {
   float scale;
 };
 
-// rows [0, kBQ) x D of `src` (row stride `stride`, n_rows valid) into
-// dst[d * kBQ + r]: lanes take neighbouring rows, so the transposed
-// stores hit neighbouring banks.
-template <int D>
-__device__ __forceinline__ void load_tile_t(const float* __restrict__ src,
-                                            int64_t stride, int n_rows,
-                                            float* __restrict__ dst) {
-  constexpr int E = 4;
-  constexpr int kChunks = kBQ * (D / E);
-  for (int idx = threadIdx.x; idx < kChunks; idx += kFlashThreads) {
-    const int r = idx % kBQ, d0 = (idx / kBQ) * E;
-    float x[E];
-    if (r < n_rows) {
-      load_vec<float, E>(src + r * stride + d0, x);
-    } else {
+// 16 bytes from global to shared memory by cp.async; zeros when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// rows [0, ROWS) x D of `src` (row stride `stride`, the first n_rows
+// valid, the rest zero) into shared memory at dst, rows STRIDE floats
+// apart
+template <int D, int ROWS, int STRIDE>
+__device__ __forceinline__ void copy_rows(uint32_t dst,
+                                          const float* __restrict__ src,
+                                          int64_t stride, int n_rows) {
+  constexpr int kVecs = D / 4;
+  constexpr int kThreads = 32 * kTfWarps;
+  static_assert(ROWS * kVecs % kThreads == 0, "whole passes");
 #pragma unroll
-      for (int u = 0; u < E; ++u) x[u] = 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < E; ++u) dst[(d0 + u) * kBQ + r] = x[u];
+  for (int it = 0; it < ROWS * kVecs / kThreads; ++it) {
+    const int idx = it * kThreads + threadIdx.x;
+    const int r = idx / kVecs, c = (idx % kVecs) * 4;
+    const bool ok = r < n_rows;
+    cp_async16(dst + (r * STRIDE + c) * 4, src + (ok ? r : 0) * stride + c,
+               ok);
   }
 }
 
-// rows [0, kBK) x D of v into dst[c * D + d] (lanes take neighbouring
-// chunks of one row).
-template <int D>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          int64_t stride, int n_rows,
-                                          float* __restrict__ dst) {
-  constexpr int E = 4;
-  constexpr int kChunks = kBK * (D / E);
-  for (int idx = threadIdx.x; idx < kChunks; idx += kFlashThreads) {
-    const int c = idx / (D / E), d0 = (idx % (D / E)) * E;
-    float x[E];
-    if (c < n_rows) {
-      load_vec<float, E>(src + c * stride + d0, x);
-    } else {
-#pragma unroll
-      for (int u = 0; u < E; ++u) x[u] = 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < E; ++u) dst[c * D + d0 + u] = x[u];
-  }
+// x = hi + lo, both TF32 (float32 with the low 13 mantissa bits zero),
+// each cut from the bits above it by a mask: x - hi is exact in
+// float32, so the error is lo's own cut, below 2^-20 |x|.  Rounding
+// both halves by cvt.rna (2^-22) took a third more time (PERF.md,
+// section 6), for an error the tolerance does not need.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xFFFFE000u;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kFlashThreads, D <= 128 ? 2 : 1)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       FlashArgs a) {
-  extern __shared__ float4 smem_v4[];          // 16-byte aligned
-  float* qt = reinterpret_cast<float*>(smem_v4);  // [D][kBQ]
-  float* kt = qt + D * kBQ;         // [D][kBK]
-  float* vs = kt + D * kBK;         // [kBK][D]
-  float* ps = vs + kBK * D;         // [kBQ][kPStride]
-  constexpr int kCols = D / 16;     // output columns per thread
-  constexpr int kColVecs = D / 64;  // ... as float4 groups
+// d += a b on the tensor cores: a 16 x 8 (row), b 8 x 8 (col), TF32
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-  const int n_qt = gridDim.x;
-  const int qtile = n_qt - 1 - blockIdx.x;   // heavy causal tiles first
+// d += a b to float32 accuracy: the small products first, then hi hi
+// (lo lo, below 2^-20 of the product, is left out)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// The fragments of m16n8k8, for lane (g, t) = (lane / 4, lane % 4): A
+// holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (t, g) and
+// (t + 4, g); C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).  The
+// k index of a product is a sum, so each k step of 8 takes its columns
+// in the order 0, 2, 4, 6, 1, 3, 5, 7: A's (g, t) and (g, t + 4) are
+// then columns 2t and 2t + 1, which S's accumulator (C) holds for P V
+// and one float2 of Q (or K) holds for Q K^T.
+template <int D>
+__global__ void __launch_bounds__(32 * kTfWarps)
+flash_attention_tf32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, FlashArgs a) {
+  constexpr int BQ = 16 * kTfWarps, BK = tf_bk(D);
+  constexpr int QS = tf_qk_stride(D), KS = tf_qk_stride(D);
+  constexpr int VS = tf_v_stride(D);
+  constexpr int NT = BK / 8, DT = D / 8;      // key and head_dim steps
+  extern __shared__ float4 tf_smem_v4[];      // 16-byte aligned
+  float* qs = reinterpret_cast<float*>(tf_smem_v4);   // [BQ][QS]
+  float* ks = qs + BQ * QS;                   // [stage][BK][KS]
+  float* vs = ks + kTfStages * BK * KS;       // [stage][BK][VS]
+
+  const int qtile = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int bh = blockIdx.y;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.group;
-  const int q0 = qtile * kBQ;
-  const int q_rows = min(kBQ, a.Sq - q0);
+  const int q0 = qtile * BQ;
+  const int q_rows = min(BQ, a.Sq - q0);
   const float* qp = q + b * a.q_b + h * a.q_h + q0 * a.q_s;
   const float* kp = k + b * a.k_b + hk * a.k_h;
   const float* vp = v + b * a.k_b + hk * a.k_h;
-  float* op = o + b * a.q_b + h * a.q_h + q0 * a.q_s;
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int r0 = ty * 4;            // this thread's rows r0..r0+3
-  const int c0 = tx * 4;            // its score columns c0..c0+3
-
-  // key range any row of the block may see, and whether every row
-  // sees at least one key (then the tiles outside can be skipped)
+  // key tiles any row of the block may see, and whether every row sees
+  // at least one key (then the tiles outside can be skipped)
   const int q_last = q0 + q_rows - 1;
   int k_lo = 0, k_hi = a.Sk;
   if (a.window > 0) k_lo = max(0, q0 - a.window + 1);
@@ -238,131 +304,194 @@ flash_attention_kernel(const float* __restrict__ q,
   const int last_lo = a.window > 0 ? max(0, q_last - a.window + 1) : 0;
   const int last_hi = a.causal ? min(q_last, a.Sk - 1) : a.Sk - 1;
   const bool all_live = last_lo <= last_hi;
-  const int t_begin = all_live ? k_lo / kBK : 0;
-  const int t_end = all_live ? (k_hi + kBK - 1) / kBK
-                             : (a.Sk + kBK - 1) / kBK;
+  const int t_begin = all_live ? k_lo / BK : 0;
+  const int n = (all_live ? (k_hi + BK - 1) / BK : (a.Sk + BK - 1) / BK) -
+                t_begin;                      // tiles to walk (>= 1)
 
-  load_tile_t<D>(qp, a.q_s, q_rows, qt);
+  auto load_kv = [&](int i) {
+    const int k0 = (t_begin + i) * BK, s = i % kTfStages;
+    const int rows = min(BK, a.Sk - k0);
+    copy_rows<D, BK, KS>(smem_addr(ks + s * BK * KS), kp + k0 * a.k_s,
+                         a.k_s, rows);
+    copy_rows<D, BK, VS>(smem_addr(vs + s * BK * VS), vp + k0 * a.k_s,
+                         a.k_s, rows);
+  };
+  copy_rows<D, BQ, QS>(smem_addr(qs), qp, a.q_s, q_rows);
+  load_kv(0);
+  asm volatile("cp.async.commit_group;" ::: "memory");
 
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int first = q0 + 16 * warp, last = first + 15;  // the warp's rows
+  const int row_lo = first + g;               // and row_lo + 8
+  const float scale_log2 = a.scale * kLog2e;
+  const float* qw = qs + (16 * warp + g) * QS + 2 * t;
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBK;
-    const int k_rows = min(kBK, a.Sk - k0);
-    __syncthreads();                // previous tile fully consumed
-    load_tile_t<D>(kp + k0 * a.k_s, a.k_s, k_rows, kt);
-    load_tile<D>(vp + k0 * a.k_s, a.k_s, k_rows, vs);
-    __syncthreads();
+  float acc[DT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qt + d * kBQ + r0);
-      const float4 kb = *reinterpret_cast<const float4*>(kt + d * kBK + c0);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {kb.x, kb.y, kb.z, kb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) {                          // tile i + 1 in flight
+      load_kv(i + 1);
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
     }
+    __syncthreads();                          // tile i visible to all
+    const float* kt = ks + (i % kTfStages) * BK * KS + g * KS + 2 * t;
+    const float* vt = vs + (i % kTfStages) * BK * VS + 2 * t * VS + g;
 
-    float corr[4];
+    // S = Q K^T: a step of 8 along D takes Q's float2 (2t, 2t + 1) of
+    // rows g and g + 8, and K's of key 8 j + g; each chunk of kTfSChunk
+    // steps sums in a chain of its own
+    constexpr int kChunk = kTfSChunk < DT ? kTfSChunk : DT;
+    static_assert(DT % kChunk == 0, "whole chunks");
+    float sc[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + r0 + i;
-      float mt = -INFINITY;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + c0 + j;
-        float x = s[i][j] * a.scale;
-        if ((a.causal && qpos < kpos) ||
-            (a.window > 0 && qpos - kpos >= a.window))
-          x = kNegInf;
-        if (kpos >= a.Sk) x = -INFINITY;
-        s[i][j] = x;
-        mt = fmaxf(mt, x);
-      }
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll 1
+    for (int k8 = 0; k8 < DT; k8 += kChunk) {
+      float part[NT][4];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      corr[i] = expf(m[i] - m_new);
-      float rs = 0.f;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l[i] = l[i] * corr[i] + rs;   // this thread's share of the row sum
-      m[i] = m_new;
-      *reinterpret_cast<float4*>(ps + (r0 + i) * kPStride + c0) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    }
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int kk = k8; kk < k8 + kChunk; ++kk) {
+        const float2 x0 = *reinterpret_cast<const float2*>(qw + 8 * kk);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(qw + 8 * QS + 8 * kk);
+        uint32_t ah[4], al[4];
+        split_tf32(x0.x, ah[0], al[0]);
+        split_tf32(x1.x, ah[1], al[1]);
+        split_tf32(x0.y, ah[2], al[2]);
+        split_tf32(x1.y, ah[3], al[3]);
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= corr[i];
-    __syncthreads();
-
-    for (int c = 0; c < k_rows; c += 4) {
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 pv =
-            *reinterpret_cast<const float4*>(ps + (r0 + i) * kPStride + c);
-        p[i][0] = pv.x; p[i][1] = pv.y; p[i][2] = pv.z; p[i][3] = pv.w;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int g = 0; g < kColVecs; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              vs + (c + u) * D + g * 64 + c0);
-          const float vx[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][g * 4 + e] = fmaf(p[i][u], vx[e], acc[i][g * 4 + e]);
+        for (int j = 0; j < NT; ++j) {
+          const float2 y =
+              *reinterpret_cast<const float2*>(kt + 8 * j * KS + 8 * kk);
+          uint32_t bh_[2], bl[2];
+          split_tf32(y.x, bh_[0], bl[0]);
+          split_tf32(y.y, bh_[1], bl[1]);
+          mma_3xtf32(part[j], ah, al, bh_, bl);
         }
       }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += part[j][e];
     }
+
+    // the online softmax in log2 units; a row lives in the 4 lanes of a
+    // quad, element e of sc[j] in row g + 8 (e / 2), key 8 j + 2t + e % 2
+    const int k0 = (t_begin + i) * BK;
+    const bool whole = k0 + BK <= a.Sk &&
+        (!a.causal || k0 + BK - 1 <= first) &&
+        (a.window <= 0 || last - k0 < a.window);
+    float mt[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e] * scale_log2;
+        if (!whole) {
+          const int row = row_lo + 8 * (e / 2);
+          const int col = k0 + 8 * j + 2 * t + e % 2;
+          if ((a.causal && row < col) ||
+              (a.window > 0 && row - col >= a.window))
+            x = kNegInf;
+          if (col >= a.Sk) x = -INFINITY;
+        }
+        sc[j][e] = x;
+        mt[e / 2] = fmaxf(mt[e / 2], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m[r], mt[r]);
+      corr[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = fast_exp2(sc[j][e] - m[e / 2]);
+        rs[e / 2] += sc[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], corr[r], rs[r]);
+
+    // O += P V: key step j takes P's (g, 2t), (g + 8, 2t), (g, 2t + 1),
+    // (g + 8, 2t + 1) from sc[j] and V's keys 8 j + 2t and 8 j + 2t + 1
+    uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      split_tf32(sc[j][0], ph[j][0], pl[j][0]);
+      split_tf32(sc[j][2], ph[j][1], pl[j][1]);
+      split_tf32(sc[j][1], ph[j][2], pl[j][2]);
+      split_tf32(sc[j][3], ph[j][3], pl[j][3]);
+    }
+    // each key tile's P V sums in chains of its own, added to O by one
+    // fmaf: O = O x correction + (P V)_tile
+    constexpr int CG = kTfColGroups < DT ? kTfColGroups : DT;
+    static_assert(DT % CG == 0, "whole groups");
+#pragma unroll
+    for (int c0 = 0; c0 < DT; c0 += CG) {
+      float part[CG][4];
+#pragma unroll
+      for (int c = 0; c < CG; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[c][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < CG; ++c) {
+          const float* vj = vt + 8 * j * VS + 8 * (c0 + c);
+          uint32_t bh_[2], bl[2];
+          split_tf32(vj[0], bh_[0], bl[0]);
+          split_tf32(vj[VS], bh_[1], bl[1]);
+          mma_3xtf32(part[c], ph[j], pl[j], bh_, bl);
+        }
+#pragma unroll
+      for (int c = 0; c < CG; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[c0 + c][e] = fmaf(acc[c0 + c][e], corr[e / 2], part[c][e]);
+    }
+    __syncthreads();                          // stage i % 2 free again
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float lt = l[i];
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  float* op = o + b * a.q_b + h * a.q_h;
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      lt += __shfl_xor_sync(0xffffffffu, lt, off);
-    const int r = r0 + i;
-    if (r >= q_rows) continue;
-    const float den = fmaxf(lt, 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    if (row >= a.Sq) continue;
 #pragma unroll
-    for (int g = 0; g < kColVecs; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        op[r * a.q_s + g * 64 + c0 + e] = acc[i][g * 4 + e] / den;
+    for (int c = 0; c < DT; ++c)
+      *reinterpret_cast<float2*>(op + row * a.q_s + 8 * c + 2 * t) =
+          make_float2(acc[c][2 * r] / l[r], acc[c][2 * r + 1] / l[r]);
   }
 }
 
 template <int D>
 int launch_flash_f32(const void* q, const void* k, const void* v, void* o,
                      int B, const FlashArgs& a, void* stream) {
-  constexpr int kSmem = flash_smem_bytes<D>();
-  auto kernel = flash_attention_kernel<D>;
+  constexpr int kSmem = tf_smem_bytes<D>();
+  auto kernel = flash_attention_tf32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -370,8 +499,10 @@ int launch_flash_f32(const void* q, const void* k, const void* v, void* o,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, B * a.Hq);
-  kernel<<<grid, kFlashThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+  constexpr int BQ = 16 * kTfWarps;
+  const dim3 grid((a.Sq + BQ - 1) / BQ, B * a.Hq);
+  kernel<<<grid, 32 * kTfWarps, kSmem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), a);
   return cudaGetLastError();
@@ -389,7 +520,6 @@ __host__ __device__ constexpr int wg_bk(int D) {
 constexpr int kWgThreads = 384;       // consumer warpgroups 0-1, producer 2
 constexpr int kConsumerWarps = 8;
 constexpr int kBoxCols = 64;          // bf16 columns of a 128-byte TMA box
-constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kStages = 2;            // K/V ring (a third gained nothing)
 
@@ -400,10 +530,6 @@ template <int D>
 constexpr int wg_smem_bytes() {
   return (kWgBQ + 2 * kStages * wg_bk(D)) * D * 2 + (1 + 4 * kStages) * 8 +
          1024;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -587,12 +713,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
   else wgmma_rs_n256(d, a, db);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The accumulator fragment of a 64 x N wgmma: thread t of the warpgroup

@@ -18,8 +18,8 @@
 // once (jsq_route does a hash and a compare per packet and port, so
 // operations bound it).  Most designs are the simple ones: one thread
 // per flow (nic_update: the plane axis P <= 8 lives in registers) or
-// per packet (jsq_route, plb_select), in grid-stride loops.  Five are
-// shaped by what held them back:
+// per packet (plb_select), in grid-stride loops.  Six are shaped by
+// what held them back:
 //
 //   pair_fractions  the bytes of a 2M-element giga call bound it, but
 //                   its exp, IEEE divisions and per-row chains make the
@@ -42,6 +42,10 @@
 //                   them.  A group of lanes of one warp now takes a
 //                   bucket: coalesced plan loads, every gather of the
 //                   row in flight at once, one lane walks the sum.
+//   jsq_route       one thread a packet walked all ports in one
+//                   dependent chain on a few blocks.  A group of lanes
+//                   of one warp now takes a packet and reduces its
+//                   lanes' best ports by shuffles.
 //
 // Unlike the Pallas bodies, which cast to float32, the six slot-engine
 // kernels compute in their input type, so the float64 parity mode runs
@@ -678,9 +682,20 @@ __device__ __forceinline__ float hash_tie(uint32_t h, uint32_t lane,
 
 // jsq_route: queues/up/w (ports,) float32, hash (N,), port (N,) int32.
 // Each block first scores every port into shared memory (quantized
-// queue over weight, +1e30 where down), then each thread takes the first
-// port of least score + 0.5 x tie for its packet.  Operations bound it:
-// ports hash-and-compare steps per packet against 4 + 4 bytes moved.
+// queue over weight, +1e30 where down), then a group of kJsqLanes lanes
+// of one warp takes a packet: lane g walks the ports j = g (mod
+// kJsqLanes) and keeps its first port of least score + 0.5 x tie, and
+// the group reduces the (value, port) pairs by shuffles, the lower port
+// winning an equal value, so the result is the first port of least
+// value, as argmin's.  Operations bound it: ports hash-and-compare steps
+// per packet against 4 + 4 bytes moved.  The first kernel, one thread a
+// packet, walked all ports in one dependent chain on 16 blocks for 4,096
+// packets; groups of lanes cut the chain to ports / kJsqLanes steps and
+// fill the card with blocks.
+constexpr int kJsqLanes = 16;
+static_assert(kJsqLanes >= 1 && kJsqLanes <= 32 && 32 % kJsqLanes == 0,
+              "a group divides a warp");
+
 __global__ void jsq_route_kernel(const float* __restrict__ queues,
                                  const float* __restrict__ up,
                                  const float* __restrict__ w,
@@ -688,25 +703,43 @@ __global__ void jsq_route_kernel(const float* __restrict__ queues,
                                  int32_t* __restrict__ port, int64_t N,
                                  int ports, float qmax, float nbins,
                                  float hi) {
+  constexpr int kPerBlock = kThreads / kJsqLanes;   // packets a pass
   extern __shared__ float score[];
+  const int sub = threadIdx.x / kJsqLanes, g = threadIdx.x % kJsqLanes;
+  const int64_t step = (int64_t)gridDim.x * kPerBlock;
+  int64_t base = blockIdx.x * (int64_t)kPerBlock;
+  // the first pass's hash is in flight while the scores are staged
+  uint32_t h = base + sub < N ? hash[base + sub] : 0u;
   for (int j = threadIdx.x; j < ports; j += blockDim.x) {
     const float qbin = floorf(clip_(queues[j] / qmax, 0.0f, hi) * nbins);
     const float s = (qbin + 1.0f) / max_(w[j], static_cast<float>(1e-6));
     score[j] = up[j] > 0.0f ? s : static_cast<float>(1e30);
   }
   __syncthreads();
-  GRID_STRIDE(n, N) {
-    const uint32_t h = hash[n];
-    int best = 0;
-    float best_v = 0.0f;
-    for (int j = 0; j < ports; ++j) {
+  // every lane of a block takes the same number of passes, so the
+  // shuffles see whole warps
+  for (; base < N; base += step) {
+    const int64_t n = base + sub;
+    int best = ports;
+    float best_v = INFINITY;
+    for (int j = g; j < ports; j += kJsqLanes) {
       const float v = score[j] + hash_tie(h, j, 40503u) * 0.5f;
-      if (j == 0 || v < best_v) {
+      if (v < best_v) {
         best = j;
         best_v = v;
       }
     }
-    port[n] = best;
+#pragma unroll
+    for (int off = kJsqLanes / 2; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best_v, off);
+      const int oj = __shfl_xor_sync(0xffffffffu, best, off);
+      if (ov < best_v || (ov == best_v && oj < best)) {
+        best = oj;
+        best_v = ov;
+      }
+    }
+    if (n < N && g == 0) port[n] = best;
+    h = n + step < N ? hash[n + step] : 0u;
   }
 }
 
@@ -992,7 +1025,11 @@ int launch_jsq_route(const void* queues, const void* up, const void* w,
                      double qmax, double nbins, double hi, void* stream) {
   if (ports < 1 || ports > 8192) return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
-  jsq_route_kernel<<<grid_for(N), kThreads, ports * sizeof(float),
+  constexpr int64_t kPerBlock = kThreads / kJsqLanes;
+  int64_t blocks = (N + kPerBlock - 1) / kPerBlock;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  jsq_route_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                     ports * sizeof(float),
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(queues), static_cast<const float*>(up),
       static_cast<const float*>(w), static_cast<const uint32_t*>(hash),

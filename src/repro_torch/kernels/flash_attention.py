@@ -12,9 +12,14 @@
     warpgroups (64 query rows each, 128 a block) run S = Q K^T and
     O += P V as `wgmma`, the online softmax of one tile in registers
     while the previous tile's P V is on the tensor cores, P rounded to
-    bf16 (within 2e-2 of the float32 plain version).  float32 stays on
-    CUDA cores (64 query rows a block, float32 FMAs), since its 1e-4
-    tolerance rules out TF32.
+    bf16 (within 2e-2 of the float32 plain version).  float32 runs on
+    the tensor cores too, as split "3xTF32" products (`mma.sync`): each
+    operand is split into a TF32 high and low part and three TF32
+    products are summed in float32, about 2^-20 of each product off,
+    where one TF32 product (11 bits an operand) would miss the 1e-4
+    tolerance; 128 query rows a block, K and V tiles (64 keys at
+    head_dim <= 128, 16 above) double-buffered by cp.async, and S and
+    each tile's P V summed in short chains joined by float32 adds.
   * `flash_attention_bshd` is the model-layout entry of
     `repro.kernels.ops`: q (B, S, Hq, D), k/v (B, S, Hkv, D).  CPU tensors
     take `ref.flash_attention_bshd_ref`, which repeats the kv heads and

@@ -14,8 +14,10 @@
     per element, each walking its row in shared memory.
   * `jsq_route`, the switch's per-packet egress port, replaces
     `_jsq_kernel`.  CPU tensors take `ref.jsq_route_ref`; CUDA tensors
-    launch `netsim_jsq_route` (one thread per packet, the port scores
-    in shared memory).
+    launch `netsim_jsq_route`: the port scores in shared memory, a
+    group of 16 lanes of one warp a packet, each lane walking every
+    16th port, then a shuffle reduction that keeps the lower port of
+    two equal values (argmin's first index).
 """
 from __future__ import annotations
 

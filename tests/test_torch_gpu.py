@@ -369,6 +369,79 @@ def test_packet_kernels_equal_plain_versions(cuda, N):
                            ref.plb_select_ref(ra, el, lq, tx, h)), planes
 
 
+
+def _jsq_operands(rng, ports, N, dev, *, up_frac=0.8, ties=False):
+    """Port vectors and N hashes: random queues (20% of them equal) or,
+    with `ties`, one queue and one weight for every port, so that the
+    hashed tie-break alone decides."""
+    if ties:
+        q = torch.full((ports,), 0.37, device=dev)
+        w = torch.full((ports,), 0.5, device=dev)
+    else:
+        qa = rng.uniform(0.0, 1.2, ports)
+        qa[rng.random(ports) < 0.2] = 0.5
+        q = torch.tensor(qa, dtype=torch.float32, device=dev)
+        w = _uniform(rng, (ports,), torch.float32, dev, lo=0.25)
+    up = torch.tensor((rng.random(ports) < up_frac).astype(np.float32),
+                      device=dev)
+    h = torch.tensor(rng.integers(0, 1 << 32, N), device=dev)
+    return q, up, w, h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ports", [1, 7, 31, 32, 33, 255, 256, 257, 8192])
+@pytest.mark.parametrize("N", [1, 37, 4096, 4097])
+def test_jsq_route_equals_plain_version(cuda, ports, N):
+    """Groups of lanes a packet: ports below, at and past a group's
+    width and a warp's, and packets that leave a block's last groups
+    empty."""
+    rng = np.random.default_rng(ports * 10007 + N)
+    q, up, w, h = _jsq_operands(rng, ports, N, cuda)
+    got = _launched("jsq_route", lambda: ops.jsq_route(q, up, w, h))
+    assert torch.equal(got, ref.jsq_route_ref(q, up, w, h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ports", [1, 7, 33, 256, 8192])
+@pytest.mark.parametrize("N", [37, 4097])
+@pytest.mark.parametrize("up_frac", [1.0, 0.0], ids=["all-up", "all-down"])
+def test_jsq_route_exact_ties_equal_plain_version(cuda, ports, N, up_frac):
+    """Every port scores the same, so the hashed tie-break alone decides
+    (all down: every value is 1e30 and port 0 must win)."""
+    rng = np.random.default_rng(ports + N)
+    q, up, w, h = _jsq_operands(rng, ports, N, cuda, up_frac=up_frac,
+                                ties=True)
+    got = _launched("jsq_route", lambda: ops.jsq_route(q, up, w, h))
+    assert torch.equal(got, ref.jsq_route_ref(q, up, w, h))
+    if up_frac == 0.0:
+        assert not bool(got.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ports", [64, 256])
+def test_jsq_route_tie_collisions_take_the_lowest_port(cuda, ports):
+    """Packets whose least value two or more ports share (equal scores,
+    equal tie-break): the lowest of them must win, as argmin's first
+    index does, whichever lanes of a group hold them."""
+    rng = np.random.default_rng(ports)
+    found, ties = [], []
+    while sum(len(f) for f in found) < 16:      # ~1 packet in 1,000
+        cand = torch.tensor(rng.integers(0, 1 << 32, 1 << 15))
+        tie = ref._hash_tie(cand, ports, 40503)
+        shared = (tie == tie.min(1, keepdim=True).values).sum(1) >= 2
+        found.append(cand[shared])
+        ties.append(tie[shared])
+    h, tie = torch.cat(found).to(cuda), torch.cat(ties)
+    q = torch.full((ports,), 0.37, device=cuda)
+    w = torch.full((ports,), 0.5, device=cuda)
+    up = torch.ones(ports, device=cuda)
+    got = _launched("jsq_route", lambda: ops.jsq_route(q, up, w, h))
+    want = ref.jsq_route_ref(q, up, w, h)
+    assert torch.equal(got, want)
+    first = tie.argmin(1).to(torch.int32)
+    assert torch.equal(want.cpu(), first)
+
+
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -412,6 +485,33 @@ def test_flash_attention_equals_plain_version(cuda, dtype, D, Sq, Sk,
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+
+# sequence lengths on both sides of the float32 kernel's block (64 or
+# 128 query rows) and key tile (32 or 64 keys) edges
+_EDGES = (127, 128, 129, 257)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("Sq", _EDGES)
+@pytest.mark.parametrize("Sk", _EDGES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 33), (False, 33)])
+def test_flash_attention_f32_tile_edges(cuda, D, Sq, Sk, causal, window):
+    """float32 at lengths that straddle the block and tile edges, causal,
+    windowed, and (Sq > Sk with a window) rows that see no key."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq * 1000 + Sk + D)
+    q = _normal(rng, (1, 2, Sq, D), torch.float32, cuda)
+    k, v = (_normal(rng, (1, 2, Sk, D), torch.float32, cuda)
+            for _ in range(2))
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window))
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = ATTN_TOL[torch.float32]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu

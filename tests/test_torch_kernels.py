@@ -294,6 +294,21 @@ def test_jsq_route_equals_jnp_oracle(ports, N):
                        got)
 
 
+@pytest.mark.parametrize("ports,N", [(7, 37), (256, 4097)])
+@pytest.mark.parametrize("up", [1.0, 0.0], ids=["all-up", "all-down"])
+def test_jsq_route_exact_ties_equal_jnp_oracle(ports, N, up):
+    """Every port scores the same, so the hashed tie-break alone decides
+    (all down: every value is 1e30 and argmin's first port, 0, wins)."""
+    _, _, _, _, h = _packet_inputs(ports * N, ports, N)
+    q, w = np.full(ports, 0.37), np.full(ports, 0.5)
+    mask = np.full(ports, up)
+    want = np.asarray(jx_ref.jsq_route_ref(*_jx(q.astype(np.float32), mask,
+                                                w.astype(np.float32), h)))
+    got = jsq_route.jsq_route(*_th(q, mask, w), torch.from_numpy(h))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if up == 0.0:
+        assert not got.any()
+
 @pytest.mark.parametrize("P,N", [(2, 37), (4, 300), (8, 4097)])
 def test_plb_select_equals_jnp_oracle(P, N):
     ra, el, lq, tx, h = _packet_inputs(P * N, P, N)
