@@ -32,22 +32,28 @@ Phases, each fatal on failure:
             beside the least time the card needs for the bytes moved or
             the operations done; and the launch floor, `bottleneck` on
             one element in the same harness.
-  sync      the AR and the ECMP slot loops run with CUDA sync debugging
-            set to "error": nothing in them makes the host wait.
+  sync      the AR and the ECMP slot loops, eager and the replays of
+            the captured one, run with CUDA sync debugging set to
+            "error": nothing in them makes the host wait (the capture,
+            which synchronises on entry, runs before).
   registry  fig9_victim_noise, fig11_degraded_leaf and fig12_plane_flap
             under their own routing (AR/WAR), and fig12_plane_flap and
             cascading_spine_loss under ECMP, through
-            `compile_scenario(...).run(device="cuda")` in float64, held
-            against the CPU plain path (1e-5, exact completion slots,
-            equal distilled rows) and, for the registry's own specs,
-            against `tests/golden/scenarios.json` (1e-5); every kernel
-            must have launched `PER_SLOT[routing]` times per slot.
+            `compile_scenario(...).run(device="cuda")` in float64 (the
+            captured slot loop), held against the CPU plain path (1e-5,
+            exact completion slots, equal distilled rows) and, for the
+            registry's own specs, against `tests/golden/scenarios.json`
+            (1e-5); every kernel must have launched `PER_SLOT[routing]`
+            times per slot, replays included.
   scale     giga_fabric_storage (4096 hosts, 102,400 flows, 8 random
             link kills, 60 slots) under AR and under its own ECMP, in
-            float32 and float64 on the GPU; each float64 run is held
-            against the CPU plain path with the contained-fork contract
-            used for giga-scale parity, and the ECMP one against the
-            golden row (1e-5).
+            float32 and float64 on the GPU through the entry point
+            (captured); each run bit-equal to an eager loop of its
+            dtype, and the loop timed apart from the host prep over 3
+            eager and 3 captured runs in turns (capture and replays
+            apart); each float64 run is held against the CPU plain path
+            with the contained-fork contract used for giga-scale
+            parity, and the ECMP one against the golden row (1e-5).
   packets   the per-packet path: `repro_torch.kernels.ops.jsq_route` and
             `ops.plb_select` route batches of 4096 packets, and
             jsq_route one more batch over ports that all score the
@@ -67,7 +73,8 @@ Phases, each fatal on failure:
             (`scaled_dot_product_attention`, `q * scale`); attention
             lines also give TFLOP/s of unmasked work and the ratio of
             the kernel's time to SDPA's.
-  profile   torch.profiler over 12 giga slots under AR and under ECMP:
+  profile   torch.profiler over 12 giga slots under AR and under ECMP,
+            float64 and float32, eager and captured (the replays): the
             device busy share and the kernels that take the device time.
 
 Prints the card's name and power limit first, a `{"kernels": [...]}`
@@ -630,7 +637,9 @@ def launch_floor_ms() -> float:
 
 
 def sync_phase() -> None:
-    """The slot loop never waits for the device, under AR/WAR or ECMP."""
+    """Neither slot loop waits for the device, under AR/WAR or ECMP: the
+    eager loop, and the replays of the captured one (its capture, which
+    synchronises on entry, runs before the check)."""
     import torch
     from repro_torch.netsim import engine
     from repro_torch.scenarios import compile_scenario
@@ -639,18 +648,24 @@ def sync_phase() -> None:
         c = compile_scenario(scenario("fig11_degraded_leaf", routing)
                              .with_sim(slots=24))
         cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
+        loop = engine.slot_loop(cfg, ops)
+        loop.capture()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = engine._simulate(cfg, ops)
+            eager = engine._simulate(cfg, ops, _eager=True)
+            loop.replay()
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        if not all(bool(o.isfinite().all()) for o in out
+        captured = engine._results(cfg, loop.carry, loop.totals)
+        if not all(bool(o.isfinite().all()) for o in eager + captured
                    if o.is_floating_point()):
             fail("sync phase: non-finite output")
-        print(f"sync: {cfg.routing} slot loop ran with sync debug mode "
-              "'error'", flush=True)
+        if not all(torch.equal(a, b) for a, b in zip(captured, eager)):
+            fail("sync phase: the captured loop differs from the eager one")
+        print(f"sync: {cfg.routing} eager slot loop and captured replays "
+              "ran with sync debug mode 'error'", flush=True)
 
 
 def check_launches(what: str, counts: dict, want: dict,
@@ -757,7 +772,8 @@ def registry_phase(report: dict, total: dict) -> None:
             scenario=what, slots=spec.sim.slots, flows=len(c.flows),
             wall_s=wall, mean_goodput=m.mean_goodput))
         print(f"registry {what}: {spec.sim.slots} slots, {len(c.flows)} "
-              f"flows, GPU f64 {wall:.3f} s; parity with CPU plain path"
+              f"flows, GPU f64 captured {wall:.3f} s; parity with CPU "
+              "plain path"
               f"{' and golden metrics' if routing is None else ''}: ok; "
               f"mean_goodput={m.mean_goodput!r}", flush=True)
 
@@ -802,9 +818,62 @@ def assert_contained_fork(spec, c, ref, got, fork_frac=0.05) -> dict:
     return stats
 
 
+def loop_walls(c, dtype, runs: int = 3) -> dict:
+    """Host prep, then `runs` eager and `runs` captured slot loops of one
+    prepared run, in turns (eager, captured, captured, eager, ...), each
+    held bit-equal to the first eager run; walls in seconds, each ending
+    in a synchronize.  A captured run is its capture (slot 0 eagerly,
+    then one graph per capacity segment) and its replays of slots
+    1..T-1."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.netsim import engine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, _, ops = engine.prepare(c, "cuda", dtype)
+    torch.cuda.synchronize()
+    out = dict(prep_s=time.perf_counter() - t0, eager_s=[], capture_s=[],
+               replay_s=[], graphs=0)
+    want = None
+    order = [k % 4 in (1, 2) for k in range(2 * runs)]
+    for captured in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if captured:
+            loop = engine.slot_loop(cfg, ops)
+            loop.capture()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loop.replay()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res = engine._results(cfg, loop.carry, loop.totals)
+            out["capture_s"].append(t1 - t0)
+            out["replay_s"].append(t2 - t1)
+            out["graphs"] = len(loop.graphs)
+            del loop
+        else:
+            res = engine._simulate(cfg, ops, _eager=True)
+            torch.cuda.synchronize()
+            out["eager_s"].append(time.perf_counter() - t0)
+        res = [r.clone() for r in res]
+        if want is None:
+            want = res
+        elif not all(torch.equal(a, b) for a, b in zip(res, want)):
+            fail(f"{c.spec.name} {dtype}: a "
+                 f"{'captured' if captured else 'eager'} loop differs "
+                 "from the eager one")
+    build.reset_launches()
+    out["results"] = want
+    return out
+
+
 def scale_phase(report: dict, total: dict) -> None:
     """The giga point under AR and under its own ECMP, float32 and
-    float64, each float64 run against the CPU plain path; the ECMP one
+    float64, through the entry point (captured slots); each run held bit
+    for bit to an eager loop of its dtype, the loop timed apart from the
+    host prep; each float64 run against the CPU plain path, the ECMP one
     also against the golden row."""
     import numpy as np
     import torch
@@ -836,18 +905,40 @@ def scale_phase(report: dict, total: dict) -> None:
                 fail(f"{what} {dname}: bad mean_goodput")
             mem = torch.cuda.max_memory_allocated()
             per_slot = sum(counts.values()) / spec.sim.slots
+            walls = loop_walls(c, dtype)
+            eager = [o.cpu().numpy() for o in walls.pop("results")]
+            if not (np.array_equal(res.mean_goodput, eager[0])
+                    and np.array_equal(res.completion_slot, eager[1])
+                    and np.array_equal(res.total_goodput,
+                                       eager[2][::spec.sim.record_every])
+                    and np.array_equal(res.util_up_last, eager[3])):
+                fail(f"{what} {dname}: the captured run differs from the "
+                     "eager loop")
             runs[dname] = (c, res)
+            T = spec.sim.slots
             out[dname] = dict(
-                wall_s=wall, slots_per_s=spec.sim.slots / wall,
+                wall_s=wall, slots_per_s=T / wall,
                 kernel_launches_per_slot=per_slot,
                 max_memory_allocated=mem, flows=len(c.flows),
-                mean_goodput=float(res.mean_goodput.mean()))
-            print(f"scale {what} {dname}: {len(c.flows)} flows x "
-                  f"{spec.sim.slots} slots, wall {wall:.3f} s (host prep "
-                  f"included), {spec.sim.slots / wall:.2f} slots/s, "
-                  f"{per_slot:g} hand-written kernel launches/slot, "
-                  f"max_memory_allocated {mem / 2**20:.1f} MiB, mean "
-                  f"goodput {res.mean_goodput.mean()!r}", flush=True)
+                mean_goodput=float(res.mean_goodput.mean()), **walls)
+            print(f"scale {what} {dname}: {len(c.flows)} flows x {T} "
+                  f"slots through the entry point (captured), wall "
+                  f"{wall:.3f} s (host prep included), {T / wall:.2f} "
+                  f"slots/s, {per_slot:g} hand-written kernel "
+                  f"launches/slot, max_memory_allocated "
+                  f"{mem / 2**20:.1f} MiB, mean goodput "
+                  f"{res.mean_goodput.mean()!r}; bit-equal to the eager "
+                  "loop", flush=True)
+            print(f"scale {what} {dname} loop: host prep "
+                  f"{walls['prep_s']:.3f} s; eager "
+                  + ", ".join(f"{w / T * 1e3:.3f}" for w in walls["eager_s"])
+                  + " ms/slot; captured: capture (slot 0 and "
+                  f"{walls['graphs']} graph(s)) "
+                  + ", ".join(f"{w * 1e3:.1f}" for w in walls["capture_s"])
+                  + " ms, replays "
+                  + ", ".join(f"{w / (T - 1) * 1e3:.3f}"
+                              for w in walls["replay_s"])
+                  + " ms/slot", flush=True)
         t0 = time.perf_counter()
         cpu = compile_scenario(spec).run(device="cpu")
         cpu_wall = time.perf_counter() - t0
@@ -1120,10 +1211,12 @@ def model_phase(report: dict, total: dict, summary: dict) -> None:
 
 
 def profile_phase(report: dict) -> None:
-    """Where a giga slot's time goes: `torch.profiler` over the float64
-    slot loop (12 slots, host prep excluded) under AR and under ECMP.
-    Device busy share = summed kernel time / loop wall.  Prints "not
-    measured" when the profiler records no device activity."""
+    """Where a giga slot's time goes: `torch.profiler` over the slot loop
+    (12 slots, host prep excluded) under AR and under ECMP, in float64
+    and float32, eager and captured (the captured loop's replays of
+    slots 1..11; its capture runs before the profiler starts).  Device
+    busy share = summed kernel time / loop wall.  Prints "not measured"
+    when the profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1132,47 +1225,72 @@ def profile_phase(report: dict) -> None:
 
     slots = 12
     report["profile"] = {}
+
+    def loop_run(cfg, ops, captured):
+        """A callable that runs the loop (for the captured loop: its
+        replays, the capture done here), and the slots it runs."""
+        if not captured:
+            return (lambda: engine._simulate(cfg, ops, _eager=True)), slots
+        loop = engine.slot_loop(cfg, ops)
+        loop.capture()
+        return loop.replay, slots - 1
+
     for routing in ("ar", "ecmp"):
-        what = label("giga_fabric_storage", routing)
         c = compile_scenario(scenario("giga_fabric_storage", routing)
                              .with_sim(slots=slots))
-        cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
-        engine._simulate(cfg, ops)               # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine._simulate(cfg, ops)
-        torch.cuda.synchronize()
-        plain_wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine._simulate(cfg, ops)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-        out = report["profile"][what] = dict(
-            scenario=f"{what} float64", slots=slots,
-            loop_wall_s=plain_wall, profiled_wall_s=wall,
-            device_busy_s=busy_s,
-            launches_per_slot=sum(e.count for e in kernels) / slots,
-            top=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
-                      count=e.count) for e in top])
-        if busy_s == 0.0:
-            print(f"profile {what}: device time not measured (profiler "
-                  "saw no device activity)", flush=True)
-            continue
-        print(f"profile {what} f64 loop: "
-              f"{plain_wall / slots * 1e3:.3f} ms/slot unprofiled, "
-              f"{wall / slots * 1e3:.3f} ms/slot profiled, device busy "
-              f"{busy_s / wall:.1%} of the profiled wall "
-              f"({busy_s / slots * 1e3:.3f} ms/slot), "
-              f"{out['launches_per_slot']:.0f} kernels/slot", flush=True)
-        for e in top[:5]:
-            print(f"  {e.self_device_time_total / 1e3 / slots:.4f} ms/slot "
-                  f"x{e.count // slots} {e.key[:90]}", flush=True)
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[1]
+            cfg, _, ops = engine.prepare(c, "cuda", dtype)
+            for captured in (False, True):
+                kind = "captured" if captured else "eager"
+                what = f"{label('giga_fabric_storage', routing)} {dname} " \
+                       f"{kind}"
+                run, n = loop_run(cfg, ops, captured)
+                run()                            # warm-up
+                torch.cuda.synchronize()
+                run, n = loop_run(cfg, ops, captured)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                plain_wall = time.perf_counter() - t0
+                run, n = loop_run(cfg, ops, captured)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                del run
+                kernels = [e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA]
+                busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+                top = sorted(kernels,
+                             key=lambda e: -e.self_device_time_total)[:8]
+                out = report["profile"][what] = dict(
+                    scenario=what, slots=n, loop_wall_s=plain_wall,
+                    profiled_wall_s=wall, device_busy_s=busy_s,
+                    launches_per_slot=sum(e.count for e in kernels) / n,
+                    top=[dict(name=e.key[:120],
+                              ms=e.self_device_time_total / 1e3,
+                              count=e.count) for e in top])
+                if busy_s == 0.0:
+                    print(f"profile {what}: device time not measured "
+                          "(profiler saw no device activity)", flush=True)
+                    continue
+                print(f"profile {what} loop: "
+                      f"{plain_wall / n * 1e3:.3f} ms/slot unprofiled, "
+                      f"{wall / n * 1e3:.3f} ms/slot profiled, device busy "
+                      f"{busy_s / plain_wall:.1%} of the unprofiled wall "
+                      f"and {busy_s / wall:.1%} of the profiled one "
+                      f"({busy_s / n * 1e3:.3f} ms/slot), "
+                      f"{out['launches_per_slot']:.0f} kernels/slot",
+                      flush=True)
+                for e in top[:5]:
+                    print(f"  {e.self_device_time_total / 1e3 / n:.4f} "
+                          f"ms/slot x{e.count / n:g} {e.key[:90]}",
+                          flush=True)
 
 
 def main(argv=None) -> int:

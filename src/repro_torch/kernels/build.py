@@ -11,7 +11,10 @@ an unchanged one loads at once.
 
 Every wrapper counts its launches in `LAUNCHES`: one per call of a
 kernel's C entry point, and nowhere else, so a run can show that it went
-through the kernels.
+through the kernels.  A call made while the stream is being captured
+into a CUDA graph launches nothing; it is recorded in `RECORDED`, and
+each replay of the graph counts the launches its capture recorded
+(`count_replay`, `netsim/graph.py`).
 """
 from __future__ import annotations
 
@@ -80,6 +83,7 @@ _ENTRIES = {
 }
 KERNELS = tuple(_ENTRIES)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+RECORDED: Dict[str, int] = {k: 0 for k in KERNELS}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
            torch.bfloat16: "bf16"}
 MAX_GRID_Y = 65535              # CUDA's limit on gridDim.y
@@ -103,6 +107,13 @@ def source(kernel: str) -> Path:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_replay(recorded: Dict[str, int]) -> None:
+    """Count the launches of one replay of a CUDA graph whose capture
+    recorded `recorded` (kernel -> calls)."""
+    for k, n in recorded.items():
+        LAUNCHES[k] += n
 
 
 def _nvcc() -> str:
@@ -231,11 +242,12 @@ def cuda_device(name: str, t: torch.Tensor) -> torch.device:
 def launch(kernel: str, dtype: torch.dtype, device: torch.device,
            *args) -> None:
     """Launch one kernel on the current stream of `device`, raise if
-    the launch was refused, and count it."""
+    the launch was refused, and count it (record it, under capture)."""
     fn = getattr(library(), symbol(kernel, dtype))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(*args, stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    (RECORDED if capturing else LAUNCHES)[kernel] += 1

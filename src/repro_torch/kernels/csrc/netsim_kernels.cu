@@ -18,7 +18,7 @@
 // once (jsq_route does a hash and a compare per packet and port, so
 // operations bound it).  Most designs are the simple ones: one thread
 // per flow (nic_update: the plane axis P <= 8 lives in registers) or
-// per packet (plb_select), in grid-stride loops.  Six are shaped by
+// per packet (plb_select), in grid-stride loops.  Seven are shaped by
 // what held them back:
 //
 //   pair_fractions  the bytes of a 2M-element giga call bound it, but
@@ -46,6 +46,10 @@
 //                   dependent chain on a few blocks.  A group of lanes
 //                   of one warp now takes a packet and reduces its
 //                   lanes' best ports by shuffles.
+//   plb_select      one thread a packet read the plane vectors inside
+//                   guarded plane loops after its packet loads.  Each
+//                   thread now loads them once beside its packet, with
+//                   P a template parameter: the launch floor is left.
 //
 // Unlike the Pallas bodies, which cast to float32, the six slot-engine
 // kernels compute in their input type, so the float64 parity mode runs
@@ -743,46 +747,78 @@ __global__ void jsq_route_kernel(const float* __restrict__ queues,
   }
 }
 
-// plb_select: rate/elig/queue (P,) float32, tx (N,) float32, hash (N,),
-// plane (N,) int32.  One thread per packet, the P <= 8 planes in
-// registers: the rate filter (allowance >= the packet's rate, falling
-// back to every eligible plane), then the first plane of least
-// queue + 1e-3 x tie (1e30 where filtered out).
+// ---- plb_select: one thread a packet, P known at compile time -------
+// rate/elig/queue (P,) float32, tx (N,) float32, hash (N,), plane (N,)
+// int32: the rate filter (allowance >= the packet's rate, falling back
+// to every eligible plane), then the first plane of least
+// queue + 1e-3 x tie (1e30 where filtered out).  4,096 packets move 48
+// KB, 15 ns at the HBM rate: the launch and one round trip to memory
+// bound it.  The first kernel, with P read at run time, loaded the
+// plane vectors inside guarded plane loops, after its packet loads and
+// twice for `elig`.  Here each thread loads the plane vectors once,
+// beside its first packet's loads, and the planes the registry uses
+// (P = 1, 2, 4) are a template parameter, so the plane loops unroll
+// with no guards (other P in 1-8 read P at run time).  Timed side by
+// side on the H100 (benchmarks/torch_plb_select_designs.py; PERF.md,
+// section 6), this took the launch floor; blocks of 32 to 256 threads
+// and 2 or 4 packets a thread in 8- or 16-byte accesses moved it by
+// less than the spread between runs.
+
+// one packet's plane over planes p < P of NP (P == NP when the planes
+// are known at compile time, and the guards fold away)
+template <int NP>
+__device__ __forceinline__ int32_t plb_plane(const float (&rate)[NP],
+                                             const bool (&elig)[NP],
+                                             const float (&queue)[NP],
+                                             int P, float t, uint32_t h) {
+  bool ok[NP];
+  bool any_ok = false;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    ok[p] = p < P && elig[p] && rate[p] >= t;
+    any_ok = any_ok || ok[p];
+  }
+  int32_t best = 0;
+  float best_v = 0.0f;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    if (p < P) {
+      const bool sel = any_ok ? ok[p] : elig[p];
+      const float v =
+          sel ? queue[p] + static_cast<float>(1e-3) * hash_tie(h, p, 97u)
+              : static_cast<float>(1e30);
+      if (p == 0 || v < best_v) {
+        best = p;
+        best_v = v;
+      }
+    }
+  }
+  return best;
+}
+
+// one thread a packet; the planes at compile time (NP = 1, 2, 4) or
+// at run time (NP = 0, P <= kMaxPlanes)
+template <int NP>
 __global__ void plb_select_kernel(const float* __restrict__ rate,
                                   const float* __restrict__ elig,
                                   const float* __restrict__ queue,
                                   const float* __restrict__ tx,
                                   const uint32_t* __restrict__ hash,
                                   int32_t* __restrict__ plane, int64_t N,
-                                  int P) {
+                                  int P_rt) {
+  constexpr int M = NP > 0 ? NP : kMaxPlanes;
+  const int P = NP > 0 ? NP : P_rt;
+  float r[M], q[M];
+  bool e[M];
+#pragma unroll
+  for (int p = 0; p < M; ++p) {
+    const bool in = NP > 0 || p < P;
+    r[p] = in ? __ldg(rate + p) : 0.0f;
+    q[p] = in ? __ldg(queue + p) : 0.0f;
+    e[p] = in && __ldg(elig + p) > 0.0f;
+  }
   GRID_STRIDE(n, N) {
-    const float t = tx[n];
-    const uint32_t h = hash[n];
-    bool ok[kMaxPlanes];
-    bool any_ok = false;
-#pragma unroll
-    for (int p = 0; p < kMaxPlanes; ++p) {
-      if (p < P) {
-        ok[p] = elig[p] > 0.0f && rate[p] >= t;
-        any_ok = any_ok || ok[p];
-      }
-    }
-    int best = 0;
-    float best_v = 0.0f;
-#pragma unroll
-    for (int p = 0; p < kMaxPlanes; ++p) {
-      if (p < P) {
-        const bool sel = any_ok ? ok[p] : elig[p] > 0.0f;
-        const float v =
-            sel ? queue[p] + static_cast<float>(1e-3) * hash_tie(h, p, 97u)
-                : static_cast<float>(1e30);
-        if (p == 0 || v < best_v) {
-          best = p;
-          best_v = v;
-        }
-      }
-    }
-    plane[n] = best;
+    plane[n] = plb_plane<M>(r, e, q, P, __ldg(tx + n), __ldg(hash + n));
   }
 }
 
@@ -1038,17 +1074,37 @@ int launch_jsq_route(const void* queues, const void* up, const void* w,
   return cudaGetLastError();
 }
 
-int launch_plb_select(const void* rate, const void* elig,
-                      const void* queue, const void* tx, const void* hash,
-                      void* plane, int64_t N, int P, void* stream) {
+int launch_plb_select(const void* rate_, const void* elig_,
+                      const void* queue_, const void* tx_,
+                      const void* hash_, void* plane_, int64_t N, int P,
+                      void* stream) {
   if (P < 1 || P > kMaxPlanes) return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
-  plb_select_kernel<<<grid_for(N), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rate), static_cast<const float*>(elig),
-      static_cast<const float*>(queue), static_cast<const float*>(tx),
-      static_cast<const uint32_t*>(hash), static_cast<int32_t*>(plane), N,
-      P);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned g = grid_for(N);
+  const float* rate = static_cast<const float*>(rate_);
+  const float* elig = static_cast<const float*>(elig_);
+  const float* queue = static_cast<const float*>(queue_);
+  const float* tx = static_cast<const float*>(tx_);
+  const uint32_t* hash = static_cast<const uint32_t*>(hash_);
+  int32_t* plane = static_cast<int32_t*>(plane_);
+  switch (P) {
+    case 1:
+      plb_select_kernel<1><<<g, kThreads, 0, s>>>(rate, elig, queue, tx,
+                                                  hash, plane, N, P);
+      break;
+    case 2:
+      plb_select_kernel<2><<<g, kThreads, 0, s>>>(rate, elig, queue, tx,
+                                                  hash, plane, N, P);
+      break;
+    case 4:
+      plb_select_kernel<4><<<g, kThreads, 0, s>>>(rate, elig, queue, tx,
+                                                  hash, plane, N, P);
+      break;
+    default:
+      plb_select_kernel<0><<<g, kThreads, 0, s>>>(rate, elig, queue, tx,
+                                                  hash, plane, N, P);
+  }
   return cudaGetLastError();
 }
 

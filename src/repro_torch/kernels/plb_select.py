@@ -8,7 +8,9 @@ and its per-packet form:
     P = 1, 2 and 4 and read at run time for other P.
   * `plb_select`, the plane of each packet, replaces `_plb_kernel`.
     CPU tensors take `ref.plb_select_ref`; CUDA tensors launch
-    `netsim_plb_select` (one thread per packet, planes in registers).
+    `netsim_plb_select`, whose threads load the plane vectors once into
+    registers beside their packets, with the planes a template
+    parameter for P = 1, 2 and 4 and read at run time for other P.
 """
 from __future__ import annotations
 

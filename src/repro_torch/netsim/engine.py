@@ -18,6 +18,12 @@ compressed to per-segment snapshots, and ECMP's path assignment as one
 table per segment; the slot→segment map stays on the host, so the loop
 never waits for the device.
 
+On CUDA the loop replays captured CUDA graphs (`graph.py`, the
+counterpart of the reference's `_jitted`): one slot is a function of
+device state only, with the slot `t` a device tensor.  The CPU runs the
+eager Python loop, as does `_simulate(..., _eager=True)` on CUDA, which
+exists to compare the two.
+
 Every sum that feeds the queue integrators (flows into host, leaf-pair
 and ECMP link buckets, pair rates times fractions into link loads) runs
 left to right in flow order, as the NumPy engine's `np.add.at` does; the
@@ -30,6 +36,7 @@ later slices of the port and raise `NotImplementedError`.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -49,6 +56,7 @@ from .events import FaultTimeline, compile_fault_timeline, \
     ecmp_assign_segments
 from .fabric import AR_TEMPERATURE, ECN_QUEUE_THRESH, JSQ_BINS, Q_CAP, \
     FlowArrays
+from .graph import SlotLoop
 from .sim import SimConfig
 from .state import NicCarry, SimCarry, init_carry
 
@@ -154,7 +162,7 @@ def _probe_common(cfg: EngineConfig, nic: NicCarry, probe_ok):
     return probe_miss, probe_miss >= cfg.probe_timeout
 
 
-def _probe_basic(cfg, nic: NicCarry, rate, probe_ok, slot: int) -> NicCarry:
+def _probe_basic(cfg, nic: NicCarry, rate, probe_ok, slot) -> NicCarry:
     probe_miss, dead = _probe_common(cfg, nic, probe_ok)
     eligible = ~dead
     just_back = eligible & ~nic.eligible
@@ -164,7 +172,7 @@ def _probe_basic(cfg, nic: NicCarry, rate, probe_ok, slot: int) -> NicCarry:
                     eligible=eligible, pending_fail=nic.pending_fail)
 
 
-def _probe_swlb(cfg, nic: NicCarry, rate, probe_ok, slot: int) -> NicCarry:
+def _probe_swlb(cfg, nic: NicCarry, rate, probe_ok, slot) -> NicCarry:
     if cfg.sw_lb_delay_slots <= 0:
         return _probe_basic(cfg, nic, rate, probe_ok, slot)
     probe_miss, dead = _probe_common(cfg, nic, probe_ok)
@@ -217,11 +225,10 @@ _NIC_UPDATE = {"spx": _upd_spx, "dcqcn": _upd_dcqcn, "global": _upd_agg,
                "esr": _upd_agg, "swlb": _upd_swlb}
 
 
-def _nic_update(cfg: EngineConfig, nic: NicCarry, qmean, probe_ok,
-                slot: int, esr) -> Tuple[NicCarry, torch.Tensor,
-                                         torch.Tensor]:
+def _nic_update(cfg: EngineConfig, nic: NicCarry, qmean, probe_ok, slot,
+                esr) -> Tuple[NicCarry, torch.Tensor, torch.Tensor]:
     """NIC control update (pre-stall rates).  Returns the new NIC state
-    plus rtt/ecn."""
+    plus rtt/ecn.  `slot` is a Python int or a 0-d device tensor."""
     return _NIC_UPDATE[cfg.nic](cfg, nic, qmean, probe_ok, slot, esr)
 
 
@@ -328,11 +335,26 @@ def _route_ecmp(cfg: EngineConfig, carry: SimCarry, fabric_rate,
 # one slot
 # ---------------------------------------------------------------------------
 
+def _counted(cfg: EngineConfig, t: int) -> bool:
+    """Whether slot `t` adds to the post-warmup goodput sum."""
+    r = cfg.record_every
+    n_rec, w0 = cfg.frames()
+    return t % r == 0 and (t // r >= w0 or n_rec <= w0)
+
+
 def _slot_step(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry,
                t: int) -> Tuple[SimCarry, torch.Tensor]:
     """Slot `t`: returns the next carry and this slot's total goodput
     (a 0-d tensor on the device)."""
-    seg = int(ops.seg_id[t])
+    return _slot(cfg, ops, carry, t, int(ops.seg_id[t]), _counted(cfg, t))
+
+
+def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
+          seg: int, counted) -> Tuple[SimCarry, torch.Tensor]:
+    """One slot in capacity segment `seg`.  `t` and `counted` are host
+    values (the eager loop: a Python int and bool) or device tensors
+    (`SlotLoop`: the 0-d slot and a (1,) bool), which enter the slot's
+    arithmetic the same way."""
     up, down, acc = ops.up[seg], ops.down[seg], ops.acc[seg]
     fb = ops.fb
 
@@ -385,13 +407,16 @@ def _slot_step(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry,
     completion = torch.where(
         newly, t + torch.ceil(qdelay).to(torch.int64), carry.completion)
 
-    # post-warmup accumulation (adding the reference's 0.0 on uncounted
-    # slots is the identity, so those slots skip the add)
-    r = cfg.record_every
-    n_rec, w0 = cfg.frames()
-    counted = t % r == 0 and (t // r >= w0 or n_rec <= w0)
-    goodput_sum = carry.goodput_sum + achieved if counted \
-        else carry.goodput_sum
+    # post-warmup accumulation: the reference adds 0.0 on uncounted
+    # slots, the identity on this non-negative sum, so the eager loop
+    # skips the add there
+    if isinstance(counted, torch.Tensor):
+        goodput_sum = carry.goodput_sum + torch.where(counted, achieved,
+                                                      0.0)
+    elif counted:
+        goodput_sum = carry.goodput_sum + achieved
+    else:
+        goodput_sum = carry.goodput_sum
 
     new_carry = SimCarry(
         q_up=q_up, q_down=q_down, nic=nic, remaining=remaining,
@@ -400,19 +425,39 @@ def _slot_step(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry,
     return new_carry, achieved.sum()
 
 
-def _simulate(cfg: EngineConfig, ops: SlotOperands,
-              carry0: Optional[SimCarry] = None):
-    """Run every slot.  Nothing in the loop reads device values on the
-    host, so the host only queues work.  Returns `(mean goodput,
-    completion, per-slot totals, last util)` as device tensors."""
+def slot_loop(cfg: EngineConfig, ops: SlotOperands,
+              carry0: Optional[SimCarry] = None) -> SlotLoop:
+    """The run's slots as a `SlotLoop` over static buffers, starting
+    from `carry0` (the initial carry by default)."""
     carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
-    totals = ops.fb.demand.new_empty(cfg.slots)
-    for t in range(cfg.slots):
-        carry, totals[t] = _slot_step(cfg, ops, carry, t)
+    return SlotLoop(partial(_slot, cfg, ops), carry, ops.seg_id,
+                    [_counted(cfg, t) for t in range(cfg.slots)])
+
+
+def _results(cfg: EngineConfig, carry: SimCarry, totals: torch.Tensor):
+    """`(mean goodput, completion, per-slot totals, last util)`."""
     n_rec, w0 = cfg.frames()
     frames = (n_rec - w0) if n_rec > w0 else n_rec
     return (sdiv(carry.goodput_sum, frames), carry.completion, totals,
             carry.util_up)
+
+
+def _simulate(cfg: EngineConfig, ops: SlotOperands,
+              carry0: Optional[SimCarry] = None, *, _eager: bool = False):
+    """Run every slot: on CUDA as replays of captured slots
+    (`slot_loop`), on the CPU, or with `_eager`, as an eager loop.
+    Nothing in either loop reads device values on the host, so the host
+    only queues work.  Returns `_results` as device tensors."""
+    if ops.fb.demand.device.type == "cuda" and not _eager:
+        loop = slot_loop(cfg, ops, carry0)
+        loop.capture()
+        loop.replay()
+        return _results(cfg, loop.carry, loop.totals)
+    carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
+    totals = ops.fb.demand.new_empty(cfg.slots)
+    for t in range(cfg.slots):
+        carry, totals[t] = _slot_step(cfg, ops, carry, t)
+    return _results(cfg, carry, totals)
 
 
 # ---------------------------------------------------------------------------

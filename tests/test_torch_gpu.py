@@ -22,6 +22,8 @@ import torch
 
 from repro_torch.kernels import build, int8_codec, jsq_route, link_load, \
     ops, plb_select, queue_ecn, ref
+from repro_torch.netsim import engine
+from repro_torch.netsim.graph import _leaves
 from repro_torch.scenarios import compile_scenario, get_scenario
 
 NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
@@ -370,6 +372,34 @@ def test_packet_kernels_equal_plain_versions(cuda, N):
 
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("N", [1, 31, 4096, 4097])
+@pytest.mark.parametrize("kind", ["random", "equal-queues", "none-pass"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset-1"])
+def test_plb_select_equals_plain_version(cuda, P, N, kind, offset):
+    """Planes at compile time (P = 1, 2, 4) and at run time, packets
+    that leave a thread's last accesses partial, pointers off the
+    kernel's vector width (offset-1), equal queues (the hashed
+    tie-break decides) and allowances no packet's rate meets (every
+    eligible plane counts)."""
+    rng = np.random.default_rng(1000 * P + N)
+    ra = _uniform(rng, (P,), torch.float32, cuda)
+    el = (_uniform(rng, (P,), torch.float32, cuda) > 0.2).float()
+    lq = _uniform(rng, (P,), torch.float32, cuda)
+    if kind == "equal-queues":
+        lq.fill_(0.5)
+    tx = _uniform(rng, (N + offset,), torch.float32, cuda, lo=0.01,
+                  hi=0.6)[offset:]
+    h = torch.tensor(rng.integers(0, 1 << 32, N + offset),
+                     device=cuda)[offset:]
+    if kind == "none-pass":
+        ra.zero_()
+    got = _launched("plb_select",
+                    lambda: plb_select.plb_select(ra, el, lq, tx, h))
+    assert torch.equal(got, ref.plb_select_ref(ra, el, lq, tx, h))
+
+
 def _jsq_operands(rng, ports, N, dev, *, up_frac=0.8, ties=False):
     """Port vectors and N hashes: random queues (20% of them equal) or,
     with `ties`, one queue and one weight for every port, so that the
@@ -669,3 +699,103 @@ def test_gpu_engine_reproduces_cpu_path(cuda, name, nic, routing):
     np.testing.assert_array_equal(gpu.completion_slot, cpu.completion_slot)
     np.testing.assert_allclose(gpu.util_up_last, cpu.util_up_last,
                                rtol=1e-12, atol=1e-15)
+
+
+# ---------------------------------------------------------------------------
+# the captured slot loop (netsim/graph.py) against the eager one
+# ---------------------------------------------------------------------------
+
+def _eager_and_captured(spec, dev, dtype, handover=0):
+    """The eager and the captured loop of one prepared run (from the
+    carry after `handover` eager slots when > 0), each with the launches
+    it counted."""
+    cfg, _, ops_ = engine.prepare(compile_scenario(spec), dev, dtype)
+    carry0 = None
+    if handover:
+        carry0 = engine.init_carry(ops_.fb, cfg)
+        for t in range(handover):
+            carry0, _ = engine._slot_step(cfg, ops_, carry0, t)
+    out = []
+    for eager in (True, False):
+        build.reset_launches()
+        res = engine._simulate(cfg, ops_, carry0, _eager=eager)
+        torch.cuda.synchronize()
+        out.append((res, dict(build.LAUNCHES)))
+    build.reset_launches()
+    return cfg, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,routing,nic,handover", [
+    ("fig9_victim_noise", None, "spx", 0),          # AR
+    ("fig11_degraded_leaf", None, "dcqcn", 0),      # WAR, one segment
+    ("cascading_spine_loss", None, "spx", 0),       # WAR, four segments
+    ("cascading_spine_loss", "ar", "global", 0),
+    ("cascading_spine_loss", "ecmp", "spx", 0),     # four ECMP plans
+    ("fig12_plane_flap", "ecmp", "swlb", 0),
+    ("fig12_plane_flap", None, "swlb", 150),        # handed-over carry
+    ("cascading_spine_loss", "ecmp", "esr", 150)])
+def test_captured_loop_equals_eager_loop(cuda, dtype, name, routing, nic,
+                                         handover):
+    """The same kernels in the same order: every output equal bit for
+    bit, and the launches the replays count equal to the eager loop's
+    (fig12's swlb deadline shortened to fire inside the run)."""
+    spec = get_scenario(name).with_sim(nic=nic, sw_lb_delay_ms=20.0)
+    if routing is not None:
+        spec = spec.with_sim(routing=routing)
+    cfg, ((eager, n_eager), (captured, n_captured)) = _eager_and_captured(
+        spec, cuda, dtype, handover)
+    for a, b in zip(captured, eager):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    route = ("bucket_load_bottleneck" if cfg.routing == "ecmp"
+             else "pair_fractions")
+    assert n_captured == n_eager == dict(
+        dict.fromkeys(build.KERNELS, 0), plane_split=cfg.slots,
+        bottleneck=cfg.slots, queue_update=cfg.slots,
+        nic_update=cfg.slots, **{route: cfg.slots})
+
+
+@pytest.mark.gpu
+def test_captured_loop_leaves_the_carry_alone(cuda):
+    """A handed-over carry seeds the loop's static buffers and is not
+    written by the replays."""
+    spec = get_scenario("fig11_degraded_leaf").with_sim(slots=40)
+    cfg, _, ops_ = engine.prepare(compile_scenario(spec), cuda,
+                                  torch.float64)
+    carry0 = engine.init_carry(ops_.fb, cfg)
+    for t in range(10):
+        carry0, _ = engine._slot_step(cfg, ops_, carry0, t)
+    kept = [x.clone() for x in _leaves(carry0)]
+    loop = engine.slot_loop(cfg, ops_, carry0)
+    loop.capture()
+    loop.replay()
+    torch.cuda.synchronize()
+    assert int(loop.t) == cfg.slots
+    for a, b in zip(_leaves(carry0), kept):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_capture_failure_raises(cuda, monkeypatch):
+    """An error while the slot is captured reaches the caller, and no
+    slot after the eager slot 0 runs: no fallback to the eager loop."""
+    spec = get_scenario("fig11_degraded_leaf").with_sim(slots=12)
+    cfg, _, ops_ = engine.prepare(compile_scenario(spec), cuda,
+                                  torch.float64)
+    real = engine.nic_update
+
+    def refused_under_capture(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused under capture")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(engine, "nic_update", refused_under_capture)
+    build.reset_launches()
+    with pytest.raises(RuntimeError, match="refused under capture"):
+        engine._simulate(cfg, ops_)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == dict(
+        dict.fromkeys(build.KERNELS, 0), plane_split=1, pair_fractions=1,
+        bottleneck=1, queue_update=1, nic_update=1)
+    build.reset_launches()
