@@ -23,7 +23,10 @@ Phases, each fatal on failure:
             launch of its up and down links; plane_split also on 4
             planes, fig12's flow and giga's flow count),
             bucket_load_bottleneck on the engine's own ECMP plans of
-            fig11 and the giga point, all in float32 and float64, and
+            fig11, the giga point and the giga fat tree, the giga fat
+            tree's pair_fractions (32 cores), bottleneck as its slot's
+            group of six pairs and queue_update as its group of four
+            entries, all in float32 and float64, and
             the per-packet jsq_route and plb_select at the
             `kernels_bench.py` shapes plus a block tail (jsq_route
             also with every port scoring the same); CUDA-event
@@ -32,28 +35,39 @@ Phases, each fatal on failure:
             beside the least time the card needs for the bytes moved or
             the operations done; and the launch floor, `bottleneck` on
             one element in the same harness.
-  sync      the AR and the ECMP slot loops, eager and the replays of
-            the captured one, run with CUDA sync debugging set to
-            "error": nothing in them makes the host wait (the capture,
-            which synchronises on entry, runs before).
-  registry  fig9_victim_noise, fig11_degraded_leaf and fig12_plane_flap
-            under their own routing (AR/WAR), and fig12_plane_flap and
-            cascading_spine_loss under ECMP, through
+  sync      the AR, WAR and ECMP slot loops on both fabrics and under
+            failure reaction, eager and the replays of the captured one,
+            run with CUDA sync debugging set to "error": nothing in them
+            makes the host wait (the capture, which synchronises on
+            entry, runs before).
+  registry  the leaf-spine fig9_victim_noise, fig11_degraded_leaf and
+            fig12_plane_flap under their own routing (AR/WAR), and
+            fig12_plane_flap and cascading_spine_loss under ECMP; the
+            fat-tree bisection_fat_tree, ft_cross_pod_all2all and
+            ft_core_failure_resiliency (the last also under ECMP); the
+            failure-reaction reroute_random_failures, poisson_flap_storm
+            and reroute_random_failures_ft; each through
             `compile_scenario(...).run(device="cuda")` in float64 (the
             captured slot loop), held against the CPU plain path (1e-5,
-            exact completion slots, equal distilled rows) and, for the
-            registry's own specs, against `tests/golden/scenarios.json`
-            (1e-5); every kernel must have launched `PER_SLOT[routing]`
-            times per slot, replays included.
+            exact completion slots, equal distilled rows, the blackhole
+            series within 1e-5) and, for the registry's own specs,
+            against `tests/golden/scenarios.json` (1e-5); every kernel
+            must have launched `PER_SLOT[kind, routing]` times per slot,
+            replays included.
   scale     giga_fabric_storage (4096 hosts, 102,400 flows, 8 random
-            link kills, 60 slots) under AR and under its own ECMP, in
-            float32 and float64 on the GPU through the entry point
-            (captured); each run bit-equal to an eager loop of its
-            dtype, and the loop timed apart from the host prep over 3
-            eager and 3 captured runs in turns (capture and replays
-            apart); each float64 run is held against the CPU plain path
-            with the contained-fork contract used for giga-scale
-            parity, and the ECMP one against the golden row (1e-5).
+            link kills, 60 slots) under AR and under its own ECMP, the
+            same on a 3-tier fat tree of equal bisection (giga_fat_tree,
+            GIGA_FAT_TREE) under WAR and ECMP, each in float32 and
+            float64, and giga_fabric_storage under the registry's
+            failure reaction (backup failover after 2 slots) in
+            float64, on the GPU through the entry point (captured); each
+            run bit-equal to an eager loop of its dtype, and the loop
+            timed apart from the host prep over 3 eager and 3 captured
+            runs in turns (capture and replays apart); each float64 run
+            is held against the CPU plain path with the contained-fork
+            contract used for giga-scale parity (the reaction run's
+            blackhole series within 1e-5), and the leaf-spine ECMP one
+            against the golden row (1e-5).
   packets   the per-packet path: `repro_torch.kernels.ops.jsq_route` and
             `ops.plb_select` route batches of 4096 packets, and
             jsq_route one more batch over ports that all score the
@@ -74,16 +88,21 @@ Phases, each fatal on failure:
             lines also give TFLOP/s of unmasked work and the ratio of
             the kernel's time to SDPA's.
   profile   torch.profiler over 12 giga slots under AR and under ECMP,
-            float64 and float32, eager and captured (the replays): the
-            device busy share and the kernels that take the device time.
+            float64 and float32, and in float64 over giga_fat_tree under
+            WAR and ECMP and over the giga point under failure reaction,
+            eager and captured (the replays): the device busy share and
+            the kernels that take the device time.
 
 Prints the card's name and power limit first, a `{"kernels": [...]}`
 line before the last, and `{"ok": true, "device": {...}}` last.
 `--report PATH` also writes the full report (every kernel row, the
-registry, scale, packet and profile results) as JSON.
+registry, scale, packet and profile results) as JSON.  Run from
+anywhere but a checkout of the repo (no `src/repro_torch` beside it),
+it exits 2 and prints no result, as it does without a GPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -104,15 +123,28 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 REGISTRY = (("fig9_victim_noise", None), ("fig11_degraded_leaf", None),
             ("fig12_plane_flap", None), ("fig12_plane_flap", "ecmp"),
-            ("cascading_spine_loss", "ecmp"))
-# hand-written kernel launches per slot on each leaf-spine routing path
-# (bottleneck: one grouped launch scales every link of a slot;
-# queue_update: one grouped launch integrates its up and down links)
+            ("cascading_spine_loss", "ecmp"), ("bisection_fat_tree", None),
+            ("ft_cross_pod_all2all", None),
+            ("ft_core_failure_resiliency", None),
+            ("ft_core_failure_resiliency", "ecmp"),
+            ("reroute_random_failures", None), ("poisson_flap_storm", None),
+            ("reroute_random_failures_ft", None))
+# hand-written kernel launches per slot on each (fabric, routing) path
+# (bottleneck: one grouped launch scales every link of a slot, both
+# stages of a fat tree included; queue_update: one grouped launch
+# integrates its up and down links, of both stages on a fat tree)
 AR_SLOT = {"plane_split": 1, "pair_fractions": 1, "bottleneck": 1,
            "queue_update": 1, "nic_update": 1}
 ECMP_SLOT = {"plane_split": 1, "bucket_load_bottleneck": 1,
              "bottleneck": 1, "queue_update": 1, "nic_update": 1}
-PER_SLOT = {"ar": AR_SLOT, "war": AR_SLOT, "ecmp": ECMP_SLOT}
+PER_SLOT = {(kind, routing): ECMP_SLOT if routing == "ecmp" else AR_SLOT
+            for kind in ("leaf_spine", "fat_tree")
+            for routing in ("ar", "war", "ecmp")}
+# the giga point on a 3-tier fat tree of the same bisection per plane:
+# 16 pods of 16 leaves with 16 aggs on 1.0 links, and 32 cores on 8.0
+# pod links (16 leaves x 16 aggs x 1.0 = 32 cores x 8.0 a pod)
+GIGA_FAT_TREE = dict(kind="fat_tree", n_pods=16, n_aggs=16, n_cores=32,
+                     link_cap=1.0, core_link_cap=8.0)
 REPLACES = {
     "plane_split": "src/repro/kernels/plb_select.py:47",
     "pair_fractions": "src/repro/kernels/jsq_route.py:42",
@@ -130,12 +162,15 @@ REPLACES = {
 # fabric shapes the main path hands the kernels
 SHAPES = {"fig9": dict(F=2496, P=1, L=8, S=8, H=64),
           "giga": dict(F=102400, P=2, L=256, S=16, H=4096)}
+# the giga fat tree's: L leaves, A aggs a pod, J cores, pods, H hosts
+FAT_TREE_SHAPE = dict(P=2, L=256, A=16, J=32, pods=16, H=4096)
 # further (flows, planes) of plane_split, so that every instance of the
 # planes the registry uses (P = 1, 2, 4) runs on the card: fig12's
 # single flow on 4 planes, and 4 planes at giga's flow count
 PLANE_SHAPES = {"fig12": dict(F=1, P=4), "giga x4": dict(F=102400, P=4)}
 # scenarios whose ECMP plans the bucket_load_bottleneck cases use
-ECMP_SHAPES = {"fig11": "fig11_degraded_leaf", "giga": "giga_fabric_storage"}
+ECMP_SHAPES = {"fig11": "fig11_degraded_leaf", "giga": "giga_fabric_storage",
+               "giga fat tree": "giga_fat_tree"}
 # per-packet shapes: (lanes, packets) for jsq_route (ports) and
 # plb_select (planes), as `benchmarks/kernels_bench.py` runs them, plus
 # a block tail
@@ -174,9 +209,22 @@ CODEC_FLOPS = {"int8_encode": 6, "int8_decode": 2}
 
 
 def scenario(name: str, routing=None):
-    """The port's registry spec, with `routing` overridden if given."""
+    """The port's registry spec, or one of the giga variants this script
+    builds (`giga_fat_tree`, `giga_fabric_storage_reroute`), with
+    `routing` overridden if given."""
     from repro_torch.scenarios import get_scenario
-    spec = get_scenario(name)
+    if name == "giga_fat_tree":
+        spec = get_scenario("giga_fabric_storage")
+        spec = dataclasses.replace(
+            spec, name=name,
+            topo=dataclasses.replace(spec.topo, **GIGA_FAT_TREE))
+    elif name == "giga_fabric_storage_reroute":
+        # the registry's failure reaction: backup failover after 2 slots
+        spec = dataclasses.replace(
+            get_scenario("giga_fabric_storage"), name=name,
+            reaction=get_scenario("reroute_random_failures").reaction)
+    else:
+        spec = get_scenario(name)
     return spec if routing is None else spec.with_sim(routing=routing)
 
 
@@ -217,16 +265,18 @@ def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
 
 
 def case(kernel, mode, shape, dtype, run, plain, nbytes, ops, *,
-         rtol=None, loose=None, summary=False, extra=None) -> dict:
+         rtol=None, loose=None, summary=False, extra=None,
+         width=None) -> dict:
     """One kernel-vs-plain comparison.  The kernel must equal `plain`
     bit for bit unless `rtol` is set (then: relative error); `loose` is
     a further (plain call, rtol) the result must meet; `summary` marks
     the case reported in the `{"kernels": [...]}` line; `extra` names
-    further calls to time beside the kernel."""
+    further calls to time beside the kernel; `width` is an ECMP plan's
+    padded bucket width, printed beside its time."""
     return dict(kernel=kernel, mode=mode, shape=shape,
                 dtype=str(dtype).split(".")[1], run=run, plain=plain,
                 bytes=nbytes, ops=ops, rtol=rtol, loose=loose,
-                summary=summary, extra=extra or {})
+                summary=summary, extra=extra or {}, width=width)
 
 
 # flash_attention kernels and the tensor-core instruction each must
@@ -418,6 +468,60 @@ def queue_slot_case(sname: str, shape: dict, dtype, seed: int) -> dict:
         summary=sname == "giga" and dtype == torch.float64)
 
 
+def fat_tree_cases(dtype, seed: int) -> list:
+    """The fat-tree slot's widened groups and its path split, at the
+    giga fat tree's shapes (FAT_TREE_SHAPE), inputs drawn from numpy with
+    `seed`: pair_fractions over 32 cores, bottleneck as the slot's
+    launch of six pairs (stage A up and down, stage B up and down, both
+    access directions) and queue_update as its launch of four entries
+    (both stages, both directions)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import jsq_route, link_load, queue_ecn, ref
+
+    rng = np.random.default_rng(seed)
+    P, L, A, J, pods, H = (FAT_TREE_SHAPE[k]
+                           for k in ("P", "L", "A", "J", "pods", "H"))
+    isz = torch.empty((), dtype=dtype).element_size()
+
+    def f(*sh, hi=1.0, zero_frac=0.0):
+        a = rng.uniform(0.0, hi, sh)
+        if zero_frac:
+            a[rng.random(sh) < zero_frac] = 0.0
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    links = ((P, L, A), (P, A, L), (P, pods, J), (P, pods, J))
+    q, cap = f(P, L, L, J, hi=20.0), f(P, L, L, J, zero_frac=0.1)
+    w = cap * f(P, L, L, J)
+    pairs = tuple((f(*sh, zero_frac=0.1), f(*sh, hi=2.0))
+                  for sh in links + ((H, P), (H, P)))
+    entries = tuple((f(*sh, hi=70.0), f(*sh, hi=2.0), f(*sh, zero_frac=0.1))
+                    for sh in links)
+    n_pair = P * L * L * J
+    n_b = sum(c.numel() for c, _ in pairs)
+    n_q = sum(e[0].numel() for e in entries)
+    fl = FLOPS_PER_ELEM
+    what = "giga fat tree"
+    return [
+        case("pair_fractions", "", what, dtype,
+             lambda: jsq_route.pair_fractions(q, cap, w, nbins=16,
+                                              temperature=0.25),
+             lambda: ref.pair_score_softmax_ref(q, cap, w, nbins=16,
+                                                temperature=0.25),
+             4 * n_pair * isz, n_pair * fl["pair_fractions"],
+             rtol=1e-12 if dtype == torch.float64 else 1e-6),
+        case("bottleneck", "slot x6", what, dtype,
+             lambda: link_load.bottleneck_many(pairs),
+             lambda: tuple(ref.bottleneck_ref(c, ld) for c, ld in pairs),
+             3 * n_b * isz, n_b * fl["bottleneck"]),
+        case("queue_update", "slot x4", what, dtype,
+             lambda: sum(queue_ecn.queue_update_many(entries, q_cap=64.0),
+                         ()),
+             lambda: sum((ref.queue_update_ref(*e, q_cap=64.0)
+                          for e in entries), ()),
+             5 * n_q * isz, n_q * fl["queue_update"])]
+
+
 def ecmp_plan(sname: str):
     """(ECMP link-bucket plan, stacked link capacities) of the last
     capacity segment of `ECMP_SHAPES[sname]` under ECMP, from the
@@ -459,7 +563,8 @@ def ecmp_cases(sname: str, plan, cap64, F: int, dtype, seed: int):
             lambda: ref.load_bottleneck_ref(rate, plan, cap,
                                             ordered=False), F32_SUM_RTOL),
         summary=sname == "giga" and f64,
-        extra={"gathered_sum_ms": lambda: g.sum(-1)})]
+        extra={"gathered_sum_ms": lambda: g.sum(-1)},
+        width=C)]
 
 
 def packet_inputs(lanes: int, N: int, seed: int, ties: bool = False):
@@ -545,7 +650,7 @@ def all_cases():
     for sname, shape in SHAPES.items():
         for dtype in (torch.float32, torch.float64):
             cases += kernel_cases(sname, shape, dtype, seed=len(cases))
-    for sname in ECMP_SHAPES:
+    for sname in ("fig11", "giga"):
         F, plan, cap = ecmp_plan(sname)
         for dtype in (torch.float32, torch.float64):
             cases += ecmp_cases(sname, plan, cap, F, dtype, seed=len(cases))
@@ -561,6 +666,12 @@ def all_cases():
             cases += plane_split_cases(
                 sname, *plane_inputs(shape["F"], shape["P"], dtype,
                                      seed=len(cases)), dtype)
+    # the giga fat tree's widened groups, path split and ECMP plan
+    F, plan, cap = ecmp_plan("giga fat tree")
+    for dtype in (torch.float32, torch.float64):
+        cases += fat_tree_cases(dtype, seed=len(cases))
+        cases += ecmp_cases("giga fat tree", plan, cap, F, dtype,
+                            seed=len(cases))
     return cases
 
 
@@ -586,7 +697,7 @@ def kernel_phase(report: dict) -> dict:
             fail(f"{what}: max abs err {abs_err:.3g}, expected bit-equal")
         row = dict(kernel=kernel, mode=mode, shape=sname, dtype=dname,
                    max_abs_err=abs_err, max_rel_err=rel_err,
-                   bytes=c["bytes"], ops=c["ops"])
+                   bytes=c["bytes"], ops=c["ops"], width=c["width"])
         if c["loose"] is not None:
             plain, rtol = c["loose"]
             _, loose_rel = max_errors(got, plain())
@@ -605,6 +716,7 @@ def kernel_phase(report: dict) -> dict:
             row.update({k: graph_ms(fn) for k, fn in c["extra"].items()})
             print(f"kernel {what}: ms={ms:.6f} plain_ms={plain_ms:.6f} "
                   f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+                  + (f"plan_width={c['width']} " if c["width"] else "")
                   + "".join(f"{k}={row[k]:.6f} " for k in c["extra"])
                   + f"max_abs_err={abs_err:.3g} max_rel_err={rel_err:.3g}"
                   + (f" default_plain_rel_err="
@@ -636,17 +748,27 @@ def launch_floor_ms() -> float:
     return ms
 
 
+# (scenario, routing, slots) the sync phase runs: AR/WAR and ECMP on
+# both fabrics, and a reaction run past its fault and its detection
+SYNC_CASES = (("fig11_degraded_leaf", None, 24),
+              ("fig11_degraded_leaf", "ecmp", 24),
+              ("ft_core_failure_resiliency", None, 110),
+              ("ft_core_failure_resiliency", "ecmp", 110),
+              ("reroute_random_failures_ft", None, 110),
+              ("reroute_random_failures", "war", 110))
+
+
 def sync_phase() -> None:
-    """Neither slot loop waits for the device, under AR/WAR or ECMP: the
-    eager loop, and the replays of the captured one (its capture, which
-    synchronises on entry, runs before the check)."""
+    """No slot loop waits for the device, on either fabric, under AR/WAR
+    or ECMP, with or without failure reaction: the eager loop, and the
+    replays of the captured one (its capture, which synchronises on
+    entry, runs before the check)."""
     import torch
     from repro_torch.netsim import engine
     from repro_torch.scenarios import compile_scenario
 
-    for routing in (None, "ecmp"):
-        c = compile_scenario(scenario("fig11_degraded_leaf", routing)
-                             .with_sim(slots=24))
+    for name, routing, slots in SYNC_CASES:
+        c = compile_scenario(scenario(name, routing).with_sim(slots=slots))
         cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
         loop = engine.slot_loop(cfg, ops)
         loop.capture()
@@ -658,14 +780,17 @@ def sync_phase() -> None:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        captured = engine._results(cfg, loop.carry, loop.totals)
+        captured = engine._results(cfg, loop.carry, *loop.series)
         if not all(bool(o.isfinite().all()) for o in eager + captured
                    if o.is_floating_point()):
             fail("sync phase: non-finite output")
-        if not all(torch.equal(a, b) for a, b in zip(captured, eager)):
+        if not all(torch.equal(a, b) for a, b in zip(captured, eager,
+                                                     strict=True)):
             fail("sync phase: the captured loop differs from the eager one")
-        print(f"sync: {cfg.routing} eager slot loop and captured replays "
-              "ran with sync debug mode 'error'", flush=True)
+        print(f"sync: {label(name, routing)} ({cfg.kind}, {cfg.routing}"
+              f"{', reaction' if cfg.react else ''}, {len(loop.graphs)} "
+              "graph(s)): eager slot loop and captured replays ran with "
+              "sync debug mode 'error'", flush=True)
 
 
 def check_launches(what: str, counts: dict, want: dict,
@@ -681,8 +806,8 @@ def check_launches(what: str, counts: dict, want: dict,
         total[k] = total.get(k, 0) + n
 
 
-def slot_launches(routing: str, slots: int) -> dict:
-    return {k: slots * n for k, n in PER_SLOT[routing].items()}
+def slot_launches(kind: str, routing: str, slots: int) -> dict:
+    return {k: slots * n for k, n in PER_SLOT[kind, routing].items()}
 
 
 def assert_parity(spec, c, ref, got) -> None:
@@ -709,6 +834,27 @@ def assert_parity(spec, c, ref, got) -> None:
     if m_got.recovery_slots != m_ref.recovery_slots:
         fail(f"{spec.name}: recovery_slots {m_got.recovery_slots} vs "
              f"{m_ref.recovery_slots}")
+    assert_blackholes(spec, c, ref, got)
+
+
+def assert_blackholes(spec, c, ref, got) -> None:
+    """Under failure reaction: the per-slot blackhole series within 1e-5,
+    `reaction_slots` equal and `blackholed_bytes` within 1e-5; without
+    one, no series on either side."""
+    import numpy as np
+    from repro_torch.scenarios import distill_metrics
+    if (ref.blackhole_timeline is None) != (got.blackhole_timeline is None):
+        fail(f"{spec.name}: a blackhole series on one side only")
+    if ref.blackhole_timeline is None:
+        return
+    np.testing.assert_allclose(got.blackhole_timeline,
+                               ref.blackhole_timeline, atol=TOL, rtol=TOL)
+    m_ref, m_got = (distill_metrics(spec, c, r) for r in (ref, got))
+    if m_got.reaction_slots != m_ref.reaction_slots or \
+            abs(m_got.blackholed_bytes - m_ref.blackholed_bytes) > TOL:
+        fail(f"{spec.name}: reaction columns {m_got.blackholed_bytes}, "
+             f"{m_got.reaction_slots} vs {m_ref.blackholed_bytes}, "
+             f"{m_ref.reaction_slots}")
 
 
 def assert_golden(name: str, m, golden: dict) -> None:
@@ -760,8 +906,8 @@ def registry_phase(report: dict, total: dict) -> None:
         gpu = c.run(device="cuda")               # float64 parity mode
         wall = time.perf_counter() - t0
         check_launches(what, dict(build.LAUNCHES),
-                       slot_launches(spec.sim.routing, spec.sim.slots),
-                       total)
+                       slot_launches(spec.topo.kind, spec.sim.routing,
+                                     spec.sim.slots), total)
         cpu = compile_scenario(spec).run(device="cpu")
         assert_parity(spec, c, cpu, gpu)
         m = distill_metrics(spec, c, gpu)
@@ -769,13 +915,18 @@ def registry_phase(report: dict, total: dict) -> None:
         if routing is None:
             assert_golden(name, m, golden)
         report["registry"].append(dict(
-            scenario=what, slots=spec.sim.slots, flows=len(c.flows),
-            wall_s=wall, mean_goodput=m.mean_goodput))
-        print(f"registry {what}: {spec.sim.slots} slots, {len(c.flows)} "
-              f"flows, GPU f64 captured {wall:.3f} s; parity with CPU "
-              "plain path"
+            scenario=what, kind=spec.topo.kind, slots=spec.sim.slots,
+            flows=len(c.flows), wall_s=wall, mean_goodput=m.mean_goodput,
+            blackholed_bytes=m.blackholed_bytes,
+            reaction_slots=m.reaction_slots))
+        react = (f"; blackholed_bytes={m.blackholed_bytes!r} "
+                 f"reaction_slots={m.reaction_slots}"
+                 if gpu.blackhole_timeline is not None else "")
+        print(f"registry {what}: {spec.topo.kind}, {spec.sim.slots} "
+              f"slots, {len(c.flows)} flows, GPU f64 captured {wall:.3f} "
+              "s; parity with CPU plain path"
               f"{' and golden metrics' if routing is None else ''}: ok; "
-              f"mean_goodput={m.mean_goodput!r}", flush=True)
+              f"mean_goodput={m.mean_goodput!r}{react}", flush=True)
 
 
 def assert_contained_fork(spec, c, ref, got, fork_frac=0.05) -> dict:
@@ -848,7 +999,7 @@ def loop_walls(c, dtype, runs: int = 3) -> dict:
             loop.replay()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            res = engine._results(cfg, loop.carry, loop.totals)
+            res = engine._results(cfg, loop.carry, *loop.series)
             out["capture_s"].append(t1 - t0)
             out["replay_s"].append(t2 - t1)
             out["graphs"] = len(loop.graphs)
@@ -869,12 +1020,23 @@ def loop_walls(c, dtype, runs: int = 3) -> dict:
     return out
 
 
+# the scale phase's runs: (scenario, routing, dtypes); the giga point
+# on its leaf-spine under AR and its own ECMP, on a fat tree of equal
+# bisection under WAR and ECMP, and under the registry's reaction
+SCALE_RUNS = (("giga_fabric_storage", "ar", ("float32", "float64")),
+              ("giga_fabric_storage", None, ("float32", "float64")),
+              ("giga_fat_tree", "war", ("float32", "float64")),
+              ("giga_fat_tree", "ecmp", ("float32", "float64")),
+              ("giga_fabric_storage_reroute", None, ("float64",)))
+
+
 def scale_phase(report: dict, total: dict) -> None:
-    """The giga point under AR and under its own ECMP, float32 and
-    float64, through the entry point (captured slots); each run held bit
-    for bit to an eager loop of its dtype, the loop timed apart from the
-    host prep; each float64 run against the CPU plain path, the ECMP one
-    also against the golden row."""
+    """The giga runs of SCALE_RUNS through the entry point (captured
+    slots); each run held bit for bit to an eager loop of its dtype, the
+    loop timed apart from the host prep; each float64 run against the
+    CPU plain path under the contained-fork contract (a reaction run's
+    blackhole series within 1e-5), the leaf-spine ECMP one also against
+    the golden row."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
@@ -882,13 +1044,13 @@ def scale_phase(report: dict, total: dict) -> None:
 
     golden = json.loads((ROOT / "tests/golden/scenarios.json").read_text())
     report["scale"] = {}
-    for routing in ("ar", None):
-        spec = scenario("giga_fabric_storage", routing)
-        what = label("giga_fabric_storage", spec.sim.routing)
+    for name, routing, dnames in SCALE_RUNS:
+        spec = scenario(name, routing)
+        what = label(name, spec.sim.routing)
         out = report["scale"][what] = {}
         runs = {}
-        for dtype in (torch.float32, torch.float64):
-            dname = str(dtype).split(".")[1]
+        for dname in dnames:
+            dtype = getattr(torch, dname)
             c = compile_scenario(spec)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -898,8 +1060,8 @@ def scale_phase(report: dict, total: dict) -> None:
             wall = time.perf_counter() - t0
             counts = dict(build.LAUNCHES)
             check_launches(f"{what} {dname}", counts,
-                           slot_launches(spec.sim.routing, spec.sim.slots),
-                           total)
+                           slot_launches(spec.topo.kind, spec.sim.routing,
+                                         spec.sim.slots), total)
             if res.mean_goodput.shape != (len(c.flows),) or not np.isfinite(
                     res.mean_goodput).all():
                 fail(f"{what} {dname}: bad mean_goodput")
@@ -907,28 +1069,35 @@ def scale_phase(report: dict, total: dict) -> None:
             per_slot = sum(counts.values()) / spec.sim.slots
             walls = loop_walls(c, dtype)
             eager = [o.cpu().numpy() for o in walls.pop("results")]
-            if not (np.array_equal(res.mean_goodput, eager[0])
-                    and np.array_equal(res.completion_slot, eager[1])
-                    and np.array_equal(res.total_goodput,
-                                       eager[2][::spec.sim.record_every])
-                    and np.array_equal(res.util_up_last, eager[3])):
+            got = [res.mean_goodput, res.completion_slot, res.total_goodput,
+                   res.util_up_last] + ([res.blackhole_timeline]
+                                        if res.blackhole_timeline is not None
+                                        else [])
+            eager[2] = eager[2][::spec.sim.record_every]
+            if len(got) != len(eager) or not all(
+                    np.array_equal(a, b) for a, b in zip(got, eager)):
                 fail(f"{what} {dname}: the captured run differs from the "
                      "eager loop")
             runs[dname] = (c, res)
             T = spec.sim.slots
+            react = ""
+            if res.blackhole_timeline is not None:
+                m = distill_metrics(spec, c, res)
+                react = (f", blackholed_bytes {m.blackholed_bytes!r}, "
+                         f"reaction_slots {m.reaction_slots}")
             out[dname] = dict(
                 wall_s=wall, slots_per_s=T / wall,
                 kernel_launches_per_slot=per_slot,
                 max_memory_allocated=mem, flows=len(c.flows),
                 mean_goodput=float(res.mean_goodput.mean()), **walls)
-            print(f"scale {what} {dname}: {len(c.flows)} flows x {T} "
-                  f"slots through the entry point (captured), wall "
-                  f"{wall:.3f} s (host prep included), {T / wall:.2f} "
-                  f"slots/s, {per_slot:g} hand-written kernel "
-                  f"launches/slot, max_memory_allocated "
+            print(f"scale {what} {dname}: {spec.topo.kind}, "
+                  f"{len(c.flows)} flows x {T} slots through the entry "
+                  f"point (captured), wall {wall:.3f} s (host prep "
+                  f"included), {T / wall:.2f} slots/s, {per_slot:g} "
+                  "hand-written kernel launches/slot, max_memory_allocated "
                   f"{mem / 2**20:.1f} MiB, mean goodput "
-                  f"{res.mean_goodput.mean()!r}; bit-equal to the eager "
-                  "loop", flush=True)
+                  f"{res.mean_goodput.mean()!r}{react}; bit-equal to the "
+                  "eager loop", flush=True)
             print(f"scale {what} {dname} loop: host prep "
                   f"{walls['prep_s']:.3f} s; eager "
                   + ", ".join(f"{w / T * 1e3:.3f}" for w in walls["eager_s"])
@@ -944,17 +1113,24 @@ def scale_phase(report: dict, total: dict) -> None:
         cpu_wall = time.perf_counter() - t0
         c64, gpu64 = runs["float64"]
         stats = assert_contained_fork(spec, c64, cpu, gpu64)
-        if routing is None:
+        assert_blackholes(spec, c64, cpu, gpu64)
+        if name == "giga_fabric_storage" and routing is None:
             assert_golden(spec.name, distill_metrics(spec, c64, gpu64),
                           golden)
-        f32_diff = float(np.abs(runs["float32"][1].mean_goodput
-                                - gpu64.mean_goodput).max())
-        out["parity"] = dict(cpu_wall_s=cpu_wall,
-                             f32_vs_f64_max_abs=f32_diff, **stats)
-        print(f"scale {what} parity: GPU f64 vs CPU plain path "
-              f"({cpu_wall:.1f} s): {stats}"
-              f"{'; golden metrics: ok' if routing is None else ''}; "
-              f"f32 vs f64 max |diff| {f32_diff:.3g}", flush=True)
+        parity = dict(cpu_wall_s=cpu_wall, **stats)
+        notes = [f"GPU f64 vs CPU plain path ({cpu_wall:.1f} s): {stats}"]
+        if cpu.blackhole_timeline is not None:
+            notes.append("blackhole series: ok")
+        if name == "giga_fabric_storage" and routing is None:
+            notes.append("golden metrics: ok")
+        if "float32" in runs:
+            parity["f32_vs_f64_max_abs"] = float(np.abs(
+                runs["float32"][1].mean_goodput
+                - gpu64.mean_goodput).max())
+            notes.append("f32 vs f64 max |diff| "
+                         f"{parity['f32_vs_f64_max_abs']:.3g}")
+        out["parity"] = parity
+        print(f"scale {what} parity: " + "; ".join(notes), flush=True)
 
 
 def packet_phase(report: dict, total: dict) -> None:
@@ -1210,13 +1386,21 @@ def model_phase(report: dict, total: dict, summary: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the profile phase's loops: (scenario, routing, dtypes)
+PROFILE_RUNS = (("giga_fabric_storage", "ar", ("float64", "float32")),
+                ("giga_fabric_storage", "ecmp", ("float64", "float32")),
+                ("giga_fat_tree", "war", ("float64",)),
+                ("giga_fat_tree", "ecmp", ("float64",)),
+                ("giga_fabric_storage_reroute", None, ("float64",)))
+
+
 def profile_phase(report: dict) -> None:
     """Where a giga slot's time goes: `torch.profiler` over the slot loop
-    (12 slots, host prep excluded) under AR and under ECMP, in float64
-    and float32, eager and captured (the captured loop's replays of
-    slots 1..11; its capture runs before the profiler starts).  Device
-    busy share = summed kernel time / loop wall.  Prints "not measured"
-    when the profiler records no device activity."""
+    (12 slots, host prep excluded) of each PROFILE_RUNS loop, eager and
+    captured (the captured loop's replays of slots 1..11; its capture
+    runs before the profiler starts).  Device busy share = summed kernel
+    time / loop wall.  Prints "not measured" when the profiler records
+    no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1235,15 +1419,14 @@ def profile_phase(report: dict) -> None:
         loop.capture()
         return loop.replay, slots - 1
 
-    for routing in ("ar", "ecmp"):
-        c = compile_scenario(scenario("giga_fabric_storage", routing)
-                             .with_sim(slots=slots))
-        for dtype in (torch.float64, torch.float32):
-            dname = str(dtype).split(".")[1]
+    for name, routing, dnames in PROFILE_RUNS:
+        c = compile_scenario(scenario(name, routing).with_sim(slots=slots))
+        for dname in dnames:
+            dtype = getattr(torch, dname)
             cfg, _, ops = engine.prepare(c, "cuda", dtype)
             for captured in (False, True):
                 kind = "captured" if captured else "eager"
-                what = f"{label('giga_fabric_storage', routing)} {dname} " \
+                what = f"{label(name, routing)} {dname} " \
                        f"{kind}"
                 run, n = loop_run(cfg, ops, captured)
                 run()                            # warm-up
@@ -1300,6 +1483,10 @@ def main(argv=None) -> int:
     parser.add_argument("--report", type=Path, default=None,
                         help="also write the full report as JSON here")
     args = parser.parse_args(argv)
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}"
+              "; run it from a checkout of the repo", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2

@@ -378,7 +378,9 @@ __global__ void pair_fractions_kernel(const T* __restrict__ q,
 
 // ---- bottleneck: elementwise min(1, cap / max(load, eps)) ------------
 // One launch covers up to kMaxGroup (cap, load, out) entries: a slot
-// scales its up, down and access links in one launch instead of four.
+// scales its up, down and access links in one launch instead of four
+// (six on a fat tree: stage-A up and down, stage-B up and down, and the
+// two access directions).
 // The entries travel by value in the kernel's arguments (no device-side
 // table, no host-to-device copy, so a CUDA graph can capture the
 // launch); the grid covers the entries' summed length, and each thread
@@ -387,7 +389,7 @@ __global__ void pair_fractions_kernel(const T* __restrict__ q,
 // memory).  Bytes bound the work, but at giga scale a slot's four
 // entries are 786 KB, 0.24 us at the HBM rate, well below one launch's
 // latency.
-constexpr int kMaxGroup = 4;
+constexpr int kMaxGroup = 6;
 
 template <typename T>
 struct BottleneckGroup {
@@ -423,14 +425,15 @@ __global__ void bottleneck_kernel(const BottleneckGroup<T> g, T eps) {
 // ---- queue_update: elementwise fluid queue integrator + util ---------
 // One launch covers up to kMaxQueueGroup (q, load, cap, q_new, util)
 // entries: a slot integrates its up and its down links in one launch
-// instead of two.  Bytes bound the work, but at giga scale one entry is
+// instead of two (four on a fat tree: both directions of stage A and of
+// stage B).  Bytes bound the work, but at giga scale one entry is
 // 8,192 links (five arrays: 328 KB in float64, 0.1 us at the HBM rate),
 // far below one launch's latency, so the launch is the cost, as it was
 // for bottleneck.  The entries travel by value in the kernel's
 // arguments, as BottleneckGroup's do, and each thread picks its entry
 // with compile-time indices only.  Two entries in one launch take about
 // what one took alone (PERF.md, section 6).
-constexpr int kMaxQueueGroup = 2;
+constexpr int kMaxQueueGroup = 4;
 
 template <typename T>
 struct QueueGroup {

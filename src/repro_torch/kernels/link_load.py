@@ -4,9 +4,10 @@
     `repro/kernels/link_load.py::_bottleneck_kernel` (CPU tensors:
     `ref.bottleneck_ref`; CUDA: `netsim_bottleneck`, elementwise).  One
     call of the kernel is a few thousand elements a slot, so its launch,
-    not its bytes, costs the time: `bottleneck_many` scales up to four
-    (cap, load) pairs in one launch, and `bottleneck` is its one-pair
-    case;
+    not its bytes, costs the time: `bottleneck_many` scales up to six
+    (cap, load) pairs in one launch (a fat-tree slot's two stages in
+    both directions and its two access directions), and `bottleneck`
+    is its one-pair case;
   * `bucket_load_bottleneck` replaces `_load_bottleneck_kernel`, ECMP's
     fused link-bucket sum + bottleneck (CPU tensors:
     `ref.load_bottleneck_ref`; CUDA: `netsim_bucket_load_bottleneck`,
@@ -22,12 +23,12 @@ import torch
 from . import build, ref
 
 EPS = 1e-12
-MAX_GROUP = 4                   # (cap, load) pairs one launch takes
+MAX_GROUP = 6                   # (cap, load) pairs one launch takes
 
 
 def bottleneck_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], *,
                     eps: float = EPS) -> Tuple[torch.Tensor, ...]:
-    """`min(1, cap / max(load, eps))` for each of 1-4 `(cap, load)` pairs
+    """`min(1, cap / max(load, eps))` for each of 1-6 `(cap, load)` pairs
     (each pair of matching shape, every tensor of one dtype and on one
     device), in one kernel launch.  Returns one result per pair, in
     order, each bit-equal to `ref.bottleneck_ref` of its pair."""

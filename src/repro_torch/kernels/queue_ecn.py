@@ -2,8 +2,9 @@
 `repro/kernels/queue_ecn.py::_queue_update_kernel` and
 `::_nic_update_kernel`.
 
-  * `queue_update_many` integrates one or two link arrays (a slot's up
-    and down links) in one launch of `netsim_queue_update`
+  * `queue_update_many` integrates up to four link arrays (a slot's up
+    and down links; on a fat tree, those of both stages) in one launch
+    of `netsim_queue_update`
     (elementwise): at giga scale one array is 8,192 links, so a
     launch's latency, not its bytes, costs the time.  `queue_update` is
     its one-entry case.  CPU tensors take `ref.queue_update_ref` per
@@ -22,7 +23,7 @@ import torch
 from . import build, ref
 
 EPS = 1e-12
-MAX_GROUP = 2                   # (q, load, cap) entries one launch takes
+MAX_GROUP = 4                   # (q, load, cap) entries one launch takes
 _NIC_MODES = {"spx": 0, "dcqcn": 1, "agg": 2}
 
 
@@ -30,7 +31,7 @@ def queue_update_many(
         entries: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
         *, q_cap: float, eps: float = EPS,
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
-    """One slot of fluid queue evolution for each of 1-2 `(q, load, cap)`
+    """One slot of fluid queue evolution for each of 1-4 `(q, load, cap)`
     entries (each entry of one shape, every tensor of one dtype and on
     one device), in one kernel launch.  Returns `(q_new, util)` per
     entry, in order, each bit-equal to `ref.queue_update_ref` of its

@@ -12,7 +12,7 @@ alone — the tool for finding where two trajectories fork.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,42 +23,68 @@ from .state import FlowBatch, NicCarry, SimCarry
 class SlotOperands(NamedTuple):
     """Everything the slot step reads besides the carry.  Capacity
     snapshots are already scaled to absolute capacity; `acc` is
-    host-major so a flow gathers its (P,) row directly."""
+    host-major so a flow gathers its (P,) row directly.  Stage A is
+    leaf↔spine on leaf_spine and leaf↔agg on fat_tree (`U` = spines or
+    aggs); the fat-tree fields are None on leaf_spine."""
     fb: FlowBatch
     pair_idx: torch.Tensor     # (F,) src_leaf * L + dst_leaf
     agg_src: torch.Tensor      # (H, Cs) flows by src host, padded with F
     agg_dst: torch.Tensor      # (H, Cd) flows by dst host
     agg_pair: torch.Tensor     # (L*L, Cp) flows by (src leaf, dst leaf)
-    up: torch.Tensor           # (n_seg, P, L, S)
-    down: torch.Tensor         # (n_seg, P, S, L)
+    up: torch.Tensor           # (n_seg, P, L, U)
+    down: torch.Tensor         # (n_seg, P, U, L)
     acc: torch.Tensor          # (n_seg, H, P)
     esr: torch.Tensor          # (F, 1) bool: ESR's extra cut applies
     seg_id: np.ndarray         # (T,) host-side slot -> segment
-    # ECMP: the spine of each (flow, plane) per segment, the link-bucket
+    # ECMP: the path of each (flow, plane) per segment, the link-bucket
     # plans (`engine.AggPerms.ecmp_load`, int32 for the kernel), the
-    # stacked up|down link capacities in the plans' row order, and each
-    # flow's up / down link as a flat index into (P, L, S) / (P, S, L)
+    # stacked link capacities in the plans' row order, and each flow's
+    # stage-A up / down link as a flat index into (P, L, U) / (P, U, L)
     assign: torch.Tensor       # (n_seg, F, P) int32
-    ecmp_load: torch.Tensor    # (n_seg, P, 2*L*S, Cu) int32
-    link_cap: torch.Tensor     # (n_seg, P, 2*L*S)
+    ecmp_load: torch.Tensor    # (n_seg, P, rows, Cu) int32
+    link_cap: torch.Tensor     # (n_seg, P, rows)
     ecmp_up: torch.Tensor      # (n_seg, F, P) int64
     ecmp_down: torch.Tensor    # (n_seg, F, P) int64
+    # fat tree: the pod↔core capacities, the static path→agg and
+    # leaf→pod maps, which leaf pairs and flows cross pods, and (ECMP)
+    # each flow's stage-B up / down link as a flat index into
+    # (P, pods, C)
+    up2: Optional[torch.Tensor] = None       # (n_seg, P, pods, C)
+    down2: Optional[torch.Tensor] = None     # (n_seg, P, pods, C)
+    path_agg: Optional[torch.Tensor] = None  # (C,) int64: core -> agg
+    leaf_pod: Optional[torch.Tensor] = None  # (L,) int64: leaf -> pod
+    cross_pair: Optional[torch.Tensor] = None  # (L, L) bool
+    cross: Optional[torch.Tensor] = None     # (F, 1) bool
+    ecmp_up2: Optional[torch.Tensor] = None  # (n_seg, F, P) int64
+    ecmp_down2: Optional[torch.Tensor] = None
+    # failure reaction: the routing-visible (detection-lagged) view of
+    # up, down, up2 and down2; the physical tensors themselves when the
+    # reaction is off
+    vup: Optional[torch.Tensor] = None
+    vdown: Optional[torch.Tensor] = None
+    vup2: Optional[torch.Tensor] = None
+    vdown2: Optional[torch.Tensor] = None
 
 
 def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
                         seg_down: np.ndarray, seg_acc: np.ndarray,
-                        seg_id: np.ndarray, *, assign=None, device, dtype
+                        seg_id: np.ndarray, *, assign=None, seg_up2=None,
+                        seg_down2=None, vis=None, device, dtype
                         ) -> SlotOperands:
     """`flows` has the `FlowArrays` fields (src, dst, src_leaf, dst_leaf,
     demand, bytes_total, start_slot); `aggs` has `src`/`dst`/`pair`/
-    `ecmp_load` gather plans; `seg_up`/`seg_down`/`seg_acc` are
-    (n_seg, ...) capacity multipliers; `seg_id` maps each slot to its
-    segment; `assign` is the (n_seg, F, P) ECMP assignment (required
-    under ECMP; AR/WAR default to the zero placeholder)."""
+    `ecmp_load` gather plans; `seg_up`/`seg_down`/`seg_acc` (and, on a
+    fat tree, `seg_up2`/`seg_down2`) are (n_seg, ...) capacity
+    multipliers; `seg_id` maps each slot to its segment; `assign` is the
+    (n_seg, F, P) ECMP assignment (required under ECMP; AR/WAR default
+    to the zero placeholder); `vis` is the (up, down, up2, down2)
+    routing-visible multipliers of a failure reaction (None: routing
+    sees the physical fabric)."""
     device = torch.device(device)
     fb = FlowBatch.from_arrays(flows, device, dtype)
     F = fb.src.shape[0]
-    P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_spines
+    P, L, U = cfg.n_planes, cfg.n_leaves, cfg.n_up
+    fat = cfg.kind == "fat_tree"
     if assign is None:
         if cfg.routing == "ecmp":
             raise ValueError("ECMP operands need the assignment segments")
@@ -67,24 +93,49 @@ def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
     planes = np.arange(P)[None, None, :]
     src_leaf = np.asarray(flows.src_leaf)[None, :, None]
     dst_leaf = np.asarray(flows.dst_leaf)[None, :, None]
+    a_of = assign // cfg.cores_per_agg             # the path's agg (or spine)
 
     def plan(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.int64,
                                device=device)
 
     def caps(a, scale):
+        if a is None:
+            return None
         return torch.as_tensor(np.asarray(a), dtype=dtype,
                                device=device) * scale
 
     acc = np.ascontiguousarray(np.swapaxes(np.asarray(seg_acc), 1, 2))
-    n_seg = np.asarray(seg_up).shape[0]
-    link = np.concatenate([np.reshape(seg_up, (n_seg, P, L * S)),
-                           np.reshape(seg_down, (n_seg, P, S * L))], -1)
+    up, down = caps(seg_up, cfg.uplink_cap), caps(seg_down, cfg.uplink_cap)
+    stages = [up, down]
+    ft = {}
+    if fat:
+        pods, C, lpp = cfg.n_pods, cfg.n_cores, cfg.leaves_per_pod
+        ft = dict(up2=caps(seg_up2, cfg.core_cap),
+                  down2=caps(seg_down2, cfg.core_cap))
+        stages += [ft["up2"], ft["down2"]]
+        pol = np.arange(L) // lpp
+        cross = np.asarray(flows.src_leaf) // lpp != \
+            np.asarray(flows.dst_leaf) // lpp
+        ft.update(
+            path_agg=plan(np.arange(C) // cfg.cores_per_agg),
+            leaf_pod=plan(pol),
+            cross_pair=torch.as_tensor(pol[:, None] != pol[None, :],
+                                       device=device),
+            cross=torch.as_tensor(cross[:, None], device=device),
+            ecmp_up2=plan((planes * pods + src_leaf // lpp) * C + assign),
+            ecmp_down2=plan((planes * pods + dst_leaf // lpp) * C
+                            + assign))
+    n_seg = up.shape[0]
+    vup, vdown, vup2, vdown2 = (
+        (up, down, ft.get("up2"), ft.get("down2")) if vis is None else
+        (caps(vis[0], cfg.uplink_cap), caps(vis[1], cfg.uplink_cap),
+         caps(vis[2], cfg.core_cap) if fat else None,
+         caps(vis[3], cfg.core_cap) if fat else None))
     return SlotOperands(
         fb=fb, pair_idx=fb.src_leaf * cfg.n_leaves + fb.dst_leaf,
         agg_src=plan(aggs.src), agg_dst=plan(aggs.dst),
-        agg_pair=plan(aggs.pair),
-        up=caps(seg_up, cfg.uplink_cap), down=caps(seg_down, cfg.uplink_cap),
+        agg_pair=plan(aggs.pair), up=up, down=down,
         acc=caps(acc, cfg.access_cap),
         esr=torch.full((F, 1), cfg.nic == "esr", dtype=torch.bool,
                        device=device),
@@ -92,15 +143,17 @@ def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
         assign=torch.as_tensor(assign, dtype=torch.int32, device=device),
         ecmp_load=torch.as_tensor(np.asarray(aggs.ecmp_load),
                                   dtype=torch.int32, device=device),
-        link_cap=caps(link, cfg.uplink_cap),
-        ecmp_up=plan((planes * L + src_leaf) * S + assign),
-        ecmp_down=plan((planes * S + assign) * L + dst_leaf))
+        link_cap=torch.cat([s.reshape(n_seg, P, -1) for s in stages], -1),
+        ecmp_up=plan((planes * L + src_leaf) * U + a_of),
+        ecmp_down=plan((planes * U + a_of) * L + dst_leaf),
+        vup=vup, vdown=vdown, vup2=vup2, vdown2=vdown2, **ft)
 
 
 def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
     """`carry` has the `SimCarry` fields (and `carry.nic` the `NicCarry`
-    ones) as arrays; extra fields (the reference's fat-tree queues) are
-    ignored."""
+    ones) as arrays.  The stage-B queues `q2_up`/`q2_down` come across
+    from a fat-tree carry (a pod axis of at least 2); the reference's
+    (P, 1, 1) leaf-spine placeholders stay behind as None."""
     device = torch.device(device)
 
     # copies: the source arrays may be read-only views of another
@@ -112,6 +165,8 @@ def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
         return torch.tensor(np.asarray(a), dtype=dt, device=device)
 
     nic = carry.nic
+    q2_up = getattr(carry, "q2_up", None)
+    fat = q2_up is not None and np.shape(q2_up)[1] > 1
     return SimCarry(
         q_up=floats(carry.q_up), q_down=floats(carry.q_down),
         nic=NicCarry(rate=floats(nic.rate), alpha=floats(nic.alpha),
@@ -121,4 +176,6 @@ def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
         remaining=floats(carry.remaining), done=ints(carry.done, torch.bool),
         completion=ints(carry.completion, torch.int64),
         goodput_sum=floats(carry.goodput_sum),
-        util_up=floats(carry.util_up))
+        util_up=floats(carry.util_up),
+        q2_up=floats(q2_up) if fat else None,
+        q2_down=floats(carry.q2_down) if fat else None)

@@ -2,14 +2,22 @@
 `(SimCarry, t)`, run in a Python loop over slots.
 
 One slot reproduces, operation for operation, the reference engine's
-static-dispatch slot on a leaf-spine fabric under AR, weighted AR or
-ECMP:
+static-dispatch slot on a leaf-spine or a 3-tier fat-tree fabric under
+AR, weighted AR or ECMP:
 
-  PLB plane split -> routing (AR/WAR: spine fractions from the queue
-  carry; ECMP: the hashed spine of each (flow, plane) from the
+  PLB plane split -> routing (AR/WAR: path fractions from the queue
+  carry; ECMP: the hashed path of each (flow, plane) from the
   assignment replay) -> per-link bottleneck scaling -> queue/ECN/RTT
   evolution -> NIC control update (`spx|dcqcn|global|esr|swlb`) ->
   loss-stall masking -> transfer completion.
+
+The path axis is the spine on a leaf-spine and the core on a fat tree,
+where a path composes stage A (leaf↔agg, the agg serving the core) with
+stage B (pod↔core) for leaf pairs in different pods.  Under failure
+reaction, AR/WAR score paths against the routing-visible (lagged)
+capacities and deliver on the physical ones, ECMP's assignment replay
+steers by the visible timeline, and every slot also reports the bytes
+offered onto physically dead paths (the blackhole series).
 
 The per-slot hot spots go through the `repro_torch.kernels` wrappers
 (hand-written CUDA on the GPU, the plain PyTorch versions on the CPU).
@@ -30,12 +38,12 @@ left to right in flow order, as the NumPy engine's `np.add.at` does; the
 short plane and spine sums run left to right too.  The CPU and GPU runs
 therefore differ only where `exp` does.
 
-The fat-tree fabric, failure reaction, traces and schedule phases are
-later slices of the port and raise `NotImplementedError`.
+Traces and schedule phases are later slices of the port and raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -49,11 +57,13 @@ from repro_torch.kernels.plb_select import plane_split
 from repro_torch.kernels.queue_ecn import nic_update, queue_update_many
 from repro_torch.kernels.ref import lsum, sdiv
 
+from repro_torch.scenarios.spec import reaction_lag
+
 from .carry import SlotOperands, operands_from_numpy
 from .cc import (DCQCN_AI, DCQCN_ALPHA_G, MIN_RATE, PROBE_TIMEOUT, SPX_AI,
                  SPX_MD, SPX_RTT_GAIN, TARGET_RTT_US)
-from .events import FaultTimeline, compile_fault_timeline, \
-    ecmp_assign_segments
+from .events import (FaultTimeline, compile_fault_timeline,
+                     ecmp_assign_segments, lagged_timeline)
 from .fabric import AR_TEMPERATURE, ECN_QUEUE_THRESH, JSQ_BINS, Q_CAP, \
     FlowArrays
 from .graph import SlotLoop
@@ -68,7 +78,9 @@ _SPLIT_MODE = {"spx": "spx", "dcqcn": "dcqcn", "global": "agg",
 @dataclass(frozen=True)
 class EngineConfig:
     """Static simulation parameters: sim knobs, fabric shape and the
-    fluid-model constants."""
+    fluid-model constants.  `react` marks a run under failure reaction
+    (routing steers by the visible view; each slot reports its
+    blackholed bytes)."""
     slots: int
     slot_us: float
     routing: str
@@ -83,21 +95,43 @@ class EngineConfig:
     n_hosts: int
     uplink_cap: float
     access_cap: float
+    kind: str = "leaf_spine"
+    n_pods: int = 1
+    n_aggs: int = 1
+    n_cores: int = 1
+    core_cap: float = 1.0
     target_rtt_us: float = TARGET_RTT_US
     probe_timeout: int = PROBE_TIMEOUT
     ecn_queue_thresh: float = ECN_QUEUE_THRESH
     ar_temperature: float = AR_TEMPERATURE
     jsq_bins: int = JSQ_BINS
     q_cap: float = Q_CAP
+    react: bool = False
+
+    @property
+    def n_paths(self) -> int:
+        """Routing choices per (leaf pair, plane): spines on leaf_spine,
+        cores on fat_tree."""
+        return self.n_spines if self.kind == "leaf_spine" else self.n_cores
+
+    @property
+    def n_up(self) -> int:
+        """Stage-A links per leaf: spines, or the pod's aggs."""
+        return self.n_spines if self.kind == "leaf_spine" else self.n_aggs
+
+    @property
+    def cores_per_agg(self) -> int:
+        return self.n_cores // self.n_aggs
+
+    @property
+    def leaves_per_pod(self) -> int:
+        return self.n_leaves // self.n_pods
 
     @classmethod
     def from_sim(cls, cfg: SimConfig, topo) -> "EngineConfig":
         """`topo` is a `TopologySpec` (or anything with its shape
         attributes).  Raises `NotImplementedError` outside the slice."""
-        if getattr(topo, "kind", "leaf_spine") != "leaf_spine":
-            raise NotImplementedError(
-                "fat-tree fabrics arrive with the fat-tree slice of the "
-                "port")
+        fat = getattr(topo, "kind", "leaf_spine") == "fat_tree"
         if cfg.routing not in ("ar", "war", "ecmp"):
             raise ValueError(f"unknown routing {cfg.routing!r}")
         if cfg.trace.enabled:
@@ -111,7 +145,12 @@ class EngineConfig:
             n_planes=topo.n_planes, n_leaves=topo.n_leaves,
             n_spines=topo.n_spines, n_hosts=topo.n_hosts,
             uplink_cap=topo.link_cap * topo.parallel_links,
-            access_cap=topo.access_cap)
+            access_cap=topo.access_cap,
+            kind="fat_tree" if fat else "leaf_spine",
+            n_pods=topo.n_pods if fat else 1,
+            n_aggs=topo.n_aggs if fat else 1,
+            n_cores=topo.n_cores if fat else 1,
+            core_cap=topo.core_cap if fat else 1.0)
 
     def frames(self) -> Tuple[int, int]:
         """(recorded frames, first post-warmup frame)."""
@@ -127,11 +166,14 @@ class EngineResult:
     mean_goodput: np.ndarray     # (F,) post-warmup average
     completion_slot: np.ndarray  # (F,) -1 = unfinished
     total_goodput: np.ndarray    # (T_rec,) summed over flows per frame
-    util_up_last: np.ndarray     # (P, L, S)
+    util_up_last: np.ndarray     # (P, L, S|A)
     groups: List[str]
     group_of: np.ndarray
     slot_us: float
     device: str
+    # failure reaction only: (T,) bytes offered onto physically dead
+    # paths each slot (None without a reaction)
+    blackhole_timeline: Optional[np.ndarray] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -236,12 +278,13 @@ def _nic_update(cfg: EngineConfig, nic: NicCarry, qmean, probe_ok, slot,
 # routing fractions and link loads
 # ---------------------------------------------------------------------------
 
-def _pair_fractions(cfg: EngineConfig, q, cap, down, use_war: bool):
-    """(P, L_src, L_dst, S) spine split; WAR folds in remote weights
-    (healthy down-capacity of each spine toward the dst leaf)."""
+def _pair_fractions(cfg: EngineConfig, q, cap, eff, use_war: bool):
+    """(P, L_src, L_dst, J) path split; WAR folds in remote weights:
+    `eff` (P, J, L), each path's healthy capacity toward the dst leaf,
+    over its best path's."""
     w = cap
     if use_war:
-        rw = down / down.amax(1, keepdim=True).clamp_min(1e-9)
+        rw = eff / eff.amax(1, keepdim=True).clamp_min(1e-9)
         w = (w * rw.transpose(1, 2)[:, None, :, :]).contiguous()
     return pair_fractions(q, cap, w, nbins=cfg.jsq_bins,
                           temperature=cfg.ar_temperature, qmax=8.0)
@@ -262,6 +305,26 @@ def _perm_matrix(keys: np.ndarray, n_buckets: int, width: int,
     return perm
 
 
+def _masked_perm_matrix(keys: np.ndarray, mask: np.ndarray,
+                        n_buckets: int, width: int,
+                        pad: int) -> np.ndarray:
+    """`_perm_matrix` over only the flows where `mask`: the fat tree's
+    stage-B plans leave out intra-pod flows, which never touch a core
+    link (the reference's other paths add an exact 0.0 for them, so
+    leaving them out is bit-equivalent).  Flow order is kept within
+    buckets."""
+    perm = np.full((n_buckets, width), pad, np.int32)
+    idx = np.flatnonzero(mask)
+    sub = np.asarray(keys)[idx]
+    order = np.argsort(sub, kind="stable")
+    sk = sub[order]
+    counts = np.bincount(sk, minlength=n_buckets)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    ranks = np.arange(len(sk)) - starts[sk]
+    perm[sk, ranks] = idx[order]
+    return perm
+
+
 def _seg_sum(vals: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """vals (F, P), perm (K, C) -> (K, P) bucket sums, each bucket's
     flows added left to right in flow order (pad rows add exact 0.0)."""
@@ -276,59 +339,171 @@ def _pair_rate_sum(cfg: EngineConfig, fabric_rate: torch.Tensor,
     return _seg_sum(fabric_rate, perm).T.reshape(P, L, L)
 
 
+def _pair(up_l, down_l, cross=None, up_b=None, down_b=None):
+    """(P, L_src, L_dst, J) pair view of per-path link values: the
+    minimum of the src leaf's up value and the dst leaf's down value
+    (`up_l`, `down_l`: (P, L, J) each), composed by `min` with the
+    stage-B values (`up_b`, `down_b`, (P, L, J) by leaf) where `cross`
+    ((1, L, L, 1) bool) marks a fat tree's cross-pod pairs."""
+    a = torch.minimum(up_l[:, :, None, :], down_l[:, None, :, :])
+    if cross is None:
+        return a
+    b = torch.minimum(up_b[:, :, None, :], down_b[:, None, :, :])
+    return torch.where(cross, torch.minimum(a, b), a)
+
+
+class _FatTreeView(NamedTuple):
+    """Per-path (P, L, J) operands of a fat tree (a slot's caps or
+    scales by leaf and core): stage A through the core's agg, stage B
+    through the leaf's pod."""
+    up: torch.Tensor           # src leaf -> agg of core j
+    down: torch.Tensor         # agg of core j -> dst leaf, as (P, L, J)
+    up2: torch.Tensor          # pod of the src leaf -> core j
+    down2: torch.Tensor        # core j -> pod of the dst leaf
+
+
+def _ft_view(ops: SlotOperands, up, down, up2, down2) -> _FatTreeView:
+    aj, pol = ops.path_agg, ops.leaf_pod
+    return _FatTreeView(up.index_select(2, aj),
+                        down.index_select(1, aj).transpose(1, 2),
+                        up2.index_select(1, pol), down2.index_select(1, pol))
+
+
+def _ft_pair(ops: SlotOperands, v: _FatTreeView):
+    return _pair(v.up, v.down, ops.cross_pair[None, :, :, None], v.up2,
+                 v.down2)
+
+
 def _route_pair(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
-                ops: SlotOperands, use_war: bool):
-    """AR / weighted-AR, up to the link loads: leaf-pair spine
-    fractions, the pair queues they were scored on, and the up and down
-    link loads.  `_pair_through` finishes the routing once the loads
-    are scaled."""
+                upv, downv, ops: SlotOperands, use_war: bool):
+    """AR / weighted-AR on a leaf-spine, up to the link loads: leaf-pair
+    spine fractions (scored on the visible capacities `upv`/`downv`),
+    the pair queues they were scored on, the up and down link loads and,
+    under failure reaction, the rate steered onto physically dead paths.
+    `_pair_through` finishes the routing once the loads are scaled."""
     # kernel operands are contiguous whatever layout broadcasting picks
-    cap = torch.minimum(up[:, :, None, :],
-                        down.transpose(1, 2)[:, None, :, :]).contiguous()
-    q = (carry.q_up[:, :, None, :] +
-         carry.q_down.transpose(1, 2)[:, None, :, :]).contiguous()
-    pair = _pair_fractions(cfg, q, cap, down, use_war)
+    cap = _pair(upv, downv.transpose(1, 2)).contiguous()
+    q = _pair_sum(carry.q_up, carry.q_down.transpose(1, 2))
+    pair = _pair_fractions(cfg, q, cap, downv, use_war)
     rate_pair = _pair_rate_sum(cfg, fabric_rate, ops.agg_pair)
     contrib = rate_pair[..., None] * pair                  # (P, L, L, S)
     # einsum("plm,plms->pls") / ("plm,plms->psm") as ordered sums
     load_up = lsum(contrib.permute(0, 1, 3, 2))            # (P, L, S)
     load_down = lsum(contrib.permute(0, 3, 2, 1))          # (P, S, L)
-    return pair, q, load_up, load_down
+    bh = None
+    if cfg.react:
+        bh = _blackholed(contrib, _pair(up, down.transpose(1, 2)))
+    return pair, q, (load_up, load_down), bh
 
 
-def _pair_through(cfg: EngineConfig, fabric_rate, pair, q, f_up, f_down,
+def _route_pair_ft(cfg: EngineConfig, carry: SimCarry, fabric_rate,
+                   phys: _FatTreeView, vis: _FatTreeView,
+                   ops: SlotOperands, use_war: bool):
+    """Fat-tree AR / weighted-AR, up to the link loads: the pair split
+    runs over the core axis, scored on the visible capacities and the
+    pair queues (stage A through each core's agg, plus stage B for
+    cross-pod pairs); the stage-A loads sum a leaf's cores by agg, the
+    stage-B loads a pod's leaves by core (cross-pod rate only)."""
+    P, L, A = cfg.n_planes, cfg.n_leaves, cfg.n_aggs
+    J, cpa = cfg.n_paths, cfg.cores_per_agg
+    pods, lpp = cfg.n_pods, cfg.leaves_per_pod
+    cross = ops.cross_pair[None, :, :, None]
+    cap = _ft_pair(ops, vis).contiguous()
+    aj, pol = ops.path_agg, ops.leaf_pod
+    qA = _pair_sum(carry.q_up.index_select(2, aj),
+                   carry.q_down.index_select(1, aj).transpose(1, 2))
+    qB = _pair_sum(carry.q2_up.index_select(1, pol),
+                   carry.q2_down.index_select(1, pol))
+    q = (qA + torch.where(cross, qB, 0.0)).contiguous()
+    # remote weights from each core's healthy capacity toward the dst
+    # leaf, both stages
+    eff = torch.minimum(vis.down, vis.down2).transpose(1, 2)  # (P, J, L)
+    pair = _pair_fractions(cfg, q, cap, eff, use_war)
+    rate_pair = _pair_rate_sum(cfg, fabric_rate, ops.agg_pair)
+    contrib = rate_pair[..., None] * pair                  # (P, L, L, J)
+    # einsum("plm,plmj->plj") / ("plm,plmj->pmj") as ordered sums, then
+    # the cores of an agg (stage A) and the leaves of a pod (stage B)
+    load_up = lsum(lsum(contrib.permute(0, 1, 3, 2)).reshape(P, L, A, cpa))
+    load_down = lsum(lsum(contrib.permute(0, 2, 3, 1))
+                     .reshape(P, L, A, cpa)).transpose(1, 2).contiguous()
+    contribx = (rate_pair * ops.cross_pair)[..., None] * pair
+    loadB_up = lsum(lsum(contribx.permute(0, 1, 3, 2))
+                    .reshape(P, pods, lpp, J).transpose(2, 3))
+    loadB_down = lsum(lsum(contribx.permute(0, 2, 3, 1))
+                      .reshape(P, pods, lpp, J).transpose(2, 3))
+    bh = _blackholed(contrib, _ft_pair(ops, phys)) if cfg.react else None
+    return pair, q, (load_up, load_down, loadB_up, loadB_down), bh
+
+
+def _pair_sum(up_l, down_l):
+    """(P, L_src, L_dst, J) sum of the src leaf's up and the dst leaf's
+    down value of each path ((P, L, J) each), contiguous."""
+    return (up_l[:, :, None, :] + down_l[:, None, :, :]).contiguous()
+
+
+def _blackholed(contrib, cap) -> torch.Tensor:
+    """Rate the pair split steered onto paths whose physical capacity
+    `cap` is dead, summed (no per-flow path tensor)."""
+    return (contrib * (cap <= _EPS)).sum()
+
+
+def _pair_through(cfg: EngineConfig, fabric_rate, pair, q, scale_pair,
                   ops: SlotOperands):
-    """AR / weighted-AR, from the links' bottleneck scales: the per-flow
+    """AR / weighted-AR, from the (P, L, L, J) path scales: the per-flow
     fabric throughput and mean path queue."""
     P, L = cfg.n_planes, cfg.n_leaves
-    scale_pair = torch.minimum(f_up[:, :, None, :],
-                               f_down.transpose(1, 2)[:, None, :, :])
     path_scale = lsum(pair * scale_pair).reshape(P, L * L)
     through = fabric_rate * path_scale[:, ops.pair_idx].T
     qmean = lsum(pair * q).reshape(P, L * L)[:, ops.pair_idx].T
     return through, qmean
 
 
-def _route_ecmp(cfg: EngineConfig, carry: SimCarry, fabric_rate,
-                ops: SlotOperands, seg: int):
-    """ECMP: each (flow, plane) rides the spine of this segment's
+def _route_ecmp(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
+                up2, down2, ops: SlotOperands, seg: int):
+    """ECMP: each (flow, plane) rides the path of this segment's
     assignment.  One `bucket_load_bottleneck` launch sums the flows of
-    every up and down link bucket in flow order and scales them; each
-    flow then reads the fractions and queues of its two links."""
-    P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_spines
-    LS = L * S
+    every link bucket in flow order and scales them (on a fat tree the
+    stage-B buckets too, cross-pod flows only); each flow then reads the
+    scales and queues of its links.  Returns the link loads, the
+    throughput and mean queue per (flow, plane), and under failure
+    reaction the rate assigned to physically dead paths."""
+    P, L, U = cfg.n_planes, cfg.n_leaves, cfg.n_up
+    LU = L * U
     loads, fracs = bucket_load_bottleneck(
         fabric_rate, ops.ecmp_load[seg], ops.link_cap[seg], eps=_EPS)
-    load_up = loads[:, :LS].reshape(P, L, S).contiguous()
-    load_down = loads[:, LS:].reshape(P, S, L).contiguous()
     up_idx, down_idx = ops.ecmp_up[seg], ops.ecmp_down[seg]   # (F, P)
-    scale_f = torch.minimum(
-        torch.take(fracs[:, :LS], up_idx),
-        torch.take(fracs[:, LS:], down_idx))
-    through = fabric_rate * scale_f
+    link_loads = (loads[:, :LU].reshape(P, L, U).contiguous(),
+                  loads[:, LU:2 * LU].reshape(P, U, L).contiguous())
+    scale_f = torch.minimum(torch.take(fracs[:, :LU], up_idx),
+                            torch.take(fracs[:, LU:2 * LU], down_idx))
     qmean = torch.take(carry.q_up, up_idx) + \
         torch.take(carry.q_down, down_idx)
-    return load_up, load_down, through, qmean
+    cap_f = None
+    if cfg.react:
+        cap_f = torch.minimum(torch.take(up, up_idx),
+                              torch.take(down, down_idx))
+    if cfg.kind == "fat_tree":
+        B = cfg.n_pods * cfg.n_cores
+        o2, o3 = 2 * LU, 2 * LU + B
+        up2_idx, down2_idx = ops.ecmp_up2[seg], ops.ecmp_down2[seg]
+        shape = (P, cfg.n_pods, cfg.n_cores)
+        link_loads += (loads[:, o2:o3].reshape(shape).contiguous(),
+                       loads[:, o3:].reshape(shape).contiguous())
+        scale_b = torch.minimum(torch.take(fracs[:, o2:o3], up2_idx),
+                                torch.take(fracs[:, o3:], down2_idx))
+        scale_f = torch.where(ops.cross, torch.minimum(scale_f, scale_b),
+                              scale_f)
+        qmean = qmean + torch.where(
+            ops.cross, torch.take(carry.q2_up, up2_idx)
+            + torch.take(carry.q2_down, down2_idx), 0.0)
+        if cfg.react:
+            cap_b = torch.minimum(torch.take(up2, up2_idx),
+                                  torch.take(down2, down2_idx))
+            cap_f = torch.where(ops.cross, torch.minimum(cap_f, cap_b),
+                                cap_f)
+    through = fabric_rate * scale_f
+    bh = None if cap_f is None else (fabric_rate * (cap_f <= _EPS)).sum()
+    return link_loads, through, qmean, bh
 
 
 # ---------------------------------------------------------------------------
@@ -343,19 +518,23 @@ def _counted(cfg: EngineConfig, t: int) -> bool:
 
 
 def _slot_step(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry,
-               t: int) -> Tuple[SimCarry, torch.Tensor]:
+               t: int):
     """Slot `t`: returns the next carry and this slot's total goodput
-    (a 0-d tensor on the device)."""
+    (a 0-d tensor on the device), and under failure reaction its
+    blackholed total too."""
     return _slot(cfg, ops, carry, t, int(ops.seg_id[t]), _counted(cfg, t))
 
 
 def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
-          seg: int, counted) -> Tuple[SimCarry, torch.Tensor]:
+          seg: int, counted):
     """One slot in capacity segment `seg`.  `t` and `counted` are host
     values (the eager loop: a Python int and bool) or device tensors
     (`SlotLoop`: the 0-d slot and a (1,) bool), which enter the slot's
-    arithmetic the same way."""
+    arithmetic the same way.  Returns `(next carry, total)`, and
+    `(next carry, total, blackholed)` under failure reaction."""
+    fat = cfg.kind == "fat_tree"
     up, down, acc = ops.up[seg], ops.down[seg], ops.acc[seg]
+    up2, down2 = (ops.up2[seg], ops.down2[seg]) if fat else (None, None)
     fb = ops.fb
 
     demand = torch.where(carry.done | (t < fb.start_slot), 0.0, fb.demand)
@@ -369,17 +548,31 @@ def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
     load_acc_tx = _seg_sum(offered, ops.agg_src)          # (H, P)
     load_acc_rx = _seg_sum(offered, ops.agg_dst)
     access = ((acc, load_acc_tx), (acc, load_acc_rx))
+    links = (up, down) + ((up2, down2) if fat else ())
     if cfg.routing == "ecmp":
-        load_up, load_down, through, qmean = _route_ecmp(
-            cfg, carry, fabric_rate, ops, seg)
+        loads, through, qmean, bh = _route_ecmp(
+            cfg, carry, fabric_rate, up, down, up2, down2, ops, seg)
         f_acc_tx, f_acc_rx = bottleneck_many(access, eps=_EPS)
     else:
-        pair, q, load_up, load_down = _route_pair(
-            cfg, carry, fabric_rate, up, down, ops, cfg.routing == "war")
-        f_up, f_down, f_acc_tx, f_acc_rx = bottleneck_many(
-            ((up, load_up), (down, load_down)) + access, eps=_EPS)
-        through, qmean = _pair_through(cfg, fabric_rate, pair, q, f_up,
-                                       f_down, ops)
+        use_war = cfg.routing == "war"
+        if fat:
+            phys = _ft_view(ops, up, down, up2, down2)
+            vis = _ft_view(ops, ops.vup[seg], ops.vdown[seg],
+                           ops.vup2[seg], ops.vdown2[seg])
+            pair, q, loads, bh = _route_pair_ft(
+                cfg, carry, fabric_rate, phys, vis, ops, use_war)
+        else:
+            pair, q, loads, bh = _route_pair(
+                cfg, carry, fabric_rate, up, down, ops.vup[seg],
+                ops.vdown[seg], ops, use_war)
+        *scales, f_acc_tx, f_acc_rx = bottleneck_many(
+            tuple(zip(links, loads)) + access, eps=_EPS)
+        if fat:
+            scale_pair = _ft_pair(ops, _ft_view(ops, *scales))
+        else:
+            scale_pair = _pair(scales[0], scales[1].transpose(1, 2))
+        through, qmean = _pair_through(cfg, fabric_rate, pair, q,
+                                       scale_pair, ops)
     # access liveness doubles as the RTT probe result: a plane is
     # reachable iff both endpoints' access links on it are up
     alive = (acc[fb.src] > _EPS) & (acc[fb.dst] > _EPS)   # (F, P)
@@ -389,11 +582,14 @@ def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
     achieved_pp = torch.where(alive, (through + local) * acc_scale, 0.0)
     qmean = torch.where(same_leaf, 0.0, qmean).contiguous()
 
-    # both link directions in one queue_update launch; only the up
-    # links' utilization is kept
-    (q_up, util), (q_down, _) = queue_update_many(
-        ((carry.q_up, load_up, up), (carry.q_down, load_down, down)),
-        q_cap=cfg.q_cap, eps=_EPS)
+    # every link queue in one queue_update launch (stage A's up and
+    # down links, and on a fat tree stage B's); only stage A's up links'
+    # utilization is kept
+    queues = (carry.q_up, carry.q_down) + \
+        ((carry.q2_up, carry.q2_down) if fat else ())
+    (q_up, util), (q_down, _), *stage_b = queue_update_many(
+        tuple(zip(queues, loads, links)), q_cap=cfg.q_cap, eps=_EPS)
+    q2_up, q2_down = (q for q, _ in stage_b) if fat else (None, None)
 
     nic, rtt, _ = _nic_update(cfg, carry.nic, qmean, alive, t, ops.esr)
 
@@ -421,25 +617,32 @@ def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
     new_carry = SimCarry(
         q_up=q_up, q_down=q_down, nic=nic, remaining=remaining,
         done=carry.done | newly, completion=completion,
-        goodput_sum=goodput_sum, util_up=util)
+        goodput_sum=goodput_sum, util_up=util, q2_up=q2_up,
+        q2_down=q2_down)
+    if cfg.react:
+        return new_carry, achieved.sum(), bh
     return new_carry, achieved.sum()
 
 
 def slot_loop(cfg: EngineConfig, ops: SlotOperands,
               carry0: Optional[SimCarry] = None) -> SlotLoop:
     """The run's slots as a `SlotLoop` over static buffers, starting
-    from `carry0` (the initial carry by default)."""
+    from `carry0` (the initial carry by default); under failure reaction
+    its second series is the blackhole timeline."""
     carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
     return SlotLoop(partial(_slot, cfg, ops), carry, ops.seg_id,
-                    [_counted(cfg, t) for t in range(cfg.slots)])
+                    [_counted(cfg, t) for t in range(cfg.slots)],
+                    n_series=2 if cfg.react else 1)
 
 
-def _results(cfg: EngineConfig, carry: SimCarry, totals: torch.Tensor):
-    """`(mean goodput, completion, per-slot totals, last util)`."""
+def _results(cfg: EngineConfig, carry: SimCarry, totals: torch.Tensor,
+             blackhole: Optional[torch.Tensor] = None):
+    """`(mean goodput, completion, per-slot totals, last util)`, and
+    under failure reaction the per-slot blackholed totals."""
     n_rec, w0 = cfg.frames()
     frames = (n_rec - w0) if n_rec > w0 else n_rec
     return (sdiv(carry.goodput_sum, frames), carry.completion, totals,
-            carry.util_up)
+            carry.util_up) + (() if blackhole is None else (blackhole,))
 
 
 def _simulate(cfg: EngineConfig, ops: SlotOperands,
@@ -452,12 +655,14 @@ def _simulate(cfg: EngineConfig, ops: SlotOperands,
         loop = slot_loop(cfg, ops, carry0)
         loop.capture()
         loop.replay()
-        return _results(cfg, loop.carry, loop.totals)
+        return _results(cfg, loop.carry, *loop.series)
     carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
-    totals = ops.fb.demand.new_empty(cfg.slots)
+    series = ops.fb.demand.new_empty((2 if cfg.react else 1, cfg.slots))
     for t in range(cfg.slots):
-        carry, totals[t] = _slot_step(cfg, ops, carry, t)
-    return _results(cfg, carry, totals)
+        carry, *outs = _slot_step(cfg, ops, carry, t)
+        for k, out in enumerate(outs):
+            series[k, t] = out
+    return _results(cfg, carry, *series)
 
 
 # ---------------------------------------------------------------------------
@@ -470,17 +675,40 @@ class AggPerms(NamedTuple):
     src: np.ndarray         # (H, Cs) flows by src host
     dst: np.ndarray         # (H, Cd) flows by dst host
     pair: np.ndarray        # (L*L, Cp) flows by (src_leaf, dst_leaf)
-    # (n_seg, P, 2*L*S, Cu) flows by ECMP link: L*S up buckets
-    # (src_leaf*S + spine), then S*L down buckets (spine*L + dst_leaf);
-    # a (1, P, 1, 1) placeholder of F under AR/WAR
+    # (n_seg, P, `_plan_rows(cfg)`, Cu) flows by ECMP link: L*U up
+    # buckets (src_leaf*U + spine or agg), then U*L down buckets
+    # (spine or agg*L + dst_leaf), then on a fat tree the cross-pod
+    # flows' pods*C up (pod_s*C + core) and pods*C down (pod_d*C + core)
+    # buckets; a (1, P, 1, 1) placeholder of F under AR/WAR
     ecmp_load: np.ndarray
 
 
-def _prepared(compiled) -> Tuple[EngineConfig, FlowArrays, FaultTimeline]:
+def _prepared(compiled) -> Tuple[EngineConfig, FlowArrays, FaultTimeline,
+                                 Optional[FaultTimeline]]:
+    """`(cfg, flow arrays, physical timeline, visible timeline)`: the
+    visible timeline is the reaction-lagged view (None without a
+    reaction, the physical timeline itself when the lag is zero)."""
     spec = compiled.spec
     cfg = EngineConfig.from_sim(compiled.cfg, spec.topo)
     fa = FlowArrays.build(compiled.flows, compiled.topo)
-    return cfg, fa, compile_fault_timeline(spec)
+    tl = compile_fault_timeline(spec)
+    vtl = None
+    r = spec.reaction
+    if r is not None and r.enabled:
+        cfg = replace(cfg, react=True)
+        lag = reaction_lag(r, spec.sim.routing)
+        vtl = lagged_timeline(tl, lag) if lag > 0 else tl
+    return cfg, fa, tl, vtl
+
+
+def _boundaries(tl: FaultTimeline, vtl: Optional[FaultTimeline]
+                ) -> Tuple[int, ...]:
+    """Capacity-segment starts: every slot where the physical or the
+    visible fabric changes."""
+    b = set(tl.change_slots())
+    if vtl is not None:
+        b |= set(vtl.change_slots())
+    return tuple(sorted(b))
 
 
 def _seg_id(boundaries, slots: int) -> np.ndarray:
@@ -490,23 +718,67 @@ def _seg_id(boundaries, slots: int) -> np.ndarray:
         .astype(np.int32)
 
 
-def _seg_caps(tl: FaultTimeline, boundaries
-              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def _seg_caps(tl: FaultTimeline, boundaries) -> Tuple[np.ndarray, ...]:
     """Compress a dense timeline to its boundary snapshots ((n_seg, ...)
-    each); `_seg_id` re-expands them per slot."""
+    each); `_seg_id` re-expands them per slot.  Returns up, down and
+    access, and on a fat tree also up2 and down2."""
     b = list(boundaries)
+    if tl.up2 is not None:
+        return tl.up[b], tl.down[b], tl.access[b], tl.up2[b], tl.down2[b]
     return tl.up[b], tl.down[b], tl.access[b]
 
 
+def _vis_seg_caps(vtl: FaultTimeline, boundaries) -> Tuple:
+    """The routing-visible fabric snapshots (up, down, up2, down2);
+    up2 and down2 are None on a leaf-spine."""
+    b = list(boundaries)
+    if vtl.up2 is not None:
+        return vtl.up[b], vtl.down[b], vtl.up2[b], vtl.down2[b]
+    return vtl.up[b], vtl.down[b], None, None
+
+
 def _assign_for(cfg: EngineConfig, fa: FlowArrays, tl: FaultTimeline,
-                seed: int, boundaries) -> np.ndarray:
-    """(n_seg, F, P) int32 ECMP spine per (flow, plane) and capacity
+                seed: int, boundaries,
+                vtl: Optional[FaultTimeline] = None,
+                mode: str = "instant",
+                backup: Optional[np.ndarray] = None) -> np.ndarray:
+    """(n_seg, F, P) int32 ECMP path per (flow, plane) and capacity
     segment; a (1, F, P) zero placeholder under AR/WAR."""
     if cfg.routing == "ecmp":
         return ecmp_assign_segments(
-            fa.src_leaf, fa.dst_leaf, tl, seed, cfg.n_spines, boundaries,
-            uplink_cap=cfg.uplink_cap)
+            fa.src_leaf, fa.dst_leaf, tl, seed, cfg.n_paths, boundaries,
+            uplink_cap=cfg.uplink_cap, core_cap=cfg.core_cap,
+            cores_per_agg=cfg.cores_per_agg,
+            leaves_per_pod=cfg.leaves_per_pod, vis_timeline=vtl,
+            mode=mode, backup=backup)
     return np.zeros((1, len(fa), cfg.n_planes), np.int32)
+
+
+def _ft_ecmp_keys(cfg: EngineConfig, fa: FlowArrays, assign_gp: np.ndarray
+                  ) -> Tuple[Tuple[np.ndarray, np.ndarray, int], ...]:
+    """The four fat-tree load-bucket key families of one (segment,
+    plane) assignment column: (keys, mask, n_buckets) each, in plan row
+    order (A-up, A-down, B-up, B-down)."""
+    L, A = cfg.n_leaves, cfg.n_aggs
+    J, pods = cfg.n_paths, cfg.n_pods
+    a_of = assign_gp // cfg.cores_per_agg
+    pod_s = fa.src_leaf // cfg.leaves_per_pod
+    pod_d = fa.dst_leaf // cfg.leaves_per_pod
+    cross = pod_s != pod_d
+    every = np.ones(len(fa), bool)
+    return ((fa.src_leaf * A + a_of, every, L * A),
+            (a_of * L + fa.dst_leaf, every, A * L),
+            (pod_s * J + assign_gp, cross, pods * J),
+            (pod_d * J + assign_gp, cross, pods * J))
+
+
+def _plan_rows(cfg: EngineConfig) -> int:
+    """Rows of one ECMP load plan: stage-A up and down buckets, and on a
+    fat tree the two stage-B bucket families."""
+    if cfg.kind == "fat_tree":
+        L, A = cfg.n_leaves, cfg.n_aggs
+        return L * A + A * L + 2 * cfg.n_pods * cfg.n_paths
+    return 2 * cfg.n_leaves * cfg.n_spines
 
 
 def _agg_widths(cfg: EngineConfig, fa: FlowArrays,
@@ -514,26 +786,41 @@ def _agg_widths(cfg: EngineConfig, fa: FlowArrays,
     """Largest bucket of each aggregation axis (the plan widths): src
     host, dst host, leaf pair, and ECMP link over every (segment,
     plane) assignment (1 under AR/WAR)."""
-    def w(keys, n):
+    def w(keys, n, mask=None):
+        if mask is not None:
+            keys = keys[mask]
+            if keys.size == 0:
+                return 1
         return max(1, int(np.bincount(keys, minlength=n).max()))
     H, L, S, P = cfg.n_hosts, cfg.n_leaves, cfg.n_spines, cfg.n_planes
     wu = 1
     if cfg.routing == "ecmp":
         for g in range(assign.shape[0]):
             for p in range(P):
-                wu = max(wu,
-                         w(fa.src_leaf * S + assign[g][:, p], L * S),
-                         w(assign[g][:, p] * L + fa.dst_leaf, S * L))
+                if cfg.kind == "fat_tree":
+                    wu = max([wu] + [
+                        w(keys, n, mask) for keys, mask, n in
+                        _ft_ecmp_keys(cfg, fa, assign[g][:, p])])
+                else:
+                    wu = max(wu,
+                             w(fa.src_leaf * S + assign[g][:, p], L * S),
+                             w(assign[g][:, p] * L + fa.dst_leaf, S * L))
     return (w(fa.src, H), w(fa.dst, H),
             w(fa.src_leaf * L + fa.dst_leaf, L * L), wu)
 
 
 def _ecmp_load_plan(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
                     wu: int, pad: int) -> np.ndarray:
-    """(n_seg, P, 2*L*S, wu) ECMP link-bucket plan (see `AggPerms`)."""
+    """(n_seg, P, `_plan_rows(cfg)`, wu) ECMP link-bucket plan (see
+    `AggPerms`)."""
     P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_spines
 
     def plane(g, p):
+        if cfg.kind == "fat_tree":
+            return np.concatenate([
+                _masked_perm_matrix(keys, mask, n, wu, pad)
+                for keys, mask, n in
+                _ft_ecmp_keys(cfg, fa, assign[g][:, p])])
         return np.concatenate([
             _perm_matrix(fa.src_leaf * S + assign[g][:, p], L * S, wu, pad),
             _perm_matrix(assign[g][:, p] * L + fa.dst_leaf, S * L, wu,
@@ -563,27 +850,33 @@ def prepare(compiled, device=None, dtype=torch.float64
     """Host prep of one `CompiledScenario`: the config, the flow arrays
     and the slot operands on `device`."""
     device = resolve_device(device)
-    cfg, fa, tl = _prepared(compiled)
-    boundaries = tuple(tl.change_slots())
-    assign = _assign_for(cfg, fa, tl, compiled.cfg.seed, boundaries)
-    up, down, acc = _seg_caps(tl, boundaries)
+    cfg, fa, tl, vtl = _prepared(compiled)
+    boundaries = _boundaries(tl, vtl)
+    assign = _assign_for(
+        cfg, fa, tl, compiled.cfg.seed, boundaries, vtl=vtl,
+        mode=compiled.spec.reaction.mode if cfg.react else "instant",
+        backup=compiled.backup)
+    up, down, acc, *stage_b = _seg_caps(tl, boundaries)
+    up2, down2 = stage_b or (None, None)
     ops = operands_from_numpy(
         cfg, fa, _aggs_for(cfg, fa, assign, _agg_widths(cfg, fa, assign)),
         up, down, acc, _seg_id(boundaries, cfg.slots), assign=assign,
+        seg_up2=up2, seg_down2=down2,
+        vis=_vis_seg_caps(vtl, boundaries) if cfg.react else None,
         device=device, dtype=dtype)
     return cfg, fa, ops
 
 
 def _wrap(cfg: EngineConfig, fa: FlowArrays, out,
           device: torch.device) -> EngineResult:
-    mean_goodput, completion, totals, util = \
+    mean_goodput, completion, totals, util, *bh = \
         (o.cpu().numpy() for o in out)
     return EngineResult(
         mean_goodput=mean_goodput,
         completion_slot=completion.astype(np.int64),
         total_goodput=totals[::cfg.record_every], util_up_last=util,
         groups=fa.groups, group_of=fa.group, slot_us=cfg.slot_us,
-        device=str(device))
+        device=str(device), blackhole_timeline=bh[0] if bh else None)
 
 
 def run_compiled(compiled, device=None, dtype=None) -> EngineResult:

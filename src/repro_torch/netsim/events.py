@@ -2,14 +2,18 @@
 
 The slot engine consumes faults as data: for every slot `t` the timeline
 holds the capacity *multiplier* (relative to the pristine capacity) of
-every uplink `(T, P, L, S)`, downlink `(T, P, S, L)`, and access port
-`(T, P, H)`.  Multipliers compose the way in-place topology mutations
-do (kills multiply, restores reset to 1), and every random draw uses the
-same derived seed as the reference timeline compiler, so the arrays are
-equal to the reference's element for element.
+every stage-A uplink `(T, P, L, S|A)` and downlink `(T, P, S|A, L)`, of
+every fat-tree pod↔core link `(T, P, pods, C)` in each direction, and
+of every access port `(T, P, H)`.  Multipliers compose the way in-place
+topology mutations do (kills multiply, restores reset to 1), and every
+random draw uses the same derived seed as the reference timeline
+compiler, so the arrays are equal to the reference's element for
+element.
 
-`ecmp_assign_segments` replays ECMP's initial hash and dead-path re-hash
-against such a timeline, once per capacity segment.
+`lagged_timeline` is the routing-visible view under failure reaction,
+and `ecmp_assign_segments` replays ECMP's initial hash and dead-path
+re-hash (or the fast-reroute walk) against such a timeline, once per
+capacity segment.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.netsim.sim import rehash_dead_assign
+from repro_torch.netsim.sim import backup_reassign, rehash_dead_assign
 from repro_torch.scenarios.spec import (FAULT_KINDS, FaultSpec,
                                         ScenarioSpec, fault_planes,
                                         flap_phase)
@@ -57,15 +61,11 @@ class FaultTimeline:
 
 def check_timeline_faults(spec: ScenarioSpec) -> None:
     """Raise unless every fault is a `FaultSpec` kind this package
-    lowers.  `poisson_flap` comes with the failure-reaction slice."""
+    lowers."""
     for f in spec.faults:
         if not isinstance(f, FaultSpec) or f.kind not in FAULT_KINDS:
             raise ValueError(
                 f"{spec.name}: fault {f!r} is not a static FaultSpec")
-        if f.kind == "poisson_flap":
-            raise NotImplementedError(
-                f"{spec.name}: poisson_flap faults arrive with the "
-                "failure-reaction slice of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -76,13 +76,15 @@ def _apply_fault(t: int, i: int, f: FaultSpec, up: np.ndarray,
                  down: np.ndarray, access: np.ndarray,
                  unit_rel: float, workload_seed: int,
                  up2: Optional[np.ndarray] = None,
-                 down2: Optional[np.ndarray] = None) -> None:
+                 down2: Optional[np.ndarray] = None,
+                 sched: Sequence = ()) -> None:
     """Mutate multiplier arrays in place with fault `f`'s slot-`t` effect.
     `unit_rel` is one discrete stage-A link as a multiplier
     (link_cap/uplink_cap); stage-B core links are whole (unit 1.0).
     `up2`/`down2` are the fat-tree pod↔core multipliers (None on
-    leaf_spine), and `spine` indices address pod-local aggs there —
-    mirroring `scenarios.compile.make_events` mutation for mutation."""
+    leaf_spine), and `spine` indices address pod-local aggs there.
+    `sched` is a `poisson_flap` fault's (down, up, plane, link) table
+    (`scenarios.compile.poisson_flap_schedule`)."""
     P = up.shape[0]
     if f.kind == "link_kill":
         if t == f.start_slot:
@@ -192,6 +194,40 @@ def _apply_fault(t: int, i: int, f: FaultSpec, up: np.ndarray,
             for p in fault_planes(f, P):
                 up2[p, f.pod, f.core] = 1.0
                 down2[p, f.pod, f.core] = 1.0
+    elif f.kind == "poisson_flap":
+        # restores first (full-capacity reset), then kills multiply, so
+        # a back-to-back flap re-kills; `link` indexes stage-A links
+        # row-major, then (fat_tree) the pod-core links
+        L, A = up.shape[1], up.shape[2]
+        n_stage_a = L * A
+        C = up2.shape[2] if up2 is not None else 0
+
+        def place(link):
+            if up2 is None or link < n_stage_a:
+                return "a", link // A, link % A
+            rem = link - n_stage_a
+            return "b", rem // C, rem % C
+
+        for dn, upslot, p, link in sched:
+            if t != upslot:
+                continue
+            stage, x, y = place(link)
+            if stage == "a":
+                up[p, x, y] = 1.0
+                down[p, y, x] = 1.0
+            else:
+                up2[p, x, y] = 1.0
+                down2[p, x, y] = 1.0
+        for dn, upslot, p, link in sched:
+            if t != dn:
+                continue
+            stage, x, y = place(link)
+            if stage == "a":
+                up[p, x, y] *= (1.0 - f.frac)
+                down[p, y, x] *= (1.0 - f.frac)
+            else:
+                up2[p, x, y] *= (1.0 - f.frac)
+                down2[p, x, y] *= (1.0 - f.frac)
     else:                                            # pragma: no cover
         raise ValueError(f"unknown fault kind {f.kind!r}")
 
@@ -213,6 +249,12 @@ def compile_fault_timeline(spec: ScenarioSpec) -> FaultTimeline:
     up2 = np.ones((P, topo.n_pods, topo.n_cores)) if fat else None
     down2 = np.ones((P, topo.n_pods, topo.n_cores)) if fat else None
     unit_rel = topo.link_cap / topo.uplink_cap    # one discrete link
+    scheds = {}
+    if any(f.kind == "poisson_flap" for f in spec.faults):
+        from repro_torch.scenarios.compile import poisson_flap_schedule
+        scheds = {i: poisson_flap_schedule(spec, i)
+                  for i, f in enumerate(spec.faults)
+                  if f.kind == "poisson_flap"}
     out_up = np.empty((T, P, L, S))
     out_down = np.empty((T, P, S, L))
     out_access = np.empty((T, P, H))
@@ -221,7 +263,8 @@ def compile_fault_timeline(spec: ScenarioSpec) -> FaultTimeline:
     for t in range(T):
         for i, f in enumerate(spec.faults):
             _apply_fault(t, i, f, up, down, access, unit_rel,
-                         spec.workload_seed, up2=up2, down2=down2)
+                         spec.workload_seed, up2=up2, down2=down2,
+                         sched=scheds.get(i, ()))
         out_up[t] = up
         out_down[t] = down
         out_access[t] = access
@@ -232,32 +275,71 @@ def compile_fault_timeline(spec: ScenarioSpec) -> FaultTimeline:
                          up2=out_up2, down2=out_down2)
 
 
+def lagged_timeline(tl: FaultTimeline, lag: int) -> FaultTimeline:
+    """The routing-*visible* twin of a physical timeline under a failure
+    reaction with `lag` slots of detection (and convergence) delay: the
+    fabric stages shift right by `lag` (pristine 1.0 for t < lag); access
+    stays all ones, since NIC probes see host access directly and an
+    all-ones access lane keeps `change_slots()` fabric-driven."""
+
+    def shift(a):
+        if a is None:
+            return None
+        out = np.ones_like(a)
+        out[lag:] = a[:a.shape[0] - lag]
+        return out
+
+    return FaultTimeline(up=shift(tl.up), down=shift(tl.down),
+                         access=np.ones_like(tl.access),
+                         up2=shift(tl.up2), down2=shift(tl.down2))
+
+
 # ---------------------------------------------------------------------------
 # ECMP assignment replay
 # ---------------------------------------------------------------------------
 
 def timeline_path_capacity(timeline: FaultTimeline, b: int,
                            src_leaf: np.ndarray, dst_leaf: np.ndarray,
-                           uplink_cap: float = 1.0) -> np.ndarray:
-    """(F, P, S) per-path capacity at boundary slot `b` on a leaf-spine
-    timeline: the narrower of the flow's uplink and downlink through
-    each spine."""
-    if timeline.up2 is not None:
-        raise NotImplementedError(
-            "fat-tree path capacity arrives with the fat-tree slice of "
-            "the port")
-    cap = np.minimum(
-        timeline.up[b][:, src_leaf, :],
-        np.swapaxes(timeline.down[b], 1, 2)[:, dst_leaf, :])      # (P, F, S)
-    return cap.transpose(1, 0, 2) * uplink_cap                    # (F, P, S)
+                           uplink_cap: float = 1.0,
+                           core_cap: float = 1.0,
+                           cores_per_agg: int = 1,
+                           leaves_per_pod: int = 0) -> np.ndarray:
+    """(F, P, J) per-path capacity at boundary slot `b`.  Leaf-spine:
+    the narrower of the flow's uplink and downlink through each spine.
+    Fat tree (`up2` present): stage A through the path→agg map, composed
+    with the pod↔core hops for cross-pod pairs."""
+    if timeline.up2 is None:
+        cap = np.minimum(
+            timeline.up[b][:, src_leaf, :],
+            np.swapaxes(timeline.down[b], 1, 2)[:, dst_leaf, :])  # (P, F, S)
+        return cap.transpose(1, 0, 2) * uplink_cap                # (F, P, S)
+    C = timeline.up2.shape[3]
+    aj = np.arange(C) // cores_per_agg
+    capA = np.minimum(
+        timeline.up[b][:, src_leaf, :][:, :, aj],
+        timeline.down[b][:, aj, :][:, :, dst_leaf].transpose(0, 2, 1))
+    pod_s = src_leaf // leaves_per_pod
+    pod_d = dst_leaf // leaves_per_pod
+    capB = np.minimum(timeline.up2[b][:, pod_s, :],
+                      timeline.down2[b][:, pod_d, :])             # (P, F, C)
+    cross = (pod_s != pod_d)[None, :, None]
+    cap = np.where(cross,
+                   np.minimum(capA * uplink_cap, capB * core_cap),
+                   capA * uplink_cap)
+    return cap.transpose(1, 0, 2)                                 # (F, P, C)
 
 
 def ecmp_assign_segments(src_leaf: np.ndarray, dst_leaf: np.ndarray,
                          timeline: FaultTimeline, seed: int,
                          n_paths: int, boundaries: Sequence[int],
                          uplink_cap: float = 1.0,
+                         core_cap: float = 1.0,
+                         cores_per_agg: int = 1,
+                         leaves_per_pod: int = 0,
                          vis_timeline: Optional[FaultTimeline] = None,
-                         mode: str = "instant") -> np.ndarray:
+                         mode: str = "instant",
+                         backup: Optional[np.ndarray] = None
+                         ) -> np.ndarray:
     """Replay the per-slot ECMP path assignment (initial hash + dead-path
     re-hash) against the static capacity timeline: (n_seg, F, P) int32,
     one assignment per capacity segment.
@@ -266,20 +348,25 @@ def ecmp_assign_segments(src_leaf: np.ndarray, dst_leaf: np.ndarray,
     path died with an alive alternative, which can only happen when
     capacity changed; replaying the check at each change boundary
     therefore consumes `np.random.default_rng(seed)` identically.
-    Failure reaction (`vis_timeline`, `mode="backup"`) arrives with the
-    reaction slice of the port."""
-    if vis_timeline is not None or mode != "instant":
-        raise NotImplementedError(
-            "ECMP under failure reaction arrives with the reaction slice "
-            "of the port")
+
+    Failure reaction: `vis_timeline` (the `lagged_timeline` view) makes
+    the dead-path check steer against what routing has detected, not the
+    physical fabric; `mode="backup"` replaces the re-hash by the RNG-free
+    walk down the `backup` table (the initial hash is still drawn)."""
+    check_tl = timeline if vis_timeline is None else vis_timeline
     F = src_leaf.shape[0]
     P = timeline.up.shape[1]
     rng = np.random.default_rng(seed)
     assign = rng.integers(0, n_paths, size=(F, P))
     segments = []
     for b in boundaries:
-        cap = timeline_path_capacity(timeline, b, src_leaf, dst_leaf,
-                                     uplink_cap=uplink_cap)
-        assign = rehash_dead_assign(cap > 1e-12, assign, rng, n_paths)
+        cap = timeline_path_capacity(
+            check_tl, b, src_leaf, dst_leaf, uplink_cap=uplink_cap,
+            core_cap=core_cap, cores_per_agg=cores_per_agg,
+            leaves_per_pod=leaves_per_pod)
+        if mode == "backup":
+            assign = backup_reassign(cap > 1e-12, assign, backup)
+        else:
+            assign = rehash_dead_assign(cap > 1e-12, assign, rng, n_paths)
         segments.append(np.asarray(assign).copy())
     return np.stack(segments).astype(np.int32)

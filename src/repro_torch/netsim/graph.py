@@ -13,7 +13,9 @@ reference's scan body is a function of its carry and traced slot:
     the completion slot, the swlb probe deadline) read it there;
   * whether a slot counts toward the post-warmup goodput is a (T,)
     table on the device, indexed by `t`;
-  * each slot's total goodput is written into a (T,) buffer at `t`.
+  * each slot's total goodput is written into a (T,) buffer at `t`, and
+    so, under failure reaction, is its blackholed total (a second
+    per-slot series).
 
 Only the capacity segment stays on the host: the step takes it as a
 Python int, so each segment's operands are plain views and a graph is
@@ -42,30 +44,34 @@ from repro_torch.kernels import build
 
 
 def _leaves(tree) -> Iterator[torch.Tensor]:
-    """The tensors of a nest of NamedTuples, in field order."""
+    """The tensors of a nest of NamedTuples, in field order (fields that
+    are None, such as a leaf-spine carry's stage-B queues, have none)."""
     for x in tree:
         if isinstance(x, torch.Tensor):
             yield x
-        else:
+        elif x is not None:
             yield from _leaves(x)
 
 
 def _clone(tree):
     return type(tree)(*(x.clone() if isinstance(x, torch.Tensor)
-                        else _clone(x) for x in tree))
+                        else None if x is None else _clone(x)
+                        for x in tree))
 
 
 class SlotLoop:
-    """`step(carry, t, seg, counted) -> (next carry, total)` runs one
-    slot of capacity segment `seg` (a Python int); `t` is the loop's 0-d
-    int64 slot tensor and `counted` a (1,) bool tensor, both on the
-    carry's device.  `seg_id` maps each slot to its segment and
-    `counted` each slot to whether it counts (host arrays of length T).
-    `carry0` is copied into the static buffers, so the caller's tensors
-    are never written."""
+    """`step(carry, t, seg, counted) -> (next carry, total, *more)` runs
+    one slot of capacity segment `seg` (a Python int); `t` is the loop's
+    0-d int64 slot tensor and `counted` a (1,) bool tensor, both on the
+    carry's device.  `total` and each of the `n_series - 1` further 0-d
+    outputs (the blackholed total under failure reaction) land at `t` in
+    a (T,) buffer of `series`.  `seg_id` maps each slot to its segment
+    and `counted` each slot to whether it counts (host arrays of length
+    T).  `carry0` is copied into the static buffers, so the caller's
+    tensors are never written."""
 
     def __init__(self, step: Callable, carry0, seg_id: Sequence[int],
-                 counted: Sequence[bool]):
+                 counted: Sequence[bool], n_series: int = 1):
         self._step = step
         self.seg_id = [int(s) for s in seg_id]
         self.carry = _clone(carry0)
@@ -73,19 +79,26 @@ class SlotLoop:
         self.t = torch.zeros((), dtype=torch.int64, device=device)
         self.counted = torch.as_tensor(np.asarray(counted, dtype=bool),
                                        device=device)
-        self.totals = torch.empty(len(self.seg_id),
-                                  dtype=self.carry.goodput_sum.dtype,
-                                  device=device)
+        self.series = [torch.empty(len(self.seg_id),
+                                   dtype=self.carry.goodput_sum.dtype,
+                                   device=device)
+                       for _ in range(n_series)]
         # segment -> (graph, launches its capture recorded)
         self.graphs: Dict[int, tuple] = {}
+
+    @property
+    def totals(self) -> torch.Tensor:
+        """(T,) total goodput of each slot."""
+        return self.series[0]
 
     def step(self, seg: int) -> None:
         """Slot `t` of segment `seg` on the static buffers; advances
         `t`."""
         t = self.t.view(1)
-        new, total = self._step(self.carry, self.t, seg,
+        new, *outs = self._step(self.carry, self.t, seg,
                                 self.counted.index_select(0, t))
-        self.totals.index_copy_(0, t, total.view(1))
+        for buf, out in zip(self.series, outs, strict=True):
+            buf.index_copy_(0, t, out.view(1))
         for dst, src in zip(_leaves(self.carry), _leaves(new)):
             dst.copy_(src)
         self.t += 1

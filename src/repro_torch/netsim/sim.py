@@ -1,4 +1,6 @@
-"""Simulation parameters of one run, and the ECMP dead-path re-hash."""
+"""Simulation parameters of one run, and the two ways an ECMP path
+assignment leaves a dead path: the seeded re-hash and the fast-reroute
+walk down a precomputed backup table."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -52,3 +54,28 @@ def rehash_dead_assign(alive: np.ndarray, assign: np.ndarray,
                                  axis=2)[:, :, 0]
         assign = np.where(bad, new, assign)
     return assign
+
+
+def backup_reassign(alive: np.ndarray, assign: np.ndarray,
+                    backup: np.ndarray) -> np.ndarray:
+    """Fast-reroute: walk each dead assignment down the precomputed
+    backup chain (`backup[j]` = successor path of j, a single J-cycle;
+    see `topology.backup_path_table`) to the first alive path.  RNG-free
+    and deterministic.
+
+    `alive`: (F, P, J) path liveness as *routing* sees it; `assign`:
+    (F, P).  Entries whose whole path axis is dead keep their
+    assignment (the re-hash's contract)."""
+    cur = np.take_along_axis(alive, assign[:, :, None], axis=2)[:, :, 0]
+    bad = ~cur & alive.any(-1)
+    if not bad.any():
+        return assign
+    new = assign.copy()
+    for _ in range(alive.shape[-1] - 1):
+        dead_now = ~np.take_along_axis(alive, new[:, :, None],
+                                       axis=2)[:, :, 0]
+        step = bad & dead_now
+        if not step.any():
+            break
+        new = np.where(step, backup[new], new)
+    return np.where(bad, new, assign)

@@ -8,7 +8,7 @@ device; floats are float64 (parity mode) or float32 (fast mode).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -52,22 +52,26 @@ class NicCarry(NamedTuple):
 
 
 class SimCarry(NamedTuple):
-    """Leaf↔spine queues plus the per-flow state.  The stage-B fields of
-    the reference carry (fat-tree pod↔core queues) come with the
-    fat-tree slice."""
-    q_up: torch.Tensor          # (P, L, S) queue, slot*cap units
-    q_down: torch.Tensor        # (P, S, L)
+    """Stage-A queues (`q_up`/`q_down`: leaf↔spine on leaf_spine,
+    leaf↔agg on fat_tree) plus the per-flow state; on a fat tree also
+    the stage-B pod↔core queues `q2_up`/`q2_down`, which are None on
+    leaf_spine (no placeholder for the slot to carry)."""
+    q_up: torch.Tensor          # (P, L, S|A) queue, slot*cap units
+    q_down: torch.Tensor        # (P, S|A, L)
     nic: NicCarry
     remaining: torch.Tensor     # (F,)
     done: torch.Tensor          # (F,) bool
     completion: torch.Tensor    # (F,) int64, -1 = unfinished
     goodput_sum: torch.Tensor   # (F,) sum of achieved over counted frames
-    util_up: torch.Tensor       # (P, L, S) last slot's uplink utilization
+    util_up: torch.Tensor       # (P, L, S|A) last slot's uplink utilization
+    q2_up: Optional[torch.Tensor] = None     # (P, pods, C) fat_tree
+    q2_down: Optional[torch.Tensor] = None   # (P, pods, C) fat_tree
 
 
 def init_carry(fb: FlowBatch, cfg) -> SimCarry:
     F = fb.src.shape[0]
-    P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_spines
+    P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_up
+    fat = cfg.kind == "fat_tree"
     dtype, device = fb.demand.dtype, fb.demand.device
 
     def zeros(*shape, dt=dtype):
@@ -83,4 +87,6 @@ def init_carry(fb: FlowBatch, cfg) -> SimCarry:
         q_up=zeros(P, L, S), q_down=zeros(P, S, L), nic=nic,
         remaining=fb.bytes_total.clone(), done=zeros(F, dt=torch.bool),
         completion=torch.full((F,), -1, dtype=torch.int64, device=device),
-        goodput_sum=zeros(F), util_up=zeros(P, L, S))
+        goodput_sum=zeros(F), util_up=zeros(P, L, S),
+        q2_up=zeros(P, cfg.n_pods, cfg.n_cores) if fat else None,
+        q2_down=zeros(P, cfg.n_pods, cfg.n_cores) if fat else None)

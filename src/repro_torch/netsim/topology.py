@@ -5,9 +5,8 @@ Link capacities are normalized to 1.0 = one port at line rate; parallel
 links between switches appear as capacity > 1 on an edge, and every plane
 is an independent copy joined only at the host NIC.  The slot engine
 reads fault effects from a capacity timeline (`netsim.events`), so these
-classes carry the pristine capacity arrays and the shape helpers only.
-The fat-tree slot engine is not ported yet; `FatTree` exists so that
-every registry topology builds.
+classes carry the pristine capacity arrays and the shape helpers only,
+beside the fast-reroute backup table that failure reaction walks.
 """
 from __future__ import annotations
 
@@ -111,3 +110,25 @@ class FatTree:
 
 
 Fabric = Union[LeafSpine, FatTree]
+
+
+def backup_path_table(kind: str, n_paths: int,
+                      cores_per_agg: int = 1) -> np.ndarray:
+    """(J,) precomputed fast-reroute successor per path index, from the
+    fabric's shape alone.  The successor chain is a single cycle over
+    all J paths, so `sim.backup_reassign`'s walk reaches every alive
+    path.
+
+    leaf_spine: the next spine, `(j + 1) % S`.
+
+    fat_tree: a core under the next agg first (`j + cpa`, keeping the
+    offset within the agg), since a stage-A (leaf, agg) failure takes
+    out that agg's whole core bundle; the last agg wraps to agg 0 with
+    the offset stepped (`(j % cpa + 1) % cpa`), which joins the agg
+    chains into one J-cycle."""
+    if kind == "leaf_spine":
+        return ((np.arange(n_paths) + 1) % n_paths).astype(np.int32)
+    j = np.arange(n_paths)
+    cpa = cores_per_agg
+    wrap = j >= n_paths - cpa                 # cores under the last agg
+    return np.where(wrap, (j % cpa + 1) % cpa, j + cpa).astype(np.int32)

@@ -6,38 +6,46 @@ compiler: all randomness flows through one
 `np.random.default_rng(workload_seed)` consumed in declaration order
 (tenants first, then workloads), so a spec yields the same flow list in
 both packages.  Faults reach the engine as a capacity timeline
-(`netsim.events`), so no event closures are built here.  Schedule
-workloads, `poisson_flap` faults and failure reaction belong to later
-slices of the port and raise `NotImplementedError`.
+(`netsim.events`), so no event closures are built here; a
+`poisson_flap` fault is drawn once into a slot schedule
+(`poisson_flap_schedule`), and failure reaction lowers to the reference's
+lag (`spec.reaction_lag`, applied to the timeline by the engine) and its
+fast-reroute backup table.  Schedule workloads belong to a later slice
+of the port and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.fault_tolerance import poisson_flaps
 from repro_torch.netsim import events
 from repro_torch.netsim.fabric import Flow
 from repro_torch.netsim.sim import SimConfig
-from repro_torch.netsim.topology import Fabric, FatTree, LeafSpine
+from repro_torch.netsim.topology import (Fabric, FatTree, LeafSpine,
+                                         backup_path_table)
 from repro_torch.netsim.workloads import (all2all, bisection_pairs,
                                           one_to_many, ring_neighbors)
 
-from .spec import ScenarioSpec, WorkloadSpec, fault_transition_slots
+from .spec import (ScenarioSpec, WorkloadSpec, fault_planes,
+                   fault_transition_slots)
 
 
 @dataclass
 class CompiledScenario:
     """One run bundle: the pristine topology, the flow list, the sim
-    parameters, the tenant host sets and the fault transition slots the
-    runner measures recovery from."""
+    parameters, the tenant host sets, the fault transition slots the
+    runner measures recovery from and, under a `mode="backup"` failure
+    reaction, the fast-reroute successor table."""
     spec: ScenarioSpec
     topo: Fabric
     flows: List[Flow]
     cfg: SimConfig
     tenants: Dict[str, List[int]]
     fault_slots: Tuple[Tuple[int, str], ...]   # (slot, label), sorted
+    backup: Optional[np.ndarray] = None        # (J,) int32
 
     def run(self, device=None, dtype=None):
         """Simulate on the slot engine (see `netsim.engine.run_compiled`
@@ -199,20 +207,56 @@ def build_topology(ts) -> Fabric:
         access_cap=ts.access_cap)
 
 
+def poisson_flap_schedule(spec: ScenarioSpec, index: int
+                          ) -> Tuple[Tuple[int, int, int, int], ...]:
+    """Slot schedule of the `kind="poisson_flap"` fault `spec.faults[
+    index]`: sorted `(down_slot, up_slot, plane, link)` rows.  Per-link
+    exponential inter-arrivals (`core.fault_tolerance.poisson_flaps`)
+    make the fleet (every fabric link on every selected plane) flap
+    `flaps_per_min` times a minute, drawn from
+    `default_rng((workload_seed, 6007, index))` as the reference draws
+    them.  `link` indexes leaf-spine uplinks row-major and, on a fat
+    tree, leaf-agg links followed by pod-core links; `up_slot =
+    down_slot + down_slots` exactly."""
+    f = spec.faults[index]
+    topo = spec.topo
+    planes = list(fault_planes(f, topo.n_planes))
+    if topo.kind == "fat_tree":
+        n_links = (topo.n_leaves * topo.n_aggs
+                   + topo.n_pods * topo.n_cores)
+    else:
+        n_links = topo.n_leaves * topo.n_spines
+    slot_s = spec.sim.slot_us * 1e-6
+    stop = spec.sim.slots if f.stop_slot is None \
+        else min(f.stop_slot, spec.sim.slots)
+    window = stop - f.start_slot
+    if window <= 0:
+        return ()
+    rng = np.random.default_rng((spec.workload_seed, 6007, index))
+    evs = poisson_flaps(rng, len(planes) * n_links, f.flaps_per_min,
+                        duration_s=f.down_slots * slot_s,
+                        horizon_s=window * slot_s)
+    out = []
+    for ev in evs:
+        dn = f.start_slot + int(ev.t_down // slot_s)
+        out.append((dn, dn + f.down_slots,
+                    planes[ev.link // n_links], ev.link % n_links))
+    return tuple(sorted(out))
+
+
 def fault_transitions(spec: ScenarioSpec) -> Tuple[Tuple[int, str], ...]:
     """Sorted (slot, label) degradation instants of every fault."""
+    scheds = {i: poisson_flap_schedule(spec, i)
+              for i, f in enumerate(spec.faults) if f.kind == "poisson_flap"}
     return tuple(sorted(
-        {sl for f in spec.faults
-         for sl in fault_transition_slots(f, spec.sim.slots)},
+        {sl for i, f in enumerate(spec.faults)
+         for sl in fault_transition_slots(f, spec.sim.slots,
+                                          sched=scheds.get(i))},
         key=lambda x: (x[0], x[1])))
 
 
 def compile_scenario(spec: ScenarioSpec) -> CompiledScenario:
     spec.validate()
-    if spec.reaction is not None:
-        raise NotImplementedError(
-            f"{spec.name}: failure reaction arrives with the "
-            "failure-reaction slice of the port")
     events.check_timeline_faults(spec)
     topo = build_topology(spec.topo)
     rng = np.random.default_rng(spec.workload_seed)
@@ -228,6 +272,14 @@ def compile_scenario(spec: ScenarioSpec) -> CompiledScenario:
         sw_lb_delay_ms=spec.sim.sw_lb_delay_ms,
         seed=spec.sim.seed, record_every=spec.sim.record_every,
         trace=spec.sim.trace)
+    backup = None
+    r = spec.reaction
+    if r is not None and r.enabled and r.mode == "backup":
+        cpa = (spec.topo.n_cores // spec.topo.n_aggs
+               if spec.topo.kind == "fat_tree" else 1)
+        backup = backup_path_table(spec.topo.kind, spec.topo.n_paths,
+                                   cores_per_agg=cpa)
     return CompiledScenario(spec=spec, topo=topo, flows=flows, cfg=cfg,
                             tenants=tenants,
-                            fault_slots=fault_transitions(spec))
+                            fault_slots=fault_transitions(spec),
+                            backup=backup)

@@ -8,7 +8,9 @@
     total goodput re-attains 90% of the post-fault steady state;
   * completion-tail ratio — p99 / median completion slot over finite
     transfers;
-  * §5.1 symmetry check on final uplink utilization.
+  * §5.1 symmetry check on final uplink utilization;
+  * under failure reaction, the blackholed bytes and the longest
+    blackhole window after a fault transition.
 
 The record and the distillation are copies of the reference runner's, so
 rows from the two packages compare field by field.
@@ -127,6 +129,24 @@ def _jain(x: np.ndarray) -> float:
     return float(x.sum() ** 2 / (x.size * (x ** 2).sum() + 1e-30))
 
 
+def _reaction_slots(bh: np.ndarray, fault_slots) -> int:
+    """Worst-case slots from a fault transition until its blackhole window
+    closes: from the transition to the first slot at or after it where
+    blackholed bytes go positive, then back to zero.  A window still open
+    at the horizon counts to the horizon; transitions that never
+    blackhole contribute 0."""
+    worst = 0
+    for slot, _label in fault_slots:
+        seg = bh[slot:]
+        pos = np.flatnonzero(seg > 1e-12)
+        if pos.size == 0:
+            continue
+        closed = np.flatnonzero(seg[pos[0]:] <= 1e-12)
+        worst = max(worst, int(pos[0] + closed[0]) if closed.size
+                    else int(seg.size))
+    return worst
+
+
 def _recovery(total: np.ndarray, fault_slots, record_every: int,
               horizon: int) -> Tuple[Tuple[int, str, int], ...]:
     """Slots until total goodput re-attains 90% of the steady state that
@@ -162,9 +182,9 @@ def distill_metrics(spec: ScenarioSpec, c: CompiledScenario,
     """Metric distillation of one run (the reference runner's, field for
     field).  `res` exposes mean_goodput / completion_slot /
     total_goodput / util_up_last / groups / group_of, as `EngineResult`
-    and the reference engines' results do.  The failure-reaction and
-    trace columns keep their "not modeled" defaults: this package runs
-    neither yet."""
+    and the reference engines' results do, and under failure reaction
+    `blackhole_timeline`.  The trace columns keep their "not captured"
+    defaults: this package runs no trace yet."""
     demand = np.array([f.demand for f in c.flows])
     tenant_mean: Dict[str, float] = {}
     tenant_p01: Dict[str, float] = {}
@@ -200,6 +220,16 @@ def distill_metrics(spec: ScenarioSpec, c: CompiledScenario,
         uniform &= rep.uniform
         outliers += [(p, s) for s in rep.outliers]
 
+    # failure-reaction columns, present only when the run modeled
+    # detection latency (spec.reaction enabled)
+    bh = getattr(res, "blackhole_timeline", None)
+    if bh is not None:
+        bh = np.asarray(bh, np.float64)
+        blackholed = float(bh.sum())
+        react_slots = _reaction_slots(bh, c.fault_slots)
+    else:
+        blackholed, react_slots = -1.0, -1
+
     return ScenarioMetrics(
         scenario=spec.name, seed=spec.sim.seed, routing=spec.sim.routing,
         nic=spec.sim.nic,
@@ -209,4 +239,5 @@ def distill_metrics(spec: ScenarioSpec, c: CompiledScenario,
         isolation_index=_jain(np.asarray(norm)),
         recovery_slots=recovery, completion_tail=tail,
         symmetry_cv=float(worst_cv), symmetry_uniform=bool(uniform),
-        symmetry_outliers=tuple(outliers))
+        symmetry_outliers=tuple(outliers), blackholed_bytes=blackholed,
+        reaction_slots=react_slots)

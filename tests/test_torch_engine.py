@@ -10,9 +10,11 @@ equal distilled metric rows.  Tier-1 covers fig9_victim_noise at 80 slots
 across ar|war|ecmp x spx|dcqcn|global|esr|swlb, fig11_degraded_leaf and
 fig12_plane_flap at full length, and fig12_plane_flap and
 cascading_spine_loss under ECMP at full length (capacity changes
-mid-run; the spine cascade makes the ECMP re-hash draw).  The
-full-length registry cross and the giga-scale point under ECMP and
-under AR are marked `slow`.
+mid-run; the spine cascade makes the ECMP re-hash draw); the fat tree
+and failure reaction have files of their own (`test_torch_fattree.py`,
+`test_torch_reaction.py`).  The full-length registry cross (fat-tree
+and reaction scenarios included) and the giga-scale point under ECMP
+and under AR are marked `slow`.
 
 `test_slot_handover` hands the JAX engine's state after slot k to the
 port's `_slot_step` (through `carry_from_numpy` / `operands_from_numpy`)
@@ -312,14 +314,13 @@ def test_entry_points_refuse_cuda_without_gpu(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def _slice():
-    """The slice's registry scenarios below giga scale (the giga point
-    has its own test)."""
+    """The registry scenarios the port runs below giga scale (the giga
+    point has its own test): leaf-spine and fat-tree fabrics, with and
+    without failure reaction."""
     return sorted(
         n for n in jx_list()
-        if jx_get(n).topo.kind == "leaf_spine"
-        and jx_get(n).sim.routing in ("ar", "war", "ecmp")
+        if jx_get(n).sim.routing in ("ar", "war", "ecmp")
         and jx_get(n).topo.n_hosts < 4096
-        and jx_get(n).reaction is None
         and all(w.kind != "schedule" for w in jx_get(n).workloads))
 
 
@@ -330,15 +331,27 @@ def _slice():
 def test_registry_cross_full_length(name, routing, nic):
     """The port is held to the JAX engine everywhere, and to the NumPy
     engine wherever the two references agree (completion slots that sit
-    exactly on `remaining <= 0` can differ between them)."""
+    exactly on `remaining <= 0` can differ between them).  Under failure
+    reaction the blackhole series is held the same way, within 1e-5."""
     rspec, rc, ref_np, ref_jx = _run_refs(name, routing=routing, nic=nic)
     port = _run_port(name, routing=routing, nic=nic)
+
+    def blackholes(got, want):
+        if want.blackhole_timeline is None:
+            assert got.blackhole_timeline is None
+            return
+        np.testing.assert_allclose(got.blackhole_timeline,
+                                   np.asarray(want.blackhole_timeline),
+                                   atol=TOL, rtol=TOL)
+
     _assert_parity(port, (rspec, rc, ref_jx))
+    blackholes(port[2], ref_jx)
     try:
         _assert_parity((rspec, rc, ref_jx), (rspec, rc, ref_np))
     except AssertionError:
         return
     _assert_parity(port, (rspec, rc, ref_np))
+    blackholes(port[2], ref_np)
 
 
 @pytest.mark.slow
@@ -400,7 +413,7 @@ def test_chip_smoke_contracts_hold_on_cpu(capsys):
     smoke.assert_golden(spec.name, distill_metrics(spec, c, res), golden)
     smoke.assert_parity(spec, c, res, res)
     for routing in ("ar", "war", "ecmp"):
-        want = smoke.slot_launches(routing, 3)
+        want = smoke.slot_launches(spec.topo.kind, routing, 3)
         counts = {k: want.get(k, 0) for k in build.KERNELS}
         total = {}
         smoke.check_launches("x", counts, want, total)
@@ -408,12 +421,13 @@ def test_chip_smoke_contracts_hold_on_cpu(capsys):
         with pytest.raises(AssertionError):
             smoke.check_launches("x", dict.fromkeys(build.KERNELS, 3), want,
                                  {})
-    assert smoke.PER_SLOT["ecmp"] == {
-        "plane_split": 1, "bucket_load_bottleneck": 1, "bottleneck": 1,
-        "queue_update": 1, "nic_update": 1}
-    assert smoke.PER_SLOT["ar"] == {
-        "plane_split": 1, "pair_fractions": 1, "bottleneck": 1,
-        "queue_update": 1, "nic_update": 1}
+    for kind in ("leaf_spine", "fat_tree"):
+        assert smoke.PER_SLOT[kind, "ecmp"] == {
+            "plane_split": 1, "bucket_load_bottleneck": 1, "bottleneck": 1,
+            "queue_update": 1, "nic_update": 1}
+        assert smoke.PER_SLOT[kind, "ar"] == smoke.PER_SLOT[kind, "war"] \
+            == {"plane_split": 1, "pair_fractions": 1, "bottleneck": 1,
+                "queue_update": 1, "nic_update": 1}
     assert set(smoke.REPLACES) == set(build.KERNELS)
     if not torch.cuda.is_available():
         assert smoke.main([]) != 0

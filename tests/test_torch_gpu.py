@@ -123,16 +123,43 @@ def test_pair_fractions_equals_plain_version(cuda, dtype, S, size, nbins,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_fractions_at_the_giga_fat_tree_shape(cuda, dtype):
+    """(P, L, L, J) = (2, 256, 256, 32): the giga fat tree splits each
+    leaf pair over 32 cores, the widest row the warp kernel takes, with
+    the cross-pod pairs' stage-B capacity folded into `cap`."""
+    rng = np.random.default_rng(32)
+    shape = (2, 256, 256, 32)
+    q = _uniform(rng, shape, dtype, cuda, hi=20.0)
+    cap = _uniform(rng, shape, dtype, cuda, zero_frac=0.1)
+    cap[:, :16, :16] = 0.0                       # a dead corner
+    w = cap * _uniform(rng, shape, dtype, cuda)
+    got = _launched("pair_fractions", lambda: jsq_route.pair_fractions(
+        q, cap, w, nbins=16, temperature=0.25))
+    want = ref.pair_score_softmax_ref(q, cap, w, nbins=16, temperature=0.25)
+    torch.testing.assert_close(
+        got, want, rtol=1e-12 if dtype == torch.float64 else 1e-6,
+        atol=torch.finfo(dtype).tiny)
+    assert torch.equal(got[:, :16, :16],
+                       torch.full_like(got[:, :16, :16], 1.0 / 32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shapes", [
     [(2, 8, 16)],
     [(1,), (37, 3)],
     [(257,), (2, 256, 16), (1,)],
-    [(2, 256, 16), (2, 16, 256), (4096, 2), (1001,)]],
-    ids=["1", "2", "3", "4"])
+    [(2, 256, 16), (2, 16, 256), (4096, 2), (1001,)],
+    [(1,), (2, 8, 4), (257,), (2, 2, 8), (1001,)],
+    [(2, 256, 16), (2, 16, 256), (2, 16, 32), (2, 16, 32), (4096, 2),
+     (4096, 2)],
+    [(255,), (1,), (257,), (37, 3), (1,), (8193,)]],
+    ids=["1", "2", "3", "4", "5", "6-giga-fat-tree", "6-ragged"])
 def test_bottleneck_many_equals_plain_version(cuda, dtype, shapes):
-    """One launch for 1-4 entries of different shapes (a one-element
-    entry, lengths that are not multiples of the block), each entry
-    bit-equal to the plain version."""
+    """One launch for 1-6 entries of different shapes (a one-element
+    entry, lengths that are not multiples of the block; six: a giga
+    fat-tree slot's group), each entry bit-equal to the plain
+    version."""
     rng = np.random.default_rng(len(shapes))
     pairs = [(_uniform(rng, sh, dtype, cuda, hi=2.0, zero_frac=0.1),
               _uniform(rng, sh, dtype, cuda, hi=2.0, zero_frac=0.1))
@@ -148,7 +175,7 @@ def test_bottleneck_many_refuses_bad_groups(cuda):
     x = torch.ones(8, 4, dtype=torch.float64, device=cuda)
     build.reset_launches()
     for pairs, match in (
-            ([], "pairs"), ([(x, x)] * 5, "pairs"),
+            ([], "pairs"), ([(x, x)] * 7, "pairs"),
             ([(x, x), (x.float(), x.float())], "dtype"),
             ([(x, x), (x.cpu(), x.cpu())], "on cpu"),
             ([(x.cpu(), x.cpu()), (x, x)], "on cuda"),
@@ -162,12 +189,17 @@ def test_bottleneck_many_refuses_bad_groups(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shapes", [
     [(1,)], [(255,)], [(2, 256, 16)], [(257,), (8193,)],
-    [(2, 256, 16), (2, 16, 256)], [(1,), (255,)], [(8193,), (1,)]],
-    ids=["1", "255", "8192", "257+8193", "slot", "1+255", "8193+1"])
+    [(2, 256, 16), (2, 16, 256)], [(1,), (255,)], [(8193,), (1,)],
+    [(257,), (1,), (8193,)],
+    [(2, 256, 16), (2, 16, 256), (2, 16, 32), (2, 16, 32)],
+    [(1,), (255,), (8193,), (1,)]],
+    ids=["1", "255", "8192", "257+8193", "slot", "1+255", "8193+1",
+         "257+1+8193", "fat-tree-slot", "1+255+8193+1"])
 def test_queue_update_many_equals_plain_version(cuda, dtype, shapes):
-    """One launch for one or two entries of ragged lengths, each
-    bit-equal to the plain version of its entry; dead links (cap 0 and
-    cap just at eps) included."""
+    """One launch for one to four entries of ragged lengths (four: a
+    giga fat-tree slot's stage-A and stage-B queues), each bit-equal to
+    the plain version of its entry; dead links (cap 0 and cap just at
+    eps) included."""
     rng = np.random.default_rng(len(shapes) * 10 + shapes[0][0])
     entries = []
     for sh in shapes:
@@ -190,7 +222,7 @@ def test_queue_update_many_refuses_bad_groups(cuda):
     e = (x, x, x)
     build.reset_launches()
     for entries, match in (
-            ([], "entries"), ([e] * 3, "entries"),
+            ([], "entries"), ([e] * 5, "entries"),
             ([e, (x.float(),) * 3], "dtype"),
             ([e, (x.cpu(),) * 3], "on cpu"),
             ([(x.cpu(),) * 3, e], "on cuda"),
@@ -673,32 +705,43 @@ def test_wrappers_refuse_bad_operands(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,nic,routing", [
-    ("fig11_degraded_leaf", "spx", None),
-    ("fig12_plane_flap", "swlb", None),
-    ("fig9_victim_noise", "dcqcn", None),
-    ("fig11_degraded_leaf", "esr", "ecmp"),
-    ("fig12_plane_flap", "spx", "ecmp")])
-def test_gpu_engine_reproduces_cpu_path(cuda, name, nic, routing):
-    spec = get_scenario(name).with_sim(slots=60, nic=nic)
+@pytest.mark.parametrize("name,nic,routing,slots", [
+    ("fig11_degraded_leaf", "spx", None, 60),
+    ("fig12_plane_flap", "swlb", None, 60),
+    ("fig9_victim_noise", "dcqcn", None, 60),
+    ("fig11_degraded_leaf", "esr", "ecmp", 60),
+    ("fig12_plane_flap", "spx", "ecmp", 60),
+    ("ft_core_failure_resiliency", "spx", None, 120),
+    ("ft_cross_pod_all2all", "dcqcn", "ecmp", 60),
+    ("reroute_random_failures_ft", "spx", None, 120),
+    ("reroute_random_failures", "spx", "war", 120)])
+def test_gpu_engine_reproduces_cpu_path(cuda, name, nic, routing, slots):
+    """Leaf-spine and fat-tree fabrics, with and without failure
+    reaction (the blackhole series too): one grouped bottleneck and one
+    grouped queue_update launch a slot."""
+    spec = get_scenario(name).with_sim(slots=slots, nic=nic)
     if routing is not None:
         spec = spec.with_sim(routing=routing)
     build.reset_launches()
     gpu = compile_scenario(spec).run(device=cuda)
-    # one grouped bottleneck and one grouped queue_update launch a slot,
-    # under AR/WAR and ECMP
-    route = ({"bucket_load_bottleneck": 60, "bottleneck": 60}
-             if routing == "ecmp" else
-             {"pair_fractions": 60, "bottleneck": 60})
+    route = ({"bucket_load_bottleneck": slots, "bottleneck": slots}
+             if spec.sim.routing == "ecmp" else
+             {"pair_fractions": slots, "bottleneck": slots})
     assert build.LAUNCHES == dict(
-        dict.fromkeys(build.KERNELS, 0), plane_split=60, queue_update=60,
-        nic_update=60, **route)
+        dict.fromkeys(build.KERNELS, 0), plane_split=slots,
+        queue_update=slots, nic_update=slots, **route)
     cpu = compile_scenario(spec).run(device="cpu")
     np.testing.assert_allclose(gpu.mean_goodput, cpu.mean_goodput,
                                rtol=1e-12, atol=1e-15)
     np.testing.assert_array_equal(gpu.completion_slot, cpu.completion_slot)
     np.testing.assert_allclose(gpu.util_up_last, cpu.util_up_last,
                                rtol=1e-12, atol=1e-15)
+    assert (gpu.blackhole_timeline is None) == (spec.reaction is None)
+    if spec.reaction is not None:
+        assert cpu.blackhole_timeline.sum() > 0
+        np.testing.assert_allclose(gpu.blackhole_timeline,
+                                   cpu.blackhole_timeline, rtol=1e-12,
+                                   atol=1e-15)
 
 
 # ---------------------------------------------------------------------------
@@ -714,7 +757,7 @@ def _eager_and_captured(spec, dev, dtype, handover=0):
     if handover:
         carry0 = engine.init_carry(ops_.fb, cfg)
         for t in range(handover):
-            carry0, _ = engine._slot_step(cfg, ops_, carry0, t)
+            carry0, *_ = engine._slot_step(cfg, ops_, carry0, t)
     out = []
     for eager in (True, False):
         build.reset_launches()
@@ -735,17 +778,26 @@ def _eager_and_captured(spec, dev, dtype, handover=0):
     ("cascading_spine_loss", "ecmp", "spx", 0),     # four ECMP plans
     ("fig12_plane_flap", "ecmp", "swlb", 0),
     ("fig12_plane_flap", None, "swlb", 150),        # handed-over carry
-    ("cascading_spine_loss", "ecmp", "esr", 150)])
+    ("cascading_spine_loss", "ecmp", "esr", 150),
+    ("ft_core_failure_resiliency", None, "spx", 0),  # fat tree, WAR
+    ("ft_core_failure_resiliency", "ecmp", "dcqcn", 0),
+    ("ft_cross_pod_all2all", "war", "spx", 150),
+    ("reroute_random_failures_ft", None, "spx", 0),  # reaction, ECMP
+    ("poisson_flap_storm", "ar", "spx", 0),          # reaction, AR
+    ("reroute_random_failures", "war", "swlb", 105)])
 def test_captured_loop_equals_eager_loop(cuda, dtype, name, routing, nic,
                                          handover):
     """The same kernels in the same order: every output equal bit for
-    bit, and the launches the replays count equal to the eager loop's
-    (fig12's swlb deadline shortened to fire inside the run)."""
+    bit (the blackhole series under failure reaction too), and the
+    launches the replays count equal to the eager loop's (fig12's swlb
+    deadline shortened to fire inside the run); on a fat tree the
+    stage-B queues ride in the static carry buffers."""
     spec = get_scenario(name).with_sim(nic=nic, sw_lb_delay_ms=20.0)
     if routing is not None:
         spec = spec.with_sim(routing=routing)
     cfg, ((eager, n_eager), (captured, n_captured)) = _eager_and_captured(
         spec, cuda, dtype, handover)
+    assert len(captured) == len(eager) == (5 if cfg.react else 4)
     for a, b in zip(captured, eager):
         assert a.dtype == b.dtype and torch.equal(a, b)
     route = ("bucket_load_bottleneck" if cfg.routing == "ecmp"

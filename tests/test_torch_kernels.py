@@ -16,6 +16,9 @@ The CUDA kernels themselves run only on a GPU: `tests/test_torch_gpu.py`
 holds them against these plain versions there, and `chip_smoke.py` does
 so at the main path's shapes.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,10 +166,15 @@ def test_bottleneck_and_queue_update_f64_bit_equal(shape):
 
 
 # entries of one grouped bottleneck launch: a one-element entry and
-# lengths that are not multiples of the kernel's 256-thread block
+# lengths that are not multiples of the kernel's 256-thread block; "6"
+# is a fat-tree slot's group (stage A up and down, stage B up and down,
+# both access directions)
 _GROUPS = {"1": [(2, 8, 16)], "2": [(1,), (37, 3)],
            "3": [(257,), (2, 256, 16), (1,)],
-           "4": [(2, 256, 16), (2, 16, 256), (4096, 2), (1001,)]}
+           "4": [(2, 256, 16), (2, 16, 256), (4096, 2), (1001,)],
+           "5": [(1,), (2, 8, 4), (257,), (2, 2, 8), (37, 3)],
+           "6": [(2, 8, 4), (2, 4, 8), (2, 2, 8), (2, 2, 8), (64, 2),
+                 (64, 2)]}
 
 
 @pytest.mark.parametrize("shapes", list(_GROUPS.values()), ids=list(_GROUPS))
@@ -190,7 +198,10 @@ _QUEUE_GROUPS = {"1": [(2, 8, 16)], "1-ragged": [(8193,)],
                  "2": [(2, 8, 16), (2, 16, 8)],
                  "2-narrow": [(1, 4, 2), (1, 2, 4)],
                  "2-single": [(1,), (1,)], "2-ragged": [(1,), (37, 3)],
-                 "2-ragged-last": [(255,), (1,)]}
+                 "2-ragged-last": [(255,), (1,)],
+                 "3-ragged": [(257,), (1,), (37, 3)],
+                 "4": [(2, 8, 4), (2, 4, 8), (2, 2, 8), (2, 2, 8)],
+                 "4-ragged": [(1,), (255,), (8193,), (1,)]}
 
 
 def _queue_group(shapes, dtype):
@@ -562,18 +573,18 @@ def test_non_cpu_tensor_never_falls_back(call):
 
 
 @pytest.mark.parametrize("pairs,match", [
-    ([], "1-4"),
-    ([(_meta(8), _meta(8))] * 5, "1-4"),
+    ([], "1-6"),
+    ([(_meta(8), _meta(8))] * 7, "1-6"),
     ([(_meta(8), _meta(8)), (_meta(8, dtype=_F32), _meta(8, dtype=_F32))],
      "dtype"),
     ([(_meta(8), _meta(8, dtype=_F32))], "dtype"),
     ([(_meta(8), _meta(8)), (torch.ones(8), torch.ones(8))], "on cpu"),
     ([(torch.ones(8), torch.ones(8)), (_meta(8), _meta(8))], "on meta"),
     ([(_meta(8), _meta(8)), (_meta(8), _meta(4, 2))], "shape"),
-], ids=["0", "5", "mixed-dtype", "pair-dtype", "cpu-among-device",
+], ids=["0", "7", "mixed-dtype", "pair-dtype", "cpu-among-device",
         "device-among-cpu", "shape"])
 def test_bottleneck_many_refuses_bad_groups(pairs, match):
-    """Whatever the device: 1-4 pairs, one dtype, one device, matching
+    """Whatever the device: 1-6 pairs, one dtype, one device, matching
     shapes in each pair; nothing launches."""
     build.reset_launches()
     with pytest.raises(ValueError, match=match):
@@ -585,8 +596,8 @@ _Q = (_meta(8), _meta(8), _meta(8))
 
 
 @pytest.mark.parametrize("entries,match", [
-    ([], "1-2"),
-    ([_Q] * 3, "1-2"),
+    ([], "1-4"),
+    ([_Q] * 5, "1-4"),
     ([_Q, (_meta(8, dtype=_F32),) * 3], "dtype"),
     ([(_meta(8), _meta(8, dtype=_F32), _meta(8))], "dtype"),
     ([_Q, (torch.ones(8),) * 3], "on cpu"),
@@ -594,15 +605,26 @@ _Q = (_meta(8), _meta(8), _meta(8))
     ([(_meta(8), _meta(8), _meta(4, 2))], "shape"),
     ([_Q, (_meta(8), _meta(4), _meta(8))], "shape"),
     ([_Q[:2]], "expected"),
-], ids=["0", "3", "mixed-dtype", "entry-dtype", "cpu-among-device",
+], ids=["0", "5", "mixed-dtype", "entry-dtype", "cpu-among-device",
         "device-among-cpu", "shape", "shape-second-entry", "two-tensors"])
 def test_queue_update_many_refuses_bad_groups(entries, match):
-    """Whatever the device: 1-2 entries of three tensors, one dtype, one
+    """Whatever the device: 1-4 entries of three tensors, one dtype, one
     device, one shape in each entry; nothing launches."""
     build.reset_launches()
     with pytest.raises(ValueError, match=match):
         queue_ecn.queue_update_many(entries, q_cap=64.0)
     assert all(n == 0 for n in build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("module,constant", [
+    (link_load, "kMaxGroup"), (queue_ecn, "kMaxQueueGroup")])
+def test_group_limits_match_the_kernel(module, constant):
+    """The wrappers refuse a group exactly where the kernel would: their
+    MAX_GROUP is the CUDA source's constant."""
+    src = (Path(build.__file__).parent / "csrc" /
+           "netsim_kernels.cu").read_text()
+    (value,) = re.findall(rf"constexpr int {constant} = (\d+);", src)
+    assert module.MAX_GROUP == int(value)
 
 
 def test_library_refuses_without_gpu(monkeypatch):

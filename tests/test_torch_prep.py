@@ -216,13 +216,16 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 @pytest.mark.parametrize("name,stage", [
-    ("ft_cross_pod_all2all[ecmp]", "run"),   # ECMP on a fat tree
-    ("bisection_fat_tree", "run"),           # fat-tree fabric
-    ("reroute_random_failures", "compile"),  # failure reaction
     ("train_step_baseline", "compile"),      # schedule workload
+    ("train_step_flap", "compile"),
+    ("train_step_flap_moe", "compile"),
+    ("fig12_plane_flap+trace", "run"),       # trace capture
 ])
 def test_later_slices_raise_not_implemented(name, stage):
-    spec = _pair(name)[1]
+    base, _, extra = name.partition("+")
+    spec = _pair(base)[1]
+    if extra == "trace":
+        spec = spec.with_sim(trace=TraceSpec(enabled=True))
     if stage == "compile":
         with pytest.raises(NotImplementedError):
             compile_scenario(spec)
@@ -233,11 +236,18 @@ def test_later_slices_raise_not_implemented(name, stage):
 
 
 def test_ecmp_replay_raises_outside_the_slice():
-    """Fat-tree path capacity and the reaction modes of the replay are
-    later slices; the leaf-spine replay equals the reference's draw for
-    draw (including re-hash draws at each spine kill)."""
+    """The ECMP assignment replay equals the reference's draw for draw:
+    on a leaf-spine spine cascade (re-hash draws at each kill), on a fat
+    tree (path capacity through the agg map and the pod-core hops), and
+    under failure reaction with the lagged visible timeline in each mode
+    (`backup`: the fast-reroute walk, `rehash`: the seeded re-hash,
+    `instant`: no lag)."""
     from repro.netsim.jx.events import ecmp_assign_segments as jx_assign
-    from repro_torch.netsim.events import ecmp_assign_segments
+    from repro.netsim.jx.events import lagged_timeline as jx_lagged
+    from repro.netsim.topology import backup_path_table as jx_backup
+    from repro_torch.netsim.events import ecmp_assign_segments, \
+        lagged_timeline
+    from repro_torch.netsim.topology import backup_path_table
     spec = get_scenario("cascading_spine_loss").with_sim(routing="ecmp")
     tl = compile_fault_timeline(spec)
     fa = FlowArrays.build(compile_scenario(spec).flows, spec.topo)
@@ -245,23 +255,53 @@ def test_ecmp_replay_raises_outside_the_slice():
     args = (fa.src_leaf, fa.dst_leaf, tl, 5, spec.topo.n_spines, b)
     np.testing.assert_array_equal(ecmp_assign_segments(*args),
                                   jx_assign(*args))
-    with pytest.raises(NotImplementedError, match="reaction"):
-        ecmp_assign_segments(*args, vis_timeline=tl)
-    with pytest.raises(NotImplementedError, match="reaction"):
-        ecmp_assign_segments(*args, mode="backup")
-    ft = get_scenario("ft_cross_pod_all2all")
-    ftl = compile_fault_timeline(ft)
-    ffa = FlowArrays.build(compile_scenario(ft).flows, ft.topo)
-    with pytest.raises(NotImplementedError, match="fat-tree"):
-        ecmp_assign_segments(ffa.src_leaf, ffa.dst_leaf, ftl, 0,
-                             ft.topo.n_cores, [0])
+    for name, seed in (("ft_core_failure_resiliency", 3),
+                       ("reroute_random_failures_ft", 15),
+                       ("reroute_random_failures", 15)):
+        s = get_scenario(name)
+        t = s.topo
+        ftl = compile_fault_timeline(s)
+        ffa = FlowArrays.build(compile_scenario(s).flows, t)
+        cpa = t.n_cores // t.n_aggs if t.kind == "fat_tree" else 1
+        kw = dict(uplink_cap=t.uplink_cap, core_cap=t.core_cap,
+                  cores_per_agg=cpa, leaves_per_pod=t.leaves_per_pod)
+        for mode, lag in (("instant", 0), ("backup", 2), ("rehash", 7)):
+            vtl = lagged_timeline(ftl, lag) if lag else None
+            rvtl = jx_lagged(ftl, lag) if lag else None
+            bounds = sorted(set(ftl.change_slots())
+                            | set(vtl.change_slots() if lag else ()))
+            got = ecmp_assign_segments(
+                ffa.src_leaf, ffa.dst_leaf, ftl, seed, t.n_paths, bounds,
+                vis_timeline=vtl, mode=mode,
+                backup=backup_path_table(t.kind, t.n_paths, cpa), **kw)
+            want = jx_assign(
+                ffa.src_leaf, ffa.dst_leaf, ftl, seed, t.n_paths, bounds,
+                vis_timeline=rvtl, mode=mode,
+                backup=jx_backup(t.kind, t.n_paths, cpa), **kw)
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(got, want, err_msg=(name, mode))
+            assert len(got) == len(bounds) > 1
 
 
 def test_poisson_flap_and_trace_raise_not_implemented():
-    spec = dataclasses.replace(get_scenario("poisson_flap_storm"),
-                               reaction=None).with_sim(routing="ar")
-    with pytest.raises(NotImplementedError, match="poisson_flap"):
-        compile_scenario(spec)
+    """A `poisson_flap` fault now lowers to the reference's timeline and
+    transition slots (with or without a reaction); a trace still raises
+    at run time."""
+    from repro.scenarios.compile import poisson_flap_schedule as jx_sched
+    from repro_torch.scenarios.compile import poisson_flap_schedule
+    for reaction in (None, get_scenario("poisson_flap_storm").reaction):
+        spec = dataclasses.replace(get_scenario("poisson_flap_storm"),
+                                   reaction=reaction).with_sim(routing="ar")
+        ref_spec = dataclasses.replace(jx_get("poisson_flap_storm"),
+                                       reaction=reaction) \
+            .with_sim(routing="ar")
+        c = compile_scenario(spec)
+        assert c.fault_slots == jx_compile(ref_spec).fault_slots
+        assert poisson_flap_schedule(spec, 0) == jx_sched(ref_spec, 0)
+        tl, rtl = compile_fault_timeline(spec), jx_timeline(ref_spec)
+        for field in ("up", "down", "access"):
+            np.testing.assert_array_equal(getattr(tl, field),
+                                          getattr(rtl, field))
     traced = get_scenario("fig12_plane_flap").with_sim(
         trace=TraceSpec(enabled=True))
     with pytest.raises(NotImplementedError, match="trace"):
