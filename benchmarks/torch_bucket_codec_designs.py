@@ -22,9 +22,6 @@ C = 47; `chip_smoke.ecmp_plan`) in float64 and float32:
   g{G}_r{K}    a group of G lanes a bucket, K buckets a group at once
                (K = 1, 2, 4 where the stage fits in 48 KB), the values
                staged in shared memory and walked by one lane a bucket;
-  g16_r2_planes_inner
-               g16_r2 with neighbouring groups on the P planes of one
-               bucket row instead of neighbouring rows of one plane;
   g{G}_shfl    a group of G lanes a bucket, one bucket a group, every
                lane of the group walking the values by shuffles.
 
@@ -99,20 +96,6 @@ SHARED_END = "template <typename T>\n__global__ void " \
 
 # neighbouring groups take the P planes of one bucket row instead of
 # neighbouring rows of one plane (the plan's layout stays (P, R, C))
-PLANES_INNER = (
-    ("""      b[k] = first + k * kGroups + sub;
-      live[k] = b[k] < n;
-      p[k] = live[k] ? static_cast<int>(b[k] / R) : 0;
-""", """      const int64_t i = first + k * kGroups + sub;
-      live[k] = i < n;
-      p[k] = live[k] ? static_cast<int>(i % P) : 0;
-      b[k] = live[k] ? p[k] * R + i / P : n;
-"""),
-    ("""    const int64_t mine = first + w * kGroups + sub;
-""", """    const int64_t im = first + w * kGroups + sub;
-    const int64_t mine = im < n ? (im % P) * R + im / P : n;
-"""))
-
 SHUFFLE_WALK = r"""      // the pass's walk by shuffles: every lane of the group adds the
       // group's values in column order (one bucket a group)
       static_assert(kBucketRows == 1, "one bucket a group");
@@ -291,13 +274,6 @@ def netsim_sources(parent) -> dict:
         for k in (1, 2, 4):
             if 32 // g * k <= 8:      # the f64 stage fits 48 KB
                 out[f"g{g}_r{k}"] = _set(_set(src, LANES, g), ROWS, k)
-    for old, new in PLANES_INNER:
-        if old not in src:
-            raise RuntimeError("bucket index anchors not found")
-    inner = src
-    for old, new in PLANES_INNER:
-        inner = inner.replace(old, new)
-    out["g16_r2_planes_inner"] = _set(_set(inner, LANES, 16), ROWS, 2)
     shuffle = _set(_splice(src, WALK, WALK_END, SHUFFLE_WALK), ROWS, 1)
     for g in (8, 16, 32):
         out[f"g{g}_shfl"] = _set(shuffle, LANES, g)
@@ -413,8 +389,10 @@ def bucket_rows(libs: dict, parent_build) -> list:
         def call(name, rate, pl, cap):
             load, frac = torch.empty_like(cap), torch.empty_like(cap)
             Fr, Pp = rate.shape
+            # one lane; an entry point before the lane axis takes no count
+            lanes = (1,) if len(fns[name].argtypes) == 12 else ()
             rc = fns[name](rate.data_ptr(), pl.data_ptr(), cap.data_ptr(),
-                           load.data_ptr(), frac.data_ptr(), Fr, Pp,
+                           load.data_ptr(), frac.data_ptr(), *lanes, Fr, Pp,
                            pl.shape[1], pl.shape[2], 1e-12,
                            torch.cuda.current_stream().cuda_stream)
             if rc != 0:

@@ -23,7 +23,10 @@ Phases, each fatal on failure:
             launch of its up and down links; plane_split also on 4
             planes, fig12's flow and giga's flow count),
             bucket_load_bottleneck on the engine's own ECMP plans of
-            fig11, the giga point and the giga fat tree, the giga fat
+            fig11, the giga point and the giga fat tree, and over a lane
+            axis on LANES seeds' plans of the giga point and of the
+            giga fat tree (bit-equal to the plain version and to the
+            single-lane launches, timed beside them), the giga fat
             tree's pair_fractions (32 cores), bottleneck as its slot's
             group of six pairs and queue_update as its group of four
             entries, all in float32 and float64, and
@@ -36,10 +39,11 @@ Phases, each fatal on failure:
             the operations done; and the launch floor, `bottleneck` on
             one element in the same harness.
   sync      the AR, WAR and ECMP slot loops on both fabrics and under
-            failure reaction, eager and the replays of the captured one,
-            run with CUDA sync debugging set to "error": nothing in them
-            makes the host wait (the capture, which synchronises on
-            entry, runs before).
+            failure reaction, and a traced batch of three points, eager
+            and the replays of the captured one, run with CUDA sync
+            debugging set to "error": nothing in them makes the host
+            wait (the capture, which synchronises on entry, runs
+            before).
   registry  the leaf-spine fig9_victim_noise, fig11_degraded_leaf and
             fig12_plane_flap under their own routing (AR/WAR), and
             fig12_plane_flap and cascading_spine_loss under ECMP; the
@@ -68,6 +72,21 @@ Phases, each fatal on failure:
             contract used for giga-scale parity (the reaction run's
             blackhole series within 1e-5), and the leaf-spine ECMP one
             against the golden row (1e-5).
+  trace     fig12_plane_flap at 600 slots traced through the entry
+            point in float64, against the CPU path (host_bw, util and
+            queue within 1e-5, ecn and eligible equal) and the paper's
+            signature (straggler ranks (0,), bi-modal share 0.25); the
+            giga point recording every TRACE_EVERY slots, its captured
+            loop bit-equal to the eager one with the records, and its
+            wall a slot with and without the trace.
+  batch     `engine.run_compiled_batch` over BATCH_SEEDS seeds of
+            BATCH_POINT (each lane equal to its single run on the card,
+            points/s against the single runs), `megabatch.run_megabatch`
+            over the GRID (rows equal to their single runs and within
+            parity of the CPU path, captured loops per group), and
+            LANES seeds of the giga point under ECMP batched against one
+            at a time (prep, capture, loop, peak memory); 5 hand-written
+            launches a slot whatever the lanes.
   packets   the per-packet path: `repro_torch.kernels.ops.jsq_route` and
             `ops.plb_select` route batches of 4096 packets, and
             jsq_route one more batch over ports that all score the
@@ -171,6 +190,21 @@ PLANE_SHAPES = {"fig12": dict(F=1, P=4), "giga x4": dict(F=102400, P=4)}
 # scenarios whose ECMP plans the bucket_load_bottleneck cases use
 ECMP_SHAPES = {"fig11": "fig11_degraded_leaf", "giga": "giga_fabric_storage",
                "giga fat tree": "giga_fat_tree"}
+# lanes of the lane-axis bucket_load_bottleneck cases and of the giga
+# batch (seeds 0..LANES-1 of one point)
+LANES = 4
+# the trace phase: fig12's plane flap at full length (600 slots) must
+# give the paper's signature; the giga point records every TRACE_EVERY
+# slots
+TRACE_EVERY = 10
+# the batch phase: seeds of one registry point in one batch, and the
+# megabatch grid (two flow buckets: 60 -> 64 and 30 -> 32 flows; the
+# second scenario's points traced)
+BATCH_POINT = ("fig11_degraded_leaf", "ecmp")
+BATCH_SEEDS = 16
+GRID = dict(names=("flap_during_incast", "staggered_incast_bursts"),
+            routings=("ar", "war", "ecmp"), nics=("spx", "dcqcn"),
+            seeds=(0, 1, 2, 3), traced="staggered_incast_bursts")
 # per-packet shapes: (lanes, packets) for jsq_route (ports) and
 # plb_select (planes), as `benchmarks/kernels_bench.py` runs them, plus
 # a block tail
@@ -266,17 +300,18 @@ def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
 
 def case(kernel, mode, shape, dtype, run, plain, nbytes, ops, *,
          rtol=None, loose=None, summary=False, extra=None,
-         width=None) -> dict:
+         width=None, same=None) -> dict:
     """One kernel-vs-plain comparison.  The kernel must equal `plain`
     bit for bit unless `rtol` is set (then: relative error); `loose` is
-    a further (plain call, rtol) the result must meet; `summary` marks
-    the case reported in the `{"kernels": [...]}` line; `extra` names
+    a further (plain call, rtol) the result must meet; `same` a further
+    call whose result it must equal bit for bit; `summary` marks the
+    case reported in the `{"kernels": [...]}` line; `extra` names
     further calls to time beside the kernel; `width` is an ECMP plan's
     padded bucket width, printed beside its time."""
     return dict(kernel=kernel, mode=mode, shape=shape,
                 dtype=str(dtype).split(".")[1], run=run, plain=plain,
                 bytes=nbytes, ops=ops, rtol=rtol, loose=loose,
-                summary=summary, extra=extra or {}, width=width)
+                summary=summary, extra=extra or {}, width=width, same=same)
 
 
 # flash_attention kernels and the tensor-core instruction each must
@@ -567,6 +602,54 @@ def ecmp_cases(sname: str, plan, cap64, F: int, dtype, seed: int):
         width=C)]
 
 
+def lane_plans(sname: str, lanes: int = LANES):
+    """(flows, (B, P, R, C) plans, (B, P, R) capacities) of the last
+    capacity segment of `lanes` seeds of `ECMP_SHAPES[sname]` under
+    ECMP, as `engine.prepare_batch` stacks them for one batched slot."""
+    import torch
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import compile_scenario
+    points = [compile_scenario(scenario(ECMP_SHAPES[sname], "ecmp")
+                               .with_sim(seed=s)) for s in range(lanes)]
+    _, _, fas, ops = engine.prepare_batch(points, "cuda", torch.float64)
+    return len(fas[0]), ops.ecmp_load[-1], ops.link_cap[-1]
+
+
+def lane_ecmp_cases(sname: str, plan, cap64, F: int, dtype, seed: int):
+    """bucket_load_bottleneck over a lane axis (B seeds' plans in one
+    launch): bit-equal to the plain version of the batch (ordered) and
+    to B single-lane launches; timed beside one single-lane launch and
+    the B single-lane launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import link_load, ref
+
+    rng = np.random.default_rng(seed)
+    B, P, R, C = plan.shape
+    rate = rng.uniform(0.0, 1.0, (B, F, P))
+    rate[rng.random((B, F, P)) < 0.1] = 0.0
+    rate = torch.tensor(rate, dtype=dtype, device="cuda")
+    cap = cap64.to(dtype)
+    isz = rate.element_size()
+
+    def one(b):
+        return link_load.bucket_load_bottleneck(rate[b], plan[b], cap[b])
+
+    def singles():
+        outs = [one(b) for b in range(B)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    return [case(
+        "bucket_load_bottleneck", f"{B} lanes", sname, dtype,
+        lambda: link_load.bucket_load_bottleneck(rate, plan, cap),
+        lambda: ref.load_bottleneck_ref(rate, plan, cap, ordered=True),
+        plan.numel() * 4 + rate.numel() * isz + 3 * B * P * R * isz,
+        int((plan < F).sum()) + 4 * B * P * R,
+        extra={"one_lane_ms": lambda: one(0),
+               f"{B}_single_lane_launches_ms": singles},
+        width=C, same=singles)]
+
+
 def packet_inputs(lanes: int, N: int, seed: int, ties: bool = False):
     """Per-lane float32 vectors (lane 0 up) and N packets: tx rates and
     32-bit hashes over the full range (int32 bits, as the kernels read
@@ -672,6 +755,13 @@ def all_cases():
         cases += fat_tree_cases(dtype, seed=len(cases))
         cases += ecmp_cases("giga fat tree", plan, cap, F, dtype,
                             seed=len(cases))
+    # bucket_load_bottleneck over a lane axis: LANES seeds' plans of the
+    # giga point and of the giga fat tree in one launch
+    for sname in ("giga", "giga fat tree"):
+        F, plan, cap = lane_plans(sname)
+        for dtype in (torch.float32, torch.float64):
+            cases += lane_ecmp_cases(sname, plan, cap, F, dtype,
+                                     seed=len(cases))
     return cases
 
 
@@ -698,6 +788,11 @@ def kernel_phase(report: dict) -> dict:
         row = dict(kernel=kernel, mode=mode, shape=sname, dtype=dname,
                    max_abs_err=abs_err, max_rel_err=rel_err,
                    bytes=c["bytes"], ops=c["ops"], width=c["width"])
+        if c["same"] is not None:
+            other, _ = max_errors(got, c["same"]())
+            if other != 0.0:
+                fail(f"{what}: max abs err {other:.3g} against the "
+                     "single-lane launches, expected bit-equal")
         if c["loose"] is not None:
             plain, rtol = c["loose"]
             _, loose_rel = max_errors(got, plain())
@@ -791,6 +886,31 @@ def sync_phase() -> None:
               f"{', reaction' if cfg.react else ''}, {len(loop.graphs)} "
               "graph(s)): eager slot loop and captured replays ran with "
               "sync debug mode 'error'", flush=True)
+    # a batch over a lane axis with a trace: its record rows come from a
+    # device table, never from the host
+    from repro_torch.trace import TraceSpec
+    trace = TraceSpec(enabled=True, every=3)
+    points = [compile_scenario(scenario("reroute_random_failures", "war")
+                               .with_sim(slots=110, seed=s, trace=trace))
+              for s in range(3)]
+    cfg, trace, _, ops = engine.prepare_batch(points, "cuda", torch.float64)
+    loop = engine.slot_loop(cfg, ops, trace=trace)
+    loop.capture()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = engine._simulate(cfg, ops, trace=trace, _eager=True)
+        loop.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    captured = engine._loop_results(cfg, loop)
+    if not all(torch.equal(a, b) for a, b in zip(captured, eager,
+                                                 strict=True)):
+        fail("sync phase: the captured batch differs from the eager one")
+    print(f"sync: a batch of {len(points)} traced reroute_random_failures"
+          f"[war] points ({len(loop.graphs)} graph(s)): eager slot loop and "
+          "captured replays ran with sync debug mode 'error'", flush=True)
 
 
 def check_launches(what: str, counts: dict, want: dict,
@@ -969,13 +1089,13 @@ def assert_contained_fork(spec, c, ref, got, fork_frac=0.05) -> dict:
     return stats
 
 
-def loop_walls(c, dtype, runs: int = 3) -> dict:
+def loop_walls(c, dtype, runs: int = 3, trace=None) -> dict:
     """Host prep, then `runs` eager and `runs` captured slot loops of one
     prepared run, in turns (eager, captured, captured, eager, ...), each
-    held bit-equal to the first eager run; walls in seconds, each ending
-    in a synchronize.  A captured run is its capture (slot 0 eagerly,
-    then one graph per capacity segment) and its replays of slots
-    1..T-1."""
+    held bit-equal to the first eager run (with `trace`, its records
+    too); walls in seconds, each ending in a synchronize.  A captured
+    run is its capture (slot 0 eagerly, then one graph per capacity
+    segment) and its replays of slots 1..T-1."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.netsim import engine
@@ -992,20 +1112,20 @@ def loop_walls(c, dtype, runs: int = 3) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if captured:
-            loop = engine.slot_loop(cfg, ops)
+            loop = engine.slot_loop(cfg, ops, trace=trace)
             loop.capture()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             loop.replay()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            res = engine._results(cfg, loop.carry, *loop.series)
+            res = engine._loop_results(cfg, loop)
             out["capture_s"].append(t1 - t0)
             out["replay_s"].append(t2 - t1)
             out["graphs"] = len(loop.graphs)
             del loop
         else:
-            res = engine._simulate(cfg, ops, _eager=True)
+            res = engine._simulate(cfg, ops, trace=trace, _eager=True)
             torch.cuda.synchronize()
             out["eager_s"].append(time.perf_counter() - t0)
         res = [r.clone() for r in res]
@@ -1131,6 +1251,313 @@ def scale_phase(report: dict, total: dict) -> None:
                          f"{parity['f32_vs_f64_max_abs']:.3g}")
         out["parity"] = parity
         print(f"scale {what} parity: " + "; ".join(notes), flush=True)
+
+
+def trace_phase(report: dict, total: dict) -> None:
+    """Trace capture on the card: fig12_plane_flap at 600 slots, traced
+    in float64 through the entry point, against the CPU path (host_bw,
+    util and queue within 1e-5, ecn and eligible equal) and the paper's
+    signature (straggler ranks (0,), bi-modal share 0.25); then the
+    giga point recording every TRACE_EVERY slots, its captured loop
+    bit-equal to the eager one, records included, 5 hand-written
+    launches a slot, and its wall a slot with and without the trace (in
+    turns: off, on, on, off)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.scenarios import compile_scenario, distill_metrics
+    from repro_torch.trace import TraceSpec, trace_summary
+
+    out = report["trace"] = {}
+    spec = scenario("fig12_plane_flap").with_sim(
+        trace=TraceSpec(enabled=True))
+    c = compile_scenario(spec)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    gpu = c.run(device="cuda")
+    wall = time.perf_counter() - t0
+    check_launches("trace fig12", dict(build.LAUNCHES),
+                   slot_launches(spec.topo.kind, spec.sim.routing,
+                                 spec.sim.slots), total)
+    cpu = compile_scenario(spec).run(device="cpu")
+    assert_parity(spec, c, cpu, gpu)
+    errs = {}
+    for k in cpu.trace:
+        if gpu.trace[k].shape != cpu.trace[k].shape:
+            fail(f"trace fig12 {k}: shape {gpu.trace[k].shape} vs "
+                 f"{cpu.trace[k].shape}")
+        errs[k] = float(np.abs(np.asarray(gpu.trace[k], np.float64)
+                               - np.asarray(cpu.trace[k], np.float64)).max())
+        if errs[k] > (TOL if k in ("host_bw", "util", "queue") else 0.0):
+            fail(f"trace fig12 {k}: max |GPU - CPU| {errs[k]:.3g}")
+    summ = trace_summary(gpu.trace, spec.topo.access_cap,
+                         spec.topo.n_planes)
+    m = distill_metrics(spec, c, gpu)
+    if summ["straggler_ranks"] != (0,) or summ["bimodal_frac"] != 0.25 or \
+            m.straggler_ranks != (0,) or m.bimodal_frac != 0.25:
+        fail(f"trace fig12: signature {summ}")
+    out["fig12"] = dict(wall_s=wall, max_abs_err_vs_cpu=errs,
+                        straggler_ranks=list(summ["straggler_ranks"]),
+                        bimodal_frac=summ["bimodal_frac"],
+                        hft_transient_drops=summ["hft_transient_drops"],
+                        port_classes=summ["port_classes"])
+    print(f"trace fig12_plane_flap: {spec.sim.slots} slots, every field "
+          f"recorded, GPU f64 captured {wall:.3f} s; vs CPU path max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if k != "slot")
+          + f"; straggler_ranks {summ['straggler_ranks']}, bimodal_frac "
+          f"{summ['bimodal_frac']!r}, port classes {summ['port_classes']}",
+          flush=True)
+
+    trace = TraceSpec(enabled=True, every=TRACE_EVERY)
+    spec = scenario("giga_fabric_storage").with_sim(trace=trace)
+    c = compile_scenario(spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = c.run(device="cuda")
+    wall = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated()
+    check_launches("trace giga", dict(build.LAUNCHES),
+                   slot_launches(spec.topo.kind, spec.sim.routing,
+                                 spec.sim.slots), total)
+    n_rec = len(range(0, spec.sim.slots, TRACE_EVERY))
+    for k in trace.active_fields():
+        if res.trace[k].shape[0] != n_rec or not np.isfinite(
+                np.asarray(res.trace[k], np.float64)).all():
+            fail(f"trace giga {k}: bad record")
+    walls = {False: [], True: []}
+    for traced in (False, True, True, False):
+        w = loop_walls(compile_scenario(spec), torch.float64, runs=1,
+                       trace=trace if traced else None)
+        w.pop("results")
+        walls[traced].append(w)
+    T = spec.sim.slots
+
+    def per_slot(ws):
+        return [x["replay_s"][0] / (T - 1) * 1e3 for x in ws]
+
+    out["giga"] = dict(every=TRACE_EVERY, wall_s=wall,
+                       max_memory_allocated=mem,
+                       replay_ms_per_slot_off=per_slot(walls[False]),
+                       replay_ms_per_slot_on=per_slot(walls[True]),
+                       eager_ms_per_slot_on=[x["eager_s"][0] / T * 1e3
+                                             for x in walls[True]])
+    print(f"trace giga_fabric_storage[ecmp] float64 every {TRACE_EVERY}: "
+          f"{n_rec} records of every field through the entry point "
+          f"(captured), wall {wall:.3f} s (host prep included), "
+          f"max_memory_allocated {mem / 2**20:.1f} MiB, 5 hand-written "
+          "kernel launches/slot; captured equals eager with the records; "
+          "replays "
+          + ", ".join(f"{x:.3f}" for x in per_slot(walls[False]))
+          + " ms/slot without the trace, "
+          + ", ".join(f"{x:.3f}" for x in per_slot(walls[True]))
+          + " ms/slot with it", flush=True)
+
+
+def lane_equal(what: str, got, want) -> None:
+    """A batch lane against the same point run alone: per-flow outputs,
+    the last utilization and the trace bit for bit, the series within
+    1e-12 relative (one sum a slot over the lane's flows, whose
+    reduction tree may differ with the batch's shape)."""
+    import numpy as np
+    for f in ("mean_goodput", "completion_slot", "util_up_last"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            fail(f"{what}: {f} differs from the single run")
+    for f in ("total_goodput", "blackhole_timeline"):
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None) or (b is not None and not np.allclose(
+                a, b, rtol=1e-12, atol=0)):
+            fail(f"{what}: {f} beyond 1e-12 of the single run")
+    if (got.trace is None) != (want.trace is None) or any(
+            not np.array_equal(got.trace[k], want.trace[k])
+            for k in (want.trace or {})):
+        fail(f"{what}: trace differs from the single run")
+
+
+def batch_phase(report: dict, total: dict) -> None:
+    """Batched points on the card.  (a) `run_compiled_batch` over
+    BATCH_SEEDS seeds of BATCH_POINT in float64, each lane equal to its
+    single run on the card (`lane_equal`), timed against the single runs
+    one at a time.  (b) `run_megabatch` over the GRID (two flow buckets x
+    routing x NIC x seeds, one scenario's points traced), each row equal to
+    its single run on the card and within the parity contract of the CPU
+    path, with the captured loops of each group.  (c) LANES seeds of the
+    giga point under ECMP in float64, batched against one at a time:
+    wall (prep, capture, loop), peak memory and hand-written launches a
+    slot, each lane equal to its single run."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.netsim import engine, megabatch
+    from repro_torch.scenarios import compile_scenario
+    from repro_torch.trace import TraceSpec
+
+    out = report["batch"] = {}
+    # (a) one registry point's seeds
+    name, routing = BATCH_POINT
+    points = [compile_scenario(scenario(name, routing).with_sim(seed=s))
+              for s in range(BATCH_SEEDS)]
+    spec = points[0].spec
+    torch.cuda.synchronize()
+    engine.reset_dispatch_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got = engine.run_compiled_batch(points, device="cuda")
+    batch_s = time.perf_counter() - t0
+    check_launches(f"batch {label(name, routing)}", dict(build.LAUNCHES),
+                   slot_launches(spec.topo.kind, spec.sim.routing,
+                                 spec.sim.slots), total)
+    graphs = engine.dispatch_stats()["graphs"]
+    t0 = time.perf_counter()
+    single = [c.run(device="cuda") for c in points]
+    single_s = time.perf_counter() - t0
+    for s, (g, w) in enumerate(zip(got, single)):
+        lane_equal(f"batch {label(name, routing)} seed {s}", g, w)
+    out["seeds"] = dict(scenario=label(name, routing), points=BATCH_SEEDS,
+                        slots=spec.sim.slots, flows=len(points[0].flows),
+                        batch_s=batch_s, single_s=single_s, graphs=graphs,
+                        points_per_s=BATCH_SEEDS / batch_s,
+                        single_points_per_s=BATCH_SEEDS / single_s)
+    print(f"batch {label(name, routing)}: {BATCH_SEEDS} seeds x "
+          f"{spec.sim.slots} slots in one batch (f64, {graphs} graph(s)) "
+          f"{batch_s:.3f} s, {BATCH_SEEDS / batch_s:.2f} points/s; one at "
+          f"a time {single_s:.3f} s, {BATCH_SEEDS / single_s:.2f} points/s"
+          f" ({single_s / batch_s:.2f}x); 5 hand-written kernel launches/"
+          "slot; every lane equal to its single run", flush=True)
+
+    # (b) a megabatch grid
+    grid = []
+    for name in GRID["names"]:
+        for routing in GRID["routings"]:
+            for nic in GRID["nics"]:
+                for seed in GRID["seeds"]:
+                    sp = scenario(name, routing).with_sim(nic=nic, seed=seed)
+                    if name == GRID["traced"]:
+                        sp = sp.with_sim(trace=TraceSpec(enabled=True))
+                    grid.append(compile_scenario(sp))
+    caches, planned = megabatch.plan_megabatch(grid)
+    torch.cuda.synchronize()
+    engine.reset_dispatch_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rows, loops = [None] * len(grid), []
+    for group in planned:
+        before = engine.dispatch_stats()["loops"]
+        for idxs, handle in megabatch.dispatch_planned(group, caches,
+                                                       "cuda"):
+            for i, r in zip(idxs, megabatch.finalize_group(handle)):
+                rows[i] = r
+        loops.append(engine.dispatch_stats()["loops"] - before)
+    mega_s = time.perf_counter() - t0
+    # one loop a (group, routing, NIC) sub-batch, each PER_SLOT a slot
+    want: dict = {}
+    for _, routing, _ in {(megabatch._struct_key(c), c.spec.sim.routing,
+                           c.spec.sim.nic) for c in grid}:
+        for k, n in slot_launches("leaf_spine", routing,
+                                  grid[0].spec.sim.slots).items():
+            want[k] = want.get(k, 0) + n
+    check_launches("megabatch", dict(build.LAUNCHES), want, total)
+    t0 = time.perf_counter()
+    single = [c.run(device="cuda") for c in grid]
+    single_s = time.perf_counter() - t0
+    for c, g, w in zip(grid, rows, single):
+        what = f"megabatch {c.spec.name}[{c.spec.sim.routing}, " \
+               f"{c.spec.sim.nic}] seed {c.spec.sim.seed}"
+        lane_equal(what, g, w)
+        assert_parity(c.spec, c, c.run(device="cpu"), g)
+        if g.trace is not None and any(
+                g.trace[f].shape[1] != len(c.flows)
+                for f in ("ecn", "eligible")):
+            fail(f"{what}: flow-axis trace fields not stripped")
+    out["megabatch"] = dict(points=len(grid), groups=len(planned),
+                            loops_per_group=loops, wall_s=mega_s,
+                            single_s=single_s)
+    print(f"megabatch: {len(grid)} points ({len(GRID['names'])} scenarios "
+          f"in 2 flow buckets x ar/war/ecmp x spx/dcqcn x "
+          f"{len(GRID['seeds'])} seeds, {GRID['traced']} traced) in "
+          f"{len(planned)} groups, captured loops per group "
+          f"{loops}, {mega_s:.3f} s ({len(grid) / mega_s:.2f} points/s; one "
+          f"at a time {single_s:.3f} s); every row equal to its single run "
+          "and within parity of the CPU path", flush=True)
+
+    # (c) the giga point's seeds, batched against one at a time
+    points = [compile_scenario(scenario("giga_fabric_storage")
+                               .with_sim(seed=s)) for s in range(LANES)]
+    T = points[0].spec.sim.slots
+
+    def timed(prep):
+        """prep() -> (cfg, trace, fas, ops); then capture and replays,
+        each timed to a synchronize; returns walls, results, memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        cfg, trace, fas, ops = prep()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loop = engine.slot_loop(cfg, ops, trace=trace)
+        loop.capture()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loop.replay()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        outs = engine._loop_results(cfg, loop)
+        if len(fas) == 1 and ops.fb.demand.dim() == 1:      # one point
+            res = [engine._wrap(cfg, fas[0], outs, torch.device("cuda"))]
+        else:
+            res = engine.finalize_batch(engine.BatchHandle(
+                cfg, trace, fas, outs, torch.device("cuda")))
+        counts = dict(build.LAUNCHES)
+        return dict(prep_s=t1 - t0, capture_s=t2 - t1, loop_s=t3 - t2,
+                    graphs=len(loop.graphs),
+                    max_memory_allocated=torch.cuda.max_memory_allocated(),
+                    launches_per_slot=sum(counts.values()) / T), res, counts
+
+    def one(c):
+        def prep():
+            cfg, fa, ops = engine.prepare(c, "cuda", torch.float64)
+            return cfg, None, [fa], ops
+        return prep
+
+    walls = {"batched": [], "single": []}
+    for batched in (True, False, False, True):
+        if batched:
+            w, res, counts = timed(lambda: engine.prepare_batch(
+                points, "cuda", torch.float64))
+            check_launches("batch giga", counts, slot_launches(
+                "leaf_spine", "ecmp", T), total)
+            walls["batched"].append(w)
+            batch_res = res
+        else:
+            ws, single = [], []
+            for c in points:
+                w, [r], counts = timed(one(c))
+                check_launches("batch giga single", counts, slot_launches(
+                    "leaf_spine", "ecmp", T), total)
+                ws.append(w)
+                single.append(r)
+            walls["single"].append({k: sum(w[k] for w in ws) for k in
+                                    ("prep_s", "capture_s", "loop_s")}
+                                   | {"max_memory_allocated": max(
+                                       w["max_memory_allocated"]
+                                       for w in ws)})
+    for s, (g, w) in enumerate(zip(batch_res, single)):
+        lane_equal(f"batch giga seed {s}", g, w)
+    out["giga"] = dict(lanes=LANES, slots=T, **walls)
+
+    def fmt(w):
+        return (f"prep {w['prep_s']:.3f} s, capture {w['capture_s'] * 1e3:.1f}"
+                f" ms, loop {w['loop_s'] / (T - 1) * 1e3:.3f} ms/slot, "
+                f"{w['prep_s'] + w['capture_s'] + w['loop_s']:.3f} s in all, "
+                f"peak {w['max_memory_allocated'] / 2**20:.1f} MiB")
+    print(f"batch giga_fabric_storage[ecmp] float64, {LANES} seeds: "
+          "batched (" + "; ".join(fmt(w) for w in walls["batched"])
+          + f"; {walls['batched'][0]['launches_per_slot']:g} hand-written "
+          "kernel launches/slot); one at a time, summed over the seeds ("
+          + "; ".join(fmt(w) for w in walls["single"]) + "); every lane "
+          "equal to its single run", flush=True)
 
 
 def packet_phase(report: dict, total: dict) -> None:
@@ -1510,6 +1937,8 @@ def main(argv=None) -> int:
     total: dict = {}
     registry_phase(report, total)
     scale_phase(report, total)
+    trace_phase(report, total)
+    batch_phase(report, total)
     packet_phase(report, total)
     model_phase(report, total, summary)
     profile_phase(report)

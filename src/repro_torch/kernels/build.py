@@ -52,9 +52,11 @@ _ENTRIES = {
     # arrays of up to four (cap, load, out) pointers and lengths, and
     # their count: one launch for all of them
     "bottleneck": ("netsim", _F32_F64, (_PP, _PP, _PP, _PI64, _I, _D, _P)),
+    # rate, plan, cap, load, frac, then lanes B, flows F, planes P, rows
+    # R, plan width C
     "bucket_load_bottleneck": ("netsim", _F32_F64,
-                               (_P, _P, _P, _P, _P, _I64, _I, _I64, _I,
-                                _D, _P)),
+                               (_P, _P, _P, _P, _P, _I64, _I64, _I, _I64,
+                                _I, _D, _P)),
     # arrays of one or two (q, load, cap, q_new, util) pointers and
     # lengths, and their count: one launch for both
     "queue_update": ("netsim", _F32_F64,

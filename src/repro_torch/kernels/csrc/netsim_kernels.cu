@@ -567,8 +567,10 @@ __global__ void nic_update_kernel(const T* __restrict__ qmean,
 }
 
 // ---- bucket_load_bottleneck: a group of lanes a link bucket ---------
-// rate (F, P); plan (P, R, C) int32 flow indices, F = pad (reads +0.0);
-// cap/load/frac (P, R).  Each bucket's C rates are summed strictly left
+// rate (B, F, P); plan (B, P, R, C) int32 flow indices into the lane's
+// own F rows, F = pad (reads +0.0); cap/load/frac (B, P, R): a batch of
+// B points of one structure (B = 1 for one point), its B * P * R
+// buckets in one grid.  Each bucket's C rates are summed strictly left
 // to right from column 0, pads adding +0.0 as in the plain version (flow
 // order: bit-equal to the ordered plain sum and to the NumPy engine's
 // np.add.at), then the bottleneck scale is written with a true division.
@@ -598,7 +600,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) bucket_load_bottleneck_kernel(
     const T* __restrict__ rate, const int32_t* __restrict__ plan,
     const T* __restrict__ cap, T* __restrict__ load, T* __restrict__ frac,
-    int64_t F, int P, int64_t R, int C, T eps) {
+    int64_t B, int64_t F, int P, int64_t R, int C, T eps) {
   constexpr int G = kBucketLanes;
   constexpr int U = kBucketCols / G;          // columns a lane a pass
   constexpr int kGroups = 32 / G;             // groups a warp
@@ -611,20 +613,23 @@ __global__ void __launch_bounds__(kThreads) bucket_load_bottleneck_kernel(
   const int g = lane % G;
   const int sub = lane / G;
   T* tile = stage[threadIdx.x / 32];
-  const int64_t n = (int64_t)P * R;
+  const int64_t n = B * P * R;
   const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
   const int64_t step = (int64_t)gridDim.x * blockDim.x / 32 * kTile;
   // the loop bounds are uniform across the warp, so every lane reaches
   // every __syncwarp
   for (int64_t first = warp * kTile; first < n; first += step) {
     int64_t b[kBucketRows];                   // the group's buckets
-    int p[kBucketRows];
+    const T* lane_rate[kBucketRows];          // the bucket's lane's rates,
+    int p[kBucketRows];                       // offset by its plane
     bool live[kBucketRows];
 #pragma unroll
     for (int k = 0; k < kBucketRows; ++k) {
       b[k] = first + k * kGroups + sub;
       live[k] = b[k] < n;
-      p[k] = live[k] ? static_cast<int>(b[k] / R) : 0;
+      const int64_t row = live[k] ? b[k] / R : 0;    // lane * P + plane
+      p[k] = static_cast<int>(row % P);
+      lane_rate[k] = rate + (row / P) * F * P + p[k];
     }
     // lane g < kBucketRows walks the group's bucket g
     const int w = g < kBucketRows ? g : 0;
@@ -647,7 +652,7 @@ __global__ void __launch_bounds__(kThreads) bucket_load_bottleneck_kernel(
 #pragma unroll
         for (int u = 0; u < U; ++u)
           v[k][u] = idx[k][u] < F
-                        ? __ldg(rate + (int64_t)idx[k][u] * P + p[k])
+                        ? __ldg(lane_rate[k] + (int64_t)idx[k][u] * P)
                         : T(0);
       // the pass's walk: stage the values, then one lane a bucket adds
       // them in column order
@@ -974,21 +979,21 @@ int launch_bottleneck(const void* const* cap, const void* const* load,
 template <typename T>
 int launch_bucket_load_bottleneck(const void* rate, const void* plan,
                                   const void* cap, void* load, void* frac,
-                                  int64_t F, int P, int64_t R, int C,
-                                  double eps, void* stream) {
-  if (P < 1 || C < 1) return cudaErrorInvalidValue;
-  if (R == 0) return cudaSuccess;
+                                  int64_t B, int64_t F, int P, int64_t R,
+                                  int C, double eps, void* stream) {
+  if (B < 0 || P < 1 || C < 1) return cudaErrorInvalidValue;
+  if (B == 0 || R == 0) return cudaSuccess;
   // kThreads / kBucketLanes * kBucketRows buckets a block: a giga plan's
   // 16,384 buckets make 512 blocks, all resident at once on 132 SMs
   constexpr int64_t kPerBlock = kThreads / kBucketLanes * kBucketRows;
-  int64_t blocks = ((int64_t)P * R + kPerBlock - 1) / kPerBlock;
+  int64_t blocks = (B * P * R + kPerBlock - 1) / kPerBlock;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   bucket_load_bottleneck_kernel<T><<<static_cast<unsigned>(blocks),
                                      kThreads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(rate), static_cast<const int32_t*>(plan),
       static_cast<const T*>(cap), static_cast<T*>(load),
-      static_cast<T*>(frac), F, P, R, C, T(eps));
+      static_cast<T*>(frac), B, F, P, R, C, T(eps));
   return cudaGetLastError();
 }
 
@@ -1152,10 +1157,10 @@ extern "C" int netsim_plb_select_f32(const void* rate, const void* elig,
   }                                                                       \
   extern "C" int netsim_bucket_load_bottleneck_##SUFFIX(                  \
       const void* rate, const void* plan, const void* cap, void* load,    \
-      void* frac, int64_t F, int P, int64_t R, int C, double eps,         \
-      void* stream) {                                                     \
+      void* frac, int64_t B, int64_t F, int P, int64_t R, int C,          \
+      double eps, void* stream) {                                         \
     return launch_bucket_load_bottleneck<T>(rate, plan, cap, load, frac,  \
-                                            F, P, R, C, eps, stream);     \
+                                            B, F, P, R, C, eps, stream);  \
   }                                                                       \
   extern "C" int netsim_queue_update_##SUFFIX(                            \
       const void* const* q, const void* const* load,                      \

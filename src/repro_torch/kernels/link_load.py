@@ -10,12 +10,15 @@
     is its one-pair case;
   * `bucket_load_bottleneck` replaces `_load_bottleneck_kernel`, ECMP's
     fused link-bucket sum + bottleneck (CPU tensors:
-    `ref.load_bottleneck_ref`; CUDA: `netsim_bucket_load_bottleneck`,
-    one thread per bucket, which gathers the rates itself).
+    `ref.load_bottleneck_ref`; CUDA: `netsim_bucket_load_bottleneck`, a
+    group of lanes a bucket, which gathers the rates itself).  It takes
+    a leading lane axis: a batch of points of one structure in one
+    launch.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -80,9 +83,11 @@ def bottleneck(cap: torch.Tensor, load: torch.Tensor, *,
 def bucket_load_bottleneck(rate: torch.Tensor, plan: torch.Tensor,
                            cap: torch.Tensor, *, eps: float = EPS,
                            ordered: Optional[bool] = None):
-    """`rate`: (F, P) flow rates; `plan`: (P, rows, C) int32 flow indices
-    per link bucket, padded with F; `cap`: (P, rows) link capacities.
-    Returns `(load, frac)`, both (P, rows).
+    """`rate`: (..., F, P) flow rates; `plan`: (..., P, rows, C) int32
+    flow indices per link bucket, padded with F; `cap`: (..., P, rows)
+    link capacities; the leading axes (none for one point, (B,) for a
+    batch) are the same on all three, and each lane's plan indexes its
+    own F rows.  Returns `(load, frac)`, both (..., P, rows).
 
     `ordered=None` resolves to `rate.dtype == float64` (parity mode:
     buckets sum left to right in flow order).  It selects the plain
@@ -95,14 +100,15 @@ def bucket_load_bottleneck(rate: torch.Tensor, plan: torch.Tensor,
                                        ordered=ordered)
     dev = build.cuda_device("bucket_load_bottleneck", rate)
     dt = build.float_dtype("bucket_load_bottleneck", rate)
-    F, P = rate.shape
-    _, R, C = plan.shape
-    build.check("rate", rate, device=dev, dtype=dt, shape=(F, P))
+    *lead, F, P = rate.shape
+    lead = tuple(lead)
+    R, C = plan.shape[-2:]
+    build.check("rate", rate, device=dev, dtype=dt, shape=lead + (F, P))
     build.check("plan", plan, device=dev, dtype=torch.int32,
-                shape=(P, R, C))
-    build.check("cap", cap, device=dev, dtype=dt, shape=(P, R))
+                shape=lead + (P, R, C))
+    build.check("cap", cap, device=dev, dtype=dt, shape=lead + (P, R))
     load, frac = torch.empty_like(cap), torch.empty_like(cap)
     build.launch("bucket_load_bottleneck", dt, dev, rate.data_ptr(),
                  plan.data_ptr(), cap.data_ptr(), load.data_ptr(),
-                 frac.data_ptr(), F, P, R, C, eps)
+                 frac.data_ptr(), math.prod(lead), F, P, R, C, eps)
     return load, frac

@@ -16,6 +16,8 @@ frameworks do, and divisions by a scalar stay true divisions (`sdiv`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG_INF = -1e30
@@ -154,16 +156,24 @@ def nic_update_ref(qmean, rate, alpha, esr, *, mode: str,
 
 def load_bottleneck_ref(rate, plan, cap, *, eps: float = 1e-12,
                         ordered: bool = False):
-    """ECMP link loads and their bottleneck scale.  `rate`: (F, P) flow
-    rates; `plan`: (P, rows, C) flow indices per link bucket, padded with
-    F (which reads an appended zero row); `cap`: (P, rows).  Returns
-    `(load, frac)`, both (P, rows).  `ordered=True` sums each bucket
-    strictly left to right from column 0 (flow order, float64 parity
-    mode); `ordered=False` takes PyTorch's reduction."""
-    P = rate.shape[1]
-    padT = torch.cat([rate, rate.new_zeros((1, P))], 0).T     # (P, F+1)
-    g = padT[torch.arange(P, device=rate.device)[:, None, None],
-             plan.long()]                                     # (P, rows, C)
+    """ECMP link loads and their bottleneck scale.  `rate`: (..., F, P)
+    flow rates; `plan`: (..., P, rows, C) flow indices per link bucket
+    into the lane's own F rows, padded with F (which reads an appended
+    zero row); `cap`: (..., P, rows); the leading lane axes are the same
+    on all three.  Returns `(load, frac)`, both (..., P, rows).
+    `ordered=True` sums each bucket strictly left to right from column 0
+    (flow order, float64 parity mode); `ordered=False` takes PyTorch's
+    reduction."""
+    *lead, F, P = rate.shape
+    lead = tuple(lead)
+    B = math.prod(lead)
+    R, C = plan.shape[-2:]
+    pad = torch.cat([rate, rate.new_zeros(lead + (1, P))], -2)
+    padT = pad.reshape(B, F + 1, P).transpose(1, 2)           # (B, P, F+1)
+    dev = rate.device
+    g = padT[torch.arange(B, device=dev)[:, None, None, None],
+             torch.arange(P, device=dev)[None, :, None, None],
+             plan.reshape(B, P, R, C).long()].reshape(lead + (P, R, C))
     load = lsum(g) if ordered else g.sum(-1)
     return load, bottleneck_ref(cap, load, eps=eps)
 

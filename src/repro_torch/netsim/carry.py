@@ -9,10 +9,14 @@ take the reference engine's arrays as they are, so its state after slot
 *k* can be handed to this engine's `_slot_step` and slot *k+1* compared
 alone — the tool for finding where two trajectories fork.
 `run_compiled` builds its own operands through the same function.
+
+`stack_operands` stacks the operands of several points of one structure
+(the same fabric, flow count and segment map) into one lane-stacked
+batch, the slot engine's counterpart of the reference's `vmap`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -179,3 +183,66 @@ def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
         util_up=floats(carry.util_up),
         q2_up=floats(q2_up) if fat else None,
         q2_down=floats(carry.q2_down) if fat else None)
+
+
+# SlotOperands fields with a leading segment axis; the lane axis of a
+# stacked batch comes second, so `ops.up[seg]` is the segment's (B, ...)
+_PER_SEGMENT = ("up", "down", "acc", "assign", "ecmp_load", "link_cap",
+                "ecmp_up", "ecmp_down", "up2", "down2", "ecmp_up2",
+                "ecmp_down2", "vup", "vdown", "vup2", "vdown2")
+# fields the lanes share (the fabric's static maps)
+_SHARED = ("path_agg", "leaf_pod", "cross_pair")
+
+
+def stack_operands(lanes: Sequence[SlotOperands], cfg) -> SlotOperands:
+    """One batch of the points' operands (each from `operands_from_numpy`
+    for one `cfg`, on the segments of one `seg_id`, with plans of one
+    width).  Per-flow and per-host fields gain a leading lane axis B,
+    per-segment ones a lane axis after the segment's.  The slot's
+    gathers read the lanes' tensors stacked as one table, so the index
+    fields carry each lane's offset: `fb.src`/`fb.dst` into (B·H, P)
+    rows, `pair_idx` into (B·L·L, P), the `agg_*` plans into (B·(F+1),
+    P) (each lane's pad reads its own zero row) and `ecmp_up*`/
+    `ecmp_down*` into the flattened (B, P, ...) link tensors.  The ECMP
+    load plans keep per-lane flow indices: `bucket_load_bottleneck`
+    takes the lane axis itself."""
+    lanes = list(lanes)
+    first = lanes[0]
+    for k, ops in enumerate(lanes):
+        if not np.array_equal(ops.seg_id, first.seg_id):
+            raise ValueError(f"lane {k}: another segment map")
+    F = first.fb.src.shape[0]
+    P, L, H = cfg.n_planes, cfg.n_leaves, cfg.n_hosts
+    per_lane = {"src": H, "dst": H, "pair_idx": L * L, "agg_src": F + 1,
+                "agg_dst": F + 1, "agg_pair": F + 1,
+                "ecmp_up": P * L * cfg.n_up, "ecmp_down": P * L * cfg.n_up,
+                "ecmp_up2": P * cfg.n_pods * cfg.n_cores,
+                "ecmp_down2": P * cfg.n_pods * cfg.n_cores}
+
+    def stack(name, ts: List[torch.Tensor], dim: int):
+        if name in per_lane:
+            ts = [t + b * per_lane[name] for b, t in enumerate(ts)]
+        return torch.stack(ts, dim)
+
+    fb = FlowBatch(*(stack(name, [getattr(o.fb, name) for o in lanes], 0)
+                     for name in FlowBatch._fields))
+    out = {}
+    for name in SlotOperands._fields:
+        vals = [getattr(o, name) for o in lanes]
+        if name in ("fb", "seg_id") or vals[0] is None:
+            continue
+        if name in _SHARED:
+            out[name] = vals[0]
+        elif name in _PER_SEGMENT:
+            # a view that is its physical field (no failure reaction)
+            # stays that field, not a copy
+            phys = name[1:] if name.startswith("v") else None
+            if phys and all(v is getattr(o, phys) for v, o in
+                            zip(vals, lanes)):
+                out[name] = out[phys]
+            else:
+                out[name] = stack(name, vals, 1)
+        else:
+            out[name] = stack(name, vals, 0)
+    return first._replace(fb=fb, **out)
+

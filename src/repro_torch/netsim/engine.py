@@ -1,5 +1,5 @@
 """The slot engine: one fluid-network slot as a function of
-`(SimCarry, t)`, run in a Python loop over slots.
+`(SimCarry, t)`, run in a loop over slots.
 
 One slot reproduces, operation for operation, the reference engine's
 static-dispatch slot on a leaf-spine or a 3-tier fat-tree fabric under
@@ -17,7 +17,9 @@ stage B (pod↔core) for leaf pairs in different pods.  Under failure
 reaction, AR/WAR score paths against the routing-visible (lagged)
 capacities and deliver on the physical ones, ECMP's assignment replay
 steers by the visible timeline, and every slot also reports the bytes
-offered onto physically dead paths (the blackhole series).
+offered onto physically dead paths (the blackhole series).  With a
+`TraceSpec` enabled the slot also emits the reference's trace signals
+(`_trace_fields`), recorded at the slots `range(0, slots, every)`.
 
 The per-slot hot spots go through the `repro_torch.kernels` wrappers
 (hand-written CUDA on the GPU, the plain PyTorch versions on the CPU).
@@ -25,6 +27,17 @@ Faults arrive as a piecewise-constant capacity timeline (`events.py`)
 compressed to per-segment snapshots, and ECMP's path assignment as one
 table per segment; the slot→segment map stays on the host, so the loop
 never waits for the device.
+
+A slot takes one point or a batch of points of one structure (the
+counterpart of the reference's `vmap`): every operand and carry field
+then has a leading lane axis, the slot's code addresses axes from the
+end, and its gathers read lane-stacked tensors through flat indices
+that carry each lane's offset (`carry.stack_operands`).  Each lane adds
+its own values in the same order as the point alone, so per-flow
+outputs and the carry are bit-equal lane for lane; the per-slot totals
+are one reduction per lane, whose tree the reduction kernel may pick by
+shape.  `run_compiled_batch` runs points that differ only in seed,
+faults and flows; `megabatch.py` groups a grid into such batches.
 
 On CUDA the loop replays captured CUDA graphs (`graph.py`, the
 counterpart of the reference's `_jitted`): one slot is a function of
@@ -38,14 +51,14 @@ left to right in flow order, as the NumPy engine's `np.add.at` does; the
 short plane and spine sums run left to right too.  The CPU and GPU runs
 therefore differ only where `exp` does.
 
-Traces and schedule phases are later slices of the port and raise
-`NotImplementedError`.
+Schedule phases are a later slice of the port and raise
+`NotImplementedError` at compile.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from functools import partial
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,8 +71,9 @@ from repro_torch.kernels.queue_ecn import nic_update, queue_update_many
 from repro_torch.kernels.ref import lsum, sdiv
 
 from repro_torch.scenarios.spec import reaction_lag
+from repro_torch.trace import FLOW_AXIS_FIELDS, TraceSpec
 
-from .carry import SlotOperands, operands_from_numpy
+from .carry import SlotOperands, operands_from_numpy, stack_operands
 from .cc import (DCQCN_AI, DCQCN_ALPHA_G, MIN_RATE, PROBE_TIMEOUT, SPX_AI,
                  SPX_MD, SPX_RTT_GAIN, TARGET_RTT_US)
 from .events import (FaultTimeline, compile_fault_timeline,
@@ -130,13 +144,10 @@ class EngineConfig:
     @classmethod
     def from_sim(cls, cfg: SimConfig, topo) -> "EngineConfig":
         """`topo` is a `TopologySpec` (or anything with its shape
-        attributes).  Raises `NotImplementedError` outside the slice."""
+        attributes).  Raises `ValueError` on an unknown routing."""
         fat = getattr(topo, "kind", "leaf_spine") == "fat_tree"
         if cfg.routing not in ("ar", "war", "ecmp"):
             raise ValueError(f"unknown routing {cfg.routing!r}")
-        if cfg.trace.enabled:
-            raise NotImplementedError(
-                "traces arrive with the trace slice of the port")
         return cls(
             slots=cfg.slots, slot_us=cfg.slot_us, routing=cfg.routing,
             nic=cfg.nic, base_rtt_us=cfg.base_rtt_us,
@@ -174,6 +185,9 @@ class EngineResult:
     # failure reaction only: (T,) bytes offered onto physically dead
     # paths each slot (None without a reaction)
     blackhole_timeline: Optional[np.ndarray] = None
+    # with a trace enabled: `slot` (the recorded slots) and each active
+    # field of `trace.TRACE_FIELDS`, (T_rec, ...) each (None without)
+    trace: Optional[Dict[str, np.ndarray]] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -193,8 +207,13 @@ def resolve_device(device=None) -> torch.device:
 
 def _plane_split(cfg: EngineConfig, nic: NicCarry,
                  demand: torch.Tensor) -> torch.Tensor:
-    return plane_split(nic.rate, nic.eligible, demand,
-                       mode=_SPLIT_MODE[cfg.nic], min_rate=MIN_RATE)
+    """The (..., F, P) offered split: a batch's lanes go to the kernel
+    as one (B·F, P) flow axis (views; a point's tensors as they are)."""
+    P = nic.rate.shape[-1]
+    return plane_split(nic.rate.reshape(-1, P),
+                       nic.eligible.reshape(-1, P), demand.reshape(-1),
+                       mode=_SPLIT_MODE[cfg.nic],
+                       min_rate=MIN_RATE).view(nic.rate.shape)
 
 
 def _probe_common(cfg: EngineConfig, nic: NicCarry, probe_ok):
@@ -232,13 +251,17 @@ def _probe_swlb(cfg, nic: NicCarry, rate, probe_ok, slot) -> NicCarry:
 
 def _upd_rate(cfg: EngineConfig, mode: str, nic: NicCarry, qmean, esr):
     """RTT/ECN derivation + one CC rate branch through the `nic_update`
-    kernel.  Returns `(rtt, ecn, rate, alpha)`."""
-    return nic_update(
-        qmean, nic.rate, nic.alpha, esr, mode=mode,
+    kernel (a batch's lanes as one (B·F, P) flow axis).  Returns
+    `(rtt, ecn, rate, alpha)`."""
+    P = qmean.shape[-1]
+    outs = nic_update(
+        qmean.reshape(-1, P), nic.rate.reshape(-1, P),
+        nic.alpha.reshape(-1, P), esr.reshape(-1, 1), mode=mode,
         base_rtt_us=cfg.base_rtt_us, slot_us=cfg.slot_us,
         ecn_thresh=cfg.ecn_queue_thresh, target_rtt_us=cfg.target_rtt_us,
         min_rate=MIN_RATE, md=SPX_MD, ai=SPX_AI, rtt_gain=SPX_RTT_GAIN,
         dcqcn_ai=DCQCN_AI, alpha_g=DCQCN_ALPHA_G)
+    return tuple(o.view(qmean.shape) for o in outs)
 
 
 def _upd_dcqcn(cfg, nic, qmean, probe_ok, slot, esr):
@@ -279,13 +302,13 @@ def _nic_update(cfg: EngineConfig, nic: NicCarry, qmean, probe_ok, slot,
 # ---------------------------------------------------------------------------
 
 def _pair_fractions(cfg: EngineConfig, q, cap, eff, use_war: bool):
-    """(P, L_src, L_dst, J) path split; WAR folds in remote weights:
-    `eff` (P, J, L), each path's healthy capacity toward the dst leaf,
-    over its best path's."""
+    """(..., P, L_src, L_dst, J) path split; WAR folds in remote
+    weights: `eff` (..., P, J, L), each path's healthy capacity toward
+    the dst leaf, over its best path's."""
     w = cap
     if use_war:
-        rw = eff / eff.amax(1, keepdim=True).clamp_min(1e-9)
-        w = (w * rw.transpose(1, 2)[:, None, :, :]).contiguous()
+        rw = eff / eff.amax(-2, keepdim=True).clamp_min(1e-9)
+        w = (w * rw.transpose(-1, -2).unsqueeze(-3)).contiguous()
     return pair_fractions(q, cap, w, nbins=cfg.jsq_bins,
                           temperature=cfg.ar_temperature, qmax=8.0)
 
@@ -326,34 +349,52 @@ def _masked_perm_matrix(keys: np.ndarray, mask: np.ndarray,
 
 
 def _seg_sum(vals: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """vals (F, P), perm (K, C) -> (K, P) bucket sums, each bucket's
-    flows added left to right in flow order (pad rows add exact 0.0)."""
-    pad = torch.cat([vals, vals.new_zeros((1, vals.shape[1]))], 0)
-    return lsum(pad[perm].transpose(1, 2))
+    """vals (..., F, P), perm (..., K, C) -> (..., K, P) bucket sums,
+    each bucket's flows added left to right in flow order (pad entries
+    add exact 0.0).  A lane-stacked `perm` indexes the lanes' rows
+    stacked as one (B·(F+1), P) table (each lane's pad reads its own
+    zero row)."""
+    P = vals.shape[-1]
+    pad = torch.cat([vals, vals.new_zeros(vals.shape[:-2] + (1, P))], -2)
+    return lsum(pad.reshape(-1, P)[perm].transpose(-1, -2))
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The (..., F, P) rows of (..., N, P) `x` at the flat indices `idx`
+    (..., F) into its lanes' rows stacked as one (B·N, P) table."""
+    return x.reshape(-1, x.shape[-1])[idx]
+
+
+def _lane_total(x: torch.Tensor, nd: int) -> torch.Tensor:
+    """Sum of the trailing `nd` axes: a 0-d tensor for a point, one
+    reduction per lane for a batch."""
+    return x.sum() if x.dim() == nd else x.flatten(-nd).sum(-1)
 
 
 def _pair_rate_sum(cfg: EngineConfig, fabric_rate: torch.Tensor,
                    perm: torch.Tensor) -> torch.Tensor:
-    """(P, L, L) offered rate summed by (src-leaf, dst-leaf) pair."""
+    """(..., P, L, L) offered rate summed by (src-leaf, dst-leaf)
+    pair."""
     P, L = cfg.n_planes, cfg.n_leaves
-    return _seg_sum(fabric_rate, perm).T.reshape(P, L, L)
+    return _seg_sum(fabric_rate, perm).transpose(-1, -2).reshape(
+        fabric_rate.shape[:-2] + (P, L, L))
 
 
 def _pair(up_l, down_l, cross=None, up_b=None, down_b=None):
-    """(P, L_src, L_dst, J) pair view of per-path link values: the
+    """(..., P, L_src, L_dst, J) pair view of per-path link values: the
     minimum of the src leaf's up value and the dst leaf's down value
-    (`up_l`, `down_l`: (P, L, J) each), composed by `min` with the
-    stage-B values (`up_b`, `down_b`, (P, L, J) by leaf) where `cross`
-    ((1, L, L, 1) bool) marks a fat tree's cross-pod pairs."""
-    a = torch.minimum(up_l[:, :, None, :], down_l[:, None, :, :])
+    (`up_l`, `down_l`: (..., P, L, J) each), composed by `min` with the
+    stage-B values (`up_b`, `down_b`, (..., P, L, J) by leaf) where
+    `cross` ((L, L, 1) bool) marks a fat tree's cross-pod pairs."""
+    a = torch.minimum(up_l.unsqueeze(-2), down_l.unsqueeze(-3))
     if cross is None:
         return a
-    b = torch.minimum(up_b[:, :, None, :], down_b[:, None, :, :])
+    b = torch.minimum(up_b.unsqueeze(-2), down_b.unsqueeze(-3))
     return torch.where(cross, torch.minimum(a, b), a)
 
 
 class _FatTreeView(NamedTuple):
-    """Per-path (P, L, J) operands of a fat tree (a slot's caps or
+    """Per-path (..., P, L, J) operands of a fat tree (a slot's caps or
     scales by leaf and core): stage A through the core's agg, stage B
     through the leaf's pod."""
     up: torch.Tensor           # src leaf -> agg of core j
@@ -364,14 +405,14 @@ class _FatTreeView(NamedTuple):
 
 def _ft_view(ops: SlotOperands, up, down, up2, down2) -> _FatTreeView:
     aj, pol = ops.path_agg, ops.leaf_pod
-    return _FatTreeView(up.index_select(2, aj),
-                        down.index_select(1, aj).transpose(1, 2),
-                        up2.index_select(1, pol), down2.index_select(1, pol))
+    return _FatTreeView(up.index_select(-1, aj),
+                        down.index_select(-2, aj).transpose(-1, -2),
+                        up2.index_select(-2, pol),
+                        down2.index_select(-2, pol))
 
 
 def _ft_pair(ops: SlotOperands, v: _FatTreeView):
-    return _pair(v.up, v.down, ops.cross_pair[None, :, :, None], v.up2,
-                 v.down2)
+    return _pair(v.up, v.down, ops.cross_pair[:, :, None], v.up2, v.down2)
 
 
 def _route_pair(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
@@ -382,17 +423,17 @@ def _route_pair(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
     under failure reaction, the rate steered onto physically dead paths.
     `_pair_through` finishes the routing once the loads are scaled."""
     # kernel operands are contiguous whatever layout broadcasting picks
-    cap = _pair(upv, downv.transpose(1, 2)).contiguous()
-    q = _pair_sum(carry.q_up, carry.q_down.transpose(1, 2))
+    cap = _pair(upv, downv.transpose(-1, -2)).contiguous()
+    q = _pair_sum(carry.q_up, carry.q_down.transpose(-1, -2))
     pair = _pair_fractions(cfg, q, cap, downv, use_war)
     rate_pair = _pair_rate_sum(cfg, fabric_rate, ops.agg_pair)
-    contrib = rate_pair[..., None] * pair                  # (P, L, L, S)
+    contrib = rate_pair[..., None] * pair               # (..., P, L, L, S)
     # einsum("plm,plms->pls") / ("plm,plms->psm") as ordered sums
-    load_up = lsum(contrib.permute(0, 1, 3, 2))            # (P, L, S)
-    load_down = lsum(contrib.permute(0, 3, 2, 1))          # (P, S, L)
+    load_up = lsum(contrib.transpose(-1, -2))           # (..., P, L, S)
+    load_down = lsum(contrib.transpose(-3, -1))         # (..., P, S, L)
     bh = None
     if cfg.react:
-        bh = _blackholed(contrib, _pair(up, down.transpose(1, 2)))
+        bh = _blackholed(contrib, _pair(up, down.transpose(-1, -2)))
     return pair, q, (load_up, load_down), bh
 
 
@@ -407,54 +448,61 @@ def _route_pair_ft(cfg: EngineConfig, carry: SimCarry, fabric_rate,
     P, L, A = cfg.n_planes, cfg.n_leaves, cfg.n_aggs
     J, cpa = cfg.n_paths, cfg.cores_per_agg
     pods, lpp = cfg.n_pods, cfg.leaves_per_pod
-    cross = ops.cross_pair[None, :, :, None]
+    lead = fabric_rate.shape[:-2]
+    cross = ops.cross_pair[:, :, None]
     cap = _ft_pair(ops, vis).contiguous()
     aj, pol = ops.path_agg, ops.leaf_pod
-    qA = _pair_sum(carry.q_up.index_select(2, aj),
-                   carry.q_down.index_select(1, aj).transpose(1, 2))
-    qB = _pair_sum(carry.q2_up.index_select(1, pol),
-                   carry.q2_down.index_select(1, pol))
+    qA = _pair_sum(carry.q_up.index_select(-1, aj),
+                   carry.q_down.index_select(-2, aj).transpose(-1, -2))
+    qB = _pair_sum(carry.q2_up.index_select(-2, pol),
+                   carry.q2_down.index_select(-2, pol))
     q = (qA + torch.where(cross, qB, 0.0)).contiguous()
     # remote weights from each core's healthy capacity toward the dst
     # leaf, both stages
-    eff = torch.minimum(vis.down, vis.down2).transpose(1, 2)  # (P, J, L)
+    eff = torch.minimum(vis.down, vis.down2).transpose(-1, -2)  # (P, J, L)
     pair = _pair_fractions(cfg, q, cap, eff, use_war)
     rate_pair = _pair_rate_sum(cfg, fabric_rate, ops.agg_pair)
-    contrib = rate_pair[..., None] * pair                  # (P, L, L, J)
+    contrib = rate_pair[..., None] * pair               # (..., P, L, L, J)
     # einsum("plm,plmj->plj") / ("plm,plmj->pmj") as ordered sums, then
     # the cores of an agg (stage A) and the leaves of a pod (stage B)
-    load_up = lsum(lsum(contrib.permute(0, 1, 3, 2)).reshape(P, L, A, cpa))
-    load_down = lsum(lsum(contrib.permute(0, 2, 3, 1))
-                     .reshape(P, L, A, cpa)).transpose(1, 2).contiguous()
+    load_up = lsum(lsum(contrib.transpose(-1, -2))
+                   .reshape(lead + (P, L, A, cpa)))
+    load_down = lsum(lsum(contrib.movedim(-3, -1))
+                     .reshape(lead + (P, L, A, cpa))) \
+        .transpose(-1, -2).contiguous()
     contribx = (rate_pair * ops.cross_pair)[..., None] * pair
-    loadB_up = lsum(lsum(contribx.permute(0, 1, 3, 2))
-                    .reshape(P, pods, lpp, J).transpose(2, 3))
-    loadB_down = lsum(lsum(contribx.permute(0, 2, 3, 1))
-                      .reshape(P, pods, lpp, J).transpose(2, 3))
+    loadB_up = lsum(lsum(contribx.transpose(-1, -2))
+                    .reshape(lead + (P, pods, lpp, J)).transpose(-1, -2))
+    loadB_down = lsum(lsum(contribx.movedim(-3, -1))
+                      .reshape(lead + (P, pods, lpp, J)).transpose(-1, -2))
     bh = _blackholed(contrib, _ft_pair(ops, phys)) if cfg.react else None
     return pair, q, (load_up, load_down, loadB_up, loadB_down), bh
 
 
 def _pair_sum(up_l, down_l):
-    """(P, L_src, L_dst, J) sum of the src leaf's up and the dst leaf's
-    down value of each path ((P, L, J) each), contiguous."""
-    return (up_l[:, :, None, :] + down_l[:, None, :, :]).contiguous()
+    """(..., P, L_src, L_dst, J) sum of the src leaf's up and the dst
+    leaf's down value of each path ((..., P, L, J) each), contiguous."""
+    return (up_l.unsqueeze(-2) + down_l.unsqueeze(-3)).contiguous()
 
 
 def _blackholed(contrib, cap) -> torch.Tensor:
     """Rate the pair split steered onto paths whose physical capacity
-    `cap` is dead, summed (no per-flow path tensor)."""
-    return (contrib * (cap <= _EPS)).sum()
+    `cap` is dead, summed per lane (no per-flow path tensor)."""
+    return _lane_total(contrib * (cap <= _EPS), 4)
 
 
 def _pair_through(cfg: EngineConfig, fabric_rate, pair, q, scale_pair,
                   ops: SlotOperands):
-    """AR / weighted-AR, from the (P, L, L, J) path scales: the per-flow
-    fabric throughput and mean path queue."""
-    P, L = cfg.n_planes, cfg.n_leaves
-    path_scale = lsum(pair * scale_pair).reshape(P, L * L)
-    through = fabric_rate * path_scale[:, ops.pair_idx].T
-    qmean = lsum(pair * q).reshape(P, L * L)[:, ops.pair_idx].T
+    """AR / weighted-AR, from the (..., P, L, L, J) path scales: the
+    per-flow fabric throughput and mean path queue, each flow reading
+    its leaf pair's row."""
+    lead = fabric_rate.shape[:-2]
+    LL = cfg.n_leaves * cfg.n_leaves
+    path_scale = lsum(pair * scale_pair).reshape(lead + (-1, LL))
+    through = fabric_rate * _rows(path_scale.transpose(-1, -2),
+                                  ops.pair_idx)
+    qmean = _rows(lsum(pair * q).reshape(lead + (-1, LL))
+                  .transpose(-1, -2), ops.pair_idx)
     return through, qmean
 
 
@@ -463,19 +511,22 @@ def _route_ecmp(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
     """ECMP: each (flow, plane) rides the path of this segment's
     assignment.  One `bucket_load_bottleneck` launch sums the flows of
     every link bucket in flow order and scales them (on a fat tree the
-    stage-B buckets too, cross-pod flows only); each flow then reads the
-    scales and queues of its links.  Returns the link loads, the
-    throughput and mean queue per (flow, plane), and under failure
-    reaction the rate assigned to physically dead paths."""
+    stage-B buckets too, cross-pod flows only; a batch's lanes in the
+    same launch); each flow then reads the scales and queues of its
+    links through flat indices.  Returns the link loads, the throughput
+    and mean queue per (flow, plane), and under failure reaction the
+    rate assigned to physically dead paths."""
     P, L, U = cfg.n_planes, cfg.n_leaves, cfg.n_up
     LU = L * U
+    lead = fabric_rate.shape[:-2]
     loads, fracs = bucket_load_bottleneck(
         fabric_rate, ops.ecmp_load[seg], ops.link_cap[seg], eps=_EPS)
-    up_idx, down_idx = ops.ecmp_up[seg], ops.ecmp_down[seg]   # (F, P)
-    link_loads = (loads[:, :LU].reshape(P, L, U).contiguous(),
-                  loads[:, LU:2 * LU].reshape(P, U, L).contiguous())
-    scale_f = torch.minimum(torch.take(fracs[:, :LU], up_idx),
-                            torch.take(fracs[:, LU:2 * LU], down_idx))
+    up_idx, down_idx = ops.ecmp_up[seg], ops.ecmp_down[seg]   # (.., F, P)
+    link_loads = (loads[..., :LU].reshape(lead + (P, L, U)).contiguous(),
+                  loads[..., LU:2 * LU].reshape(lead + (P, U, L))
+                  .contiguous())
+    scale_f = torch.minimum(torch.take(fracs[..., :LU], up_idx),
+                            torch.take(fracs[..., LU:2 * LU], down_idx))
     qmean = torch.take(carry.q_up, up_idx) + \
         torch.take(carry.q_down, down_idx)
     cap_f = None
@@ -486,11 +537,11 @@ def _route_ecmp(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
         B = cfg.n_pods * cfg.n_cores
         o2, o3 = 2 * LU, 2 * LU + B
         up2_idx, down2_idx = ops.ecmp_up2[seg], ops.ecmp_down2[seg]
-        shape = (P, cfg.n_pods, cfg.n_cores)
-        link_loads += (loads[:, o2:o3].reshape(shape).contiguous(),
-                       loads[:, o3:].reshape(shape).contiguous())
-        scale_b = torch.minimum(torch.take(fracs[:, o2:o3], up2_idx),
-                                torch.take(fracs[:, o3:], down2_idx))
+        shape = lead + (P, cfg.n_pods, cfg.n_cores)
+        link_loads += (loads[..., o2:o3].reshape(shape).contiguous(),
+                       loads[..., o3:].reshape(shape).contiguous())
+        scale_b = torch.minimum(torch.take(fracs[..., o2:o3], up2_idx),
+                                torch.take(fracs[..., o3:], down2_idx))
         scale_f = torch.where(ops.cross, torch.minimum(scale_f, scale_b),
                               scale_f)
         qmean = qmean + torch.where(
@@ -502,7 +553,8 @@ def _route_ecmp(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
             cap_f = torch.where(ops.cross, torch.minimum(cap_f, cap_b),
                                 cap_f)
     through = fabric_rate * scale_f
-    bh = None if cap_f is None else (fabric_rate * (cap_f <= _EPS)).sum()
+    bh = None if cap_f is None else \
+        _lane_total(fabric_rate * (cap_f <= _EPS), 2)
     return link_loads, through, qmean, bh
 
 
@@ -518,34 +570,43 @@ def _counted(cfg: EngineConfig, t: int) -> bool:
 
 
 def _slot_step(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry,
-               t: int):
+               t: int, trace: Optional[TraceSpec] = None):
     """Slot `t`: returns the next carry and this slot's total goodput
-    (a 0-d tensor on the device), and under failure reaction its
-    blackholed total too."""
-    return _slot(cfg, ops, carry, t, int(ops.seg_id[t]), _counted(cfg, t))
+    (a 0-d tensor on the device, one per lane for a batch), under
+    failure reaction its blackholed total too, and with `trace` enabled
+    its trace fields."""
+    return _slot(cfg, ops, carry, t, int(ops.seg_id[t]), _counted(cfg, t),
+                 trace)
+
+
+def _traced(trace: Optional[TraceSpec]) -> Tuple[str, ...]:
+    """The fields a run records: none without an enabled trace."""
+    return trace.active_fields() if trace is not None and trace.enabled \
+        else ()
 
 
 def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
-          seg: int, counted):
+          seg: int, counted, trace: Optional[TraceSpec] = None):
     """One slot in capacity segment `seg`.  `t` and `counted` are host
     values (the eager loop: a Python int and bool) or device tensors
     (`SlotLoop`: the 0-d slot and a (1,) bool), which enter the slot's
-    arithmetic the same way.  Returns `(next carry, total)`, and
-    `(next carry, total, blackholed)` under failure reaction."""
+    arithmetic the same way.  Returns `(next carry, total)`, then under
+    failure reaction the blackholed total, then with `trace` enabled its
+    active fields in `TRACE_FIELDS` order (`_trace_fields`)."""
     fat = cfg.kind == "fat_tree"
     up, down, acc = ops.up[seg], ops.down[seg], ops.acc[seg]
     up2, down2 = (ops.up2[seg], ops.down2[seg]) if fat else (None, None)
     fb = ops.fb
 
     demand = torch.where(carry.done | (t < fb.start_slot), 0.0, fb.demand)
-    offered = _plane_split(cfg, carry.nic, demand)        # (F, P)
-    same_leaf = fb.same_leaf[:, None]
+    offered = _plane_split(cfg, carry.nic, demand)        # (..., F, P)
+    same_leaf = fb.same_leaf[..., None]
     fabric_rate = torch.where(same_leaf, 0.0, offered)
 
     # every link scale of the slot in one bottleneck launch: the access
     # links', and under AR/WAR the fabric links' too (ECMP's come from
     # bucket_load_bottleneck)
-    load_acc_tx = _seg_sum(offered, ops.agg_src)          # (H, P)
+    load_acc_tx = _seg_sum(offered, ops.agg_src)          # (..., H, P)
     load_acc_rx = _seg_sum(offered, ops.agg_dst)
     access = ((acc, load_acc_tx), (acc, load_acc_rx))
     links = (up, down) + ((up2, down2) if fat else ())
@@ -570,15 +631,16 @@ def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
         if fat:
             scale_pair = _ft_pair(ops, _ft_view(ops, *scales))
         else:
-            scale_pair = _pair(scales[0], scales[1].transpose(1, 2))
+            scale_pair = _pair(scales[0], scales[1].transpose(-1, -2))
         through, qmean = _pair_through(cfg, fabric_rate, pair, q,
                                        scale_pair, ops)
     # access liveness doubles as the RTT probe result: a plane is
     # reachable iff both endpoints' access links on it are up
-    alive = (acc[fb.src] > _EPS) & (acc[fb.dst] > _EPS)   # (F, P)
+    alive = (_rows(acc, fb.src) > _EPS) & (_rows(acc, fb.dst) > _EPS)
 
     local = torch.where(same_leaf, offered, 0.0)
-    acc_scale = torch.minimum(f_acc_tx[fb.src], f_acc_rx[fb.dst])
+    acc_scale = torch.minimum(_rows(f_acc_tx, fb.src),
+                              _rows(f_acc_rx, fb.dst))
     achieved_pp = torch.where(alive, (through + local) * acc_scale, 0.0)
     qmean = torch.where(same_leaf, 0.0, qmean).contiguous()
 
@@ -591,10 +653,10 @@ def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
         tuple(zip(queues, loads, links)), q_cap=cfg.q_cap, eps=_EPS)
     q2_up, q2_down = (q for q, _ in stage_b) if fat else (None, None)
 
-    nic, rtt, _ = _nic_update(cfg, carry.nic, qmean, alive, t, ops.esr)
+    nic, rtt, ecn = _nic_update(cfg, carry.nic, qmean, alive, t, ops.esr)
 
     # packet-loss stall + completion
-    stalled = ((offered > 1e-9) & (achieved_pp <= 1e-9)).any(1)
+    stalled = ((offered > 1e-9) & (achieved_pp <= 1e-9)).any(-1)
     achieved = torch.where(stalled, 0.0, lsum(achieved_pp))
     remaining = carry.remaining - achieved
     newly = ~carry.done & (remaining <= 0)
@@ -619,50 +681,119 @@ def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
         done=carry.done | newly, completion=completion,
         goodput_sum=goodput_sum, util_up=util, q2_up=q2_up,
         q2_down=q2_down)
-    if cfg.react:
-        return new_carry, achieved.sum(), bh
-    return new_carry, achieved.sum()
+    outs = (_lane_total(achieved, 1),) + ((bh,) if cfg.react else ())
+    fields = _traced(trace)
+    if fields:
+        outs += _trace_fields(fields, ops, achieved_pp, stalled, util,
+                              q_up, ecn, nic.eligible)
+    return (new_carry,) + outs
+
+
+def _trace_fields(fields: Sequence[str], ops: SlotOperands, achieved_pp,
+                  stalled, util, q_up, ecn, eligible) -> Tuple:
+    """The reference's per-slot trace signals, only those in `fields`:
+    `host_bw` the delivered (stall-masked) goodput summed by source host
+    in flow order, `util` and `queue` the stage-A uplinks' utilization
+    and queue after the update, `ecn` the NIC update's marks and
+    `eligible` the new plane eligibility."""
+    sig = {
+        "host_bw": lambda: _seg_sum(
+            torch.where(stalled[..., None], 0.0, achieved_pp), ops.agg_src),
+        "util": lambda: util,
+        "queue": lambda: q_up,
+        "ecn": lambda: ecn,
+        "eligible": lambda: eligible,
+    }
+    return tuple(sig[f]() for f in fields)
+
+
+def _trace_like(cfg: EngineConfig, ops: SlotOperands,
+                fields: Sequence[str]) -> List[Tuple[tuple, torch.dtype]]:
+    """(shape, dtype) of one slot's value of each trace field."""
+    fb = ops.fb
+    lead, F = tuple(fb.demand.shape[:-1]), fb.demand.shape[-1]
+    P, L, U = cfg.n_planes, cfg.n_leaves, cfg.n_up
+    fl = fb.demand.dtype
+    like = {"host_bw": ((cfg.n_hosts, P), fl), "util": ((P, L, U), fl),
+            "queue": ((P, L, U), fl), "ecn": ((F, P), fl),
+            "eligible": ((F, P), torch.bool)}
+    return [(lead + like[f][0], like[f][1]) for f in fields]
+
+
+def _record_rows(slots: int, every: int) -> np.ndarray:
+    """(T,) record row of each slot: `t // every` at the recorded slots
+    `range(0, slots, every)`, -1 (not recorded) elsewhere."""
+    t = np.arange(slots)
+    return np.where(t % every == 0, t // every, -1)
 
 
 def slot_loop(cfg: EngineConfig, ops: SlotOperands,
-              carry0: Optional[SimCarry] = None) -> SlotLoop:
+              carry0: Optional[SimCarry] = None,
+              trace: Optional[TraceSpec] = None) -> SlotLoop:
     """The run's slots as a `SlotLoop` over static buffers, starting
     from `carry0` (the initial carry by default); under failure reaction
-    its second series is the blackhole timeline."""
+    its second series is the blackhole timeline, and with `trace`
+    enabled its records are the active trace fields."""
     carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
-    return SlotLoop(partial(_slot, cfg, ops), carry, ops.seg_id,
-                    [_counted(cfg, t) for t in range(cfg.slots)],
-                    n_series=2 if cfg.react else 1)
+    fields = _traced(trace)
+    return SlotLoop(partial(_slot, cfg, ops, trace=trace), carry,
+                    ops.seg_id, [_counted(cfg, t) for t in range(cfg.slots)],
+                    n_series=2 if cfg.react else 1,
+                    record_rows=(_record_rows(cfg.slots, trace.every)
+                                 if fields else None),
+                    record_like=_trace_like(cfg, ops, fields))
 
 
 def _results(cfg: EngineConfig, carry: SimCarry, totals: torch.Tensor,
              blackhole: Optional[torch.Tensor] = None):
     """`(mean goodput, completion, per-slot totals, last util)`, and
-    under failure reaction the per-slot blackholed totals."""
+    under failure reaction the per-slot blackholed totals; a batch's
+    series come lane first, (B, T)."""
     n_rec, w0 = cfg.frames()
     frames = (n_rec - w0) if n_rec > w0 else n_rec
-    return (sdiv(carry.goodput_sum, frames), carry.completion, totals,
-            carry.util_up) + (() if blackhole is None else (blackhole,))
+    return (sdiv(carry.goodput_sum, frames), carry.completion,
+            totals.movedim(0, -1), carry.util_up) + \
+        (() if blackhole is None else (blackhole.movedim(0, -1),))
+
+
+def _loop_results(cfg: EngineConfig, loop: SlotLoop) -> tuple:
+    """`_results` of a finished `SlotLoop`, then its records (a batch's
+    lane first)."""
+    lanes = loop.carry.goodput_sum.dim() - 1
+    return _results(cfg, loop.carry, *loop.series) + \
+        tuple(r.movedim(0, lanes) for r in loop.records)
 
 
 def _simulate(cfg: EngineConfig, ops: SlotOperands,
-              carry0: Optional[SimCarry] = None, *, _eager: bool = False):
+              carry0: Optional[SimCarry] = None, *,
+              trace: Optional[TraceSpec] = None, _eager: bool = False):
     """Run every slot: on CUDA as replays of captured slots
     (`slot_loop`), on the CPU, or with `_eager`, as an eager loop.
     Nothing in either loop reads device values on the host, so the host
-    only queues work.  Returns `_results` as device tensors."""
+    only queues work.  Returns `_results` as device tensors, then with
+    `trace` enabled its fields over the recorded slots ((T_rec, ...)
+    each; a batch's lane first)."""
     if ops.fb.demand.device.type == "cuda" and not _eager:
-        loop = slot_loop(cfg, ops, carry0)
+        loop = slot_loop(cfg, ops, carry0, trace)
         loop.capture()
         loop.replay()
-        return _results(cfg, loop.carry, *loop.series)
+        _count_loop(loop)
+        return _loop_results(cfg, loop)
     carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
-    series = ops.fb.demand.new_empty((2 if cfg.react else 1, cfg.slots))
+    lead = tuple(ops.fb.demand.shape[:-1])
+    series = ops.fb.demand.new_empty((2 if cfg.react else 1, cfg.slots)
+                                     + lead)
+    n = len(series)
+    rec = []
     for t in range(cfg.slots):
-        carry, *outs = _slot_step(cfg, ops, carry, t)
-        for k, out in enumerate(outs):
-            series[k, t] = out
-    return _results(cfg, carry, *series)
+        carry, *outs = _slot_step(cfg, ops, carry, t, trace)
+        for k in range(n):
+            series[k, t] = outs[k]
+        if outs[n:] and t % trace.every == 0:
+            rec.append(outs[n:])
+    _count_loop(None)
+    return _results(cfg, carry, *series) + \
+        tuple(torch.stack(col).movedim(0, len(lead)) for col in zip(*rec))
 
 
 # ---------------------------------------------------------------------------
@@ -685,20 +816,12 @@ class AggPerms(NamedTuple):
 
 def _prepared(compiled) -> Tuple[EngineConfig, FlowArrays, FaultTimeline,
                                  Optional[FaultTimeline]]:
-    """`(cfg, flow arrays, physical timeline, visible timeline)`: the
-    visible timeline is the reaction-lagged view (None without a
-    reaction, the physical timeline itself when the lag is zero)."""
-    spec = compiled.spec
-    cfg = EngineConfig.from_sim(compiled.cfg, spec.topo)
-    fa = FlowArrays.build(compiled.flows, compiled.topo)
-    tl = compile_fault_timeline(spec)
-    vtl = None
-    r = spec.reaction
-    if r is not None and r.enabled:
-        cfg = replace(cfg, react=True)
-        lag = reaction_lag(r, spec.sim.routing)
-        vtl = lagged_timeline(tl, lag) if lag > 0 else tl
-    return cfg, fa, tl, vtl
+    """`(cfg, flow arrays, physical timeline, visible timeline)` of
+    `_lane`: the visible timeline is the reaction-lagged view (None
+    without a reaction, the physical timeline itself when the lag is
+    zero)."""
+    lane = _lane(compiled)
+    return lane.cfg, lane.fa, lane.tl, lane.vtl
 
 
 def _boundaries(tl: FaultTimeline, vtl: Optional[FaultTimeline]
@@ -831,9 +954,14 @@ def _ecmp_load_plan(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
 
 
 def _aggs_for(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
-              widths: Tuple[int, int, int, int]) -> AggPerms:
+              widths: Tuple[int, int, int, int],
+              pad: Optional[int] = None) -> AggPerms:
+    """The plans of `fa`'s flows; `pad` (default `len(fa)`) is the index
+    that reads the appended zero row: a flow-padded batch's row count,
+    whose pad flows stay out of every plan."""
     ws, wd, wp, wu = widths
-    H, L, P, F = cfg.n_hosts, cfg.n_leaves, cfg.n_planes, len(fa)
+    H, L, P = cfg.n_hosts, cfg.n_leaves, cfg.n_planes
+    F = len(fa) if pad is None else pad
     if cfg.routing == "ecmp":
         load = _ecmp_load_plan(cfg, fa, assign, wu, F)
     else:
@@ -845,44 +973,286 @@ def _aggs_for(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
         ecmp_load=load)
 
 
+class _Lane(NamedTuple):
+    """Host prep of one point on its own segments: the config and trace
+    spec (the point's structure), the flow arrays, the physical and
+    visible timelines, its segment starts, its ECMP assignment per
+    segment and its plan widths; the `*_key`s are the content keys it
+    was memoized under."""
+    cfg: EngineConfig
+    trace: TraceSpec
+    fa: FlowArrays
+    tl: FaultTimeline
+    vtl: Optional[FaultTimeline]
+    boundaries: Tuple[int, ...]
+    assign: np.ndarray
+    widths: Tuple[int, int, int, int]
+    fa_key: tuple
+    assign_key: tuple
+
+
+def _lane(compiled, caches: Optional[Dict] = None) -> _Lane:
+    """Host prep of one point: its config and trace spec, flow arrays,
+    timelines (the visible one reaction-lagged: None without a
+    reaction, the physical one when the lag is zero), segment starts,
+    ECMP replay and plan widths.  With `caches`, what depends on part
+    of the spec only is built once per content, as the reference's
+    megabatch `_prepare` memoizes it: the flow arrays per (topology,
+    tenants, workloads, workload seed), the timelines per (faults,
+    slots, slot length, topology, workload seed, reaction lag), the
+    assignment per (flows, timeline, routing, ECMP seed, reaction
+    mode), the widths per assignment."""
+    caches = {} if caches is None else caches
+    spec = compiled.spec
+    cfg = EngineConfig.from_sim(compiled.cfg, spec.topo)
+    trace = compiled.cfg.trace if compiled.cfg.trace.enabled \
+        else TraceSpec()
+    r = spec.reaction
+    react = r is not None and r.enabled
+    lag = reaction_lag(r, spec.sim.routing) if react else None
+    if react:
+        cfg = replace(cfg, react=True)
+    fa_key = ("fa", spec.topo, spec.tenants, spec.workloads,
+              spec.workload_seed)
+    if fa_key not in caches:
+        caches[fa_key] = FlowArrays.build(compiled.flows, compiled.topo)
+    fa = caches[fa_key]
+    tl_key = ("tl", spec.faults, spec.sim.slots, spec.sim.slot_us,
+              spec.topo, spec.workload_seed, lag)
+    if tl_key not in caches:
+        tl = compile_fault_timeline(spec)
+        vtl = (lagged_timeline(tl, lag) if lag else tl) if react else None
+        caches[tl_key] = (tl, vtl, _boundaries(tl, vtl))
+    tl, vtl, boundaries = caches[tl_key]
+    mode = r.mode if react else "instant"
+    assign_key = ("assign", fa_key, tl_key, cfg.routing,
+                  compiled.cfg.seed if cfg.routing == "ecmp" else None, mode)
+    if assign_key not in caches:
+        caches[assign_key] = _assign_for(
+            cfg, fa, tl, compiled.cfg.seed, boundaries, vtl=vtl, mode=mode,
+            backup=compiled.backup)
+    assign = caches[assign_key]
+    w_key = ("widths", assign_key)
+    if w_key not in caches:
+        caches[w_key] = _agg_widths(cfg, fa, assign)
+    return _Lane(cfg, trace, fa, tl, vtl, boundaries, assign, caches[w_key],
+                 fa_key, assign_key)
+
+
+def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
+                   pad: Optional[int] = None,
+                   caches: Optional[Dict] = None) -> SlotOperands:
+    """One point's slot operands on the segments starting at
+    `boundaries` (its own, or a batch's union of them: its capacity
+    snapshots are taken there and its ECMP assignment and plans
+    re-indexed from its own segments, so each union segment holds what
+    the point's own segment holds), with plans of `widths` and, with
+    `pad`, its flows padded to `pad` inert ones (zero demand, no bytes
+    left to finish, never started, on one leaf: they touch no link and
+    no plan)."""
+    cfg, fa = lane.cfg, lane.fa
+    caches = {} if caches is None else caches
+    key = ("aggs", lane.assign_key, widths, pad)
+    if key not in caches:
+        caches[key] = _aggs_for(cfg, fa, lane.assign, widths, pad)
+    aggs, assign = caches[key], lane.assign
+    if cfg.routing == "ecmp" and tuple(boundaries) != lane.boundaries:
+        own = np.searchsorted(lane.boundaries, boundaries, "right") - 1
+        aggs = aggs._replace(ecmp_load=aggs.ecmp_load[own])
+        assign = assign[own]
+    flows = fa
+    if pad is not None and pad > len(fa):
+        flows, assign = _padded_flows(fa, assign, pad, cfg.slots)
+    up, down, acc, *stage_b = _seg_caps(lane.tl, boundaries)
+    up2, down2 = stage_b or (None, None)
+    return operands_from_numpy(
+        cfg, flows, aggs, up, down, acc, _seg_id(boundaries, cfg.slots),
+        assign=assign, seg_up2=up2, seg_down2=down2,
+        vis=_vis_seg_caps(lane.vtl, boundaries) if cfg.react else None,
+        device=device, dtype=dtype)
+
+
+def _padded_flows(fa: FlowArrays, assign: np.ndarray, n: int, slots: int):
+    """`fa`'s columns and the (n_seg, F, P) assignment padded to `n`
+    flows with inert ones (the reference's `_padded_flow_cols`)."""
+    k = n - len(fa)
+
+    def p(a, fill):
+        return np.concatenate([a, np.full(k, fill, a.dtype)])
+
+    flows = replace(
+        fa, src=p(fa.src, 0), dst=p(fa.dst, 0),
+        src_leaf=p(fa.src_leaf, 0), dst_leaf=p(fa.dst_leaf, 0),
+        demand=p(fa.demand, 0.0), bytes_total=p(fa.bytes_total, np.inf),
+        group=p(fa.group, 0), start_slot=p(fa.start_slot, slots),
+        phase=p(fa.phase, 0))
+    assign = np.concatenate(
+        [assign, np.zeros(assign.shape[:1] + (k,) + assign.shape[2:],
+                          assign.dtype)], 1)
+    return flows, assign
+
+
 def prepare(compiled, device=None, dtype=torch.float64
             ) -> Tuple[EngineConfig, FlowArrays, SlotOperands]:
     """Host prep of one `CompiledScenario`: the config, the flow arrays
     and the slot operands on `device`."""
     device = resolve_device(device)
-    cfg, fa, tl, vtl = _prepared(compiled)
-    boundaries = _boundaries(tl, vtl)
-    assign = _assign_for(
-        cfg, fa, tl, compiled.cfg.seed, boundaries, vtl=vtl,
-        mode=compiled.spec.reaction.mode if cfg.react else "instant",
-        backup=compiled.backup)
-    up, down, acc, *stage_b = _seg_caps(tl, boundaries)
-    up2, down2 = stage_b or (None, None)
-    ops = operands_from_numpy(
-        cfg, fa, _aggs_for(cfg, fa, assign, _agg_widths(cfg, fa, assign)),
-        up, down, acc, _seg_id(boundaries, cfg.slots), assign=assign,
-        seg_up2=up2, seg_down2=down2,
-        vis=_vis_seg_caps(vtl, boundaries) if cfg.react else None,
-        device=device, dtype=dtype)
-    return cfg, fa, ops
+    lane = _lane(compiled)
+    return lane.cfg, lane.fa, _lane_operands(
+        lane, lane.boundaries, lane.widths, device, dtype)
 
 
-def _wrap(cfg: EngineConfig, fa: FlowArrays, out,
-          device: torch.device) -> EngineResult:
+def _wrap(cfg: EngineConfig, fa: FlowArrays, out, device: torch.device,
+          trace: Optional[TraceSpec] = None) -> EngineResult:
+    """One point's `EngineResult` from its `_simulate` outputs."""
+    fields = _traced(trace)
+    n = len(out) - len(fields)
     mean_goodput, completion, totals, util, *bh = \
-        (o.cpu().numpy() for o in out)
+        (o.cpu().numpy() for o in out[:n])
+    rec = None
+    if fields:
+        rec = {"slot": trace.recorded_slots(cfg.slots)}
+        rec.update((f, o.cpu().numpy()) for f, o in zip(fields, out[n:]))
     return EngineResult(
         mean_goodput=mean_goodput,
         completion_slot=completion.astype(np.int64),
         total_goodput=totals[::cfg.record_every], util_up_last=util,
         groups=fa.groups, group_of=fa.group, slot_us=cfg.slot_us,
-        device=str(device), blackhole_timeline=bh[0] if bh else None)
+        device=str(device), blackhole_timeline=bh[0] if bh else None,
+        trace=rec)
 
 
 def run_compiled(compiled, device=None, dtype=None) -> EngineResult:
     """Simulate one `CompiledScenario`.  `device` defaults to CUDA (and
     raises without a GPU); `device="cpu"` runs the plain path.  `dtype`
-    is float64 (parity mode, the default) or float32 (fast mode)."""
+    is float64 (parity mode, the default) or float32 (fast mode).  A
+    spec whose `sim.trace` is enabled also records its trace
+    (`EngineResult.trace`)."""
     cfg, fa, ops = prepare(compiled, device,
                            torch.float64 if dtype is None else dtype)
-    return _wrap(cfg, fa, _simulate(cfg, ops), ops.fb.src.device)
+    trace = compiled.cfg.trace
+    return _wrap(cfg, fa, _simulate(cfg, ops, trace=trace),
+                 ops.fb.src.device, trace)
+
+
+# ---------------------------------------------------------------------------
+# batches of points of one structure
+# ---------------------------------------------------------------------------
+
+# slot loops run and CUDA graphs captured since the last reset (the
+# counterpart of the reference's `dispatch_stats`)
+_DISPATCH = {"loops": 0, "graphs": 0}
+
+
+def dispatch_stats() -> Dict[str, int]:
+    """`loops`: slot loops run (one a point, or one a batch);
+    `graphs`: CUDA graphs their captures made (0 on the CPU)."""
+    return dict(_DISPATCH)
+
+
+def reset_dispatch_stats() -> None:
+    _DISPATCH.update(loops=0, graphs=0)
+
+
+def _count_loop(loop: Optional[SlotLoop]) -> None:
+    _DISPATCH["loops"] += 1
+    if loop is not None:
+        _DISPATCH["graphs"] += len(loop.graphs)
+
+
+class BatchHandle(NamedTuple):
+    """A dispatched batch: what `finalize_batch` needs to unpack it.
+    `fas` holds each lane's flow arrays (the batch may pad its flows)."""
+    cfg: EngineConfig
+    trace: TraceSpec
+    fas: List[FlowArrays]
+    out: tuple
+    device: torch.device
+
+
+def _batch_operands(lanes: Sequence[_Lane], device, dtype,
+                    pad: Optional[int] = None,
+                    caches: Optional[Dict] = None) -> SlotOperands:
+    """The lanes' operands stacked on the union of their segment
+    starts, with plans of the widest lane's widths."""
+    union = tuple(sorted(set().union(*(ln.boundaries for ln in lanes))))
+    widths = tuple(map(max, zip(*(ln.widths for ln in lanes))))
+    return stack_operands([_lane_operands(ln, union, widths, device, dtype,
+                                          pad, caches) for ln in lanes],
+                          lanes[0].cfg)
+
+
+def _dispatch_lanes(lanes: Sequence[_Lane], device, dtype,
+                    pad: Optional[int] = None,
+                    caches: Optional[Dict] = None) -> BatchHandle:
+    """Stack the lanes' operands and queue their slot loop."""
+    cfg, trace = lanes[0].cfg, lanes[0].trace
+    ops = _batch_operands(lanes, device, dtype, pad, caches)
+    return BatchHandle(cfg, trace, [ln.fa for ln in lanes],
+                       _simulate(cfg, ops, trace=trace), device)
+
+
+def prepare_batch(points: Sequence, device=None, dtype=None
+                  ) -> Tuple[EngineConfig, TraceSpec, List[FlowArrays],
+                             SlotOperands]:
+    """Host prep of a batch of `CompiledScenario`s that share structure
+    (the same `EngineConfig` and trace spec, so the same scenario shape,
+    routing, NIC and slots, and the same flow count; seeds, faults and
+    flows may differ): the config, the trace spec, each point's flow
+    arrays and the lane-stacked operands on `device`, on the union of
+    the points' segment starts.  Raises `ValueError` for points of
+    another structure."""
+    device = resolve_device(device)
+    dtype = torch.float64 if dtype is None else dtype
+    caches: Dict = {}
+    lanes = [_lane(c, caches) for c in points]
+    cfg, trace, F = lanes[0].cfg, lanes[0].trace, len(lanes[0].fa)
+    for ln in lanes:
+        if ln.cfg != cfg or ln.trace != trace or len(ln.fa) != F:
+            raise ValueError(
+                "batched points must be structurally identical "
+                f"(got {ln.cfg} with {len(ln.fa)} flows vs {cfg} with "
+                f"{F}); group grid points by (scenario, routing, nic) "
+                "first")
+    return cfg, trace, [ln.fa for ln in lanes], _batch_operands(
+        lanes, device, dtype, caches=caches)
+
+
+def dispatch_compiled_batch(points: Sequence, device=None, dtype=None
+                            ) -> BatchHandle:
+    """Prepare (`prepare_batch`) and queue one batch of points as one
+    slot loop over a lane axis: on CUDA one captured graph per segment
+    of the union of the points' segment starts.  Returns a handle for
+    `finalize_batch`; on CUDA the loop runs on while the caller goes
+    on."""
+    cfg, trace, fas, ops = prepare_batch(points, device, dtype)
+    return BatchHandle(cfg, trace, fas, _simulate(cfg, ops, trace=trace),
+                       ops.fb.src.device)
+
+
+def finalize_batch(handle: BatchHandle) -> List[EngineResult]:
+    """Wait for a dispatched batch and unpack one `EngineResult` per
+    point, in point order; flow-axis outputs keep each point's own flow
+    count."""
+    cfg, trace, fas, out, device = handle
+    out = [o.cpu() for o in out]
+    n = len(out) - len(_traced(trace))
+    res = []
+    for b, fa in enumerate(fas):
+        F = len(fa)
+        row = [o[b] for o in out]
+        row[:2] = (row[0][:F], row[1][:F])
+        row[n:] = [r[:, :F] if f in FLOW_AXIS_FIELDS else r
+                   for f, r in zip(_traced(trace), row[n:])]
+        res.append(_wrap(cfg, fa, row, device, trace))
+    return res
+
+
+def run_compiled_batch(points: Sequence, device=None, dtype=None
+                       ) -> List[EngineResult]:
+    """Simulate a batch of `CompiledScenario`s that share structure as
+    one slot loop over a lane axis (see `dispatch_compiled_batch`).
+    Each lane computes what its point computes alone: per-flow outputs
+    bit for bit, its per-slot series up to the reduction tree of one
+    sum a slot."""
+    return finalize_batch(dispatch_compiled_batch(points, device, dtype))

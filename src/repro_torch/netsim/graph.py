@@ -15,7 +15,12 @@ reference's scan body is a function of its carry and traced slot:
     table on the device, indexed by `t`;
   * each slot's total goodput is written into a (T,) buffer at `t`, and
     so, under failure reaction, is its blackholed total (a second
-    per-slot series).
+    per-slot series); a batch's series are (T, B);
+  * with a trace, each recorded field has a static (n_rec + 1, ...)
+    buffer and a (T,) device table maps each slot to its record row,
+    or to the scratch row `n_rec` for a slot that is not recorded, so
+    every slot writes its row by `index_copy_` and no slot branches on
+    `t` on the host.
 
 Only the capacity segment stays on the host: the step takes it as a
 Python int, so each segment's operands are plain views and a graph is
@@ -35,7 +40,8 @@ replay of the graph counts what its capture recorded.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, \
+    Tuple
 
 import numpy as np
 import torch
@@ -65,13 +71,21 @@ class SlotLoop:
     0-d int64 slot tensor and `counted` a (1,) bool tensor, both on the
     carry's device.  `total` and each of the `n_series - 1` further 0-d
     outputs (the blackholed total under failure reaction) land at `t` in
-    a (T,) buffer of `series`.  `seg_id` maps each slot to its segment
-    and `counted` each slot to whether it counts (host arrays of length
-    T).  `carry0` is copied into the static buffers, so the caller's
-    tensors are never written."""
+    a (T, ...) buffer of `series` (the outputs' shape: () for a point,
+    (B,) for a batch).  The step's outputs after those are the records,
+    one a `record_like` (shape, dtype): each lands in row
+    `record_rows[t]` (-1: not recorded) of a buffer of `record_like[k]`
+    with `n_rec + 1` rows; a slot that is not recorded writes the last,
+    the scratch row, which `records` leaves out.
+    `seg_id` maps each slot to its segment and `counted` each slot to
+    whether it counts (host arrays of length T).  `carry0` is copied
+    into the static buffers, so the caller's tensors are never
+    written."""
 
     def __init__(self, step: Callable, carry0, seg_id: Sequence[int],
-                 counted: Sequence[bool], n_series: int = 1):
+                 counted: Sequence[bool], n_series: int = 1,
+                 record_rows: Optional[Sequence[int]] = None,
+                 record_like: Sequence[Tuple[tuple, torch.dtype]] = ()):
         self._step = step
         self.seg_id = [int(s) for s in seg_id]
         self.carry = _clone(carry0)
@@ -79,17 +93,36 @@ class SlotLoop:
         self.t = torch.zeros((), dtype=torch.int64, device=device)
         self.counted = torch.as_tensor(np.asarray(counted, dtype=bool),
                                        device=device)
-        self.series = [torch.empty(len(self.seg_id),
+        lanes = tuple(self.carry.goodput_sum.shape[:-1])
+        self.series = [torch.empty((len(self.seg_id),) + lanes,
                                    dtype=self.carry.goodput_sum.dtype,
                                    device=device)
                        for _ in range(n_series)]
+        self.n_rec = 0
+        self._records: List[torch.Tensor] = []
+        if record_like:
+            rows = np.asarray(record_rows, dtype=np.int64)
+            if rows.shape != (len(self.seg_id),):
+                raise ValueError("record_rows: one row a slot")
+            self.n_rec = int(rows.max()) + 1
+            self.rows = torch.as_tensor(
+                np.where(rows < 0, self.n_rec, rows), device=device)
+            self._records = [torch.zeros((self.n_rec + 1,) + tuple(shape),
+                                         dtype=dtype, device=device)
+                             for shape, dtype in record_like]
         # segment -> (graph, launches its capture recorded)
         self.graphs: Dict[int, tuple] = {}
 
     @property
     def totals(self) -> torch.Tensor:
-        """(T,) total goodput of each slot."""
+        """(T,) total goodput of each slot ((T, B) for a batch)."""
         return self.series[0]
+
+    @property
+    def records(self) -> List[torch.Tensor]:
+        """The recorded rows of each record buffer, scratch row
+        dropped: (n_rec, ...) views."""
+        return [buf[:self.n_rec] for buf in self._records]
 
     def step(self, seg: int) -> None:
         """Slot `t` of segment `seg` on the static buffers; advances
@@ -97,8 +130,16 @@ class SlotLoop:
         t = self.t.view(1)
         new, *outs = self._step(self.carry, self.t, seg,
                                 self.counted.index_select(0, t))
-        for buf, out in zip(self.series, outs, strict=True):
-            buf.index_copy_(0, t, out.view(1))
+        n = len(self.series)
+        if len(outs) != n + len(self._records):
+            raise ValueError(f"step: {len(outs)} outputs, expected {n} "
+                             f"series and {len(self._records)} records")
+        for buf, out in zip(self.series, outs[:n]):
+            buf.index_copy_(0, t, out.unsqueeze(0))
+        if self._records:
+            row = self.rows.index_select(0, t)
+            for buf, out in zip(self._records, outs[n:]):
+                buf.index_copy_(0, row, out.unsqueeze(0))
         for dst, src in zip(_leaves(self.carry), _leaves(new)):
             dst.copy_(src)
         self.t += 1

@@ -4,7 +4,9 @@
 plane) NIC control state, and `SimCarry` everything one slot hands to
 the next: fabric queues, NIC state, transfer progress and the
 post-warmup goodput accumulator.  All tensors live on one explicit
-device; floats are float64 (parity mode) or float32 (fast mode).
+device; floats are float64 (parity mode) or float32 (fast mode).  A
+batch of points of one structure gives every field a leading lane axis
+(`carry.stack_operands`); the shapes below are one point's.
 """
 from __future__ import annotations
 
@@ -69,24 +71,28 @@ class SimCarry(NamedTuple):
 
 
 def init_carry(fb: FlowBatch, cfg) -> SimCarry:
-    F = fb.src.shape[0]
+    """The carry before slot 0; a lane-stacked `fb` ((B, F) fields)
+    gives every field the same leading lane axis."""
+    lead, F = tuple(fb.demand.shape[:-1]), fb.demand.shape[-1]
     P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_up
     fat = cfg.kind == "fat_tree"
     dtype, device = fb.demand.dtype, fb.demand.device
 
     def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return torch.zeros(lead + shape, dtype=dt, device=device)
 
     nic = NicCarry(
-        rate=torch.ones((F, P), dtype=dtype, device=device),
+        rate=torch.ones(lead + (F, P), dtype=dtype, device=device),
         alpha=zeros(F, P),
         probe_miss=zeros(F, P, dt=torch.int32),
-        eligible=torch.ones((F, P), dtype=torch.bool, device=device),
+        eligible=torch.ones(lead + (F, P), dtype=torch.bool,
+                            device=device),
         pending_fail=zeros(F, P, dt=torch.int64))
     return SimCarry(
         q_up=zeros(P, L, S), q_down=zeros(P, S, L), nic=nic,
         remaining=fb.bytes_total.clone(), done=zeros(F, dt=torch.bool),
-        completion=torch.full((F,), -1, dtype=torch.int64, device=device),
+        completion=torch.full(lead + (F,), -1, dtype=torch.int64,
+                              device=device),
         goodput_sum=zeros(F), util_up=zeros(P, L, S),
         q2_up=zeros(P, cfg.n_pods, cfg.n_cores) if fat else None,
         q2_down=zeros(P, cfg.n_pods, cfg.n_cores) if fat else None)

@@ -10,7 +10,9 @@
     transfers;
   * §5.1 symmetry check on final uplink utilization;
   * under failure reaction, the blackholed bytes and the longest
-    blackhole window after a fault transition.
+    blackhole window after a fault transition;
+  * with a captured trace, the §5 columns of `trace.trace_summary`
+    (transient drops, straggler ranks, bi-modal port share).
 
 The record and the distillation are copies of the reference runner's, so
 rows from the two packages compare field by field.
@@ -21,6 +23,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from repro_torch.trace import trace_summary
 
 from .compile import CompiledScenario, compile_scenario
 from .spec import ScenarioSpec
@@ -182,9 +186,8 @@ def distill_metrics(spec: ScenarioSpec, c: CompiledScenario,
     """Metric distillation of one run (the reference runner's, field for
     field).  `res` exposes mean_goodput / completion_slot /
     total_goodput / util_up_last / groups / group_of, as `EngineResult`
-    and the reference engines' results do, and under failure reaction
-    `blackhole_timeline`.  The trace columns keep their "not captured"
-    defaults: this package runs no trace yet."""
+    and the reference engines' results do, under failure reaction
+    `blackhole_timeline`, and with a trace enabled `trace`."""
     demand = np.array([f.demand for f in c.flows])
     tenant_mean: Dict[str, float] = {}
     tenant_p01: Dict[str, float] = {}
@@ -230,6 +233,17 @@ def distill_metrics(spec: ScenarioSpec, c: CompiledScenario,
     else:
         blackholed, react_slots = -1.0, -1
 
+    # §5.2/§5.3: trace-derived columns when the point captured one
+    trace = getattr(res, "trace", None)
+    extra: Dict = {}
+    summ = {k: TRACE_METRIC_DEFAULTS[k] for k in
+            ("hft_transient_drops", "bimodal_frac", "straggler_ranks")}
+    if trace is not None:
+        summ = trace_summary(trace, spec.topo.access_cap,
+                             spec.topo.n_planes)
+        if "port_classes" in summ:
+            extra["port_classes"] = summ["port_classes"]
+
     return ScenarioMetrics(
         scenario=spec.name, seed=spec.sim.seed, routing=spec.sim.routing,
         nic=spec.sim.nic,
@@ -239,5 +253,8 @@ def distill_metrics(spec: ScenarioSpec, c: CompiledScenario,
         isolation_index=_jain(np.asarray(norm)),
         recovery_slots=recovery, completion_tail=tail,
         symmetry_cv=float(worst_cv), symmetry_uniform=bool(uniform),
-        symmetry_outliers=tuple(outliers), blackholed_bytes=blackholed,
-        reaction_slots=react_slots)
+        symmetry_outliers=tuple(outliers), extra=extra,
+        hft_transient_drops=int(summ["hft_transient_drops"]),
+        bimodal_frac=float(summ["bimodal_frac"]),
+        straggler_ranks=tuple(summ["straggler_ranks"]),
+        blackholed_bytes=blackholed, reaction_slots=react_slots)

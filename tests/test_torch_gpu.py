@@ -14,7 +14,12 @@ kernels within 1e-5 in float32 and 2e-2 in bfloat16, as the CPU tests
 hold the plain versions to the JAX package, since they sum in another
 order and the bf16 flash kernel rounds the probabilities to bf16 for
 its second product), and the GPU engine must reproduce the CPU plain
-path of the same scenario under AR/WAR and under ECMP.
+path of the same scenario under AR/WAR and under ECMP.  Over a lane
+axis, bucket_load_bottleneck must equal its plain version and its
+single-lane launches, each lane of a batch or a megabatch grid must
+equal its point run alone on the card (per-flow outputs bit for bit,
+series within 1e-12), and the captured batched and traced loops must
+equal their eager loops bit for bit.
 """
 import numpy as np
 import pytest
@@ -851,3 +856,183 @@ def test_capture_failure_raises(cuda, monkeypatch):
         dict.fromkeys(build.KERNELS, 0), plane_split=1, pair_fractions=1,
         bottleneck=1, queue_update=1, nic_update=1)
     build.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# the lane axis: batches of points, megabatch grids and traces
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,C", [(1, 7), (2, 47), (3, 65), (4, 200)])
+def test_bucket_load_bottleneck_lane_axis(cuda, dtype, P, C):
+    """B = 4 lanes in one launch: bit-equal to the plain version of the
+    batch and to four single-lane launches, each lane's pad reading its
+    own zero."""
+    rng = np.random.default_rng(P * 100 + C)
+    B, R, F = 4, 37, 501
+    rate = _uniform(rng, (B, F, P), dtype, cuda, zero_frac=0.1)
+    plan = rng.integers(0, F + 1, (B, P, R, C))
+    plan[:, :, ::5] = F
+    plan = torch.tensor(plan.astype(np.int32), device=cuda)
+    cap = _uniform(rng, (B, P, R), dtype, cuda, hi=2.0, zero_frac=0.1)
+    got = _launched("bucket_load_bottleneck",
+                    lambda: link_load.bucket_load_bottleneck(rate, plan, cap))
+    want = ref.load_bottleneck_ref(rate, plan, cap, ordered=True)
+    for g, w in zip(got, want):
+        assert g.shape == (B, P, R)
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    for b in range(B):
+        one = link_load.bucket_load_bottleneck(rate[b], plan[b], cap[b])
+        for g, o in zip(got, one):
+            assert torch.equal(g[b], o)
+
+
+def _batch_points(name, starts, slots, trace=None, **sim):
+    """Compiled points of one structure: `name`'s first fault moved to
+    each of `starts` (None: as registered), `sim` overrides per point
+    from the dicts in `sim["lanes"]`."""
+    import dataclasses
+    lanes = sim.pop("lanes", [{}] * len(starts))
+    out = []
+    for start, extra in zip(starts, lanes):
+        spec = get_scenario(name).with_sim(slots=slots, **sim, **extra)
+        if trace is not None:
+            spec = spec.with_sim(trace=trace)
+        if start is not None:
+            f0 = dataclasses.replace(spec.faults[0], start_slot=start)
+            spec = dataclasses.replace(spec, faults=(f0,) + spec.faults[1:])
+        out.append(compile_scenario(spec))
+    return out
+
+
+def _assert_lane_equals(got, want):
+    for f in ("mean_goodput", "completion_slot", "util_up_last"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), f)
+    np.testing.assert_allclose(got.total_goodput, want.total_goodput,
+                               rtol=1e-12, atol=0)
+    if want.blackhole_timeline is not None:
+        np.testing.assert_allclose(got.blackhole_timeline,
+                                   want.blackhole_timeline, rtol=1e-12,
+                                   atol=1e-300)
+    assert (got.trace is None) == (want.trace is None)
+    for k in (want.trace or {}):
+        np.testing.assert_array_equal(got.trace[k], want.trace[k], k)
+
+
+# (scenario, fault starts, slots, sim overrides)
+GPU_BATCHES = [
+    ("fig11_degraded_leaf", [None] * 4, 60,
+     dict(routing="ecmp", lanes=[dict(seed=s) for s in range(4)])),
+    ("reroute_random_failures", [40, 70, 100], 130, {}),
+    ("ft_core_failure_resiliency", [30, 60, 61], 90, {}),
+    ("cascading_spine_loss", [100, 150], 200, dict(routing="ar",
+                                                   nic="dcqcn")),
+    ("ft_cross_pod_all2all", [None] * 3, 40,
+     dict(routing="ecmp", lanes=[dict(seed=s) for s in range(3)]))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,starts,slots,sim", GPU_BATCHES)
+def test_gpu_batch_lanes_equal_single_runs(cuda, name, starts, slots, sim):
+    """`run_compiled_batch` on the card: each lane equals its point run
+    alone on the card (per-flow outputs bit for bit, series within
+    1e-12), with 5 hand-written launches a slot whatever the lanes."""
+    points = _batch_points(name, starts, slots, **dict(sim))
+    build.reset_launches()
+    got = engine.run_compiled_batch(points, device=cuda)
+    per_slot = {k: n // slots for k, n in build.LAUNCHES.items() if n}
+    assert sum(per_slot.values()) == 5
+    assert all(n == slots * per_slot[k] for k, n in build.LAUNCHES.items()
+               if n)
+    for c, g in zip(points, got):
+        _assert_lane_equals(g, c.run(device=cuda))
+    build.reset_launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,starts,slots,sim", GPU_BATCHES)
+def test_captured_batched_loop_equals_eager(cuda, dtype, name, starts,
+                                            slots, sim):
+    """The captured loop over a lane axis equals the eager one bit for
+    bit, traced fields included, with the same launches."""
+    from repro_torch.trace import TraceSpec
+    trace = TraceSpec(enabled=True, every=3)
+    points = _batch_points(name, starts, slots, trace=trace, **dict(sim))
+    cfg, trace, _, ops_ = engine.prepare_batch(points, cuda, dtype)
+    out = []
+    for eager in (True, False):
+        build.reset_launches()
+        res = engine._simulate(cfg, ops_, trace=trace, _eager=eager)
+        torch.cuda.synchronize()
+        out.append((res, dict(build.LAUNCHES)))
+    (a, na), (b, nb) = out
+    assert na == nb
+    assert len(a) == len(b) == (5 if cfg.react else 4) + 5
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    build.reset_launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("every", [1, 7])
+@pytest.mark.parametrize("name,routing", [("fig12_plane_flap", None),
+                                          ("cascading_spine_loss", "ecmp"),
+                                          ("reroute_random_failures_ft",
+                                           None)])
+def test_captured_trace_equals_eager_trace(cuda, every, name, routing):
+    """A traced point: the captured records equal the eager ones bit for
+    bit, the launches are those of the untraced run, and the trace
+    equals the CPU path's (1e-12 relative; exactly for eligible)."""
+    from repro_torch.trace import TraceSpec
+    trace = TraceSpec(enabled=True, every=every)
+    spec = get_scenario(name).with_sim(slots=150, trace=trace)
+    if routing is not None:
+        spec = spec.with_sim(routing=routing)
+    cfg, _, ops_ = engine.prepare(compile_scenario(spec), cuda,
+                                  torch.float64)
+    out = []
+    for eager in (True, False):
+        build.reset_launches()
+        res = engine._simulate(cfg, ops_, trace=trace, _eager=eager)
+        torch.cuda.synchronize()
+        out.append((res, dict(build.LAUNCHES)))
+    (a, na), (b, nb) = out
+    assert na == nb and sum(na.values()) == 5 * cfg.slots
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    gpu = compile_scenario(spec).run(device=cuda)
+    cpu = compile_scenario(spec).run(device="cpu")
+    for k in cpu.trace:
+        if cpu.trace[k].dtype == bool or k == "slot":
+            np.testing.assert_array_equal(gpu.trace[k], cpu.trace[k], k)
+        else:
+            np.testing.assert_allclose(gpu.trace[k], cpu.trace[k],
+                                       rtol=1e-12, atol=1e-15, err_msg=k)
+    build.reset_launches()
+
+
+@pytest.mark.gpu
+def test_gpu_megabatch_rows_equal_single_runs(cuda):
+    """`run_megabatch` on the card over two flow buckets x routing x NIC,
+    a traced half: each row equals its point run alone on the card, with
+    one captured loop per (bucket, routing, NIC) sub-batch."""
+    from repro_torch.netsim import megabatch
+    from repro_torch.trace import TraceSpec
+    points = []
+    for name in ("flap_during_incast", "staggered_incast_bursts"):
+        for routing in ("ar", "war", "ecmp"):
+            for nic in ("spx", "dcqcn"):
+                for seed in (0, 1):
+                    spec = get_scenario(name).with_sim(
+                        slots=48, routing=routing, nic=nic, seed=seed)
+                    if seed:
+                        spec = spec.with_sim(trace=TraceSpec(enabled=True))
+                    points.append(compile_scenario(spec))
+    engine.reset_dispatch_stats()
+    got = megabatch.run_megabatch(points, device=cuda)
+    stats = engine.dispatch_stats()
+    assert stats["loops"] == 24 and stats["graphs"] >= 24
+    for c, g in zip(points, got):
+        _assert_lane_equals(g, c.run(device=cuda))

@@ -10,7 +10,9 @@ giga point under AR and three registry scenarios under ECMP, the copies
 must produce exactly the reference's flows, tenants, fault transitions,
 `FlowArrays`, capacity timelines, segment maps, ECMP assignment
 segments and aggregation plans — so both engines start every run from
-the same operands.  The last tests pin the import boundary (the port imports
+the same operands.  The copies of the §5 telemetry analyses and the
+trace summary and exporters must give the reference's results on the
+same traces.  The last tests pin the import boundary (the port imports
 neither `jax` nor `repro`) and the `NotImplementedError`s of the parts
 later slices bring.
 """
@@ -219,20 +221,12 @@ def test_port_imports_neither_jax_nor_repro(path):
     ("train_step_baseline", "compile"),      # schedule workload
     ("train_step_flap", "compile"),
     ("train_step_flap_moe", "compile"),
-    ("fig12_plane_flap+trace", "run"),       # trace capture
 ])
 def test_later_slices_raise_not_implemented(name, stage):
-    base, _, extra = name.partition("+")
-    spec = _pair(base)[1]
-    if extra == "trace":
-        spec = spec.with_sim(trace=TraceSpec(enabled=True))
-    if stage == "compile":
-        with pytest.raises(NotImplementedError):
-            compile_scenario(spec)
-        return
-    c = compile_scenario(spec.with_sim(slots=4))
+    spec = _pair(name)[1]
+    assert stage == "compile"
     with pytest.raises(NotImplementedError):
-        c.run(device="cpu")
+        compile_scenario(spec)
 
 
 def test_ecmp_replay_raises_outside_the_slice():
@@ -285,8 +279,9 @@ def test_ecmp_replay_raises_outside_the_slice():
 
 def test_poisson_flap_and_trace_raise_not_implemented():
     """A `poisson_flap` fault now lowers to the reference's timeline and
-    transition slots (with or without a reaction); a trace still raises
-    at run time."""
+    transition slots (with or without a reaction), and a trace spec no
+    longer raises: the run records it (its values are held to the
+    reference in `test_torch_trace.py`)."""
     from repro.scenarios.compile import poisson_flap_schedule as jx_sched
     from repro_torch.scenarios.compile import poisson_flap_schedule
     for reaction in (None, get_scenario("poisson_flap_storm").reaction):
@@ -303,6 +298,110 @@ def test_poisson_flap_and_trace_raise_not_implemented():
             np.testing.assert_array_equal(getattr(tl, field),
                                           getattr(rtl, field))
     traced = get_scenario("fig12_plane_flap").with_sim(
-        trace=TraceSpec(enabled=True))
-    with pytest.raises(NotImplementedError, match="trace"):
-        compile_scenario(traced).run(device="cpu")
+        slots=4, trace=TraceSpec(enabled=True, every=3))
+    res = compile_scenario(traced).run(device="cpu")
+    assert set(res.trace) == {"slot", "host_bw", "util", "queue", "ecn",
+                              "eligible"}
+    np.testing.assert_array_equal(res.trace["slot"], [0, 3])
+
+
+# ---------------------------------------------------------------------------
+# §5 analyses and trace exporters
+# ---------------------------------------------------------------------------
+
+def _traces(seed: int):
+    """Random traces in the reference's layout: a few hosts, planes and
+    flows, goodput near line rate, idle and in between."""
+    rng = np.random.default_rng(seed)
+    T, H, P, L, U, F = 40, 6, 3, 2, 2, 7
+    hb = rng.choice([0.0, 0.5, 1.0], (T, H, P)) * rng.uniform(
+        0.9, 1.0, (T, H, P))
+    hb[:, 0] = rng.uniform(0.3, 0.7, (T, P))           # a straggler
+    hb[:, 1, 0] = 0.0                                   # an idle port
+    return {"slot": np.arange(0, 3 * T, 3), "host_bw": hb,
+            "util": rng.uniform(0, 1.2, (T, P, L, U)),
+            "queue": rng.uniform(0, 4, (T, P, L, U)),
+            "ecn": rng.uniform(0, 1, (T, F, P)) * (rng.random((T, F, P))
+                                                  < 0.3),
+            "eligible": rng.random((T, F, P)) < 0.9}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_telemetry_and_trace_summary_equal_the_reference(seed):
+    """`core.telemetry` and `trace.trace_summary` are copies: the same
+    histograms, classes, stragglers and summary columns as the
+    reference's on the same traces (every class reached across the
+    histograms, edge windows of 1-20 bins)."""
+    from repro.core import telemetry as jx_tel
+    from repro.trace import trace_summary as jx_summary
+    from repro_torch.core import telemetry
+    from repro_torch.trace import trace_summary
+    tr = _traces(seed)
+    rng = np.random.default_rng(seed + 10)
+    classes = set()
+    for nbins in (1, 2, 5, 20):
+        for _ in range(30):
+            x = rng.choice([rng.uniform(0, 1, 50), rng.uniform(0.4, 0.6, 50),
+                            rng.choice([0.0, 1.0], 50), np.ones(50),
+                            np.zeros(50)])
+            h = telemetry.bw_histogram(x, nbins)
+            np.testing.assert_array_equal(h, jx_tel.bw_histogram(x, nbins))
+            got = telemetry.classify_histogram(h)
+            assert got == jx_tel.classify_histogram(h)
+            classes.add(got)
+    assert classes == {"idle", "line-rate", "healthy-blocked", "straggler"}
+    host = tr["host_bw"].sum(2).T
+    assert telemetry.find_stragglers(host) == jx_tel.find_stragglers(host)
+    for args in ((tr, 1.0, 3), (tr, 2.0, 3), ({}, 1.0, 3), (None, 1.0, 3),
+                 ({"host_bw": tr["host_bw"][:1]}, 1.0, 3)):
+        got, want = trace_summary(*args), jx_summary(*args)
+        assert got.keys() == want.keys()
+        for k in want:
+            if isinstance(want[k], float) and np.isnan(want[k]):
+                assert np.isnan(got[k]), k
+            else:
+                assert got[k] == want[k], k
+
+
+def test_trace_exporters_equal_the_reference(tmp_path):
+    """`trace_to_npz` and `trace_to_perfetto` write what the reference's
+    write for the same trace: the same arrays, the same JSON document."""
+    import json
+    from repro.trace import trace_to_npz as jx_npz
+    from repro.trace import trace_to_perfetto as jx_perfetto
+    from repro_torch.trace import trace_to_npz, trace_to_perfetto
+    tr = _traces(3)
+    for fn, ref_fn, ext in ((trace_to_npz, jx_npz, "npz"),
+                            (trace_to_perfetto, jx_perfetto, "json")):
+        fn(str(tmp_path / f"port.{ext}"), tr, slot_us=2.5, label="x")
+        ref_fn(str(tmp_path / f"ref.{ext}"), tr, slot_us=2.5, label="x")
+    got, want = (np.load(str(tmp_path / f"{k}.npz")) for k in ("port", "ref"))
+    assert sorted(got.files) == sorted(want.files)
+    for k in want.files:
+        np.testing.assert_array_equal(got[k], want[k])
+    assert json.loads((tmp_path / "port.json").read_text()) == \
+        json.loads((tmp_path / "ref.json").read_text())
+
+
+def test_trace_spec_equals_the_reference():
+    """The port's `TraceSpec` validates, orders its fields and lists its
+    recorded slots as the reference's does, and the module constants
+    are the reference's."""
+    from repro import trace as jx_trace
+    from repro_torch import trace
+    assert trace.TRACE_FIELDS == jx_trace.TRACE_FIELDS
+    assert trace.FLOW_AXIS_FIELDS == jx_trace.FLOW_AXIS_FIELDS
+    assert trace.ACTIVE_PORT_THRESH == jx_trace.ACTIVE_PORT_THRESH
+    for kw in (dict(), dict(every=7, fields=("queue", "host_bw")),
+               dict(enabled=True, every=3)):
+        got, want = trace.TraceSpec(**kw), jx_trace.TraceSpec(**kw)
+        assert got.active_fields() == want.active_fields()
+        for n in (0, 1, 7, 137, 600):
+            np.testing.assert_array_equal(got.recorded_slots(n),
+                                          want.recorded_slots(n))
+    for kw in (dict(enabled=True, every=0), dict(fields=("host_bw", "x")),
+               dict(enabled=True, fields=())):
+        with pytest.raises(ValueError):
+            jx_trace.TraceSpec(**kw).validate()
+        with pytest.raises(ValueError):
+            trace.TraceSpec(**kw).validate()
