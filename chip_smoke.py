@@ -87,6 +87,22 @@ Phases, each fatal on failure:
             LANES seeds of the giga point under ECMP batched against one
             at a time (prep, capture, loop, peak memory); 5 hand-written
             launches a slot whatever the lanes.
+  sweep     the Experiment API (`repro_torch.experiments`): (a) every
+            registered experiment but train_comms_resiliency (90 points)
+            through `run_experiment(..., dispatch="megabatch")` on the
+            card in float64, each row equal to its point run alone
+            through `run_point` (floats within 1e-12, `extra` included),
+            topo_kind_resiliency and reroute_reaction also within 1e-5
+            of the CPU path; points/s batched and one at a time, loops,
+            graphs, the walls of host prep, capture, loop and finalize,
+            the host prep the pipeline overlapped with a loop, peak
+            memory; (b) the same again from the run cache (90 hits, no
+            slot loop, equal rows), then one corrupted entry (only it
+            recomputed); (c) GIGA_GRID, 4 giga seeds x ECMP/AR (8
+            points, 60 slots, two sub-batches of 4 lanes), each row
+            equal to its point alone, with the same walls, peak memory,
+            points/s against one at a time, and the same pipeline with
+            the host prep on a worker thread, in turns.
   packets   the per-packet path: `repro_torch.kernels.ops.jsq_route` and
             `ops.plb_select` route batches of 4096 packets, and
             jsq_route one more batch over ports that all score the
@@ -205,6 +221,15 @@ BATCH_SEEDS = 16
 GRID = dict(names=("flap_during_incast", "staggered_incast_bursts"),
             routings=("ar", "war", "ecmp"), nics=("spx", "dcqcn"),
             seeds=(0, 1, 2, 3), traced="staggered_incast_bursts")
+# the sweep phase: every registered experiment but the schedule
+# workloads' (the phases slice, ROADMAP queue 1 item 9) at its
+# registered size; the fat-tree and reaction studies also on the CPU
+# path; a grid of giga seeds x routing; rows held to their points run
+# alone within SWEEP_RTOL
+SWEEP_SKIP = ("train_comms_resiliency",)
+SWEEP_CPU = ("topo_kind_resiliency", "reroute_reaction")
+SWEEP_RTOL = 1e-12
+GIGA_GRID = dict(seeds=(0, 1, 2, 3), routings=("ecmp", "ar"))
 # per-packet shapes: (lanes, packets) for jsq_route (ports) and
 # plb_select (planes), as `benchmarks/kernels_bench.py` runs them, plus
 # a block tail
@@ -1560,6 +1585,284 @@ def batch_phase(report: dict, total: dict) -> None:
           "equal to its single run", flush=True)
 
 
+def rows_equal(what: str, got, want, tol: float) -> None:
+    """Two distilled rows field by field, `extra` included: floats
+    within `tol` (relative, or absolute below 1; NaN equal to NaN),
+    dicts and sequences item by item, everything else exactly."""
+    import math
+
+    def close(g, w, path):
+        if isinstance(w, float):
+            if not ((math.isnan(g) and math.isnan(w))
+                    or math.isclose(g, w, rel_tol=tol, abs_tol=tol)):
+                fail(f"{what}: {path} {g!r} vs {w!r}")
+        elif isinstance(w, dict):
+            if g.keys() != w.keys():
+                fail(f"{what}: {path} keys {sorted(g)} vs {sorted(w)}")
+            for k in w:
+                close(g[k], w[k], f"{path}.{k}")
+        elif isinstance(w, (list, tuple)):
+            if len(g) != len(w):
+                fail(f"{what}: {path} length {len(g)} vs {len(w)}")
+            for i, (a, b) in enumerate(zip(g, w)):
+                close(a, b, f"{path}[{i}]")
+        elif g != w:
+            fail(f"{what}: {path} {g!r} vs {w!r}")
+
+    close(got.to_dict(), want.to_dict(), "row")
+
+
+def sweep_launches(specs) -> tuple:
+    """Launches and slot loops a megabatch of `specs` must make: one loop
+    a (structure, flow bucket, routing, NIC) sub-batch, each
+    `PER_SLOT[kind, routing]` a slot."""
+    from repro_torch.netsim import engine, megabatch
+    from repro_torch.scenarios import compile_scenario
+    want: dict = {}
+    loops = set()
+    for sp in specs:
+        c = compile_scenario(sp)
+        cfg, trace = engine._lane_key(c)
+        key = (megabatch._struct_key(c), cfg, trace)
+        if key not in loops:
+            loops.add(key)
+            for k, n in slot_launches(cfg.kind, cfg.routing,
+                                      cfg.slots).items():
+                want[k] = want.get(k, 0) + n
+    return want, len(loops)
+
+
+def sweep_walls(flights) -> dict:
+    """The executor's walls summed over executions, its loops and
+    graphs, and each loop's capture wall."""
+    from repro_torch.experiments.execute import WALLS
+    walls = {k: sum(fl["walls"][k] for fl in flights) for k in WALLS}
+    walls["loops"] = sum(fl["dispatch_stats"]["loops"] for fl in flights)
+    walls["graphs"] = sum(fl["dispatch_stats"]["graphs"] for fl in flights)
+    walls["capture_ms"] = [lp["capture_s"] * 1e3 for fl in flights
+                           for lp in fl["pipeline"]["loops"]]
+    return walls
+
+
+def fmt_walls(w: dict) -> str:
+    caps = w["capture_ms"]
+    return (f"{w['loops']} loops, {w['graphs']} graphs; compile "
+            f"{w['compile_s']:.3f} s, host prep {w['prep_s']:.3f} s "
+            f"(overlapped with a loop: {w['overlap_s']:.3f} s), operands "
+            f"{w['operands_s']:.3f} s, capture {w['capture_s']:.3f} s "
+            f"({min(caps):.1f}-{max(caps):.1f} ms a loop), loop "
+            f"{w['loop_s']:.3f} s on the device (replays queued in "
+            f"{w['replay_s']:.3f} s), finalize {w['finalize_s']:.3f} s")
+
+
+def threaded_megabatch(specs, derive=None) -> tuple:
+    """The executor's megabatch pipeline with each next sub-batch's host
+    prep on a worker thread (which makes no CUDA call), started before
+    the current sub-batch's operands and capture: the alternative to the
+    executor's inline prep, timed beside it.  Returns (rows, wall)."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.netsim import megabatch
+    from repro_torch.scenarios import compile_scenario, distill_metrics
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compiled = [compile_scenario(sp) for sp in specs]
+    caches, planned = megabatch.plan_megabatch(compiled)
+    preps = (prep for group in planned
+             for prep in megabatch.prepare_planned(group, caches))
+    rows = [None] * len(specs)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(next, preps, None)
+        while (prep := fut.result()) is not None:
+            fut = pool.submit(next, preps, None)
+            idxs, handle = megabatch.dispatch_prepared(prep, caches, "cuda",
+                                                       torch.float64)
+            for i, r in zip(idxs, megabatch.finalize_group(handle)):
+                m = distill_metrics(specs[i], compiled[i], r)
+                if derive is not None:
+                    m.extra.update(derive(specs[i], compiled[i], r))
+                rows[i] = m
+    return rows, time.perf_counter() - t0
+
+
+def sweep_phase(report: dict, total: dict) -> None:
+    """The Experiment API on the card (see the module docstring):
+    (a) the library, (b) the run cache, (c) the giga grid."""
+    import shutil
+    import torch
+    from repro_torch.experiments import (Axis, Experiment, RunCache,
+                                         engine_salt, get_experiment,
+                                         list_experiments, product,
+                                         run_experiment, spec_key)
+    from repro_torch.kernels import build
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import run_point
+
+    out = report["sweep"] = {}
+    cache_dir = ROOT / "build" / "sweep_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    exps = [get_experiment(n) for n in list_experiments()
+            if n not in SWEEP_SKIP]
+    points = {exp.name: exp.points() for exp in exps}
+    n_points = sum(map(len, points.values()))
+    want: dict = {}
+    n_loops = 0
+    for exp in exps:
+        w, n = sweep_launches([p.spec for p in points[exp.name]])
+        n_loops += n
+        for k, v in w.items():
+            want[k] = want.get(k, 0) + v
+
+    # (a) the library at its registered sizes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.reset_dispatch_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    sets = [run_experiment(exp, device="cuda", dispatch="megabatch",
+                           cache=str(cache_dir)) for exp in exps]
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("sweep library", dict(build.LAUNCHES), want, total)
+    if engine.dispatch_stats()["loops"] != n_loops or \
+            any(rs.cache_hits for rs in sets):
+        fail(f"sweep library: {engine.dispatch_stats()} for {n_loops} "
+             "sub-batches, or a cache hit in a cold cache")
+    walls = sweep_walls([rs.flight["executions"][0] for rs in sets])
+    rows = {exp.name: rs.to_metrics() for exp, rs in zip(exps, sets)}
+    single_s = 0.0
+    for exp in exps:
+        for p, got in zip(points[exp.name], rows[exp.name]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            alone = run_point(p.spec, "cuda", derive=exp.derive)
+            single_s += time.perf_counter() - t0
+            rows_equal(f"sweep {exp.name} point {p.index}", got, alone,
+                       SWEEP_RTOL)
+    for exp in exps:
+        if exp.name in SWEEP_CPU:
+            cpu = run_experiment(exp, device="cpu").to_metrics()
+            for i, (g, c) in enumerate(zip(rows[exp.name], cpu)):
+                rows_equal(f"sweep {exp.name} point {i} (CPU)", g, c, TOL)
+    n_cpu = sum(len(points[n]) for n in SWEEP_CPU)
+    out["library"] = dict(experiments=len(exps), points=n_points,
+                          batch_s=batch_s, single_s=single_s,
+                          points_per_s=n_points / batch_s,
+                          single_points_per_s=n_points / single_s,
+                          max_memory_allocated=peak, **walls)
+    print(f"sweep library: {len(exps)} experiments, {n_points} points "
+          f"through run_experiment (megabatch, f64) in {batch_s:.3f} s, "
+          f"{n_points / batch_s:.2f} points/s; one at a time (run_point) "
+          f"{single_s:.3f} s, {n_points / single_s:.2f} points/s "
+          f"({single_s / batch_s:.2f}x); {fmt_walls(walls)}; peak "
+          f"{peak / 2**20:.1f} MiB; every row equal to its point alone "
+          f"(1e-12), the {n_cpu} fat-tree and reaction points to the CPU "
+          "path (1e-5)", flush=True)
+
+    # (b) the same from the run cache, then one corrupted entry
+    engine.reset_dispatch_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    again = [run_experiment(exp, device="cuda", cache=str(cache_dir))
+             for exp in exps]
+    cached_s = time.perf_counter() - t0
+    hits = sum(rs.cache_hits for rs in again)
+    if hits != n_points or engine.dispatch_stats()["loops"]:
+        fail(f"sweep cache: {hits} hits of {n_points}, "
+             f"{engine.dispatch_stats()}")
+    check_launches("sweep cache", dict(build.LAUNCHES), {}, total)
+    for exp, rs in zip(exps, again):
+        for i, (g, w) in enumerate(zip(rs.to_metrics(), rows[exp.name])):
+            rows_equal(f"sweep cache {exp.name} point {i}", g, w, 0.0)
+    exp = get_experiment("fig9_isolation")
+    victim = points[exp.name][1]
+    salt = engine_salt(torch.device("cuda"), torch.float64) + \
+        exp.cache_salt()
+    Path(RunCache(str(cache_dir)).path_for(
+        spec_key(victim.spec, salt))).write_text("{corrupt")
+    engine.reset_dispatch_stats()
+    build.reset_launches()
+    rs = run_experiment(exp, device="cuda", cache=str(cache_dir))
+    if (rs.cache_hits, rs.cache_misses) != (len(points[exp.name]) - 1, 1) \
+            or engine.dispatch_stats()["loops"] != 1:
+        fail(f"sweep corrupt entry: {rs.cache_hits} hits, "
+             f"{rs.cache_misses} misses, {engine.dispatch_stats()}")
+    check_launches("sweep corrupt entry", dict(build.LAUNCHES),
+                   sweep_launches([victim.spec])[0], total)
+    for i, (g, w) in enumerate(zip(rs.to_metrics(), rows[exp.name])):
+        rows_equal(f"sweep corrupt entry point {i}", g, w, SWEEP_RTOL)
+    shutil.rmtree(cache_dir)
+    out["cache"] = dict(hits=hits, wall_s=cached_s, recomputed=1)
+    print(f"sweep cache: {hits} of {n_points} points from the run cache in "
+          f"{cached_s:.3f} s, 0 slot loops, rows equal; one corrupted "
+          "entry recomputed alone (1 loop)", flush=True)
+
+    # (c) a giga grid: seeds x routing, two sub-batches of 4 lanes
+    exp = Experiment(name="giga_grid", base="giga_fabric_storage",
+                     axes=product(Axis("seed", GIGA_GRID["seeds"]),
+                                  Axis("sim.routing",
+                                       GIGA_GRID["routings"])))
+    specs = [p.spec for p in exp.points()]
+    T = specs[0].sim.slots
+    want = {}
+    for routing in GIGA_GRID["routings"]:
+        for k, n in slot_launches("leaf_spine", routing, T).items():
+            want[k] = want.get(k, 0) + n
+    runs = []
+    for threaded in (False, True, True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine.reset_dispatch_stats()
+        build.reset_launches()
+        if threaded:
+            got, wall = threaded_megabatch(specs)
+            runs.append(dict(threaded=True, wall_s=wall))
+        else:
+            t0 = time.perf_counter()
+            rs = run_experiment(exp, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = rs.to_metrics()
+            w = sweep_walls(rs.flight["executions"])
+            runs.append(dict(threaded=False, wall_s=wall, **w))
+        runs[-1]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        check_launches(f"sweep giga grid{' (threaded)' * threaded}",
+                       dict(build.LAUNCHES), want, total)
+        if engine.dispatch_stats()["loops"] != len(GIGA_GRID["routings"]):
+            fail(f"sweep giga grid: {engine.dispatch_stats()}")
+        if runs[0] is runs[-1]:
+            first = got
+        for i, (g, w) in enumerate(zip(got, first)):
+            rows_equal(f"sweep giga grid run {len(runs)} point {i}", g, w,
+                       0.0)
+    single_s = 0.0
+    for sp, g in zip(specs, first):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = run_point(sp, "cuda")
+        single_s += time.perf_counter() - t0
+        rows_equal(f"sweep giga grid {sp.sim.routing} seed {sp.sim.seed}",
+                   g, alone, SWEEP_RTOL)
+    out["giga_grid"] = dict(points=len(specs), slots=T, runs=runs,
+                            single_s=single_s)
+    inline = [r for r in runs if not r["threaded"]]
+    print(f"sweep giga grid: {len(specs)} points (giga_fabric_storage, "
+          f"{len(GIGA_GRID['seeds'])} seeds x ecmp/ar, {T} slots, f64) "
+          "through run_experiment: "
+          + "; ".join(f"{r['wall_s']:.3f} s ({len(specs) / r['wall_s']:.2f}"
+                      f" points/s; {fmt_walls(r)}; peak "
+                      f"{r['max_memory_allocated'] / 2**20:.1f} MiB)"
+                      for r in inline)
+          + "; host prep on a worker thread: "
+          + ", ".join(f"{r['wall_s']:.3f} s (peak "
+                      f"{r['max_memory_allocated'] / 2**20:.1f} MiB)"
+                      for r in runs if r["threaded"])
+          + f"; one at a time {single_s:.3f} s "
+          f"({len(specs) / single_s:.2f} points/s); every row equal to its "
+          "point alone", flush=True)
+
+
 def packet_phase(report: dict, total: dict) -> None:
     """The per-packet path through its entry points
     (`repro_torch.kernels.ops`): PACKET_BATCHES batches of 4096 packets
@@ -1939,6 +2242,7 @@ def main(argv=None) -> int:
     scale_phase(report, total)
     trace_phase(report, total)
     batch_phase(report, total)
+    sweep_phase(report, total)
     packet_phase(report, total)
     model_phase(report, total, summary)
     profile_phase(report)

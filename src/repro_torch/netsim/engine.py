@@ -56,6 +56,8 @@ Schedule phases are a later slice of the port and raise
 """
 from __future__ import annotations
 
+import time
+import warnings
 from dataclasses import dataclass, replace
 from functools import partial
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -766,19 +768,35 @@ def _loop_results(cfg: EngineConfig, loop: SlotLoop) -> tuple:
 
 def _simulate(cfg: EngineConfig, ops: SlotOperands,
               carry0: Optional[SimCarry] = None, *,
-              trace: Optional[TraceSpec] = None, _eager: bool = False):
+              trace: Optional[TraceSpec] = None, _eager: bool = False,
+              timing: Optional[Dict] = None):
     """Run every slot: on CUDA as replays of captured slots
     (`slot_loop`), on the CPU, or with `_eager`, as an eager loop.
     Nothing in either loop reads device values on the host, so the host
     only queues work.  Returns `_results` as device tensors, then with
     `trace` enabled its fields over the recorded slots ((T_rec, ...)
-    each; a batch's lane first)."""
+    each; a batch's lane first).  `timing`, when a dict, receives the
+    host walls of the capture (`capture_s`, which begins with a device
+    synchronize) and of queueing the replays (`replay_s`) and a pair of
+    CUDA events around the replays (`events`); of an eager loop its
+    wall (`loop_s`)."""
     if ops.fb.demand.device.type == "cuda" and not _eager:
         loop = slot_loop(cfg, ops, carry0, trace)
+        t0 = time.perf_counter()
         loop.capture()
+        t1 = time.perf_counter()
+        if timing is not None:
+            events = tuple(torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            events[0].record()
         loop.replay()
+        if timing is not None:
+            events[1].record()
+            timing.update(capture_s=t1 - t0,
+                          replay_s=time.perf_counter() - t1, events=events)
         _count_loop(loop)
         return _loop_results(cfg, loop)
+    t0 = time.perf_counter()
     carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
     lead = tuple(ops.fb.demand.shape[:-1])
     series = ops.fb.demand.new_empty((2 if cfg.react else 1, cfg.slots)
@@ -792,6 +810,8 @@ def _simulate(cfg: EngineConfig, ops: SlotOperands,
         if outs[n:] and t % trace.every == 0:
             rec.append(outs[n:])
     _count_loop(None)
+    if timing is not None:
+        timing["loop_s"] = time.perf_counter() - t0
     return _results(cfg, carry, *series) + \
         tuple(torch.stack(col).movedim(0, len(lead)) for col in zip(*rec))
 
@@ -974,11 +994,12 @@ def _aggs_for(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
 
 
 class _Lane(NamedTuple):
-    """Host prep of one point on its own segments: the config and trace
-    spec (the point's structure), the flow arrays, the physical and
-    visible timelines, its segment starts, its ECMP assignment per
-    segment and its plan widths; the `*_key`s are the content keys it
-    was memoized under."""
+    """Host prep of one point on its own segments: the spec's name, the
+    config and trace spec (the point's structure), the flow arrays, the
+    physical and visible timelines, its segment starts, its ECMP
+    assignment per segment and its plan widths; the `*_key`s are the
+    content keys it was memoized under."""
+    name: str
     cfg: EngineConfig
     trace: TraceSpec
     fa: FlowArrays
@@ -989,6 +1010,18 @@ class _Lane(NamedTuple):
     widths: Tuple[int, int, int, int]
     fa_key: tuple
     assign_key: tuple
+
+
+def _lane_key(compiled) -> Tuple[EngineConfig, TraceSpec]:
+    """A point's structure, which the lanes of one batch share: its
+    config (with the reaction flag) and trace spec."""
+    cfg = EngineConfig.from_sim(compiled.cfg, compiled.spec.topo)
+    r = compiled.spec.reaction
+    if r is not None and r.enabled:
+        cfg = replace(cfg, react=True)
+    trace = compiled.cfg.trace if compiled.cfg.trace.enabled \
+        else TraceSpec()
+    return cfg, trace
 
 
 def _lane(compiled, caches: Optional[Dict] = None) -> _Lane:
@@ -1004,14 +1037,10 @@ def _lane(compiled, caches: Optional[Dict] = None) -> _Lane:
     mode), the widths per assignment."""
     caches = {} if caches is None else caches
     spec = compiled.spec
-    cfg = EngineConfig.from_sim(compiled.cfg, spec.topo)
-    trace = compiled.cfg.trace if compiled.cfg.trace.enabled \
-        else TraceSpec()
+    cfg, trace = _lane_key(compiled)
     r = spec.reaction
-    react = r is not None and r.enabled
+    react = cfg.react
     lag = reaction_lag(r, spec.sim.routing) if react else None
-    if react:
-        cfg = replace(cfg, react=True)
     fa_key = ("fa", spec.topo, spec.tenants, spec.workloads,
               spec.workload_seed)
     if fa_key not in caches:
@@ -1035,8 +1064,25 @@ def _lane(compiled, caches: Optional[Dict] = None) -> _Lane:
     w_key = ("widths", assign_key)
     if w_key not in caches:
         caches[w_key] = _agg_widths(cfg, fa, assign)
-    return _Lane(cfg, trace, fa, tl, vtl, boundaries, assign, caches[w_key],
-                 fa_key, assign_key)
+    return _Lane(spec.name, cfg, trace, fa, tl, vtl, boundaries, assign,
+                 caches[w_key], fa_key, assign_key)
+
+
+def _batch_widths(lanes: Sequence[_Lane]) -> Tuple[int, int, int, int]:
+    """A batch's plan widths: the widest lane's, axis by axis."""
+    return tuple(map(max, zip(*(ln.widths for ln in lanes))))
+
+
+def _lane_aggs(lane: _Lane, widths, pad: Optional[int] = None,
+               caches: Optional[Dict] = None) -> AggPerms:
+    """The plans of a lane's flows at `widths`, reading row `pad` for
+    padding (`_aggs_for`), memoized in `caches` per (assignment, widths,
+    pad)."""
+    caches = {} if caches is None else caches
+    key = ("aggs", lane.assign_key, widths, pad)
+    if key not in caches:
+        caches[key] = _aggs_for(lane.cfg, lane.fa, lane.assign, widths, pad)
+    return caches[key]
 
 
 def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
@@ -1049,13 +1095,12 @@ def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
     the point's own segment holds), with plans of `widths` and, with
     `pad`, its flows padded to `pad` inert ones (zero demand, no bytes
     left to finish, never started, on one leaf: they touch no link and
-    no plan)."""
+    no plan).  In float32 it warns of `bytes_total` beyond float32's
+    integer resolution (`_warn_f32_bytes`)."""
     cfg, fa = lane.cfg, lane.fa
-    caches = {} if caches is None else caches
-    key = ("aggs", lane.assign_key, widths, pad)
-    if key not in caches:
-        caches[key] = _aggs_for(cfg, fa, lane.assign, widths, pad)
-    aggs, assign = caches[key], lane.assign
+    if dtype == torch.float32:
+        _warn_f32_bytes(lane.name, fa)
+    aggs, assign = _lane_aggs(lane, widths, pad, caches), lane.assign
     if cfg.routing == "ecmp" and tuple(boundaries) != lane.boundaries:
         own = np.searchsorted(lane.boundaries, boundaries, "right") - 1
         aggs = aggs._replace(ecmp_load=aggs.ecmp_load[own])
@@ -1070,6 +1115,44 @@ def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
         assign=assign, seg_up2=up2, seg_down2=down2,
         vis=_vis_seg_caps(lane.vtl, boundaries) if cfg.react else None,
         device=device, dtype=dtype)
+
+
+# float32 bytes_total overflow conditions seen in this process, in
+# detection order (the reference's `jx/engine.py::_F32_OVERFLOWS`), and
+# the spec names already warned about
+_F32_OVERFLOWS: List[Dict] = []
+_F32_WARNED: set = set()
+
+
+def f32_overflow_log() -> Tuple[Dict, ...]:
+    """Every float32 bytes_total overflow condition seen this process,
+    in detection order — `{"spec": name, "max_bytes": float}` each.
+    Executors slice this by length to attach the overflows of one run
+    to its flight record."""
+    return tuple(dict(d) for d in _F32_OVERFLOWS)
+
+
+def _warn_f32_bytes(name: str, fa: FlowArrays, stacklevel: int = 4
+                    ) -> None:
+    """Log, and warn once per spec name, a finite `bytes_total` above
+    2^24 prepared for a float32 run: past float32's integer resolution
+    the remaining-bytes countdown stalls and the transfer may never
+    complete."""
+    finite = fa.bytes_total[np.isfinite(fa.bytes_total)]
+    if not (finite.size and finite.max() > 2 ** 24):
+        return
+    _F32_OVERFLOWS.append({"spec": name, "max_bytes": float(finite.max())})
+    if name in _F32_WARNED:
+        return
+    # stdlib warnings dedup by call site, so a second spec tripping the
+    # same condition would be swallowed: dedup per spec name here
+    _F32_WARNED.add(name)
+    warnings.warn(
+        f"{name}: bytes_total up to {finite.max():.3g} exceeds float32 "
+        "integer resolution (2^24); remaining-bytes tracking will stall "
+        "and transfers may never complete — run in float64 "
+        "(dtype=torch.float64, the default) or rescale bytes_total",
+        stacklevel=stacklevel)
 
 
 def _padded_flows(fa: FlowArrays, assign: np.ndarray, n: int, slots: int):
@@ -1176,7 +1259,7 @@ def _batch_operands(lanes: Sequence[_Lane], device, dtype,
     """The lanes' operands stacked on the union of their segment
     starts, with plans of the widest lane's widths."""
     union = tuple(sorted(set().union(*(ln.boundaries for ln in lanes))))
-    widths = tuple(map(max, zip(*(ln.widths for ln in lanes))))
+    widths = _batch_widths(lanes)
     return stack_operands([_lane_operands(ln, union, widths, device, dtype,
                                           pad, caches) for ln in lanes],
                           lanes[0].cfg)
@@ -1184,12 +1267,19 @@ def _batch_operands(lanes: Sequence[_Lane], device, dtype,
 
 def _dispatch_lanes(lanes: Sequence[_Lane], device, dtype,
                     pad: Optional[int] = None,
-                    caches: Optional[Dict] = None) -> BatchHandle:
-    """Stack the lanes' operands and queue their slot loop."""
+                    caches: Optional[Dict] = None,
+                    timing: Optional[Dict] = None) -> BatchHandle:
+    """Stack the lanes' operands and queue their slot loop.  `timing`,
+    when a dict, receives the wall of building the operands on the
+    device (`operands_s`) and `_simulate`'s walls."""
     cfg, trace = lanes[0].cfg, lanes[0].trace
+    t0 = time.perf_counter()
     ops = _batch_operands(lanes, device, dtype, pad, caches)
+    if timing is not None:
+        timing["operands_s"] = time.perf_counter() - t0
     return BatchHandle(cfg, trace, [ln.fa for ln in lanes],
-                       _simulate(cfg, ops, trace=trace), device)
+                       _simulate(cfg, ops, trace=trace, timing=timing),
+                       device)
 
 
 def prepare_batch(points: Sequence, device=None, dtype=None
@@ -1223,8 +1313,12 @@ def dispatch_compiled_batch(points: Sequence, device=None, dtype=None
     """Prepare (`prepare_batch`) and queue one batch of points as one
     slot loop over a lane axis: on CUDA one captured graph per segment
     of the union of the points' segment starts.  Returns a handle for
-    `finalize_batch`; on CUDA the loop runs on while the caller goes
-    on."""
+    `finalize_batch`.  On CUDA the replays are queued and the call
+    returns while the device runs them, so the caller's host work
+    overlaps the loop; but the next capture (this function's, or any
+    `run_compiled`'s) begins with a device synchronize and so waits for
+    this loop to finish: two captured loops are never in flight
+    together."""
     cfg, trace, fas, ops = prepare_batch(points, device, dtype)
     return BatchHandle(cfg, trace, fas, _simulate(cfg, ops, trace=trace),
                        ops.fb.src.device)

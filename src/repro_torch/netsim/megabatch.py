@@ -22,6 +22,16 @@ several scenarios is grouped here instead:
     fault timelines, ECMP assignment replays, plan widths and plans are
     built once per distinct key, not once per point.
 
+Host prep and dispatch are two steps, so an executor can pipeline
+them: `prepare_planned` yields a group's sub-batches one at a time,
+each prepared on the host only when it is asked for, and
+`dispatch_prepared` builds one sub-batch's operands on the device and
+queues its loop.  On CUDA a loop's replays are queued and the call
+returns while the device runs them, so the next sub-batch's host prep
+overlaps it; the next capture, though, begins with a device
+synchronize, so two loops are never in flight together
+(`repro_torch.experiments.execute` runs this pipeline).
+
 `finalize_group` strips each point's outputs back to its own flow count,
 the `FLOW_AXIS_FIELDS` of its trace included.  `engine.dispatch_stats`
 counts the slot loops (and, on CUDA, the graphs) the dispatches ran.
@@ -29,7 +39,8 @@ counts the slot loops (and, on CUDA, the graphs) the dispatches ran.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, \
+    Tuple
 
 import torch
 
@@ -49,11 +60,8 @@ def _bucket(n: int, lo: int = 1) -> int:
 def _struct_key(compiled) -> Tuple:
     """A point's structure with routing and NIC lifted out, and its
     flow bucket."""
-    cfg = engine.EngineConfig.from_sim(compiled.cfg, compiled.spec.topo)
-    r = compiled.spec.reaction
-    cfg = replace(cfg, routing="*", nic="*", sw_lb_delay_slots=0,
-                  react=r is not None and r.enabled)
-    trace = compiled.cfg.trace if compiled.cfg.trace.enabled else None
+    cfg, trace = engine._lane_key(compiled)
+    cfg = replace(cfg, routing="*", nic="*", sw_lb_delay_slots=0)
     return cfg, trace, _bucket(len(compiled.flows), FLOW_BUCKET_MIN)
 
 
@@ -68,32 +76,65 @@ def plan_megabatch(points: Sequence) -> Tuple[Dict, List[List[Tuple]]]:
     return {}, list(groups.values())
 
 
+class Prepared(NamedTuple):
+    """One (routing, NIC) sub-batch of a planned group after host prep:
+    its point indices, its lanes (`engine._lane`) and the flow count
+    they are padded to (the group's bucket)."""
+    idxs: List[int]
+    lanes: List[engine._Lane]
+    pad: int
+
+
+def prepare_planned(group: Sequence[Tuple], caches: Dict
+                    ) -> Iterator[Prepared]:
+    """Host prep (memoized in `caches`) of one planned group, one
+    (routing, NIC) sub-batch at a time: a generator, so each sub-batch
+    is prepared only when the caller asks for it (after dispatching the
+    one before, say).  Each lane's plans at the sub-batch's widths are
+    built here too, so `dispatch_prepared` only moves operands to the
+    device.  Makes no device call."""
+    pad = _bucket(max(len(c.flows) for _, c in group), FLOW_BUCKET_MIN)
+    subs: Dict[Tuple, List[Tuple[int, object]]] = {}
+    for i, c in group:
+        subs.setdefault(engine._lane_key(c), []).append((i, c))
+    for members in subs.values():
+        lanes = [engine._lane(c, caches) for _, c in members]
+        widths = engine._batch_widths(lanes)
+        for lane in lanes:
+            engine._lane_aggs(lane, widths, pad, caches)
+        yield Prepared([i for i, _ in members], lanes, pad)
+
+
+def dispatch_prepared(prep: Prepared, caches: Dict, device=None,
+                      dtype=None, timing: Optional[Dict] = None
+                      ) -> Tuple[List[int], BatchHandle]:
+    """Build one prepared sub-batch's operands on `device` and queue its
+    slot loop.  Returns `(point indices, handle)` for `finalize_group`;
+    `timing` as `engine._dispatch_lanes`'."""
+    device = engine.resolve_device(device)
+    dtype = torch.float64 if dtype is None else dtype
+    return prep.idxs, engine._dispatch_lanes(
+        prep.lanes, device, dtype, pad=prep.pad, caches=caches,
+        timing=timing)
+
+
 def dispatch_planned(group: Sequence[Tuple], caches: Dict, device=None,
                      dtype=None) -> List[Tuple[List[int], BatchHandle]]:
     """Host prep (memoized in `caches`) and dispatch of one planned
     group: one slot loop per (routing, NIC) sub-batch, its lanes padded
     to the group's flow bucket.  Returns `[(point indices, handle)]`
     for `finalize_group`."""
-    device = engine.resolve_device(device)
-    dtype = torch.float64 if dtype is None else dtype
-    pad = _bucket(max(len(c.flows) for _, c in group), FLOW_BUCKET_MIN)
-    subs: Dict[Tuple, List[Tuple[int, engine._Lane]]] = {}
-    for i, c in group:
-        lane = engine._lane(c, caches)
-        subs.setdefault((lane.cfg, lane.trace), []).append((i, lane))
-    out = []
-    for members in subs.values():
-        handle = engine._dispatch_lanes([ln for _, ln in members], device,
-                                        dtype, pad=pad, caches=caches)
-        out.append(([i for i, _ in members], handle))
-    return out
+    return [dispatch_prepared(prep, caches, device, dtype)
+            for prep in prepare_planned(group, caches)]
 
 
 def dispatch_megabatch(points: Sequence, device=None, dtype=None
                        ) -> List[Tuple[List[int], BatchHandle]]:
-    """`plan_megabatch` and `dispatch_planned` of every group, all
-    dispatched before any is waited for.  Returns `[(point indices,
-    handle)]` for `finalize_group`."""
+    """`plan_megabatch` and `dispatch_planned` of every group.  Returns
+    `[(point indices, handle)]` for `finalize_group`.  On CUDA each
+    capture waits for the loop before it (see the module docstring), so
+    the loops run one after another; only the last may still be running
+    when this returns."""
     caches, planned = plan_megabatch(points)
     out: List = []
     for group in planned:

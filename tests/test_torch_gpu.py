@@ -1036,3 +1036,112 @@ def test_gpu_megabatch_rows_equal_single_runs(cuda):
     assert stats["loops"] == 24 and stats["graphs"] >= 24
     for c, g in zip(points, got):
         _assert_lane_equals(g, c.run(device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the Experiment API's executor on the card
+# ---------------------------------------------------------------------------
+
+def _cut_experiment(name, slots):
+    """A library experiment with its base spec, or the specs its
+    "scenario" axis names, cut to `slots` slots (labels kept)."""
+    import dataclasses
+    from repro_torch.experiments import Axis, get_experiment
+
+    def cut(g):
+        if isinstance(g, Axis):
+            if g.path != "scenario":
+                return g
+            return Axis("scenario", tuple(
+                get_scenario(v).with_sim(slots=slots) for v in g.values),
+                labels=g.values)
+        if isinstance(g, tuple):
+            return tuple(cut(x) for x in g)
+        return type(g)(tuple(cut(x) for x in g.grids))
+
+    exp = get_experiment(name)
+    base = exp.base
+    if base is not None:
+        base = (get_scenario(base) if isinstance(base, str) else base) \
+            .with_sim(slots=slots)
+    return dataclasses.replace(exp, base=base, axes=cut(exp.axes))
+
+
+def _assert_rows_close(got, want, tol):
+    """Distilled rows field by field, `extra` included: floats within
+    `tol` (NaN equal to NaN), everything else exactly."""
+    import math
+
+    def close(g, w, path):
+        if isinstance(w, float):
+            assert (math.isnan(g) and math.isnan(w)) or \
+                math.isclose(g, w, rel_tol=tol, abs_tol=tol), (path, g, w)
+        elif isinstance(w, dict):
+            assert g.keys() == w.keys(), path
+            for k in w:
+                close(g[k], w[k], f"{path}.{k}")
+        elif isinstance(w, (list, tuple)):
+            assert len(g) == len(w), path
+            for i, (a, b) in enumerate(zip(g, w)):
+                close(a, b, f"{path}[{i}]")
+        else:
+            assert g == w, (path, g, w)
+
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        close(g.to_dict(), w.to_dict(), g.scenario)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fig9_isolation", "reroute_reaction"])
+def test_gpu_experiment_rows_equal_cpu_rows(cuda, name):
+    """`run_experiment` on the card (megabatch, captured loops) against
+    the CPU path of the same grid: the CPU contract, 1e-5 (80 slots:
+    reroute_reaction's rehash lag of detect + converge slots must stay
+    inside the run)."""
+    from repro_torch.experiments import run_experiment
+    exp = _cut_experiment(name, 80)
+    gpu = run_experiment(exp, device=cuda)
+    cpu = run_experiment(exp, device="cpu")
+    assert gpu.flight["executions"][0]["device"] == "cuda"
+    assert gpu.column("axis.scenario") == cpu.column("axis.scenario")
+    _assert_rows_close(gpu.to_metrics(), cpu.to_metrics(), 1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_executor_pipelines_its_sub_batches(cuda):
+    """topo_kind_resiliency runs as 4 loops (kind x routing): the host
+    prep of each next sub-batch is issued while the last one's loop is
+    on the device, and every row equals its point run alone."""
+    from repro_torch.experiments import execute_points
+    from repro_torch.scenarios import run_point
+    exp = _cut_experiment("topo_kind_resiliency", 60)
+    specs = [p.spec for p in exp.points()]
+    fl = {}
+    rows = execute_points(specs, device=cuda, derive=exp.derive, flight=fl)
+    pipe = fl["pipeline"]
+    assert pipe["pipelined"] and pipe["launches"] == 4 == len(pipe["loops"])
+    assert fl["dispatch_stats"]["loops"] == 4
+    assert fl["dispatch_stats"]["graphs"] >= 4
+    walls = fl["walls"]
+    assert walls["loop_s"] > 0 and walls["capture_s"] > 0
+    assert 0 <= walls["overlap_s"] <= walls["prep_s"]
+    single = [run_point(s, cuda, derive=exp.derive) for s in specs]
+    _assert_rows_close(rows, single, 1e-12)
+
+
+@pytest.mark.gpu
+def test_captured_and_eager_executors_give_equal_rows(cuda, monkeypatch):
+    """The executor over captured loops against the same executor with
+    every loop run eagerly on the card: equal rows."""
+    from functools import partial
+    from repro_torch.experiments import execute_points
+    exp = _cut_experiment("fig9_isolation", 60)
+    specs = [p.spec for p in exp.points()]
+    captured = execute_points(specs, device=cuda, derive=exp.derive)
+    monkeypatch.setattr(engine, "_simulate",
+                        partial(engine._simulate, _eager=True))
+    fl = {}
+    eager = execute_points(specs, device=cuda, derive=exp.derive, flight=fl)
+    assert fl["dispatch_stats"]["graphs"] == 0
+    _assert_rows_close(captured, eager, 0.0)
