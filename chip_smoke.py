@@ -38,8 +38,10 @@ Phases, each fatal on failure:
             beside the least time the card needs for the bytes moved or
             the operations done; and the launch floor, `bottleneck` on
             one element in the same harness.
-  sync      the AR, WAR and ECMP slot loops on both fabrics and under
-            failure reaction, and a traced batch of three points, eager
+  sync      the AR, WAR and ECMP slot loops on both fabrics, under
+            failure reaction and with a training-step schedule (its
+            phase boundaries and its flap), and a traced batch of three
+            points, eager
             and the replays of the captured one, run with CUDA sync
             debugging set to "error": nothing in them makes the host
             wait (the capture, which synchronises on entry, runs
@@ -87,17 +89,35 @@ Phases, each fatal on failure:
             LANES seeds of the giga point under ECMP batched against one
             at a time (prep, capture, loop, peak memory); 5 hand-written
             launches a slot whatever the lanes.
+  schedule  the registry's training-step schedules (train_step_baseline,
+            train_step_flap, train_step_flap_moe) under their own AR and
+            the two flaps also under ECMP and WAR, in float64 through
+            the entry point, each held to the CPU plain path (the
+            registry contract, step times exactly), the registry's own
+            specs to the golden rows, the flaps to the study's signature
+            (step 1 >= 1.2x step 0, step 2 <= 1.1x), with their graphs,
+            capture and replay walls; then GIGA_TRAIN at full width on
+            the giga leaf-spine (llama3-8b over 4,096 ranks under AR in
+            float64 and float32 and under ECMP, phi3.5-moe over 512
+            ranks under AR): compile and host-prep walls, graphs and
+            their capture wall, replays a slot, the device's busy
+            share of the first GIGA_TRAIN_PROFILE_SLOTS slots' replays
+            (torch.profiler), peak memory, hand-written launches a slot
+            (5) and the step times; each float64 run's first
+            GIGA_TRAIN_CPU_SLOTS slots against the CPU plain path under
+            the contained-fork contract.
   sweep     the Experiment API (`repro_torch.experiments`): (a) every
-            registered experiment but train_comms_resiliency (90 points)
-            through `run_experiment(..., dispatch="megabatch")` on the
-            card in float64, each row equal to its point run alone
-            through `run_point` (floats within 1e-12, `extra` included),
+            registered experiment (93 points) through
+            `run_experiment(..., dispatch="megabatch")` on the card in
+            float64, each row equal to its point run alone through
+            `run_point` (floats within 1e-12, `extra` included),
             topo_kind_resiliency and reroute_reaction also within 1e-5
-            of the CPU path; points/s batched and one at a time, loops,
-            graphs, the walls of host prep, capture, loop and finalize,
-            the host prep the pipeline overlapped with a loop, peak
-            memory; (b) the same again from the run cache (90 hits, no
-            slot loop, equal rows), then one corrupted entry (only it
+            of the CPU path, train_comms_resiliency's flaps against the
+            study's signature; points/s batched and one at a time,
+            loops, graphs, the walls of host prep, capture, loop and
+            finalize, the host prep the pipeline overlapped with a loop,
+            peak memory; (b) the same again from the run cache (93 hits,
+            no slot loop, equal rows), then one corrupted entry (only it
             recomputed); (c) GIGA_GRID, 4 giga seeds x ECMP/AR (8
             points, 60 slots, two sub-batches of 4 lanes), each row
             equal to its point alone, with the same walls, peak memory,
@@ -180,6 +200,18 @@ PER_SLOT = {(kind, routing): ECMP_SLOT if routing == "ecmp" else AR_SLOT
 # pod links (16 leaves x 16 aggs x 1.0 = 32 cores x 8.0 a pod)
 GIGA_FAT_TREE = dict(kind="fat_tree", n_pods=16, n_aggs=16, n_cores=32,
                      link_cap=1.0, core_link_cap=8.0)
+# training-step schedules at full width on the giga leaf-spine: a model
+# at its published dims (reduced=False) over dp x tp=8 x pp=2 ranks, two
+# steps, with rank 0 losing plane 1 across step 1's gradient-sync window
+# (`flap`, [start, stop)); the windows are plan_schedule's at `slot_us`
+# (llama3-8b: fwd 14, bwd 28, sync 800, period 844; phi3.5-moe: 139,
+# 278, 406, period 825)
+GIGA_TRAIN = {
+    "giga_train_llama3_8b": dict(model="llama3-8b", dp=256, slot_us=100.0,
+                                 slots=1696, flap=(886, 1686)),
+    "giga_train_phi35_moe": dict(model="phi3.5-moe-42b-a6.6b", dp=32,
+                                 slot_us=1000.0, slots=1658,
+                                 flap=(1242, 1648))}
 REPLACES = {
     "plane_split": "src/repro/kernels/plb_select.py:47",
     "pair_fractions": "src/repro/kernels/jsq_route.py:42",
@@ -221,12 +253,10 @@ BATCH_SEEDS = 16
 GRID = dict(names=("flap_during_incast", "staggered_incast_bursts"),
             routings=("ar", "war", "ecmp"), nics=("spx", "dcqcn"),
             seeds=(0, 1, 2, 3), traced="staggered_incast_bursts")
-# the sweep phase: every registered experiment but the schedule
-# workloads' (the phases slice, ROADMAP queue 1 item 9) at its
-# registered size; the fat-tree and reaction studies also on the CPU
-# path; a grid of giga seeds x routing; rows held to their points run
-# alone within SWEEP_RTOL
-SWEEP_SKIP = ("train_comms_resiliency",)
+# the sweep phase: every registered experiment at its registered size;
+# the fat-tree and reaction studies also on the CPU path; a grid of
+# giga seeds x routing; rows held to their points run alone within
+# SWEEP_RTOL; the training-step study's rows also to its signature
 SWEEP_CPU = ("topo_kind_resiliency", "reroute_reaction")
 SWEEP_RTOL = 1e-12
 GIGA_GRID = dict(seeds=(0, 1, 2, 3), routings=("ecmp", "ar"))
@@ -269,10 +299,30 @@ CODEC_FLOPS = {"int8_encode": 6, "int8_decode": 2}
 
 def scenario(name: str, routing=None):
     """The port's registry spec, or one of the giga variants this script
-    builds (`giga_fat_tree`, `giga_fabric_storage_reroute`), with
-    `routing` overridden if given."""
+    builds (`giga_fat_tree`, `giga_fabric_storage_reroute` and the
+    GIGA_TRAIN schedules), with `routing` overridden if given."""
     from repro_torch.scenarios import get_scenario
-    if name == "giga_fat_tree":
+    from repro_torch.scenarios.spec import (FaultSpec, ScenarioSpec,
+                                            ScheduleSpec, SimSpec,
+                                            TenantSpec, WorkloadSpec)
+    if name in GIGA_TRAIN:
+        g = GIGA_TRAIN[name]
+        start, stop = g["flap"]
+        spec = ScenarioSpec(
+            name=name,
+            description=f"{g['model']} at its published dims, dp "
+                        f"{g['dp']} x tp 8 x pp 2, on the giga leaf-spine; "
+                        "rank 0 loses plane 1 across step 1's sync window",
+            topo=get_scenario("giga_fabric_storage").topo,
+            tenants=(TenantSpec("main"),),
+            workloads=(WorkloadSpec("schedule", schedule=ScheduleSpec(
+                model=g["model"], dp=g["dp"], tp=8, pp=2, steps=2,
+                microbatches=8, tokens_per_rank=8192, line_rate_gbps=400.0,
+                reduced=False)),),
+            faults=(FaultSpec("access_kill", start_slot=start,
+                              stop_slot=stop, plane=1, host=0),),
+            sim=SimSpec(slots=g["slots"], slot_us=g["slot_us"], seed=21))
+    elif name == "giga_fat_tree":
         spec = get_scenario("giga_fabric_storage")
         spec = dataclasses.replace(
             spec, name=name,
@@ -289,6 +339,19 @@ def scenario(name: str, routing=None):
 
 def label(name: str, routing=None) -> str:
     return name if routing is None else f"{name}[{routing}]"
+
+
+def first_slots(c, slots: int):
+    """The compiled scenario `c` run for its first `slots` slots only:
+    its spec's horizon, its demand timeline and its fault transitions cut
+    there.  A training-step schedule is laid out for its whole horizon
+    (`plan_schedule` refuses a shorter one), so its flows stay as they
+    are and the steps past the cut never start."""
+    pm = None if c.phase_mult is None else c.phase_mult[:slots]
+    return dataclasses.replace(
+        c, spec=c.spec.with_sim(slots=slots),
+        cfg=dataclasses.replace(c.cfg, slots=slots), phase_mult=pm,
+        fault_slots=tuple(f for f in c.fault_slots if f[0] < slots))
 
 
 def fail(msg: str) -> None:
@@ -869,13 +932,17 @@ def launch_floor_ms() -> float:
 
 
 # (scenario, routing, slots) the sync phase runs: AR/WAR and ECMP on
-# both fabrics, and a reaction run past its fault and its detection
+# both fabrics, a reaction run past its fault and its detection, and
+# the training-step schedules past their phase boundaries and the flap
+# (a schedule's run cut to its first slots, `first_slots`)
 SYNC_CASES = (("fig11_degraded_leaf", None, 24),
               ("fig11_degraded_leaf", "ecmp", 24),
               ("ft_core_failure_resiliency", None, 110),
               ("ft_core_failure_resiliency", "ecmp", 110),
               ("reroute_random_failures_ft", None, 110),
-              ("reroute_random_failures", "war", 110))
+              ("reroute_random_failures", "war", 110),
+              ("train_step_flap", None, 130),
+              ("train_step_flap_moe", "ecmp", 250))
 
 
 def sync_phase() -> None:
@@ -888,7 +955,11 @@ def sync_phase() -> None:
     from repro_torch.scenarios import compile_scenario
 
     for name, routing, slots in SYNC_CASES:
-        c = compile_scenario(scenario(name, routing).with_sim(slots=slots))
+        spec = scenario(name, routing)
+        if any(w.kind == "schedule" for w in spec.workloads):
+            c = first_slots(compile_scenario(spec), slots)
+        else:
+            c = compile_scenario(spec.with_sim(slots=slots))
         cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
         loop = engine.slot_loop(cfg, ops)
         loop.capture()
@@ -908,7 +979,8 @@ def sync_phase() -> None:
                                                      strict=True)):
             fail("sync phase: the captured loop differs from the eager one")
         print(f"sync: {label(name, routing)} ({cfg.kind}, {cfg.routing}"
-              f"{', reaction' if cfg.react else ''}, {len(loop.graphs)} "
+              f"{', reaction' if cfg.react else ''}"
+              f"{', schedule' if cfg.n_phases else ''}, {len(loop.graphs)} "
               "graph(s)): eager slot loop and captured replays ran with "
               "sync debug mode 'error'", flush=True)
     # a batch over a lane axis with a trace: its record rows come from a
@@ -1278,6 +1350,198 @@ def scale_phase(report: dict, total: dict) -> None:
         print(f"scale {what} parity: " + "; ".join(notes), flush=True)
 
 
+# the schedule phase: the registry's training-step schedules at their own
+# size (the flaps also under ECMP and WAR), then GIGA_TRAIN at full width
+SCHEDULE_RUNS = (("train_step_baseline", None), ("train_step_flap", None),
+                 ("train_step_flap_moe", None), ("train_step_flap", "ecmp"),
+                 ("train_step_flap", "war"), ("train_step_flap_moe", "ecmp"),
+                 ("train_step_flap_moe", "war"))
+GIGA_TRAIN_RUNS = (("giga_train_llama3_8b", None, ("float64", "float32")),
+                   ("giga_train_llama3_8b", "ecmp", ("float64",)),
+                   ("giga_train_phi35_moe", None, ("float64",)))
+# the full-width runs' CPU parity: the first slots of the same spec
+# (llama3-8b's fwd->bwd boundary at 14 and bwd->sync at 42); the
+# device's busy share is profiled over fewer (reading a profile of
+# every kernel takes longer than the slots it covers)
+GIGA_TRAIN_CPU_SLOTS = 60
+GIGA_TRAIN_PROFILE_SLOTS = 20
+
+
+def step_signature(what: str, st) -> str:
+    """The study's signature on a flapped run: step 1 at least 1.2x step
+    0, step 2 at most 1.1x."""
+    if not (st[1] >= 1.2 * st[0] and st[2] <= 1.1 * st[0]):
+        fail(f"{what}: step times {list(st)} miss the signature (step 1 "
+             ">= 1.2x step 0, step 2 <= 1.1x)")
+    return (f"signature ok (step 1 {st[1] / st[0]:.3f}x, step 2 "
+            f"{st[2] / st[0]:.3f}x)")
+
+
+def device_busy_s(run) -> float:
+    """Summed kernel time of one `run()` under torch.profiler (0.0 when
+    the profiler records no device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+
+
+def schedule_phase(report: dict, total: dict) -> None:
+    """Training-step schedules on the card (see the module docstring):
+    the registry's three at their own size in float64, each against the
+    CPU path, the golden row and the study's signature; then GIGA_TRAIN
+    at full width, timed by layer, each float64 run held to the CPU path
+    over its first GIGA_TRAIN_CPU_SLOTS slots."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import compile_scenario, distill_metrics
+
+    t_phase = time.perf_counter()
+    golden = json.loads((ROOT / "tests/golden/scenarios.json").read_text())
+    out = report["schedule"] = {}
+    for name, routing in SCHEDULE_RUNS:
+        spec, what = scenario(name, routing), label(name, routing)
+        c = compile_scenario(spec)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        engine.reset_dispatch_stats()
+        t0 = time.perf_counter()
+        gpu = c.run(device="cuda")               # float64, captured
+        wall = time.perf_counter() - t0
+        graphs = engine.dispatch_stats()["graphs"]
+        check_launches(what, dict(build.LAUNCHES),
+                       slot_launches(spec.topo.kind, spec.sim.routing,
+                                     spec.sim.slots), total)
+        cpu = compile_scenario(spec).run(device="cpu")
+        assert_parity(spec, c, cpu, gpu)
+        if routing is None:
+            assert_golden(name, distill_metrics(spec, c, gpu), golden)
+        T = spec.sim.slots
+        st = c.schedules[0].step_times(gpu.completion_slot, T)
+        if not np.array_equal(st, c.schedules[0].step_times(
+                cpu.completion_slot, T)):
+            fail(f"{what}: step times differ from the CPU path")
+        sig = step_signature(what, st) if "flap" in name else "baseline"
+        walls = loop_walls(c, torch.float64, runs=1)
+        walls.pop("results")
+        if walls.pop("graphs") != graphs:
+            fail(f"{what}: {graphs} graphs through the entry point")
+        out[what] = dict(slots=T, flows=len(c.flows), wall_s=wall,
+                         graphs=graphs, step_times=st.tolist(), **walls)
+        print(f"schedule {what}: {len(c.flows)} flows x {T} slots, GPU f64 "
+              f"captured {wall:.3f} s ({graphs} graphs: capture "
+              f"{walls['capture_s'][0] * 1e3:.1f} ms, replays "
+              f"{walls['replay_s'][0] / (T - 1) * 1e3:.3f} ms/slot, eager "
+              f"{walls['eager_s'][0] / T * 1e3:.3f} ms/slot); step times "
+              f"{st.tolist()} equal to the CPU path; parity"
+              f"{' and golden metrics' if routing is None else ''}: ok; "
+              f"{sig}", flush=True)
+
+    for name, routing, dnames in GIGA_TRAIN_RUNS:
+        spec = scenario(name, routing)
+        what = label(name, spec.sim.routing)
+        T = spec.sim.slots
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            t0 = time.perf_counter()
+            c = compile_scenario(spec)
+            compile_s = time.perf_counter() - t0
+            # run_compiled's steps, each timed: host prep, capture (slot 0
+            # eagerly, then one graph a segment), replays
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            cfg, fa, ops = engine.prepare(c, "cuda", dtype)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            loop = engine.slot_loop(cfg, ops)
+            t0 = time.perf_counter()
+            loop.capture()
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            graphs = len(loop.graphs)
+            t0 = time.perf_counter()
+            loop.replay()
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t0
+            wall = prep_s + capture_s + replay_s
+            res = engine._wrap(cfg, fa, engine._loop_results(cfg, loop),
+                               ops.fb.src.device)
+            peak = torch.cuda.max_memory_allocated()
+            counts = dict(build.LAUNCHES)
+            check_launches(f"{what} {dname}", counts,
+                           slot_launches(spec.topo.kind, spec.sim.routing,
+                                         T), total)
+            per_slot = sum(counts.values()) / T
+            if not np.isfinite(res.mean_goodput).all():
+                fail(f"{what} {dname}: non-finite goodput")
+            del loop, ops
+            # the kernels' share of the replays' wall over the first
+            # slots
+            cut = first_slots(c, GIGA_TRAIN_PROFILE_SLOTS)
+            ccfg, _, cops = engine.prepare(cut, "cuda", dtype)
+            walls = []
+            for profiled in (False, True):
+                loop = engine.slot_loop(ccfg, cops)
+                loop.capture()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if profiled:
+                    busy_s = device_busy_s(loop.replay)
+                else:
+                    loop.replay()
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            del loop, cops
+            build.reset_launches()
+            st = c.schedules[0].step_times(res.completion_slot, T)
+            busy = ("not measured" if busy_s == 0.0 else
+                    f"{busy_s / walls[0]:.1%}")
+            row = out[f"{what} {dname}"] = dict(
+                slots=T, flows=len(c.flows), compile_s=compile_s,
+                wall_s=wall, prep_s=prep_s, graphs=graphs,
+                capture_s=capture_s, replay_ms_per_slot=replay_s / (T - 1)
+                * 1e3, first_slots_replay_s=walls[0],
+                first_slots_profiled_s=walls[1], device_busy_s=busy_s,
+                max_memory_allocated=peak,
+                kernel_launches_per_slot=per_slot, step_times=st.tolist())
+            print(f"schedule {what} {dname}: {len(c.flows)} flows x {T} "
+                  f"slots; compile {compile_s:.3f} s; run {wall:.3f} s: host "
+                  f"prep {prep_s:.3f} s, {graphs} graphs captured in "
+                  f"{capture_s:.3f} s, "
+                  f"replays {row['replay_ms_per_slot']:.3f} ms/slot (device "
+                  f"busy over the first {GIGA_TRAIN_PROFILE_SLOTS} slots' "
+                  f"replays: {busy}), peak {peak / 2**20:.1f} MiB, "
+                  f"{per_slot:g} hand-written launches/slot; step times "
+                  f"{st.tolist()}", flush=True)
+            if dname != "float64":
+                continue
+            cut = first_slots(c, GIGA_TRAIN_CPU_SLOTS)
+            build.reset_launches()
+            gpu = cut.run(device="cuda")
+            check_launches(f"{what} first slots", dict(build.LAUNCHES),
+                           slot_launches(spec.topo.kind, spec.sim.routing,
+                                         GIGA_TRAIN_CPU_SLOTS), total)
+            t0 = time.perf_counter()
+            cpu = cut.run(device="cpu")
+            cpu_s = time.perf_counter() - t0
+            stats = assert_contained_fork(cut.spec, cut, cpu, gpu)
+            row["parity"] = dict(cpu_wall_s=cpu_s, **stats)
+            print(f"schedule {what} {dname} parity: its first "
+                  f"{GIGA_TRAIN_CPU_SLOTS} slots against the CPU plain path "
+                  f"({cpu_s:.1f} s): {stats}", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"schedule: phase wall {out['wall_s']:.1f} s", flush=True)
+
+
 def trace_phase(report: dict, total: dict) -> None:
     """Trace capture on the card: fig12_plane_flap at 600 slots, traced
     in float64 through the entry point, against the CPU path (host_bw,
@@ -1614,15 +1878,16 @@ def rows_equal(what: str, got, want, tol: float) -> None:
 
 def sweep_launches(specs) -> tuple:
     """Launches and slot loops a megabatch of `specs` must make: one loop
-    a (structure, flow bucket, routing, NIC) sub-batch, each
-    `PER_SLOT[kind, routing]` a slot."""
-    from repro_torch.netsim import engine, megabatch
+    a (structure, flow bucket, routing, NIC) sub-batch (points with and
+    without a schedule share one), each `PER_SLOT[kind, routing]` a
+    slot."""
+    from repro_torch.netsim import megabatch
     from repro_torch.scenarios import compile_scenario
     want: dict = {}
     loops = set()
     for sp in specs:
         c = compile_scenario(sp)
-        cfg, trace = engine._lane_key(c)
+        cfg, trace = megabatch._sub_key(c)
         key = (megabatch._struct_key(c), cfg, trace)
         if key not in loops:
             loops.add(key)
@@ -1701,8 +1966,7 @@ def sweep_phase(report: dict, total: dict) -> None:
     out = report["sweep"] = {}
     cache_dir = ROOT / "build" / "sweep_cache"
     shutil.rmtree(cache_dir, ignore_errors=True)
-    exps = [get_experiment(n) for n in list_experiments()
-            if n not in SWEEP_SKIP]
+    exps = [get_experiment(n) for n in list_experiments()]
     points = {exp.name: exp.points() for exp in exps}
     n_points = sum(map(len, points.values()))
     want: dict = {}
@@ -1740,6 +2004,10 @@ def sweep_phase(report: dict, total: dict) -> None:
             single_s += time.perf_counter() - t0
             rows_equal(f"sweep {exp.name} point {p.index}", got, alone,
                        SWEEP_RTOL)
+            if exp.name == "train_comms_resiliency" and \
+                    "flap" in got.scenario:
+                step_signature(f"sweep {exp.name} {got.scenario}",
+                               got.extra["step_time_slots"])
     for exp in exps:
         if exp.name in SWEEP_CPU:
             cpu = run_experiment(exp, device="cpu").to_metrics()
@@ -2240,6 +2508,7 @@ def main(argv=None) -> int:
     total: dict = {}
     registry_phase(report, total)
     scale_phase(report, total)
+    schedule_phase(report, total)
     trace_phase(report, total)
     batch_phase(report, total)
     sweep_phase(report, total)

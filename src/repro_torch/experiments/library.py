@@ -376,9 +376,7 @@ def train_comms_resiliency() -> Experiment:
     the fabric, with a plane flap pinned to step 1's gradient-sync
     window.  Expected signature (both backends, exact): the flapped
     step's time inflates >= 1.2x the in-run baseline step and the final
-    step recovers to <= 1.1x after the heal.  On the port its schedule
-    workloads raise `NotImplementedError` at compile until the phases
-    slice lands."""
+    step recovers to <= 1.1x after the heal."""
     return Experiment(
         name="train_comms_resiliency",
         axes=Axis("scenario", ("train_step_baseline", "train_step_flap",

@@ -68,22 +68,27 @@ class SlotOperands(NamedTuple):
     vdown: Optional[torch.Tensor] = None
     vup2: Optional[torch.Tensor] = None
     vdown2: Optional[torch.Tensor] = None
+    # schedule workloads (`cfg.n_phases` > 0): each segment's demand
+    # multiplier of every timeline lane; a flow's demand is scaled by
+    # its lane's (`fb.phase`) value
+    dem: Optional[torch.Tensor] = None       # (n_seg, K)
 
 
 def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
                         seg_down: np.ndarray, seg_acc: np.ndarray,
                         seg_id: np.ndarray, *, assign=None, seg_up2=None,
-                        seg_down2=None, vis=None, device, dtype
-                        ) -> SlotOperands:
+                        seg_down2=None, vis=None, seg_dem=None, device,
+                        dtype) -> SlotOperands:
     """`flows` has the `FlowArrays` fields (src, dst, src_leaf, dst_leaf,
-    demand, bytes_total, start_slot); `aggs` has `src`/`dst`/`pair`/
+    demand, bytes_total, start_slot, phase); `aggs` has `src`/`dst`/`pair`/
     `ecmp_load` gather plans; `seg_up`/`seg_down`/`seg_acc` (and, on a
     fat tree, `seg_up2`/`seg_down2`) are (n_seg, ...) capacity
     multipliers; `seg_id` maps each slot to its segment; `assign` is the
     (n_seg, F, P) ECMP assignment (required under ECMP; AR/WAR default
     to the zero placeholder); `vis` is the (up, down, up2, down2)
     routing-visible multipliers of a failure reaction (None: routing
-    sees the physical fabric)."""
+    sees the physical fabric); `seg_dem` is the (n_seg, K) demand
+    multipliers of a schedule run (`cfg.n_phases` > 0, else None)."""
     device = torch.device(device)
     fb = FlowBatch.from_arrays(flows, device, dtype)
     F = fb.src.shape[0]
@@ -150,7 +155,9 @@ def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
         link_cap=torch.cat([s.reshape(n_seg, P, -1) for s in stages], -1),
         ecmp_up=plan((planes * L + src_leaf) * U + a_of),
         ecmp_down=plan((planes * U + a_of) * L + dst_leaf),
-        vup=vup, vdown=vdown, vup2=vup2, vdown2=vdown2, **ft)
+        vup=vup, vdown=vdown, vup2=vup2, vdown2=vdown2,
+        dem=None if seg_dem is None else torch.as_tensor(
+            np.asarray(seg_dem), dtype=dtype, device=device), **ft)
 
 
 def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
@@ -189,7 +196,7 @@ def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
 # stacked batch comes second, so `ops.up[seg]` is the segment's (B, ...)
 _PER_SEGMENT = ("up", "down", "acc", "assign", "ecmp_load", "link_cap",
                 "ecmp_up", "ecmp_down", "up2", "down2", "ecmp_up2",
-                "ecmp_down2", "vup", "vdown", "vup2", "vdown2")
+                "ecmp_down2", "vup", "vdown", "vup2", "vdown2", "dem")
 # fields the lanes share (the fabric's static maps)
 _SHARED = ("path_agg", "leaf_pod", "cross_pair")
 

@@ -51,8 +51,13 @@ left to right in flow order, as the NumPy engine's `np.add.at` does; the
 short plane and spine sums run left to right too.  The CPU and GPU runs
 therefore differ only where `exp` does.
 
-Schedule phases are a later slice of the port and raise
-`NotImplementedError` at compile.
+Schedule workloads (training-step collectives, `repro_torch.comms`)
+add a demand timeline: the slots where any of its lanes changes value
+(`phase_boundaries`) join the capacity segments, each segment carries
+every lane's multiplier (`_seg_dem`), and the slot scales each flow's
+demand by its lane's value right after the start/done mask, as the
+reference does.  Without a schedule (`EngineConfig.n_phases == 0`) the
+multiply is not in the slot at all.
 """
 from __future__ import annotations
 
@@ -96,7 +101,8 @@ class EngineConfig:
     """Static simulation parameters: sim knobs, fabric shape and the
     fluid-model constants.  `react` marks a run under failure reaction
     (routing steers by the visible view; each slot reports its
-    blackholed bytes)."""
+    blackholed bytes); `n_phases` > 0 marks a schedule run with that
+    many demand-timeline lanes (the reference's `JxConfig.n_phases`)."""
     slots: int
     slot_us: float
     routing: str
@@ -122,6 +128,7 @@ class EngineConfig:
     ar_temperature: float = AR_TEMPERATURE
     jsq_bins: int = JSQ_BINS
     q_cap: float = Q_CAP
+    n_phases: int = 0
     react: bool = False
 
     @property
@@ -601,6 +608,10 @@ def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
     fb = ops.fb
 
     demand = torch.where(carry.done | (t < fb.start_slot), 0.0, fb.demand)
+    if cfg.n_phases:
+        # schedule workloads: the segment's multiplier of each flow's
+        # demand-timeline lane (lane 0 is the always-1.0 lane)
+        demand = demand * ops.dem[seg].gather(-1, fb.phase)
     offered = _plane_split(cfg, carry.nic, demand)        # (..., F, P)
     same_leaf = fb.same_leaf[..., None]
     fabric_rate = torch.where(same_leaf, 0.0, offered)
@@ -844,11 +855,32 @@ def _prepared(compiled) -> Tuple[EngineConfig, FlowArrays, FaultTimeline,
     return lane.cfg, lane.fa, lane.tl, lane.vtl
 
 
-def _boundaries(tl: FaultTimeline, vtl: Optional[FaultTimeline]
-                ) -> Tuple[int, ...]:
-    """Capacity-segment starts: every slot where the physical or the
-    visible fabric changes."""
-    b = set(tl.change_slots())
+def phase_boundaries(pm: Optional[np.ndarray]) -> List[int]:
+    """Slots where any phase-multiplier lane changes value ([0] always
+    included) — unioned with the fault timeline's `change_slots()` so
+    the piecewise-constant segment machinery covers both.  Phase changes
+    never alter path capacity, so the ECMP re-hash replay draws no extra
+    RNG at these boundaries."""
+    if pm is None:
+        return [0]
+    diff = np.any(pm[1:] != pm[:-1], axis=1)
+    return [0] + (np.flatnonzero(diff) + 1).tolist()
+
+
+def _seg_dem(pm: Optional[np.ndarray], boundaries) -> np.ndarray:
+    """(n_seg, K) demand-multiplier snapshots; a (n_seg, 1) ones
+    placeholder when no schedule is present."""
+    b = list(boundaries)
+    if pm is None:
+        return np.ones((len(b), 1))
+    return np.asarray(pm)[b]
+
+
+def _boundaries(tl: FaultTimeline, vtl: Optional[FaultTimeline],
+                pm: Optional[np.ndarray] = None) -> Tuple[int, ...]:
+    """Segment starts: every slot where the physical or the visible
+    fabric changes, or a lane of the demand timeline `pm`."""
+    b = set(tl.change_slots()) | set(phase_boundaries(pm))
     if vtl is not None:
         b |= set(vtl.change_slots())
     return tuple(sorted(b))
@@ -996,15 +1028,17 @@ def _aggs_for(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
 class _Lane(NamedTuple):
     """Host prep of one point on its own segments: the spec's name, the
     config and trace spec (the point's structure), the flow arrays, the
-    physical and visible timelines, its segment starts, its ECMP
-    assignment per segment and its plan widths; the `*_key`s are the
-    content keys it was memoized under."""
+    physical and visible timelines, the demand timeline (None without a
+    schedule), its segment starts, its ECMP assignment per segment and
+    its plan widths; the `*_key`s are the content keys it was memoized
+    under."""
     name: str
     cfg: EngineConfig
     trace: TraceSpec
     fa: FlowArrays
     tl: FaultTimeline
     vtl: Optional[FaultTimeline]
+    pm: Optional[np.ndarray]
     boundaries: Tuple[int, ...]
     assign: np.ndarray
     widths: Tuple[int, int, int, int]
@@ -1014,11 +1048,14 @@ class _Lane(NamedTuple):
 
 def _lane_key(compiled) -> Tuple[EngineConfig, TraceSpec]:
     """A point's structure, which the lanes of one batch share: its
-    config (with the reaction flag) and trace spec."""
+    config (with the reaction flag and its demand-timeline lanes) and
+    trace spec."""
     cfg = EngineConfig.from_sim(compiled.cfg, compiled.spec.topo)
     r = compiled.spec.reaction
     if r is not None and r.enabled:
         cfg = replace(cfg, react=True)
+    if compiled.phase_mult is not None:
+        cfg = replace(cfg, n_phases=int(compiled.phase_mult.shape[1]))
     trace = compiled.cfg.trace if compiled.cfg.trace.enabled \
         else TraceSpec()
     return cfg, trace
@@ -1031,27 +1068,31 @@ def _lane(compiled, caches: Optional[Dict] = None) -> _Lane:
     ECMP replay and plan widths.  With `caches`, what depends on part
     of the spec only is built once per content, as the reference's
     megabatch `_prepare` memoizes it: the flow arrays per (topology,
-    tenants, workloads, workload seed), the timelines per (faults,
-    slots, slot length, topology, workload seed, reaction lag), the
-    assignment per (flows, timeline, routing, ECMP seed, reaction
-    mode), the widths per assignment."""
+    tenants, workloads, workload seed, and with a schedule the slot
+    length its byte volumes are calibrated to), the segment starts and
+    timelines per (faults, slots, slot length, topology, workload seed,
+    demand-timeline boundaries, reaction lag), the assignment per
+    (flows, timeline, routing, ECMP seed, reaction mode), the widths
+    per assignment."""
     caches = {} if caches is None else caches
     spec = compiled.spec
     cfg, trace = _lane_key(compiled)
     r = spec.reaction
     react = cfg.react
     lag = reaction_lag(r, spec.sim.routing) if react else None
+    pm = compiled.phase_mult
     fa_key = ("fa", spec.topo, spec.tenants, spec.workloads,
-              spec.workload_seed)
+              spec.workload_seed, None if pm is None else spec.sim.slot_us)
     if fa_key not in caches:
         caches[fa_key] = FlowArrays.build(compiled.flows, compiled.topo)
     fa = caches[fa_key]
+    pb = tuple(phase_boundaries(pm))
     tl_key = ("tl", spec.faults, spec.sim.slots, spec.sim.slot_us,
-              spec.topo, spec.workload_seed, lag)
+              spec.topo, spec.workload_seed, pb, lag)
     if tl_key not in caches:
         tl = compile_fault_timeline(spec)
         vtl = (lagged_timeline(tl, lag) if lag else tl) if react else None
-        caches[tl_key] = (tl, vtl, _boundaries(tl, vtl))
+        caches[tl_key] = (tl, vtl, _boundaries(tl, vtl, pm))
     tl, vtl, boundaries = caches[tl_key]
     mode = r.mode if react else "instant"
     assign_key = ("assign", fa_key, tl_key, cfg.routing,
@@ -1064,8 +1105,8 @@ def _lane(compiled, caches: Optional[Dict] = None) -> _Lane:
     w_key = ("widths", assign_key)
     if w_key not in caches:
         caches[w_key] = _agg_widths(cfg, fa, assign)
-    return _Lane(spec.name, cfg, trace, fa, tl, vtl, boundaries, assign,
-                 caches[w_key], fa_key, assign_key)
+    return _Lane(spec.name, cfg, trace, fa, tl, vtl, pm, boundaries,
+                 assign, caches[w_key], fa_key, assign_key)
 
 
 def _batch_widths(lanes: Sequence[_Lane]) -> Tuple[int, int, int, int]:
@@ -1095,8 +1136,11 @@ def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
     the point's own segment holds), with plans of `widths` and, with
     `pad`, its flows padded to `pad` inert ones (zero demand, no bytes
     left to finish, never started, on one leaf: they touch no link and
-    no plan).  In float32 it warns of `bytes_total` beyond float32's
-    integer resolution (`_warn_f32_bytes`)."""
+    no plan).  Under `cfg.n_phases` its demand multipliers are its
+    timeline's values at `boundaries`, padded to `n_phases` lanes with
+    1.0 (all ones without a schedule; no flow reads a padded lane).  In
+    float32 it warns of `bytes_total` beyond float32's integer
+    resolution (`_warn_f32_bytes`)."""
     cfg, fa = lane.cfg, lane.fa
     if dtype == torch.float32:
         _warn_f32_bytes(lane.name, fa)
@@ -1110,11 +1154,16 @@ def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
         flows, assign = _padded_flows(fa, assign, pad, cfg.slots)
     up, down, acc, *stage_b = _seg_caps(lane.tl, boundaries)
     up2, down2 = stage_b or (None, None)
+    dem = None
+    if cfg.n_phases:
+        dem = _seg_dem(lane.pm, boundaries)
+        dem = np.concatenate(
+            [dem, np.ones((len(dem), cfg.n_phases - dem.shape[1]))], 1)
     return operands_from_numpy(
         cfg, flows, aggs, up, down, acc, _seg_id(boundaries, cfg.slots),
         assign=assign, seg_up2=up2, seg_down2=down2,
         vis=_vis_seg_caps(lane.vtl, boundaries) if cfg.react else None,
-        device=device, dtype=dtype)
+        seg_dem=dem, device=device, dtype=dtype)
 
 
 # float32 bytes_total overflow conditions seen in this process, in

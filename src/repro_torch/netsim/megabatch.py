@@ -10,6 +10,13 @@ several scenarios is grouped here instead:
     (the topology shape, slots, record cadence, reaction, trace spec)
     and by their pow2 flow bucket (`_bucket`, at least
     `FLOW_BUCKET_MIN`), as the reference groups them;
+  * points with and without a schedule workload share a sub-batch: its
+    `n_phases` is the pow2 bucket of its widest demand timeline (0 when
+    no point has one, so the slot has no demand multiply), and a lane
+    without a schedule, or with fewer timeline lanes, reads 1.0 in the
+    lanes it lacks.  The reference puts `n_phases` in its structural
+    key and runs such points in separate programs; the results are the
+    same (a product with 1.0 is exact), the loops fewer;
   * within a group, the reference's `lax.switch` over `StackIdx`
     becomes one sub-batch per (routing, NIC): each is one slot loop
     over a lane axis (on CUDA one captured graph a segment of the union
@@ -57,10 +64,18 @@ def _bucket(n: int, lo: int = 1) -> int:
     return max(lo, 1 << max(0, int(n - 1).bit_length()))
 
 
+def _sub_key(compiled) -> Tuple:
+    """A point's sub-batch within its group: its structure
+    (`engine._lane_key`) with the demand-timeline lane count lifted
+    out."""
+    cfg, trace = engine._lane_key(compiled)
+    return replace(cfg, n_phases=0), trace
+
+
 def _struct_key(compiled) -> Tuple:
     """A point's structure with routing and NIC lifted out, and its
     flow bucket."""
-    cfg, trace = engine._lane_key(compiled)
+    cfg, trace = _sub_key(compiled)
     cfg = replace(cfg, routing="*", nic="*", sw_lb_delay_slots=0)
     return cfg, trace, _bucket(len(compiled.flows), FLOW_BUCKET_MIN)
 
@@ -92,13 +107,17 @@ def prepare_planned(group: Sequence[Tuple], caches: Dict
     is prepared only when the caller asks for it (after dispatching the
     one before, say).  Each lane's plans at the sub-batch's widths are
     built here too, so `dispatch_prepared` only moves operands to the
-    device.  Makes no device call."""
+    device.  Every lane of a sub-batch takes its `n_phases` bucket.
+    Makes no device call."""
     pad = _bucket(max(len(c.flows) for _, c in group), FLOW_BUCKET_MIN)
     subs: Dict[Tuple, List[Tuple[int, object]]] = {}
     for i, c in group:
-        subs.setdefault(engine._lane_key(c), []).append((i, c))
+        subs.setdefault(_sub_key(c), []).append((i, c))
     for members in subs.values():
         lanes = [engine._lane(c, caches) for _, c in members]
+        k = max(ln.cfg.n_phases for ln in lanes)
+        lanes = [ln._replace(cfg=replace(ln.cfg, n_phases=_bucket(k) if k
+                                         else 0)) for ln in lanes]
         widths = engine._batch_widths(lanes)
         for lane in lanes:
             engine._lane_aggs(lane, widths, pad, caches)

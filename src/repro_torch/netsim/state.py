@@ -26,6 +26,7 @@ class FlowBatch(NamedTuple):
     bytes_total: torch.Tensor  # (F,) float (inf = open-loop)
     start_slot: torch.Tensor   # (F,) int64
     same_leaf: torch.Tensor    # (F,) bool
+    phase: torch.Tensor        # (F,) int64 demand-timeline lane
 
     @classmethod
     def from_arrays(cls, fa: FlowArrays, device: torch.device,
@@ -42,7 +43,7 @@ class FlowBatch(NamedTuple):
                    dst_leaf=dst_leaf, demand=floats(fa.demand),
                    bytes_total=floats(fa.bytes_total),
                    start_slot=ints(fa.start_slot),
-                   same_leaf=src_leaf == dst_leaf)
+                   same_leaf=src_leaf == dst_leaf, phase=ints(fa.phase))
 
 
 class NicCarry(NamedTuple):

@@ -10,8 +10,9 @@ both packages.  Faults reach the engine as a capacity timeline
 `poisson_flap` fault is drawn once into a slot schedule
 (`poisson_flap_schedule`), and failure reaction lowers to the reference's
 lag (`spec.reaction_lag`, applied to the timeline by the engine) and its
-fast-reroute backup table.  Schedule workloads belong to a later slice
-of the port and raise `NotImplementedError`.
+fast-reroute backup table.  A schedule workload lowers through
+`repro_torch.comms` to its flows, a (slots, K) demand-multiplier
+timeline and its `TrainSchedule` step metadata.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.comms import lower_schedule
 from repro_torch.core.fault_tolerance import poisson_flaps
 from repro_torch.netsim import events
 from repro_torch.netsim.fabric import Flow
@@ -37,7 +39,8 @@ from .spec import (ScenarioSpec, WorkloadSpec, fault_planes,
 class CompiledScenario:
     """One run bundle: the pristine topology, the flow list, the sim
     parameters, the tenant host sets, the fault transition slots the
-    runner measures recovery from and, under a `mode="backup"` failure
+    runner measures recovery from, with schedule workloads the demand
+    timeline and step metadata and, under a `mode="backup"` failure
     reaction, the fast-reroute successor table."""
     spec: ScenarioSpec
     topo: Fabric
@@ -45,6 +48,10 @@ class CompiledScenario:
     cfg: SimConfig
     tenants: Dict[str, List[int]]
     fault_slots: Tuple[Tuple[int, str], ...]   # (slot, label), sorted
+    # schedule workloads only: (slots, K) demand-multiplier timeline
+    # (lane 0 always 1.0) + per-schedule `comms.TrainSchedule` metadata
+    phase_mult: Optional[np.ndarray] = None
+    schedules: Tuple = ()
     backup: Optional[np.ndarray] = None        # (J,) int32
 
     def run(self, device=None, dtype=None):
@@ -170,21 +177,36 @@ def _build_workload(w: WorkloadSpec, topo: LeafSpine, hosts: List[int],
 
 def build_flows(spec: ScenarioSpec, topo: LeafSpine,
                 tenants: Dict[str, List[int]],
-                rng: np.random.Generator) -> List[Flow]:
-    """Lower every workload, consuming `rng` in declaration order."""
+                rng: np.random.Generator
+                ) -> Tuple[List[Flow], Optional[np.ndarray], Tuple]:
+    """Lower every workload, consuming `rng` in declaration order.
+    Returns `(flows, phase_mult, schedules)`: `phase_mult` is the
+    (slots, K) demand-multiplier timeline (None when no schedule
+    workload is present) and `schedules` the matching
+    `comms.TrainSchedule` metadata, flow indices already rebased onto
+    the global flow list.  Multiple schedule workloads stack their lanes
+    column-wise; lane 0 stays the shared always-1.0 lane."""
     flows: List[Flow] = []
+    pm: Optional[np.ndarray] = None
+    schedules: List = []
     for w in spec.workloads:
         group = w.group or w.tenant
         if w.kind == "schedule":
-            raise NotImplementedError(
-                f"{spec.name}: schedule workloads arrive with the "
-                "phases slice of the port")
+            lane_off = 0 if pm is None else pm.shape[1] - 1
+            fl, wpm, sched = lower_schedule(
+                w, tenants[w.tenant], spec.topo, spec.sim, group,
+                lane_offset=lane_off)
+            schedules.append(sched.shifted(len(flows)))
+            pm = wpm if pm is None else np.concatenate(
+                [pm, wpm[:, 1:]], axis=1)
+            flows += fl          # start slots are schedule-internal
+            continue
         fl = _build_workload(w, topo, tenants[w.tenant], rng, group)
         if w.start_slot:
             for f in fl:
                 f.start_slot = w.start_slot
         flows += fl
-    return flows
+    return flows, pm, tuple(schedules)
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +283,7 @@ def compile_scenario(spec: ScenarioSpec) -> CompiledScenario:
     topo = build_topology(spec.topo)
     rng = np.random.default_rng(spec.workload_seed)
     tenants = resolve_tenants(spec, rng)
-    flows = build_flows(spec, topo, tenants, rng)
+    flows, phase_mult, schedules = build_flows(spec, topo, tenants, rng)
     if not flows:
         raise ValueError(f"{spec.name}: scenario compiled to zero flows")
     cfg = SimConfig(
@@ -282,4 +304,5 @@ def compile_scenario(spec: ScenarioSpec) -> CompiledScenario:
     return CompiledScenario(spec=spec, topo=topo, flows=flows, cfg=cfg,
                             tenants=tenants,
                             fault_slots=fault_transitions(spec),
+                            phase_mult=phase_mult, schedules=schedules,
                             backup=backup)

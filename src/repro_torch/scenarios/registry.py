@@ -4,9 +4,8 @@ declarative specs.  Every entry is a zero-argument factory so specs stay
 immutable and cheap to parameterize via `.with_sim(...)`.
 
 A copy of the reference registry, entry for entry, so a name resolves to
-the same spec in both packages (`tests/test_torch_prep.py` checks it).
-Scenarios outside this package's slice still resolve; compiling or
-running them raises `NotImplementedError`.
+the same spec in both packages (`tests/test_torch_prep.py` checks it),
+and every entry compiles and runs on the port.
 """
 from __future__ import annotations
 
@@ -471,8 +470,8 @@ def poisson_flap_storm() -> ScenarioSpec:
 
 
 # ---------------------------------------------------------------------------
-# training-step co-simulation (repro.comms): real collective schedules
-# compiled into the fabric
+# training-step co-simulation (repro_torch.comms): real collective
+# schedules compiled into the fabric
 # ---------------------------------------------------------------------------
 #
 # 8 ranks on a fig12-style 4-plane fabric (access 0.25 x line per

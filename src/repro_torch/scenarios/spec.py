@@ -144,10 +144,11 @@ class TenantSpec:
 class ScheduleSpec:
     """A training-step collective schedule to co-simulate (kind='schedule').
 
-    Pure data: `model` names an entry in `repro.configs.ARCHS`; byte
-    volumes are derived at compile time by `repro.comms` from the model's
-    parameter pytree (dtype-aware micro-chunk streams), MoE capacity math,
-    and pipeline activation sizes — nothing heavy happens at spec time.
+    Pure data: `model` names an entry in `repro_torch.configs.ARCHS`;
+    byte volumes are derived at compile time by `repro_torch.comms` from
+    the model's parameter layout (dtype-aware micro-chunk streams), MoE
+    capacity math, and pipeline activation sizes — nothing heavy happens
+    at spec time.
 
     Rank layout over the tenant's hosts is tp-fastest:
     ``rank = t + tp * (d + dp * p)`` for tp-coordinate `t`, dp-coordinate
@@ -219,7 +220,7 @@ class WorkloadSpec:
                       (`schedule` field): DP ring allreduce streams, MoE
                       all2all dispatch, PP send/recv edges, and optional
                       checkpoint writes, phased over time via the
-                      demand-multiplier timeline (`repro.comms`).
+                      demand-multiplier timeline (`repro_torch.comms`).
 
     `demand` scales the builder's native per-flow rate ('incast',
     'permutation', 'storage', 'pairs' use it directly as the per-flow

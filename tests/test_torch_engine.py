@@ -316,12 +316,11 @@ def test_entry_points_refuse_cuda_without_gpu(monkeypatch):
 def _slice():
     """The registry scenarios the port runs below giga scale (the giga
     point has its own test): leaf-spine and fat-tree fabrics, with and
-    without failure reaction."""
+    without failure reaction, the training-step schedules included."""
     return sorted(
         n for n in jx_list()
         if jx_get(n).sim.routing in ("ar", "war", "ecmp")
-        and jx_get(n).topo.n_hosts < 4096
-        and all(w.kind != "schedule" for w in jx_get(n).workloads))
+        and jx_get(n).topo.n_hosts < 4096)
 
 
 @pytest.mark.slow

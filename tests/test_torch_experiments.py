@@ -91,7 +91,10 @@ def _cut_grid(g, get, slots):
 
 def _cut(exp, get=get_scenario, slots=SLOTS):
     """A library experiment at `slots` slots, through its base spec's (or
-    its scenario axis' specs') `sim.slots`."""
+    its scenario axis' specs') `sim.slots`; `slots=None` leaves it at its
+    registered size."""
+    if slots is None:
+        return exp
     base = exp.base
     if base is not None:
         base = (get(base) if isinstance(base, str) else base) \
@@ -388,9 +391,21 @@ def test_megabatch_rows_come_back_in_grid_order_with_a_pipeline():
 
 
 def test_train_comms_resiliency_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="phases"):
-        run_experiment(get_experiment("train_comms_resiliency"),
-                       device="cpu")
+    """The schedule study, which raised until the port had schedule
+    workloads, now runs: its rows equal the reference's (JAX engine
+    under x64 and its derive hook, at the registry's sizes: a schedule
+    does not fit in fewer slots) and carry the study's signature."""
+    rs = run_experiment(get_experiment("train_comms_resiliency"),
+                        device="cpu")
+    want = _reference_rows("train_comms_resiliency", slots=None)
+    got = rs.to_metrics()
+    assert len(got) == len(want) == 3
+    for g, (p, w) in zip(got, want):
+        assert g.extra.keys() == w.extra.keys() and g.extra
+        _assert_rows_equal(g, w)
+    for g in got[1:]:
+        assert g.extra["step_inflation"] >= 1.2
+        assert g.extra["last_step_ratio"] <= 1.1
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

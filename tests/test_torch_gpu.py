@@ -1145,3 +1145,87 @@ def test_captured_and_eager_executors_give_equal_rows(cuda, monkeypatch):
     eager = execute_points(specs, device=cuda, derive=exp.derive, flight=fl)
     assert fl["dispatch_stats"]["graphs"] == 0
     _assert_rows_close(captured, eager, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# training-step schedules (demand timelines) on the card
+# ---------------------------------------------------------------------------
+
+_SCHEDULES = ("train_step_baseline", "train_step_flap", "train_step_flap_moe")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", [None, "ecmp", "war"])
+@pytest.mark.parametrize("name", _SCHEDULES)
+def test_gpu_schedule_reproduces_cpu_path(cuda, name, routing):
+    """A schedule run on the card (captured, float64) against the CPU
+    plain path: per-flow outputs within 1e-12, completion slots and step
+    times equal, 5 hand-written launches a slot; the flaps show the
+    study's signature."""
+    spec = get_scenario(name)
+    if routing is not None:
+        spec = spec.with_sim(routing=routing)
+    c = compile_scenario(spec)
+    build.reset_launches()
+    gpu = c.run(device=cuda)
+    T = spec.sim.slots
+    route = ({"bucket_load_bottleneck": T} if spec.sim.routing == "ecmp"
+             else {"pair_fractions": T})
+    assert build.LAUNCHES == dict(
+        dict.fromkeys(build.KERNELS, 0), plane_split=T, bottleneck=T,
+        queue_update=T, nic_update=T, **route)
+    cpu = compile_scenario(spec).run(device="cpu")
+    np.testing.assert_allclose(gpu.mean_goodput, cpu.mean_goodput,
+                               rtol=1e-12, atol=1e-15)
+    np.testing.assert_array_equal(gpu.completion_slot, cpu.completion_slot)
+    st = c.schedules[0].step_times(gpu.completion_slot, T)
+    np.testing.assert_array_equal(
+        st, c.schedules[0].step_times(cpu.completion_slot, T))
+    if "flap" in name:
+        assert st[1] >= 1.2 * st[0] and st[2] <= 1.1 * st[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,routing", [
+    ("train_step_baseline", None), ("train_step_flap", None),
+    ("train_step_flap", "ecmp"), ("train_step_flap_moe", "war"),
+    ("train_step_flap_moe", "ecmp")])
+def test_schedule_captured_loop_equals_eager_loop(cuda, dtype, name,
+                                                  routing):
+    """One graph a segment, phase boundaries included: the captured
+    loop equals the eager one bit for bit, with the eager loop's
+    launches."""
+    spec = get_scenario(name)
+    if routing is not None:
+        spec = spec.with_sim(routing=routing)
+    cfg, ((eager, n_eager), (captured, n_captured)) = _eager_and_captured(
+        spec, cuda, dtype)
+    assert cfg.n_phases == 4
+    for a, b in zip(captured, eager, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert n_captured == n_eager
+
+
+@pytest.mark.gpu
+def test_gpu_megabatch_mixes_schedule_and_plain_lanes(cuda):
+    """Schedule and plain points of one fabric and flow bucket share a
+    captured loop a (routing, NIC); each lane equals its point alone on
+    the card."""
+    import dataclasses
+    from repro_torch.netsim import megabatch
+    from repro_torch.scenarios.spec import WorkloadSpec
+    plain = dataclasses.replace(get_scenario("train_step_flap"),
+                                name="train_topo_all2all",
+                                workloads=(WorkloadSpec("all2all",
+                                                        demand=0.5),))
+    specs = [get_scenario("train_step_baseline"),
+             get_scenario("train_step_flap"), plain,
+             get_scenario("train_step_flap").with_sim(routing="ecmp"),
+             plain.with_sim(routing="ecmp", seed=3)]
+    points = [compile_scenario(s) for s in specs]
+    engine.reset_dispatch_stats()
+    got = megabatch.run_megabatch(points, device=cuda)
+    assert engine.dispatch_stats()["loops"] == 2
+    for c, g in zip(points, got):
+        _assert_lane_equals(g, c.run(device=cuda))

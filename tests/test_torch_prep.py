@@ -4,17 +4,17 @@ equality.
 The port keeps its own copies of the scenario schema and registry, the
 scenario compiler, the fault-timeline compiler, the ECMP assignment
 replay and the slot engine's operand builders.  For every leaf-spine
-AR/WAR/ECMP registry scenario without failure reaction or schedule
-workloads (among them the giga-scale point under its own ECMP), the
-giga point under AR and three registry scenarios under ECMP, the copies
-must produce exactly the reference's flows, tenants, fault transitions,
-`FlowArrays`, capacity timelines, segment maps, ECMP assignment
-segments and aggregation plans — so both engines start every run from
-the same operands.  The copies of the §5 telemetry analyses and the
+AR/WAR/ECMP registry scenario without failure reaction (among them the
+giga-scale point under its own ECMP and the three training-step
+schedules), the giga point under AR and three registry scenarios under
+ECMP, the copies must produce exactly the reference's flows, tenants,
+fault transitions, `FlowArrays`, demand timelines, capacity timelines,
+segment maps, ECMP assignment segments and aggregation plans — so both
+engines start every run from the same operands.  The copies of the §5 telemetry analyses and the
 trace summary and exporters must give the reference's results on the
 same traces.  The last tests pin the import boundary (the port imports
-neither `jax` nor `repro`) and the `NotImplementedError`s of the parts
-later slices bring.
+neither `jax` nor `repro`) and that the schedule scenarios, the last
+registry entries to arrive, compile as the reference compiles them.
 """
 import ast
 import dataclasses
@@ -45,8 +45,7 @@ def _in_slice(name: str) -> bool:
     s = jx_get(name)
     return (s.topo.kind == "leaf_spine"
             and s.sim.routing in ("ar", "war", "ecmp")
-            and s.reaction is None
-            and all(w.kind != "schedule" for w in s.workloads))
+            and s.reaction is None)
 
 
 SLICE = sorted(n for n in jx_list() if _in_slice(n))
@@ -74,9 +73,11 @@ def _flow_rows(flows):
 
 
 def test_slice_covers_the_leaf_spine_ar_war_registry():
-    assert len(SLICE) == 18
+    assert len(SLICE) == 21
     assert {"fig9_victim_noise", "fig11_degraded_leaf",
-            "fig12_plane_flap", "giga_fabric_storage"} <= set(SLICE)
+            "fig12_plane_flap", "giga_fabric_storage",
+            "train_step_baseline", "train_step_flap",
+            "train_step_flap_moe"} <= set(SLICE)
 
 
 def test_registry_specs_equal_the_reference():
@@ -93,6 +94,11 @@ def test_host_prep_equals_reference(name):
     assert _flow_rows(c.flows) == _flow_rows(rc.flows)
     assert c.tenants == rc.tenants
     assert c.fault_slots == rc.fault_slots
+    assert (c.phase_mult is None) == (rc.phase_mult is None)
+    if rc.phase_mult is not None:
+        np.testing.assert_array_equal(c.phase_mult, rc.phase_mult)
+        assert [dataclasses.asdict(x) for x in c.schedules] == \
+            [dataclasses.asdict(x) for x in rc.schedules]
 
     rfa = JxFlowArrays.build(rc.flows, rc.topo)
     fa = FlowArrays.build(c.flows, c.topo)
@@ -223,10 +229,25 @@ def test_port_imports_neither_jax_nor_repro(path):
     ("train_step_flap_moe", "compile"),
 ])
 def test_later_slices_raise_not_implemented(name, stage):
-    spec = _pair(name)[1]
+    """The schedule scenarios, once left to a later slice, now compile
+    as the reference compiles them: the same flows, demand timeline,
+    `TrainSchedule`s and segment starts (capacity and phase changes)."""
+    ref_spec, spec = _pair(name)
     assert stage == "compile"
-    with pytest.raises(NotImplementedError):
-        compile_scenario(spec)
+    rc, c = jx_compile(ref_spec), compile_scenario(spec)
+    assert _flow_rows(c.flows) == _flow_rows(rc.flows)
+    np.testing.assert_array_equal(c.phase_mult, rc.phase_mult)
+    assert [dataclasses.asdict(x) for x in c.schedules] == \
+        [dataclasses.asdict(x) for x in rc.schedules]
+    assert len(c.schedules) == 1
+    lane = engine._lane(c)
+    rcfg, _, rtl, rpm, _ = jx_engine._prepared(rc)
+    assert lane.cfg.n_phases == rcfg.n_phases == rc.phase_mult.shape[1]
+    assert lane.boundaries == tuple(sorted(
+        set(rtl.change_slots()) | set(jx_engine.phase_boundaries(rpm))))
+    np.testing.assert_array_equal(
+        engine._seg_dem(c.phase_mult, lane.boundaries),
+        jx_engine._seg_dem(rpm, lane.boundaries))
 
 
 def test_ecmp_replay_raises_outside_the_slice():
