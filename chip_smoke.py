@@ -30,6 +30,11 @@ Phases, each fatal on failure:
             tree's pair_fractions (32 cores), bottleneck as its slot's
             group of six pairs and queue_update as its group of four
             entries, all in float32 and float64, and
+            segment_sum (sparse aggregation's flow-ordered sum; not a
+            TPU kernel) on the giga point's own plans: access, ECMP
+            links, the AR pair plan, a slot's grouped launch, LANES
+            seeds' link plans and a fold over chunks of SEG_CHUNK
+            flows, timed beside `index_add_` (which keeps no order),
             the per-packet jsq_route and plb_select at the
             `kernels_bench.py` shapes plus a block tail (jsq_route
             also with every port scoring the same); CUDA-event
@@ -40,8 +45,9 @@ Phases, each fatal on failure:
             one element in the same harness.
   sync      the AR, WAR and ECMP slot loops on both fabrics, under
             failure reaction and with a training-step schedule (its
-            phase boundaries and its flap), and a traced batch of three
-            points, eager
+            phase boundaries and its flap), under sparse aggregation
+            and in flow chunks (SYNC_SPARSE), and a traced batch of
+            three points, eager
             and the replays of the captured one, run with CUDA sync
             debugging set to "error": nothing in them makes the host
             wait (the capture, which synchronises on entry, runs
@@ -74,6 +80,22 @@ Phases, each fatal on failure:
             contract used for giga-scale parity (the reaction run's
             blackhole series within 1e-5), and the leaf-spine ECMP one
             against the golden row (1e-5).
+            Each giga run takes the engine's own aggregation mode
+            (sparse at 4,096 hosts); the ECMP point runs once more
+            forced dense (REPRO_JX_AGG=dense), so the dense path and
+            bucket_load_bottleneck stay driven at giga.
+  sparse    the giga point under AR and its own ECMP, f64 and f32,
+            under its own mode (sparse) and forced dense: bit-equal to
+            each other, each captured loop bit-equal to its eager loop,
+            with the entry point's wall, replays a slot, the device's
+            busy share and device launches a slot (torch.profiler),
+            hand-written launches a slot and peak memory; the ECMP f64
+            point in chunks of SEG_CHUNK flows (7, a tail of 4,096),
+            bit-equal to one pass; a megabatch of 3 giga seeds sparse
+            and in chunks, each row equal to its point alone; and
+            `giga_beyond` (GIGA_BEYOND: 409,600 flows, ECMP, f64, 60
+            slots) sparse and forced dense, bit-equal, its first
+            BEYOND_CPU_SLOTS slots against the CPU path.
   trace     fig12_plane_flap at 600 slots traced through the entry
             point in float64, against the CPU path (host_bw, util and
             queue within 1e-5, ecn and eligible equal) and the paper's
@@ -163,6 +185,7 @@ import re
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -195,11 +218,21 @@ ECMP_SLOT = {"plane_split": 1, "bucket_load_bottleneck": 1,
 PER_SLOT = {(kind, routing): ECMP_SLOT if routing == "ecmp" else AR_SLOT
             for kind in ("leaf_spine", "fat_tree")
             for routing in ("ar", "war", "ecmp")}
+# under sparse aggregation one segment_sum launch sums a slot's access,
+# pair (AR/WAR) or link (ECMP, in place of bucket_load_bottleneck) loads
+SPARSE_SLOT = {"plane_split": 1, "segment_sum": 1, "bottleneck": 1,
+               "queue_update": 1, "nic_update": 1}
 # the giga point on a 3-tier fat tree of the same bisection per plane:
 # 16 pods of 16 leaves with 16 aggs on 1.0 links, and 32 cores on 8.0
 # pod links (16 leaves x 16 aggs x 1.0 = 32 cores x 8.0 a pod)
 GIGA_FAT_TREE = dict(kind="fat_tree", n_pods=16, n_aggs=16, n_cores=32,
                      link_cap=1.0, core_link_cap=8.0)
+# beyond giga: giga_fabric_storage's spec on 512 leaves x 32 hosts, 32
+# spines and 4 planes (16,384 hosts, storage fanout 25: 409,600 flows),
+# the size sparse aggregation exists for
+GIGA_BEYOND = dict(n_leaves=512, hosts_per_leaf=32, n_spines=32,
+                   n_planes=4)
+BEYOND_CPU_SLOTS = 10
 # training-step schedules at full width on the giga leaf-spine: a model
 # at its published dims (reduced=False) over dp x tp=8 x pp=2 ranks, two
 # steps, with rank 0 losing plane 1 across step 1's gradient-sync window
@@ -225,6 +258,9 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:20",
     "int8_encode": "src/repro/kernels/int8_codec.py:17",
     "int8_decode": "src/repro/kernels/int8_codec.py:26",
+    # not a TPU kernel: XLA's segment_sum (segment_load, and
+    # segment_load_chunk at :151) in the reference
+    "segment_sum": "src/repro/kernels/link_load.py:141",
 }
 # fabric shapes the main path hands the kernels
 SHAPES = {"fig9": dict(F=2496, P=1, L=8, S=8, H=64),
@@ -241,6 +277,9 @@ ECMP_SHAPES = {"fig11": "fig11_degraded_leaf", "giga": "giga_fabric_storage",
 # lanes of the lane-axis bucket_load_bottleneck cases and of the giga
 # batch (seeds 0..LANES-1 of one point)
 LANES = 4
+# flows a chunk of the segment_sum fold case and of the sparse phase's
+# chunked giga run (102,400 flows: 7 chunks, a tail of 4,096)
+SEG_CHUNK = 16384
 # the trace phase: fig12's plane flap at full length (600 slots) must
 # give the paper's signature; the giga point records every TRACE_EVERY
 # slots
@@ -271,7 +310,8 @@ PACKET_BATCHES = 16
 # scale, score add, compare), for the operations bound
 FLOPS_PER_ELEM = {"plane_split": 8, "pair_fractions": 30, "bottleneck": 2,
                   "bucket_load_bottleneck": 1, "queue_update": 7,
-                  "nic_update": 20, "jsq_route": 11, "plb_select": 14}
+                  "nic_update": 20, "jsq_route": 11, "plb_select": 14,
+                  "segment_sum": 1}
 NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
               target_rtt_us=12.0, min_rate=0.01, md=0.7, ai=0.08,
               rtt_gain=0.15, dcqcn_ai=0.01, alpha_g=0.0625)
@@ -299,8 +339,8 @@ CODEC_FLOPS = {"int8_encode": 6, "int8_decode": 2}
 
 def scenario(name: str, routing=None):
     """The port's registry spec, or one of the giga variants this script
-    builds (`giga_fat_tree`, `giga_fabric_storage_reroute` and the
-    GIGA_TRAIN schedules), with `routing` overridden if given."""
+    builds (`giga_fat_tree`, `giga_fabric_storage_reroute`, `giga_beyond`
+    and the GIGA_TRAIN schedules), with `routing` overridden if given."""
     from repro_torch.scenarios import get_scenario
     from repro_torch.scenarios.spec import (FaultSpec, ScenarioSpec,
                                             ScheduleSpec, SimSpec,
@@ -327,6 +367,11 @@ def scenario(name: str, routing=None):
         spec = dataclasses.replace(
             spec, name=name,
             topo=dataclasses.replace(spec.topo, **GIGA_FAT_TREE))
+    elif name == "giga_beyond":
+        spec = get_scenario("giga_fabric_storage")
+        spec = dataclasses.replace(
+            spec, name=name,
+            topo=dataclasses.replace(spec.topo, **GIGA_BEYOND))
     elif name == "giga_fabric_storage_reroute":
         # the registry's failure reaction: backup failover after 2 slots
         spec = dataclasses.replace(
@@ -388,18 +433,21 @@ def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
 
 def case(kernel, mode, shape, dtype, run, plain, nbytes, ops, *,
          rtol=None, loose=None, summary=False, extra=None,
-         width=None, same=None) -> dict:
+         width=None, same=None, plain_events=False) -> dict:
     """One kernel-vs-plain comparison.  The kernel must equal `plain`
     bit for bit unless `rtol` is set (then: relative error); `loose` is
     a further (plain call, rtol) the result must meet; `same` a further
     call whose result it must equal bit for bit; `summary` marks the
     case reported in the `{"kernels": [...]}` line; `extra` names
     further calls to time beside the kernel; `width` is an ECMP plan's
-    padded bucket width, printed beside its time."""
+    padded bucket width, printed beside its time; `plain_events` times
+    the plain version between CUDA events (`event_ms`) where it reads
+    the device on the host and cannot be captured."""
     return dict(kernel=kernel, mode=mode, shape=shape,
                 dtype=str(dtype).split(".")[1], run=run, plain=plain,
                 bytes=nbytes, ops=ops, rtol=rtol, loose=loose,
-                summary=summary, extra=extra or {}, width=width, same=same)
+                summary=summary, extra=extra or {}, width=width, same=same,
+                plain_events=plain_events)
 
 
 # flash_attention kernels and the tensor-core instruction each must
@@ -648,12 +696,14 @@ def fat_tree_cases(dtype, seed: int) -> list:
 def ecmp_plan(sname: str):
     """(ECMP link-bucket plan, stacked link capacities) of the last
     capacity segment of `ECMP_SHAPES[sname]` under ECMP, from the
-    port's own host prep, on the card."""
+    port's own host prep with dense aggregation forced (the giga shapes
+    run sparse by their own mode), on the card."""
     import torch
     from repro_torch.netsim import engine
     from repro_torch.scenarios import compile_scenario
     c = compile_scenario(scenario(ECMP_SHAPES[sname], "ecmp"))
-    _, fa, ops = engine.prepare(c, "cuda", torch.float64)
+    with agg_env("dense"):
+        _, fa, ops = engine.prepare(c, "cuda", torch.float64)
     return len(fa), ops.ecmp_load[-1], ops.link_cap[-1]
 
 
@@ -693,13 +743,15 @@ def ecmp_cases(sname: str, plan, cap64, F: int, dtype, seed: int):
 def lane_plans(sname: str, lanes: int = LANES):
     """(flows, (B, P, R, C) plans, (B, P, R) capacities) of the last
     capacity segment of `lanes` seeds of `ECMP_SHAPES[sname]` under
-    ECMP, as `engine.prepare_batch` stacks them for one batched slot."""
+    ECMP, as `engine.prepare_batch` stacks them for one batched slot
+    (dense aggregation forced)."""
     import torch
     from repro_torch.netsim import engine
     from repro_torch.scenarios import compile_scenario
     points = [compile_scenario(scenario(ECMP_SHAPES[sname], "ecmp")
                                .with_sim(seed=s)) for s in range(lanes)]
-    _, _, fas, ops = engine.prepare_batch(points, "cuda", torch.float64)
+    with agg_env("dense"):
+        _, _, fas, ops = engine.prepare_batch(points, "cuda", torch.float64)
     return len(fas[0]), ops.ecmp_load[-1], ops.link_cap[-1]
 
 
@@ -796,6 +848,155 @@ def packet_cases(seed: int):
     return out
 
 
+def segment_plans():
+    """The giga point's sparse plans from the port's own host prep, on
+    the card: the access plan (src host x plane: 8,192 buckets over
+    204,800 entries), the ECMP link plan of the last capacity segment
+    (up and down, 8,192 buckets each), the AR pair plan (plane x leaf
+    pair: 131,072 buckets), the link plans of LANES seeds stacked as
+    one batch's, and the access plan in chunks of SEG_CHUNK flows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.link_load import SegmentPlan
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import compile_scenario
+
+    def last(plan):
+        return SegmentPlan(plan.offsets[-1], plan.entries[-1])
+
+    with agg_env("sparse"):
+        _, fa, ops = engine.prepare(compile_scenario(
+            scenario("giga_fabric_storage")), "cuda", torch.float64)
+        _, _, ops_ar = engine.prepare(compile_scenario(
+            scenario("giga_fabric_storage", "ar")), "cuda", torch.float64)
+        points = [compile_scenario(scenario("giga_fabric_storage")
+                                   .with_sim(seed=s)) for s in range(LANES)]
+        _, _, _, bops = engine.prepare_batch(points, "cuda", torch.float64)
+    F, P = len(fa), ops.up.shape[1]
+    keys = fa.src[:, None] * P + np.arange(P)[None, :]
+    nc = -(-F // SEG_CHUNK)
+    chunked = engine._csr([(np.arange(F), keys)],
+                          ops.sparse.src.offsets.numel() - 1, SEG_CHUNK, nc)
+    return dict(F=F, P=P, access=ops.sparse.src, dst=ops.sparse.dst,
+                link=last(ops.sparse.link), pair=ops_ar.sparse.pair,
+                lanes=last(bops.sparse.link),
+                fold=SegmentPlan(*(torch.as_tensor(a, device="cuda")
+                                   for a in chunked)), chunks=nc)
+
+
+def bucket_of(plan, n_vals: int, families: int = 1):
+    """Each value's bucket under a one-family plan (`families` > 1:
+    the plan's entries family after family, each family listing every
+    value once): the keys an `index_add_` takes, one (n_vals,) index
+    per family."""
+    import torch
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).long()
+    bucket = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+    out = []
+    for f in range(families):
+        sel = slice(f * n_vals, (f + 1) * n_vals)
+        key = torch.empty(n_vals, dtype=torch.long, device=counts.device)
+        key[plan.entries[sel].long()] = bucket[sel]
+        out.append(key)
+    return out
+
+
+def segment_cases(plans: dict, dtype, seed: int) -> list:
+    """segment_sum at the giga shapes, bit-equal to its plain version:
+    the access plan alone (the summary row: the library call is one
+    `index_add_` over the same values and keys, which keeps no order),
+    the ECMP link plan and the pair plan alone, a slot's grouped launch
+    (both access sums and the link sums), LANES seeds' link plans in one
+    launch, and a fold over chunks of SEG_CHUNK flows (a tail included)
+    equal to one call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import link_load, ref
+    from repro_torch.netsim import engine
+
+    rng = np.random.default_rng(seed)
+    F, P = plans["F"], plans["P"]
+    isz = torch.empty((), dtype=dtype).element_size()
+
+    def rates(*lead):
+        a = rng.uniform(0.0, 1.0, lead + (F, P))
+        a[rng.random(lead + (F, P)) < 0.1] = 0.0
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    offered, fabric, batch = rates(), rates(), rates(LANES)
+
+    def nbytes(items):
+        """Each plan's offsets and entries and each value read once,
+        each sum written once."""
+        n, seen = 0, set()
+        for v, p in items:
+            K = p.offsets.numel() - 1
+            n += 4 * (K + 1 + p.entries.numel()) + K * isz
+            if id(v) not in seen:
+                seen.add(id(v))
+                n += v.numel() * isz
+        return n
+
+    def plain(items):
+        return tuple(ref.segment_sum_ref(v, p.offsets, p.entries)
+                     for v, p in items)
+
+    def library(v, keys, K):
+        """One `index_add_` a family (unordered: a yardstick)."""
+        flat = v.reshape(-1)
+        return lambda: [v.new_zeros(K).index_add_(0, k, flat)
+                        for k in keys]
+
+    out = []
+    singles = {"access": (offered, plans["access"], 1),
+               "ecmp links": (fabric, plans["link"], 2),
+               "pair": (fabric, plans["pair"], 1)}
+    for name, (v, plan, fam) in singles.items():
+        items = ((v, plan),)
+        K = (plan.offsets.numel() - 1) // fam          # buckets a family
+        keys = [k - f * K for f, k in enumerate(bucket_of(plan, F * P,
+                                                          fam))]
+        out.append(case(
+            "segment_sum", "", f"giga {name}", dtype,
+            lambda items=items: link_load.segment_sum_many(items),
+            lambda items=items: plain(items), nbytes(items),
+            int(plan.entries.numel()),
+            summary=name == "access" and dtype == torch.float64,
+            extra={"library_ms": library(v, keys, K)}, plain_events=True))
+    slot = ((offered, plans["access"]), (offered, plans["dst"]),
+            (fabric, plans["link"]))
+    out.append(case(
+        "segment_sum", "slot x3", "giga ecmp", dtype,
+        lambda: link_load.segment_sum_many(slot), lambda: plain(slot),
+        nbytes(slot), sum(int(p.entries.numel()) for _, p in slot),
+        plain_events=True))
+    lanes = ((batch, plans["lanes"]),)
+    out.append(case(
+        "segment_sum", f"{LANES} lanes", "giga ecmp links", dtype,
+        lambda: link_load.segment_sum_many(lanes), lambda: plain(lanes),
+        nbytes(lanes), int(plans["lanes"].entries.numel()),
+        plain_events=True))
+    nc, fold = plans["chunks"], plans["fold"]
+
+    def folded():
+        acc = None
+        for c in range(nc):
+            acc = link_load.segment_sum(
+                offered[c * SEG_CHUNK:(c + 1) * SEG_CHUNK],
+                engine._chunk_plan(fold, c, nc), acc=acc)
+        return acc
+
+    K = plans["access"].offsets.numel() - 1
+    out.append(case(
+        "segment_sum", f"fold of {nc} chunks", "giga access", dtype,
+        folded, lambda: plain(((offered, plans["access"]),))[0],
+        F * P * isz + 4 * (fold.offsets.numel() + fold.entries.numel())
+        + (2 * nc - 1) * K * isz, int(fold.entries.numel()),
+        plain_events=True))
+    return out
+
+
 def max_errors(got, want):
     """(max |a-b|, max |a-b| / |b| over normal |b|) across outputs."""
     import torch
@@ -850,6 +1051,10 @@ def all_cases():
         for dtype in (torch.float32, torch.float64):
             cases += lane_ecmp_cases(sname, plan, cap, F, dtype,
                                      seed=len(cases))
+    # the flow-ordered segment sum of sparse aggregation
+    plans = segment_plans()
+    for dtype in (torch.float32, torch.float64):
+        cases += segment_cases(plans, dtype, seed=len(cases))
     return cases
 
 
@@ -889,7 +1094,9 @@ def kernel_phase(report: dict) -> dict:
                      "the default plain version")
             row["default_plain_rel_err"] = loose_rel
         if mode not in ("dcqcn", "agg", "swlb"):
-            ms, plain_ms = graph_ms(c["run"]), graph_ms(c["plain"])
+            ms = graph_ms(c["run"])
+            plain_ms = (event_ms(c["plain"]) if c["plain_events"]
+                        else graph_ms(c["plain"]))
             bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
             ops_ms = c["ops"] / PEAK_FLOPS[dname] * 1e3
             row.update(ms=ms, plain_ms=plain_ms,
@@ -943,46 +1150,67 @@ SYNC_CASES = (("fig11_degraded_leaf", None, 24),
               ("reroute_random_failures", "war", 110),
               ("train_step_flap", None, 130),
               ("train_step_flap_moe", "ecmp", 250))
+# (scenario, routing, slots, flow chunk) the sync phase runs under sparse
+# aggregation: one pass on a leaf-spine under ECMP, and a fat tree under
+# WAR in chunks of 17 flows (64 flows: 4 chunks, a tail)
+SYNC_SPARSE = (("fig11_degraded_leaf", "ecmp", 24, None),
+               ("ft_core_failure_resiliency", "war", 110, 17))
+
+
+def sync_loop(name: str, routing, slots: int) -> None:
+    """One SYNC_CASES run: its eager loop and the replays of its captured
+    one under CUDA sync debug mode "error", equal to each other."""
+    import torch
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import compile_scenario
+
+    spec = scenario(name, routing)
+    if any(w.kind == "schedule" for w in spec.workloads):
+        c = first_slots(compile_scenario(spec), slots)
+    else:
+        c = compile_scenario(spec.with_sim(slots=slots))
+    cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
+    loop = engine.slot_loop(cfg, ops)
+    loop.capture()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = engine._simulate(cfg, ops, _eager=True)
+        loop.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    captured = engine._results(cfg, loop.carry, *loop.series)
+    if not all(bool(o.isfinite().all()) for o in eager + captured
+               if o.is_floating_point()):
+        fail("sync phase: non-finite output")
+    if not all(torch.equal(a, b) for a, b in zip(captured, eager,
+                                                 strict=True)):
+        fail("sync phase: the captured loop differs from the eager one")
+    mode = "" if cfg.agg_mode == "dense" else f", {cfg.agg_mode}" + (
+        f" in chunks of {cfg.flow_chunk}" if cfg.flow_chunk else "")
+    print(f"sync: {label(name, routing)} ({cfg.kind}, {cfg.routing}"
+          f"{', reaction' if cfg.react else ''}"
+          f"{', schedule' if cfg.n_phases else ''}{mode}, "
+          f"{len(loop.graphs)} graph(s)): eager slot loop and captured "
+          "replays ran with sync debug mode 'error'", flush=True)
 
 
 def sync_phase() -> None:
     """No slot loop waits for the device, on either fabric, under AR/WAR
-    or ECMP, with or without failure reaction: the eager loop, and the
-    replays of the captured one (its capture, which synchronises on
-    entry, runs before the check)."""
+    or ECMP, with or without failure reaction, under sparse aggregation
+    and in flow chunks: the eager loop, and the replays of the captured
+    one (its capture, which synchronises on entry, runs before the
+    check)."""
     import torch
     from repro_torch.netsim import engine
     from repro_torch.scenarios import compile_scenario
 
     for name, routing, slots in SYNC_CASES:
-        spec = scenario(name, routing)
-        if any(w.kind == "schedule" for w in spec.workloads):
-            c = first_slots(compile_scenario(spec), slots)
-        else:
-            c = compile_scenario(spec.with_sim(slots=slots))
-        cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
-        loop = engine.slot_loop(cfg, ops)
-        loop.capture()
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            eager = engine._simulate(cfg, ops, _eager=True)
-            loop.replay()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        captured = engine._results(cfg, loop.carry, *loop.series)
-        if not all(bool(o.isfinite().all()) for o in eager + captured
-                   if o.is_floating_point()):
-            fail("sync phase: non-finite output")
-        if not all(torch.equal(a, b) for a, b in zip(captured, eager,
-                                                     strict=True)):
-            fail("sync phase: the captured loop differs from the eager one")
-        print(f"sync: {label(name, routing)} ({cfg.kind}, {cfg.routing}"
-              f"{', reaction' if cfg.react else ''}"
-              f"{', schedule' if cfg.n_phases else ''}, {len(loop.graphs)} "
-              "graph(s)): eager slot loop and captured replays ran with "
-              "sync debug mode 'error'", flush=True)
+        sync_loop(name, routing, slots)
+    for name, routing, slots, chunk in SYNC_SPARSE:
+        with agg_env("sparse", chunk):
+            sync_loop(name, routing, slots)
     # a batch over a lane axis with a trace: its record rows come from a
     # device table, never from the host
     from repro_torch.trace import TraceSpec
@@ -1023,8 +1251,64 @@ def check_launches(what: str, counts: dict, want: dict,
         total[k] = total.get(k, 0) + n
 
 
-def slot_launches(kind: str, routing: str, slots: int) -> dict:
-    return {k: slots * n for k, n in PER_SLOT[kind, routing].items()}
+def slot_launches(kind: str, routing: str, slots: int,
+                  agg_mode: str = "dense", chunks: int = 0,
+                  host_bw: bool = False) -> dict:
+    """Hand-written launches of `slots` slots of one path: PER_SLOT under
+    dense aggregation; under sparse SPARSE_SLOT (with pair_fractions
+    under AR/WAR, and one more segment_sum for a trace's host_bw); in
+    `chunks` chunks the plane split twice a chunk and segment_sum and
+    nic_update once a chunk."""
+    if agg_mode == "dense":
+        per = PER_SLOT[kind, routing]
+    else:
+        per = dict(SPARSE_SLOT)
+        if routing != "ecmp":
+            per["pair_fractions"] = 1
+        if chunks:
+            per.update(plane_split=2 * chunks, segment_sum=chunks,
+                       nic_update=chunks)
+        per["segment_sum"] += int(host_bw)
+    return {k: slots * n for k, n in per.items()}
+
+
+def run_launches(c, slots=None, trace=None, dtype=None) -> dict:
+    """`slot_launches` of compiled scenario `c` (its first `slots`
+    slots) on the path the engine picks for it now: its aggregation
+    mode and flow chunks (`engine._prepared`, which reads the
+    REPRO_JX_AGG / REPRO_JX_FLOW_CHUNK overrides)."""
+    import torch
+    from repro_torch.netsim import engine
+    cfg, fa, *_ = engine._prepared(c, dtype or torch.float64)
+    chunks = -(-len(fa) // cfg.flow_chunk) if cfg.flow_chunk else 0
+    host_bw = trace is not None and trace.enabled and \
+        "host_bw" in trace.active_fields()
+    return slot_launches(cfg.kind, cfg.routing,
+                         cfg.slots if slots is None else slots, cfg.agg_mode,
+                         chunks, host_bw and cfg.agg_mode == "sparse")
+
+
+@contextmanager
+def agg_env(mode=None, chunk=None):
+    """The block with REPRO_JX_AGG set to `mode` and REPRO_JX_FLOW_CHUNK
+    to `chunk` (None: unset, the engine's own choice), restored after."""
+    import os
+    want = {"REPRO_JX_AGG": mode, "REPRO_JX_FLOW_CHUNK":
+            None if chunk is None else str(chunk)}
+    prev = {k: os.environ.get(k) for k in want}
+    try:
+        for k, v in want.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def assert_parity(spec, c, ref, got) -> None:
@@ -1240,11 +1524,12 @@ def loop_walls(c, dtype, runs: int = 3, trace=None) -> dict:
 # the scale phase's runs: (scenario, routing, dtypes); the giga point
 # on its leaf-spine under AR and its own ECMP, on a fat tree of equal
 # bisection under WAR and ECMP, and under the registry's reaction
-SCALE_RUNS = (("giga_fabric_storage", "ar", ("float32", "float64")),
-              ("giga_fabric_storage", None, ("float32", "float64")),
-              ("giga_fat_tree", "war", ("float32", "float64")),
-              ("giga_fat_tree", "ecmp", ("float32", "float64")),
-              ("giga_fabric_storage_reroute", None, ("float64",)))
+SCALE_RUNS = (("giga_fabric_storage", "ar", ("float32", "float64"), None),
+              ("giga_fabric_storage", None, ("float32", "float64"), None),
+              ("giga_fat_tree", "war", ("float32", "float64"), None),
+              ("giga_fat_tree", "ecmp", ("float32", "float64"), None),
+              ("giga_fabric_storage_reroute", None, ("float64",), None),
+              ("giga_fabric_storage", None, ("float64",), "dense"))
 
 
 def scale_phase(report: dict, total: dict) -> None:
@@ -1254,100 +1539,317 @@ def scale_phase(report: dict, total: dict) -> None:
     CPU plain path under the contained-fork contract (a reaction run's
     blackhole series within 1e-5), the leaf-spine ECMP one also against
     the golden row."""
+    golden = json.loads((ROOT / "tests/golden/scenarios.json").read_text())
+    report["scale"] = {}
+    for name, routing, dnames, mode in SCALE_RUNS:
+        with agg_env(mode):
+            scale_run(report, total, golden, name, routing, dnames, mode)
+
+
+def scale_run(report: dict, total: dict, golden: dict, name: str, routing,
+              dnames, mode) -> None:
+    """One SCALE_RUNS entry (`mode` "dense": dense aggregation forced on
+    both paths, in the caller's `agg_env`)."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
+    from repro_torch.netsim import engine
     from repro_torch.scenarios import compile_scenario, distill_metrics
+    spec = scenario(name, routing)
+    what = label(name, spec.sim.routing) + (f" {mode}" if mode else "")
+    out = report["scale"][what] = {}
+    runs = {}
+    for dname in dnames:
+        dtype = getattr(torch, dname)
+        c = compile_scenario(spec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = c.run(device="cuda", dtype=dtype)
+        wall = time.perf_counter() - t0
+        counts = dict(build.LAUNCHES)
+        check_launches(f"{what} {dname}", counts,
+                       run_launches(c, dtype=dtype), total)
+        agg = engine._prepared(c, dtype)[0].agg_mode
+        if res.mean_goodput.shape != (len(c.flows),) or not np.isfinite(
+                res.mean_goodput).all():
+            fail(f"{what} {dname}: bad mean_goodput")
+        mem = torch.cuda.max_memory_allocated()
+        per_slot = sum(counts.values()) / spec.sim.slots
+        walls = loop_walls(c, dtype)
+        eager = [o.cpu().numpy() for o in walls.pop("results")]
+        got = [res.mean_goodput, res.completion_slot, res.total_goodput,
+               res.util_up_last] + ([res.blackhole_timeline]
+                                    if res.blackhole_timeline is not None
+                                    else [])
+        eager[2] = eager[2][::spec.sim.record_every]
+        if len(got) != len(eager) or not all(
+                np.array_equal(a, b) for a, b in zip(got, eager)):
+            fail(f"{what} {dname}: the captured run differs from the "
+                 "eager loop")
+        runs[dname] = (c, res)
+        T = spec.sim.slots
+        react = ""
+        if res.blackhole_timeline is not None:
+            m = distill_metrics(spec, c, res)
+            react = (f", blackholed_bytes {m.blackholed_bytes!r}, "
+                     f"reaction_slots {m.reaction_slots}")
+        out[dname] = dict(
+            wall_s=wall, slots_per_s=T / wall,
+            kernel_launches_per_slot=per_slot,
+            max_memory_allocated=mem, flows=len(c.flows), agg_mode=agg,
+            mean_goodput=float(res.mean_goodput.mean()), **walls)
+        print(f"scale {what} {dname}: {spec.topo.kind}, {agg}, "
+              f"{len(c.flows)} flows x {T} slots through the entry "
+              f"point (captured), wall {wall:.3f} s (host prep "
+              f"included), {T / wall:.2f} slots/s, {per_slot:g} "
+              "hand-written kernel launches/slot, max_memory_allocated "
+              f"{mem / 2**20:.1f} MiB, mean goodput "
+              f"{res.mean_goodput.mean()!r}{react}; bit-equal to the "
+              "eager loop", flush=True)
+        print(f"scale {what} {dname} loop: host prep "
+              f"{walls['prep_s']:.3f} s; eager "
+              + ", ".join(f"{w / T * 1e3:.3f}" for w in walls["eager_s"])
+              + " ms/slot; captured: capture (slot 0 and "
+              f"{walls['graphs']} graph(s)) "
+              + ", ".join(f"{w * 1e3:.1f}" for w in walls["capture_s"])
+              + " ms, replays "
+              + ", ".join(f"{w / (T - 1) * 1e3:.3f}"
+                          for w in walls["replay_s"])
+              + " ms/slot", flush=True)
+    t0 = time.perf_counter()
+    cpu = compile_scenario(spec).run(device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    c64, gpu64 = runs["float64"]
+    stats = assert_contained_fork(spec, c64, cpu, gpu64)
+    assert_blackholes(spec, c64, cpu, gpu64)
+    if name == "giga_fabric_storage" and routing is None:
+        assert_golden(spec.name, distill_metrics(spec, c64, gpu64),
+                      golden)
+    parity = dict(cpu_wall_s=cpu_wall, **stats)
+    notes = [f"GPU f64 vs CPU plain path ({cpu_wall:.1f} s): {stats}"]
+    if cpu.blackhole_timeline is not None:
+        notes.append("blackhole series: ok")
+    if name == "giga_fabric_storage" and routing is None:
+        notes.append("golden metrics: ok")
+    if "float32" in runs:
+        parity["f32_vs_f64_max_abs"] = float(np.abs(
+            runs["float32"][1].mean_goodput
+            - gpu64.mean_goodput).max())
+        notes.append("f32 vs f64 max |diff| "
+                     f"{parity['f32_vs_f64_max_abs']:.3g}")
+    out["parity"] = parity
+    print(f"scale {what} parity: " + "; ".join(notes), flush=True)
 
-    golden = json.loads((ROOT / "tests/golden/scenarios.json").read_text())
-    report["scale"] = {}
-    for name, routing, dnames in SCALE_RUNS:
-        spec = scenario(name, routing)
-        what = label(name, spec.sim.routing)
-        out = report["scale"][what] = {}
-        runs = {}
-        for dname in dnames:
+
+def replay_profile(cfg, ops) -> dict:
+    """A captured loop of `cfg`/`ops` replayed twice (after its capture):
+    once timed to a synchronize, once under torch.profiler.  Returns the
+    replays' wall a slot, the device's busy time a slot and its share of
+    the wall (None when the profiler sees no device activity) and the
+    device kernels a slot (every launch: hand-written and PyTorch's),
+    and the timed loop's results."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.netsim import engine
+
+    n = cfg.slots - 1
+    loop = engine.slot_loop(cfg, ops)
+    loop.capture()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.replay()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    results = engine._loop_results(cfg, loop)
+    again = engine.slot_loop(cfg, ops)
+    again.capture()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    return dict(replay_ms_per_slot=wall / n * 1e3,
+                busy_ms_per_slot=busy / n * 1e3 if busy else None,
+                busy_share=busy / wall if busy else None,
+                device_launches_per_slot=(sum(e.count for e in kernels) / n
+                                          if busy else None),
+                graphs=len(loop.graphs), results=results)
+
+
+def sparse_run(c, dtype, what: str, total: dict) -> tuple:
+    """Compiled scenario `c` through the entry point in `dtype` on the
+    path the engine picks (in the caller's `agg_env`), its launches
+    held to `run_launches`; then its captured loop against its eager
+    loop bit for bit, with `replay_profile`'s numbers.  Returns (row,
+    result)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.netsim import engine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = c.run(device="cuda", dtype=dtype)
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    check_launches(what, counts, run_launches(c, dtype=dtype), total)
+    mem = torch.cuda.max_memory_allocated()
+    T = c.cfg.slots
+    if res.mean_goodput.shape != (len(c.flows),) or not np.isfinite(
+            res.mean_goodput).all():
+        fail(f"{what}: bad mean_goodput")
+    cfg, _, ops = engine.prepare(c, "cuda", dtype)
+    eager = engine._simulate(cfg, ops, _eager=True)
+    prof = replay_profile(cfg, ops)
+    if not all(torch.equal(a, b) for a, b in zip(prof.pop("results"), eager,
+                                                 strict=True)):
+        fail(f"{what}: the captured loop differs from the eager one")
+    build.reset_launches()
+    row = dict(agg_mode=cfg.agg_mode, flow_chunk=cfg.flow_chunk,
+               wall_s=wall, flows=len(c.flows), max_memory_allocated=mem,
+               hand_written_launches_per_slot=sum(counts.values()) / T,
+               **prof)
+    return row, res
+
+
+def fmt_run(row: dict) -> str:
+    busy = ("device busy not measured" if row["busy_share"] is None else
+            f"device busy {row['busy_ms_per_slot']:.3f} ms/slot "
+            f"({row['busy_share']:.1%}), "
+            f"{row['device_launches_per_slot']:.1f} device launches/slot")
+    return (f"{row['agg_mode']}"
+            + (f" in chunks of {row['flow_chunk']}" if row["flow_chunk"]
+               else "")
+            + f": entry point {row['wall_s']:.3f} s, replays "
+            f"{row['replay_ms_per_slot']:.3f} ms/slot, {busy}, "
+            f"{row['hand_written_launches_per_slot']:g} hand-written "
+            f"launches/slot, peak {row['max_memory_allocated'] / 2**20:.1f} "
+            "MiB; captured equals eager")
+
+
+def same_results(what: str, got, want, flows: bool = True) -> None:
+    """Two results of one point bit for bit (`flows`: the per-flow
+    outputs too)."""
+    import numpy as np
+    fields = (("mean_goodput", "completion_slot") if flows else ()) + (
+        "total_goodput", "util_up_last", "blackhole_timeline")
+    for f in fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None) or (
+                a is not None and not np.array_equal(a, b)):
+            fail(f"{what}: {f} differs")
+
+
+def sparse_phase(report: dict, total: dict) -> None:
+    """Sparse aggregation and flow chunks at giga scale (see the module
+    docstring): the giga point under its own mode against itself forced
+    dense, chunked against one pass, a megabatch of giga seeds against
+    its points alone, and the beyond-giga point."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.netsim import megabatch
+    from repro_torch.scenarios import compile_scenario
+
+    t_phase = time.perf_counter()
+    out = report["sparse"] = {}
+    # (a) the giga point under its own mode (sparse) and forced dense
+    one_pass = {}
+    for routing in ("ecmp", "ar"):
+        for dname in ("float64", "float32"):
             dtype = getattr(torch, dname)
-            c = compile_scenario(spec)
+            res = {}
+            for mode in ("dense", None):
+                with agg_env(mode):
+                    c = compile_scenario(scenario("giga_fabric_storage",
+                                                  routing))
+                    what = f"sparse giga[{routing}] {dname} " \
+                           f"{mode or 'own mode'}"
+                    row, res[mode] = sparse_run(c, dtype, what, total)
+                out[what] = row
+                print(f"{what}: {fmt_run(row)}", flush=True)
+            if out[f"sparse giga[{routing}] {dname} own mode"][
+                    "agg_mode"] != "sparse":
+                fail("giga_fabric_storage does not run sparse")
+            same_results(f"sparse giga[{routing}] {dname}", res[None],
+                         res["dense"])
+            one_pass[routing, dname] = res[None]
+            print(f"sparse giga[{routing}] {dname}: sparse equals dense bit "
+                  "for bit", flush=True)
+    # (b) chunks of SEG_CHUNK flows against one pass
+    with agg_env(None, SEG_CHUNK):
+        c = compile_scenario(scenario("giga_fabric_storage"))
+        what = "sparse giga[ecmp] float64 chunked"
+        row, res = sparse_run(c, torch.float64, what, total)
+    out[what] = row
+    same_results(what, res, one_pass["ecmp", "float64"])
+    print(f"{what}: {fmt_run(row)}; equals one pass bit for bit",
+          flush=True)
+    # (c) a megabatch of giga seeds, under sparse and in chunks
+    for chunk in (None, SEG_CHUNK):
+        with agg_env(None, chunk):
+            points = [compile_scenario(scenario("giga_fabric_storage")
+                                       .with_sim(seed=s)) for s in range(3)]
+            T = points[0].cfg.slots
+            bucket = megabatch._bucket(len(points[0].flows),
+                                       megabatch.FLOW_BUCKET_MIN)
+            n = -(-bucket // chunk) if chunk else 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             build.reset_launches()
             t0 = time.perf_counter()
-            res = c.run(device="cuda", dtype=dtype)
+            rows = megabatch.run_megabatch(points, device="cuda")
             wall = time.perf_counter() - t0
-            counts = dict(build.LAUNCHES)
-            check_launches(f"{what} {dname}", counts,
-                           slot_launches(spec.topo.kind, spec.sim.routing,
-                                         spec.sim.slots), total)
-            if res.mean_goodput.shape != (len(c.flows),) or not np.isfinite(
-                    res.mean_goodput).all():
-                fail(f"{what} {dname}: bad mean_goodput")
+            what = "sparse giga megabatch" + (f" in chunks of {chunk}"
+                                              if chunk else "")
+            check_launches(what, dict(build.LAUNCHES), slot_launches(
+                "leaf_spine", "ecmp", T, "sparse", n), total)
             mem = torch.cuda.max_memory_allocated()
-            per_slot = sum(counts.values()) / spec.sim.slots
-            walls = loop_walls(c, dtype)
-            eager = [o.cpu().numpy() for o in walls.pop("results")]
-            got = [res.mean_goodput, res.completion_slot, res.total_goodput,
-                   res.util_up_last] + ([res.blackhole_timeline]
-                                        if res.blackhole_timeline is not None
-                                        else [])
-            eager[2] = eager[2][::spec.sim.record_every]
-            if len(got) != len(eager) or not all(
-                    np.array_equal(a, b) for a, b in zip(got, eager)):
-                fail(f"{what} {dname}: the captured run differs from the "
-                     "eager loop")
-            runs[dname] = (c, res)
-            T = spec.sim.slots
-            react = ""
-            if res.blackhole_timeline is not None:
-                m = distill_metrics(spec, c, res)
-                react = (f", blackholed_bytes {m.blackholed_bytes!r}, "
-                         f"reaction_slots {m.reaction_slots}")
-            out[dname] = dict(
-                wall_s=wall, slots_per_s=T / wall,
-                kernel_launches_per_slot=per_slot,
-                max_memory_allocated=mem, flows=len(c.flows),
-                mean_goodput=float(res.mean_goodput.mean()), **walls)
-            print(f"scale {what} {dname}: {spec.topo.kind}, "
-                  f"{len(c.flows)} flows x {T} slots through the entry "
-                  f"point (captured), wall {wall:.3f} s (host prep "
-                  f"included), {T / wall:.2f} slots/s, {per_slot:g} "
-                  "hand-written kernel launches/slot, max_memory_allocated "
-                  f"{mem / 2**20:.1f} MiB, mean goodput "
-                  f"{res.mean_goodput.mean()!r}{react}; bit-equal to the "
-                  "eager loop", flush=True)
-            print(f"scale {what} {dname} loop: host prep "
-                  f"{walls['prep_s']:.3f} s; eager "
-                  + ", ".join(f"{w / T * 1e3:.3f}" for w in walls["eager_s"])
-                  + " ms/slot; captured: capture (slot 0 and "
-                  f"{walls['graphs']} graph(s)) "
-                  + ", ".join(f"{w * 1e3:.1f}" for w in walls["capture_s"])
-                  + " ms, replays "
-                  + ", ".join(f"{w / (T - 1) * 1e3:.3f}"
-                              for w in walls["replay_s"])
-                  + " ms/slot", flush=True)
-        t0 = time.perf_counter()
-        cpu = compile_scenario(spec).run(device="cpu")
-        cpu_wall = time.perf_counter() - t0
-        c64, gpu64 = runs["float64"]
-        stats = assert_contained_fork(spec, c64, cpu, gpu64)
-        assert_blackholes(spec, c64, cpu, gpu64)
-        if name == "giga_fabric_storage" and routing is None:
-            assert_golden(spec.name, distill_metrics(spec, c64, gpu64),
-                          golden)
-        parity = dict(cpu_wall_s=cpu_wall, **stats)
-        notes = [f"GPU f64 vs CPU plain path ({cpu_wall:.1f} s): {stats}"]
-        if cpu.blackhole_timeline is not None:
-            notes.append("blackhole series: ok")
-        if name == "giga_fabric_storage" and routing is None:
-            notes.append("golden metrics: ok")
-        if "float32" in runs:
-            parity["f32_vs_f64_max_abs"] = float(np.abs(
-                runs["float32"][1].mean_goodput
-                - gpu64.mean_goodput).max())
-            notes.append("f32 vs f64 max |diff| "
-                         f"{parity['f32_vs_f64_max_abs']:.3g}")
-        out["parity"] = parity
-        print(f"scale {what} parity: " + "; ".join(notes), flush=True)
+            for c, r in zip(points, rows):
+                lane_equal(f"{what} seed {c.cfg.seed}", r,
+                           c.run(device="cuda"))
+        out[what] = dict(points=len(points), wall_s=wall,
+                         max_memory_allocated=mem, chunks=n)
+        print(f"{what}: {len(points)} seeds in one loop ({n or 1} chunk(s) "
+              f"a slot over the {bucket}-flow bucket) in {wall:.3f} s, peak "
+              f"{mem / 2**20:.1f} MiB; every row equal to its point alone",
+              flush=True)
+    # (d) beyond giga: 409,600 flows under ECMP, sparse, and forced dense
+    res = {}
+    for mode in (None, "dense"):
+        with agg_env(mode):
+            c = compile_scenario(scenario("giga_beyond"))
+            what = f"sparse beyond giga {mode or 'own mode'}"
+            row, res[mode] = sparse_run(c, torch.float64, what, total)
+            if mode is None:
+                cut = first_slots(c, BEYOND_CPU_SLOTS)
+                gpu = cut.run(device="cuda")
+                t0 = time.perf_counter()
+                cpu = cut.run(device="cpu")
+                row["cpu_first_slots_s"] = time.perf_counter() - t0
+                assert_parity(cut.spec, cut, cpu, gpu)
+                build.reset_launches()
+        out[what] = row
+        print(f"{what}: {len(c.flows)} flows x {c.cfg.slots} slots, "
+              f"{fmt_run(row)}"
+              + ("" if mode else f"; its first {BEYOND_CPU_SLOTS} slots "
+                 f"equal to the CPU path ({row['cpu_first_slots_s']:.1f} s)"),
+              flush=True)
+    same_results("sparse beyond giga", res[None], res["dense"])
+    print("sparse beyond giga: sparse equals dense bit for bit; peak "
+          f"{out['sparse beyond giga own mode']['max_memory_allocated'] / 2**20:.1f}"
+          f" MiB sparse, "
+          f"{out['sparse beyond giga dense']['max_memory_allocated'] / 2**20:.1f}"
+          " MiB dense", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"sparse: phase wall {out['wall_s']:.1f} s", flush=True)
 
 
 # the schedule phase: the registry's training-step schedules at their own
@@ -1478,8 +1980,7 @@ def schedule_phase(report: dict, total: dict) -> None:
             peak = torch.cuda.max_memory_allocated()
             counts = dict(build.LAUNCHES)
             check_launches(f"{what} {dname}", counts,
-                           slot_launches(spec.topo.kind, spec.sim.routing,
-                                         T), total)
+                           run_launches(c, T, dtype=dtype), total)
             per_slot = sum(counts.values()) / T
             if not np.isfinite(res.mean_goodput).all():
                 fail(f"{what} {dname}: non-finite goodput")
@@ -1528,8 +2029,7 @@ def schedule_phase(report: dict, total: dict) -> None:
             build.reset_launches()
             gpu = cut.run(device="cuda")
             check_launches(f"{what} first slots", dict(build.LAUNCHES),
-                           slot_launches(spec.topo.kind, spec.sim.routing,
-                                         GIGA_TRAIN_CPU_SLOTS), total)
+                           run_launches(cut), total)
             t0 = time.perf_counter()
             cpu = cut.run(device="cpu")
             cpu_s = time.perf_counter() - t0
@@ -1548,12 +2048,14 @@ def trace_phase(report: dict, total: dict) -> None:
     util and queue within 1e-5, ecn and eligible equal) and the paper's
     signature (straggler ranks (0,), bi-modal share 0.25); then the
     giga point recording every TRACE_EVERY slots, its captured loop
-    bit-equal to the eager one, records included, 5 hand-written
-    launches a slot, and its wall a slot with and without the trace (in
-    turns: off, on, on, off)."""
+    bit-equal to the eager one, records included, 6 hand-written
+    launches a slot (under sparse aggregation the trace's host_bw is a
+    second segment_sum), and its wall a slot with and without the trace
+    (in turns: off, on, on, off)."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
+    from repro_torch.netsim import engine
     from repro_torch.scenarios import compile_scenario, distill_metrics
     from repro_torch.trace import TraceSpec, trace_summary
 
@@ -1608,9 +2110,8 @@ def trace_phase(report: dict, total: dict) -> None:
     res = c.run(device="cuda")
     wall = time.perf_counter() - t0
     mem = torch.cuda.max_memory_allocated()
-    check_launches("trace giga", dict(build.LAUNCHES),
-                   slot_launches(spec.topo.kind, spec.sim.routing,
-                                 spec.sim.slots), total)
+    counts = dict(build.LAUNCHES)
+    check_launches("trace giga", counts, run_launches(c, trace=trace), total)
     n_rec = len(range(0, spec.sim.slots, TRACE_EVERY))
     for k in trace.active_fields():
         if res.trace[k].shape[0] != n_rec or not np.isfinite(
@@ -1636,8 +2137,10 @@ def trace_phase(report: dict, total: dict) -> None:
     print(f"trace giga_fabric_storage[ecmp] float64 every {TRACE_EVERY}: "
           f"{n_rec} records of every field through the entry point "
           f"(captured), wall {wall:.3f} s (host prep included), "
-          f"max_memory_allocated {mem / 2**20:.1f} MiB, 5 hand-written "
-          "kernel launches/slot; captured equals eager with the records; "
+          f"max_memory_allocated {mem / 2**20:.1f} MiB, "
+          f"{sum(counts.values()) / T:g} hand-written kernel launches/slot "
+          f"({engine._prepared(c)[0].agg_mode}); captured equals eager "
+          "with the records; "
           "replays "
           + ", ".join(f"{x:.3f}" for x in per_slot(walls[False]))
           + " ms/slot without the trace, "
@@ -1815,16 +2318,16 @@ def batch_phase(report: dict, total: dict) -> None:
         if batched:
             w, res, counts = timed(lambda: engine.prepare_batch(
                 points, "cuda", torch.float64))
-            check_launches("batch giga", counts, slot_launches(
-                "leaf_spine", "ecmp", T), total)
+            check_launches("batch giga", counts,
+                           run_launches(points[0], T), total)
             walls["batched"].append(w)
             batch_res = res
         else:
             ws, single = [], []
             for c in points:
                 w, [r], counts = timed(one(c))
-                check_launches("batch giga single", counts, slot_launches(
-                    "leaf_spine", "ecmp", T), total)
+                check_launches("batch giga single", counts,
+                               run_launches(c, T), total)
                 ws.append(w)
                 single.append(r)
             walls["single"].append({k: sum(w[k] for w in ws) for k in
@@ -1891,8 +2394,8 @@ def sweep_launches(specs) -> tuple:
         key = (megabatch._struct_key(c), cfg, trace)
         if key not in loops:
             loops.add(key)
-            for k, n in slot_launches(cfg.kind, cfg.routing,
-                                      cfg.slots).items():
+            for k, n in slot_launches(cfg.kind, cfg.routing, cfg.slots,
+                                      cfg.agg_mode).items():
                 want[k] = want.get(k, 0) + n
     return want, len(loops)
 
@@ -1961,7 +2464,7 @@ def sweep_phase(report: dict, total: dict) -> None:
                                          run_experiment, spec_key)
     from repro_torch.kernels import build
     from repro_torch.netsim import engine
-    from repro_torch.scenarios import run_point
+    from repro_torch.scenarios import compile_scenario, run_point
 
     out = report["sweep"] = {}
     cache_dir = ROOT / "build" / "sweep_cache"
@@ -2075,7 +2578,9 @@ def sweep_phase(report: dict, total: dict) -> None:
     T = specs[0].sim.slots
     want = {}
     for routing in GIGA_GRID["routings"]:
-        for k, n in slot_launches("leaf_spine", routing, T).items():
+        c = compile_scenario(next(sp for sp in specs
+                                  if sp.sim.routing == routing))
+        for k, n in run_launches(c, T).items():
             want[k] = want.get(k, 0) + n
     runs = []
     for threaded in (False, True, True, False):
@@ -2508,6 +3013,7 @@ def main(argv=None) -> int:
     total: dict = {}
     registry_phase(report, total)
     scale_phase(report, total)
+    sparse_phase(report, total)
     schedule_phase(report, total)
     trace_phase(report, total)
     batch_phase(report, total)

@@ -141,7 +141,7 @@ def _execute_megabatch(points: List[ScenarioSpec], device, dtype,
     caches, planned = megabatch.plan_megabatch(compiled)
     walls["compile_s"] = time.perf_counter() - t0
     preps = (prep for group in planned
-             for prep in megabatch.prepare_planned(group, caches))
+             for prep in megabatch.prepare_planned(group, caches, dtype))
 
     def prep_next():
         t = time.perf_counter()

@@ -82,6 +82,11 @@ _ENTRIES = {
     "int8_encode": ("model", _F32_BF16,
                     (_P, _P, _P, _P, _I64, _I64, _I, _I, _P)),
     "int8_decode": ("model", _F32_BF16, (_P, _P, _P, _I64, _I64, _P)),
+    # arrays of up to six (vals, offsets, entries, out) pointers and
+    # bucket counts, their count, and whether each bucket starts from its
+    # value in out (a chunk's fold) or from 0: one launch for all
+    "segment_sum": ("netsim", _F32_F64,
+                    (_PP, _PP, _PP, _PP, _PI64, _I, _I, _P)),
 }
 KERNELS = tuple(_ENTRIES)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -1,8 +1,10 @@
 // Kernels of the fluid network simulator, for Hopper (sm_90a).
 //
-// Eight kernels, each the CUDA twin of one Pallas kernel of the JAX
-// package (in `repro/kernels/`) and of one plain PyTorch function in
-// `kernels/ref.py`:
+// Nine kernels.  Eight are each the CUDA twin of one Pallas kernel of
+// the JAX package (in `repro/kernels/`) and of one plain PyTorch
+// function in `kernels/ref.py`; the ninth, segment_sum, is the twin of
+// the reference's `link_load.py::segment_load` and `segment_load_chunk`,
+// which XLA computes there (see its section):
 //
 //   plane_split            <- plb_select.py _plane_split_kernel
 //   pair_fractions         <- jsq_route.py  _pair_score_kernel
@@ -12,6 +14,7 @@
 //   nic_update             <- queue_ecn.py  _nic_update_kernel
 //   jsq_route              <- jsq_route.py  _jsq_kernel
 //   plb_select             <- plb_select.py _plb_kernel
+//   segment_sum            <- link_load.py  segment_load (XLA, no Pallas)
 //
 // All but jsq_route do a handful of flops per element, so bytes bound
 // them on the card: each reads its inputs once and writes its outputs
@@ -51,7 +54,7 @@
 //                   thread now loads them once beside its packet, with
 //                   P a template parameter: the launch floor is left.
 //
-// Unlike the Pallas bodies, which cast to float32, the six slot-engine
+// Unlike the Pallas bodies, which cast to float32, the seven slot-engine
 // kernels compute in their input type, so the float64 parity mode runs
 // through the kernels themselves; the per-packet jsq_route and
 // plb_select compute in float32 and uint32, as their Pallas bodies do.
@@ -681,6 +684,81 @@ __global__ void __launch_bounds__(kThreads) bucket_load_bottleneck_kernel(
   }
 }
 
+// ---- segment_sum: flow-ordered bucket sums over a CSR plan ----------
+// The sparse aggregation of the fluid engine: the counterpart of the
+// reference's `link_load.py::segment_load` (`jax.ops.segment_sum`) and
+// `segment_load_chunk` (`acc.at[k].add`), which XLA computes there.
+// CUDA's index_add_ and scatter_add_ apply duplicate updates with
+// atomics in whatever order the threads reach them, so a bucket's sum
+// would change from run to run and differ from the NumPy engine's
+// np.add.at by an ulp, and an ulp in a queue integrator forks a
+// trajectory at an ECN threshold.  Here the host's plan (`offsets`,
+// K + 1 positions into `entries`; `entries`, flat indices into `vals`)
+// lists each bucket's entries in flow order, and one thread takes a
+// bucket and adds them one at a time in that order, starting from 0 or,
+// with `accumulate`, from the bucket's current value in `out`: a chunk
+// of the flow axis continues the chain of the chunks before it, so a
+// fold over chunks is the one chain of the whole sum (a chunk never
+// forms a partial sum of its own and adds it once: that rounds
+// otherwise).  The loads run ahead of the adds: kSegAhead entries'
+// indices, then their values, are in flight before the first of them is
+// added.  One launch covers up to kMaxSegGroup (vals, plan, out)
+// entries (a slot's two host sums and its pair or link sums), passed by
+// value as bottleneck's are; the grid covers the entries' summed bucket
+// count.  A bucket's chain is as long as its entries, so a skewed plan
+// leaves its long buckets to single threads.
+constexpr int kMaxSegGroup = 6;
+constexpr int kSegAhead = 8;
+
+template <typename T>
+struct SegmentGroup {
+  const T* vals[kMaxSegGroup];
+  const int32_t* offsets[kMaxSegGroup];
+  const int32_t* entries[kMaxSegGroup];
+  T* out[kMaxSegGroup];
+  int64_t start[kMaxSegGroup];  // entry k's buckets: [start[k], start[k + 1])
+  int64_t total;
+  int count;
+  int accumulate;
+};
+
+template <typename T>
+__global__ void segment_sum_kernel(const SegmentGroup<T> g) {
+  GRID_STRIDE(i, g.total) {
+    const T* v = g.vals[0];
+    const int32_t* off = g.offsets[0];
+    const int32_t* ent = g.entries[0];
+    T* o = g.out[0];
+    int64_t base = 0;
+#pragma unroll
+    for (int k = 1; k < kMaxSegGroup; ++k) {
+      if (k < g.count && i >= g.start[k]) {
+        v = g.vals[k];
+        off = g.offsets[k];
+        ent = g.entries[k];
+        o = g.out[k];
+        base = g.start[k];
+      }
+    }
+    const int64_t b = i - base;
+    int32_t e = __ldg(off + b);
+    const int32_t end = __ldg(off + b + 1);
+    T s = g.accumulate ? o[b] : T(0);
+    for (; e + kSegAhead <= end; e += kSegAhead) {
+      int32_t idx[kSegAhead];
+      T x[kSegAhead];
+#pragma unroll
+      for (int j = 0; j < kSegAhead; ++j) idx[j] = __ldg(ent + e + j);
+#pragma unroll
+      for (int j = 0; j < kSegAhead; ++j) x[j] = __ldg(v + idx[j]);
+#pragma unroll
+      for (int j = 0; j < kSegAhead; ++j) s = s + x[j];
+    }
+    for (; e < end; ++e) s = s + __ldg(v + __ldg(ent + e));
+    o[b] = s;
+  }
+}
+
 // ---- per-packet decisions (float32, uint32 hash) ---------------------
 // The hashed tie-break of both kernels: the low 16 bits of
 // mix ^ (mix >> 16), mix = h * 2654435761 + lane * step (uint32 wrap),
@@ -998,6 +1076,32 @@ int launch_bucket_load_bottleneck(const void* rate, const void* plan,
 }
 
 template <typename T>
+int launch_segment_sum(const void* const* vals, const void* const* offsets,
+                       const void* const* entries, void* const* out,
+                       const int64_t* n, int count, int accumulate,
+                       void* stream) {
+  if (count < 1 || count > kMaxSegGroup) return cudaErrorInvalidValue;
+  SegmentGroup<T> g{};
+  int64_t total = 0;
+  for (int k = 0; k < count; ++k) {
+    if (n[k] < 0) return cudaErrorInvalidValue;
+    g.vals[k] = static_cast<const T*>(vals[k]);
+    g.offsets[k] = static_cast<const int32_t*>(offsets[k]);
+    g.entries[k] = static_cast<const int32_t*>(entries[k]);
+    g.out[k] = static_cast<T*>(out[k]);
+    g.start[k] = total;
+    total += n[k];
+  }
+  g.total = total;
+  g.count = count;
+  g.accumulate = accumulate != 0;
+  if (total == 0) return cudaSuccess;
+  segment_sum_kernel<T><<<grid_for(total), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(g);
+  return cudaGetLastError();
+}
+
+template <typename T>
 int launch_queue_update(const void* const* q, const void* const* load,
                         const void* const* cap, void* const* q_new,
                         void* const* util, const int64_t* n, int count,
@@ -1161,6 +1265,13 @@ extern "C" int netsim_plb_select_f32(const void* rate, const void* elig,
       double eps, void* stream) {                                         \
     return launch_bucket_load_bottleneck<T>(rate, plan, cap, load, frac,  \
                                             B, F, P, R, C, eps, stream);  \
+  }                                                                       \
+  extern "C" int netsim_segment_sum_##SUFFIX(                             \
+      const void* const* vals, const void* const* offsets,                \
+      const void* const* entries, void* const* out, const int64_t* n,     \
+      int count, int accumulate, void* stream) {                          \
+    return launch_segment_sum<T>(vals, offsets, entries, out, n, count,   \
+                                 accumulate, stream);                     \
   }                                                                       \
   extern "C" int netsim_queue_update_##SUFFIX(                            \
       const void* const* q, const void* const* load,                      \

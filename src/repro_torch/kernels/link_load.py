@@ -13,13 +13,21 @@
     `ref.load_bottleneck_ref`; CUDA: `netsim_bucket_load_bottleneck`, a
     group of lanes a bucket, which gathers the rates itself).  It takes
     a leading lane axis: a batch of points of one structure in one
-    launch.
+    launch;
+  * `segment_sum_many` is the sparse aggregation: flow-ordered bucket
+    sums over a CSR plan (`SegmentPlan`), the counterpart of the
+    reference's `segment_load` (`jax.ops.segment_sum`) and
+    `segment_load_chunk` (`acc.at[k].add`), which XLA computes there
+    (CPU tensors: `ref.segment_sum_ref`; CUDA: `netsim_segment_sum`, one
+    thread a bucket).  CUDA's scatter adds keep no order, so the kernel
+    is what keeps a sparse run bit-equal to the dense one and to the
+    NumPy engine's `np.add.at`.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,6 +35,7 @@ from . import build, ref
 
 EPS = 1e-12
 MAX_GROUP = 6                   # (cap, load) pairs one launch takes
+MAX_SEG_GROUP = 6               # (vals, plan) entries one segment_sum takes
 
 
 def bottleneck_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], *,
@@ -112,3 +121,90 @@ def bucket_load_bottleneck(rate: torch.Tensor, plan: torch.Tensor,
                  plan.data_ptr(), cap.data_ptr(), load.data_ptr(),
                  frac.data_ptr(), math.prod(lead), F, P, R, C, eps)
     return load, frac
+
+
+class SegmentPlan(NamedTuple):
+    """A CSR plan of flow-ordered bucket sums: bucket k sums
+    `vals.reshape(-1)[entries[offsets[k]:offsets[k + 1]]]`, its entries
+    in flow order.  Offsets are positions in the whole `entries`, so a
+    slice of `offsets` (one chunk's buckets) keeps the same `entries`."""
+    offsets: torch.Tensor     # (K + 1,) int32
+    entries: torch.Tensor     # (E,) int32 flat indices into the values
+
+
+def segment_sum_many(items: Sequence[Tuple[torch.Tensor, SegmentPlan]], *,
+                     acc: Optional[Sequence[torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Flow-ordered bucket sums of 1-6 `(vals, plan)` entries in one
+    kernel launch: each plan's (K,) sums of its `vals` (any contiguous
+    shape, read flat; every `vals` of one float dtype and on one
+    device).  Without `acc` each bucket starts from 0 and new tensors
+    are returned; with `acc` (one (K,) tensor an entry) each bucket
+    starts from its value there and the sums are written into `acc` in
+    place and returned (a chunk of the flow axis continuing the chains of
+    the chunks before it).  Bit-equal to `ref.segment_sum_ref` of each
+    entry."""
+    items = tuple(items)
+    n = len(items)
+    if not 1 <= n <= MAX_SEG_GROUP:
+        raise ValueError(f"segment_sum_many: {n} entries; the kernel takes "
+                         f"1-{MAX_SEG_GROUP}")
+    if acc is not None and len(acc) != n:
+        raise ValueError(f"segment_sum_many: {len(acc)} accumulators for "
+                         f"{n} entries")
+    first = items[0][0]
+    sizes = []
+    for k, (vals, plan) in enumerate(items):
+        K = plan.offsets.numel() - 1
+        sizes.append(K)
+        named = [(f"vals[{k}]", vals, first.dtype),
+                 (f"offsets[{k}]", plan.offsets, torch.int32),
+                 (f"entries[{k}]", plan.entries, torch.int32)]
+        if acc is not None:
+            named.append((f"acc[{k}]", acc[k], first.dtype))
+        for name, t, dtype in named:
+            if t.device != first.device:
+                raise ValueError(f"{name}: on {t.device}, expected "
+                                 f"{first.device}")
+            if t.dtype != dtype:
+                raise ValueError(f"{name}: dtype {t.dtype}, expected "
+                                 f"{dtype}")
+        if plan.offsets.dim() != 1 or plan.entries.dim() != 1 or K < 0:
+            raise ValueError(f"plan[{k}]: offsets and entries must be 1-D")
+        if acc is not None and tuple(acc[k].shape) != (K,):
+            raise ValueError(f"acc[{k}]: shape {tuple(acc[k].shape)}, "
+                             f"expected {(K,)}")
+    if first.device.type == "cpu":
+        return tuple(ref.segment_sum_ref(vals, plan.offsets, plan.entries,
+                                         acc=None if acc is None else acc[k])
+                     for k, (vals, plan) in enumerate(items))
+    dev = build.cuda_device("segment_sum", first)
+    dt = build.float_dtype("segment_sum", first)
+    for k, (vals, plan) in enumerate(items):
+        build.check(f"vals[{k}]", vals, device=dev, dtype=dt,
+                    shape=vals.shape)
+        build.check(f"offsets[{k}]", plan.offsets, device=dev,
+                    dtype=torch.int32, shape=plan.offsets.shape)
+        build.check(f"entries[{k}]", plan.entries, device=dev,
+                    dtype=torch.int32, shape=plan.entries.shape)
+        if acc is not None:
+            build.check(f"acc[{k}]", acc[k], device=dev, dtype=dt,
+                        shape=(sizes[k],))
+    outs = tuple(acc) if acc is not None else tuple(
+        torch.empty(K, dtype=dt, device=dev) for K in sizes)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+
+    build.launch("segment_sum", dt, dev, ptrs(v for v, _ in items),
+                 ptrs(p.offsets for _, p in items),
+                 ptrs(p.entries for _, p in items), ptrs(outs),
+                 (ctypes.c_int64 * n)(*sizes), n, int(acc is not None))
+    return outs
+
+
+def segment_sum(vals: torch.Tensor, plan: SegmentPlan, *,
+                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`segment_sum_many` with one entry."""
+    return segment_sum_many(((vals, plan),),
+                            acc=None if acc is None else (acc,))[0]

@@ -14,7 +14,8 @@ from .decode_attention import decode_attention
 from .flash_attention import flash_attention, flash_attention_bshd
 from .int8_codec import int8_decode, int8_encode
 from .jsq_route import jsq_route, pair_fractions
-from .link_load import bottleneck, bottleneck_many, bucket_load_bottleneck
+from .link_load import (bottleneck, bottleneck_many, bucket_load_bottleneck,
+                        segment_sum, segment_sum_many)
 from .plb_select import plane_split, plb_select
 from .queue_ecn import nic_update, queue_update, queue_update_many
 
@@ -22,4 +23,4 @@ __all__ = ["bottleneck", "bottleneck_many", "bucket_load_bottleneck",
            "decode_attention", "flash_attention", "flash_attention_bshd",
            "int8_decode", "int8_encode", "jsq_route", "nic_update",
            "pair_fractions", "plane_split", "plb_select", "queue_update",
-           "queue_update_many"]
+           "queue_update_many", "segment_sum", "segment_sum_many"]

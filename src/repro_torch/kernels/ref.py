@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the port's twelve kernels: the slot engine's
-six, the per-packet `jsq_route` and `plb_select`, the prefill and decode
-attention, and the int8 gradient codec.
+"""Plain PyTorch versions of the port's thirteen kernels: the slot
+engine's six and its flow-ordered segment sum, the per-packet
+`jsq_route` and `plb_select`, the prefill and decode attention, and the
+int8 gradient codec.
 
 Each function computes, operation for operation, what the reference
 package's jnp oracle computes, and what its CUDA kernel in
@@ -176,6 +177,38 @@ def load_bottleneck_ref(rate, plan, cap, *, eps: float = 1e-12,
              plan.reshape(B, P, R, C).long()].reshape(lead + (P, R, C))
     load = lsum(g) if ordered else g.sum(-1)
     return load, bottleneck_ref(cap, load, eps=eps)
+
+
+def segment_sum_ref(vals, offsets, entries, *, acc=None) -> torch.Tensor:
+    """Flow-ordered bucket sums over a CSR plan (the reference's
+    `link_load.py::segment_load` and, with `acc`, `segment_load_chunk`).
+    `vals`: any shape, read flat; `offsets`: (K + 1,) positions into
+    `entries`, bucket k's entries being `entries[offsets[k]:offsets[k +
+    1]]`; `entries`: flat indices into `vals`, each bucket's in flow
+    order.  Returns the (K,) sums, each bucket's entries added one at a
+    time in plan order from 0, or, with `acc` (K,), from `acc`'s value,
+    in place (a chunk of the flow axis continuing the chain of the chunks
+    before it).  The adds go rank by rank: the r-th entry of every bucket
+    that has one, so a bucket gains one term a step and every bucket's
+    chain is its own left-to-right sum, on any device (no scatter with
+    repeated indices, whose order a device may choose)."""
+    x = vals.reshape(-1)
+    K = offsets.numel() - 1
+    out = x.new_zeros(K) if acc is None else acc
+    start = offsets[:-1].long()
+    counts = offsets[1:].long() - start
+    if K == 0:
+        return out
+    # buckets by entry count, longest first: the buckets with an r-th
+    # entry are a prefix of this order
+    by_len = torch.argsort(counts, descending=True, stable=True)
+    hist = torch.bincount(counts).tolist()
+    have = K
+    for r in range(len(hist) - 1):
+        have -= hist[r]                      # buckets with > r entries
+        b = by_len[:have]
+        out[b] = out[b] + x[entries[start[b] + r].long()]
+    return out
 
 
 _MASK32 = 0xFFFFFFFF

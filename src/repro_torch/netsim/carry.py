@@ -21,7 +21,30 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels.link_load import SegmentPlan
+
 from .state import FlowBatch, NicCarry, SimCarry
+
+
+class SparsePlans(NamedTuple):
+    """The CSR plans of sparse aggregation (`link_load.SegmentPlan`:
+    int32 offsets and entries; NumPy arrays from the host prep, tensors
+    in `SlotOperands`).  Buckets are chunk-major: the flows go through
+    the slot in chunks of `chunk` flows (one chunk, `chunk` = F, without
+    `EngineConfig.flow_chunk`), and each chunk's plan lists its buckets'
+    entries in flow order as flat indices into that chunk's (chunk, P)
+    values (a batch's: into its lanes' (B, chunk, P) values, each lane's
+    buckets after the one before).  `n_in` is how many leading flows
+    the per-slot totals sum over (the flows before chunk padding)."""
+    src: SegmentPlan              # offered by (src host, plane)
+    dst: SegmentPlan              # offered by (dst host, plane)
+    pair: Optional[SegmentPlan]   # AR/WAR: fabric rate by (plane, pair)
+    # ECMP: fabric rate by link, per segment ((n_seg, ...) offsets and
+    # entries): stage-A up, stage-A down, and on a fat tree stage-B up
+    # and down, each family (P, ...) plane-major
+    link: Optional[SegmentPlan]
+    chunk: int
+    n_in: int
 
 
 class SlotOperands(NamedTuple):
@@ -72,13 +95,17 @@ class SlotOperands(NamedTuple):
     # multiplier of every timeline lane; a flow's demand is scaled by
     # its lane's (`fb.phase`) value
     dem: Optional[torch.Tensor] = None       # (n_seg, K)
+    # sparse aggregation (`cfg.agg_mode == "sparse"`): the segment-sum
+    # plans, which replace the `agg_*` and `ecmp_load` gather plans
+    # (inert placeholders then)
+    sparse: Optional[SparsePlans] = None
 
 
 def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
                         seg_down: np.ndarray, seg_acc: np.ndarray,
                         seg_id: np.ndarray, *, assign=None, seg_up2=None,
-                        seg_down2=None, vis=None, seg_dem=None, device,
-                        dtype) -> SlotOperands:
+                        seg_down2=None, vis=None, seg_dem=None,
+                        sparse=None, device, dtype) -> SlotOperands:
     """`flows` has the `FlowArrays` fields (src, dst, src_leaf, dst_leaf,
     demand, bytes_total, start_slot, phase); `aggs` has `src`/`dst`/`pair`/
     `ecmp_load` gather plans; `seg_up`/`seg_down`/`seg_acc` (and, on a
@@ -88,7 +115,9 @@ def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
     to the zero placeholder); `vis` is the (up, down, up2, down2)
     routing-visible multipliers of a failure reaction (None: routing
     sees the physical fabric); `seg_dem` is the (n_seg, K) demand
-    multipliers of a schedule run (`cfg.n_phases` > 0, else None)."""
+    multipliers of a schedule run (`cfg.n_phases` > 0, else None);
+    `sparse` the `SparsePlans` of NumPy arrays of a sparse run (else
+    None)."""
     device = torch.device(device)
     fb = FlowBatch.from_arrays(flows, device, dtype)
     F = fb.src.shape[0]
@@ -157,7 +186,18 @@ def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
         ecmp_down=plan((planes * U + a_of) * L + dst_leaf),
         vup=vup, vdown=vdown, vup2=vup2, vdown2=vdown2,
         dem=None if seg_dem is None else torch.as_tensor(
-            np.asarray(seg_dem), dtype=dtype, device=device), **ft)
+            np.asarray(seg_dem), dtype=dtype, device=device),
+        sparse=None if sparse is None else _plans_to(sparse, device), **ft)
+
+
+def _plans_to(plans: SparsePlans, device) -> SparsePlans:
+    """`plans`' NumPy arrays as int32 tensors on `device`."""
+    def to(plan):
+        return None if plan is None else SegmentPlan(*(
+            torch.as_tensor(np.asarray(a), dtype=torch.int32, device=device)
+            for a in plan))
+    return plans._replace(src=to(plans.src), dst=to(plans.dst),
+                          pair=to(plans.pair), link=to(plans.link))
 
 
 def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
@@ -212,7 +252,8 @@ def stack_operands(lanes: Sequence[SlotOperands], cfg) -> SlotOperands:
     P) (each lane's pad reads its own zero row) and `ecmp_up*`/
     `ecmp_down*` into the flattened (B, P, ...) link tensors.  The ECMP
     load plans keep per-lane flow indices: `bucket_load_bottleneck`
-    takes the lane axis itself."""
+    takes the lane axis itself.  The sparse plans become one plan over
+    the lanes' values stacked (`_stack_plan`)."""
     lanes = list(lanes)
     first = lanes[0]
     for k, ops in enumerate(lanes):
@@ -234,9 +275,11 @@ def stack_operands(lanes: Sequence[SlotOperands], cfg) -> SlotOperands:
     fb = FlowBatch(*(stack(name, [getattr(o.fb, name) for o in lanes], 0)
                      for name in FlowBatch._fields))
     out = {}
+    if first.sparse is not None:
+        out["sparse"] = _stack_sparse([o.sparse for o in lanes], F, P)
     for name in SlotOperands._fields:
         vals = [getattr(o, name) for o in lanes]
-        if name in ("fb", "seg_id") or vals[0] is None:
+        if name in ("fb", "seg_id", "sparse") or vals[0] is None:
             continue
         if name in _SHARED:
             out[name] = vals[0]
@@ -253,3 +296,51 @@ def stack_operands(lanes: Sequence[SlotOperands], cfg) -> SlotOperands:
             out[name] = stack(name, vals, 0)
     return first._replace(fb=fb, **out)
 
+
+
+def _stack_plan(plans: Sequence[SegmentPlan], n_chunks: int,
+                stride: int) -> SegmentPlan:
+    """The lanes' chunk-major plans as one plan over their (B, chunk, P)
+    values: chunk by chunk, lane b's buckets after lane b - 1's, its
+    entries offset by `b * stride` (a lane's chunk of values).  Only
+    the offsets visit the host."""
+    offs = [p.offsets.cpu().long() for p in plans]
+    K = (offs[0].numel() - 1) // n_chunks
+    o_parts, e_parts, pos = [torch.zeros(1, dtype=torch.int64)], [], 0
+    for c in range(n_chunks):
+        for b, (o, p) in enumerate(zip(offs, plans)):
+            o = o[c * K:(c + 1) * K + 1]
+            lo, hi = int(o[0]), int(o[-1])
+            o_parts.append(o[1:] - lo + pos)
+            e_parts.append(p.entries[lo:hi] + b * stride)
+            pos += hi - lo
+    dev = plans[0].entries.device
+    return SegmentPlan(torch.cat(o_parts).to(torch.int32).to(dev),
+                       torch.cat(e_parts).to(torch.int32))
+
+
+def _stack_sparse(lanes: Sequence[SparsePlans], F: int,
+                  P: int) -> SparsePlans:
+    """The lanes' sparse plans over their (B, F, P) values stacked
+    (`_stack_plan`); the ECMP link plans segment by segment."""
+    first = lanes[0]
+    for k, sp in enumerate(lanes):
+        if (sp.chunk, sp.n_in) != (first.chunk, first.n_in):
+            raise ValueError(f"lane {k}: plans of another chunking")
+    nc, stride = F // first.chunk, first.chunk * P
+
+    def stack(plans):
+        return _stack_plan(plans, nc, stride)
+
+    link = None
+    if first.link is not None:
+        segs = [stack([SegmentPlan(sp.link.offsets[g], sp.link.entries[g])
+                       for sp in lanes])
+                for g in range(first.link.offsets.shape[0])]
+        link = SegmentPlan(torch.stack([x.offsets for x in segs]),
+                           torch.stack([x.entries for x in segs]))
+    return first._replace(
+        src=stack([sp.src for sp in lanes]),
+        dst=stack([sp.dst for sp in lanes]),
+        pair=None if first.pair is None else stack([sp.pair for sp in lanes]),
+        link=link)

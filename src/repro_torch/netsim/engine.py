@@ -51,6 +51,18 @@ left to right in flow order, as the NumPy engine's `np.add.at` does; the
 short plane and spine sums run left to right too.  The CPU and GPU runs
 therefore differ only where `exp` does.
 
+Flows reach their buckets in one of the reference's two aggregation
+modes (`EngineConfig.agg_mode`, picked by `agg_mode_default`): dense,
+padded gather plans summed by `lsum` (and ECMP's links by
+`bucket_load_bottleneck`), or sparse, flow-ordered segment sums over
+CSR plans (`_sparse_plans`; one `segment_sum_many` launch a slot), the
+giga-scale path, whose plans grow with the flows, not with
+`L²·paths·planes`.  Both add a bucket's flows in flow order, so they
+agree bit for bit.  Under sparse aggregation `EngineConfig.flow_chunk`
+may stream the flows through the slot in chunks (`chunked.py`); the
+slot is split into `_offered`, `_sums`, `_links` and `_flows` so that
+both share every line.
+
 Schedule workloads (training-step collectives, `repro_torch.comms`)
 add a demand timeline: the slots where any of its lanes changes value
 (`phase_boundaries`) join the capacity segments, each segment carries
@@ -61,6 +73,7 @@ multiply is not in the slot at all.
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from dataclasses import dataclass, replace
@@ -71,8 +84,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.jsq_route import pair_fractions
-from repro_torch.kernels.link_load import bottleneck_many, \
-    bucket_load_bottleneck
+from repro_torch.kernels.link_load import SegmentPlan, bottleneck_many, \
+    bucket_load_bottleneck, segment_sum_many
 from repro_torch.kernels.plb_select import plane_split
 from repro_torch.kernels.queue_ecn import nic_update, queue_update_many
 from repro_torch.kernels.ref import lsum, sdiv
@@ -80,7 +93,8 @@ from repro_torch.kernels.ref import lsum, sdiv
 from repro_torch.scenarios.spec import reaction_lag
 from repro_torch.trace import FLOW_AXIS_FIELDS, TraceSpec
 
-from .carry import SlotOperands, operands_from_numpy, stack_operands
+from .carry import SlotOperands, SparsePlans, operands_from_numpy, \
+    stack_operands
 from .cc import (DCQCN_AI, DCQCN_ALPHA_G, MIN_RATE, PROBE_TIMEOUT, SPX_AI,
                  SPX_MD, SPX_RTT_GAIN, TARGET_RTT_US)
 from .events import (FaultTimeline, compile_fault_timeline,
@@ -96,13 +110,67 @@ _SPLIT_MODE = {"spx": "spx", "dcqcn": "dcqcn", "global": "agg",
                "esr": "agg", "swlb": "swlb"}
 
 
+def agg_mode_default(n_hosts: int, n_leaves: int, n_paths: int,
+                     n_planes: int) -> str:
+    """The flow-aggregation mode for a fabric shape, as the reference
+    picks it (`repro/netsim/jx/engine.py::agg_mode_default`): dense
+    gather plans at registry shapes, sparse (flow-ordered segment sums
+    over CSR plans) once the dense ECMP plans' `2·L²·paths·planes` rows
+    a segment, not the flows, would set the memory.
+    `REPRO_JX_AGG=dense|sparse` overrides, in both packages."""
+    env = os.environ.get("REPRO_JX_AGG")
+    if env in ("dense", "sparse"):
+        return env
+    big = (n_hosts >= 4096 or
+           n_leaves * n_leaves * n_paths * n_planes > (1 << 22))
+    return "sparse" if big else "dense"
+
+
+# live (flow, plane) arrays of a slot's per-flow working set in the
+# chunk-length estimate: the 5 NIC carry fields and the offered,
+# fabric-rate, throughput, queue, achieved, RTT and ECN intermediates
+_FLOW_WORKING_ARRAYS = 12
+
+
+def flow_chunk_default(n_flows: int, n_planes: int, agg_mode: str,
+                       dtype: torch.dtype = torch.float64) -> int:
+    """Flows a chunk when the slot streams its flow axis in chunks, or
+    0 for one pass over every flow, as the reference picks it
+    (`flow_chunk_default`), with the item size of the run's `dtype`.
+    Chunks start once the per-flow working set
+    (`_FLOW_WORKING_ARRAYS` (F, P) arrays) passes
+    `REPRO_JX_FLOW_BUDGET_MB` (default 8192), and only under sparse
+    aggregation; `REPRO_JX_FLOW_CHUNK=<n>` forces a chunk length (0: no
+    chunks) whatever the mode (a caller that takes it makes the run
+    sparse)."""
+    env = os.environ.get("REPRO_JX_FLOW_CHUNK")
+    if env is not None:
+        return max(0, int(env))
+    if agg_mode != "sparse" or n_flows <= 0:
+        return 0
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per_flow = max(1, n_planes) * itemsize * _FLOW_WORKING_ARRAYS
+    budget = float(os.environ.get("REPRO_JX_FLOW_BUDGET_MB", 8192))
+    if n_flows * per_flow <= budget * 2**20:
+        return 0
+    chunk = int(budget * 2**20 // per_flow)
+    # a power of two, at least 1024
+    chunk = max(1024, 1 << max(0, chunk.bit_length() - 1))
+    return min(chunk, n_flows)
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     """Static simulation parameters: sim knobs, fabric shape and the
     fluid-model constants.  `react` marks a run under failure reaction
     (routing steers by the visible view; each slot reports its
     blackholed bytes); `n_phases` > 0 marks a schedule run with that
-    many demand-timeline lanes (the reference's `JxConfig.n_phases`)."""
+    many demand-timeline lanes (the reference's `JxConfig.n_phases`).
+    `agg_mode` is how flows are summed into buckets: "dense" (padded
+    gather plans) or "sparse" (flow-ordered segment sums over CSR plans,
+    the giga-scale path); `flow_chunk` > 0 (sparse only) streams the
+    flow axis through the slot in chunks of that many flows
+    (`chunked.py`), bit-identical to one pass."""
     slots: int
     slot_us: float
     routing: str
@@ -128,6 +196,8 @@ class EngineConfig:
     ar_temperature: float = AR_TEMPERATURE
     jsq_bins: int = JSQ_BINS
     q_cap: float = Q_CAP
+    agg_mode: str = "dense"
+    flow_chunk: int = 0
     n_phases: int = 0
     react: bool = False
 
@@ -153,7 +223,9 @@ class EngineConfig:
     @classmethod
     def from_sim(cls, cfg: SimConfig, topo) -> "EngineConfig":
         """`topo` is a `TopologySpec` (or anything with its shape
-        attributes).  Raises `ValueError` on an unknown routing."""
+        attributes).  The aggregation mode is the fabric's
+        (`agg_mode_default`).  Raises `ValueError` on an unknown
+        routing."""
         fat = getattr(topo, "kind", "leaf_spine") == "fat_tree"
         if cfg.routing not in ("ar", "war", "ecmp"):
             raise ValueError(f"unknown routing {cfg.routing!r}")
@@ -170,7 +242,10 @@ class EngineConfig:
             n_pods=topo.n_pods if fat else 1,
             n_aggs=topo.n_aggs if fat else 1,
             n_cores=topo.n_cores if fat else 1,
-            core_cap=topo.core_cap if fat else 1.0)
+            core_cap=topo.core_cap if fat else 1.0,
+            agg_mode=agg_mode_default(
+                topo.n_hosts, topo.n_leaves,
+                topo.n_cores if fat else topo.n_spines, topo.n_planes))
 
     def frames(self) -> Tuple[int, int]:
         """(recorded frames, first post-warmup frame)."""
@@ -389,6 +464,62 @@ def _pair_rate_sum(cfg: EngineConfig, fabric_rate: torch.Tensor,
         fabric_rate.shape[:-2] + (P, L, L))
 
 
+def _chunk_plan(plan: SegmentPlan, chunk: int, n_chunks: int
+                ) -> SegmentPlan:
+    """Chunk `chunk` of `n_chunks`' buckets of a chunk-major plan (its
+    offsets stay positions in the whole `entries`)."""
+    if n_chunks == 1:
+        return plan
+    K = (plan.offsets.shape[-1] - 1) // n_chunks
+    return plan._replace(offsets=plan.offsets[chunk * K:(chunk + 1) * K + 1])
+
+
+def _sparse_sums(cfg: EngineConfig, ops: SlotOperands, offered, fabric_rate,
+                 seg: int, chunk: int = 0, acc=None) -> Tuple:
+    """The slot's flow sums under sparse aggregation, one segment-sum
+    launch: `offered` by (src host, plane) and by (dst host, plane), and
+    `fabric_rate` by (plane, leaf pair) under AR/WAR or by ECMP link
+    (this segment's plan) — of chunk `chunk` of the flows (`offered`
+    and `fabric_rate` that chunk's), added to the sums `acc` of the
+    chunks before it when given.  Returns the flat sums, a lane's
+    buckets after another's (`_shape_sums` views them)."""
+    sp = ops.sparse
+    nc = ops.fb.demand.shape[-1] // sp.chunk
+    third = sp.pair if sp.link is None else SegmentPlan(
+        sp.link.offsets[seg], sp.link.entries[seg])
+    return segment_sum_many(
+        ((offered, _chunk_plan(sp.src, chunk, nc)),
+         (offered, _chunk_plan(sp.dst, chunk, nc)),
+         (fabric_rate, _chunk_plan(third, chunk, nc))), acc=acc)
+
+
+def _shape_sums(cfg: EngineConfig, lead: tuple, sums) -> Tuple:
+    """`_sparse_sums`' flat sums as the slot's loads: the two access
+    loads (..., H, P), then the pair rates (..., P, L, L) or the ECMP
+    link loads, family after family, (..., rows)."""
+    tx, rx, third = sums
+    H, P, L = cfg.n_hosts, cfg.n_planes, cfg.n_leaves
+    shape = (P, L, L) if cfg.routing != "ecmp" else (-1,)
+    return (tx.view(lead + (H, P)), rx.view(lead + (H, P)),
+            third.view(lead + shape))
+
+
+def _sums(cfg: EngineConfig, ops: SlotOperands, offered, fabric_rate,
+          seg: int) -> Tuple:
+    """The slot's flow sums, each bucket's flows added in flow order:
+    the access loads by src and by dst host ((..., H, P) each), then the
+    pair rates ((..., P, L, L), AR/WAR) or, under sparse aggregation,
+    the ECMP link loads; dense ECMP sums its links in
+    `bucket_load_bottleneck` (None here)."""
+    if cfg.agg_mode == "sparse":
+        return _shape_sums(cfg, tuple(offered.shape[:-2]), _sparse_sums(
+            cfg, ops, offered, fabric_rate, seg))
+    pair = None if cfg.routing == "ecmp" else \
+        _pair_rate_sum(cfg, fabric_rate, ops.agg_pair)
+    return (_seg_sum(offered, ops.agg_src), _seg_sum(offered, ops.agg_dst),
+            pair)
+
+
 def _pair(up_l, down_l, cross=None, up_b=None, down_b=None):
     """(..., P, L_src, L_dst, J) pair view of per-path link values: the
     minimum of the src leaf's up value and the dst leaf's down value
@@ -424,18 +555,18 @@ def _ft_pair(ops: SlotOperands, v: _FatTreeView):
     return _pair(v.up, v.down, ops.cross_pair[:, :, None], v.up2, v.down2)
 
 
-def _route_pair(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
-                upv, downv, ops: SlotOperands, use_war: bool):
+def _route_pair(cfg: EngineConfig, carry: SimCarry, rate_pair, up, down,
+                upv, downv, use_war: bool):
     """AR / weighted-AR on a leaf-spine, up to the link loads: leaf-pair
     spine fractions (scored on the visible capacities `upv`/`downv`),
-    the pair queues they were scored on, the up and down link loads and,
-    under failure reaction, the rate steered onto physically dead paths.
-    `_pair_through` finishes the routing once the loads are scaled."""
+    the pair queues they were scored on, the up and down link loads of
+    the pair rates `rate_pair` and, under failure reaction, the rate
+    steered onto physically dead paths.  `_pair_tables` finishes the
+    routing once the loads are scaled."""
     # kernel operands are contiguous whatever layout broadcasting picks
     cap = _pair(upv, downv.transpose(-1, -2)).contiguous()
     q = _pair_sum(carry.q_up, carry.q_down.transpose(-1, -2))
     pair = _pair_fractions(cfg, q, cap, downv, use_war)
-    rate_pair = _pair_rate_sum(cfg, fabric_rate, ops.agg_pair)
     contrib = rate_pair[..., None] * pair               # (..., P, L, L, S)
     # einsum("plm,plms->pls") / ("plm,plms->psm") as ordered sums
     load_up = lsum(contrib.transpose(-1, -2))           # (..., P, L, S)
@@ -446,7 +577,7 @@ def _route_pair(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
     return pair, q, (load_up, load_down), bh
 
 
-def _route_pair_ft(cfg: EngineConfig, carry: SimCarry, fabric_rate,
+def _route_pair_ft(cfg: EngineConfig, carry: SimCarry, rate_pair,
                    phys: _FatTreeView, vis: _FatTreeView,
                    ops: SlotOperands, use_war: bool):
     """Fat-tree AR / weighted-AR, up to the link loads: the pair split
@@ -457,7 +588,7 @@ def _route_pair_ft(cfg: EngineConfig, carry: SimCarry, fabric_rate,
     P, L, A = cfg.n_planes, cfg.n_leaves, cfg.n_aggs
     J, cpa = cfg.n_paths, cfg.cores_per_agg
     pods, lpp = cfg.n_pods, cfg.leaves_per_pod
-    lead = fabric_rate.shape[:-2]
+    lead = rate_pair.shape[:-3]
     cross = ops.cross_pair[:, :, None]
     cap = _ft_pair(ops, vis).contiguous()
     aj, pol = ops.path_agg, ops.leaf_pod
@@ -470,7 +601,6 @@ def _route_pair_ft(cfg: EngineConfig, carry: SimCarry, fabric_rate,
     # leaf, both stages
     eff = torch.minimum(vis.down, vis.down2).transpose(-1, -2)  # (P, J, L)
     pair = _pair_fractions(cfg, q, cap, eff, use_war)
-    rate_pair = _pair_rate_sum(cfg, fabric_rate, ops.agg_pair)
     contrib = rate_pair[..., None] * pair               # (..., P, L, L, J)
     # einsum("plm,plmj->plj") / ("plm,plmj->pmj") as ordered sums, then
     # the cores of an agg (stage A) and the leaves of a pod (stage B)
@@ -500,71 +630,151 @@ def _blackholed(contrib, cap) -> torch.Tensor:
     return _lane_total(contrib * (cap <= _EPS), 4)
 
 
-def _pair_through(cfg: EngineConfig, fabric_rate, pair, q, scale_pair,
-                  ops: SlotOperands):
-    """AR / weighted-AR, from the (..., P, L, L, J) path scales: the
-    per-flow fabric throughput and mean path queue, each flow reading
-    its leaf pair's row."""
-    lead = fabric_rate.shape[:-2]
-    LL = cfg.n_leaves * cfg.n_leaves
-    path_scale = lsum(pair * scale_pair).reshape(lead + (-1, LL))
-    through = fabric_rate * _rows(path_scale.transpose(-1, -2),
-                                  ops.pair_idx)
-    qmean = _rows(lsum(pair * q).reshape(lead + (-1, LL))
-                  .transpose(-1, -2), ops.pair_idx)
-    return through, qmean
+def _pair_tables(cfg: EngineConfig, pair, q, scale_pair):
+    """AR / weighted-AR, from the (..., P, L, L, J) path scales: each
+    leaf pair's fabric scale and mean path queue as rows of (B·L·L, P)
+    tables, which each flow reads at its leaf pair (`pair_idx`)."""
+    lead = pair.shape[:-4]
+    P, LL = cfg.n_planes, cfg.n_leaves * cfg.n_leaves
+    path_scale = lsum(pair * scale_pair).reshape(lead + (P, LL))
+    q_tab = lsum(pair * q).reshape(lead + (P, LL))
+    return (path_scale.transpose(-1, -2).reshape(-1, P),
+            q_tab.transpose(-1, -2).reshape(-1, P))
 
 
-def _route_ecmp(cfg: EngineConfig, carry: SimCarry, fabric_rate, up, down,
-                up2, down2, ops: SlotOperands, seg: int):
-    """ECMP: each (flow, plane) rides the path of this segment's
-    assignment.  One `bucket_load_bottleneck` launch sums the flows of
-    every link bucket in flow order and scales them (on a fat tree the
-    stage-B buckets too, cross-pod flows only; a batch's lanes in the
-    same launch); each flow then reads the scales and queues of its
-    links through flat indices.  Returns the link loads, the throughput
-    and mean queue per (flow, plane), and under failure reaction the
-    rate assigned to physically dead paths."""
+def _ecmp_link_loads(cfg: EngineConfig, loads) -> Tuple:
+    """The ECMP link loads of (..., rows) bucket sums, family after
+    family: stage-A up (..., P, L, U) and down (..., P, U, L), and on a
+    fat tree stage-B up and down (..., P, pods, C), each contiguous."""
     P, L, U = cfg.n_planes, cfg.n_leaves, cfg.n_up
-    LU = L * U
-    lead = fabric_rate.shape[:-2]
-    loads, fracs = bucket_load_bottleneck(
-        fabric_rate, ops.ecmp_load[seg], ops.link_cap[seg], eps=_EPS)
+    lead = loads.shape[:-1]
+    LU = P * L * U
+    out = (loads[..., :LU].reshape(lead + (P, L, U)).contiguous(),
+           loads[..., LU:2 * LU].reshape(lead + (P, U, L)).contiguous())
+    if cfg.kind == "fat_tree":
+        B = P * cfg.n_pods * cfg.n_cores
+        shape = lead + (P, cfg.n_pods, cfg.n_cores)
+        out += (loads[..., 2 * LU:2 * LU + B].reshape(shape).contiguous(),
+                loads[..., 2 * LU + B:].reshape(shape).contiguous())
+    return out
+
+
+class _Links(NamedTuple):
+    """A slot's link-level state, from its flows' summed rates: what
+    each flow reads back (`tables`: under AR/WAR the leaf pairs' path
+    scale and queue tables, under ECMP the link scales of stage A's up
+    and down links and, on a fat tree, stage B's), the access scales,
+    the updated queues and stage A's up-link utilization, and under
+    AR/WAR with failure reaction the blackholed rate."""
+    tables: Tuple
+    f_acc_tx: torch.Tensor
+    f_acc_rx: torch.Tensor
+    q_up: torch.Tensor
+    q_down: torch.Tensor
+    util: torch.Tensor
+    q2_up: Optional[torch.Tensor]
+    q2_down: Optional[torch.Tensor]
+    bh: Optional[torch.Tensor]
+
+
+def _links(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, seg: int,
+           sums, fabric_rate=None) -> _Links:
+    """The link half of a slot in capacity segment `seg`: routing, link
+    loads and their bottleneck scales (every scale of the slot in one
+    bottleneck launch: the access links', and the fabric links' unless
+    dense ECMP's bucket_load_bottleneck gives them), then every queue in
+    one queue_update launch.  `sums` is `_sums`' (dense ECMP also needs
+    the flows' `fabric_rate`); reads only the old carry's queues."""
+    fat = cfg.kind == "fat_tree"
+    up, down, acc = ops.up[seg], ops.down[seg], ops.acc[seg]
+    up2, down2 = (ops.up2[seg], ops.down2[seg]) if fat else (None, None)
+    tx, rx, third = sums
+    access = ((acc, tx), (acc, rx))
+    links = (up, down) + ((up2, down2) if fat else ())
+    bh = None
+    if cfg.routing == "ecmp" and cfg.agg_mode == "dense":
+        # one launch sums the flows of every link bucket in flow order
+        # and scales them (a batch's lanes in the same launch)
+        loads, fracs = bucket_load_bottleneck(
+            fabric_rate, ops.ecmp_load[seg], ops.link_cap[seg], eps=_EPS)
+        # the plan's rows, by plane: stage A's up and down links, then
+        # on a fat tree stage B's
+        LU = cfg.n_leaves * cfg.n_up
+        o = [0, LU, 2 * LU] + ([2 * LU + cfg.n_pods * cfg.n_cores,
+                                fracs.shape[-1]] if fat else [])
+        spans = list(zip(o[:-1], o[1:]))
+        tables = tuple(fracs[..., a:b] for a, b in spans)
+        loads = tuple(loads[..., a:b].reshape(x.shape).contiguous()
+                      for (a, b), x in zip(spans, links))
+        f_acc_tx, f_acc_rx = bottleneck_many(access, eps=_EPS)
+    elif cfg.routing == "ecmp":
+        loads = _ecmp_link_loads(cfg, third)
+        *tables, f_acc_tx, f_acc_rx = bottleneck_many(
+            tuple(zip(links, loads)) + access, eps=_EPS)
+    else:
+        use_war = cfg.routing == "war"
+        if fat:
+            phys = _ft_view(ops, up, down, up2, down2)
+            vis = _ft_view(ops, ops.vup[seg], ops.vdown[seg],
+                           ops.vup2[seg], ops.vdown2[seg])
+            pair, q, loads, bh = _route_pair_ft(
+                cfg, carry, third, phys, vis, ops, use_war)
+        else:
+            pair, q, loads, bh = _route_pair(
+                cfg, carry, third, up, down, ops.vup[seg], ops.vdown[seg],
+                use_war)
+        *scales, f_acc_tx, f_acc_rx = bottleneck_many(
+            tuple(zip(links, loads)) + access, eps=_EPS)
+        if fat:
+            scale_pair = _ft_pair(ops, _ft_view(ops, *scales))
+        else:
+            scale_pair = _pair(scales[0], scales[1].transpose(-1, -2))
+        tables = _pair_tables(cfg, pair, q, scale_pair)
+    # every link queue in one queue_update launch (stage A's up and
+    # down links, and on a fat tree stage B's); only stage A's up links'
+    # utilization is kept
+    queues = (carry.q_up, carry.q_down) + \
+        ((carry.q2_up, carry.q2_down) if fat else ())
+    (q_up, util), (q_down, _), *stage_b = queue_update_many(
+        tuple(zip(queues, loads, links)), q_cap=cfg.q_cap, eps=_EPS)
+    q2_up, q2_down = (q for q, _ in stage_b) if fat else (None, None)
+    return _Links(tuple(tables), f_acc_tx, f_acc_rx, q_up, q_down, util,
+                  q2_up, q2_down, bh)
+
+
+def _ecmp_flows(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry,
+                fabric_rate, seg: int, scales):
+    """ECMP, per (flow, plane) of `ops`' flows: the fabric throughput
+    on this segment's assigned path (the least of its links' scales;
+    stage B's too for a fat tree's cross-pod flows), the path's mean
+    queue from the old carry and, under failure reaction, the rate on a
+    physically dead path.  Flows read every link value through flat
+    indices into the (..., P, ...) link tensors."""
     up_idx, down_idx = ops.ecmp_up[seg], ops.ecmp_down[seg]   # (.., F, P)
-    link_loads = (loads[..., :LU].reshape(lead + (P, L, U)).contiguous(),
-                  loads[..., LU:2 * LU].reshape(lead + (P, U, L))
-                  .contiguous())
-    scale_f = torch.minimum(torch.take(fracs[..., :LU], up_idx),
-                            torch.take(fracs[..., LU:2 * LU], down_idx))
+    scale_f = torch.minimum(torch.take(scales[0], up_idx),
+                            torch.take(scales[1], down_idx))
     qmean = torch.take(carry.q_up, up_idx) + \
         torch.take(carry.q_down, down_idx)
     cap_f = None
     if cfg.react:
-        cap_f = torch.minimum(torch.take(up, up_idx),
-                              torch.take(down, down_idx))
+        cap_f = torch.minimum(torch.take(ops.up[seg], up_idx),
+                              torch.take(ops.down[seg], down_idx))
     if cfg.kind == "fat_tree":
-        B = cfg.n_pods * cfg.n_cores
-        o2, o3 = 2 * LU, 2 * LU + B
         up2_idx, down2_idx = ops.ecmp_up2[seg], ops.ecmp_down2[seg]
-        shape = lead + (P, cfg.n_pods, cfg.n_cores)
-        link_loads += (loads[..., o2:o3].reshape(shape).contiguous(),
-                       loads[..., o3:].reshape(shape).contiguous())
-        scale_b = torch.minimum(torch.take(fracs[..., o2:o3], up2_idx),
-                                torch.take(fracs[..., o3:], down2_idx))
+        scale_b = torch.minimum(torch.take(scales[2], up2_idx),
+                                torch.take(scales[3], down2_idx))
         scale_f = torch.where(ops.cross, torch.minimum(scale_f, scale_b),
                               scale_f)
         qmean = qmean + torch.where(
             ops.cross, torch.take(carry.q2_up, up2_idx)
             + torch.take(carry.q2_down, down2_idx), 0.0)
         if cfg.react:
-            cap_b = torch.minimum(torch.take(up2, up2_idx),
-                                  torch.take(down2, down2_idx))
+            cap_b = torch.minimum(torch.take(ops.up2[seg], up2_idx),
+                                  torch.take(ops.down2[seg], down2_idx))
             cap_f = torch.where(ops.cross, torch.minimum(cap_f, cap_b),
                                 cap_f)
-    through = fabric_rate * scale_f
-    bh = None if cap_f is None else \
-        _lane_total(fabric_rate * (cap_f <= _EPS), 2)
-    return link_loads, through, qmean, bh
+    bh = None if cap_f is None else fabric_rate * (cap_f <= _EPS)
+    return fabric_rate * scale_f, qmean, bh
 
 
 # ---------------------------------------------------------------------------
@@ -594,77 +804,66 @@ def _traced(trace: Optional[TraceSpec]) -> Tuple[str, ...]:
         else ()
 
 
-def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
-          seg: int, counted, trace: Optional[TraceSpec] = None):
-    """One slot in capacity segment `seg`.  `t` and `counted` are host
-    values (the eager loop: a Python int and bool) or device tensors
-    (`SlotLoop`: the 0-d slot and a (1,) bool), which enter the slot's
-    arithmetic the same way.  Returns `(next carry, total)`, then under
-    failure reaction the blackholed total, then with `trace` enabled its
-    active fields in `TRACE_FIELDS` order (`_trace_fields`)."""
-    fat = cfg.kind == "fat_tree"
-    up, down, acc = ops.up[seg], ops.down[seg], ops.acc[seg]
-    up2, down2 = (ops.up2[seg], ops.down2[seg]) if fat else (None, None)
+def _offered(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
+             seg: int):
+    """`(offered, fabric_rate)` (..., F, P) of the flows of `ops` and
+    `carry` (a run's, or one chunk's): each flow's demand, zero before
+    its start and once done (a schedule run's scaled by its lane's
+    multiplier), split over the planes; the fabric rate is zero for a
+    flow within one leaf."""
     fb = ops.fb
-
     demand = torch.where(carry.done | (t < fb.start_slot), 0.0, fb.demand)
     if cfg.n_phases:
         # schedule workloads: the segment's multiplier of each flow's
         # demand-timeline lane (lane 0 is the always-1.0 lane)
         demand = demand * ops.dem[seg].gather(-1, fb.phase)
     offered = _plane_split(cfg, carry.nic, demand)        # (..., F, P)
-    same_leaf = fb.same_leaf[..., None]
-    fabric_rate = torch.where(same_leaf, 0.0, offered)
+    return offered, torch.where(fb.same_leaf[..., None], 0.0, offered)
 
-    # every link scale of the slot in one bottleneck launch: the access
-    # links', and under AR/WAR the fabric links' too (ECMP's come from
-    # bucket_load_bottleneck)
-    load_acc_tx = _seg_sum(offered, ops.agg_src)          # (..., H, P)
-    load_acc_rx = _seg_sum(offered, ops.agg_dst)
-    access = ((acc, load_acc_tx), (acc, load_acc_rx))
-    links = (up, down) + ((up2, down2) if fat else ())
+
+class _Flows(NamedTuple):
+    """The per-flow half of a slot for some flows: their next carry
+    fields, achieved goodput, and what a trace or the blackhole series
+    reads (`bh`: ECMP's rate on dead paths, (..., F, P); None
+    otherwise)."""
+    nic: NicCarry
+    remaining: torch.Tensor
+    done: torch.Tensor
+    completion: torch.Tensor
+    goodput_sum: torch.Tensor
+    achieved: torch.Tensor
+    achieved_pp: torch.Tensor
+    stalled: torch.Tensor
+    ecn: torch.Tensor
+    bh: Optional[torch.Tensor]
+
+
+def _flows(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
+           seg: int, counted, offered, fabric_rate,
+           links: _Links) -> _Flows:
+    """The per-flow half of a slot for the flows of `ops` and `carry` (a
+    run's, or one chunk's; `carry`'s queues are the old ones): fabric
+    throughput and path queue, access scaling, the NIC update, loss
+    stalls, completion and the post-warmup goodput sum.  Every step is
+    per flow, so a chunk's flows get what they get in one pass."""
+    fb = ops.fb
+    acc = ops.acc[seg]
     if cfg.routing == "ecmp":
-        loads, through, qmean, bh = _route_ecmp(
-            cfg, carry, fabric_rate, up, down, up2, down2, ops, seg)
-        f_acc_tx, f_acc_rx = bottleneck_many(access, eps=_EPS)
+        through, qmean, bh = _ecmp_flows(cfg, ops, carry, fabric_rate, seg,
+                                         links.tables)
     else:
-        use_war = cfg.routing == "war"
-        if fat:
-            phys = _ft_view(ops, up, down, up2, down2)
-            vis = _ft_view(ops, ops.vup[seg], ops.vdown[seg],
-                           ops.vup2[seg], ops.vdown2[seg])
-            pair, q, loads, bh = _route_pair_ft(
-                cfg, carry, fabric_rate, phys, vis, ops, use_war)
-        else:
-            pair, q, loads, bh = _route_pair(
-                cfg, carry, fabric_rate, up, down, ops.vup[seg],
-                ops.vdown[seg], ops, use_war)
-        *scales, f_acc_tx, f_acc_rx = bottleneck_many(
-            tuple(zip(links, loads)) + access, eps=_EPS)
-        if fat:
-            scale_pair = _ft_pair(ops, _ft_view(ops, *scales))
-        else:
-            scale_pair = _pair(scales[0], scales[1].transpose(-1, -2))
-        through, qmean = _pair_through(cfg, fabric_rate, pair, q,
-                                       scale_pair, ops)
+        scale, q_tab = links.tables
+        through = fabric_rate * scale[ops.pair_idx]
+        qmean, bh = q_tab[ops.pair_idx], None
     # access liveness doubles as the RTT probe result: a plane is
     # reachable iff both endpoints' access links on it are up
     alive = (_rows(acc, fb.src) > _EPS) & (_rows(acc, fb.dst) > _EPS)
-
+    same_leaf = fb.same_leaf[..., None]
     local = torch.where(same_leaf, offered, 0.0)
-    acc_scale = torch.minimum(_rows(f_acc_tx, fb.src),
-                              _rows(f_acc_rx, fb.dst))
+    acc_scale = torch.minimum(_rows(links.f_acc_tx, fb.src),
+                              _rows(links.f_acc_rx, fb.dst))
     achieved_pp = torch.where(alive, (through + local) * acc_scale, 0.0)
     qmean = torch.where(same_leaf, 0.0, qmean).contiguous()
-
-    # every link queue in one queue_update launch (stage A's up and
-    # down links, and on a fat tree stage B's); only stage A's up links'
-    # utilization is kept
-    queues = (carry.q_up, carry.q_down) + \
-        ((carry.q2_up, carry.q2_down) if fat else ())
-    (q_up, util), (q_down, _), *stage_b = queue_update_many(
-        tuple(zip(queues, loads, links)), q_cap=cfg.q_cap, eps=_EPS)
-    q2_up, q2_down = (q for q, _ in stage_b) if fat else (None, None)
 
     nic, rtt, ecn = _nic_update(cfg, carry.nic, qmean, alive, t, ops.esr)
 
@@ -688,34 +887,64 @@ def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
         goodput_sum = carry.goodput_sum + achieved
     else:
         goodput_sum = carry.goodput_sum
+    return _Flows(nic, remaining, carry.done | newly, completion,
+                  goodput_sum, achieved, achieved_pp, stalled, ecn, bh)
 
-    new_carry = SimCarry(
-        q_up=q_up, q_down=q_down, nic=nic, remaining=remaining,
-        done=carry.done | newly, completion=completion,
-        goodput_sum=goodput_sum, util_up=util, q2_up=q2_up,
-        q2_down=q2_down)
-    outs = (_lane_total(achieved, 1),) + ((bh,) if cfg.react else ())
+
+def _next_carry(links: _Links, fl: _Flows) -> SimCarry:
+    return SimCarry(
+        q_up=links.q_up, q_down=links.q_down, nic=fl.nic,
+        remaining=fl.remaining, done=fl.done, completion=fl.completion,
+        goodput_sum=fl.goodput_sum, util_up=links.util, q2_up=links.q2_up,
+        q2_down=links.q2_down)
+
+
+def _slot(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, t,
+          seg: int, counted, trace: Optional[TraceSpec] = None):
+    """One slot in capacity segment `seg`.  `t` and `counted` are host
+    values (the eager loop: a Python int and bool) or device tensors
+    (`SlotLoop`: the 0-d slot and a (1,) bool), which enter the slot's
+    arithmetic the same way.  Returns `(next carry, total)`, then under
+    failure reaction the blackholed total, then with `trace` enabled its
+    active fields in `TRACE_FIELDS` order (`_trace_fields`).  With
+    `cfg.flow_chunk` the flows go through in chunks (`chunked.slot`)."""
+    if cfg.flow_chunk:
+        from . import chunked
+        return chunked.slot(cfg, ops, carry, t, seg, counted)
+    offered, fabric_rate = _offered(cfg, ops, carry, t, seg)
+    links = _links(cfg, ops, carry, seg,
+                   _sums(cfg, ops, offered, fabric_rate, seg), fabric_rate)
+    fl = _flows(cfg, ops, carry, t, seg, counted, offered, fabric_rate,
+                links)
+    outs = (_lane_total(fl.achieved, 1),)
+    if cfg.react:
+        outs += (links.bh if fl.bh is None else _lane_total(fl.bh, 2),)
     fields = _traced(trace)
     if fields:
-        outs += _trace_fields(fields, ops, achieved_pp, stalled, util,
-                              q_up, ecn, nic.eligible)
-    return (new_carry,) + outs
+        outs += _trace_fields(fields, cfg, ops, fl, links)
+    return (_next_carry(links, fl),) + outs
 
 
-def _trace_fields(fields: Sequence[str], ops: SlotOperands, achieved_pp,
-                  stalled, util, q_up, ecn, eligible) -> Tuple:
+def _trace_fields(fields: Sequence[str], cfg: EngineConfig,
+                  ops: SlotOperands, fl: _Flows, links: _Links) -> Tuple:
     """The reference's per-slot trace signals, only those in `fields`:
     `host_bw` the delivered (stall-masked) goodput summed by source host
     in flow order, `util` and `queue` the stage-A uplinks' utilization
     and queue after the update, `ecn` the NIC update's marks and
     `eligible` the new plane eligibility."""
+    def host_bw():
+        bw = torch.where(fl.stalled[..., None], 0.0, fl.achieved_pp)
+        if cfg.agg_mode == "dense":
+            return _seg_sum(bw, ops.agg_src)
+        (out,) = segment_sum_many(((bw, ops.sparse.src),))
+        return out.view(bw.shape[:-2] + (cfg.n_hosts, cfg.n_planes))
+
     sig = {
-        "host_bw": lambda: _seg_sum(
-            torch.where(stalled[..., None], 0.0, achieved_pp), ops.agg_src),
-        "util": lambda: util,
-        "queue": lambda: q_up,
-        "ecn": lambda: ecn,
-        "eligible": lambda: eligible,
+        "host_bw": host_bw,
+        "util": lambda: links.util,
+        "queue": lambda: links.q_up,
+        "ecn": lambda: fl.ecn,
+        "eligible": lambda: fl.nic.eligible,
     }
     return tuple(sig[f]() for f in fields)
 
@@ -740,6 +969,29 @@ def _record_rows(slots: int, every: int) -> np.ndarray:
     return np.where(t % every == 0, t // every, -1)
 
 
+def _check_mode(cfg: EngineConfig, ops: SlotOperands,
+                trace: Optional[TraceSpec]) -> None:
+    """Refuse what the reference refuses: chunks without sparse
+    aggregation (`ValueError`: the dense plans are the one-pass layout
+    chunks exist to avoid) or with a trace (`NotImplementedError`: a
+    trace records whole-run fields every slot); and sparse aggregation
+    without its plans."""
+    if cfg.flow_chunk:
+        if cfg.agg_mode != "sparse":
+            raise ValueError(
+                "flow_chunk requires agg_mode='sparse' (the dense gather "
+                "plans are exactly the one-pass layout chunking avoids)")
+        if _traced(trace):
+            raise NotImplementedError(
+                "flow_chunk does not compose with TraceSpec captures")
+    if cfg.agg_mode == "sparse" and ops.sparse is None:
+        raise ValueError("sparse aggregation needs the operands' segment-"
+                         "sum plans (`SlotOperands.sparse`)")
+    if cfg.flow_chunk and ops.sparse.chunk != cfg.flow_chunk:
+        raise ValueError(f"operands chunked by {ops.sparse.chunk} flows, "
+                         f"the config by {cfg.flow_chunk}")
+
+
 def slot_loop(cfg: EngineConfig, ops: SlotOperands,
               carry0: Optional[SimCarry] = None,
               trace: Optional[TraceSpec] = None) -> SlotLoop:
@@ -747,6 +999,7 @@ def slot_loop(cfg: EngineConfig, ops: SlotOperands,
     from `carry0` (the initial carry by default); under failure reaction
     its second series is the blackhole timeline, and with `trace`
     enabled its records are the active trace fields."""
+    _check_mode(cfg, ops, trace)
     carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
     fields = _traced(trace)
     return SlotLoop(partial(_slot, cfg, ops, trace=trace), carry,
@@ -807,6 +1060,7 @@ def _simulate(cfg: EngineConfig, ops: SlotOperands,
                           replay_s=time.perf_counter() - t1, events=events)
         _count_loop(loop)
         return _loop_results(cfg, loop)
+    _check_mode(cfg, ops, trace)
     t0 = time.perf_counter()
     carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
     lead = tuple(ops.fb.demand.shape[:-1])
@@ -845,13 +1099,14 @@ class AggPerms(NamedTuple):
     ecmp_load: np.ndarray
 
 
-def _prepared(compiled) -> Tuple[EngineConfig, FlowArrays, FaultTimeline,
-                                 Optional[FaultTimeline]]:
+def _prepared(compiled, dtype: torch.dtype = torch.float64
+              ) -> Tuple[EngineConfig, FlowArrays, FaultTimeline,
+                         Optional[FaultTimeline]]:
     """`(cfg, flow arrays, physical timeline, visible timeline)` of
-    `_lane`: the visible timeline is the reaction-lagged view (None
-    without a reaction, the physical timeline itself when the lag is
-    zero)."""
-    lane = _lane(compiled)
+    `_lane` for a run in `dtype`: the visible timeline is the
+    reaction-lagged view (None without a reaction, the physical timeline
+    itself when the lag is zero)."""
+    lane = _lane(compiled, dtype=dtype)
     return lane.cfg, lane.fa, lane.tl, lane.vtl
 
 
@@ -960,7 +1215,10 @@ def _agg_widths(cfg: EngineConfig, fa: FlowArrays,
                 assign: np.ndarray) -> Tuple[int, int, int, int]:
     """Largest bucket of each aggregation axis (the plan widths): src
     host, dst host, leaf pair, and ECMP link over every (segment,
-    plane) assignment (1 under AR/WAR)."""
+    plane) assignment (1 under AR/WAR).  All 1 under sparse
+    aggregation, which builds no gather plan."""
+    if cfg.agg_mode == "sparse":
+        return (1, 1, 1, 1)
     def w(keys, n, mask=None):
         if mask is not None:
             keys = keys[mask]
@@ -1014,6 +1272,12 @@ def _aggs_for(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
     ws, wd, wp, wu = widths
     H, L, P = cfg.n_hosts, cfg.n_leaves, cfg.n_planes
     F = len(fa) if pad is None else pad
+    if cfg.agg_mode == "sparse":
+        # the reference's inert placeholders: sparse aggregation reads
+        # the CSR plans (`_sparse_plans`) instead
+        z = np.zeros((1, 1), np.int32)
+        return AggPerms(src=z, dst=z, pair=z,
+                        ecmp_load=np.zeros((1, P, 1, 1), np.int32))
     if cfg.routing == "ecmp":
         load = _ecmp_load_plan(cfg, fa, assign, wu, F)
     else:
@@ -1023,6 +1287,87 @@ def _aggs_for(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
         dst=_perm_matrix(fa.dst, H, wd, F),
         pair=_perm_matrix(fa.src_leaf * L + fa.dst_leaf, L * L, wp, F),
         ecmp_load=load)
+
+
+def _csr(parts, n_buckets: int, chunk: int, n_chunks: int
+         ) -> SegmentPlan:
+    """One CSR plan (int32 NumPy arrays) of the entries `parts`, a list
+    of `(flows (n,), keys (n, P))`: flow f's value on plane p goes to
+    bucket `keys[i, p]` (< `n_buckets`) where `flows[i] == f`.  Buckets
+    are chunk-major (`n_chunks` x `n_buckets`, a chunk being `chunk`
+    flows), each bucket's entries in flow order, as flat indices into
+    its chunk's (chunk, P) values; parts never share a bucket."""
+    comp, local = [], []
+    for flows, keys in parts:
+        c = flows // chunk
+        P = keys.shape[1]
+        comp.append(((c * n_buckets)[:, None] + keys).ravel())
+        local.append((((flows - c * chunk) * P)[:, None]
+                      + np.arange(P)).ravel())
+    comp, local = np.concatenate(comp), np.concatenate(local)
+    order = np.argsort(comp, kind="stable")
+    counts = np.bincount(comp, minlength=n_chunks * n_buckets)
+    return SegmentPlan(
+        np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+        local[order].astype(np.int32))
+
+
+def _link_parts(cfg: EngineConfig, fa: FlowArrays, assign_g: np.ndarray):
+    """`_csr` parts of one segment's ECMP link buckets, the reference's
+    sparse keys family after family: stage-A up (plane, src leaf, spine
+    or agg), stage-A down (plane, spine or agg, dst leaf), and on a fat
+    tree the cross-pod flows' stage-B up (plane, src pod, core) and down
+    (plane, dst pod, core) buckets (intra-pod flows add the reference's
+    exact 0.0 there, so they stay out)."""
+    P, L, U = cfg.n_planes, cfg.n_leaves, cfg.n_up
+    pk = np.arange(P)[None, :]
+    flows = np.arange(len(fa))
+    src, dst = fa.src_leaf[:, None], fa.dst_leaf[:, None]
+    a_of = assign_g // cfg.cores_per_agg
+    LU = P * L * U
+    parts = [(flows, pk * (L * U) + src * U + a_of),
+             (flows, LU + pk * (U * L) + a_of * L + dst)]
+    if cfg.kind == "fat_tree":
+        J, pods, lpp = cfg.n_paths, cfg.n_pods, cfg.leaves_per_pod
+        cross = np.flatnonzero(fa.src_leaf // lpp != fa.dst_leaf // lpp)
+        B = P * pods * J
+        g = assign_g[cross]
+        parts += [(cross, 2 * LU + pk * (pods * J)
+                   + (fa.src_leaf[cross] // lpp)[:, None] * J + g),
+                  (cross, 2 * LU + B + pk * (pods * J)
+                   + (fa.dst_leaf[cross] // lpp)[:, None] * J + g)]
+    return parts
+
+
+def _sparse_plans(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
+                  chunk: int, n_chunks: int) -> SparsePlans:
+    """The CSR plans of sparse aggregation (NumPy), in `n_chunks` chunks
+    of `chunk` flows: offered rate by (src host, plane) and by (dst
+    host, plane), and fabric rate by (plane, leaf pair) under AR/WAR or,
+    under ECMP, by link for each segment's assignment (offsets and
+    entries stacked (n_seg, ...); a segment's entry count is the
+    same).  Keys are the reference's `segment_load` keys, so a bucket
+    sums its flows in the reference's order."""
+    P, L, H = cfg.n_planes, cfg.n_leaves, cfg.n_hosts
+    pk = np.arange(P)[None, :]
+    flows = np.arange(len(fa))
+
+    def plan(parts, n):
+        return _csr(parts, n, chunk, n_chunks)
+
+    pair = link = None
+    if cfg.routing == "ecmp":
+        plans = [plan(_link_parts(cfg, fa, assign[g]), P * _plan_rows(cfg))
+                 for g in range(assign.shape[0])]
+        link = SegmentPlan(np.stack([p.offsets for p in plans]),
+                           np.stack([p.entries for p in plans]))
+    else:
+        pair_idx = fa.src_leaf * L + fa.dst_leaf
+        pair = plan([(flows, pk * (L * L) + pair_idx[:, None])], P * L * L)
+    return SparsePlans(
+        src=plan([(flows, fa.src[:, None] * P + pk)], H * P),
+        dst=plan([(flows, fa.dst[:, None] * P + pk)], H * P),
+        pair=pair, link=link, chunk=chunk, n_in=len(fa))
 
 
 class _Lane(NamedTuple):
@@ -1046,10 +1391,13 @@ class _Lane(NamedTuple):
     assign_key: tuple
 
 
-def _lane_key(compiled) -> Tuple[EngineConfig, TraceSpec]:
+def _lane_key(compiled, dtype: torch.dtype = torch.float64
+              ) -> Tuple[EngineConfig, TraceSpec]:
     """A point's structure, which the lanes of one batch share: its
-    config (with the reaction flag and its demand-timeline lanes) and
-    trace spec."""
+    config (with the reaction flag, its demand-timeline lanes, and its
+    aggregation mode and flow chunks for a run in `dtype`, as the
+    reference's `_prepared` sets them: a chunk length makes the run
+    sparse, and a trace keeps it in one pass) and trace spec."""
     cfg = EngineConfig.from_sim(compiled.cfg, compiled.spec.topo)
     r = compiled.spec.reaction
     if r is not None and r.enabled:
@@ -1058,10 +1406,15 @@ def _lane_key(compiled) -> Tuple[EngineConfig, TraceSpec]:
         cfg = replace(cfg, n_phases=int(compiled.phase_mult.shape[1]))
     trace = compiled.cfg.trace if compiled.cfg.trace.enabled \
         else TraceSpec()
+    chunk = flow_chunk_default(len(compiled.flows), cfg.n_planes,
+                               cfg.agg_mode, dtype)
+    if chunk and not trace.enabled:
+        cfg = replace(cfg, agg_mode="sparse", flow_chunk=chunk)
     return cfg, trace
 
 
-def _lane(compiled, caches: Optional[Dict] = None) -> _Lane:
+def _lane(compiled, caches: Optional[Dict] = None,
+          dtype: torch.dtype = torch.float64) -> _Lane:
     """Host prep of one point: its config and trace spec, flow arrays,
     timelines (the visible one reaction-lagged: None without a
     reaction, the physical one when the lag is zero), segment starts,
@@ -1076,7 +1429,7 @@ def _lane(compiled, caches: Optional[Dict] = None) -> _Lane:
     per assignment."""
     caches = {} if caches is None else caches
     spec = compiled.spec
-    cfg, trace = _lane_key(compiled)
+    cfg, trace = _lane_key(compiled, dtype)
     r = spec.reaction
     react = cfg.react
     lag = reaction_lag(r, spec.sim.routing) if react else None
@@ -1102,7 +1455,7 @@ def _lane(compiled, caches: Optional[Dict] = None) -> _Lane:
             cfg, fa, tl, compiled.cfg.seed, boundaries, vtl=vtl, mode=mode,
             backup=compiled.backup)
     assign = caches[assign_key]
-    w_key = ("widths", assign_key)
+    w_key = ("widths", assign_key, cfg.agg_mode)
     if w_key not in caches:
         caches[w_key] = _agg_widths(cfg, fa, assign)
     return _Lane(spec.name, cfg, trace, fa, tl, vtl, pm, boundaries,
@@ -1126,6 +1479,21 @@ def _lane_aggs(lane: _Lane, widths, pad: Optional[int] = None,
     return caches[key]
 
 
+def _lane_sparse(lane: _Lane, n_flows: int,
+                 caches: Optional[Dict] = None) -> SparsePlans:
+    """The sparse plans of a lane's flows padded to `n_flows` (a
+    multiple of the chunk length when the lane's config chunks; its pad
+    flows stay out of every plan), memoized in `caches` per
+    (assignment, chunk, flow count)."""
+    caches = {} if caches is None else caches
+    chunk = lane.cfg.flow_chunk or n_flows
+    key = ("sparse", lane.assign_key, chunk, n_flows)
+    if key not in caches:
+        caches[key] = _sparse_plans(lane.cfg, lane.fa, lane.assign, chunk,
+                                    n_flows // chunk)
+    return caches[key]
+
+
 def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
                    pad: Optional[int] = None,
                    caches: Optional[Dict] = None) -> SlotOperands:
@@ -1136,22 +1504,37 @@ def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
     the point's own segment holds), with plans of `widths` and, with
     `pad`, its flows padded to `pad` inert ones (zero demand, no bytes
     left to finish, never started, on one leaf: they touch no link and
-    no plan).  Under `cfg.n_phases` its demand multipliers are its
-    timeline's values at `boundaries`, padded to `n_phases` lanes with
-    1.0 (all ones without a schedule; no flow reads a padded lane).  In
-    float32 it warns of `bytes_total` beyond float32's integer
-    resolution (`_warn_f32_bytes`)."""
+    no plan).  Under sparse aggregation its plans are the CSR ones
+    (`_lane_sparse`), and with `cfg.flow_chunk` its flows are padded
+    further, to whole chunks, the totals still summing the first `pad`
+    (or all its own) flows.  Under `cfg.n_phases` its demand multipliers
+    are its timeline's values at `boundaries`, padded to `n_phases`
+    lanes with 1.0 (all ones without a schedule; no flow reads a padded
+    lane).  In float32 it warns of `bytes_total` beyond float32's
+    integer resolution (`_warn_f32_bytes`)."""
     cfg, fa = lane.cfg, lane.fa
     if dtype == torch.float32:
         _warn_f32_bytes(lane.name, fa)
+    # the flows the per-slot totals sum over, and those rounded up to
+    # whole chunks
+    n_in = len(fa) if pad is None else pad
+    ch = cfg.flow_chunk
+    n_flows = -(-n_in // ch) * ch if ch else n_in
     aggs, assign = _lane_aggs(lane, widths, pad, caches), lane.assign
+    sparse = None
+    if cfg.agg_mode == "sparse":
+        sparse = _lane_sparse(lane, n_flows, caches)._replace(n_in=n_in)
     if cfg.routing == "ecmp" and tuple(boundaries) != lane.boundaries:
         own = np.searchsorted(lane.boundaries, boundaries, "right") - 1
-        aggs = aggs._replace(ecmp_load=aggs.ecmp_load[own])
+        if sparse is None:
+            aggs = aggs._replace(ecmp_load=aggs.ecmp_load[own])
+        else:
+            sparse = sparse._replace(link=SegmentPlan(
+                sparse.link.offsets[own], sparse.link.entries[own]))
         assign = assign[own]
     flows = fa
-    if pad is not None and pad > len(fa):
-        flows, assign = _padded_flows(fa, assign, pad, cfg.slots)
+    if n_flows > len(fa):
+        flows, assign = _padded_flows(fa, assign, n_flows, cfg.slots)
     up, down, acc, *stage_b = _seg_caps(lane.tl, boundaries)
     up2, down2 = stage_b or (None, None)
     dem = None
@@ -1163,7 +1546,7 @@ def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
         cfg, flows, aggs, up, down, acc, _seg_id(boundaries, cfg.slots),
         assign=assign, seg_up2=up2, seg_down2=down2,
         vis=_vis_seg_caps(lane.vtl, boundaries) if cfg.react else None,
-        seg_dem=dem, device=device, dtype=dtype)
+        seg_dem=dem, sparse=sparse, device=device, dtype=dtype)
 
 
 # float32 bytes_total overflow conditions seen in this process, in
@@ -1229,7 +1612,7 @@ def prepare(compiled, device=None, dtype=torch.float64
     """Host prep of one `CompiledScenario`: the config, the flow arrays
     and the slot operands on `device`."""
     device = resolve_device(device)
-    lane = _lane(compiled)
+    lane = _lane(compiled, dtype=dtype)
     return lane.cfg, lane.fa, _lane_operands(
         lane, lane.boundaries, lane.widths, device, dtype)
 
@@ -1241,6 +1624,8 @@ def _wrap(cfg: EngineConfig, fa: FlowArrays, out, device: torch.device,
     n = len(out) - len(fields)
     mean_goodput, completion, totals, util, *bh = \
         (o.cpu().numpy() for o in out[:n])
+    # a chunked run's flows were padded to whole chunks
+    mean_goodput, completion = mean_goodput[:len(fa)], completion[:len(fa)]
     rec = None
     if fields:
         rec = {"slot": trace.recorded_slots(cfg.slots)}
@@ -1344,7 +1729,7 @@ def prepare_batch(points: Sequence, device=None, dtype=None
     device = resolve_device(device)
     dtype = torch.float64 if dtype is None else dtype
     caches: Dict = {}
-    lanes = [_lane(c, caches) for c in points]
+    lanes = [_lane(c, caches, dtype) for c in points]
     cfg, trace, F = lanes[0].cfg, lanes[0].trace, len(lanes[0].fa)
     for ln in lanes:
         if ln.cfg != cfg or ln.trace != trace or len(ln.fa) != F:

@@ -25,6 +25,10 @@ several scenarios is grouped here instead:
   * flows are padded to the bucket with inert pad flows (zero demand,
     no bytes left to finish, never started, on one leaf), which stay
     out of every aggregation plan, so no lane's sum gains a term;
+  * a group that streams its flows in chunks (`EngineConfig.flow_chunk`)
+    sizes the chunk off the flow bucket, not a point's own flow count,
+    and rounds the bucket up to a whole number of chunks, as the
+    reference does, so every point of the bucket shares one chunking;
   * host prep is memoized by content (`engine._lane`): flow arrays,
     fault timelines, ECMP assignment replays, plan widths and plans are
     built once per distinct key, not once per point.
@@ -66,10 +70,10 @@ def _bucket(n: int, lo: int = 1) -> int:
 
 def _sub_key(compiled) -> Tuple:
     """A point's sub-batch within its group: its structure
-    (`engine._lane_key`) with the demand-timeline lane count lifted
-    out."""
+    (`engine._lane_key`) with the demand-timeline lane count and the
+    flow chunk (the group's bucket sets it) lifted out."""
     cfg, trace = engine._lane_key(compiled)
-    return replace(cfg, n_phases=0), trace
+    return replace(cfg, n_phases=0, flow_chunk=0), trace
 
 
 def _struct_key(compiled) -> Tuple:
@@ -100,27 +104,47 @@ class Prepared(NamedTuple):
     pad: int
 
 
-def prepare_planned(group: Sequence[Tuple], caches: Dict
-                    ) -> Iterator[Prepared]:
+def _chunking(cfg, trace, bucket: int, dtype) -> Tuple[int, int, str]:
+    """(flow chunk, padded flow count, aggregation mode) of a group
+    whose flows pad to `bucket`: the chunk sized off the bucket
+    (`engine.flow_chunk_default`; a chunk makes the group sparse, a
+    trace keeps it in one pass) and the bucket rounded up to whole
+    chunks."""
+    chunk = engine.flow_chunk_default(bucket, cfg.n_planes, cfg.agg_mode,
+                                      dtype)
+    if not chunk or trace.enabled:
+        return 0, bucket, cfg.agg_mode
+    return chunk, -(-bucket // chunk) * chunk, "sparse"
+
+
+def prepare_planned(group: Sequence[Tuple], caches: Dict,
+                    dtype=None) -> Iterator[Prepared]:
     """Host prep (memoized in `caches`) of one planned group, one
     (routing, NIC) sub-batch at a time: a generator, so each sub-batch
     is prepared only when the caller asks for it (after dispatching the
     one before, say).  Each lane's plans at the sub-batch's widths are
     built here too, so `dispatch_prepared` only moves operands to the
-    device.  Every lane of a sub-batch takes its `n_phases` bucket.
-    Makes no device call."""
-    pad = _bucket(max(len(c.flows) for _, c in group), FLOW_BUCKET_MIN)
+    device.  Every lane of a sub-batch takes its `n_phases` bucket and
+    the group's flow chunk (`_chunking`, for a run in `dtype`, float64
+    by default).  Makes no device call."""
+    dtype = torch.float64 if dtype is None else dtype
+    bucket = _bucket(max(len(c.flows) for _, c in group), FLOW_BUCKET_MIN)
     subs: Dict[Tuple, List[Tuple[int, object]]] = {}
     for i, c in group:
         subs.setdefault(_sub_key(c), []).append((i, c))
-    for members in subs.values():
-        lanes = [engine._lane(c, caches) for _, c in members]
+    for (cfg, trace), members in subs.items():
+        chunk, pad, mode = _chunking(cfg, trace, bucket, dtype)
+        lanes = [engine._lane(c, caches, dtype) for _, c in members]
         k = max(ln.cfg.n_phases for ln in lanes)
-        lanes = [ln._replace(cfg=replace(ln.cfg, n_phases=_bucket(k) if k
-                                         else 0)) for ln in lanes]
+        lanes = [ln._replace(cfg=replace(
+            ln.cfg, n_phases=_bucket(k) if k else 0, flow_chunk=chunk,
+            agg_mode=mode)) for ln in lanes]
         widths = engine._batch_widths(lanes)
         for lane in lanes:
-            engine._lane_aggs(lane, widths, pad, caches)
+            if mode == "sparse":
+                engine._lane_sparse(lane, pad, caches)
+            else:
+                engine._lane_aggs(lane, widths, pad, caches)
         yield Prepared([i for i, _ in members], lanes, pad)
 
 
@@ -144,7 +168,7 @@ def dispatch_planned(group: Sequence[Tuple], caches: Dict, device=None,
     to the group's flow bucket.  Returns `[(point indices, handle)]`
     for `finalize_group`."""
     return [dispatch_prepared(prep, caches, device, dtype)
-            for prep in prepare_planned(group, caches)]
+            for prep in prepare_planned(group, caches, dtype)]
 
 
 def dispatch_megabatch(points: Sequence, device=None, dtype=None

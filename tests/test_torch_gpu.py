@@ -19,7 +19,10 @@ axis, bucket_load_bottleneck must equal its plain version and its
 single-lane launches, each lane of a batch or a megabatch grid must
 equal its point run alone on the card (per-flow outputs bit for bit,
 series within 1e-12), and the captured batched and traced loops must
-equal their eager loops bit for bit.
+equal their eager loops bit for bit.  The flow-ordered segment sum
+must equal its plain version bit for bit (lanes, skewed and empty
+buckets, chunk folds), and sparse and chunked runs must equal the dense
+run and their own eager loops bit for bit.
 """
 import numpy as np
 import pytest
@@ -1227,5 +1230,172 @@ def test_gpu_megabatch_mixes_schedule_and_plain_lanes(cuda):
     engine.reset_dispatch_stats()
     got = megabatch.run_megabatch(points, device=cuda)
     assert engine.dispatch_stats()["loops"] == 2
+    for c, g in zip(points, got):
+        _assert_lane_equals(g, c.run(device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# sparse aggregation: the flow-ordered segment sum and its slot paths
+# ---------------------------------------------------------------------------
+
+def _seg_plan(keys: np.ndarray, K: int, dev, chunk=None):
+    """A CSR plan (int32, on `dev`) of row-major (F, P) `keys`, in chunks
+    of `chunk` flows (one chunk by default)."""
+    F = keys.shape[0]
+    chunk = chunk or F
+    p = engine._csr([(np.arange(F), keys)], K, chunk, -(-F // chunk))
+    return link_load.SegmentPlan(*(torch.as_tensor(a, device=dev)
+                                   for a in p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("F,P,K,skew", [(102_400, 2, 8192, False),
+                                        (5000, 4, 300, True),
+                                        (37, 1, 100, False)])
+def test_segment_sum_equals_plain_version(cuda, dtype, F, P, K, skew):
+    """Bit for bit against the plain version: one call, empty buckets
+    +0.0, a skewed bucket holding half the entries, a fold over chunks
+    of 1000 flows (a tail included), and three lanes' plans stacked as
+    one launch; no atomics, so two launches agree too."""
+    rng = np.random.default_rng(F)
+    vals = _uniform(rng, (F, P), dtype, cuda, zero_frac=0.1)
+    keys = rng.integers(0, K - 1, (F, P))          # bucket K - 1 empty
+    if skew:
+        keys[: F // 2] = 3
+    plan = _seg_plan(keys, K, cuda)
+    want = ref.segment_sum_ref(vals, plan.offsets, plan.entries)
+    build.reset_launches()
+    got = link_load.segment_sum(vals, plan)
+    assert build.LAUNCHES["segment_sum"] == 1
+    assert torch.equal(got, want) and torch.equal(
+        link_load.segment_sum(vals, plan), got)
+    assert got[K - 1].item() == 0.0 and not torch.signbit(got[K - 1])
+    chunked = _seg_plan(keys, K, cuda, 1000)
+    nc = -(-F // 1000)
+    acc = None
+    for c in range(nc):
+        acc = link_load.segment_sum(
+            vals[c * 1000:(c + 1) * 1000].contiguous(),
+            engine._chunk_plan(chunked, c, nc), acc=acc)
+    assert torch.equal(acc, want)
+    # lanes: three points' plans over their stacked (3, F, P) values
+    from repro_torch.netsim.carry import _stack_plan
+    lanes = [(_uniform(rng, (F, P), dtype, cuda),
+              rng.integers(0, K, (F, P))) for _ in range(3)]
+    plans = [_seg_plan(k, K, cuda) for _, k in lanes]
+    stacked = _stack_plan(plans, 1, F * P)
+    got = link_load.segment_sum(torch.stack([v for v, _ in lanes]), stacked)
+    assert torch.equal(got.view(3, K), torch.stack([
+        ref.segment_sum_ref(v, p.offsets, p.entries)
+        for (v, _), p in zip(lanes, plans)]))
+
+
+@pytest.mark.gpu
+def test_segment_sum_many_groups_six_entries(cuda):
+    """Six (vals, plan) entries in one launch, each its own sum, and the
+    accumulating form in place."""
+    rng = np.random.default_rng(3)
+    items = []
+    for k in range(link_load.MAX_SEG_GROUP):
+        F, K = 300 + 7 * k, 50 + k
+        items.append((_uniform(rng, (F, 2), torch.float64, cuda),
+                      _seg_plan(rng.integers(0, K, (F, 2)), K, cuda)))
+    build.reset_launches()
+    outs = link_load.segment_sum_many(items)
+    acc = tuple(torch.ones_like(o) for o in outs)
+    link_load.segment_sum_many(items, acc=acc)
+    assert build.LAUNCHES["segment_sum"] == 2
+    for o, a, (v, p) in zip(outs, acc, items):
+        assert torch.equal(o, ref.segment_sum_ref(v, p.offsets, p.entries))
+        assert torch.equal(a, ref.segment_sum_ref(
+            v, p.offsets, p.entries, acc=torch.ones_like(o)))
+
+
+def _mode_env(monkeypatch, mode, chunk=None):
+    monkeypatch.setenv("REPRO_JX_AGG", mode)
+    if chunk is None:
+        monkeypatch.delenv("REPRO_JX_FLOW_CHUNK", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_JX_FLOW_CHUNK", str(chunk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,routing,slots", [
+    ("fig11_degraded_leaf", "war", 60), ("fig11_degraded_leaf", "ecmp", 60),
+    ("cascading_spine_loss", "ecmp", 130),
+    ("ft_core_failure_resiliency", "war", 120),
+    ("ft_core_failure_resiliency", "ecmp", 120),
+    ("reroute_random_failures", "ecmp", 120)])
+def test_gpu_sparse_equals_dense(cuda, monkeypatch, name, routing, slots):
+    """float64 on the card: the sparse run equals the dense run bit for
+    bit and launches segment_sum once a slot in place of
+    bucket_load_bottleneck (ECMP) or beside pair_fractions (AR/WAR)."""
+    spec = get_scenario(name).with_sim(slots=slots, routing=routing)
+    res = {}
+    for mode in ("dense", "sparse"):
+        _mode_env(monkeypatch, mode)
+        build.reset_launches()
+        res[mode] = compile_scenario(spec).run(device=cuda)
+        route = ({"bucket_load_bottleneck": slots} if routing == "ecmp"
+                 else {"pair_fractions": slots})
+        if mode == "sparse":
+            route = dict(route, segment_sum=slots)
+            route.pop("bucket_load_bottleneck", None)
+        assert build.LAUNCHES == dict(
+            dict.fromkeys(build.KERNELS, 0), plane_split=slots,
+            bottleneck=slots, queue_update=slots, nic_update=slots, **route)
+    for f in ("mean_goodput", "completion_slot", "total_goodput",
+              "util_up_last", "blackhole_timeline"):
+        a, b = getattr(res["sparse"], f), getattr(res["dense"], f)
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,routing,chunk", [
+    ("cascading_spine_loss", "ecmp", None),       # 2,256 flows
+    ("cascading_spine_loss", "ecmp", 1000),       # 3 chunks, a tail
+    ("fig11_degraded_leaf", "war", None),
+    ("fig11_degraded_leaf", "war", 1000),
+    ("ft_core_failure_resiliency", "ecmp", None),  # fat tree, 64 flows
+    ("ft_core_failure_resiliency", "ecmp", 17),
+    ("ft_core_failure_resiliency", "war", 17),
+    ("reroute_random_failures", "ecmp", 17)])     # reaction
+def test_sparse_captured_loop_equals_eager_loop(cuda, monkeypatch, dtype,
+                                                name, routing, chunk):
+    """Sparse and chunked runs: the captured loop equals the eager loop
+    bit for bit with the same launches, and a chunked run equals the
+    one-pass sparse run."""
+    spec = get_scenario(name).with_sim(slots=120, routing=routing)
+    _mode_env(monkeypatch, "sparse", chunk)
+    cfg, ((eager, n_eager), (captured, n_captured)) = _eager_and_captured(
+        spec, cuda, dtype)
+    assert cfg.flow_chunk == (chunk or 0)
+    for a, b in zip(captured, eager, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert n_captured == n_eager and n_eager["segment_sum"] > 0
+    assert n_eager["bucket_load_bottleneck"] == 0
+    if chunk:
+        _mode_env(monkeypatch, "sparse")
+        _, ((one, _), _) = _eager_and_captured(spec, cuda, dtype)
+        F = len(compile_scenario(spec).flows)
+        for k, (a, b) in enumerate(zip(eager, one, strict=True)):
+            if k < 2:                     # per-flow outputs: chunk padded
+                a = a[..., :F]
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [None, 17])
+def test_sparse_batch_lanes_equal_single_runs(cuda, monkeypatch, chunk):
+    """A batch of seeds under sparse aggregation and under chunks of 17
+    on the card: each lane equals its point run alone."""
+    _mode_env(monkeypatch, "sparse", chunk)
+    points = [compile_scenario(get_scenario("fig11_degraded_leaf").with_sim(
+        slots=60, routing="ecmp", seed=s)) for s in range(3)]
+    got = engine.run_compiled_batch(points, device=cuda)
     for c, g in zip(points, got):
         _assert_lane_equals(g, c.run(device=cuda))

@@ -555,6 +555,8 @@ _F32, _BF16 = torch.float32, torch.bfloat16
     lambda: ops.int8_encode(_meta(4, 8, dtype=_F32), _meta(4, 8, dtype=_F32)),
     lambda: ops.int8_decode(_meta(4, 8, dtype=torch.int8),
                             _meta(4, 1, dtype=_F32)),
+    lambda: ops.segment_sum(_meta(4, 2), link_load.SegmentPlan(
+        _meta(4, dtype=torch.int32), _meta(8, dtype=torch.int32))),
     lambda: ops.flash_attention_bshd(_meta(1, 8, 4, 64, dtype=_BF16),
                                      _meta(1, 8, 2, 64, dtype=_BF16),
                                      _meta(1, 8, 2, 64, dtype=_BF16)),
@@ -625,6 +627,15 @@ def test_group_limits_match_the_kernel(module, constant):
            "netsim_kernels.cu").read_text()
     (value,) = re.findall(rf"constexpr int {constant} = (\d+);", src)
     assert module.MAX_GROUP == int(value)
+
+
+def test_segment_group_limit_matches_the_kernel():
+    """segment_sum_many refuses a group exactly where the kernel would:
+    MAX_SEG_GROUP is the CUDA source's kMaxSegGroup."""
+    src = (Path(build.__file__).parent / "csrc" /
+           "netsim_kernels.cu").read_text()
+    (value,) = re.findall(r"constexpr int kMaxSegGroup = (\d+);", src)
+    assert link_load.MAX_SEG_GROUP == int(value)
 
 
 def test_library_refuses_without_gpu(monkeypatch):

@@ -9,8 +9,11 @@ giga-scale point under its own ECMP and the three training-step
 schedules), the giga point under AR and three registry scenarios under
 ECMP, the copies must produce exactly the reference's flows, tenants,
 fault transitions, `FlowArrays`, demand timelines, capacity timelines,
-segment maps, ECMP assignment segments and aggregation plans — so both
-engines start every run from the same operands.  The copies of the §5 telemetry analyses and the
+segment maps, ECMP assignment segments and aggregation plans (each
+package's config in its own aggregation mode; the dense gather plans
+with dense forced in both, and the sparse CSR plans against the
+reference's `segment_load` keys) — so both engines start every run from
+the same operands.  The copies of the §5 telemetry analyses and the
 trace summary and exporters must give the reference's results on the
 same traces.  The last tests pin the import boundary (the port imports
 neither `jax` nor `repro`) and that the schedule scenarios, the last
@@ -122,14 +125,17 @@ def test_host_prep_equals_reference(name):
                          jx_engine._seg_caps(rtl, boundaries)):
         np.testing.assert_array_equal(got, want)
 
-    # the reference picks sparse aggregation at giga scale; its dense
-    # gather plans are the ones the port runs
-    rcfg = dataclasses.replace(
-        jx_engine.JxConfig.from_sim(rc.cfg, ref_spec.topo),
-        agg_mode="dense")
+    # each package picks its aggregation mode itself (sparse at giga)
+    rcfg = jx_engine.JxConfig.from_sim(rc.cfg, ref_spec.topo)
     cfg = engine.EngineConfig.from_sim(c.cfg, spec.topo)
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(rcfg, f.name), f.name
+    assert cfg.agg_mode == ("sparse" if spec.topo.n_hosts >= 4096
+                            else "dense")
+    sparse = dataclasses.replace(cfg, agg_mode="sparse")
+    # the dense gather plans, with dense aggregation forced in both
+    rcfg = dataclasses.replace(rcfg, agg_mode="dense")
+    cfg = dataclasses.replace(cfg, agg_mode="dense")
     rsegs = jx_engine._assign_for(rcfg, rfa, rtl, rc.cfg.seed, boundaries)
     segs = engine._assign_for(cfg, fa, tl, c.cfg.seed, boundaries)
     assert segs.dtype == np.int32
@@ -142,6 +148,42 @@ def test_host_prep_equals_reference(name):
         got, want = getattr(aggs, field), getattr(raggs, field)
         assert got.dtype == want.dtype, field
         np.testing.assert_array_equal(got, want, err_msg=field)
+
+    # the sparse CSR plans: each bucket of the reference's segment_load
+    # keys lists its flows in flow order
+    plans = engine._sparse_plans(sparse, fa, segs, len(fa), 1)
+    P, L, S = cfg.n_planes, cfg.n_leaves, cfg.n_spines
+    pk = np.arange(P)[None, :]
+    _assert_lists_keys(plans.src, [fa.src[:, None] * P + pk], cfg.n_hosts * P)
+    _assert_lists_keys(plans.dst, [fa.dst[:, None] * P + pk], cfg.n_hosts * P)
+    if cfg.routing == "ecmp":
+        assert plans.pair is None
+        assert plans.link.offsets.shape[0] == segs.shape[0]
+        for g, a in enumerate(segs):
+            k_up = pk * (L * S) + fa.src_leaf[:, None] * S + a
+            k_dn = pk * (S * L) + a * L + fa.dst_leaf[:, None]
+            _assert_lists_keys(
+                engine.SegmentPlan(plans.link.offsets[g],
+                                   plans.link.entries[g]),
+                [k_up, P * L * S + k_dn], 2 * P * L * S)
+    else:
+        assert plans.link is None
+        _assert_lists_keys(
+            plans.pair, [pk * (L * L) + (fa.src_leaf * L + fa.dst_leaf)[:, None]],
+            P * L * L)
+
+
+def _assert_lists_keys(plan, keys, n_buckets):
+    """`plan` (one chunk) lists, bucket by bucket, the flat (flow, plane)
+    entries of the row-major (F, P) `keys` arrays (families that share
+    no bucket) in flow order."""
+    flat = np.concatenate([k.ravel() for k in keys])
+    idx = np.concatenate([np.arange(k.size) for k in keys])
+    order = np.argsort(flat, kind="stable")
+    assert plan.entries.dtype == plan.offsets.dtype == np.int32
+    np.testing.assert_array_equal(plan.entries, idx[order])
+    np.testing.assert_array_equal(plan.offsets, np.concatenate(
+        [[0], np.cumsum(np.bincount(flat, minlength=n_buckets))]))
 
 
 def test_operands_carry_the_numpy_arrays():
