@@ -220,8 +220,10 @@ PER_SLOT = {(kind, routing): ECMP_SLOT if routing == "ecmp" else AR_SLOT
             for routing in ("ar", "war", "ecmp")}
 # under sparse aggregation one segment_sum launch sums a slot's access,
 # pair (AR/WAR) or link (ECMP, in place of bucket_load_bottleneck) loads
-SPARSE_SLOT = {"plane_split": 1, "segment_sum": 1, "bottleneck": 1,
-               "queue_update": 1, "nic_update": 1}
+# and scales the access links (and under ECMP the fabric links: no
+# bottleneck launch there; AR/WAR scale their fabric links in one)
+SPARSE_SLOT = {"plane_split": 1, "segment_sum": 1, "queue_update": 1,
+               "nic_update": 1}
 # the giga point on a 3-tier fat tree of the same bisection per plane:
 # 16 pods of 16 leaves with 16 aggs on 1.0 links, and 32 cores on 8.0
 # pod links (16 leaves x 16 aggs x 1.0 = 32 cores x 8.0 a pod)
@@ -854,15 +856,18 @@ def segment_plans():
     204,800 entries), the ECMP link plan of the last capacity segment
     (up and down, 8,192 buckets each), the AR pair plan (plane x leaf
     pair: 131,072 buckets), the link plans of LANES seeds stacked as
-    one batch's, and the access plan in chunks of SEG_CHUNK flows."""
+    one batch's, the access plan in chunks of SEG_CHUNK flows, and the
+    skewed plans of `giga_train_phi35_moe` (its AR pair plan: 1,088 of
+    131,072 buckets hold 33-80 entries, the rest none; its access plan:
+    1,024 of 8,192 buckets hold 66)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.link_load import SegmentPlan
     from repro_torch.netsim import engine
     from repro_torch.scenarios import compile_scenario
 
     def last(plan):
-        return SegmentPlan(plan.offsets[-1], plan.entries[-1])
+        return plan._replace(offsets=plan.offsets[-1],
+                             entries=plan.entries[-1])
 
     with agg_env("sparse"):
         _, fa, ops = engine.prepare(compile_scenario(
@@ -872,6 +877,8 @@ def segment_plans():
         points = [compile_scenario(scenario("giga_fabric_storage")
                                    .with_sim(seed=s)) for s in range(LANES)]
         _, _, _, bops = engine.prepare_batch(points, "cuda", torch.float64)
+    _, fa_moe, ops_moe = engine.prepare(compile_scenario(
+        scenario("giga_train_phi35_moe")), "cuda", torch.float64)
     F, P = len(fa), ops.up.shape[1]
     keys = fa.src[:, None] * P + np.arange(P)[None, :]
     nc = -(-F // SEG_CHUNK)
@@ -880,8 +887,12 @@ def segment_plans():
     return dict(F=F, P=P, access=ops.sparse.src, dst=ops.sparse.dst,
                 link=last(ops.sparse.link), pair=ops_ar.sparse.pair,
                 lanes=last(bops.sparse.link),
-                fold=SegmentPlan(*(torch.as_tensor(a, device="cuda")
-                                   for a in chunked)), chunks=nc)
+                fold=chunked._replace(
+                    offsets=torch.as_tensor(chunked.offsets, device="cuda"),
+                    entries=torch.as_tensor(chunked.entries, device="cuda")),
+                chunks=nc, moe=dict(F=len(fa_moe), P=ops_moe.up.shape[1],
+                                    pair=ops_moe.sparse.pair,
+                                    access=ops_moe.sparse.src))
 
 
 def bucket_of(plan, n_vals: int, families: int = 1):
@@ -907,9 +918,12 @@ def segment_cases(plans: dict, dtype, seed: int) -> list:
     the access plan alone (the summary row: the library call is one
     `index_add_` over the same values and keys, which keeps no order),
     the ECMP link plan and the pair plan alone, a slot's grouped launch
-    (both access sums and the link sums), LANES seeds' link plans in one
-    launch, and a fold over chunks of SEG_CHUNK flows (a tail included)
-    equal to one call."""
+    (both access sums and the link sums), the same launch with the
+    bottleneck epilogue (access caps on both access sums, link caps on
+    the link sums; against `ref.bottleneck_ref` of the plain sums),
+    LANES seeds' link plans in one launch, a fold over chunks of
+    SEG_CHUNK flows (a tail included) equal to one call, and the skewed
+    pair and access plans of `giga_train_phi35_moe`."""
     import numpy as np
     import torch
     from repro_torch.kernels import link_load, ref
@@ -949,14 +963,20 @@ def segment_cases(plans: dict, dtype, seed: int) -> list:
                         for k in keys]
 
     out = []
+    moe = plans["moe"]
+    F_moe, P_moe = moe["F"], moe["P"]
+    a = rng.uniform(0.0, 1.0, (F_moe, P_moe))
+    moe_rate = torch.tensor(a, dtype=dtype, device="cuda")
     singles = {"access": (offered, plans["access"], 1),
                "ecmp links": (fabric, plans["link"], 2),
-               "pair": (fabric, plans["pair"], 1)}
+               "pair": (fabric, plans["pair"], 1),
+               "train_phi35_moe pair": (moe_rate, moe["pair"], 1),
+               "train_phi35_moe access": (moe_rate, moe["access"], 1)}
     for name, (v, plan, fam) in singles.items():
         items = ((v, plan),)
         K = (plan.offsets.numel() - 1) // fam          # buckets a family
-        keys = [k - f * K for f, k in enumerate(bucket_of(plan, F * P,
-                                                          fam))]
+        keys = [k - f * K for f, k in enumerate(bucket_of(
+            plan, v.numel(), fam))]
         out.append(case(
             "segment_sum", "", f"giga {name}", dtype,
             lambda items=items: link_load.segment_sum_many(items),
@@ -971,6 +991,32 @@ def segment_cases(plans: dict, dtype, seed: int) -> list:
         lambda: link_load.segment_sum_many(slot), lambda: plain(slot),
         nbytes(slot), sum(int(p.entries.numel()) for _, p in slot),
         plain_events=True))
+    # the slot's launch with the bottleneck epilogue: each bucket's
+    # scale min(1, cap / max(sum, eps)) beside its sum
+    acc_cap = torch.tensor(rng.uniform(0.0, 4.0, plans["access"].offsets
+                                       .numel() - 1), dtype=dtype,
+                           device="cuda")
+    link_cap = torch.tensor(rng.uniform(0.0, 8.0, plans["link"].offsets
+                                        .numel() - 1), dtype=dtype,
+                            device="cuda")
+    caps = (acc_cap, acc_cap, link_cap)
+
+    def scaled():
+        sums, scales = link_load.segment_sum_many(slot, caps=caps)
+        return sums + scales
+
+    def scaled_plain():
+        sums = plain(slot)
+        return sums + tuple(ref.bottleneck_ref(c, s)
+                            for c, s in zip(caps, sums))
+
+    K_all = sum(int(p.offsets.numel()) - 1 for _, p in slot)
+    out.append(case(
+        "segment_sum", "slot x3 scaled", "giga ecmp", dtype, scaled,
+        scaled_plain, nbytes(slot) + (acc_cap.numel() + link_cap.numel()
+                                      + K_all) * isz,
+        sum(int(p.entries.numel()) for _, p in slot)
+        + K_all * FLOPS_PER_ELEM["bottleneck"], plain_events=True))
     lanes = ((batch, plans["lanes"]),)
     out.append(case(
         "segment_sum", f"{LANES} lanes", "giga ecmp links", dtype,
@@ -1255,8 +1301,9 @@ def slot_launches(kind: str, routing: str, slots: int,
                   agg_mode: str = "dense", chunks: int = 0,
                   host_bw: bool = False) -> dict:
     """Hand-written launches of `slots` slots of one path: PER_SLOT under
-    dense aggregation; under sparse SPARSE_SLOT (with pair_fractions
-    under AR/WAR, and one more segment_sum for a trace's host_bw); in
+    dense aggregation; under sparse SPARSE_SLOT (with pair_fractions and
+    bottleneck under AR/WAR, and one more segment_sum for a trace's
+    host_bw); in
     `chunks` chunks the plane split twice a chunk and segment_sum and
     nic_update once a chunk."""
     if agg_mode == "dense":
@@ -1264,7 +1311,7 @@ def slot_launches(kind: str, routing: str, slots: int,
     else:
         per = dict(SPARSE_SLOT)
         if routing != "ecmp":
-            per["pair_fractions"] = 1
+            per.update(pair_fractions=1, bottleneck=1)
         if chunks:
             per.update(plane_split=2 * chunks, segment_sum=chunks,
                        nic_update=chunks)

@@ -82,11 +82,14 @@ _ENTRIES = {
     "int8_encode": ("model", _F32_BF16,
                     (_P, _P, _P, _P, _I64, _I64, _I, _I, _P)),
     "int8_decode": ("model", _F32_BF16, (_P, _P, _P, _I64, _I64, _P)),
-    # arrays of up to six (vals, offsets, entries, out) pointers and
-    # bucket counts, their count, and whether each bucket starts from its
-    # value in out (a chunk's fold) or from 0: one launch for all
+    # arrays of up to six (vals, offsets, entries, out, cap, scale)
+    # pointers (cap and scale null where an entry takes no scale) and of
+    # their bucket counts and log2 lanes a bucket, their count, whether
+    # each bucket starts from its value in out (a chunk's fold) or from
+    # 0, and the scale's eps: one launch for all
     "segment_sum": ("netsim", _F32_F64,
-                    (_PP, _PP, _PP, _PP, _PI64, _I, _I, _P)),
+                    (_PP, _PP, _PP, _PP, _PP, _PP, _PI64,
+                     ctypes.POINTER(_I), _I, _I, _D, _P)),
 }
 KERNELS = tuple(_ENTRIES)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -21,7 +21,7 @@
 // once (jsq_route does a hash and a compare per packet and port, so
 // operations bound it).  Most designs are the simple ones: one thread
 // per flow (nic_update: the plane axis P <= 8 lives in registers) or
-// per packet (plb_select), in grid-stride loops.  Seven are shaped by
+// per packet (plb_select), in grid-stride loops.  Eight are shaped by
 // what held them back:
 //
 //   pair_fractions  the bytes of a 2M-element giga call bound it, but
@@ -53,6 +53,12 @@
 //                   guarded plane loops after its packet loads.  Each
 //                   thread now loads them once beside its packet, with
 //                   P a template parameter: the launch floor is left.
+//   segment_sum     one thread a bucket read its plan uncoalesced and
+//                   waited on two round trips every 8 entries.  A group
+//                   of lanes of one warp now takes a bucket (the group's
+//                   width picked per plan), one lane walks the chain,
+//                   and the launch may also write each bucket's
+//                   bottleneck scale.
 //
 // Unlike the Pallas bodies, which cast to float32, the seven slot-engine
 // kernels compute in their input type, so the float64 parity mode runs
@@ -694,21 +700,52 @@ __global__ void __launch_bounds__(kThreads) bucket_load_bottleneck_kernel(
 // np.add.at by an ulp, and an ulp in a queue integrator forks a
 // trajectory at an ECN threshold.  Here the host's plan (`offsets`,
 // K + 1 positions into `entries`; `entries`, flat indices into `vals`)
-// lists each bucket's entries in flow order, and one thread takes a
-// bucket and adds them one at a time in that order, starting from 0 or,
-// with `accumulate`, from the bucket's current value in `out`: a chunk
-// of the flow axis continues the chain of the chunks before it, so a
-// fold over chunks is the one chain of the whole sum (a chunk never
-// forms a partial sum of its own and adds it once: that rounds
-// otherwise).  The loads run ahead of the adds: kSegAhead entries'
-// indices, then their values, are in flight before the first of them is
-// added.  One launch covers up to kMaxSegGroup (vals, plan, out)
-// entries (a slot's two host sums and its pair or link sums), passed by
-// value as bottleneck's are; the grid covers the entries' summed bucket
-// count.  A bucket's chain is as long as its entries, so a skewed plan
-// leaves its long buckets to single threads.
+// lists each bucket's entries in flow order, and each bucket's sum is
+// one chain in one lane, its entries added one at a time in that order,
+// starting from +0.0 or, with `accumulate`, from the bucket's current
+// value in `out`: a chunk of the flow axis continues the chain of the
+// chunks before it, so a fold over chunks is the one chain of the whole
+// sum (a chunk never forms a partial sum of its own and adds it once:
+// that rounds otherwise).  No tree, no partial sums.
+//
+// What bounds it: at giga scale a slot's plans are 8,192-131,072
+// buckets of 0-80 entries, a few MB in all (0.76 us at the HBM rate for
+// the access plan, under the 1.7 us a launch costs), so latency, not
+// bytes, sets the time: every bucket is a chain of three dependent
+// loads (offsets, then indices, then the gathered values) and then its
+// adds, which must run one after another in one lane.  Beyond a few
+// hundred thousand entries bytes take over.  The first kernel, one
+// thread a bucket, read its indices about 25 words apart from its
+// neighbours' (uncoalesced), waited on two round trips every 8 entries
+// and left a skewed plan's long buckets to single threads.  Here a group
+// of G lanes of one warp takes a bucket (G a power of two, picked per
+// entry of the launch by the caller from the plan's mean and widest
+// bucket: `link_load.py::segment_lanes_log2`): the lanes read the
+// bucket's indices on neighbouring words, U a lane (U = 32 / G, at most
+// kSegLoads), so a pass of G x U entries issues all its index loads and
+// then all its gathers before any add, and the next pass's loads go out
+// before this pass's adds.  A group stages the values in the warp's
+// slice of shared memory and its first lane walks them in plan order
+// (the walk of bucket_load_bottleneck), unrolled so the reads run ahead
+// of the adds; a lane alone (G = 1) keeps its values in registers and
+// runs its own passes.  Blocks are split by entry: entry k owns a
+// contiguous range of blocks at its own G, carried by value in
+// SegmentGroup, so a block finds its entry with compile-time indices and
+// branches once on G.  An entry may carry a cap: its lane then also
+// writes the bottleneck scale min(1, cap / max(sum, eps)) beside the
+// sum, the operations of bottleneck_kernel, so a slot needs no
+// bottleneck launch for those buckets.  One launch covers up to
+// kMaxSegGroup (vals, plan, out[, cap, scale]) entries (a slot's two
+// host sums and its pair or link sums).  Timed side by side on the H100
+// at G = 1..32 (benchmarks/torch_segment_sum_designs.py; PERF.md,
+// section 6): 2 lanes were best or within a few per cent of best on the
+// giga plans, 1 on the short pair plan, 16 on a crowded access plan; a
+// walk by shuffles, blocks of 128, 16 loads a lane and 32 registers a
+// thread were slower.  What is left at giga is the launch and the
+// three round trips.
 constexpr int kMaxSegGroup = 6;
-constexpr int kSegAhead = 8;
+constexpr int kSegThreads = 256;       // threads a block
+constexpr int kSegLoads = 8;           // most loads a lane a pass
 
 template <typename T>
 struct SegmentGroup {
@@ -716,47 +753,136 @@ struct SegmentGroup {
   const int32_t* offsets[kMaxSegGroup];
   const int32_t* entries[kMaxSegGroup];
   T* out[kMaxSegGroup];
-  int64_t start[kMaxSegGroup];  // entry k's buckets: [start[k], start[k + 1])
-  int64_t total;
+  const T* cap[kMaxSegGroup];           // null: no scale for the entry
+  T* scale[kMaxSegGroup];
+  int64_t buckets[kMaxSegGroup];
+  int64_t first_block[kMaxSegGroup];    // entry k's blocks start here
+  int log2_lanes[kMaxSegGroup];         // G = 1 << log2_lanes[k]
   int count;
   int accumulate;
 };
 
-template <typename T>
-__global__ void segment_sum_kernel(const SegmentGroup<T> g) {
-  GRID_STRIDE(i, g.total) {
-    const T* v = g.vals[0];
-    const int32_t* off = g.offsets[0];
-    const int32_t* ent = g.entries[0];
-    T* o = g.out[0];
-    int64_t base = 0;
+// the buckets of one block of an entry, G lanes a bucket
+template <typename T, int G>
+__device__ __forceinline__ void segment_block(
+    const T* __restrict__ v, const int32_t* __restrict__ off,
+    const int32_t* __restrict__ ent, T* __restrict__ out,
+    const T* __restrict__ cap, T* __restrict__ scale, int64_t K,
+    int64_t block, bool accumulate, T eps, T* __restrict__ stage) {
+  constexpr int U = 32 / G < kSegLoads ? 32 / G : kSegLoads;  // a lane
+  constexpr int kCols = G * U;            // a bucket's entries a pass
+  constexpr int kGroups = 32 / G;         // buckets a warp
+  const int lane = threadIdx.x & 31;
+  const int g = lane % G, sub = lane / G;
+  const int64_t b =
+      (block * (kSegThreads / 32) + threadIdx.x / 32) * kGroups + sub;
+  int32_t e0 = 0, len = 0;
+  if (b < K) {
+    e0 = __ldg(off + b);
+    len = __ldg(off + b + 1) - e0;
+  }
+  const bool walker = b < K && g == 0;
+  T acc = T(0);
+  if (walker && accumulate) acc = out[b];
+  // a lane alone (G = 1) runs its own bucket's passes; a group shares
+  // the stage, so the warp's longest bucket sets its passes: the loop
+  // bound is uniform and every lane reaches every __syncwarp
+  const int span = G == 1 ? len : static_cast<int>(__reduce_max_sync(
+                                      0xffffffffu, static_cast<unsigned>(len)));
+  const int32_t* e = ent + e0;
+  int32_t idx[U];
+  T x[U];
 #pragma unroll
-    for (int k = 1; k < kMaxSegGroup; ++k) {
-      if (k < g.count && i >= g.start[k]) {
-        v = g.vals[k];
-        off = g.offsets[k];
-        ent = g.entries[k];
-        o = g.out[k];
-        base = g.start[k];
+  for (int u = 0; u < U; ++u) {
+    const int c = u * G + g;
+    idx[u] = c < len ? __ldg(e + c) : 0;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    x[u] = u * G + g < len ? __ldg(v + idx[u]) : T(0);
+  for (int c0 = 0; c0 < span; c0 += kCols) {
+    // this pass's values, staged for the walk (G = 1: kept in the lane)
+    T y[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if constexpr (G == 1) y[u] = x[u];
+      else stage[u * 32 + lane] = x[u];
+    }
+    // the next pass's loads go out before this pass's adds
+    const int c1 = c0 + kCols;
+    if (c1 < span) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = c1 + u * G + g;
+        idx[u] = c < len ? __ldg(e + c) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        x[u] = c1 + u * G + g < len ? __ldg(v + idx[u]) : T(0);
+    }
+    if constexpr (G > 1) __syncwarp();
+    // the pass's walk: one lane adds its bucket's values in plan order,
+    // unrolled, so the reads go out ahead of the chain of adds
+    if (walker) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        T y_c;
+        if constexpr (G == 1) y_c = y[c];
+        else y_c = stage[sub * G + (c / G) * 32 + c % G];
+        if (c0 + c < len) acc = acc + y_c;
       }
     }
-    const int64_t b = i - base;
-    int32_t e = __ldg(off + b);
-    const int32_t end = __ldg(off + b + 1);
-    T s = g.accumulate ? o[b] : T(0);
-    for (; e + kSegAhead <= end; e += kSegAhead) {
-      int32_t idx[kSegAhead];
-      T x[kSegAhead];
-#pragma unroll
-      for (int j = 0; j < kSegAhead; ++j) idx[j] = __ldg(ent + e + j);
-#pragma unroll
-      for (int j = 0; j < kSegAhead; ++j) x[j] = __ldg(v + idx[j]);
-#pragma unroll
-      for (int j = 0; j < kSegAhead; ++j) s = s + x[j];
-    }
-    for (; e < end; ++e) s = s + __ldg(v + __ldg(ent + e));
-    o[b] = s;
+    if constexpr (G > 1) __syncwarp();    // the stage is free again
+    // end of the pass's walk
   }
+  if (walker) {
+    out[b] = acc;
+    if (cap != nullptr) scale[b] = min_(cap[b] / max_(acc, eps), T(1));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSegThreads)
+segment_sum_kernel(const SegmentGroup<T> g, T eps) {
+  __shared__ T stage[kSegThreads / 32][kSegLoads * 32];
+  // this block's entry, found with compile-time indices only (a
+  // run-time index into the arguments would copy them to local memory)
+  const T* v = g.vals[0];
+  const int32_t* off = g.offsets[0];
+  const int32_t* ent = g.entries[0];
+  T* out = g.out[0];
+  const T* cap = g.cap[0];
+  T* scale = g.scale[0];
+  int64_t K = g.buckets[0], first = 0;
+  int lg = g.log2_lanes[0];
+#pragma unroll
+  for (int k = 1; k < kMaxSegGroup; ++k) {
+    if (k < g.count && (int64_t)blockIdx.x >= g.first_block[k]) {
+      v = g.vals[k];
+      off = g.offsets[k];
+      ent = g.entries[k];
+      out = g.out[k];
+      cap = g.cap[k];
+      scale = g.scale[k];
+      K = g.buckets[k];
+      first = g.first_block[k];
+      lg = g.log2_lanes[k];
+    }
+  }
+  const int64_t block = (int64_t)blockIdx.x - first;
+  T* st = stage[threadIdx.x / 32];
+  const bool acc = g.accumulate != 0;
+#define SEGMENT_BLOCK(G) \
+  segment_block<T, G>(v, off, ent, out, cap, scale, K, block, acc, eps, st)
+  switch (lg) {
+    case 0: SEGMENT_BLOCK(1); break;
+    case 1: SEGMENT_BLOCK(2); break;
+    case 2: SEGMENT_BLOCK(4); break;
+    case 3: SEGMENT_BLOCK(8); break;
+    case 4: SEGMENT_BLOCK(16); break;
+    default: SEGMENT_BLOCK(32); break;
+  }
+#undef SEGMENT_BLOCK
 }
 
 // ---- per-packet decisions (float32, uint32 hash) ---------------------
@@ -1078,26 +1204,35 @@ int launch_bucket_load_bottleneck(const void* rate, const void* plan,
 template <typename T>
 int launch_segment_sum(const void* const* vals, const void* const* offsets,
                        const void* const* entries, void* const* out,
-                       const int64_t* n, int count, int accumulate,
-                       void* stream) {
+                       const void* const* cap, void* const* scale,
+                       const int64_t* n, const int* log2_lanes, int count,
+                       int accumulate, double eps, void* stream) {
   if (count < 1 || count > kMaxSegGroup) return cudaErrorInvalidValue;
   SegmentGroup<T> g{};
-  int64_t total = 0;
+  int64_t blocks = 0;
   for (int k = 0; k < count; ++k) {
-    if (n[k] < 0) return cudaErrorInvalidValue;
+    if (n[k] < 0 || log2_lanes[k] < 0 || log2_lanes[k] > 5 ||
+        (cap[k] == nullptr) != (scale[k] == nullptr))
+      return cudaErrorInvalidValue;
     g.vals[k] = static_cast<const T*>(vals[k]);
     g.offsets[k] = static_cast<const int32_t*>(offsets[k]);
     g.entries[k] = static_cast<const int32_t*>(entries[k]);
     g.out[k] = static_cast<T*>(out[k]);
-    g.start[k] = total;
-    total += n[k];
+    g.cap[k] = static_cast<const T*>(cap[k]);
+    g.scale[k] = static_cast<T*>(scale[k]);
+    g.buckets[k] = n[k];
+    g.log2_lanes[k] = log2_lanes[k];
+    g.first_block[k] = blocks;
+    // kSegThreads / G buckets a block
+    const int64_t per_block = kSegThreads >> g.log2_lanes[k];
+    blocks += (n[k] + per_block - 1) / per_block;
   }
-  g.total = total;
   g.count = count;
   g.accumulate = accumulate != 0;
-  if (total == 0) return cudaSuccess;
-  segment_sum_kernel<T><<<grid_for(total), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(g);
+  if (blocks == 0) return cudaSuccess;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  segment_sum_kernel<T><<<static_cast<unsigned>(blocks), kSegThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(g, T(eps));
   return cudaGetLastError();
 }
 
@@ -1268,10 +1403,13 @@ extern "C" int netsim_plb_select_f32(const void* rate, const void* elig,
   }                                                                       \
   extern "C" int netsim_segment_sum_##SUFFIX(                             \
       const void* const* vals, const void* const* offsets,                \
-      const void* const* entries, void* const* out, const int64_t* n,     \
-      int count, int accumulate, void* stream) {                          \
-    return launch_segment_sum<T>(vals, offsets, entries, out, n, count,   \
-                                 accumulate, stream);                     \
+      const void* const* entries, void* const* out,                       \
+      const void* const* cap, void* const* scale, const int64_t* n,       \
+      const int* log2_lanes, int count, int accumulate, double eps,       \
+      void* stream) {                                                     \
+    return launch_segment_sum<T>(vals, offsets, entries, out, cap, scale, \
+                                 n, log2_lanes, count, accumulate, eps,   \
+                                 stream);                                 \
   }                                                                       \
   extern "C" int netsim_queue_update_##SUFFIX(                            \
       const void* const* q, const void* const* load,                      \

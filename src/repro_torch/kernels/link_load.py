@@ -18,10 +18,15 @@
     sums over a CSR plan (`SegmentPlan`), the counterpart of the
     reference's `segment_load` (`jax.ops.segment_sum`) and
     `segment_load_chunk` (`acc.at[k].add`), which XLA computes there
-    (CPU tensors: `ref.segment_sum_ref`; CUDA: `netsim_segment_sum`, one
-    thread a bucket).  CUDA's scatter adds keep no order, so the kernel
-    is what keeps a sparse run bit-equal to the dense one and to the
-    NumPy engine's `np.add.at`.
+    (CPU tensors: `ref.segment_sum_ref`; CUDA: `netsim_segment_sum`, a
+    group of lanes of one warp a bucket, its width picked per entry
+    from the plan's widest bucket and mean).  CUDA's scatter adds keep
+    no order, so the kernel is what keeps a sparse run bit-equal to the
+    dense one and to the NumPy engine's `np.add.at`.  An entry may take
+    caps: the launch then also writes the bottleneck scale of its sums
+    (`ref.bottleneck_ref`), as `bucket_load_bottleneck` does for dense
+    ECMP, so a sparse slot scales its access links, and under ECMP its
+    fabric links, without a `bottleneck` launch.
 """
 from __future__ import annotations
 
@@ -127,14 +132,38 @@ class SegmentPlan(NamedTuple):
     """A CSR plan of flow-ordered bucket sums: bucket k sums
     `vals.reshape(-1)[entries[offsets[k]:offsets[k + 1]]]`, its entries
     in flow order.  Offsets are positions in the whole `entries`, so a
-    slice of `offsets` (one chunk's buckets) keeps the same `entries`."""
+    slice of `offsets` (one chunk's buckets) keeps the same `entries`.
+    `width` is the most entries of any bucket (every chunk's, every
+    lane's), a host int the kernel picks its lanes a bucket from; 0
+    when unknown (the kernel then goes by the mean)."""
     offsets: torch.Tensor     # (K + 1,) int32
     entries: torch.Tensor     # (E,) int32 flat indices into the values
+    width: int = 0
+
+
+def segment_lanes_log2(K: int, E: int, width: int) -> int:
+    """log2 of the lanes of one warp the kernel gives each bucket of an
+    entry of `K` buckets, `E` entries in all (a chunked plan's: every
+    chunk's) and widest bucket `width` (0: unknown).  It only shapes the
+    work: the sums are the same at any width.  Timed on the H100 over
+    the giga and training-schedule plans at every width from 1 to 32
+    (`benchmarks/torch_segment_sum_designs.py`; PERF.md, section 6):
+    a lane alone where buckets are short (under 2 entries on average,
+    none over 16: the AR pair plan), 16 lanes where they are long (8 or
+    more on average and some of 64 or more: a crowded schedule's access
+    plan), else 2 lanes (the giga access and link plans, and a skewed
+    plan of mostly empty buckets, whose empty ones cost warps)."""
+    if E < 2 * K and width <= 16:
+        return 0
+    if E >= 8 * K and width >= 64:
+        return 4
+    return 1
 
 
 def segment_sum_many(items: Sequence[Tuple[torch.Tensor, SegmentPlan]], *,
-                     acc: Optional[Sequence[torch.Tensor]] = None
-                     ) -> Tuple[torch.Tensor, ...]:
+                     acc: Optional[Sequence[torch.Tensor]] = None,
+                     caps: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                     eps: float = EPS):
     """Flow-ordered bucket sums of 1-6 `(vals, plan)` entries in one
     kernel launch: each plan's (K,) sums of its `vals` (any contiguous
     shape, read flat; every `vals` of one float dtype and on one
@@ -143,7 +172,13 @@ def segment_sum_many(items: Sequence[Tuple[torch.Tensor, SegmentPlan]], *,
     starts from its value there and the sums are written into `acc` in
     place and returned (a chunk of the flow axis continuing the chains of
     the chunks before it).  Bit-equal to `ref.segment_sum_ref` of each
-    entry."""
+    entry.
+
+    Without `caps` returns the tuple of sums.  With `caps` (one (K,)
+    tensor or None an entry) returns `(sums, scales)`: `scales[k]` is
+    `min(1, caps[k] / max(sums[k], eps))`, bit-equal to
+    `ref.bottleneck_ref(caps[k], sums[k])`, or None where `caps[k]` is
+    None."""
     items = tuple(items)
     n = len(items)
     if not 1 <= n <= MAX_SEG_GROUP:
@@ -152,6 +187,10 @@ def segment_sum_many(items: Sequence[Tuple[torch.Tensor, SegmentPlan]], *,
     if acc is not None and len(acc) != n:
         raise ValueError(f"segment_sum_many: {len(acc)} accumulators for "
                          f"{n} entries")
+    if caps is not None and len(caps) != n:
+        raise ValueError(f"segment_sum_many: {len(caps)} caps for {n} "
+                         "entries")
+    cap_of = tuple(caps) if caps is not None else (None,) * n
     first = items[0][0]
     sizes = []
     for k, (vals, plan) in enumerate(items):
@@ -162,6 +201,8 @@ def segment_sum_many(items: Sequence[Tuple[torch.Tensor, SegmentPlan]], *,
                  (f"entries[{k}]", plan.entries, torch.int32)]
         if acc is not None:
             named.append((f"acc[{k}]", acc[k], first.dtype))
+        if cap_of[k] is not None:
+            named.append((f"caps[{k}]", cap_of[k], first.dtype))
         for name, t, dtype in named:
             if t.device != first.device:
                 raise ValueError(f"{name}: on {t.device}, expected "
@@ -171,13 +212,20 @@ def segment_sum_many(items: Sequence[Tuple[torch.Tensor, SegmentPlan]], *,
                                  f"{dtype}")
         if plan.offsets.dim() != 1 or plan.entries.dim() != 1 or K < 0:
             raise ValueError(f"plan[{k}]: offsets and entries must be 1-D")
-        if acc is not None and tuple(acc[k].shape) != (K,):
-            raise ValueError(f"acc[{k}]: shape {tuple(acc[k].shape)}, "
-                             f"expected {(K,)}")
+        for name, t in ((f"acc[{k}]", None if acc is None else acc[k]),
+                        (f"caps[{k}]", cap_of[k])):
+            if t is not None and tuple(t.shape) != (K,):
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                                 f"expected {(K,)}")
     if first.device.type == "cpu":
-        return tuple(ref.segment_sum_ref(vals, plan.offsets, plan.entries,
+        sums = tuple(ref.segment_sum_ref(vals, plan.offsets, plan.entries,
                                          acc=None if acc is None else acc[k])
                      for k, (vals, plan) in enumerate(items))
+        if caps is None:
+            return sums
+        return sums, tuple(None if c is None else
+                           ref.bottleneck_ref(c, s, eps=eps)
+                           for c, s in zip(cap_of, sums))
     dev = build.cuda_device("segment_sum", first)
     dt = build.float_dtype("segment_sum", first)
     for k, (vals, plan) in enumerate(items):
@@ -190,17 +238,30 @@ def segment_sum_many(items: Sequence[Tuple[torch.Tensor, SegmentPlan]], *,
         if acc is not None:
             build.check(f"acc[{k}]", acc[k], device=dev, dtype=dt,
                         shape=(sizes[k],))
+        if cap_of[k] is not None:
+            build.check(f"caps[{k}]", cap_of[k], device=dev, dtype=dt,
+                        shape=(sizes[k],))
     outs = tuple(acc) if acc is not None else tuple(
         torch.empty(K, dtype=dt, device=dev) for K in sizes)
+    scales = tuple(None if c is None else torch.empty_like(c)
+                   for c in cap_of)
 
     def ptrs(ts):
-        return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+        return (ctypes.c_void_p * n)(*(None if t is None else t.data_ptr()
+                                       for t in ts))
 
+    def ints(xs):
+        return (ctypes.c_int64 * n)(*xs)
+
+    lanes = (ctypes.c_int * n)(*(
+        segment_lanes_log2(K, p.entries.numel(), p.width)
+        for K, (_, p) in zip(sizes, items)))
     build.launch("segment_sum", dt, dev, ptrs(v for v, _ in items),
                  ptrs(p.offsets for _, p in items),
                  ptrs(p.entries for _, p in items), ptrs(outs),
-                 (ctypes.c_int64 * n)(*sizes), n, int(acc is not None))
-    return outs
+                 ptrs(cap_of), ptrs(scales), ints(sizes), lanes, n,
+                 int(acc is not None), eps)
+    return outs if caps is None else (outs, scales)
 
 
 def segment_sum(vals: torch.Tensor, plan: SegmentPlan, *,

@@ -97,8 +97,12 @@ class SlotOperands(NamedTuple):
     dem: Optional[torch.Tensor] = None       # (n_seg, K)
     # sparse aggregation (`cfg.agg_mode == "sparse"`): the segment-sum
     # plans, which replace the `agg_*` and `ecmp_load` gather plans
-    # (inert placeholders then)
+    # (inert placeholders then), and under ECMP the link capacities in
+    # the link plan's bucket order (family-major: stage-A up (P, L, U),
+    # down (P, U, L), then stage B's), which the segment sum's
+    # bottleneck epilogue reads
     sparse: Optional[SparsePlans] = None
+    sparse_link_cap: Optional[torch.Tensor] = None   # (n_seg, rows)
 
 
 def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
@@ -187,15 +191,19 @@ def operands_from_numpy(cfg, flows, aggs, seg_up: np.ndarray,
         vup=vup, vdown=vdown, vup2=vup2, vdown2=vdown2,
         dem=None if seg_dem is None else torch.as_tensor(
             np.asarray(seg_dem), dtype=dtype, device=device),
-        sparse=None if sparse is None else _plans_to(sparse, device), **ft)
+        sparse=None if sparse is None else _plans_to(sparse, device),
+        sparse_link_cap=None if sparse is None or cfg.routing != "ecmp"
+        else torch.cat([s.reshape(n_seg, -1) for s in stages], -1), **ft)
 
 
 def _plans_to(plans: SparsePlans, device) -> SparsePlans:
     """`plans`' NumPy arrays as int32 tensors on `device`."""
     def to(plan):
-        return None if plan is None else SegmentPlan(*(
-            torch.as_tensor(np.asarray(a), dtype=torch.int32, device=device)
-            for a in plan))
+        def to_dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                   device=device)
+        return None if plan is None else plan._replace(
+            offsets=to_dev(plan.offsets), entries=to_dev(plan.entries))
     return plans._replace(src=to(plans.src), dst=to(plans.dst),
                           pair=to(plans.pair), link=to(plans.link))
 
@@ -236,7 +244,8 @@ def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
 # stacked batch comes second, so `ops.up[seg]` is the segment's (B, ...)
 _PER_SEGMENT = ("up", "down", "acc", "assign", "ecmp_load", "link_cap",
                 "ecmp_up", "ecmp_down", "up2", "down2", "ecmp_up2",
-                "ecmp_down2", "vup", "vdown", "vup2", "vdown2", "dem")
+                "ecmp_down2", "vup", "vdown", "vup2", "vdown2", "dem",
+                "sparse_link_cap")
 # fields the lanes share (the fabric's static maps)
 _SHARED = ("path_agg", "leaf_pod", "cross_pair")
 
@@ -303,7 +312,7 @@ def _stack_plan(plans: Sequence[SegmentPlan], n_chunks: int,
     """The lanes' chunk-major plans as one plan over their (B, chunk, P)
     values: chunk by chunk, lane b's buckets after lane b - 1's, its
     entries offset by `b * stride` (a lane's chunk of values).  Only
-    the offsets visit the host."""
+    the offsets visit the host.  Its width is the lanes' widest."""
     offs = [p.offsets.cpu().long() for p in plans]
     K = (offs[0].numel() - 1) // n_chunks
     o_parts, e_parts, pos = [torch.zeros(1, dtype=torch.int64)], [], 0
@@ -316,7 +325,8 @@ def _stack_plan(plans: Sequence[SegmentPlan], n_chunks: int,
             pos += hi - lo
     dev = plans[0].entries.device
     return SegmentPlan(torch.cat(o_parts).to(torch.int32).to(dev),
-                       torch.cat(e_parts).to(torch.int32))
+                       torch.cat(e_parts).to(torch.int32),
+                       max(p.width for p in plans))
 
 
 def _stack_sparse(lanes: Sequence[SparsePlans], F: int,
@@ -334,11 +344,12 @@ def _stack_sparse(lanes: Sequence[SparsePlans], F: int,
 
     link = None
     if first.link is not None:
-        segs = [stack([SegmentPlan(sp.link.offsets[g], sp.link.entries[g])
-                       for sp in lanes])
+        segs = [stack([SegmentPlan(sp.link.offsets[g], sp.link.entries[g],
+                                   sp.link.width) for sp in lanes])
                 for g in range(first.link.offsets.shape[0])]
         link = SegmentPlan(torch.stack([x.offsets for x in segs]),
-                           torch.stack([x.entries for x in segs]))
+                           torch.stack([x.entries for x in segs]),
+                           max(x.width for x in segs))
     return first._replace(
         src=stack([sp.src for sp in lanes]),
         dst=stack([sp.dst for sp in lanes]),

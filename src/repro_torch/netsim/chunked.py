@@ -13,7 +13,8 @@ the chunks cannot matter):
      continues its chain where the chunk before left it
      (`link_load.segment_sum_many` with `acc`), so the sums are those of
      one pass bit for bit, a non-divisible tail included (its pad flows
-     are in no plan);
+     are in no plan); the last chunk's launch also writes the access
+     and (ECMP) link bottleneck scales of the finished sums;
   2. **link-level**: routing, bottleneck scales and queue updates
      (`engine._links`), with no flow axis;
   3. **emit**: chunk by chunk, the plane split again (the same values:
@@ -83,15 +84,16 @@ def slot(cfg: engine.EngineConfig, ops: SlotOperands, carry: SimCarry, t,
         return engine._offered(cfg, _ops_chunk(ops, sl),
                                _carry_chunk(carry, sl), t, seg)
 
-    # pass 1: the chunks' rates folded into the running sums
+    # pass 1: the chunks' rates folded into the running sums (the last
+    # chunk's launch also writes the access and, under ECMP, link scales)
     acc = None
     for c, sl in enumerate(chunks):
-        acc = engine._sparse_sums(cfg, ops, *offered(sl), seg, chunk=c,
-                                  acc=acc)
+        acc, scales = engine._sparse_sums(cfg, ops, *offered(sl), seg,
+                                          chunk=c, acc=acc)
     # pass 2: the link half, no flow axis
     links = engine._links(cfg, ops, carry, seg,
-                          engine._shape_sums(cfg, lead, acc))
-    del acc
+                          engine._shape_sums(cfg, lead, acc, scales))
+    del acc, scales
 
     # pass 3: the per-flow half, chunk by chunk
     parts = []

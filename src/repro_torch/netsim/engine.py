@@ -110,6 +110,16 @@ _SPLIT_MODE = {"spx": "spx", "dcqcn": "dcqcn", "global": "agg",
                "esr": "agg", "swlb": "swlb"}
 
 
+def _env_flag(name: str) -> Optional[bool]:
+    """The boolean environment variable `name` (1/true/t/yes/y/on,
+    any case), or None when it is unset (the reference's
+    `jx/engine.py::_env_flag`)."""
+    env = os.environ.get(name)
+    if env is None:
+        return None
+    return env.lower() in ("1", "true", "t", "yes", "y", "on")
+
+
 def agg_mode_default(n_hosts: int, n_leaves: int, n_paths: int,
                      n_planes: int) -> str:
     """The flow-aggregation mode for a fabric shape, as the reference
@@ -481,27 +491,39 @@ def _sparse_sums(cfg: EngineConfig, ops: SlotOperands, offered, fabric_rate,
     `fabric_rate` by (plane, leaf pair) under AR/WAR or by ECMP link
     (this segment's plan) — of chunk `chunk` of the flows (`offered`
     and `fabric_rate` that chunk's), added to the sums `acc` of the
-    chunks before it when given.  Returns the flat sums, a lane's
-    buckets after another's (`_shape_sums` views them)."""
+    chunks before it when given.  Returns `(sums, scales)`, flat, a
+    lane's buckets after another's (`_shape_sums` views them): the
+    launch of the last chunk (the only one without chunks) also scales
+    the access sums by the access capacities and, under ECMP, the link
+    sums by the link capacities (the kernel's bottleneck epilogue;
+    `scales` is None before the last chunk, and its third entry None
+    under AR/WAR)."""
     sp = ops.sparse
     nc = ops.fb.demand.shape[-1] // sp.chunk
-    third = sp.pair if sp.link is None else SegmentPlan(
-        sp.link.offsets[seg], sp.link.entries[seg])
-    return segment_sum_many(
-        ((offered, _chunk_plan(sp.src, chunk, nc)),
-         (offered, _chunk_plan(sp.dst, chunk, nc)),
-         (fabric_rate, _chunk_plan(third, chunk, nc))), acc=acc)
+    third = sp.pair if sp.link is None else sp.link._replace(
+        offsets=sp.link.offsets[seg], entries=sp.link.entries[seg])
+    items = ((offered, _chunk_plan(sp.src, chunk, nc)),
+             (offered, _chunk_plan(sp.dst, chunk, nc)),
+             (fabric_rate, _chunk_plan(third, chunk, nc)))
+    if chunk != nc - 1:
+        return segment_sum_many(items, acc=acc), None
+    acc_cap = ops.acc[seg].reshape(-1)
+    link_cap = None if sp.link is None else \
+        ops.sparse_link_cap[seg].reshape(-1)
+    return segment_sum_many(items, acc=acc,
+                            caps=(acc_cap, acc_cap, link_cap), eps=_EPS)
 
 
-def _shape_sums(cfg: EngineConfig, lead: tuple, sums) -> Tuple:
-    """`_sparse_sums`' flat sums as the slot's loads: the two access
-    loads (..., H, P), then the pair rates (..., P, L, L) or the ECMP
-    link loads, family after family, (..., rows)."""
-    tx, rx, third = sums
+def _shape_sums(cfg: EngineConfig, lead: tuple, sums, scales) -> Tuple:
+    """`_sparse_sums`' flat sums and scales as the slot's: the two
+    access loads (..., H, P), then the pair rates (..., P, L, L) or the
+    ECMP link loads, family after family, (..., rows); the scales
+    alike (the access scales, then the ECMP link scales or None)."""
     H, P, L = cfg.n_hosts, cfg.n_planes, cfg.n_leaves
     shape = (P, L, L) if cfg.routing != "ecmp" else (-1,)
-    return (tx.view(lead + (H, P)), rx.view(lead + (H, P)),
-            third.view(lead + shape))
+    shapes = (lead + (H, P), lead + (H, P), lead + shape)
+    return tuple(None if x is None else x.view(sh)
+                 for xs in (sums, scales) for x, sh in zip(xs, shapes))
 
 
 def _sums(cfg: EngineConfig, ops: SlotOperands, offered, fabric_rate,
@@ -510,9 +532,11 @@ def _sums(cfg: EngineConfig, ops: SlotOperands, offered, fabric_rate,
     the access loads by src and by dst host ((..., H, P) each), then the
     pair rates ((..., P, L, L), AR/WAR) or, under sparse aggregation,
     the ECMP link loads; dense ECMP sums its links in
-    `bucket_load_bottleneck` (None here)."""
+    `bucket_load_bottleneck` (None here).  Under sparse aggregation
+    three scales follow (`_shape_sums`): the access scales and, under
+    ECMP, the link scales, from the same launch."""
     if cfg.agg_mode == "sparse":
-        return _shape_sums(cfg, tuple(offered.shape[:-2]), _sparse_sums(
+        return _shape_sums(cfg, tuple(offered.shape[:-2]), *_sparse_sums(
             cfg, ops, offered, fabric_rate, seg))
     pair = None if cfg.routing == "ecmp" else \
         _pair_rate_sum(cfg, fabric_rate, ops.agg_pair)
@@ -642,20 +666,20 @@ def _pair_tables(cfg: EngineConfig, pair, q, scale_pair):
             q_tab.transpose(-1, -2).reshape(-1, P))
 
 
-def _ecmp_link_loads(cfg: EngineConfig, loads) -> Tuple:
-    """The ECMP link loads of (..., rows) bucket sums, family after
-    family: stage-A up (..., P, L, U) and down (..., P, U, L), and on a
-    fat tree stage-B up and down (..., P, pods, C), each contiguous."""
+def _ecmp_link_families(cfg: EngineConfig, x) -> Tuple:
+    """Views of (..., rows) ECMP link values, family after family:
+    stage-A up (..., P, L, U) and down (..., P, U, L), and on a fat
+    tree stage-B up and down (..., P, pods, C)."""
     P, L, U = cfg.n_planes, cfg.n_leaves, cfg.n_up
-    lead = loads.shape[:-1]
+    lead = x.shape[:-1]
     LU = P * L * U
-    out = (loads[..., :LU].reshape(lead + (P, L, U)).contiguous(),
-           loads[..., LU:2 * LU].reshape(lead + (P, U, L)).contiguous())
+    out = (x[..., :LU].view(lead + (P, L, U)),
+           x[..., LU:2 * LU].view(lead + (P, U, L)))
     if cfg.kind == "fat_tree":
         B = P * cfg.n_pods * cfg.n_cores
         shape = lead + (P, cfg.n_pods, cfg.n_cores)
-        out += (loads[..., 2 * LU:2 * LU + B].reshape(shape).contiguous(),
-                loads[..., 2 * LU + B:].reshape(shape).contiguous())
+        out += (x[..., 2 * LU:2 * LU + B].view(shape),
+                x[..., 2 * LU + B:].view(shape))
     return out
 
 
@@ -682,14 +706,20 @@ def _links(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, seg: int,
     """The link half of a slot in capacity segment `seg`: routing, link
     loads and their bottleneck scales (every scale of the slot in one
     bottleneck launch: the access links', and the fabric links' unless
-    dense ECMP's bucket_load_bottleneck gives them), then every queue in
-    one queue_update launch.  `sums` is `_sums`' (dense ECMP also needs
-    the flows' `fabric_rate`); reads only the old carry's queues."""
+    dense ECMP's bucket_load_bottleneck gives them; under sparse
+    aggregation the segment sum's epilogue gave the access scales and,
+    under ECMP, the link scales, so ECMP makes no bottleneck launch and
+    AR/WAR scale only the fabric links), then every queue in one
+    queue_update launch.  `sums` is `_sums`' (dense ECMP also needs the
+    flows' `fabric_rate`); reads only the old carry's queues."""
     fat = cfg.kind == "fat_tree"
     up, down, acc = ops.up[seg], ops.down[seg], ops.acc[seg]
     up2, down2 = (ops.up2[seg], ops.down2[seg]) if fat else (None, None)
-    tx, rx, third = sums
-    access = ((acc, tx), (acc, rx))
+    tx, rx, third, *scaled = sums
+    # sparse: the sums' launch scaled the access links (and under ECMP
+    # the fabric links); else the bottleneck launch scales them
+    access = () if scaled else ((acc, tx), (acc, rx))
+    acc_scales = tuple(scaled[:2])
     links = (up, down) + ((up2, down2) if fat else ())
     bh = None
     if cfg.routing == "ecmp" and cfg.agg_mode == "dense":
@@ -708,9 +738,10 @@ def _links(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, seg: int,
                       for (a, b), x in zip(spans, links))
         f_acc_tx, f_acc_rx = bottleneck_many(access, eps=_EPS)
     elif cfg.routing == "ecmp":
-        loads = _ecmp_link_loads(cfg, third)
-        *tables, f_acc_tx, f_acc_rx = bottleneck_many(
-            tuple(zip(links, loads)) + access, eps=_EPS)
+        f_acc_tx, f_acc_rx, link_scale = scaled
+        loads = tuple(x.contiguous()
+                      for x in _ecmp_link_families(cfg, third))
+        tables = _ecmp_link_families(cfg, link_scale)
     else:
         use_war = cfg.routing == "war"
         if fat:
@@ -724,7 +755,7 @@ def _links(cfg: EngineConfig, ops: SlotOperands, carry: SimCarry, seg: int,
                 cfg, carry, third, up, down, ops.vup[seg], ops.vdown[seg],
                 use_war)
         *scales, f_acc_tx, f_acc_rx = bottleneck_many(
-            tuple(zip(links, loads)) + access, eps=_EPS)
+            tuple(zip(links, loads)) + access, eps=_EPS) + acc_scales
         if fat:
             scale_pair = _ft_pair(ops, _ft_view(ops, *scales))
         else:
@@ -1296,7 +1327,8 @@ def _csr(parts, n_buckets: int, chunk: int, n_chunks: int
     bucket `keys[i, p]` (< `n_buckets`) where `flows[i] == f`.  Buckets
     are chunk-major (`n_chunks` x `n_buckets`, a chunk being `chunk`
     flows), each bucket's entries in flow order, as flat indices into
-    its chunk's (chunk, P) values; parts never share a bucket."""
+    its chunk's (chunk, P) values; parts never share a bucket.  Its
+    `width` is the most entries of any bucket."""
     comp, local = [], []
     for flows, keys in parts:
         c = flows // chunk
@@ -1309,7 +1341,7 @@ def _csr(parts, n_buckets: int, chunk: int, n_chunks: int
     counts = np.bincount(comp, minlength=n_chunks * n_buckets)
     return SegmentPlan(
         np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
-        local[order].astype(np.int32))
+        local[order].astype(np.int32), int(counts.max(initial=0)))
 
 
 def _link_parts(cfg: EngineConfig, fa: FlowArrays, assign_g: np.ndarray):
@@ -1360,7 +1392,8 @@ def _sparse_plans(cfg: EngineConfig, fa: FlowArrays, assign: np.ndarray,
         plans = [plan(_link_parts(cfg, fa, assign[g]), P * _plan_rows(cfg))
                  for g in range(assign.shape[0])]
         link = SegmentPlan(np.stack([p.offsets for p in plans]),
-                           np.stack([p.entries for p in plans]))
+                           np.stack([p.entries for p in plans]),
+                           max(p.width for p in plans))
     else:
         pair_idx = fa.src_leaf * L + fa.dst_leaf
         pair = plan([(flows, pk * (L * L) + pair_idx[:, None])], P * L * L)
@@ -1529,8 +1562,9 @@ def _lane_operands(lane: _Lane, boundaries, widths, device, dtype,
         if sparse is None:
             aggs = aggs._replace(ecmp_load=aggs.ecmp_load[own])
         else:
-            sparse = sparse._replace(link=SegmentPlan(
-                sparse.link.offsets[own], sparse.link.entries[own]))
+            sparse = sparse._replace(link=sparse.link._replace(
+                offsets=sparse.link.offsets[own],
+                entries=sparse.link.entries[own]))
         assign = assign[own]
     flows = fa
     if n_flows > len(fa):
@@ -1556,6 +1590,12 @@ _F32_OVERFLOWS: List[Dict] = []
 _F32_WARNED: set = set()
 
 
+def strict_f32() -> bool:
+    """`REPRO_JX_STRICT_F32=1` turns the float32 bytes_total overflow
+    warning into a hard error, in both packages."""
+    return bool(_env_flag("REPRO_JX_STRICT_F32"))
+
+
 def f32_overflow_log() -> Tuple[Dict, ...]:
     """Every float32 bytes_total overflow condition seen this process,
     in detection order — `{"spec": name, "max_bytes": float}` each.
@@ -1569,22 +1609,24 @@ def _warn_f32_bytes(name: str, fa: FlowArrays, stacklevel: int = 4
     """Log, and warn once per spec name, a finite `bytes_total` above
     2^24 prepared for a float32 run: past float32's integer resolution
     the remaining-bytes countdown stalls and the transfer may never
-    complete."""
+    complete.  Under `strict_f32()` it raises `ValueError` after the
+    log entry instead of warning."""
     finite = fa.bytes_total[np.isfinite(fa.bytes_total)]
     if not (finite.size and finite.max() > 2 ** 24):
         return
+    msg = (f"{name}: bytes_total up to {finite.max():.3g} exceeds float32 "
+           "integer resolution (2^24); remaining-bytes tracking will stall "
+           "and transfers may never complete — run in float64 "
+           "(dtype=torch.float64, the default) or rescale bytes_total")
     _F32_OVERFLOWS.append({"spec": name, "max_bytes": float(finite.max())})
-    if name in _F32_WARNED:
-        return
+    first = name not in _F32_WARNED
+    _F32_WARNED.add(name)
+    if strict_f32():
+        raise ValueError(msg)
     # stdlib warnings dedup by call site, so a second spec tripping the
     # same condition would be swallowed: dedup per spec name here
-    _F32_WARNED.add(name)
-    warnings.warn(
-        f"{name}: bytes_total up to {finite.max():.3g} exceeds float32 "
-        "integer resolution (2^24); remaining-bytes tracking will stall "
-        "and transfers may never complete — run in float64 "
-        "(dtype=torch.float64, the default) or rescale bytes_total",
-        stacklevel=stacklevel)
+    if first:
+        warnings.warn(msg, stacklevel=stacklevel)
 
 
 def _padded_flows(fa: FlowArrays, assign: np.ndarray, n: int, slots: int):

@@ -1244,8 +1244,8 @@ def _seg_plan(keys: np.ndarray, K: int, dev, chunk=None):
     F = keys.shape[0]
     chunk = chunk or F
     p = engine._csr([(np.arange(F), keys)], K, chunk, -(-F // chunk))
-    return link_load.SegmentPlan(*(torch.as_tensor(a, device=dev)
-                                   for a in p))
+    return p._replace(offsets=torch.as_tensor(p.offsets, device=dev),
+                      entries=torch.as_tensor(p.entries, device=dev))
 
 
 @pytest.mark.gpu
@@ -1292,24 +1292,127 @@ def test_segment_sum_equals_plain_version(cuda, dtype, F, P, K, skew):
 
 
 @pytest.mark.gpu
-def test_segment_sum_many_groups_six_entries(cuda):
-    """Six (vals, plan) entries in one launch, each its own sum, and the
-    accumulating form in place."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_many_groups_six_entries(cuda, dtype):
+    """Six (vals, plan) entries of different widths in one launch (each
+    at its own lanes a bucket: 1, 2 and 16 among them), each its own sum, the
+    accumulating form in place, and the bottleneck epilogue on some
+    entries, bit-equal to `ref.bottleneck_ref` of the plain sums."""
     rng = np.random.default_rng(3)
     items = []
-    for k in range(link_load.MAX_SEG_GROUP):
-        F, K = 300 + 7 * k, 50 + k
-        items.append((_uniform(rng, (F, 2), torch.float64, cuda),
+    for k, K in enumerate((40, 300, 57, 130, 2000, 9)):
+        F = 300 + 7 * k
+        items.append((_uniform(rng, (F, 2), dtype, cuda),
                       _seg_plan(rng.integers(0, K, (F, 2)), K, cuda)))
+    lanes = {link_load.segment_lanes_log2(p.offsets.numel() - 1,
+                                          p.entries.numel(), p.width)
+             for _, p in items}
+    assert lanes == {0, 1, 4}
     build.reset_launches()
     outs = link_load.segment_sum_many(items)
     acc = tuple(torch.ones_like(o) for o in outs)
     link_load.segment_sum_many(items, acc=acc)
-    assert build.LAUNCHES["segment_sum"] == 2
-    for o, a, (v, p) in zip(outs, acc, items):
-        assert torch.equal(o, ref.segment_sum_ref(v, p.offsets, p.entries))
+    caps = tuple(None if k % 3 == 1 else
+                 _uniform(rng, o.shape, dtype, cuda, hi=8.0, zero_frac=0.1)
+                 for k, o in enumerate(outs))
+    sums, scales = link_load.segment_sum_many(items, caps=caps)
+    assert build.LAUNCHES["segment_sum"] == 3
+    for o, a, s, c, sc, (v, p) in zip(outs, acc, sums, caps, scales, items):
+        want = ref.segment_sum_ref(v, p.offsets, p.entries)
+        assert torch.equal(o, want) and torch.equal(s, want)
         assert torch.equal(a, ref.segment_sum_ref(
             v, p.offsets, p.entries, acc=torch.ones_like(o)))
+        assert (sc is None) == (c is None)
+        if c is not None:
+            assert torch.equal(sc, ref.bottleneck_ref(c, want))
+
+
+def _lens_plan(rng, lens, n_vals: int, dev):
+    """A CSR plan (on `dev`) whose buckets hold `lens` entries each,
+    random flat indices into `n_vals` values."""
+    lens = np.asarray(lens)
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    entries = rng.integers(0, n_vals, int(lens.sum())).astype(np.int32)
+    return link_load.SegmentPlan(torch.as_tensor(offsets, device=dev),
+                                 torch.as_tensor(entries, device=dev),
+                                 int(lens.max(initial=0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
+def test_segment_sum_at_each_lane_group(cuda, monkeypatch, dtype, G):
+    """At every lanes-a-bucket G the kernel ships: buckets of 0, 1, G-1,
+    G, G+1 and 3G+5 entries (several passes; buckets of one warp of
+    different lengths), their sums and epilogue scales, the form that
+    accumulates, and a fold over chunks whose tail is shorter, each bit
+    for bit as the plain versions; three lanes' plans stacked as one
+    launch too."""
+    monkeypatch.setattr(link_load, "segment_lanes_log2",
+                        lambda K, E, width: G.bit_length() - 1)
+    rng = np.random.default_rng(G)
+    lens = [0, 1, max(G - 1, 0), G, G + 1, 3 * G + 5] * 40
+    rng.shuffle(lens)
+    vals = _uniform(rng, (997, 2), dtype, cuda, zero_frac=0.1)
+    plan = _lens_plan(rng, lens, vals.numel(), cuda)
+    want = ref.segment_sum_ref(vals, plan.offsets, plan.entries)
+    cap = _uniform(rng, want.shape, dtype, cuda, hi=4.0, zero_frac=0.1)
+    (got,), (scale,) = link_load.segment_sum_many(((vals, plan),),
+                                                  caps=(cap,))
+    assert torch.equal(got, want)
+    assert torch.equal(scale, ref.bottleneck_ref(cap, want))
+    start = _uniform(rng, want.shape, dtype, cuda)
+    acc = start.clone()
+    link_load.segment_sum(vals, plan, acc=acc)
+    assert torch.equal(acc, ref.segment_sum_ref(
+        vals, plan.offsets, plan.entries, acc=start.clone()))
+    # a fold over chunks of 300 flows (a tail of 97), the scale written
+    # by the last chunk's launch
+    keys = rng.integers(0, 60, (997, 2))
+    keys[:200] = 5                           # one long bucket
+    chunked = _seg_plan(keys, 60, cuda, 300)
+    one = ref.segment_sum_ref(vals, *_seg_plan(keys, 60, cuda)[:2])
+    cap = _uniform(rng, one.shape, dtype, cuda, hi=4.0)
+    acc = None
+    for c in range(4):
+        part = (vals[c * 300:(c + 1) * 300].contiguous(),
+                engine._chunk_plan(chunked, c, 4))
+        if c < 3:
+            acc = link_load.segment_sum_many((part,), acc=acc)
+        else:
+            acc, (scale,) = link_load.segment_sum_many((part,), acc=acc,
+                                                       caps=(cap,))
+    assert torch.equal(acc[0], one)
+    assert torch.equal(scale, ref.bottleneck_ref(cap, one))
+    # lanes: three plans over their stacked values
+    from repro_torch.netsim.carry import _stack_plan
+    lane_vals = [_uniform(rng, (997, 2), dtype, cuda) for _ in range(3)]
+    plans = [_lens_plan(rng, np.roll(lens, b), 997 * 2, cuda)
+             for b in range(3)]
+    got = link_load.segment_sum(torch.stack(lane_vals),
+                                _stack_plan(plans, 1, 997 * 2))
+    assert torch.equal(got.view(3, -1), torch.stack([
+        ref.segment_sum_ref(v, p.offsets, p.entries)
+        for v, p in zip(lane_vals, plans)]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_mixed_empty_and_long_buckets(cuda, dtype):
+    """A plan mixing empty and 80-entry buckets (the skew of a training
+    schedule's pair plan) at the lanes the wrapper picks, bit for bit,
+    with its epilogue."""
+    rng = np.random.default_rng(80)
+    lens = np.where(rng.random(4096) < 0.05, 80, 0)
+    lens[rng.random(4096) < 0.02] = rng.integers(1, 80)
+    vals = _uniform(rng, (5000, 2), dtype, cuda)
+    plan = _lens_plan(rng, lens, vals.numel(), cuda)
+    want = ref.segment_sum_ref(vals, plan.offsets, plan.entries)
+    cap = _uniform(rng, want.shape, dtype, cuda, hi=100.0)
+    (got,), (scale,) = link_load.segment_sum_many(((vals, plan),),
+                                                  caps=(cap,))
+    assert torch.equal(got, want)
+    assert torch.equal(scale, ref.bottleneck_ref(cap, want))
 
 
 def _mode_env(monkeypatch, mode, chunk=None):
@@ -1330,7 +1433,8 @@ def _mode_env(monkeypatch, mode, chunk=None):
 def test_gpu_sparse_equals_dense(cuda, monkeypatch, name, routing, slots):
     """float64 on the card: the sparse run equals the dense run bit for
     bit and launches segment_sum once a slot in place of
-    bucket_load_bottleneck (ECMP) or beside pair_fractions (AR/WAR)."""
+    bucket_load_bottleneck and bottleneck (ECMP) or beside
+    pair_fractions (AR/WAR)."""
     spec = get_scenario(name).with_sim(slots=slots, routing=routing)
     res = {}
     for mode in ("dense", "sparse"):
@@ -1339,12 +1443,17 @@ def test_gpu_sparse_equals_dense(cuda, monkeypatch, name, routing, slots):
         res[mode] = compile_scenario(spec).run(device=cuda)
         route = ({"bucket_load_bottleneck": slots} if routing == "ecmp"
                  else {"pair_fractions": slots})
+        route["bottleneck"] = slots
         if mode == "sparse":
+            # the segment sum's epilogue scales the access links and,
+            # under ECMP, the fabric links: no bottleneck launch there
             route = dict(route, segment_sum=slots)
             route.pop("bucket_load_bottleneck", None)
+            if routing == "ecmp":
+                route.pop("bottleneck")
         assert build.LAUNCHES == dict(
             dict.fromkeys(build.KERNELS, 0), plane_split=slots,
-            bottleneck=slots, queue_update=slots, nic_update=slots, **route)
+            queue_update=slots, nic_update=slots, **route)
     for f in ("mean_goodput", "completion_slot", "total_goodput",
               "util_up_last", "blackhole_timeline"):
         a, b = getattr(res["sparse"], f), getattr(res["dense"], f)

@@ -81,7 +81,8 @@ def _plan(keys: np.ndarray, K: int, chunk=None):
     F = keys.shape[0]
     chunk = chunk or max(F, 1)
     p = engine._csr([(np.arange(F), keys)], K, chunk, -(-F // chunk))
-    return link_load.SegmentPlan(*(torch.as_tensor(a) for a in p))
+    return p._replace(offsets=torch.as_tensor(p.offsets),
+                      entries=torch.as_tensor(p.entries))
 
 
 @pytest.mark.parametrize("F,P,K,skew", [(500, 2, 64, False),
@@ -160,6 +161,115 @@ def test_segment_sum_many_groups_and_accumulates():
                                                items[1][1])])
 
 
+def test_segment_sum_epilogue_is_bottleneck_of_the_sums():
+    """With `caps` the plain path returns each entry's sums, the same as
+    without, and, where a cap is given, `ref.bottleneck_ref` of them,
+    which equals the reference's `bottleneck_ref` of
+    `jax.ops.segment_sum` in float64; a fold's last chunk scales the
+    finished sums."""
+    from repro.kernels import ref as jx_ref
+    rng = np.random.default_rng(26)
+    items = []
+    for k, K in enumerate((30, 200, 7)):
+        vals = torch.tensor(rng.uniform(size=(90 + k, 2)))
+        items.append((vals, _plan(rng.integers(0, K, (90 + k, 2)), K)))
+    plain = link_load.segment_sum_many(items)
+    caps = [torch.tensor(rng.uniform(0.0, 8.0, p.offsets.numel() - 1))
+            for _, p in items]
+    caps[1] = None
+    sums, scales = link_load.segment_sum_many(items, caps=caps)
+    assert all(torch.equal(a, b) for a, b in zip(sums, plain))
+    assert scales[1] is None
+    for (vals, plan), s, c, sc in zip(items, sums, caps, scales):
+        if c is None:
+            continue
+        assert torch.equal(sc, ref.bottleneck_ref(c, s))
+        with jax.enable_x64(True):
+            counts = np.diff(plan.offsets.numpy())
+            seg = jax.ops.segment_sum(
+                jnp.asarray(vals.numpy().ravel()[plan.entries.numpy()]),
+                jnp.asarray(np.repeat(np.arange(counts.size), counts)),
+                num_segments=counts.size)
+            want = jx_ref.bottleneck_ref(jnp.asarray(c.numpy()), seg)
+        np.testing.assert_array_equal(sc.numpy(), np.asarray(want))
+    # a fold over chunks of 30 flows: caps on the last chunk only
+    vals = torch.tensor(rng.uniform(size=(95, 2)))
+    keys = rng.integers(0, 11, (95, 2))
+    chunked, one = _plan(keys, 11, 30), _plan(keys, 11)
+    cap = torch.tensor(rng.uniform(0.0, 8.0, 11))
+    acc = None
+    for c in range(4):
+        part = ((vals[c * 30:(c + 1) * 30].contiguous(),
+                 engine._chunk_plan(chunked, c, 4)),)
+        if c < 3:
+            acc = link_load.segment_sum_many(part, acc=acc)
+        else:
+            acc, (scale,) = link_load.segment_sum_many(part, acc=acc,
+                                                       caps=(cap,))
+    want = ref.segment_sum_ref(vals, one.offsets, one.entries)
+    assert torch.equal(acc[0], want)
+    assert torch.equal(scale, ref.bottleneck_ref(cap, want))
+    with pytest.raises(ValueError, match="caps"):
+        link_load.segment_sum_many(items, caps=caps[:2])
+    with pytest.raises(ValueError, match="caps\\[0\\]: shape"):
+        link_load.segment_sum_many(items[:1], caps=(caps[2],))
+
+
+def test_segment_lanes_follow_the_plan_shape():
+    """The lanes a bucket the wrapper asks of the kernel, from host-known
+    plan facts only: one lane for short buckets (the giga AR pair plan),
+    16 for long ones (phi3.5-moe's crowded access plan), else 2 (the
+    giga access and link plans, a skewed plan of mostly empty buckets);
+    with no known width, by the mean alone."""
+    lanes = link_load.segment_lanes_log2
+    assert lanes(131072, 204800, 9) == 0
+    assert lanes(8192, 67584, 66) == 4
+    for K, E, width in ((8192, 204800, 25), (16384, 409600, 47),
+                        (131072, 67584, 80), (65536, 1638400, 47)):
+        assert lanes(K, E, width) == 1
+    assert (lanes(131072, 204800, 0), lanes(8192, 204800, 0)) == (0, 1)
+
+
+def test_plans_carry_their_widest_bucket(monkeypatch):
+    """`SegmentPlan.width` is the most entries of any bucket, from the
+    host prep's NumPy counts: a CSR plan's over every chunk, a chunk's
+    plan keeps it, lane-stacked plans take the lanes' widest, and a
+    prepared sparse run's plans carry theirs onto the device.  A sparse
+    ECMP run's epilogue caps (`sparse_link_cap`) are its link
+    capacities in the link plan's bucket order, family after family."""
+    from repro_torch.netsim.carry import _stack_plan
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 13, (100, 2))
+    keys[60:90, 0] = 4                           # bucket 4: 30 and more
+    plan = _plan(keys, 13, 30)
+    assert plan.width == np.diff(plan.offsets.numpy()).max() >= 30
+    assert isinstance(plan.width, int)
+    assert engine._chunk_plan(plan, 2, 4).width == plan.width
+    other = _plan(rng.integers(0, 13, (100, 2)), 13, 30)
+    assert _stack_plan([other, plan], 4, 60).width == \
+        max(plan.width, other.width)
+    monkeypatch.setenv("REPRO_JX_AGG", "sparse")
+    for name in ("fig11_degraded_leaf", "ft_core_failure_resiliency"):
+        for routing in ("war", "ecmp"):
+            c = compile_scenario(get_scenario(name).with_sim(
+                slots=5, routing=routing))
+            _, _, ops = engine.prepare(c, "cpu")
+            sp = ops.sparse
+            for p in (sp.src, sp.dst, sp.pair or sp.link):
+                o = p.offsets.numpy().reshape(-1, p.offsets.shape[-1])
+                assert p.width == np.diff(o, axis=-1).max()
+            if routing != "ecmp":
+                assert ops.sparse_link_cap is None
+                continue
+            fams = (ops.up, ops.down) + (
+                (ops.up2, ops.down2) if ops.up2 is not None else ())
+            n_seg = ops.up.shape[0]
+            assert torch.equal(ops.sparse_link_cap, torch.cat(
+                [f.reshape(n_seg, -1) for f in fams], -1))
+            assert ops.sparse_link_cap.shape[-1] == \
+                sp.link.offsets.shape[-1] - 1
+
+
 def _runs(monkeypatch, name, slots, mode, **sim):
     """(spec, compiled, result) of the port under `mode` (float64)."""
     monkeypatch.setenv("REPRO_JX_AGG", mode)
@@ -233,9 +343,12 @@ def test_sparse_equals_dense_and_the_reference(monkeypatch, name, slots,
                                            "ecmp")])
 def test_sparse_kernel_calls_per_slot(monkeypatch, name, routing):
     """A sparse slot calls segment_sum_many once (both access sums and
-    the pair or link sums in one launch) and never
-    bucket_load_bottleneck: 5 wrapper calls a slot under ECMP, 6 under
-    AR/WAR (pair_fractions), each with contiguous tensors."""
+    the pair or link sums in one launch, which also scales the access
+    links and, under ECMP, the fabric links) and never
+    bucket_load_bottleneck: 4 wrapper calls a slot under ECMP (no
+    bottleneck_many), 6 under AR/WAR (pair_fractions, and
+    bottleneck_many for the fabric links only), each with contiguous
+    tensors."""
     calls = {}
     fns = ("plane_split", "pair_fractions", "bottleneck_many",
            "bucket_load_bottleneck", "queue_update_many", "nic_update",
@@ -253,10 +366,9 @@ def test_sparse_kernel_calls_per_slot(monkeypatch, name, routing):
     slots = 12
     _runs(monkeypatch, f"{name}[{routing}]", slots, "sparse")
     want = dict(plane_split=slots, segment_sum_many=slots,
-                bottleneck_many=slots, queue_update_many=slots,
-                nic_update=slots)
+                queue_update_many=slots, nic_update=slots)
     if routing != "ecmp":
-        want["pair_fractions"] = slots
+        want.update(pair_fractions=slots, bottleneck_many=slots)
     assert calls == want
 
 
