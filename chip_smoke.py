@@ -96,6 +96,11 @@ Phases, each fatal on failure:
             `giga_beyond` (GIGA_BEYOND: 409,600 flows, ECMP, f64, 60
             slots) sparse and forced dense, bit-equal, its first
             BEYOND_CPU_SLOTS slots against the CPU path.
+  compact   the int8 compact carry (COMPACT_RUNS): the giga point under
+            its own ECMP and under AR in float32, wide and with
+            REPRO_JX_COMPACT=1, bit-equal in every output; the compact
+            probe counter is int8 and a float64 run's int32; replays a
+            slot and peak memory of both.
   trace     fig12_plane_flap at 600 slots traced through the entry
             point in float64, against the CPU path (host_bw, util and
             queue within 1e-5, ecn and eligible equal) and the paper's
@@ -110,7 +115,10 @@ Phases, each fatal on failure:
             parity of the CPU path, captured loops per group), and
             LANES seeds of the giga point under ECMP batched against one
             at a time (prep, capture, loop, peak memory); 5 hand-written
-            launches a slot whatever the lanes.
+            launches a slot whatever the lanes; two batches of one
+            structure (ALIAS_BATCHES) dispatched before either is
+            finalized, the second rebinding the first's cached loop,
+            each equal to its batch run alone.
   schedule  the registry's training-step schedules (train_step_baseline,
             train_step_flap, train_step_flap_moe) under their own AR and
             the two flaps also under ECMP and WAR, in float64 through
@@ -118,7 +126,10 @@ Phases, each fatal on failure:
             registry contract, step times exactly), the registry's own
             specs to the golden rows, the flaps to the study's signature
             (step 1 >= 1.2x step 0, step 2 <= 1.1x), with their graphs,
-            capture and replay walls; then GIGA_TRAIN at full width on
+            capture and replay walls; SCHEDULE_TWICE run twice in one
+            process, the second run from the graph cache (0 graphs, 0 s
+            of capture, bit-equal), both capture walls printed; then
+            GIGA_TRAIN at full width on
             the giga leaf-spine (llama3-8b over 4,096 ranks under AR in
             float64 and float32 and under ECMP, phi3.5-moe over 512
             ranks under AR): compile and host-prep walls, graphs and
@@ -138,7 +149,12 @@ Phases, each fatal on failure:
             study's signature; points/s batched and one at a time,
             loops, graphs, the walls of host prep, capture, loop and
             finalize, the host prep the pipeline overlapped with a loop,
-            peak memory; (b) the same again from the run cache (93 hits,
+            peak memory; the same again in the same process with no run
+            cache, every loop from the graph cache (0 graphs, 0 s of
+            capture, rows bit-equal), the first pass's hits and what the
+            cache holds, and once more without the cache
+            (GRAPH_CACHE_ENTRIES = 0) for its peak; (b) the same again
+            from the run cache (93 hits,
             no slot loop, equal rows), then one corrupted entry (only it
             recomputed); (c) GIGA_GRID, 4 giga seeds x ECMP/AR (8
             points, 60 slots, two sub-batches of 4 lanes), each row
@@ -169,6 +185,11 @@ Phases, each fatal on failure:
             WAR and ECMP and over the giga point under failure reaction,
             eager and captured (the replays): the device busy share and
             the kernels that take the device time.
+
+Each phase from `registry` to `packets` starts from an empty graph
+cache (`netsim.graph.clear_graph_cache`), and every peak-memory
+reading from one (`reset_peak`), so first runs capture and peaks are
+those of the runs measured.
 
 Prints the card's name and power limit first, a `{"kernels": [...]}`
 line before the last, and `{"ok": true, "device": {...}}` last.
@@ -290,6 +311,8 @@ TRACE_EVERY = 10
 # megabatch grid (two flow buckets: 60 -> 64 and 30 -> 32 flows; the
 # second scenario's points traced)
 BATCH_POINT = ("fig11_degraded_leaf", "ecmp")
+# two batches of one structure (their lanes' seeds), outstanding together
+ALIAS_BATCHES = ("reroute_random_failures", 120, ((0, 1), (2, 3)))
 BATCH_SEEDS = 16
 GRID = dict(names=("flap_during_incast", "staggered_incast_bursts"),
             routings=("ar", "war", "ecmp"), nics=("spx", "dcqcn"),
@@ -403,6 +426,17 @@ def first_slots(c, slots: int):
 
 def fail(msg: str) -> None:
     raise AssertionError(msg)
+
+
+def reset_peak() -> None:
+    """Empty the graph cache, then restart the peak-memory count, so a
+    peak is that of the runs measured from a cold cache (as every run
+    was before the cache), not of entries that earlier runs left."""
+    import torch
+    from repro_torch.netsim import graph
+    graph.clear_graph_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
@@ -1336,12 +1370,14 @@ def run_launches(c, slots=None, trace=None, dtype=None) -> dict:
 
 
 @contextmanager
-def agg_env(mode=None, chunk=None):
-    """The block with REPRO_JX_AGG set to `mode` and REPRO_JX_FLOW_CHUNK
-    to `chunk` (None: unset, the engine's own choice), restored after."""
+def agg_env(mode=None, chunk=None, compact=None):
+    """The block with REPRO_JX_AGG set to `mode`, REPRO_JX_FLOW_CHUNK to
+    `chunk` and REPRO_JX_COMPACT to 1 when `compact` (None: unset, the
+    engine's own choice), restored after."""
     import os
     want = {"REPRO_JX_AGG": mode, "REPRO_JX_FLOW_CHUNK":
-            None if chunk is None else str(chunk)}
+            None if chunk is None else str(chunk),
+            "REPRO_JX_COMPACT": "1" if compact else None}
     prev = {k: os.environ.get(k) for k in want}
     try:
         for k, v in want.items():
@@ -1609,8 +1645,7 @@ def scale_run(report: dict, total: dict, golden: dict, name: str, routing,
     for dname in dnames:
         dtype = getattr(torch, dname)
         c = compile_scenario(spec)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         build.reset_launches()
         t0 = time.perf_counter()
         res = c.run(device="cuda", dtype=dtype)
@@ -1740,8 +1775,7 @@ def sparse_run(c, dtype, what: str, total: dict) -> tuple:
     from repro_torch.kernels import build
     from repro_torch.netsim import engine
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     build.reset_launches()
     t0 = time.perf_counter()
     res = c.run(device="cuda", dtype=dtype)
@@ -1848,8 +1882,7 @@ def sparse_phase(report: dict, total: dict) -> None:
             bucket = megabatch._bucket(len(points[0].flows),
                                        megabatch.FLOW_BUCKET_MIN)
             n = -(-bucket // chunk) if chunk else 0
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             build.reset_launches()
             t0 = time.perf_counter()
             rows = megabatch.run_megabatch(points, device="cuda")
@@ -1901,6 +1934,106 @@ def sparse_phase(report: dict, total: dict) -> None:
 
 # the schedule phase: the registry's training-step schedules at their own
 # size (the flaps also under ECMP and WAR), then GIGA_TRAIN at full width
+COMPACT_RUNS = ("giga_fabric_storage", (None, "ar"))
+COMPACT_REPEATS = 3
+
+
+def compact_phase(report: dict, total: dict) -> None:
+    """The int8 compact carry at giga scale: the giga point under its own
+    ECMP and under AR in float32 through `_simulate` (captured, from an
+    empty graph cache), wide and with REPRO_JX_COMPACT=1, bit-equal in
+    every output; the compact run's probe counter is int8, a float64
+    run's under the same setting int32; each first run's peak memory,
+    then COMPACT_REPEATS runs of each from the graph cache in turns
+    (wide, compact, compact, wide, ...), their replays a slot (CUDA
+    events; the first run's too)."""
+    import statistics
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.netsim import engine
+    from repro_torch.scenarios import compile_scenario
+
+    def run(cfg, ops) -> tuple:
+        timing: dict = {}
+        got = engine._simulate(cfg, ops, timing=timing)
+        torch.cuda.synchronize()
+        start, end = timing["events"]
+        slots = cfg.slots - (0 if timing["cached"] else 1)
+        return got, start.elapsed_time(end) / slots
+
+    name, routings = COMPACT_RUNS
+    out = report["compact"] = {}
+    for routing in routings:
+        c = compile_scenario(scenario(name, routing))
+        what = label(name, c.spec.sim.routing)
+        T = c.spec.sim.slots
+        rows, res = {}, {}
+        for compact in (False, True):
+            with agg_env(compact=compact):
+                reset_peak()
+                build.reset_launches()
+                cfg, _, ops = engine.prepare(c, "cuda", torch.float32)
+                dt = engine.init_carry(ops.fb, cfg).nic.probe_miss.dtype
+                if cfg.compact_carry != compact or dt != (
+                        torch.int8 if compact else torch.int32):
+                    fail(f"compact {what}: compact_carry "
+                         f"{cfg.compact_carry}, probe counter {dt}")
+                got, ms = run(cfg, ops)
+                check_launches(f"compact {what} {compact}",
+                               dict(build.LAUNCHES),
+                               run_launches(c, dtype=torch.float32), total)
+                rows[compact] = dict(
+                    first_ms_per_slot=ms, ms_per_slot=[],
+                    max_memory_allocated=torch.cuda.max_memory_allocated(),
+                    probe_miss_dtype=str(dt))
+                res[compact] = [r.cpu() for r in got]
+                del got, ops
+                if compact:
+                    cfg64, _, ops64 = engine.prepare(c, "cuda",
+                                                     torch.float64)
+                    dt64 = engine.init_carry(ops64.fb,
+                                             cfg64).nic.probe_miss.dtype
+                    if not cfg64.compact_carry or dt64 != torch.int32:
+                        fail(f"compact {what} float64: probe counter "
+                             f"{dt64}")
+                    del ops64
+        if not all(torch.equal(a, b) for a, b in zip(res[True], res[False],
+                                                     strict=True)):
+            fail(f"compact {what}: the compact float32 run differs from "
+                 "the wide one")
+        # both prepared again (each peak above is its run's alone) and
+        # run once, so every timed run below comes from the cache
+        prepared = {}
+        for compact in (False, True):
+            with agg_env(compact=compact):
+                prepared[compact] = engine.prepare(c, "cuda",
+                                                   torch.float32)[::2]
+            run(*prepared[compact])
+        order = [k % 4 in (1, 2) for k in range(2 * COMPACT_REPEATS)]
+        for compact in order:
+            got, ms = run(*prepared[compact])
+            rows[compact]["ms_per_slot"].append(ms)
+            if not all(torch.equal(a.cpu(), b) for a, b in
+                       zip(got, res[compact])):
+                fail(f"compact {what} {compact}: a run from the graph "
+                     "cache differs from the first")
+        build.reset_launches()
+        del prepared
+        out[what] = rows
+
+        def fmt(r):
+            return (f"{statistics.median(r['ms_per_slot']):.4f} ms/slot "
+                    f"(runs {', '.join(f'{x:.4f}' for x in r['ms_per_slot'])};"
+                    f" first {r['first_ms_per_slot']:.4f}), peak "
+                    f"{r['max_memory_allocated'] / 2**20:.1f} MiB")
+        print(f"compact {what} float32, {T} slots: wide {fmt(rows[False])}; "
+              f"compact (int8 probe counter) {fmt(rows[True])}; bit-equal; "
+              "float64 keeps an int32 counter", flush=True)
+
+
+# the registry schedule run twice in one process: the second run's loop
+# comes from the graph cache
+SCHEDULE_TWICE = ("train_step_flap", None)
 SCHEDULE_RUNS = (("train_step_baseline", None), ("train_step_flap", None),
                  ("train_step_flap_moe", None), ("train_step_flap", "ecmp"),
                  ("train_step_flap", "war"), ("train_step_flap_moe", "ecmp"),
@@ -1940,6 +2073,51 @@ def device_busy_s(run) -> float:
                if e.device_type == DeviceType.CUDA) / 1e6
 
 
+def schedule_twice(what: str, c) -> list:
+    """Compiled schedule `c` run twice through `_simulate` (host prep
+    each time) from an empty graph cache: the first run captures, the
+    second takes its loop from the cache, captures 0 graphs and equals
+    the first bit for bit.  Returns each run's walls."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.netsim import engine, graph
+
+    graph.clear_graph_cache()
+    runs, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        engine.reset_dispatch_stats()
+        timing: dict = {}
+        t0 = time.perf_counter()
+        cfg, _, ops = engine.prepare(c, "cuda", torch.float64)
+        t1 = time.perf_counter()
+        outs.append(engine._simulate(cfg, ops, trace=c.cfg.trace,
+                                     timing=timing))
+        torch.cuda.synchronize()
+        start, end = timing["events"]
+        runs.append(dict(prep_s=t1 - t0, bind_s=timing["bind_s"],
+                         capture_s=timing["capture_s"],
+                         cached=timing["cached"],
+                         graphs=engine.dispatch_stats()["graphs"],
+                         loop_s=start.elapsed_time(end) / 1e3,
+                         wall_s=time.perf_counter() - t0))
+    build.reset_launches()
+    if runs[0]["cached"] or not runs[0]["graphs"] or not runs[1]["cached"] \
+            or runs[1]["graphs"] or runs[1]["capture_s"] != 0.0:
+        fail(f"schedule {what} twice: {runs}")
+    if not all(torch.equal(a, b) for a, b in zip(*outs, strict=True)):
+        fail(f"schedule {what}: the second run differs from the first")
+    print(f"schedule {what} twice: first run {runs[0]['graphs']} graphs, "
+          f"capture {runs[0]['capture_s'] * 1e3:.1f} ms, loop "
+          f"{runs[0]['loop_s'] * 1e3:.1f} ms, wall {runs[0]['wall_s']:.3f} "
+          f"s; second run from the graph cache: 0 graphs, capture "
+          f"{runs[1]['capture_s'] * 1e3:.1f} ms (rebinding "
+          f"{runs[1]['bind_s'] * 1e3:.1f} ms), loop "
+          f"{runs[1]['loop_s'] * 1e3:.1f} ms, wall {runs[1]['wall_s']:.3f} "
+          "s; bit-equal", flush=True)
+    return runs
+
+
 def schedule_phase(report: dict, total: dict) -> None:
     """Training-step schedules on the card (see the module docstring):
     the registry's three at their own size in float64, each against the
@@ -1949,7 +2127,7 @@ def schedule_phase(report: dict, total: dict) -> None:
     import numpy as np
     import torch
     from repro_torch.kernels import build
-    from repro_torch.netsim import engine
+    from repro_torch.netsim import engine, graph
     from repro_torch.scenarios import compile_scenario, distill_metrics
 
     t_phase = time.perf_counter()
@@ -1958,6 +2136,7 @@ def schedule_phase(report: dict, total: dict) -> None:
     for name, routing in SCHEDULE_RUNS:
         spec, what = scenario(name, routing), label(name, routing)
         c = compile_scenario(spec)
+        graph.clear_graph_cache()                # captured, as before
         torch.cuda.synchronize()
         build.reset_launches()
         engine.reset_dispatch_stats()
@@ -1992,6 +2171,8 @@ def schedule_phase(report: dict, total: dict) -> None:
               f"{st.tolist()} equal to the CPU path; parity"
               f"{' and golden metrics' if routing is None else ''}: ok; "
               f"{sig}", flush=True)
+        if (name, routing) == SCHEDULE_TWICE:
+            out[what]["twice"] = schedule_twice(what, c)
 
     for name, routing, dnames in GIGA_TRAIN_RUNS:
         spec = scenario(name, routing)
@@ -2004,8 +2185,7 @@ def schedule_phase(report: dict, total: dict) -> None:
             compile_s = time.perf_counter() - t0
             # run_compiled's steps, each timed: host prep, capture (slot 0
             # eagerly, then one graph a segment), replays
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             build.reset_launches()
             t0 = time.perf_counter()
             cfg, fa, ops = engine.prepare(c, "cuda", dtype)
@@ -2150,8 +2330,7 @@ def trace_phase(report: dict, total: dict) -> None:
     trace = TraceSpec(enabled=True, every=TRACE_EVERY)
     spec = scenario("giga_fabric_storage").with_sim(trace=trace)
     c = compile_scenario(spec)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     build.reset_launches()
     t0 = time.perf_counter()
     res = c.run(device="cuda")
@@ -2225,10 +2404,13 @@ def batch_phase(report: dict, total: dict) -> None:
     path, with the captured loops of each group.  (c) LANES seeds of the
     giga point under ECMP in float64, batched against one at a time:
     wall (prep, capture, loop), peak memory and hand-written launches a
-    slot, each lane equal to its single run."""
+    slot, each lane equal to its single run.  (d) ALIAS_BATCHES: two
+    batches of one structure dispatched before either is finalized, the
+    second rebinding the first's loop in the graph cache, each equal to
+    its batch run alone."""
     import torch
     from repro_torch.kernels import build
-    from repro_torch.netsim import engine, megabatch
+    from repro_torch.netsim import engine, graph, megabatch
     from repro_torch.scenarios import compile_scenario
     from repro_torch.trace import TraceSpec
 
@@ -2328,8 +2510,7 @@ def batch_phase(report: dict, total: dict) -> None:
     def timed(prep):
         """prep() -> (cfg, trace, fas, ops); then capture and replays,
         each timed to a synchronize; returns walls, results, memory."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         build.reset_launches()
         t0 = time.perf_counter()
         cfg, trace, fas, ops = prep()
@@ -2398,6 +2579,32 @@ def batch_phase(report: dict, total: dict) -> None:
           + "; ".join(fmt(w) for w in walls["single"]) + "); every lane "
           "equal to its single run", flush=True)
 
+    # (d) two batches of one structure outstanding together
+    name, slots, seeds = ALIAS_BATCHES
+    batches = [[compile_scenario(scenario(name).with_sim(slots=slots,
+                                                         seed=s))
+                for s in lane_seeds] for lane_seeds in seeds]
+    alone = []
+    for pts in batches:
+        graph.clear_graph_cache()
+        alone.append(engine.run_compiled_batch(pts, "cuda"))
+    graph.clear_graph_cache()
+    handles = [engine.dispatch_compiled_batch(pts, "cuda")
+               for pts in batches]
+    hits = graph.graph_cache_stats()["hits"]
+    if hits != len(batches) - 1:
+        fail(f"batch outstanding: {hits} graph-cache hits")
+    for k, (h, want) in enumerate(zip(handles, alone)):
+        for s, (g, w) in enumerate(zip(engine.finalize_batch(h), want)):
+            same_results(f"batch outstanding {k} lane {s}", g, w)
+    out["outstanding"] = dict(scenario=name, slots=slots, batches=seeds,
+                              hits=hits)
+    print(f"batch outstanding: {len(batches)} batches of {name} "
+          f"({slots} slots, seeds {seeds}) dispatched before either was "
+          f"finalized, the second rebinding the first's loop ({hits} "
+          "graph-cache hit): each lane equal to its batch run alone",
+          flush=True)
+
 
 def rows_equal(what: str, got, want, tol: float) -> None:
     """Two distilled rows field by field, `extra` included: floats
@@ -2430,7 +2637,8 @@ def sweep_launches(specs) -> tuple:
     """Launches and slot loops a megabatch of `specs` must make: one loop
     a (structure, flow bucket, routing, NIC) sub-batch (points with and
     without a schedule share one), each `PER_SLOT[kind, routing]` a
-    slot."""
+    slot, whether the loop is captured or comes from the graph cache
+    (a replay counts what its capture recorded, slot 0 included)."""
     from repro_torch.netsim import megabatch
     from repro_torch.scenarios import compile_scenario
     want: dict = {}
@@ -2500,6 +2708,95 @@ def threaded_megabatch(specs, derive=None) -> tuple:
     return rows, time.perf_counter() - t0
 
 
+def library_pass(exps, want: dict, n_loops: int, what: str,
+                 total: dict) -> tuple:
+    """The library once more through `run_experiment` (megabatch, no run
+    cache), its launches held to `want` and its loops to `n_loops`.
+    Returns (rows by experiment, wall, walls, peak memory)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.experiments import run_experiment
+    from repro_torch.netsim import engine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.reset_dispatch_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    sets = [run_experiment(exp, device="cuda", dispatch="megabatch")
+            for exp in exps]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(what, dict(build.LAUNCHES), want, total)
+    if engine.dispatch_stats()["loops"] != n_loops:
+        fail(f"{what}: {engine.dispatch_stats()} for {n_loops} sub-batches")
+    return ({exp.name: rs.to_metrics() for exp, rs in zip(exps, sets)}, wall,
+            sweep_walls([rs.flight["executions"][0] for rs in sets]), peak)
+
+
+def library_again(exps, rows: dict, want: dict, n_loops: int, cold_s: float,
+                  cold: dict, cold_peak: int, total: dict) -> dict:
+    """After the library's first pass (from an empty graph cache, its
+    rows `rows`, wall `cold_s`, walls `cold`): the graph cache's hits in
+    that pass and what it holds; a second pass in the same process, no
+    run cache, which must capture 0 graphs (0.0 s of capture) and equal
+    the first bit for bit; the device memory the entries hold; then a
+    pass without the cache (`GRAPH_CACHE_ENTRIES` = 0), equal too, for
+    its peak beside the first's."""
+    import torch
+    from repro_torch.netsim import graph
+
+    first = graph.graph_cache_stats()
+    warm, warm_s, w, warm_peak = library_pass(exps, want, n_loops,
+                                              "sweep library again", total)
+    if w["graphs"] or w["capture_s"] != 0.0:
+        fail(f"sweep library again: {w['graphs']} graphs, capture "
+             f"{w['capture_s']} s")
+    for exp in exps:
+        for i, (g, r) in enumerate(zip(warm[exp.name], rows[exp.name])):
+            rows_equal(f"sweep library again {exp.name} point {i}", g, r,
+                       0.0)
+    held = graph.graph_cache_stats()
+    torch.cuda.synchronize()
+    alloc, reserved = torch.cuda.memory_allocated(), \
+        torch.cuda.memory_reserved()
+    graph.clear_graph_cache()
+    torch.cuda.empty_cache()
+    alloc -= torch.cuda.memory_allocated()
+    reserved -= torch.cuda.memory_reserved()
+    bound = graph.GRAPH_CACHE_ENTRIES
+    graph.GRAPH_CACHE_ENTRIES = 0
+    try:
+        off, off_s, o, off_peak = library_pass(
+            exps, want, n_loops, "sweep library without the cache", total)
+    finally:
+        graph.GRAPH_CACHE_ENTRIES = bound
+    for exp in exps:
+        for i, (g, r) in enumerate(zip(off[exp.name], rows[exp.name])):
+            rows_equal(f"sweep library without the cache {exp.name} point "
+                       f"{i}", g, r, 0.0)
+    mib = 2**20
+    print(f"sweep graph cache: first pass {cold_s:.3f} s ({cold['loops']} "
+          f"loops, {cold['graphs']} graphs, capture {cold['capture_s']:.3f} "
+          f"s, {first['hits']} hits within the pass), peak "
+          f"{cold_peak / mib:.1f} MiB; second pass {warm_s:.3f} s "
+          f"({fmt_walls(w)}), peak {warm_peak / mib:.1f} MiB, every row "
+          f"bit-equal to the first pass; the cache then held "
+          f"{held['entries']} entries, {held['bytes'] / mib:.1f} MiB of "
+          f"buffers (bound {bound} entries, "
+          f"{graph.GRAPH_CACHE_BYTES / mib:.0f} MiB), releasing "
+          f"{alloc / mib:.1f} MiB allocated and {reserved / mib:.1f} MiB "
+          f"reserved; without the cache {off_s:.3f} s (capture "
+          f"{o['capture_s']:.3f} s, loop {o['loop_s']:.3f} s), peak "
+          f"{off_peak / mib:.1f} MiB, rows bit-equal", flush=True)
+    return dict(first_hits=first["hits"], first_entries=first["entries"],
+                second_s=warm_s, second=w, second_peak=warm_peak,
+                entries=held["entries"], bytes=held["bytes"],
+                released_allocated=alloc, released_reserved=reserved,
+                bound_entries=bound, bound_bytes=graph.GRAPH_CACHE_BYTES,
+                without_s=off_s, without=o, without_peak=off_peak)
+
+
 def sweep_phase(report: dict, total: dict) -> None:
     """The Experiment API on the card (see the module docstring):
     (a) the library, (b) the run cache, (c) the giga grid."""
@@ -2510,7 +2807,7 @@ def sweep_phase(report: dict, total: dict) -> None:
                                          list_experiments, product,
                                          run_experiment, spec_key)
     from repro_torch.kernels import build
-    from repro_torch.netsim import engine
+    from repro_torch.netsim import engine, graph
     from repro_torch.scenarios import compile_scenario, run_point
 
     out = report["sweep"] = {}
@@ -2528,8 +2825,7 @@ def sweep_phase(report: dict, total: dict) -> None:
             want[k] = want.get(k, 0) + v
 
     # (a) the library at its registered sizes
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     engine.reset_dispatch_stats()
     build.reset_launches()
     t0 = time.perf_counter()
@@ -2545,6 +2841,8 @@ def sweep_phase(report: dict, total: dict) -> None:
              "sub-batches, or a cache hit in a cold cache")
     walls = sweep_walls([rs.flight["executions"][0] for rs in sets])
     rows = {exp.name: rs.to_metrics() for exp, rs in zip(exps, sets)}
+    out["graph_cache"] = library_again(exps, rows, want, n_loops,
+                                       batch_s, walls, peak, total)
     single_s = 0.0
     for exp in exps:
         for p, got in zip(points[exp.name], rows[exp.name]):
@@ -2631,8 +2929,7 @@ def sweep_phase(report: dict, total: dict) -> None:
             want[k] = want.get(k, 0) + n
     runs = []
     for threaded in (False, True, True, False):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         engine.reset_dispatch_stats()
         build.reset_launches()
         if threaded:
@@ -3041,6 +3338,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
+    from repro_torch.netsim import graph
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3058,14 +3356,14 @@ def main(argv=None) -> int:
     summary = kernel_phase(report)
     sync_phase()
     total: dict = {}
-    registry_phase(report, total)
-    scale_phase(report, total)
-    sparse_phase(report, total)
-    schedule_phase(report, total)
-    trace_phase(report, total)
-    batch_phase(report, total)
-    sweep_phase(report, total)
-    packet_phase(report, total)
+    # each phase starts from an empty graph cache, so its first run of a
+    # structure captures as it did before the cache
+    for phase in (registry_phase, scale_phase, sparse_phase, compact_phase,
+                  schedule_phase, trace_phase, batch_phase, sweep_phase,
+                  packet_phase):
+        graph.clear_graph_cache()
+        phase(report, total)
+    graph.clear_graph_cache()
     model_phase(report, total, summary)
     profile_phase(report)
     idle = [k for k in build.KERNELS if not total.get(k)]

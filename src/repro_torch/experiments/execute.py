@@ -16,13 +16,16 @@ Three dispatch modes, every point on the port's slot engine:
     seeds), each group one `engine.dispatch_compiled_batch`.
   * 'serial': `run_point`, one point at a time.
 
-What overlaps on CUDA and what does not: a capture begins with a device
-synchronize (`torch.cuda.graph`), so sub-batch j+1's capture waits for
-sub-batch j's replays, and two loops are never in flight together.  What
-overlaps is host work, the prep of j+1, with the device running j.  The
-prep runs on the calling thread, between j's dispatch and its finalize
-(a device-to-host copy that waits for j); no other thread makes a CUDA
-call, so no capture sees one.
+What overlaps on CUDA and what does not: sub-batch j is finalized (a
+device-to-host copy that waits for its loop) before j+1 is dispatched,
+so two loops are never in flight together.  A capture also begins with
+a device synchronize (`torch.cuda.graph`); a sub-batch whose structure
+is in the graph cache (`netsim.graph.cached_loop`, e.g. on a second
+run of a study in one process) captures nothing and so makes no
+synchronize.  What overlaps is host work, the prep of j+1, with the
+device running j.  The prep runs on the calling thread, between j's
+dispatch and its finalize; no other thread makes a CUDA call, so no
+capture sees one.
 
 How it differs from the reference's executor: there is no process pool
 (the port has no NumPy engine, a forked child cannot use the parent's
@@ -73,7 +76,8 @@ def execute_points(points: List[ScenarioSpec], device=None, dtype=None,
     (`points`: the points of one loop share its dispatch and finalize
     wall evenly), `pipeline` (megabatch: `groups`, `launches` (loops),
     `pipelined` (more than one loop, so prep and loops overlapped) and
-    `loops`, one record of walls a loop), `f32_overflows` (the float32
+    `loops`, one record of walls a loop, with `cached` True for a loop
+    taken from the graph cache), `f32_overflows` (the float32
     bytes_total conditions its prep hit, `engine.f32_overflow_log`),
     `dispatch_stats` (this sweep's `engine.dispatch_stats()` delta:
     slot loops and CUDA graphs) and `walls` (megabatch: `WALLS` summed
@@ -175,6 +179,7 @@ def _execute_megabatch(points: List[ScenarioSpec], device, dtype,
         loop = {"points": len(idxs), "prep_s": prep_s,
                 "operands_s": timing["operands_s"],
                 "capture_s": timing.get("capture_s", 0.0),
+                "cached": timing.get("cached", False),
                 "replay_s": timing.get("replay_s", 0.0), "loop_s": loop_s,
                 "finalize_s": finalize_s,
                 "overlap_s": min(next_prep_s, in_flight)}

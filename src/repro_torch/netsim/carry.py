@@ -212,7 +212,9 @@ def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
     """`carry` has the `SimCarry` fields (and `carry.nic` the `NicCarry`
     ones) as arrays.  The stage-B queues `q2_up`/`q2_down` come across
     from a fat-tree carry (a pod axis of at least 2); the reference's
-    (P, 1, 1) leaf-spine placeholders stay behind as None."""
+    (P, 1, 1) leaf-spine placeholders stay behind as None.  The probe
+    counter keeps the compact carry's int8 (what `probe_miss_dtype`
+    gives a compact float32 run) and is int32 otherwise."""
     device = torch.device(device)
 
     # copies: the source arrays may be read-only views of another
@@ -229,7 +231,9 @@ def carry_from_numpy(carry, *, device, dtype) -> SimCarry:
     return SimCarry(
         q_up=floats(carry.q_up), q_down=floats(carry.q_down),
         nic=NicCarry(rate=floats(nic.rate), alpha=floats(nic.alpha),
-                     probe_miss=ints(nic.probe_miss, torch.int32),
+                     probe_miss=ints(nic.probe_miss, torch.int8
+                                     if np.asarray(nic.probe_miss).dtype
+                                     == np.int8 else torch.int32),
                      eligible=ints(nic.eligible, torch.bool),
                      pending_fail=ints(nic.pending_fail, torch.int64)),
         remaining=floats(carry.remaining), done=ints(carry.done, torch.bool),

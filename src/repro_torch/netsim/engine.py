@@ -101,7 +101,7 @@ from .events import (FaultTimeline, compile_fault_timeline,
                      ecmp_assign_segments, lagged_timeline)
 from .fabric import AR_TEMPERATURE, ECN_QUEUE_THRESH, JSQ_BINS, Q_CAP, \
     FlowArrays
-from .graph import SlotLoop
+from .graph import SlotLoop, cached_loop
 from .sim import SimConfig
 from .state import NicCarry, SimCarry, init_carry
 
@@ -142,6 +142,13 @@ def agg_mode_default(n_hosts: int, n_leaves: int, n_paths: int,
 _FLOW_WORKING_ARRAYS = 12
 
 
+def compact_carry_default() -> bool:
+    """`REPRO_JX_COMPACT=1` opts float32 runs into the compact carry
+    (int8 probe counters; float64 runs keep the wide counter), as in
+    the reference (`jx/engine.py::compact_carry_default`)."""
+    return bool(_env_flag("REPRO_JX_COMPACT"))
+
+
 def flow_chunk_default(n_flows: int, n_planes: int, agg_mode: str,
                        dtype: torch.dtype = torch.float64) -> int:
     """Flows a chunk when the slot streams its flow axis in chunks, or
@@ -180,7 +187,10 @@ class EngineConfig:
     gather plans) or "sparse" (flow-ordered segment sums over CSR plans,
     the giga-scale path); `flow_chunk` > 0 (sparse only) streams the
     flow axis through the slot in chunks of that many flows
-    (`chunked.py`), bit-identical to one pass."""
+    (`chunked.py`), bit-identical to one pass.  `compact_carry` gives a
+    float32 run an int8 probe counter (`state.probe_miss_dtype`); the
+    counter saturates at `probe_timeout`, so the run is the wide one
+    bit for bit."""
     slots: int
     slot_us: float
     routing: str
@@ -207,6 +217,7 @@ class EngineConfig:
     jsq_bins: int = JSQ_BINS
     q_cap: float = Q_CAP
     agg_mode: str = "dense"
+    compact_carry: bool = False
     flow_chunk: int = 0
     n_phases: int = 0
     react: bool = False
@@ -234,7 +245,8 @@ class EngineConfig:
     def from_sim(cls, cfg: SimConfig, topo) -> "EngineConfig":
         """`topo` is a `TopologySpec` (or anything with its shape
         attributes).  The aggregation mode is the fabric's
-        (`agg_mode_default`).  Raises `ValueError` on an unknown
+        (`agg_mode_default`), the compact carry the environment's
+        (`compact_carry_default`).  Raises `ValueError` on an unknown
         routing."""
         fat = getattr(topo, "kind", "leaf_spine") == "fat_tree"
         if cfg.routing not in ("ar", "war", "ecmp"):
@@ -255,7 +267,8 @@ class EngineConfig:
             core_cap=topo.core_cap if fat else 1.0,
             agg_mode=agg_mode_default(
                 topo.n_hosts, topo.n_leaves,
-                topo.n_cores if fat else topo.n_spines, topo.n_planes))
+                topo.n_cores if fat else topo.n_spines, topo.n_planes),
+            compact_carry=compact_carry_default())
 
     def frames(self) -> Tuple[int, int]:
         """(recorded frames, first post-warmup frame)."""
@@ -1041,6 +1054,27 @@ def slot_loop(cfg: EngineConfig, ops: SlotOperands,
                     record_like=_trace_like(cfg, ops, fields))
 
 
+def cached_slot_loop(cfg: EngineConfig, ops: SlotOperands,
+                     carry0: Optional[SimCarry] = None,
+                     trace: Optional[TraceSpec] = None
+                     ) -> Tuple[SlotLoop, bool]:
+    """`slot_loop` through the graph cache (`graph.cached_loop`): a loop
+    of this structure already built (and on CUDA captured) is rebound to
+    `ops` and `carry0` and returned with True; else a new one over the
+    entry's own copy of `ops`, with False.  The key is `cfg` (routing,
+    NIC, slots, `agg_mode`, `flow_chunk`, `compact_carry`, reaction,
+    phases), the trace spec (None when it records nothing), the device,
+    and every leaf of `(ops, carry)` but tensor values: shapes and
+    dtypes (lanes, flow bucket, plan sizes, the counter's width), the
+    slot→segment map and the plans' widths and chunking.  The counted
+    slots and record rows follow from `cfg` and the trace spec."""
+    _check_mode(cfg, ops, trace)
+    carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
+    trace = trace if _traced(trace) else None
+    return cached_loop((cfg, trace, ops.fb.demand.device), ops, carry,
+                       lambda own, c: slot_loop(cfg, own, c, trace))
+
+
 def _results(cfg: EngineConfig, carry: SimCarry, totals: torch.Tensor,
              blackhole: Optional[torch.Tensor] = None):
     """`(mean goodput, completion, per-slot totals, last util)`, and
@@ -1061,36 +1095,64 @@ def _loop_results(cfg: EngineConfig, loop: SlotLoop) -> tuple:
         tuple(r.movedim(0, lanes) for r in loop.records)
 
 
+def _cached_run(cfg: EngineConfig, ops: SlotOperands,
+                carry0: Optional[SimCarry] = None,
+                trace: Optional[TraceSpec] = None,
+                timing: Optional[Dict] = None) -> tuple:
+    """Every slot of the graph cache's loop for this structure
+    (`cached_slot_loop`): on CUDA captured on a miss (slot 0 eagerly,
+    then one graph a segment) and replayed, from slot 0 on a hit; on the
+    CPU stepped without capture (`SlotLoop.run`), which is how the cache
+    is tested there.  Returns `_loop_results`, copied off the entry's
+    buffers so that a later call of the structure never overwrites
+    them.  `timing`, when a dict, receives the host walls of the cache
+    lookup and rebinding (`bind_s`), of the capture (`capture_s`, which
+    begins with a device synchronize; 0.0 on a hit) and of queueing the
+    replays (`replay_s`; on the CPU the run), whether the loop came from
+    the cache (`cached`) and on CUDA a pair of CUDA events around the
+    replays (`events`)."""
+    cuda = ops.fb.demand.device.type == "cuda"
+    t0 = time.perf_counter()
+    loop, hit = cached_slot_loop(cfg, ops, carry0, trace)
+    t1 = time.perf_counter()
+    if cuda and not hit:
+        loop.capture()
+    t2 = time.perf_counter()
+    events = None
+    if timing is not None and cuda:
+        events = tuple(torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        events[0].record()
+    if cuda:
+        loop.replay(first=hit)
+    else:
+        loop.run()
+    if events is not None:
+        events[1].record()
+        timing["events"] = events
+    if timing is not None:
+        timing.update(bind_s=t1 - t0, capture_s=0.0 if hit else t2 - t1,
+                      replay_s=time.perf_counter() - t2, cached=hit)
+    _count_loop(0 if hit else len(loop.graphs))
+    return tuple(r.clone() for r in _loop_results(cfg, loop))
+
+
 def _simulate(cfg: EngineConfig, ops: SlotOperands,
               carry0: Optional[SimCarry] = None, *,
               trace: Optional[TraceSpec] = None, _eager: bool = False,
               timing: Optional[Dict] = None):
-    """Run every slot: on CUDA as replays of captured slots
-    (`slot_loop`), on the CPU, or with `_eager`, as an eager loop.
+    """Run every slot: on CUDA as replays of captured slots, the loop
+    taken from the graph cache (`_cached_run`: captured on a miss,
+    rebound on a hit), on the CPU, or with `_eager`, as an eager loop.
     Nothing in either loop reads device values on the host, so the host
-    only queues work.  Returns `_results` as device tensors, then with
-    `trace` enabled its fields over the recorded slots ((T_rec, ...)
-    each; a batch's lane first).  `timing`, when a dict, receives the
-    host walls of the capture (`capture_s`, which begins with a device
-    synchronize) and of queueing the replays (`replay_s`) and a pair of
-    CUDA events around the replays (`events`); of an eager loop its
-    wall (`loop_s`)."""
+    only queues work.  Returns `_results` as device tensors (on CUDA
+    copies, so a later call of the structure never overwrites them),
+    then with `trace` enabled its fields over the recorded slots
+    ((T_rec, ...) each; a batch's lane first).  `timing`, when a dict,
+    receives `_cached_run`'s walls on CUDA; of an eager loop its wall
+    (`loop_s`)."""
     if ops.fb.demand.device.type == "cuda" and not _eager:
-        loop = slot_loop(cfg, ops, carry0, trace)
-        t0 = time.perf_counter()
-        loop.capture()
-        t1 = time.perf_counter()
-        if timing is not None:
-            events = tuple(torch.cuda.Event(enable_timing=True)
-                           for _ in range(2))
-            events[0].record()
-        loop.replay()
-        if timing is not None:
-            events[1].record()
-            timing.update(capture_s=t1 - t0,
-                          replay_s=time.perf_counter() - t1, events=events)
-        _count_loop(loop)
-        return _loop_results(cfg, loop)
+        return _cached_run(cfg, ops, carry0, trace, timing)
     _check_mode(cfg, ops, trace)
     t0 = time.perf_counter()
     carry = init_carry(ops.fb, cfg) if carry0 is None else carry0
@@ -1105,7 +1167,7 @@ def _simulate(cfg: EngineConfig, ops: SlotOperands,
             series[k, t] = outs[k]
         if outs[n:] and t % trace.every == 0:
             rec.append(outs[n:])
-    _count_loop(None)
+    _count_loop()
     if timing is not None:
         timing["loop_s"] = time.perf_counter() - t0
     return _results(cfg, carry, *series) + \
@@ -1705,7 +1767,9 @@ _DISPATCH = {"loops": 0, "graphs": 0}
 
 def dispatch_stats() -> Dict[str, int]:
     """`loops`: slot loops run (one a point, or one a batch);
-    `graphs`: CUDA graphs their captures made (0 on the CPU)."""
+    `graphs`: CUDA graphs their captures made (0 on the CPU, and 0 for
+    a loop from the graph cache, so a warm re-run reports 0 graphs as
+    the reference's reports 0 compiles)."""
     return dict(_DISPATCH)
 
 
@@ -1713,10 +1777,9 @@ def reset_dispatch_stats() -> None:
     _DISPATCH.update(loops=0, graphs=0)
 
 
-def _count_loop(loop: Optional[SlotLoop]) -> None:
+def _count_loop(graphs: int = 0) -> None:
     _DISPATCH["loops"] += 1
-    if loop is not None:
-        _DISPATCH["graphs"] += len(loop.graphs)
+    _DISPATCH["graphs"] += graphs
 
 
 class BatchHandle(NamedTuple):
@@ -1788,13 +1851,15 @@ def dispatch_compiled_batch(points: Sequence, device=None, dtype=None
                             ) -> BatchHandle:
     """Prepare (`prepare_batch`) and queue one batch of points as one
     slot loop over a lane axis: on CUDA one captured graph per segment
-    of the union of the points' segment starts.  Returns a handle for
+    of the union of the points' segment starts (or the graph cache's
+    loop of this structure, rebound).  Returns a handle for
     `finalize_batch`.  On CUDA the replays are queued and the call
     returns while the device runs them, so the caller's host work
-    overlaps the loop; but the next capture (this function's, or any
+    overlaps the loop.  The next capture (this function's, or any
     `run_compiled`'s) begins with a device synchronize and so waits for
-    this loop to finish: two captured loops are never in flight
-    together."""
+    this loop to finish; a loop from the cache is queued behind it on
+    the same stream, and the handle holds copies of the results, so two
+    handles of one structure may be outstanding together."""
     cfg, trace, fas, ops = prepare_batch(points, device, dtype)
     return BatchHandle(cfg, trace, fas, _simulate(cfg, ops, trace=trace),
                        ops.fb.src.device)

@@ -39,9 +39,10 @@ each prepared on the host only when it is asked for, and
 `dispatch_prepared` builds one sub-batch's operands on the device and
 queues its loop.  On CUDA a loop's replays are queued and the call
 returns while the device runs them, so the next sub-batch's host prep
-overlaps it; the next capture, though, begins with a device
-synchronize, so two loops are never in flight together
-(`repro_torch.experiments.execute` runs this pipeline).
+overlaps it.  A capture (a structure not in the graph cache) begins
+with a device synchronize and so waits for the loop before it; a loop
+from the cache queues its rebinding and replays behind it on the same
+stream (`repro_torch.experiments.execute` runs this pipeline).
 
 `finalize_group` strips each point's outputs back to its own flow count,
 the `FLOW_AXIS_FIELDS` of its trace included.  `engine.dispatch_stats`

@@ -49,7 +49,7 @@ class FlowBatch(NamedTuple):
 class NicCarry(NamedTuple):
     rate: torch.Tensor          # (F, P) allowances
     alpha: torch.Tensor         # (F, P) dcqcn alpha
-    probe_miss: torch.Tensor    # (F, P) int32
+    probe_miss: torch.Tensor    # (F, P) int32; int8 compact (f32 only)
     eligible: torch.Tensor      # (F, P) bool
     pending_fail: torch.Tensor  # (F, P) int64 (swlb delayed reaction)
 
@@ -71,6 +71,17 @@ class SimCarry(NamedTuple):
     q2_down: Optional[torch.Tensor] = None   # (P, pods, C) fat_tree
 
 
+def probe_miss_dtype(cfg, float_dtype: torch.dtype) -> torch.dtype:
+    """The probe counter's dtype: int8 under the compact carry in a
+    float32 run (the counter saturates at `probe_timeout`, far inside
+    int8), int32 otherwise; float64 runs always keep the wide counter
+    (the reference's `jx/state.py::probe_miss_dtype`)."""
+    if getattr(cfg, "compact_carry", False) and \
+            float_dtype == torch.float32:
+        return torch.int8
+    return torch.int32
+
+
 def init_carry(fb: FlowBatch, cfg) -> SimCarry:
     """The carry before slot 0; a lane-stacked `fb` ((B, F) fields)
     gives every field the same leading lane axis."""
@@ -85,7 +96,7 @@ def init_carry(fb: FlowBatch, cfg) -> SimCarry:
     nic = NicCarry(
         rate=torch.ones(lead + (F, P), dtype=dtype, device=device),
         alpha=zeros(F, P),
-        probe_miss=zeros(F, P, dt=torch.int32),
+        probe_miss=zeros(F, P, dt=probe_miss_dtype(cfg, dtype)),
         eligible=torch.ones(lead + (F, P), dtype=torch.bool,
                             device=device),
         pending_fail=zeros(F, P, dt=torch.int64))

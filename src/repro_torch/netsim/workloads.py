@@ -1,6 +1,8 @@
 """Workload builders (§6.1): RDMA bisection, All2All, one-to-many bursts,
 ring collectives.  Draw for draw the same as the reference builders, so a
-seed yields the same flow list in both packages.
+seed yields the same flow list in both packages.  Beside them the
+analytic completion-time and bus-bandwidth helpers of Fig 1a, copies of
+the reference's.
 """
 from __future__ import annotations
 
@@ -66,3 +68,33 @@ def ring_neighbors(hosts: Sequence[int], group: str = "main",
     return [Flow(int(hosts[i]), int(hosts[(i + 1) % len(hosts)]), 1.0,
                  bytes_per_hop, group=group)
             for i in range(len(hosts))]
+
+
+# ---------------------------------------------------------------------------
+# analytic CCT helpers (Fig 1a)
+# ---------------------------------------------------------------------------
+
+def all2all_cct_us(message_bytes: float, n_ranks: int, bw_gbps: float,
+                   latency_us: float, chunk_bytes: float = 4 << 20
+                   ) -> float:
+    """All2All completion time: each rank sends (n-1)/n of the message
+    in dependent chunk rounds, and pays the latency once a round."""
+    payload = message_bytes * (n_ranks - 1) / n_ranks
+    wire_us = payload * 8.0 / (bw_gbps * 1e3)
+    rounds = max(1, int(np.ceil(payload / max(chunk_bytes, 1))))
+    return wire_us + rounds * latency_us
+
+
+def ring_collective_cct_us(message_bytes: float, n_ranks: int,
+                           bw_gbps: float, latency_us: float) -> float:
+    """Ring AllGather: (n-1) dependent steps of message/n each."""
+    step_bytes = message_bytes / n_ranks
+    step_us = step_bytes * 8.0 / (bw_gbps * 1e3) + latency_us
+    return (n_ranks - 1) * step_us
+
+
+def bus_bandwidth_gbps(message_bytes: float, cct_us: float,
+                       n_ranks: int, kind: str = "all2all") -> float:
+    """NCCL's bus-bandwidth normalization."""
+    factor = (n_ranks - 1) / n_ranks
+    return message_bytes * 8.0 * factor / max(cct_us * 1e3, 1e-9)

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.kernels import build, int8_codec, jsq_route, link_load, \
     ops, plb_select, queue_ecn, ref
-from repro_torch.netsim import engine
+from repro_torch.netsim import engine, graph
 from repro_torch.netsim.graph import _leaves
 from repro_torch.scenarios import compile_scenario, get_scenario
 
@@ -41,8 +41,11 @@ NIC_KW = dict(base_rtt_us=4.0, slot_us=10.0, ecn_thresh=3.0,
 
 @pytest.fixture
 def cuda():
+    """The card, with the graph cache emptied first: each test starts
+    cold, so its loops capture as a first call does."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
+    graph.clear_graph_cache()
     return torch.device("cuda")
 
 
@@ -1508,3 +1511,131 @@ def test_sparse_batch_lanes_equal_single_runs(cuda, monkeypatch, chunk):
     got = engine.run_compiled_batch(points, device=cuda)
     for c, g in zip(points, got):
         _assert_lane_equals(g, c.run(device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the graph cache and the compact carry on the card
+# ---------------------------------------------------------------------------
+
+def _results_equal(got, want):
+    for f in ("mean_goodput", "completion_slot", "total_goodput",
+              "util_up_last", "blackhole_timeline"):
+        a, b = getattr(got, f), getattr(want, f)
+        if b is None:
+            assert a is None, f
+        else:
+            np.testing.assert_array_equal(a, b, f)
+    assert (got.trace is None) == (want.trace is None)
+    for k in (want.trace or {}):
+        np.testing.assert_array_equal(got.trace[k], want.trace[k], k)
+
+
+# (scenario, sim overrides of two points of one structure)
+_CACHE_POINTS = [
+    ("fig12_plane_flap", dict(slots=120, routing="ecmp")),
+    ("reroute_random_failures", dict(slots=120)),
+    ("cascading_spine_loss", dict(slots=260)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,sim", _CACHE_POINTS)
+def test_gpu_rebound_loop_equals_a_fresh_capture(cuda, name, sim):
+    """Seed 1 after seed 0 replays seed 0's graphs, rebound, with no
+    capture, and equals seed 1 captured in an empty cache bit for
+    bit; seed 0's result is unchanged; launch counts are those of a
+    captured run."""
+    pts = [compile_scenario(get_scenario(name).with_sim(seed=s, **sim))
+           for s in (0, 1)]
+    want = []
+    for c in pts:
+        graph.clear_graph_cache()
+        build.reset_launches()
+        want.append((c.run(device=cuda), dict(build.LAUNCHES)))
+    graph.clear_graph_cache()
+    first = pts[0].run(device=cuda)
+    engine.reset_dispatch_stats()
+    build.reset_launches()
+    second = pts[1].run(device=cuda)
+    assert engine.dispatch_stats() == {"loops": 1, "graphs": 0}
+    assert graph.graph_cache_stats()["hits"] == 1
+    assert dict(build.LAUNCHES) == want[1][1]
+    _results_equal(second, want[1][0])
+    _results_equal(first, want[0][0])
+
+
+@pytest.mark.gpu
+def test_gpu_warm_rerun_captures_nothing(cuda):
+    """A study run twice in one process: the second run captures 0
+    graphs (0.0 s of capture) and its rows equal the first's bit for
+    bit."""
+    from repro_torch.experiments import run_experiment
+    exp = _cut_experiment("fig9_isolation", 60)
+    runs = [run_experiment(exp, device=cuda) for _ in range(2)]
+    fls = [rs.flight["executions"][0] for rs in runs]
+    assert fls[0]["dispatch_stats"]["graphs"] > 0
+    assert fls[1]["dispatch_stats"]["graphs"] == 0
+    assert fls[1]["walls"]["capture_s"] == 0.0
+    assert all(lp["cached"] for lp in fls[1]["pipeline"]["loops"])
+    _assert_rows_close(runs[1].to_metrics(), runs[0].to_metrics(), 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trace", [False, True])
+def test_gpu_two_outstanding_batches_of_one_structure(cuda, trace):
+    """Two batches of one structure dispatched before either is
+    finalized (the second rebinds the first's loop while its replays
+    may still be queued) each equal their batch run alone."""
+    from repro_torch.trace import TraceSpec
+    t = dict(trace=TraceSpec(enabled=True, every=5)) if trace else {}
+    batches = [[compile_scenario(get_scenario(
+        "reroute_random_failures").with_sim(slots=120, seed=s, **t))
+        for s in seeds] for seeds in ((0, 1), (2, 3))]
+    alone = []
+    for pts in batches:
+        graph.clear_graph_cache()
+        alone.append(engine.run_compiled_batch(pts, cuda))
+    graph.clear_graph_cache()
+    handles = [engine.dispatch_compiled_batch(pts, cuda) for pts in batches]
+    assert graph.graph_cache_stats()["hits"] == 1
+    for h, want in zip(handles, alone):
+        for g, w in zip(engine.finalize_batch(h), want):
+            _results_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,sim", [
+    ("fig12_plane_flap", dict(slots=260, nic="swlb", sw_lb_delay_ms=20.0)),
+    ("cascading_spine_loss", dict(slots=260, routing="ecmp")),
+])
+def test_gpu_compact_f32_equals_wide_f32(cuda, monkeypatch, name, sim):
+    """REPRO_JX_COMPACT=1: the float32 run's probe counter is int8, and
+    the run equals the wide float32 run bit for bit, captured; float64
+    keeps the wide counter."""
+    c = compile_scenario(get_scenario(name).with_sim(**sim))
+    wide = c.run(device=cuda, dtype=torch.float32)
+    monkeypatch.setenv("REPRO_JX_COMPACT", "1")
+    cfg, _, ops = engine.prepare(c, cuda, torch.float32)
+    assert cfg.compact_carry
+    assert engine.init_carry(ops.fb, cfg).nic.probe_miss.dtype == torch.int8
+    cfg64, _, ops64 = engine.prepare(c, cuda, torch.float64)
+    assert engine.init_carry(ops64.fb, cfg64).nic.probe_miss.dtype == \
+        torch.int32
+    _results_equal(c.run(device=cuda, dtype=torch.float32), wide)
+
+
+@pytest.mark.gpu
+def test_gpu_eviction_releases_graphs_and_recaptures(cuda, monkeypatch):
+    """At a bound of one entry, a second structure evicts the first
+    (its graphs reset once the device is done); the first then captures
+    anew and still equals its first run."""
+    monkeypatch.setattr(graph, "GRAPH_CACHE_ENTRIES", 1)
+    pts = [compile_scenario(get_scenario(name).with_sim(slots=120))
+           for name in ("fig12_plane_flap", "reroute_random_failures")]
+    first = pts[0].run(device=cuda)
+    pts[1].run(device=cuda)
+    assert graph.graph_cache_stats()["entries"] == 1
+    engine.reset_dispatch_stats()
+    again = pts[0].run(device=cuda)
+    assert engine.dispatch_stats()["graphs"] > 0
+    _results_equal(again, first)

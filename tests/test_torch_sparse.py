@@ -390,18 +390,25 @@ def test_traced_sparse_run_equals_dense(monkeypatch):
         np.testing.assert_array_equal(res["sparse"].trace[k], v, k)
 
 
-def test_giga_prepares_sparse_as_the_reference():
+def test_giga_prepares_sparse_as_the_reference(monkeypatch):
     """giga_fabric_storage (4,096 hosts) picks sparse aggregation in both
     packages, with no flow chunks at the default budget; its config
-    equals the reference's field by field."""
+    equals the reference's field by field, `compact_carry` included,
+    with `REPRO_JX_COMPACT` unset and set."""
     c = compile_scenario(get_scenario("giga_fabric_storage"))
     rc = jx_compile(jx_get("giga_fabric_storage"))
-    cfg, *_ = engine._prepared(c)
-    with jax.enable_x64(True):
-        rcfg = jx_engine._prepared(rc)[0]
-    assert (cfg.agg_mode, cfg.flow_chunk) == ("sparse", 0)
-    for f in dataclasses.fields(cfg):
-        assert getattr(cfg, f.name) == getattr(rcfg, f.name), f.name
+    for compact in (None, "1"):
+        if compact is None:
+            monkeypatch.delenv("REPRO_JX_COMPACT", raising=False)
+        else:
+            monkeypatch.setenv("REPRO_JX_COMPACT", compact)
+        cfg, *_ = engine._prepared(c)
+        with jax.enable_x64(True):
+            rcfg = jx_engine._prepared(rc)[0]
+        assert (cfg.agg_mode, cfg.flow_chunk) == ("sparse", 0)
+        assert cfg.compact_carry == rcfg.compact_carry == bool(compact)
+        for f in dataclasses.fields(cfg):
+            assert getattr(cfg, f.name) == getattr(rcfg, f.name), f.name
 
 
 @pytest.mark.slow
