@@ -180,6 +180,26 @@ Phases, each fatal on failure:
             (`scaled_dot_product_attention`, `q * scale`); attention
             lines also give TFLOP/s of unmasked work and the ratio of
             the kernel's time to SDPA's.
+  serve     the model forward and the serving engine
+            (`repro_torch.train.ServeEngine`, SERVE_RUNS): llama3-8b at
+            full width (32 layers, d_model 4096, GQA 32/8, head_dim 128,
+            vocab 128,256; 8.03 B float32 parameters drawn on the card
+            from a seed) serving 6 requests of 64-512 prompt tokens and
+            16 new tokens through 4 slots, in bfloat16 and again with
+            float32 activations, and gemma3-12b at full width cut to its
+            first period (5 local layers of window 1024 and a global
+            one, head_dim 256, vocab 262,144; prompts of 2,048 and 1,500
+            tokens, so the rings wrap); every standard-attention layer
+            launches flash_attention once an admission and
+            decode_attention once a step (asserted), and every prefill's
+            and step's logits are held, teacher-forced, to the same
+            engine on the plain attention versions (SERVE_RUNS' tol);
+            prefill and decode walls, tokens/s, peak memory and a
+            profiled decode step; the reduced config of each family
+            (SERVE_REDUCED: MoE, SSM, hybrid, MLA, a vision frontend) at
+            head_dim 64 in float32, its CUDA forward against the CPU
+            forward within ATTN_TOL; `decode_attention_bshd` at the
+            serve run's shapes against its plain version and SDPA.
   profile   torch.profiler over 12 giga slots under AR and under ECMP,
             float64 and float32, and in float64 over giga_fat_tree under
             WAR and ECMP and over the giga point under failure reaction,
@@ -201,6 +221,7 @@ it exits 2 and prints no result, as it does without a GPU.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -3233,6 +3254,596 @@ def model_phase(report: dict, total: dict, summary: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the serve phase: ServeEngine over random weights drawn on the card at
+# the configs' published widths (configs/llama3_8b.py, configs/
+# gemma3_12b.py; parameters float32); llama3-8b at its full depth,
+# gemma3-12b cut to its first period (5 local layers of window 1024 and
+# one global).  Prompts of these lengths, max_new tokens each; more
+# requests than slots, so slots are reused.  Each run serves in the
+# model's compute dtype (bfloat16) and llama3-8b once more with float32
+# activations (the same weights), where the kernels' own error shows.
+#
+# `tol` bounds the served logits (float32) of the kernel run against the
+# same engine on the plain attention versions, fed the kernel run's
+# tokens: the max abs difference over every prefill and step, a dtype.
+# In bfloat16 at llama3-8b's depth the difference is bfloat16's own: it
+# grows with depth (0.031 at 1 layer, 0.22 at 8, 0.52 at 32; logits up
+# to 4-5; `depth_sensitivity`), and the plain versions differ almost as
+# much from the reference's chunked attention on the card (0.43 at 32
+# layers), so its bound is over twice the largest difference measured.
+# gemma3-12b's one period measured 0.0078 (logits up to 0.6), bounded
+# at 0.03.  With float32 activations the kernels and the plain versions
+# agree within 1.6e-3 at 32 layers, bounded at 1e-2.  (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 6.)  The logit bound says how far the
+# served path moves end to end; the kernels themselves are held call by
+# call (`held_on_card`): every launch of the served run against its
+# plain version on that call's own inputs, within ATTN_TOL of its dtype
+# times the call's largest |v|.
+SERVE_RUNS = (
+    dict(arch="llama3-8b", periods=None, batch=4, max_len=1024,
+         prompts=(64, 512, 200, 448, 96, 320), max_new=16, seed=28,
+         tol={"bfloat16": 1.25, "float32": 1e-2}),
+    dict(arch="gemma3-12b", periods=1, batch=2, max_len=2064,
+         prompts=(2048, 1500), max_new=8, seed=29, tol={"bfloat16": 0.03}),
+)
+# every family's reduced config on the card at head_dim 64 in float32,
+# held to the port's CPU forward within ATTN_TOL["float32"]
+SERVE_REDUCED = ("phi3.5-moe-42b-a6.6b", "mamba2-780m", "jamba-v0.1-52b",
+                 "deepseek-v2-236b", "llava-next-mistral-7b")
+
+
+def _serve_cfg(spec):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(spec["arch"])
+    if spec["periods"] is not None:
+        cfg = dataclasses.replace(
+            cfg, n_layers=cfg.n_prefix_layers
+            + spec["periods"] * cfg.pattern_len)
+    return cfg
+
+
+def serve_engine(cfg, params, spec, forced=None) -> dict:
+    """One `ServeEngine.run` over the spec's requests, on whatever
+    attention route is in place; its prefill and decode steps are
+    wrapped to time them (synchronised) and keep their logits, and with
+    `forced` (a kernel run's record) each decode step takes that run's
+    tokens (teacher forcing).  The record keeps the engine's last caches
+    and positions for a profiled step."""
+    import numpy as np
+    import torch
+    from repro_torch.parallel import local_ctx
+    from repro_torch.train import Request, ServeEngine
+    eng = ServeEngine(cfg, local_ctx(), params, batch=spec["batch"],
+                      max_len=spec["max_len"])
+    rec = dict(prefill_s=[], decode_s=[], prefill=[], decode=[], tokens=[],
+               active=[])
+    # the wrappers hold the engine's slot list, not the engine, so no
+    # reference cycle keeps its weights and caches alive after the run
+    prefill0, decode0, slots = eng._prefill, eng._decode, eng.slots
+
+    def prefill(p, t, c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, c = prefill0(p, t, c)
+        torch.cuda.synchronize()
+        rec["prefill_s"].append(time.perf_counter() - t0)
+        rec["prefill"].append(logits.float().cpu())
+        return logits, c
+
+    def decode(p, t, q, c):
+        if forced is not None:
+            t = forced["tokens"][len(rec["tokens"])].to(t.device)
+        rec["tokens"].append(t.cpu())
+        rec["active"].append([r is not None for r in slots])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, c = decode0(p, t, q, c)
+        torch.cuda.synchronize()
+        rec["decode_s"].append(time.perf_counter() - t0)
+        rec["decode"].append(logits.float().cpu())
+        return logits, c
+
+    eng._prefill, eng._decode = prefill, decode
+    rng = np.random.default_rng(spec["seed"])
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n, dtype=np.int32),
+                    spec["max_new"]) for i, n in enumerate(spec["prompts"])]
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    if sorted(r.rid for r in done) != list(range(len(reqs))):
+        fail(f"serve {cfg.name}: {len(done)} of {len(reqs)} requests done")
+    rec["tokens_out"] = sum(len(r.out) for r in reqs)
+    rec["outs"] = [r.out for r in reqs]
+    rec["caches"], rec["positions"] = eng.caches, eng.positions.copy()
+    return rec
+
+
+def decode_profile(cfg, params, rec) -> dict:
+    """`torch.profiler` over one decode step on the run's last caches:
+    wall, device busy time and the kernels that take it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step
+    from repro_torch.parallel import local_ctx
+    B = len(rec["positions"])
+    toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    pos = torch.tensor(rec["positions"], device="cuda")
+    with torch.inference_mode():
+        decode_step(params, cfg, toks, pos, local_ctx(), rec["caches"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode_step(params, cfg, toks, pos, local_ctx(), rec["caches"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+    out = dict(wall_ms=wall * 1e3, busy_ms=busy,
+               kernels=sum(e.count for e in ev),
+               top=[dict(name=e.key[:100], ms=e.self_device_time_total / 1e3,
+                         count=e.count) for e in top])
+    if busy == 0.0:
+        print("  profile of a decode step: device time not measured "
+              "(profiler saw no device activity)", flush=True)
+        return out
+    print(f"  profile of a decode step: wall {out['wall_ms']:.3f} ms "
+          f"(profiled), device busy {busy:.3f} ms ({busy / out['wall_ms']:.1%}"
+          f"), {out['kernels']} device kernels", flush=True)
+    for t in out["top"][:6]:
+        print(f"    {t['ms']:.3f} ms x{t['count']} {t['name'][:80]}",
+              flush=True)
+    return out
+
+
+def serve_check(cfg, params, spec, report: dict, total: dict,
+                profile_step: bool) -> None:
+    """One served model in `cfg.dtype`: the kernel run (timed, launches
+    counted and asserted); the same run again with every kernel call
+    held to its plain version on the call's own inputs (`held_on_card`,
+    fed the first run's tokens); then the plain-attention run fed those
+    tokens, every prefill's and step's logits within the spec's `tol`."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import param_count, standard_attention_layers
+    torch.cuda.reset_peak_memory_stats()
+    n_attn = standard_attention_layers(cfg)
+    build.reset_launches()
+    kern = serve_engine(cfg, params, spec)
+    counts = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    what = (f"serve {cfg.name} {cfg.dtype} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim "
+            f"{cfg.head_dim}, vocab {cfg.vocab})")
+    admits, steps = len(kern["prefill"]), len(kern["decode"])
+    check_launches(what, counts, {"flash_attention": n_attn * admits,
+                                  "decode_attention": n_attn * steps},
+                   total)
+    prof = decode_profile(cfg, params, kern) if profile_step else None
+    kern.pop("caches")
+    held_tol = ATTN_TOL[cfg.dtype]
+    held_err: dict = {}
+    with held_on_card(held_tol, held_err):
+        serve_engine(cfg, params, spec, forced=kern).pop("caches")
+    if {k: n for k, (n, _, _) in held_err.items()} != {
+            k: counts[k] for k in ("flash_attention", "decode_attention")}:
+        fail(f"{what}: the held run checked {held_err}, the served run "
+             f"launched {counts}")
+    build.reset_launches()
+    with plain_on_card():
+        plain = serve_engine(cfg, params, spec, forced=kern)
+    plain.pop("caches")
+    if any(build.LAUNCHES.values()):
+        fail(f"{what}: the plain run launched {dict(build.LAUNCHES)}")
+    if len(plain["decode"]) != steps or len(plain["prefill"]) != admits:
+        fail(f"{what}: the plain run took another schedule")
+    errs = []
+    for got, want in zip(kern["prefill"], plain["prefill"]):
+        if got.shape != (spec["batch"], 1, cfg.vocab) or \
+                not bool(got.isfinite().all()):
+            fail(f"{what}: prefill logits {tuple(got.shape)} or not finite")
+        errs.append(float((got - want).abs().max()))
+    prefill_err = max(errs)
+    agree = rows_total = 0
+    for i, (got, want) in enumerate(zip(kern["decode"], plain["decode"])):
+        rows = [j for j, a in enumerate(kern["active"][i]) if a]
+        if not bool(got.isfinite().all()):
+            fail(f"{what}: decode step {i} logits not finite")
+        errs.append(float((got[rows] - want[rows]).abs().max()))
+        agree += int((got[rows].argmax(-1) == want[rows].argmax(-1)).sum())
+        rows_total += len(rows)
+    err = max(errs)
+    tol = spec["tol"][cfg.dtype]
+    logit_max = max(float(x.abs().max()) for x in plain["decode"])
+    decode_ms = sorted(t * 1e3 for t in kern["decode_s"])
+    plain_ms = sorted(t * 1e3 for t in plain["decode_s"])
+    row = dict(
+        model=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+        params=param_count(params), batch=spec["batch"],
+        max_len=spec["max_len"], prompts=list(spec["prompts"]),
+        max_new=spec["max_new"], admissions=admits, steps=steps,
+        launches=counts, prefill_ms=[t * 1e3 for t in kern["prefill_s"]],
+        decode_ms_median=decode_ms[len(decode_ms) // 2],
+        decode_ms_mean=sum(decode_ms) / len(decode_ms),
+        wall_s=kern["wall_s"], tokens=kern["tokens_out"],
+        tokens_per_s=kern["tokens_out"] / kern["wall_s"],
+        plain_prefill_ms=[t * 1e3 for t in plain["prefill_s"]],
+        plain_decode_ms_median=plain_ms[len(plain_ms) // 2],
+        plain_wall_s=plain["wall_s"], max_abs_err=err, tol=tol,
+        prefill_max_abs_err=prefill_err, step_errs=errs,
+        argmax_agree=agree, argmax_rows=rows_total, logit_max=logit_max,
+        held_tol=held_tol, held={k: dict(calls=n, max_err_over_v=e,
+                                         max_abs_err=a)
+                                 for k, (n, e, a) in held_err.items()},
+        max_memory_allocated=peak, profile=prof, outs=kern["outs"])
+    report.setdefault("serve", []).append(row)
+    print(f"{what}: {len(spec['prompts'])} requests (prompts "
+          f"{list(spec['prompts'])}, max_new {spec['max_new']}) through "
+          f"{spec['batch']} slots: {admits} admissions, {steps} decode "
+          f"steps; flash_attention {counts['flash_attention']} launches "
+          f"({n_attn} an admission), decode_attention "
+          f"{counts['decode_attention']} ({n_attn} a step)", flush=True)
+    print(f"  prefill ms by admission "
+          f"{[round(t, 3) for t in row['prefill_ms']]}; decode ms a step "
+          f"median {row['decode_ms_median']:.3f}, mean "
+          f"{row['decode_ms_mean']:.3f}; {row['tokens']} tokens in "
+          f"{row['wall_s']:.3f} s = {row['tokens_per_s']:.1f} tok/s; peak "
+          f"{peak / 2**30:.2f} GiB; plain attention: prefill ms "
+          f"{[round(t, 3) for t in row['plain_prefill_ms']]}, decode "
+          f"median {row['plain_decode_ms_median']:.3f}, wall "
+          f"{row['plain_wall_s']:.3f} s ({card()})", flush=True)
+    print(f"  each kernel call held to its plain version on the call's own "
+          f"inputs: " + ", ".join(
+              f"{k} {n} calls, max abs err {a:.4g}, over the call's max |v| "
+              f"{e:.4g}" for k, (n, e, a) in held_err.items())
+          + f" (tolerance {held_tol} of max |v|)", flush=True)
+    print(f"  teacher-forced against the plain attention versions: max abs "
+          f"logit err {err:.4g} (prefill {prefill_err:.4g}; tolerance "
+          f"{tol}; logits up to {logit_max:.3g} in magnitude), argmax "
+          f"equal on {agree} of {rows_total} decode rows", flush=True)
+    if not err <= tol:
+        fail(f"{what}: max abs logit err {err:.4g} > {tol}")
+
+
+@contextmanager
+def attention_route(prefill, decode):
+    """The model's standard attention through `prefill` and `decode`
+    (called as `attention._prefill_attention` and
+    `attention._decode_attention` are) while the block runs."""
+    from repro_torch.models import attention
+    saved = attention._prefill_attention, attention._decode_attention
+    attention._prefill_attention, attention._decode_attention = \
+        prefill, decode
+    try:
+        yield
+    finally:
+        attention._prefill_attention, attention._decode_attention = saved
+
+
+def _plain_prefill(q, k, v, positions, window, cfg, ctx):
+    """`ops.flash_attention_bshd`'s plain version on the kernel's
+    inputs."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention_bshd_ref(q, k, v, causal=True, window=window)
+
+
+def _plain_decode(q, cache, positions, window, ctx):
+    """`ops.decode_attention_bshd`'s plain version on the kernel's
+    inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    return ref.decode_attention_bshd_ref(
+        q, cache["k"], cache["v"],
+        attention.decode_lengths(positions, cache["pos"].shape[1]))
+
+
+def plain_on_card():
+    """Standard attention on CUDA through the kernels' plain versions
+    (`kernels/ref.py`): the yardstick a served model is held to."""
+    return attention_route(_plain_prefill, _plain_decode)
+
+
+def held_on_card(tol: float, worst: dict):
+    """The kernels' own route, each call's output held to its plain
+    version on the same inputs: `fail` where the max abs difference
+    over the call's largest |v| (at least 1) passes `tol`.  Attention
+    outputs are convex combinations of v rows, so `ATTN_TOL`, set for
+    unit-scale inputs, scales with v: the reference's init gives
+    llama3-8b v entries of about 10, where one bf16 ulp is 0.0625.
+    `worst` gets (calls, max scaled err, max abs err) by kernel."""
+    from repro_torch.models import attention
+    kernel_prefill = attention._prefill_attention
+    kernel_decode = attention._decode_attention
+
+    def hold(name, got, want, q, v):
+        err = float((got.float() - want.float()).abs().max())
+        scaled = err / max(1.0, float(v.abs().max()))
+        if got.shape != want.shape or not scaled <= tol:
+            fail(f"{name} at q {tuple(q.shape)}, v {tuple(v.shape)} on the "
+                 f"served path: {tuple(got.shape)} against "
+                 f"{tuple(want.shape)}, max abs err {err:.4g}, over max "
+                 f"|v| {scaled:.4g} > {tol}")
+        n, e, a = worst.get(name, (0, 0.0, 0.0))
+        worst[name] = (n + 1, max(e, scaled), max(a, err))
+
+    def prefill(q, k, v, positions, window, cfg, ctx):
+        got = kernel_prefill(q, k, v, positions, window, cfg, ctx)
+        hold("flash_attention", got,
+             _plain_prefill(q, k, v, positions, window, cfg, ctx), q, v)
+        return got
+
+    def decode(q, cache, positions, window, ctx):
+        got = kernel_decode(q, cache, positions, window, ctx)
+        hold("decode_attention", got,
+             _plain_decode(q, cache, positions, window, ctx), q,
+             cache["v"])
+        return got
+
+    return attention_route(prefill, decode)
+
+
+def chunked_on_card():
+    """Standard attention through the reference's algorithm, the port's
+    `chunked_attention` (KV chunks, online softmax, P rounded to the
+    model dtype), on CUDA tensors: a second plain implementation to set
+    the plain versions against."""
+    from repro_torch.models import attention
+
+    def prefill(q, k, v, positions, window, cfg, ctx):
+        return attention.chunked_attention(q, k, v, positions, positions,
+                                           window=window,
+                                           chunk=cfg.attn_chunk)
+
+    def decode(q, cache, positions, window, ctx):
+        return attention.chunked_attention(
+            q, cache["k"], cache["v"], positions, cache["pos"],
+            window=window, chunk=cache["k"].shape[1])
+
+    return attention_route(prefill, decode)
+
+
+def depth_sensitivity(cfg, params, report: dict) -> None:
+    """How far bfloat16 logits move with the attention's summation
+    order, by depth: a 4 x 512-token prefill and two decode steps of the
+    first 1, 2, 4, ..., n_periods periods through the kernels against
+    the plain versions, and at full depth the plain versions against the
+    reference's chunked attention on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import (decode_step, init_caches, prefill_step,
+                                    tree_map)
+    from repro_torch.parallel import local_ctx
+    B, S = 4, 512
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S + 2)), dtype=torch.int32, device="cuda")
+
+    def logits(c, p):
+        ctx = local_ctx()
+        with torch.inference_mode():
+            caches = init_caches(c, B, 1024, c.dtype, "cuda")
+            lg, caches = prefill_step(p, c, toks[:, :S], ctx, caches)
+            out = [lg.float()]
+            for i in range(2):
+                lg, caches = decode_step(
+                    p, c, toks[:, S + i:S + i + 1],
+                    torch.full((B,), S + i, dtype=torch.int32,
+                               device="cuda"), ctx, caches)
+                out.append(lg.float())
+        return out
+
+    def err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    rows, n = [], 1
+    while n <= cfg.n_periods:
+        c = dataclasses.replace(cfg, n_layers=n * cfg.pattern_len)
+        p = dict(params, period=tree_map(params["period"],
+                                         lambda a: a[:n]))
+        kernel = logits(c, p)
+        with plain_on_card():
+            rows.append((n, err(kernel, logits(c, p))))
+        n *= 2
+    with plain_on_card():
+        plain = logits(cfg, params)
+    with chunked_on_card():
+        other = err(plain, logits(cfg, params))
+    report["serve_depth"] = dict(kernel_vs_plain=rows,
+                                 plain_vs_chunked=other)
+    print(f"  bfloat16 sensitivity ({B} x {S}-token prefill and 2 decode "
+          f"steps): kernel vs plain max abs logit err by periods "
+          + ", ".join(f"{n}: {e:.4g}" for n, e in rows)
+          + f"; plain vs the reference's chunked attention on the card at "
+          f"{cfg.n_periods}: {other:.4g}", flush=True)
+
+
+def serve_run(spec, report: dict, total: dict) -> None:
+    """Draw the spec's weights on the card once and serve them in each
+    of its dtypes (`serve_check`); the first dtype's step is profiled;
+    a model at full depth also gets `depth_sensitivity`."""
+    import dataclasses
+    import torch
+    from repro_torch.models import init_params, param_count
+    cfg = _serve_cfg(spec)
+    reset_peak()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        spec["seed"]), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"serve {cfg.name}: {param_count(params):,} float32 parameters "
+          f"drawn on the card in {init_s:.2f} s (peak "
+          f"{init_peak / 2**30:.2f} GiB)", flush=True)
+    for i, dtype in enumerate(spec["tol"]):
+        serve_check(dataclasses.replace(cfg, dtype=dtype), params, spec,
+                    report, total, profile_step=i == 0)
+        report["serve"][-1].update(init_s=init_s,
+                                   init_max_memory_allocated=init_peak)
+    if spec["periods"] is None:
+        depth_sensitivity(cfg, params, report)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def reduced_forward(arch: str, total: dict) -> dict:
+    """The reduced config at head_dim 64 in float32: prefill (40
+    tokens), four decode steps and the loss on the card through the
+    kernels, against the port's CPU forward on the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import (decode_step, init_caches, init_params,
+                                    loss_fn, prefill_step,
+                                    standard_attention_layers, tree_map)
+    from repro_torch.parallel import local_ctx
+    cfg = get_config(arch).reduced(head_dim=64, dtype="float32")
+    cpu_p = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    rng = np.random.default_rng(3)
+    B, S = 2, 40
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (B, S + 5)),
+                        dtype=torch.int32)
+    fe = None if not cfg.frontend_tokens else torch.tensor(
+        rng.standard_normal((B, cfg.frontend_tokens, cfg.d_model)) * 0.02,
+        dtype=torch.float32)
+    outs = {}
+    for dev, p in (("cpu", cpu_p),
+                   ("cuda", tree_map(cpu_p, lambda a: a.to("cuda")))):
+        build.reset_launches()
+        caches = init_caches(cfg, B, 64, "float32", dev)
+        logits, caches = prefill_step(p, cfg, toks[:, :S].to(dev),
+                                      local_ctx(), caches,
+                                      None if fe is None else fe.to(dev))
+        out = [logits]
+        for i in range(4):
+            logits, caches = decode_step(
+                p, cfg, toks[:, S + i:S + i + 1].to(dev),
+                torch.full((B,), S + i, dtype=torch.int32, device=dev),
+                local_ctx(), caches)
+            out.append(logits)
+        batch = {"tokens": toks[:, :S].to(dev),
+                 "labels": toks[:, 1:S + 1].to(dev)}
+        if fe is not None:
+            batch["frontend_embeds"] = fe.to(dev)
+        out.append(loss_fn(p, cfg, batch, local_ctx())[0][None])
+        outs[dev] = [t.cpu() for t in out]
+        if dev == "cuda":
+            n = standard_attention_layers(cfg)
+            check_launches(f"reduced {arch} forward", dict(build.LAUNCHES),
+                           {"flash_attention": 2 * n,
+                            "decode_attention": 4 * n}, total)
+    err = 0.0
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        if got.shape != want.shape or not bool(got.isfinite().all()):
+            fail(f"reduced {arch}: shape or non-finite output on the card")
+        err = max(err, float(((got - want).abs()
+                              / (1 + want.abs())).max()))
+    tol = ATTN_TOL["float32"]
+    print(f"serve reduced {arch} (head_dim 64, float32): CUDA prefill, 4 "
+          f"decode steps and loss against the CPU forward, max err "
+          f"{err:.3g} (|a - b| / (1 + |b|); tolerance {tol})", flush=True)
+    if not err <= tol:
+        fail(f"reduced {arch}: err {err:.3g} > {tol}")
+    return dict(arch=arch, max_err=err)
+
+
+def decode_bshd_case(report: dict) -> None:
+    """`ops.decode_attention_bshd` at llama3-8b decode shapes: the serve
+    run's batch of 4 over a 1024-slot ring (B, S, 8, 128), 32 query heads,
+    rows of 1024, 700, 300 and 40 valid slots; against its plain version
+    and SDPA (GQA, the same mask), with the bound.  Then the decode
+    kernel's two instances on the model_kernels decode case's values,
+    bit-equal."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    B, S, Hq, Hkv, D = 4, 1024, 32, 8, 128
+    q = torch.randn((B, 1, Hq, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([1024, 700, 300, 40], dtype=torch.int32,
+                        device="cuda")
+    valid = (torch.arange(S, device="cuda")[None, None, None, :]
+             < lens[:, None, None, None])
+    got = ops.decode_attention_bshd(q, k, v, lens)
+    want = ref.decode_attention_bshd_ref(q, k, v, lens)
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= ATTN_TOL["bfloat16"]:
+        fail(f"decode_attention_bshd: max abs err {err:.3g}")
+    keys = int(lens.sum())
+    nbytes = (2 * q.numel() + 2 * Hkv * D * keys) * 2 + 4 * B
+    ops_n = 4 * D * Hq * keys
+    bound = max(nbytes / HBM_BYTES_PER_S, ops_n / PEAK_FLOPS["bfloat16"]) \
+        * 1e3
+    row = dict(case=f"llama3-8b decode_attention_bshd B={B} S={S} GQA 32/8",
+               ms=graph_ms(lambda: ops.decode_attention_bshd(q, k, v, lens),
+                           reps=20),
+               plain_ms=event_ms(lambda: ref.decode_attention_bshd_ref(
+                   q, k, v, lens)),
+               library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   attn_mask=valid, enable_gqa=True), reps=20),
+               bound_ms=bound, bytes=nbytes, ops=ops_n, max_abs_err=err)
+    report["decode_attention_bshd"] = row
+    print(f"model {row['case']}: ms={row['ms']:.6f} plain_ms="
+          f"{row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
+          f"bound_ms={bound:.6f} (bytes) max_abs_err={err:.3g} (bound "
+          f"{ATTN_TOL['bfloat16']})", flush=True)
+    # the model_kernels decode case's (B, H, S, D) values through both
+    # instances: the contiguous tensors (compile-time strides) and views
+    # of head-padded buffers (run-time strides), the same bits
+    B, S, H, D = DECODE_B, DECODE_S, LLAMA["Hq"], LLAMA["D"]
+    q = torch.randn((B, H, 1, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, H, S, D + 8), generator=gen,
+                        device="cuda").to(torch.bfloat16)[..., :D]
+            for _ in range(2))
+    lens = torch.tensor(np.linspace(1, S, B).round().astype(np.int32),
+                        device="cuda")
+    strided = ops.decode_attention_bshd(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2), lens)
+    if not torch.equal(ops.decode_attention(
+            q, k.contiguous(), v.contiguous(), lens).transpose(1, 2),
+            strided):
+        fail("decode_attention: the two instances differ")
+    print(f"model llama3-8b decode B={B} S={S}: the compile-time-stride and "
+          f"run-time-stride instances bit-equal", flush=True)
+
+
+def serve_phase(report: dict, total: dict) -> None:
+    """The model forward and the serving engine: SERVE_RUNS at full
+    width through the attention kernels, each held teacher-forced to the
+    plain attention versions; SERVE_REDUCED on the card against the CPU
+    forward; `decode_attention_bshd` timed at the serve run's shapes."""
+    import torch
+    # the plain versions' float32 einsums and the float32 forwards run
+    # in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for spec in SERVE_RUNS:
+        serve_run(spec, report, total)
+    report["serve_reduced"] = [reduced_forward(a, total)
+                               for a in SERVE_REDUCED]
+    decode_bshd_case(report)
+    torch.cuda.empty_cache()
+
+
 # the profile phase's loops: (scenario, routing, dtypes)
 PROFILE_RUNS = (("giga_fabric_storage", "ar", ("float64", "float32")),
                 ("giga_fabric_storage", "ecmp", ("float64", "float32")),
@@ -3340,10 +3951,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.netsim import graph
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     t0 = time.perf_counter()
     build.library()
@@ -3365,6 +3973,7 @@ def main(argv=None) -> int:
         phase(report, total)
     graph.clear_graph_cache()
     model_phase(report, total, summary)
+    serve_phase(report, total)
     profile_phase(report)
     idle = [k for k in build.KERNELS if not total.get(k)]
     if idle:

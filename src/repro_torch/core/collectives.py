@@ -8,7 +8,7 @@ assignment for a parameter tree of tensors, real or `device="meta"`,
 reading only each leaf's `shape` and `dtype.itemsize`; the training-step
 schedule (`repro_torch.comms`) takes its gradient bytes from it.  The
 allreduce itself (`plane_allreduce` and its int8 codec) arrives with
-ROADMAP queue 1 items 7 and 10.
+ROADMAP queue 1 item 2.
 """
 from __future__ import annotations
 

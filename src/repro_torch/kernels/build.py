@@ -73,9 +73,13 @@ _ENTRIES = {
     "flash_attention": ("model", _F32_BF16,
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64,
                          _I64, _I64, _I64, _I64, _I64, _I, _I, _D, _P)),
+    # q, k, v, lengths, the partials, out; B * H, H, Hkv, S, D, the
+    # chunks; the batch and head strides of q, the batch, head and
+    # sequence strides of k and of v (elements); the scale
     "decode_attention": ("model", _F32_BF16,
                          (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _D, _P)),
+                          _I, _I, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                          _I64, _D, _P)),
     # int8_encode in the type of x, with its instance and whether it
     # takes 16-byte loads (int8_codec.encode_instance); int8_decode in
     # the output type

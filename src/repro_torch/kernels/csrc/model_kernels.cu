@@ -78,7 +78,10 @@
 // decode splits each (batch, head) row into chunks of 256 keys, one
 // block each, reads only the keys below lengths[b] (all of them for a
 // row of length 0, which averages v), and writes a partial (max, sum,
-// acc); a second pass per (batch, head) combines the chunks.  The
+// acc); a second pass per (batch, head) combines the chunks.  It reads
+// q, k and v through strides and kv head h / (H / Hkv), so the model's
+// (B, S, Hkv, D) ring cache is read in place (decode_attention_bshd),
+// with no copy of the kv heads; the (B, H, S, D) entry is Hkv = H.  The
 // encoder runs one block a row and reads the row once, from registers
 // or shared memory by its length (the int8 codec section): a
 // max-reduce of |x|, the scale as a true IEEE division, then rintf
@@ -1057,35 +1060,62 @@ __device__ __forceinline__ float block_reduce(float x, bool is_max,
   return x;
 }
 
-template <typename T, int D>
+// Element strides of q, k and v and the head grouping: query head h of
+// batch row b reads q at b * q_b + h * q_h and kv head h / G, whose key
+// i sits at b * k_b + (h / G) * k_h + i * k_s (v alike).  The (B, H, S,
+// D) entry is G = 1 with contiguous strides; the model's (B, S, Hkv, D)
+// ring cache is read in place through them, with no copy of the kv
+// heads.  Every stride is a multiple of 16 bytes (the wrapper checks),
+// so each lane's row slice stays aligned for load_vec.  The contiguous
+// (B, H, S, D) layout keeps an instance of its own (kContig) whose
+// strides follow from D at compile time: through run-time strides its
+// chip_smoke decode case read 3-4% slower (PERF.md, section 6).
+struct DecodeArgs {
+  int64_t q_b, q_h, k_b, k_h, k_s, v_b, v_h, v_s;
+  int H, G, S;
+  float scale;
+};
+
+template <typename T, int D, bool kContig>
 __global__ void __launch_bounds__(kDecThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v,
                     const int32_t* __restrict__ lengths,
                     float* __restrict__ part_m, float* __restrict__ part_l,
-                    float* __restrict__ part_acc, int H, int S,
-                    float scale) {
+                    float* __restrict__ part_acc, const DecodeArgs a) {
   constexpr int E = D / 32;         // elements of a row per lane
   __shared__ float ps[kChunk];
   __shared__ float red[kDecWarps];
   __shared__ float accw[kDecWarps][D];
 
   const int split = blockIdx.x, n_split = gridDim.x;
-  const int bh = blockIdx.y, b = bh / H;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
+  const int kvh = h / a.G;
   const int len = lengths[b];
-  const int n = valid_keys(len, S);
+  const int n = valid_keys(len, a.S);
   const int k0 = split * kChunk;
   if (k0 >= n) return;              // the combine pass skips this chunk
   const int kend = min(k0 + kChunk, n);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* kb = k + (int64_t)bh * S * D + lane * E;
-  const T* vb = v + (int64_t)bh * S * D + lane * E;
+  const int64_t row = (int64_t)bh * a.S * D;    // kContig: (b, h)'s rows
+  const T* kb =
+      (kContig ? k + row : k + b * a.k_b + kvh * a.k_h) + lane * E;
+  const T* vb =
+      (kContig ? v + row : v + b * a.v_b + kvh * a.v_h) + lane * E;
+  const int64_t k_s = kContig ? D : a.k_s, v_s = kContig ? D : a.v_s;
+  const float scale = a.scale;
 
   float qv[E];
-  load_vec<T, E>(q + (int64_t)bh * D + lane * E, qv);
+  load_vec<T, E>((kContig ? q + (int64_t)bh * D : q + b * a.q_b + h * a.q_h)
+                     + lane * E, qv);
 
-  // scores: a warp per key, lanes across D, four keys in flight
-  for (int kk = warp; kk < kChunk; kk += 4 * kDecWarps) {
+  // scores: a warp per key, lanes across D, four keys in flight; a
+  // warp's rows are kDecWarps keys apart, so its row pointer advances
+  // by a fixed step (no 64-bit multiply by the run-time stride a key)
+  const int64_t k_step = kDecWarps * k_s;
+  const T* krow = kb + (k0 + warp) * k_s;
+  for (int kk = warp; kk < kChunk; kk += 4 * kDecWarps,
+           krow += 4 * k_step) {
     float dot[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -1093,7 +1123,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dot[u] = 0.f;
       if (key < kend) {
         float kv[E];
-        load_vec<T, E>(kb + (int64_t)key * D, kv);
+        load_vec<T, E>(krow + u * k_step, kv);
 #pragma unroll
         for (int e = 0; e < E; ++e) dot[u] = fmaf(qv[e], kv[e], dot[u]);
       }
@@ -1122,13 +1152,16 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
-  for (int kk = warp; kk < kend - k0; kk += 4 * kDecWarps) {
+  const int64_t v_step = kDecWarps * v_s;
+  const T* vrow = vb + (k0 + warp) * v_s;
+  for (int kk = warp; kk < kend - k0; kk += 4 * kDecWarps,
+           vrow += 4 * v_step) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int c = kk + u * kDecWarps;
       if (c < kend - k0) {
         float vv[E];
-        load_vec<T, E>(vb + (int64_t)(k0 + c) * D, vv);
+        load_vec<T, E>(vrow + u * v_step, vv);
         const float pc = ps[c];
 #pragma unroll
         for (int e = 0; e < E; ++e) acc[e] = fmaf(pc, vv[e], acc[e]);
@@ -1178,20 +1211,26 @@ __global__ void decode_combine_kernel(const int32_t* __restrict__ lengths,
 template <typename T, int D>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* lengths, void* part_m, void* part_l,
-                  void* part_acc, void* out, int BH, int H, int S,
-                  int n_split, float scale, void* stream) {
+                  void* part_acc, void* out, int BH, int n_split,
+                  const DecodeArgs& a, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  decode_split_kernel<T, D><<<dim3(n_split, BH), kDecThreads, 0, st>>>(
+  const int64_t SD = (int64_t)a.S * D;
+  const bool contig = a.G == 1 && a.q_h == D && a.q_b == a.H * D &&
+                      a.k_s == D && a.k_h == SD && a.k_b == a.H * SD &&
+                      a.v_s == D && a.v_h == SD && a.v_b == a.H * SD;
+  auto kernel = contig ? decode_split_kernel<T, D, true>
+                       : decode_split_kernel<T, D, false>;
+  kernel<<<dim3(n_split, BH), kDecThreads, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(lengths),
       static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), H, S, scale);
+      static_cast<float*>(part_acc), a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<T, D><<<BH, D, 0, st>>>(
       static_cast<const int32_t*>(lengths),
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<T*>(out), H, S,
+      static_cast<const float*>(part_acc), static_cast<T*>(out), a.H, a.S,
       n_split);
   return cudaGetLastError();
 }
@@ -1199,13 +1238,13 @@ int launch_decode(const void* q, const void* k, const void* v,
 template <typename T>
 int dispatch_decode(const void* q, const void* k, const void* v,
                     const void* lengths, void* part_m, void* part_l,
-                    void* part_acc, void* out, int BH, int H, int S,
-                    int D, int n_split, float scale, void* stream) {
+                    void* part_acc, void* out, int BH, int D, int n_split,
+                    const DecodeArgs& a, void* stream) {
+  if (a.G < 1 || a.H % a.G) return cudaErrorInvalidValue;
 #define DECODE_CASE(DIM)                                                   \
   case DIM:                                                                \
     return launch_decode<T, DIM>(q, k, v, lengths, part_m, part_l,         \
-                                 part_acc, out, BH, H, S, n_split, scale,  \
-                                 stream);
+                                 part_acc, out, BH, n_split, a, stream);
   switch (D) {
     DECODE_CASE(64)
     DECODE_CASE(128)
@@ -1640,10 +1679,14 @@ int launch_int8_decode(const void* q, const void* scale, void* out,
   extern "C" int model_decode_attention_##SUFFIX(                           \
       const void* q, const void* k, const void* v, const void* lengths,     \
       void* part_m, void* part_l, void* part_acc, void* out, int BH, int H, \
-      int S, int D, int n_split, double scale, void* stream) {              \
+      int Hkv, int S, int D, int n_split, int64_t q_b, int64_t q_h,         \
+      int64_t k_b, int64_t k_h, int64_t k_s, int64_t v_b, int64_t v_h,      \
+      int64_t v_s, double scale, void* stream) {                            \
+    if (Hkv < 1) return cudaErrorInvalidValue;                              \
+    const DecodeArgs a{q_b, q_h, k_b, k_h, k_s, v_b, v_h, v_s, H, H / Hkv,  \
+                       S, static_cast<float>(scale)};                       \
     return dispatch_decode<T>(q, k, v, lengths, part_m, part_l, part_acc,   \
-                              out, BH, H, S, D, n_split,                    \
-                              static_cast<float>(scale), stream);           \
+                              out, BH, D, n_split, a, stream);              \
   }                                                                         \
   extern "C" int model_int8_encode_##SUFFIX(                                \
       const void* x, const void* noise, void* q, void* scale, int64_t R,    \

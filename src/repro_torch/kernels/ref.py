@@ -313,6 +313,19 @@ def decode_attention_ref(q, k, v, lengths) -> torch.Tensor:
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def decode_attention_bshd_ref(q, k, v, lengths) -> torch.Tensor:
+    """Model layout: q (B, 1, Hq, D), k/v (B, S, Hkv, D); the kv heads
+    are repeated to Hq and `decode_attention_ref` runs on the (B, H, S,
+    D) transposes.  Returns (B, 1, Hq, D), contiguous."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    if Hkv != Hq:
+        k = k.repeat_interleave(Hq // Hkv, dim=2)
+        v = v.repeat_interleave(Hq // Hkv, dim=2)
+    out = decode_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), lengths)
+    return out.transpose(1, 2).contiguous()
+
+
 def int8_encode_ref(x, noise):
     """Per-row int8 code with stochastic rounding.  x, noise: (R, C),
     noise ~ U(-0.5, 0.5).  Returns (q int8 (R, C), scale float32

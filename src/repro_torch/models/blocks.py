@@ -1,19 +1,22 @@
-"""Transformer / hybrid block parameters, the init half.
+"""Transformer / hybrid block composition.
 
 A block is a pre-norm mixer (attention | MLA | mamba) and a pre-norm FFN
-(dense | MoE); the block kind is a token of `cfg.block_pattern`.  The
-block's forward arrives with the model forward (ROADMAP queue 1
-item 8).
+(dense | MoE), both with residual connections; the block kind is a token
+of `cfg.block_pattern`.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
-from .attention import init_attn, init_mla
+import torch
+
+from .attention import (apply_attn, apply_mla, init_attn, init_kv_cache,
+                        init_mla, init_mla_cache)
 from .config import ModelConfig
-from .layers import Builder, init_mlp
-from .moe import init_moe
-from .ssm import init_mamba
+from .layers import Builder, apply_mlp, init_mlp, rms_norm
+from .moe import apply_moe, init_moe
+from .ssm import apply_mamba, init_mamba, init_ssm_cache
+from ..parallel.sharding import ShardCtx, shard_residual
 
 
 def init_block(make: Builder, cfg: ModelConfig, kind: str, moe: bool,
@@ -36,3 +39,39 @@ def init_block(make: Builder, cfg: ModelConfig, kind: str, moe: bool,
     else:
         del p["ln2"]            # mixer-only block (mamba2)
     return p
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype, device=None) -> Dict:
+    if kind == "m":
+        return init_ssm_cache(cfg, batch, dtype, device)
+    if cfg.use_mla:
+        return init_mla_cache(cfg, batch, max_len, dtype, device)
+    return init_kv_cache(cfg, batch, max_len, kind, dtype, device)
+
+
+def apply_block(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, kind: str, moe: bool,
+                ctx: ShardCtx, cache: Optional[Dict] = None,
+                ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (x', cache', aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "m":
+        mix, cache = apply_mamba(p["mixer"], cfg, h, positions, cache)
+    elif cfg.use_mla:
+        mix, cache = apply_mla(p["mixer"], cfg, h, positions, cache, ctx)
+    else:
+        mix, cache = apply_attn(p["mixer"], cfg, h, positions,
+                                "l" if kind == "l" else "a", cache, ctx)
+    x = shard_residual(x + mix, ctx)
+
+    if "mlp" not in p:              # mixer-only block (mamba2)
+        return x, cache, aux
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if moe:
+        f, aux = apply_moe(p["mlp"], cfg, h, ctx)
+    else:
+        f = apply_mlp(p["mlp"], h, cfg.act, x.dtype)
+    x = shard_residual(x + f, ctx)
+    return x, cache, aux

@@ -1,14 +1,18 @@
-"""Shared layer primitives, the init half: the `Builder` callback and the
-MLP and embedding initializers.
+"""Shared layer primitives: norms, rotary embeddings, activations, the
+MLP and the embeddings, and the `Builder` callback their initializers
+are written against.
 
 Parameters are plain tensors in nested dicts.  Every initializer is
 written against a `Builder` callback, so the same code emits real
 tensors (`tensor_builder`), shape-only `device="meta"` tensors
 (`meta_builder`, what the schedule's byte accounting reads) or logical
 axis names (`axes_builder`), and the trees stay structurally identical
-by construction.  The apply half (norms, rotary embeddings, the MLP and
-embedding forward) arrives with the model forward (ROADMAP queue 1
-item 8).
+by construction.
+
+The apply half follows the reference operation for operation: weights
+are cast to the activations' dtype at each call (`p[...].to(dt)`, as
+the reference's `astype(dt)`), the norm and the rotary embedding run in
+float32 and cast back, and the logits leave in float32.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import math
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 # A Builder receives (name, shape, logical_axes, scale) and returns a leaf.
 Builder = Callable[[str, Tuple[int, ...], Tuple[str, ...], float], object]
@@ -59,6 +64,60 @@ def axes_builder() -> Builder:
     return make
 
 
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + gamma.float())).to(dt)
+
+
+def act_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(name)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0.0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, base: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32,
+                                        device=device), exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               base: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S) int32."""
+    freqs = rope_freqs(x.shape[-1], base, x.device)           # (D/2,)
+    ang = positions.float()[..., None] * freqs                # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP and embeddings: params + apply
+# ---------------------------------------------------------------------------
+
 def init_mlp(make: Builder, d_model: int, d_ff: int, prefix: str,
              gated: bool = True) -> Dict:
     p = {
@@ -71,6 +130,16 @@ def init_mlp(make: Builder, d_model: int, d_ff: int, prefix: str,
     return p
 
 
+def apply_mlp(p: Dict, x: torch.Tensor, act: str, dtype) -> torch.Tensor:
+    h = torch.einsum("bsd,df->bsf", x, p["wi"].to(dtype))
+    if "wg" in p:
+        g = torch.einsum("bsd,df->bsf", x, p["wg"].to(dtype))
+        h = act_fn(act)(g) * h
+    else:
+        h = act_fn(act)(h)
+    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(dtype))
+
+
 def init_embed(make: Builder, vocab: int, d_model: int,
                tie: bool) -> Dict:
     # the table's d_model dim has its own logical axis ('embed_t', never
@@ -81,3 +150,18 @@ def init_embed(make: Builder, vocab: int, d_model: int,
         p["head"] = make("embed.head", (d_model, vocab),
                          ("embed", "vocab"), 1.0)
     return p
+
+
+def embed_tokens(p: Dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    # rows gathered, then cast: the same values as the reference's cast
+    # of the whole table, then its `take`
+    return p["tok"][tokens.long()].to(dtype)
+
+
+def lm_logits(p: Dict, x: torch.Tensor, dtype,
+              cap: float = 0.0) -> torch.Tensor:
+    if "head" in p:
+        logits = torch.einsum("bsd,dv->bsv", x, p["head"].to(dtype))
+    else:
+        logits = torch.einsum("bsd,vd->bsv", x, p["tok"].to(dtype))
+    return softcap(logits.float(), cap)

@@ -1,14 +1,36 @@
-"""Mixture-of-Experts parameters and capacity math, the init half.  The
-dispatch and combine (the all2all traffic the schedule co-simulates)
-arrive with the model forward (ROADMAP queue 1 item 8).
+"""Mixture-of-Experts: top-k routing, capacity dispatch and combine, and
+shared experts.
+
+The reference has three execution modes over one local dispatch/combine
+body: without a mesh (`tp_axis is None`), and with a mesh the a2a mode
+(train/prefill: dispatch buffers exchanged with `all_to_all` over the
+tensor axis) and the psum mode (decode).  The port runs on one rank, so
+it has the first alone; the other two wait for sharding over
+`torch.distributed` (ROADMAP queue 1 item 4).
+
+Order matters where the reference leaves it implicit:
+  * `jax.lax.top_k` breaks ties toward the lower expert index;
+    `torch.topk` promises no order, so the top k are the first k of a
+    stable descending sort.
+  * the arrival rank of an entry within its expert comes from a stable
+    sort (`_ranks_within_expert`).
+  * dispatch scatters with accumulation: an entry past an expert's
+    capacity is clamped to its last slot and adds an exact 0.0 there,
+    as in the reference, so that slot holds one nonzero addend and the
+    order of CUDA's atomics cannot change a bit.  A scatter without
+    accumulation would let the zero overwrite the real token.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import Builder, init_mlp
+from .layers import Builder, act_fn, apply_mlp, init_mlp
+from ..parallel.sharding import ShardCtx
 
 
 def init_moe(make: Builder, cfg: ModelConfig, prefix: str) -> Dict:
@@ -31,6 +53,84 @@ def init_moe(make: Builder, cfg: ModelConfig, prefix: str) -> Dict:
     return p
 
 
+# ---------------------------------------------------------------------------
+# local dispatch / combine
+# ---------------------------------------------------------------------------
+
+def _topk_route(router_w, x_flat, cfg: ModelConfig):
+    """x_flat: (T, d) -> (weights (T,k), experts (T,k), aux_loss)."""
+    logits = torch.einsum("td,de->te", x_flat.float(), router_w.float())
+    probs = torch.softmax(logits, dim=-1)
+    # the top k, ties to the lower index: a stable descending sort
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[:, :cfg.moe_topk], idx[:, :cfg.moe_topk]
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    w = w * cfg.router_scale
+    # Switch-style load-balance aux loss
+    e = cfg.moe_experts
+    me = probs.mean(0)
+    ce = F.one_hot(idx[:, 0], e).float().mean(0)
+    aux = e * torch.sum(me * ce)
+    return w.to(x_flat.dtype), idx, aux
+
+
+def _ranks_within_expert(eids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """eids: flat (N,) expert ids -> arrival rank of each entry within its
+    expert (stable order)."""
+    n = eids.shape[0]
+    sorted_e, order = torch.sort(eids, stable=True)
+    start = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank_sorted = (torch.arange(n, device=eids.device) - start).to(
+        torch.int32)
+    return torch.zeros(n, dtype=torch.int32,
+                       device=eids.device).index_put((order,), rank_sorted)
+
+
+def _dispatch(x_flat, eids, ranks, n_experts, capacity):
+    """Scatter tokens into (E, C, d) buffers; overflow tokens dropped.
+
+    Sums in a float32 buffer and casts back, as the reference does."""
+    t, d = x_flat.shape
+    k = eids.shape[-1]
+    flat_e = eids.reshape(-1)
+    flat_r = ranks.reshape(-1)
+    valid = flat_r < capacity
+    src = x_flat.float().repeat_interleave(k, dim=0)
+    src = torch.where(valid[:, None], src, 0.0)
+    buf = torch.zeros((n_experts, capacity, d), dtype=torch.float32,
+                      device=x_flat.device)
+    buf = buf.index_put((flat_e, torch.clamp(flat_r, max=capacity - 1).long()),
+                        src, accumulate=True)
+    return buf.to(x_flat.dtype)
+
+
+def _combine(buf, weights, eids, ranks, capacity):
+    """Gather expert outputs back per (token, k) and weight-sum."""
+    t, k = eids.shape
+    flat_e = eids.reshape(-1)
+    flat_r = ranks.reshape(-1)
+    valid = (flat_r < capacity).to(buf.dtype)
+    got = buf[flat_e, torch.clamp(flat_r, max=capacity - 1).long()]
+    got = got * valid[:, None]
+    got = got.reshape(t, k, -1)
+    return torch.einsum("tkd,tk->td", got, weights.to(buf.dtype))
+
+
+def _expert_ffn(p: Dict, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """buf: (E, C, d) -> (E, C, d) through the gated FFN, each product
+    accumulated in float32 and rounded to the buffer's dtype (the
+    reference's preferred_element_type)."""
+    dt = buf.dtype
+    b32 = buf.float()
+    h = torch.einsum("ecd,edf->ecf", b32,
+                     p["wi"].to(dt).float()).to(dt)
+    g = torch.einsum("ecd,edf->ecf", b32,
+                     p["wg"].to(dt).float()).to(dt)
+    h = act_fn(act)(g) * h
+    return torch.einsum("ecf,efd->ecd", h.float(),
+                        p["wo"].to(dt).float()).to(dt)
+
+
 def _capacity(tokens: int, cfg: ModelConfig) -> int:
     """Per-expert buffer slots for `tokens` routed tokens: the top-k
     share times the capacity factor, rounded up to a multiple of 8 (at
@@ -38,3 +138,29 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
     c = int(math.ceil(tokens * cfg.moe_topk / cfg.moe_experts
                       * cfg.capacity_factor))
     return max(8, ((c + 7) // 8) * 8)
+
+
+def _moe_local(p, cfg: ModelConfig, x):
+    """The MoE body on one rank (the reference's `tp_axis is None`)."""
+    b, s, d = x.shape
+    x_flat = x.reshape(b * s, d)
+    w, idx, aux = _topk_route(p["router"], x_flat, cfg)
+    ranks = _ranks_within_expert(idx.reshape(-1),
+                                 cfg.moe_experts).reshape(idx.shape)
+    cap = _capacity(b * s, cfg)
+    buf = _dispatch(x_flat, idx, ranks, cfg.moe_experts, cap)
+    buf = _expert_ffn(p, buf, cfg.act)
+    out = _combine(buf, w, idx, ranks, cap)
+    return out.reshape(b, s, d), aux
+
+
+def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx,
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d). Returns (out, aux_loss)."""
+    shared_out = None
+    if "shared" in p:
+        shared_out = apply_mlp(p["shared"], x, cfg.act, x.dtype)
+    out, aux = _moe_local(p, cfg, x)
+    if shared_out is not None:
+        out = out + shared_out
+    return out, aux

@@ -1,8 +1,7 @@
-"""The LM's parameter layout: embeddings, prefix layers, and the pattern
-periods whose parameters are stacked along a leading `n_periods` axis.
+"""The LM: embeddings -> prefix layers -> pattern periods -> head.
 
-The tree keeps the reference's nested dicts and lists and its stacked
-`period` leaves, so a leaf's key path, shape and dtype are the
+The parameter tree keeps the reference's nested dicts and lists and its
+stacked `period` leaves, so a leaf's key path, shape and dtype are the
 reference's, and its leaves come in `jax.tree.leaves` order
 (`tree_leaves`: dict keys sorted, lists in order).  That order and that
 stacking decide how the plane-sharded gradient sync chunks the model
@@ -11,9 +10,18 @@ training-step schedule (`repro_torch.comms`) reads its gradient bytes
 from `param_shapes`, which holds no memory.  `params_from_jax` carries
 the reference's weights across, bit for bit.
 
-The forward (attention, MoE dispatch, the SSD scan, caches, the losses)
-arrives with ROADMAP queue 1 item 8; a later slice may wrap the tree in
-an `nn.Module` whose `state_dict` keys are these key paths.
+The forward runs eagerly: `backbone` loops over the periods with views
+of the stacked leaves (`a[i]`) where the reference runs `lax.scan`, and
+the caches of a pattern position are stacked again after the loop.
+The reference's `_remat_wrap`, `cfg.scan_layers` and `cfg.unroll_loops`
+shape what XLA traces (rematerialisation under autodiff, one scanned
+body or an unrolled stack, scan bodies counted for the dry run); an
+eager forward without autodiff has nothing to do with them, so the port
+reads none of them.  Cross-entropy is taken in sequence chunks
+(`chunked_ce_loss`), so (B, S, vocab) logits are never whole.  The
+caches are written functionally, as the reference's are: a step returns
+new cache tensors and leaves its input caches as they were, which the
+serving engine relies on when it keeps the other slots' rows.
 """
 from __future__ import annotations
 
@@ -22,9 +30,12 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .blocks import init_block
+from .blocks import apply_block, init_block, init_block_cache
 from .config import ModelConfig
-from .layers import axes_builder, init_embed, meta_builder, tensor_builder
+from .layers import (axes_builder, embed_tokens, init_embed, lm_logits,
+                     meta_builder, rms_norm, tensor_builder)
+from ..parallel.sharding import (ShardCtx, shard_cache, shard_logits,
+                                 shard_residual)
 
 KeyPath = Tuple                # dict keys (str) and list indices (int)
 
@@ -160,3 +171,194 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Dict:
         return _from_numpy(a).to(device)
 
     return _map_items(shapes, carry)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def tree_map(tree, fn):
+    """`tree` (dicts, lists, None) with each tensor replaced by
+    `fn(tensor)`."""
+    if isinstance(tree, dict):
+        return {k: tree_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(x, fn) for x in tree)
+    return None if tree is None else fn(tree)
+
+
+def _stack(trees: List):
+    """Trees of one structure stacked leaf by leaf along a new axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                device=None) -> Dict:
+    """Cache tree: a prefix list and, per pattern position, caches
+    stacked over the periods (leading axis `n_periods`, then the batch).
+    `dtype` is a torch dtype or its name; `device` defaults to CUDA."""
+    from repro_torch.netsim.engine import resolve_device
+    device = resolve_device(device)
+    if isinstance(dtype, str):
+        dtype = torch_dtype(dtype)
+    caches: Dict = {
+        "prefix": [init_block_cache(cfg, "a", batch, max_len, dtype, device)
+                   for _ in range(cfg.n_prefix_layers)],
+        "period": [],
+    }
+    for kind in cfg.block_pattern:
+        one = init_block_cache(cfg, kind, batch, max_len, dtype, device)
+        caches["period"].append(tree_map(one, lambda a: a.expand(
+            (cfg.n_periods,) + tuple(a.shape)).contiguous()))
+    return caches
+
+
+def shard_caches(caches: Dict, ctx: ShardCtx) -> Dict:
+    return tree_map(caches, lambda x: shard_cache(x, ctx, x.ndim - 2)
+                if x.ndim >= 3 else x)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def backbone(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor, ctx: ShardCtx,
+             caches: Optional[Dict] = None,
+             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """x: (B,S,d) embedded input. Returns (hidden, caches', aux)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_prefix = []
+    for i, bp in enumerate(params["prefix"]):
+        c = caches["prefix"][i] if caches is not None else None
+        x, c, aux = apply_block(bp, cfg, x, positions, "a", False, ctx, c)
+        aux_total = aux_total + aux
+        new_prefix.append(c)
+
+    pcaches = caches["period"] if caches is not None else None
+    period_outs = []
+    for i in range(cfg.n_periods):
+        new = []
+        for pos, kind in enumerate(cfg.block_pattern):
+            pp = tree_map(params["period"][pos], lambda a: a[i])
+            c = (tree_map(pcaches[pos], lambda a: a[i])
+                 if pcaches is not None else None)
+            x, c, aux = apply_block(pp, cfg, x, positions, kind,
+                                    cfg.is_moe_pos(pos), ctx, c)
+            aux_total = aux_total + aux
+            new.append(c)
+        period_outs.append(new)
+    new_caches = None
+    if pcaches is not None:
+        new_caches = {"prefix": new_prefix,
+                      "period": [_stack([po[pos] for po in period_outs])
+                                 for pos in range(cfg.pattern_len)]}
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return x, new_caches, aux_total
+
+
+def embed_input(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                ctx: ShardCtx,
+                frontend_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    dtype = torch_dtype(cfg.dtype)
+    x = embed_tokens(params["embed"], tokens, dtype)
+    if frontend_embeds is not None and cfg.frontend != "none":
+        fe = torch.einsum("bfd,de->bfe", frontend_embeds.to(dtype),
+                          params["frontend_proj"].to(dtype))
+        f = fe.shape[1]
+        x = torch.cat([fe, x[:, f:]], dim=1)
+    return shard_residual(x, ctx)
+
+
+# ---------------------------------------------------------------------------
+# losses / steps
+# ---------------------------------------------------------------------------
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device)[None].expand(B, S)
+
+
+def chunked_ce_loss(params: Dict, cfg: ModelConfig, hidden: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor, ctx: ShardCtx,
+                    chunk: int = 0) -> torch.Tensor:
+    """Next-token CE without materializing full (B,S,V) logits."""
+    B, S, D = hidden.shape
+    chunk = min(chunk or cfg.loss_chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    nc = hidden.shape[1] // chunk
+    dtype = torch_dtype(cfg.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nc):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        h, lab, m = hidden[:, sl], labels[:, sl], mask[:, sl]
+        logits = lm_logits(params["embed"], h, dtype, cfg.logit_softcap)
+        logits = shard_logits(logits, ctx)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, lab[..., None].long())[..., 0]
+        nll = (lse - tgt) * m
+        tot = tot + nll.sum()
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, ctx: ShardCtx,
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict]:
+    """The training loss, forward only: `batch` holds `tokens` and
+    `labels` (B, S) int tensors, optionally `mask` and
+    `frontend_embeds`.  Returns (loss, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    else:
+        mask = mask.float()
+    if cfg.frontend != "none" and cfg.frontend_tokens:
+        fmask = torch.ones_like(mask)
+        fmask[:, :cfg.frontend_tokens] = 0.0
+        mask = mask * fmask
+    positions = _positions(tokens)
+    x = embed_input(params, cfg, tokens, ctx, batch.get("frontend_embeds"))
+    hidden, _, aux = backbone(params, cfg, x, positions, ctx)
+    ce = chunked_ce_loss(params, cfg, hidden, labels, mask, ctx)
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def prefill_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 ctx: ShardCtx, caches: Dict,
+                 frontend_embeds: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Process a full prompt, fill caches, return last-token logits
+    (B, 1, vocab) in float32."""
+    positions = _positions(tokens)
+    x = embed_input(params, cfg, tokens, ctx, frontend_embeds)
+    hidden, caches, _ = backbone(params, cfg, x, positions, ctx, caches)
+    last = hidden[:, -1:]
+    logits = lm_logits(params["embed"], last, torch_dtype(cfg.dtype),
+                       cfg.logit_softcap)
+    return shard_logits(logits, ctx), caches
+
+
+def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                position: torch.Tensor, ctx: ShardCtx, caches: Dict,
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One token per sequence. tokens: (B,1); position: (B,) int32."""
+    positions = position[:, None].to(torch.int32)
+    x = embed_input(params, cfg, tokens, ctx)
+    hidden, caches, _ = backbone(params, cfg, x, positions, ctx, caches)
+    logits = lm_logits(params["embed"], hidden, torch_dtype(cfg.dtype),
+                       cfg.logit_softcap)
+    return shard_logits(logits, ctx), caches

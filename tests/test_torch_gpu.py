@@ -1639,3 +1639,154 @@ def test_gpu_eviction_releases_graphs_and_recaptures(cuda, monkeypatch):
     again = pts[0].run(device=cuda)
     assert engine.dispatch_stats()["graphs"] > 0
     _results_equal(again, first)
+
+
+# ---------------------------------------------------------------------------
+# decode attention in the model layout, and the model forward on the card
+# ---------------------------------------------------------------------------
+
+def _ring(rng, B, S, Hkv, D, dtype, dev, layout):
+    """A (B, S, Hkv, D) cache: contiguous, a head-padded view (row
+    stride 2 D), or one period's slice of a stacked (2, B, S, Hkv, D)
+    cache whose sequence axis holds 8 slots more than it shows."""
+    if layout == "contiguous":
+        return _normal(rng, (B, S, Hkv, D), dtype, dev)
+    if layout == "padded-heads":
+        return _normal(rng, (B, S, Hkv, 2 * D), dtype, dev)[..., :D]
+    return _normal(rng, (2, B, S + 8, Hkv, D), dtype, dev)[1, :, 4:S + 4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("layout", ["contiguous", "padded-heads",
+                                    "period-slice"])
+def test_decode_attention_bshd_equals_plain_version(cuda, dtype, D, G,
+                                                    layout):
+    """GQA ratios 1, 4 and 8 read in place, every head_dim, ring lengths
+    0 (every key, uniformly), 1, S and in between, over caches of one
+    chunk and of several."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(D + G)
+    for S, lengths in ((300, [0, 1, 300, 257]), (1000, [999, 1000, 3, 0])):
+        B, Hkv = len(lengths), 2
+        q = _normal(rng, (B, 1, Hkv * G, D), dtype, cuda)
+        k, v = (_ring(rng, B, S, Hkv, D, dtype, cuda, layout)
+                for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        got = _launched("decode_attention",
+                        lambda: ops.decode_attention_bshd(q, k, v, lens))
+        assert got.shape == q.shape and got.is_contiguous()
+        want = ref.decode_attention_bshd_ref(q, k, v, lens)
+        tol = ATTN_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_entries_share_the_kernel(cuda, dtype):
+    """The (B, H, S, D) entry is the model entry with Hkv = H: its
+    contiguous tensors take the compile-time-stride instance, and the
+    same values read through run-time strides (k and v as views of
+    head-padded buffers) give the same bits."""
+    rng = np.random.default_rng(9)
+    q = _normal(rng, (3, 4, 1, 128), dtype, cuda)
+    k, v = (_normal(rng, (3, 4, 700, 128), dtype, cuda) for _ in range(2))
+    lens = torch.tensor([700, 5, 0], dtype=torch.int32, device=cuda)
+    a = ops.decode_attention(q, k, v, lens)
+    kp, vp = (torch.zeros(3, 4, 700, 136, dtype=dtype, device=cuda)
+              for _ in range(2))
+    kp[..., :128], vp[..., :128] = k, v
+    b = ops.decode_attention_bshd(q.transpose(1, 2),
+                                  kp[..., :128].transpose(1, 2),
+                                  vp[..., :128].transpose(1, 2), lens)
+    assert torch.equal(a.transpose(1, 2), b)
+
+
+@pytest.mark.gpu
+def test_decode_attention_bshd_refuses_bad_operands(cuda):
+    x = torch.zeros(2, 64, 4, 64, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(2, 1, 8, 64, dtype=torch.bfloat16, device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    build.reset_launches()
+    # D not the unit-stride axis, then rows 68 elements apart (not a
+    # multiple of 16 bytes)
+    across = torch.zeros(2, 64, 64, 4, dtype=torch.bfloat16,
+                         device=cuda).transpose(2, 3)
+    odd = torch.zeros(2, 64, 4, 68, dtype=torch.bfloat16,
+                      device=cuda)[..., :64]
+    for bad in (across, odd):
+        with pytest.raises(ValueError, match="strides"):
+            ops.decode_attention_bshd(q, bad, x, lens)
+    with pytest.raises(ValueError, match="kv heads"):
+        ops.decode_attention_bshd(q, x[:, :, :3], x[:, :, :3], lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        y = torch.zeros(2, 64, 4, 16, dtype=torch.bfloat16, device=cuda)
+        ops.decode_attention_bshd(q[..., :16].contiguous(), y, y, lens)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.decode_attention_bshd(q, x, x, lens.long())
+    assert build.LAUNCHES["decode_attention"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-12b",
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-780m",
+                                  "jamba-v0.1-52b", "deepseek-v2-236b",
+                                  "llava-next-mistral-7b"])
+def test_reduced_forward_on_cuda_equals_the_cpu_forward(cuda, arch):
+    """The reduced config at head_dim 64 in float32: prefill (40 tokens,
+    past gemma3's 32-token window), four decode steps and the loss on
+    the card through the attention kernels, each within 1e-4 of the
+    port's CPU forward (plain attention) on the same weights; one
+    flash_attention launch per attention layer per prefill and loss, one
+    decode_attention launch per layer per step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import (decode_step, init_caches, init_params,
+                                    loss_fn, prefill_step,
+                                    standard_attention_layers, tree_map)
+    from repro_torch.parallel import local_ctx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].reduced(head_dim=64, dtype="float32")
+    cpu_p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_p = tree_map(cpu_p, lambda a: a.to(cuda))
+    rng = np.random.default_rng(1)
+    B, S = 2, 40
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (B, S + 5)),
+                        dtype=torch.int32)
+    fe = None
+    if cfg.frontend_tokens:
+        fe = torch.tensor(rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model)) * 0.02,
+            dtype=torch.float32)
+    n_attn = standard_attention_layers(cfg)
+    ctx = local_ctx()
+    runs = {}
+    for dev, p in (("cpu", cpu_p), (cuda, gpu_p)):
+        build.reset_launches()
+        caches = init_caches(cfg, B, 64, "float32", dev)
+        logits, caches = prefill_step(
+            p, cfg, toks[:, :S].to(dev), ctx, caches,
+            None if fe is None else fe.to(dev))
+        out = [logits]
+        if dev != "cpu":
+            assert build.LAUNCHES["flash_attention"] == n_attn
+        for i in range(4):
+            logits, caches = decode_step(
+                p, cfg, toks[:, S + i:S + i + 1].to(dev),
+                torch.full((B,), S + i, dtype=torch.int32, device=dev),
+                ctx, caches)
+            out.append(logits)
+        batch = {"tokens": toks[:, :S].to(dev),
+                 "labels": toks[:, 1:S + 1].to(dev)}
+        if fe is not None:
+            batch["frontend_embeds"] = fe.to(dev)
+        out.append(loss_fn(p, cfg, batch, ctx)[0][None])
+        if dev != "cpu":
+            assert build.LAUNCHES["flash_attention"] == 2 * n_attn
+            assert build.LAUNCHES["decode_attention"] == 4 * n_attn
+        runs[str(dev)] = [t.cpu() for t in out]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert bool(got.isfinite().all())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
