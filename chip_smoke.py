@@ -200,6 +200,33 @@ Phases, each fatal on failure:
             head_dim 64 in float32, its CUDA forward against the CPU
             forward within ATTN_TOL; `decode_attention_bshd` at the
             serve run's shapes against its plain version and SDPA.
+  train     the training path (`repro_torch.train.Trainer`,
+            TRAIN_RUN): spx-100m at full width and depth (12 layers,
+            d_model 768, GQA 12/4, head_dim 64, vocab 32,768, 126 M
+            float32 parameters drawn on the card) trains 20 steps of
+            8 x 1,024 tokens with the bf16 weight cast, plane 2 failing
+            at step 5 and healing at step 12 and a checkpoint at step
+            10; each step launches flash_attention and
+            flash_attention_bwd once a layer (asserted), every
+            flash_attention_bwd call of one step is held to
+            `ref.flash_attention_bwd_ref` on its own inputs (BWD_TOL of
+            each gradient's largest magnitude), the loss is finite and
+            falls (the trained weights on step 0's batch against step
+            0's loss), planes up and the recovery record equal a CPU
+            `FailoverController`'s, the step-10 checkpoint restores
+            bit-equal and steps 10-19 run again within TRAIN_RUN's
+            tolerance of the first run; median step time, tokens/s,
+            peak memory and the device's busy share of a profiled step.
+            llama3-8b at full width cut to TRAIN_LLAMA_LAYERS layers
+            (remat "full": two forward launches a layer a step) trains
+            3 steps of 1 x 2,048 tokens (peak memory).  One float32
+            step of spx-100m through the kernels against the same step
+            on the plain attention versions (loss 1e-4, grad norm 1e-3
+            relative; bf16's difference printed beside it).  The
+            backward kernel at BWD_CELLS (spx-100m's train shape,
+            llama3-8b's and gemma3-12b's prefill cells) against its
+            plain version, timed beside it, SDPA's backward and the
+            bound (10 D flops a kept pair).
   profile   torch.profiler over 12 giga slots under AR and under ECMP,
             float64 and float32, and in float64 over giga_fat_tree under
             WAR and ECMP and over the giga point under failure reaction,
@@ -305,6 +332,9 @@ REPLACES = {
     # not a TPU kernel: XLA's segment_sum (segment_load, and
     # segment_load_chunk at :151) in the reference
     "segment_sum": "src/repro/kernels/link_load.py:141",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:26 (its "
+                           "gradient; reference: autodiff of "
+                           "models/attention.py:62)",
 }
 # fabric shapes the main path hands the kernels
 SHAPES = {"fig9": dict(F=2496, P=1, L=8, S=8, H=64),
@@ -3360,26 +3390,20 @@ def serve_engine(cfg, params, spec, forced=None) -> dict:
     return rec
 
 
-def decode_profile(cfg, params, rec) -> dict:
-    """`torch.profiler` over one decode step on the run's last caches:
-    wall, device busy time and the kernels that take it."""
+def device_profile(what: str, fn) -> tuple:
+    """`torch.profiler` over one synchronised `fn()`: its result, and
+    the wall, the device busy time, the device kernels and those that
+    take the most time, printed under `what`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import decode_step
-    from repro_torch.parallel import local_ctx
-    B = len(rec["positions"])
-    toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
-    pos = torch.tensor(rec["positions"], device="cuda")
-    with torch.inference_mode():
-        decode_step(params, cfg, toks, pos, local_ctx(), rec["caches"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            decode_step(params, cfg, toks, pos, local_ctx(), rec["caches"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in ev) / 1e3
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
@@ -3388,16 +3412,31 @@ def decode_profile(cfg, params, rec) -> dict:
                top=[dict(name=e.key[:100], ms=e.self_device_time_total / 1e3,
                          count=e.count) for e in top])
     if busy == 0.0:
-        print("  profile of a decode step: device time not measured "
-              "(profiler saw no device activity)", flush=True)
-        return out
-    print(f"  profile of a decode step: wall {out['wall_ms']:.3f} ms "
-          f"(profiled), device busy {busy:.3f} ms ({busy / out['wall_ms']:.1%}"
-          f"), {out['kernels']} device kernels", flush=True)
+        print(f"  profile of {what}: device time not measured (profiler saw "
+              "no device activity)", flush=True)
+        return result, out
+    print(f"  profile of {what}: wall {out['wall_ms']:.3f} ms (profiled), "
+          f"device busy {busy:.3f} ms ({busy / out['wall_ms']:.1%}), "
+          f"{out['kernels']} device kernels", flush=True)
     for t in out["top"][:6]:
         print(f"    {t['ms']:.3f} ms x{t['count']} {t['name'][:80]}",
               flush=True)
-    return out
+    return result, out
+
+
+def decode_profile(cfg, params, rec) -> dict:
+    """One decode step on the run's last caches, profiled
+    (`device_profile`) after a warm-up step."""
+    import torch
+    from repro_torch.models import decode_step
+    from repro_torch.parallel import local_ctx
+    B = len(rec["positions"])
+    toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    pos = torch.tensor(rec["positions"], device="cuda")
+    with torch.inference_mode():
+        decode_step(params, cfg, toks, pos, local_ctx(), rec["caches"])
+        return device_profile("a decode step", lambda: decode_step(
+            params, cfg, toks, pos, local_ctx(), rec["caches"]))[1]
 
 
 def serve_check(cfg, params, spec, report: dict, total: dict,
@@ -3844,6 +3883,476 @@ def serve_phase(report: dict, total: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the train phase.  TRAIN_RUN: spx-100m (configs/spx_paper.py) at its
+# full width and depth, the Trainer's own config as `examples/
+# quickstart.py` runs it (4 planes, 16 micro-chunks), plane 2 failing at
+# step 5 and healing at step 12.  `rerun_rtol` bounds steps 10-19 run
+# again from the step-10 checkpoint against the first run's losses: the
+# weights and moments restore bit for bit, but the embedding's and the
+# cross-entropy's backward add into their gradients with atomics on the
+# card, in an order that changes from run to run.
+TRAIN_RUN = dict(arch="spx-100m", steps=20, batch=8, seq=1024, seed=31,
+                 fail=(5, 2), heal=(12, 2), ckpt_at=10, held_step=1,
+                 profiled_step=15, rerun_rtol=1e-3)
+TRAIN_LLAMA_LAYERS = 2
+TRAIN_LLAMA = dict(steps=3, batch=1, seq=2048, seed=32)
+# the backward against its plain version: max abs error over the plain
+# gradient's largest magnitude (float32: sums over up to 4,096 keys in
+# another order; bfloat16: the gradients are rounded to bf16 after
+# float32 sums, 2^-9 relative, and the forward's P was rounded too)
+BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# (name, batch, tokens, query heads, kv heads, head_dim, window, dtype):
+# spx-100m's train shape (the summary row), llama3-8b's and gemma3-12b's
+# prefill cells of the model_kernels phase
+BWD_CELLS = (("spx-100m train", 8, 1024, 12, 4, 64, 0, "bfloat16"),
+             ("llama3-8b prefill", 1, PREFILL_S, LLAMA["Hq"], LLAMA["Hkv"],
+              LLAMA["D"], 0, "bfloat16"),
+             ("llama3-8b prefill", 1, PREFILL_S, LLAMA["Hq"], LLAMA["Hkv"],
+              LLAMA["D"], 0, "float32"),
+             ("gemma3-12b local", 1, PREFILL_S, GEMMA["Hq"], GEMMA["Hkv"],
+              GEMMA["D"], GEMMA["window"], "bfloat16"))
+
+
+def bwd_errors(got, want) -> float:
+    """The largest of max |a - b| / max(1e-30, max |b|) over (dq, dk,
+    dv)."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not \
+                bool(g.isfinite().all()):
+            fail(f"flash_attention_bwd: {tuple(g.shape)} {g.dtype} against "
+                 f"{tuple(w.shape)} {w.dtype}, or non-finite")
+        scale = max(float(w.float().abs().max()), 1e-30)
+        err = max(err, float((g.float() - w.float()).abs().max()) / scale)
+    return err
+
+
+def bwd_cases(report: dict, summary: dict) -> None:
+    """The backward kernel at BWD_CELLS on seeded card tensors, against
+    its plain version on the forward kernel's output and log-sum-exp;
+    two launches bit-equal; timed beside the plain version, SDPA's
+    backward (`scaled_dot_product_attention(..., enable_gqa=True)`,
+    the backward alone) and the bound; and the forward kernel on the
+    same inputs without and with the log-sum-exp written."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    rows = []
+    for name, B, S, Hq, Hkv, D, window, dname in BWD_CELLS:
+        dtype = getattr(torch, dname)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q, dout = randn(B, S, Hq, D), randn(B, S, Hq, D)
+        k, v = randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        out, lse = ops.flash_attention_fwd(q, k, v, window=window)
+
+        def run():
+            return ops.flash_attention_bwd(q, k, v, out, dout, lse,
+                                           window=window)
+
+        def plain():
+            return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                               window=window)
+
+        got = run()
+        err = bwd_errors(got, plain())
+        if not err <= BWD_TOL[dname]:
+            fail(f"flash_attention_bwd {name} {dname}: err {err:.3g} > "
+                 f"{BWD_TOL[dname]} of the largest gradient")
+        if not all(torch.equal(a, b) for a, b in zip(got, run())):
+            fail(f"flash_attention_bwd {name} {dname}: two launches differ")
+        del got
+        qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        pos = torch.arange(S, device="cuda")
+        mask = None if not window else (
+            (pos[:, None] >= pos[None, :])
+            & (pos[:, None] - pos[None, :] < window))
+        sdpa_out = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+        grad = dout.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(sdpa_out, (qs, ks, vs), grad,
+                                       retain_graph=True)
+
+        ms = event_ms(run, repeats=5)
+        plain_ms = event_ms(plain)
+        library_ms = event_ms(library, repeats=5)
+        # row 9 on these inputs without and with the log-sum-exp written
+        fwd_ms = graph_ms(lambda: ops.flash_attention_bshd(
+            q, k, v, window=window), reps=5)
+        fwd_lse_ms = graph_ms(lambda: ops.flash_attention_fwd(
+            q, k, v, window=window), reps=5)
+        del sdpa_out, qs, ks, vs
+        pairs = attn_pairs(S, S, True, window)
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+            + lse.numel() * 4
+        nops = 10 * D * B * Hq * pairs
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / PEAK_FLOPS[dname] * 1e3
+        row = dict(kernel="flash_attention_bwd", case=f"{name} {dname}",
+                   dtype=dname, shape=[B, S, Hq, Hkv, D, window],
+                   max_abs_err=err, tol=BWD_TOL[dname], bytes=nbytes,
+                   ops=nops, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   tflops=nops / ms / 1e9, fwd_ms=fwd_ms,
+                   fwd_lse_ms=fwd_lse_ms)
+        print(f"model flash_attention_bwd {name} {dname} (B={B} S={S} "
+              f"{Hq}/{Hkv} heads D={D} window={window}): ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+              f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+              f"tflops={row['tflops']:.1f} err={err:.3g} of the largest "
+              f"gradient (bound {BWD_TOL[dname]}); two launches bit-equal; "
+              f"flash_attention forward ms={fwd_ms:.6f}, with the "
+              f"log-sum-exp written ms={fwd_lse_ms:.6f}", flush=True)
+        rows.append(row)
+        del q, k, v, out, lse, dout
+        torch.cuda.empty_cache()
+    summary["flash_attention_bwd"] = dict(
+        rows[0], max_abs_err_all=max(r["max_abs_err"] for r in rows))
+    report["flash_attention_bwd"] = rows
+
+
+@contextmanager
+def held_bwd(step: dict):
+    """Every flash_attention_bwd launch while the block runs held to
+    its plain version on the call's own inputs: `fail` past BWD_TOL of
+    its dtype times each gradient's largest plain magnitude.  `step`
+    gets the calls, the worst error so scaled and the worst max abs
+    error over max |dO| x max |v|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    launch = fa._launch_bwd
+
+    def held(q, k, v, out, dout, lse, layout, causal, window):
+        got = launch(q, k, v, out, dout, lse, layout, causal, window)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                           causal=causal, window=window)
+        dname = str(q.dtype).split(".")[1]
+        err = bwd_errors(got, want)
+        if not err <= BWD_TOL[dname]:
+            fail(f"flash_attention_bwd at q {tuple(q.shape)} on the train "
+                 f"path: err {err:.3g} > {BWD_TOL[dname]}")
+        absolute = max(float((g.float() - w.float()).abs().max())
+                       for g, w in zip(got, want))
+        dov = float(dout.float().abs().max()) * float(v.float().abs().max())
+        step["calls"] = step.get("calls", 0) + 1
+        step["err"] = max(step.get("err", 0.0), err)
+        step["err_dov"] = max(step.get("err_dov", 0.0),
+                              absolute / max(dov, 1e-30))
+        return got
+
+    fa._launch_bwd = held
+    try:
+        yield
+    finally:
+        fa._launch_bwd = launch
+
+
+def train_batches(cfg, spec: dict, start: int = 0):
+    """The synthetic pipeline's batches for `spec`, on the card."""
+    import torch
+    from repro_torch.data import DataConfig, DataLoader
+    dl = DataLoader(DataConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                               global_batch=spec["batch"]),
+                    start_step=start)
+    for batch in dl:
+        yield {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def expected_failover(spec: dict) -> tuple:
+    """planes up a step and the recovery records of a CPU
+    `FailoverController` through the spec's fail and heal."""
+    from repro_torch.core.fault_tolerance import FailoverController
+    from repro_torch.core.planes import PlaneConfig
+    fc = FailoverController(PlaneConfig(n_planes=4, microchunks=16))
+    up = []
+    for i in range(spec["steps"]):
+        if i == spec["fail"][0]:
+            fc.fail_plane(spec["fail"][1])
+        if i == spec["heal"][0]:
+            fc.restore_plane(spec["heal"][1])
+        fc.on_step()
+        up.append(int(fc.plane_up.sum()))
+    return up, [dataclasses.astuple(r) for r in fc.records]
+
+
+def spx_train(report: dict, total: dict) -> None:
+    """TRAIN_RUN: the Trainer through 20 steps, the failover, the
+    checkpoint round trip and the rerun from it."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.planes import PlaneConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import (init_params, loss_fn, param_count,
+                                    standard_attention_layers, tree_leaves,
+                                    tree_map)
+    from repro_torch.parallel import local_ctx
+    from repro_torch.train import Trainer, TrainerConfig
+    spec = TRAIN_RUN
+    cfg = get_config(spec["arch"])
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # the checkpoint at step 10 is saved by hand (`Trainer.save`), so the
+    # one `Trainer.restore` finds is that one
+    tcfg = TrainerConfig(plane=PlaneConfig(n_planes=4, microchunks=16),
+                         warmup_steps=2, total_steps=spec["steps"],
+                         cast_params_bf16=True, ckpt_dir=str(ckpt),
+                         ckpt_every=10 * spec["steps"])
+    reset_peak()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        spec["seed"]), device="cuda")
+    n_attn = standard_attention_layers(cfg)
+    tr = Trainer(cfg, local_ctx(), tcfg, params)
+    per_step = {"flash_attention": n_attn, "flash_attention_bwd": n_attn}
+    hist, counts, held, saved, profiled = [], [], {}, None, None
+    build.reset_launches()
+    for i, batch in zip(range(spec["steps"]), train_batches(cfg, spec)):
+        if i == spec["fail"][0]:
+            tr.inject_plane_failure(spec["fail"][1])
+        if i == spec["heal"][0]:
+            tr.heal_plane(spec["heal"][1])
+        before = dict(build.LAUNCHES)
+        if i == spec["held_step"]:
+            with held_bwd(held):
+                m = tr.train_step(batch)
+        elif i == spec["profiled_step"]:
+            m, profiled = device_profile("a train step",
+                                         lambda: tr.train_step(batch))
+        else:
+            m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        step_counts = {k: build.LAUNCHES[k] - before[k] for k in before}
+        check_launches(f"train {cfg.name} step {i}", step_counts, per_step,
+                       total)
+        hist.append(m)
+        if tr.step == spec["ckpt_at"]:
+            tr.save()
+            saved = tree_map({"params": tr.params, "opt": tr.opt_state},
+                             lambda t: t.clone())
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    # the loss falls: the trained weights on step 0's batch (cast as the
+    # step casts them) against step 0's loss, so the spread between the
+    # synthetic batches (about 1e-2 at 8,192 tokens) does not decide it;
+    # step 0 ran at the schedule's lr scale 0, so that batch taught the
+    # weights nothing
+    with torch.no_grad():
+        cast = tree_map(tr.params, lambda p: p.to(torch.bfloat16)
+                        if p.dtype == torch.float32 and p.ndim > 1 else p)
+        final0 = float(loss_fn(cast, cfg, next(train_batches(cfg, spec)),
+                               local_ctx())[0])
+    del cast
+    if not all(np.isfinite(losses)) or not final0 < losses[0]:
+        fail(f"train {cfg.name}: losses {losses}, step 0's batch after "
+             f"the run {final0}")
+    if held.get("calls") != n_attn:
+        fail(f"train {cfg.name}: {held.get('calls')} backward calls held, "
+             f"expected {n_attn}")
+    up, records = expected_failover(spec)
+    if [h["planes_up"] for h in hist] != up or [
+            dataclasses.astuple(r) for r in tr.failover.records] != records:
+        fail(f"train {cfg.name}: planes up {[h['planes_up'] for h in hist]}"
+             f", records {tr.failover.records}; a CPU FailoverController "
+             f"gives {up}, {records}")
+    timed = [h["step_time_s"] for i, h in enumerate(hist)
+             if i not in (0, spec["held_step"], spec["profiled_step"])]
+    med = float(np.median(timed))
+    tokens = spec["batch"] * spec["seq"]
+
+    # the step-10 checkpoint: restored bit for bit, then steps 10-19 again
+    rest = Trainer.restore(cfg, local_ctx(), tcfg, params)
+    if rest.step != spec["ckpt_at"]:
+        fail(f"train {cfg.name}: restored at step {rest.step}")
+    got = {"params": rest.params, "opt": rest.opt_state}
+    bits = all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(
+        tree_leaves(got), tree_leaves(saved)))
+    if not bits:
+        fail(f"train {cfg.name}: the step-{rest.step} checkpoint does not "
+             "restore bit-equal")
+    del saved
+    if spec["fail"][0] < rest.step <= spec["heal"][0]:
+        rest.inject_plane_failure(spec["fail"][1])
+    again = []
+    for i, batch in zip(range(rest.step, spec["steps"]),
+                        train_batches(cfg, spec, start=rest.step)):
+        if i == spec["heal"][0]:
+            rest.heal_plane(spec["heal"][1])
+        again.append(rest.train_step(batch))
+    first = losses[spec["ckpt_at"]:]
+    rerun = [h["loss"] for h in again]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rerun, first))
+    if not rel <= spec["rerun_rtol"]:
+        fail(f"train {cfg.name}: rerun losses {rerun} against {first}")
+    if [h["planes_up"] for h in again] != up[spec["ckpt_at"]:]:
+        fail(f"train {cfg.name}: rerun planes up differ")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    busy = (profiled["busy_ms"] / profiled["wall_ms"]
+            if profiled["busy_ms"] else None)
+    out = dict(arch=cfg.name, params=param_count(params), steps=len(hist),
+               losses=losses, step0_batch_after=final0, rerun_losses=rerun, rerun_max_rel=rel,
+               rerun_bit_equal=rerun == first, median_step_s=med,
+               tokens_per_s=tokens / med, max_memory_allocated=peak,
+               launches_per_step=per_step, held=held,
+               records=[dataclasses.astuple(r)
+                        for r in tr.failover.records],
+               planes_up=[h["planes_up"] for h in hist],
+               step_times_s=[h["step_time_s"] for h in hist],
+               profile=profiled, device_busy_share=busy)
+    report["train"] = out
+    print(f"train {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+          f"vocab {cfg.vocab}; {out['params']:,} float32 parameters, bf16 "
+          f"cast): {len(hist)} steps of {spec['batch']} x {spec['seq']} "
+          f"tokens, loss {losses[0]:.4f} -> {losses[-1]:.4f} (step 0's "
+          f"batch after the run: {final0:.4f}); median step "
+          f"{med * 1e3:.3f} ms, {tokens / med:,.0f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB; {per_step} a step; device busy "
+          + ("not measured" if busy is None else f"{busy:.1%}")
+          + " of a profiled step", flush=True)
+    print(f"  failover: planes up {out['planes_up']}, records "
+          f"{out['records']} (a CPU FailoverController's); step "
+          f"{spec['held_step']}'s {held['calls']} backward calls within "
+          f"{held['err']:.3g} of the largest plain gradient (bound "
+          f"{BWD_TOL['bfloat16']}; max abs err over max |dO| x max |v|: "
+          f"{held['err_dov']:.3g})", flush=True)
+    print(f"  checkpoint at step {spec['ckpt_at']}: parameters and AdamW "
+          f"state restore bit-equal; steps {spec['ckpt_at']}-"
+          f"{spec['steps'] - 1} again: losses within {rel:.3g} relative "
+          f"(bound {spec['rerun_rtol']}), "
+          + ("bit-equal" if rerun == first else "not bit-equal")
+          + f"; step times (ms) "
+          f"{[round(t * 1e3, 3) for t in out['step_times_s']]}", flush=True)
+    del tr, rest, params, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llama_train(report: dict, total: dict) -> None:
+    """llama3-8b at full width, TRAIN_LLAMA_LAYERS layers, remat
+    "full": TRAIN_LLAMA's steps through the Trainer."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params, param_count
+    from repro_torch.parallel import local_ctx
+    from repro_torch.train import Trainer, TrainerConfig
+    spec = TRAIN_LLAMA
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=TRAIN_LLAMA_LAYERS)
+    if cfg.remat != "full":
+        fail(f"{cfg.name}: remat {cfg.remat!r}, expected 'full'")
+    reset_peak()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        spec["seed"]), device="cuda")
+    tr = Trainer(cfg, local_ctx(), TrainerConfig(
+        warmup_steps=1, total_steps=spec["steps"]), params)
+    build.reset_launches()
+    hist = [tr.train_step(b) for _, b in zip(range(spec["steps"]),
+                                             train_batches(cfg, spec))]
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    check_launches(f"train {cfg.name} x{n} layers", dict(build.LAUNCHES),
+                   {"flash_attention": 2 * n * spec["steps"],
+                    "flash_attention_bwd": n * spec["steps"]}, total)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        fail(f"train {cfg.name}: losses {losses}")
+    out = dict(arch=cfg.name, layers=n, params=param_count(params),
+               losses=losses, step_times_s=[h["step_time_s"] for h in hist],
+               max_memory_allocated=peak)
+    report["train_llama"] = out
+    print(f"train {cfg.name} at full width, {n} layers, remat full "
+          f"({out['params']:,} float32 parameters): {spec['steps']} steps of "
+          f"{spec['batch']} x {spec['seq']} tokens, losses "
+          f"{[round(x, 4) for x in losses]}, step times (ms) "
+          f"{[round(t * 1e3, 1) for t in out['step_times_s']]}, peak "
+          f"{peak / 2**30:.2f} GiB; flash_attention 2 and "
+          "flash_attention_bwd 1 a layer a step", flush=True)
+    del tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def f32_step(report: dict, total: dict) -> None:
+    """One spx-100m step through `make_train_step` on the kernels and on
+    the plain attention versions, from the same weights on the same
+    batch: with float32 activations (no weight cast) the loss within
+    1e-4 and the grad norm within 1e-3 relative; the bf16 step's
+    differences printed beside them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params, standard_attention_layers
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import local_ctx
+    from repro_torch.train import TrainerConfig, make_train_step
+    base = get_config(TRAIN_RUN["arch"])
+    params = init_params(base, torch.Generator(device="cuda").manual_seed(
+        33), device="cuda")
+    batch = next(train_batches(base, TRAIN_RUN))
+    out = {}
+    for dname, cast in (("float32", False), ("bfloat16", True)):
+        cfg = dataclasses.replace(base, dtype=dname)
+        step = make_train_step(cfg, local_ctx(), TrainerConfig(
+            warmup_steps=1, total_steps=2, cast_params_bf16=cast))
+        build.reset_launches()
+        _, _, mk = step(params, adamw_init(params), batch, 1)
+        torch.cuda.synchronize()
+        n = standard_attention_layers(cfg)
+        check_launches(f"train step {cfg.name} {dname}",
+                       dict(build.LAUNCHES), {"flash_attention": n,
+                                              "flash_attention_bwd": n},
+                       total)
+        with plain_on_card():
+            _, _, mp = step(params, adamw_init(params), batch, 1)
+        dl = abs(float(mk["loss"]) - float(mp["loss"])) / float(mp["loss"])
+        dg = abs(float(mk["grad_norm"]) - float(mp["grad_norm"])) / \
+            float(mp["grad_norm"])
+        out[dname] = dict(loss=float(mk["loss"]), plain_loss=float(
+            mp["loss"]), loss_rel=dl, grad_norm=float(mk["grad_norm"]),
+            plain_grad_norm=float(mp["grad_norm"]), grad_norm_rel=dg)
+    report["train_f32_step"] = out
+    f, b = out["float32"], out["bfloat16"]
+    print(f"train step {base.name}, kernels against the plain attention: "
+          f"float32 loss {f['loss']:.6f} vs {f['plain_loss']:.6f} "
+          f"({f['loss_rel']:.3g} relative, bound 1e-4), grad norm "
+          f"{f['grad_norm']:.6f} vs {f['plain_grad_norm']:.6f} "
+          f"({f['grad_norm_rel']:.3g}, bound 1e-3); bfloat16 (weight cast) "
+          f"loss {b['loss_rel']:.3g}, grad norm {b['grad_norm_rel']:.3g} "
+          "relative (measured, not held)", flush=True)
+    if not (f["loss_rel"] <= 1e-4 and f["grad_norm_rel"] <= 1e-3):
+        fail(f"train step {base.name} float32: kernels against plain "
+             f"{f}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(report: dict, total: dict, summary: dict) -> None:
+    """The training path: TRAIN_RUN, TRAIN_LLAMA, the float32 step and
+    the backward kernel's cells."""
+    import torch
+    # the plain versions' float32 einsums and the float32 step run in
+    # full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spx_train(report, total)
+    llama_train(report, total)
+    f32_step(report, total)
+    bwd_cases(report, summary)
+    torch.cuda.empty_cache()
+
+
 # the profile phase's loops: (scenario, routing, dtypes)
 PROFILE_RUNS = (("giga_fabric_storage", "ar", ("float64", "float32")),
                 ("giga_fabric_storage", "ecmp", ("float64", "float32")),
@@ -3974,6 +4483,7 @@ def main(argv=None) -> int:
     graph.clear_graph_cache()
     model_phase(report, total, summary)
     serve_phase(report, total)
+    train_phase(report, total, summary)
     profile_phase(report)
     idle = [k for k in build.KERNELS if not total.get(k)]
     if idle:

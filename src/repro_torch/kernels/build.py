@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 The sources in `csrc/` (`netsim_kernels.cu`, the simulator's kernels, and
-`model_kernels.cu`, attention and the int8 codec) have a plain C
+`model_kernels.cu`, attention, its backward and the int8 codec) have a plain C
 interface, so they compile with `nvcc` alone (no PyTorch headers), one
 `nvcc` per source started together, and link into one shared library
 that `ctypes` loads.  The build happens at first use, into
@@ -70,8 +70,11 @@ _ENTRIES = {
                   (_P, _P, _P, _P, _P, _I64, _I, _D, _D, _D, _P)),
     "plb_select": ("netsim", (torch.float32,),
                    (_P, _P, _P, _P, _P, _P, _I64, _I, _P)),
+    # q, k, v, out, lse (null: not written); B, Hq, Hkv, Sq, Sk, D; the
+    # batch, head and sequence strides of q (and out) and of k (and v);
+    # causal, window, the scale
     "flash_attention": ("model", _F32_BF16,
-                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64,
+                        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64,
                          _I64, _I64, _I64, _I64, _I64, _I, _I, _D, _P)),
     # q, k, v, lengths, the partials, out; B * H, H, Hkv, S, D, the
     # chunks; the batch and head strides of q, the batch, head and
@@ -94,6 +97,13 @@ _ENTRIES = {
     "segment_sum": ("netsim", _F32_F64,
                     (_PP, _PP, _PP, _PP, _PP, _PP, _PI64,
                      ctypes.POINTER(_I), _I, _I, _D, _P)),
+    # q, k, v, out, dout, lse, delta (scratch, B * Hq * Sq floats), dq,
+    # dk, dv; then as flash_attention (dq, out and dout strided as q, dk
+    # and dv as k): one call launches the delta, dK/dV and dQ passes
+    "flash_attention_bwd": ("model", _F32_BF16,
+                            (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I64, _I64, _I64, _I64, _I64,
+                             _I64, _I, _I, _D, _P)),
 }
 KERNELS = tuple(_ENTRIES)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

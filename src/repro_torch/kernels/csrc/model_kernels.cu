@@ -2,12 +2,20 @@
 //
 // Four kernels, each the CUDA twin of one Pallas kernel of the JAX
 // package (in `repro/kernels/`) and of one plain PyTorch function in
-// `kernels/ref.py`:
+// `kernels/ref.py`, and the backward of the first:
 //
-//   flash_attention  <- flash_attention.py  _flash_kernel
-//   decode_attention <- decode_attention.py _decode_kernel
-//   int8_encode      <- int8_codec.py       _encode_kernel
-//   int8_decode      <- int8_codec.py       _decode_kernel
+//   flash_attention     <- flash_attention.py  _flash_kernel
+//   decode_attention    <- decode_attention.py _decode_kernel
+//   int8_encode         <- int8_codec.py       _encode_kernel
+//   int8_decode         <- int8_codec.py       _decode_kernel
+//   flash_attention_bwd    replaces no TPU kernel: the gradient of the
+//                          first, which the reference takes by autodiff
+//                          of its pure-JAX chunked_attention (its own
+//                          section below)
+//
+// Both flash_attention kernels write each row's log-sum-exp beside the
+// output when the caller passes a buffer for it (the backward reads it);
+// with a null pointer they run as they did before.
 //
 // flash_attention is bound by operations (4 D flops per unmasked
 // query-key pair), which only the tensor cores deliver: 989 TFLOP/s in
@@ -203,7 +211,18 @@ struct FlashArgs {
   int Hq, group, Sq, Sk;   // group = Hq / Hkv
   int causal, window;
   float scale;
+  float* lse;              // (B, Hq, Sq) log-sum-exp of each row, or null
 };
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The natural log-sum-exp of a row's scaled scores from the online
+// softmax's running max m and sum l, both in log2 units (l = sum of
+// 2^(x - m)); a row that saw no key (m still NEG_INF) gets NEG_INF,
+// its masked scores' value.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m <= kNegInf ? kNegInf : m * kLn2 + logf(l);
+}
 
 // 16 bytes from global to shared memory by cp.async; zeros when !valid
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -483,6 +502,8 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = row_lo + 8 * r;
     if (row >= a.Sq) continue;
+    if (a.lse != nullptr && t == 0)
+      a.lse[(static_cast<int64_t>(bh) * a.Sq) + row] = row_lse(m[r], l[r]);
 #pragma unroll
     for (int c = 0; c < DT; ++c)
       *reinterpret_cast<float2*>(op + row * a.q_s + 8 * c + 2 * t) =
@@ -934,6 +955,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l[r] = fmaxf(l[r], 1e-30f);
     }
     __nv_bfloat16* op = o + b * a.q_b + h * a.q_h;
+    if (a.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + 8 * r;
+        if (row < a.Sq)
+          a.lse[static_cast<int64_t>(bh) * a.Sq + row] = row_lse(m[r], l[r]);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < D / 2; j += 2) {
       const int r = (j / 2) % 2, row = row_lo + 8 * r;
@@ -1027,6 +1056,389 @@ int dispatch_flash(const void* q, const void* k, const void* v, void* o,
     case 192: return launch_flash<T, 192>(q, k, v, o, B, a, stream);
     case 256: return launch_flash<T, 256>(q, k, v, o, B, a, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- flash_attention_bwd -----------------------------------------------
+// The gradient of flash_attention (dQ, dK, dV from q, k, v, the output
+// o, its gradient dO and the forward's log-sum-exp), FlashAttention-2's
+// split on the CUDA cores in float32.  Three kernels under one entry:
+//   delta  one warp a query row: delta = rowsum(dO * o);
+//   dk_dv  one block a (batch, kv head, key tile): the K and V tile stay
+//          in shared memory while the block walks every query head of
+//          its GQA group and every query tile the masks let see its keys
+//          (and, under a window, the rows that see no key at all, which
+//          average v uniformly and so reach dV); per query tile it
+//          recomputes S = Q K^T and P = exp(S scale - lse), takes
+//          dP = dO V^T and dS = P (dP - delta) (zero where the masks
+//          cut), and accumulates dV += P^T dO and dK += dS^T Q in
+//          registers;
+//   dq     one block a (batch, query head, query tile): Q, dO, lse and
+//          delta stay in shared memory while it walks the key tiles its
+//          rows see and accumulates dQ += dS K.
+// Operations bound it (10 D flops a kept pair for the five products; the
+// split recomputes S and dP, 14 D in all).  A simple kernel first: every
+// product runs on the CUDA cores as a 16 x 16 grid of threads, each with
+// a few rows and columns of the tile a stride of 16 apart (conflict-free
+// shared-memory reads: rows are D + 1 floats apart), fmaf throughout.
+// The tensor cores (mma.sync or wgmma) are a later redesign.  No atomics:
+// every sum has one owner and one order, so a gradient is bitwise
+// repeatable.  dK and dQ are multiplied by the scale once, at the end.
+constexpr int kBwdThreads = 256;            // a 16 x 16 grid of threads
+constexpr int kBwdGrid = 16;
+__host__ __device__ constexpr int bwd_tile(int D) { return D <= 128 ? 64 : 32; }
+
+template <int D>
+constexpr int bwd_smem_dkdv() {             // K, V, Q, dO, P, dS, lse, delta
+  constexpr int T = bwd_tile(D);
+  return (4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) * 4;
+}
+template <int D>
+constexpr int bwd_smem_dq() {               // Q, dO, K, V, dS, lse, delta
+  constexpr int T = bwd_tile(D);
+  return (4 * T * (D + 1) + T * (T + 1) + 2 * T) * 4;
+}
+
+// rows [0, R) x D of src (row stride `stride`, the first n_rows valid,
+// the rest zero) into shared memory as floats, rows D + 1 apart
+template <typename T, int R, int D>
+__device__ __forceinline__ void bwd_load(float* dst,
+                                         const T* __restrict__ src,
+                                         int64_t stride, int n_rows) {
+  for (int idx = threadIdx.x; idx < R * D; idx += kBwdThreads) {
+    const int r = idx / D, c = idx % D;
+    dst[r * (D + 1) + c] =
+        r < n_rows ? to_float(src[static_cast<int64_t>(r) * stride + c])
+                   : 0.f;
+  }
+}
+
+// c[r][s] = sum_d a[m][d] b[n][d] for the thread's rows m = tm + 16 r of
+// a and n = tn + 16 s of b (both rows D + 1 floats apart)
+template <int RM, int RN, int D>
+__device__ __forceinline__ void bwd_dot(float (&c)[RM][RN],
+                                        const float* a, const float* b,
+                                        int tm, int tn) {
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int s = 0; s < RN; ++s) c[r][s] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float av[RM], bv[RN];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) av[r] = a[(tm + kBwdGrid * r) * (D + 1) + d];
+#pragma unroll
+    for (int s = 0; s < RN; ++s) bv[s] = b[(tn + kBwdGrid * s) * (D + 1) + d];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int s = 0; s < RN; ++s) c[r][s] = fmaf(av[r], bv[s], c[r][s]);
+  }
+}
+
+// acc[r][c] += sum_k x(m, k) y[k][n] over k < K for the thread's
+// m = tm + 16 r and n = tn + 16 c; x(m, k) = x[k * ldx + m] when XT (x
+// stored k-major, as P and dS are for dV and dK), else x[m * ldx + k]
+template <int RM, int RN, int K, bool XT>
+__device__ __forceinline__ void bwd_acc(float (&acc)[RM][RN],
+                                        const float* x, int ldx,
+                                        const float* y, int ldy, int tm,
+                                        int tn) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float xv[RM], yv[RN];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int m = tm + kBwdGrid * r;
+      xv[r] = XT ? x[k * ldx + m] : x[m * ldx + k];
+    }
+#pragma unroll
+    for (int c = 0; c < RN; ++c) yv[c] = y[k * ldy + tn + kBwdGrid * c];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < RN; ++c) acc[r][c] = fmaf(xv[r], yv[c], acc[r][c]);
+  }
+}
+
+// whether query row i keeps key j (the forward's masks; both in range)
+__device__ __forceinline__ bool bwd_keep(const FlashArgs& a, int i, int j) {
+  return i < a.Sq && j < a.Sk && !(a.causal && i < j) &&
+         !(a.window > 0 && i - j >= a.window);
+}
+
+// a query row that sees no key (only under a window: rows past
+// Sk + window - 2) averages v uniformly in the forward
+__device__ __forceinline__ bool bwd_empty(const FlashArgs& a, int i) {
+  return a.window > 0 && i >= a.Sk + a.window - 1;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, const FlashArgs a,
+                       int64_t rows) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) +
+                      threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const int i = static_cast<int>(row % a.Sq);
+  const int64_t bh = row / a.Sq;
+  const int h = static_cast<int>(bh % a.Hq), b = static_cast<int>(bh / a.Hq);
+  const int64_t off = b * a.q_b + h * a.q_h + i * a.q_s;
+  float s = 0.f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32)
+    s = fmaf(to_float(dout[off + d]), to_float(o[off + d]), s);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+  if (lane == 0) delta[row] = s;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, const FlashArgs a) {
+  constexpr int BT = bwd_tile(D), LD = D + 1, LP = BT + 1;
+  constexpr int RT = BT / kBwdGrid, RD = D / kBwdGrid;
+  extern __shared__ float bwd_smem[];
+  float* ks = bwd_smem;                     // [BT][LD] each
+  float* vs = ks + BT * LD;
+  float* qs = vs + BT * LD;
+  float* ds_o = qs + BT * LD;               // dO
+  float* ps = ds_o + BT * LD;               // [BT][LP] each, query-major
+  float* dss = ps + BT * LP;
+  float* lse_s = dss + BT * LP;             // [BT] each
+  float* delta_s = lse_s + BT;
+
+  const int kt = blockIdx.x;                // heavy causal tiles first
+  const int bhk = blockIdx.y;
+  const int Hkv = a.Hq / a.group;
+  const int b = bhk / Hkv, hk = bhk % Hkv;
+  const int k0 = kt * BT, k_rows = min(BT, a.Sk - k0);
+  const int tm = threadIdx.x / kBwdGrid, tn = threadIdx.x % kBwdGrid;
+  bwd_load<T, BT, D>(ks, k + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
+                     k_rows);
+  bwd_load<T, BT, D>(vs, v + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
+                     k_rows);
+
+  // query rows that may keep a key of this tile, and the rows that keep
+  // none at all (they reach dV through their uniform average)
+  const int q_lo = a.causal ? k0 : 0;
+  const int q_hi = a.window > 0 ? min(a.Sq, k0 + BT - 1 + a.window) : a.Sq;
+  const int e_lo = a.window > 0 ? a.Sk + a.window - 1 : a.Sq;
+  const float inv_sk = 1.f / static_cast<float>(a.Sk);
+
+  float dk_acc[RT][RD], dv_acc[RT][RD];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int c = 0; c < RD; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+
+  const int n_qt = (a.Sq + BT - 1) / BT;
+  for (int g = 0; g < a.group; ++g) {
+    const int h = hk * a.group + g;
+    const int64_t row0 = (static_cast<int64_t>(b) * a.Hq + h) * a.Sq;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q0 = qt * BT, q_end = min(a.Sq, q0 + BT);
+      if (!(q0 < q_hi && q_end > q_lo) && !(q_end > e_lo)) continue;
+      const int q_rows = q_end - q0;
+      __syncthreads();                      // the last tile's reads done
+      bwd_load<T, BT, D>(qs, q + b * a.q_b + h * a.q_h + q0 * a.q_s, a.q_s,
+                         q_rows);
+      bwd_load<T, BT, D>(ds_o, dout + b * a.q_b + h * a.q_h + q0 * a.q_s,
+                         a.q_s, q_rows);
+      for (int r = threadIdx.x; r < BT; r += kBwdThreads) {
+        lse_s[r] = r < q_rows ? a.lse[row0 + q0 + r] : 0.f;
+        delta_s[r] = r < q_rows ? delta[row0 + q0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      float sc[RT][RT], dp[RT][RT];
+      bwd_dot<RT, RT, D>(sc, qs, ks, tm, tn);
+      bwd_dot<RT, RT, D>(dp, ds_o, vs, tm, tn);
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int s2 = 0; s2 < RT; ++s2) {
+          const int li = tm + kBwdGrid * r, lj = tn + kBwdGrid * s2;
+          const int i = q0 + li, j = k0 + lj;
+          const bool keep = bwd_keep(a, i, j);
+          float p = 0.f, ds = 0.f;
+          if (keep) {
+            p = expf(fmaf(sc[r][s2], a.scale, -lse_s[li]));
+            ds = p * (dp[r][s2] - delta_s[li]);
+          } else if (i < a.Sq && j < a.Sk && bwd_empty(a, i)) {
+            p = inv_sk;
+          }
+          ps[li * LP + lj] = p;
+          dss[li * LP + lj] = ds;
+        }
+      __syncthreads();
+      bwd_acc<RT, RD, BT, true>(dv_acc, ps, LP, ds_o, LD, tm, tn);
+      bwd_acc<RT, RD, BT, true>(dk_acc, dss, LP, qs, LD, tm, tn);
+    }
+  }
+
+  T* dkp = dk + b * a.k_b + hk * a.k_h;
+  T* dvp = dv + b * a.k_b + hk * a.k_h;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int j = k0 + tm + kBwdGrid * r;
+    if (j >= a.Sk) continue;
+#pragma unroll
+    for (int c = 0; c < RD; ++c) {
+      const int d = tn + kBwdGrid * c;
+      dkp[j * a.k_s + d] = from_float<T>(dk_acc[r][c] * a.scale);
+      dvp[j * a.k_s + d] = from_float<T>(dv_acc[r][c]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const FlashArgs a) {
+  constexpr int BT = bwd_tile(D), LD = D + 1, LP = BT + 1;
+  constexpr int RT = BT / kBwdGrid, RD = D / kBwdGrid;
+  extern __shared__ float bwd_smem[];
+  float* qs = bwd_smem;                     // [BT][LD] each
+  float* ds_o = qs + BT * LD;               // dO
+  float* ks = ds_o + BT * LD;
+  float* vs = ks + BT * LD;
+  float* dss = vs + BT * LD;                // [BT][LP]
+  float* lse_s = dss + BT * LP;             // [BT] each
+  float* delta_s = lse_s + BT;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.group;
+  const int q0 = qt * BT, q_rows = min(BT, a.Sq - q0);
+  const int64_t row0 = static_cast<int64_t>(bh) * a.Sq + q0;
+  const int tm = threadIdx.x / kBwdGrid, tn = threadIdx.x % kBwdGrid;
+  bwd_load<T, BT, D>(qs, q + b * a.q_b + h * a.q_h + q0 * a.q_s, a.q_s,
+                     q_rows);
+  bwd_load<T, BT, D>(ds_o, dout + b * a.q_b + h * a.q_h + q0 * a.q_s, a.q_s,
+                     q_rows);
+  for (int r = threadIdx.x; r < BT; r += kBwdThreads) {
+    lse_s[r] = r < q_rows ? a.lse[row0 + r] : 0.f;
+    delta_s[r] = r < q_rows ? delta[row0 + r] : 0.f;
+  }
+
+  // keys any row of the tile keeps (rows that keep none get no dQ)
+  const int q_last = q0 + q_rows - 1;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int k_hi = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
+  float acc[RT][RD];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int c = 0; c < RD; ++c) acc[r][c] = 0.f;
+
+  for (int kt = k_lo / BT; kt * BT < k_hi; ++kt) {
+    const int k0 = kt * BT, k_rows = min(BT, a.Sk - k0);
+    __syncthreads();                        // the last tile's reads done
+    bwd_load<T, BT, D>(ks, k + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
+                       k_rows);
+    bwd_load<T, BT, D>(vs, v + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
+                       k_rows);
+    __syncthreads();
+    float sc[RT][RT], dp[RT][RT];
+    bwd_dot<RT, RT, D>(sc, qs, ks, tm, tn);
+    bwd_dot<RT, RT, D>(dp, ds_o, vs, tm, tn);
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int s2 = 0; s2 < RT; ++s2) {
+        const int li = tm + kBwdGrid * r, lj = tn + kBwdGrid * s2;
+        float ds = 0.f;
+        if (bwd_keep(a, q0 + li, k0 + lj)) {
+          const float p = expf(fmaf(sc[r][s2], a.scale, -lse_s[li]));
+          ds = p * (dp[r][s2] - delta_s[li]);
+        }
+        dss[li * LP + lj] = ds;
+      }
+    __syncthreads();
+    bwd_acc<RT, RD, BT, false>(acc, dss, LP, ks, LD, tm, tn);
+  }
+
+  T* dqp = dq + b * a.q_b + h * a.q_h;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int i = q0 + tm + kBwdGrid * r;
+    if (i >= a.Sq) continue;
+#pragma unroll
+    for (int c = 0; c < RD; ++c)
+      dqp[i * a.q_s + tn + kBwdGrid * c] = from_float<T>(acc[r][c] * a.scale);
+  }
+}
+
+template <typename T, int D>
+int launch_flash_bwd(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, void* delta, void* dq,
+                     void* dk, void* dv, int B, const FlashArgs& a,
+                     void* stream) {
+  constexpr int BT = bwd_tile(D);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  float* fdelta = static_cast<float*>(delta);
+  const int64_t rows = static_cast<int64_t>(B) * a.Hq * a.Sq;
+  constexpr int kRowsABlock = kBwdThreads / 32;
+  flash_bwd_delta_kernel<T, D><<<(rows + kRowsABlock - 1) / kRowsABlock,
+                                 kBwdThreads, 0, st>>>(
+      static_cast<const T*>(o), tdo, fdelta, a, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dkdv = flash_bwd_dkdv_kernel<T, D>;
+  constexpr int kSmemKV = bwd_smem_dkdv<D>();
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemKV);
+  if (err != cudaSuccess) return err;
+  const int Hkv = a.Hq / a.group;
+  dkdv<<<dim3((a.Sk + BT - 1) / BT, B * Hkv), kBwdThreads, kSmemKV, st>>>(
+      tq, tk, tv, tdo, fdelta, static_cast<T*>(dk), static_cast<T*>(dv), a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dqk = flash_bwd_dq_kernel<T, D>;
+  constexpr int kSmemQ = bwd_smem_dq<D>();
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemQ);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((a.Sq + BT - 1) / BT, B * a.Hq), kBwdThreads, kSmemQ, st>>>(
+      tq, tk, tv, tdo, fdelta, static_cast<T*>(dq), a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_flash_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, void* delta,
+                       void* dq, void* dk, void* dv, int B, int D,
+                       const FlashArgs& a, void* stream) {
+  switch (D) {
+    case 64:
+      return launch_flash_bwd<T, 64>(q, k, v, o, dout, delta, dq, dk, dv, B,
+                                     a, stream);
+    case 128:
+      return launch_flash_bwd<T, 128>(q, k, v, o, dout, delta, dq, dk, dv,
+                                      B, a, stream);
+    case 192:
+      return launch_flash_bwd<T, 192>(q, k, v, o, dout, delta, dq, dk, dv,
+                                      B, a, stream);
+    case 256:
+      return launch_flash_bwd<T, 256>(q, k, v, o, dout, delta, dq, dk, dv,
+                                      B, a, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -1668,13 +2080,27 @@ int launch_int8_decode(const void* q, const void* scale, void* out,
 
 #define MODEL_EXPORT(SUFFIX, T)                                             \
   extern "C" int model_flash_attention_##SUFFIX(                            \
-      const void* q, const void* k, const void* v, void* o, int B, int Hq,  \
-      int Hkv, int Sq, int Sk, int D, int64_t q_b, int64_t q_h,             \
-      int64_t q_s, int64_t k_b, int64_t k_h, int64_t k_s, int causal,       \
-      int window, double scale, void* stream) {                             \
+      const void* q, const void* k, const void* v, void* o, void* lse,      \
+      int B, int Hq, int Hkv, int Sq, int Sk, int D, int64_t q_b,           \
+      int64_t q_h, int64_t q_s, int64_t k_b, int64_t k_h, int64_t k_s,      \
+      int causal, int window, double scale, void* stream) {                 \
     const FlashArgs a{q_b, q_h, q_s, k_b, k_h, k_s, Hq, Hq / Hkv, Sq, Sk,   \
-                      causal, window, static_cast<float>(scale)};           \
+                      causal, window, static_cast<float>(scale),            \
+                      static_cast<float*>(lse)};                            \
     return dispatch_flash<T>(q, k, v, o, B, D, a, stream);                  \
+  }                                                                         \
+  extern "C" int model_flash_attention_bwd_##SUFFIX(                        \
+      const void* q, const void* k, const void* v, const void* o,           \
+      const void* dout, const void* lse, void* delta, void* dq, void* dk,   \
+      void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int D, int64_t q_b, \
+      int64_t q_h, int64_t q_s, int64_t k_b, int64_t k_h, int64_t k_s,      \
+      int causal, int window, double scale, void* stream) {                 \
+    if (Hkv < 1) return cudaErrorInvalidValue;                              \
+    const FlashArgs a{q_b, q_h, q_s, k_b, k_h, k_s, Hq, Hq / Hkv, Sq, Sk,   \
+                      causal, window, static_cast<float>(scale),            \
+                      const_cast<float*>(static_cast<const float*>(lse))};  \
+    return dispatch_flash_bwd<T>(q, k, v, o, dout, delta, dq, dk, dv, B, D, \
+                                 a, stream);                                \
   }                                                                         \
   extern "C" int model_decode_attention_##SUFFIX(                           \
       const void* q, const void* k, const void* v, const void* lengths,     \

@@ -18,6 +18,11 @@ below `lengths[b]` (each block reads the length itself, there is no
 scalar prefetch) and writes a partial max, sum and weighted v into
 float32 buffers that the wrapper allocates; a second pass in the same
 entry point combines the chunks.  Bytes bound it.
+
+Neither package has a decode backward (the reference's decode is
+inference only), so on CUDA an input that requires grad, with grad
+enabled, raises `RuntimeError` rather than return an output without
+its graph.
 """
 from __future__ import annotations
 
@@ -91,6 +96,11 @@ def _vector_strides(name: str, t: torch.Tensor) -> None:
 def _launch(q, k, v, lengths, dev, dt, H, Hkv, S, q_st, k_st, v_st):
     """Check what both layouts share and launch: q_st = (batch, head)
     strides of q, k_st / v_st = (batch, head, sequence) strides."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("decode_attention: an input requires grad, and "
+                           "the decode kernel has no backward (decoding "
+                           "is inference only); run it under "
+                           "torch.no_grad() or torch.inference_mode()")
     B, D = q.shape[0], q.shape[-1]
     build.check("lengths", lengths, device=dev, dtype=torch.int32,
                 shape=(B,))

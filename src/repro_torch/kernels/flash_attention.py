@@ -27,6 +27,25 @@
     that layout through its strides and kv head h // (Hq / Hkv), so
     nothing is copied.
 
+Both entries are differentiable.  With grad enabled and an input that
+requires grad, a CUDA call goes through `_FlashAttention`, a
+`torch.autograd.Function`: its forward launches the kernel with the
+log-sum-exp of each row (`lse`, (B, Hq, Sq) float32; `flash_attention_fwd`)
+and its backward launches `model_flash_attention_bwd`
+(`flash_attention_bwd`), the gradient that the reference takes by
+autodiff of its pure-JAX `chunked_attention` (none of its Pallas
+kernels has a backward).  Otherwise the call launches the forward
+without the log-sum-exp, as before.  The backward replaces no TPU
+kernel.  It is FlashAttention-2's split, three kernels under one entry
+point, on the CUDA cores in float32 (a simple kernel first: at 10 D
+flops a kept pair operations bound it, and the tensor cores are work for
+a later redesign): a pass that takes delta = rowsum(dO * O) a row; a
+block a (batch, kv head, 64-key tile) that walks every query head of its
+GQA group and every query tile the masks let see its keys, recomputes
+P from the log-sum-exp and accumulates dK and dV in registers; a block a
+(batch, query head, 64-row tile) that walks its key tiles and
+accumulates dQ.  No atomics: a step's gradients are bitwise repeatable.
+
 TMA reads a bf16 tensor through a descriptor whose strides must be
 multiples of 16 bytes and whose base is 16-byte aligned; the wrapper
 raises on any other layout rather than copy or fall back.
@@ -38,6 +57,8 @@ import torch
 from . import build, ref
 
 HEAD_DIMS = (64, 128, 192, 256)
+# the (head, sequence) axes of q, k and v in each layout
+_AXES = {"bhsd": (1, 2), "bshd": (2, 1)}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,8 +68,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window)
-    B, H, _, D = q.shape
-    return _launch(q, k, v, (B, H, k.shape[2], D), 1, 2, causal, window)
+    return _attend(q, k, v, "bhsd", causal, window)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor,
@@ -59,43 +79,150 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_attention_bshd_ref(q, k, v, causal=causal,
                                             window=window)
-    B, _, _, D = q.shape
-    return _launch(q, k, v, (B, k.shape[1], k.shape[2], D), 2, 1, causal,
-                   window)
+    return _attend(q, k, v, "bshd", causal, window)
 
 
-def _launch(q, k, v, kv_shape, h_ax, s_ax, causal, window):
-    """Check the operands (k and v must have `kv_shape`) and launch the
-    kernel; `h_ax`/`s_ax` are the head and sequence axes of the layout."""
-    dev = build.cuda_device("flash_attention", q)
-    dt = build.float_dtype("flash_attention", q)
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        layout: str = "bshd"):
+    """The forward with the log-sum-exp: (out, lse (B, Hq, Sq) float32),
+    what the backward needs.  CPU tensors take the plain versions."""
+    if q.device.type == "cpu":
+        q4, k4, v4 = _to_bshd(layout, q, k, v)
+        out = ref.flash_attention_bshd_ref(q4, k4, v4, causal=causal,
+                                           window=window)
+        lse = ref.flash_attention_lse_ref(q4, k4, v4, causal=causal,
+                                          window=window)
+        return _from_bshd(layout, out)[0], lse
+    return _launch(q, k, v, layout, causal, window, with_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, layout: str = "bshd"):
+    """(dq, dk, dv) of the attention whose forward gave `out` and `lse`
+    (`flash_attention_fwd`) for the output gradient `dout`, each in its
+    input's dtype and layout.  CPU tensors take
+    `ref.flash_attention_bwd_ref`; CUDA tensors launch
+    `model_flash_attention_bwd`."""
+    if q.device.type == "cpu":
+        grads = ref.flash_attention_bwd_ref(
+            *_to_bshd(layout, q, k, v, out, dout), lse, causal=causal,
+            window=window)
+        return _from_bshd(layout, *grads)
+    return _launch_bwd(q, k, v, out, dout, lse, layout, causal, window)
+
+
+def _to_bshd(layout, *ts):
+    return ts if layout == "bshd" else tuple(t.transpose(1, 2) for t in ts)
+
+
+def _from_bshd(layout, *ts):
+    return ts if layout == "bshd" else tuple(
+        t.transpose(1, 2).contiguous() for t in ts)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward (with the log-sum-exp) and the kernel
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, causal, window):
+        out, lse = _launch(q, k, v, layout, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.meta = (layout, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        layout, causal, window = ctx.meta
+        dq, dk, dv = _launch_bwd(q, k, v, out, dout.contiguous(), lse,
+                                 layout, causal, window)
+        return dq, dk, dv, None, None, None
+
+
+def _attend(q, k, v, layout, causal, window):
+    """The CUDA route: through `_FlashAttention` when autograd needs the
+    gradient, else the forward launch alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, layout, causal, window)
+    return _launch(q, k, v, layout, causal, window)
+
+
+def _check(q, k, v, layout, kernel="flash_attention"):
+    """Check the operands and return (device, dtype, B, Hq, Hkv, Sq, Sk,
+    D, h_ax, s_ax)."""
+    h_ax, s_ax = _AXES[layout]
+    dev = build.cuda_device(kernel, q)
+    dt = build.float_dtype(kernel, q)
+    B, D = q.shape[0], q.shape[3]
+    kv_shape = list(q.shape)
+    kv_shape[h_ax], kv_shape[s_ax] = k.shape[h_ax], k.shape[s_ax]
     build.check("q", q, device=dev, dtype=dt, shape=q.shape)
     build.check("k", k, device=dev, dtype=dt, shape=kv_shape)
     build.check("v", v, device=dev, dtype=dt, shape=kv_shape)
-    B, D = q.shape[0], q.shape[3]
     Hq, Sq = q.shape[h_ax], q.shape[s_ax]
     Hkv, Sk = kv_shape[h_ax], kv_shape[s_ax]
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {D}; the kernel takes "
+        raise ValueError(f"{kernel}: head_dim {D}; the kernel takes "
                          f"{HEAD_DIMS}")
     if Hkv < 1 or Hq % Hkv:
-        raise ValueError(f"flash_attention: {Hkv} kv heads do not divide "
+        raise ValueError(f"{kernel}: {Hkv} kv heads do not divide "
                          f"{Hq} query heads")
     if min(B, Sq, Sk) < 1 or B * Hq > build.MAX_GRID_Y:
-        raise ValueError(f"flash_attention: B={B}, Hq={Hq}, Sq={Sq}, "
+        raise ValueError(f"{kernel}: B={B}, Hq={Hq}, Sq={Sq}, "
                          f"Sk={Sk}; the kernel takes 1 <= B*Hq <= "
                          f"{build.MAX_GRID_Y} and non-empty sequences")
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.aligned(name, t)
-        if dt == torch.bfloat16:
+    return dev, dt, B, Hq, Hkv, Sq, Sk, D, h_ax, s_ax
+
+
+def _strides(q, k, h_ax, s_ax):
+    qs, ks = q.stride(), k.stride()
+    return (qs[0], qs[h_ax], qs[s_ax], ks[0], ks[h_ax], ks[s_ax])
+
+
+def _launch(q, k, v, layout, causal, window, with_lse=False):
+    """Check the operands and launch the forward; with `with_lse` the
+    kernel also writes each row's log-sum-exp, returned beside the
+    output."""
+    dev, dt, B, Hq, Hkv, Sq, Sk, D, h_ax, s_ax = _check(q, k, v, layout)
+    if dt == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
             _tma_strides(name, t)
     out = torch.empty_like(q)
-    qs, ks = q.stride(), k.stride()
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     build.launch("flash_attention", dt, dev, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
-                 qs[0], qs[h_ax], qs[s_ax], ks[0], ks[h_ax], ks[s_ax],
-                 int(bool(causal)), int(window), 1.0 / D ** 0.5)
-    return out
+                 v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if with_lse else None, B, Hq, Hkv, Sq, Sk,
+                 D, *_strides(q, k, h_ax, s_ax), int(bool(causal)),
+                 int(window), 1.0 / D ** 0.5)
+    return (out, lse) if with_lse else out
+
+
+def _launch_bwd(q, k, v, out, dout, lse, layout, causal, window):
+    """Check the operands and launch the backward: (dq, dk, dv), laid
+    out as q, k and v.  `out` and `dout` must be laid out as q."""
+    dev, dt, B, Hq, Hkv, Sq, Sk, D, h_ax, s_ax = _check(
+        q, k, v, layout, "flash_attention_bwd")
+    for name, t in (("out", out), ("dout", dout)):
+        build.check(name, t, device=dev, dtype=dt, shape=q.shape)
+        build.aligned(name, t)
+    build.check("lse", lse, device=dev, dtype=torch.float32,
+                shape=(B, Hq, Sq))
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    build.launch("flash_attention_bwd", dt, dev, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv,
+                 Sq, Sk, D, *_strides(q, k, h_ax, s_ax), int(bool(causal)),
+                 int(window), 1.0 / D ** 0.5)
+    return dq, dk, dv
 
 
 def _tma_strides(name: str, t: torch.Tensor) -> None:

@@ -7,12 +7,17 @@ raise.  PyTorch runs eagerly, so there is nothing to jit; block-size
 arguments of the Pallas entry points have no counterpart.
 `flash_attention_bshd` and `decode_attention_bshd` take the model layout
 and GQA by reading kv head h // (Hq / Hkv) in the kernel instead of
-repeating the kv heads.
+repeating the kv heads.  Both flash entries are differentiable: under
+grad on CUDA they run the forward kernel with its log-sum-exp and the
+backward kernel (`flash_attention_fwd`, `flash_attention_bwd`).  The
+decode entries are inference only and raise on CUDA when an input
+requires grad.
 """
 from __future__ import annotations
 
 from .decode_attention import decode_attention, decode_attention_bshd
-from .flash_attention import flash_attention, flash_attention_bshd
+from .flash_attention import (flash_attention, flash_attention_bshd,
+                              flash_attention_bwd, flash_attention_fwd)
 from .int8_codec import int8_decode, int8_encode
 from .jsq_route import jsq_route, pair_fractions
 from .link_load import (bottleneck, bottleneck_many, bucket_load_bottleneck,
@@ -22,7 +27,8 @@ from .queue_ecn import nic_update, queue_update, queue_update_many
 
 __all__ = ["bottleneck", "bottleneck_many", "bucket_load_bottleneck",
            "decode_attention", "decode_attention_bshd", "flash_attention",
-           "flash_attention_bshd", "int8_decode", "int8_encode",
+           "flash_attention_bshd", "flash_attention_bwd",
+           "flash_attention_fwd", "int8_decode", "int8_encode",
            "jsq_route", "nic_update", "pair_fractions", "plane_split",
            "plb_select", "queue_update", "queue_update_many",
            "segment_sum", "segment_sum_many"]

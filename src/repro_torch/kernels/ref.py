@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the port's thirteen kernels: the slot
+"""Plain PyTorch versions of the port's fourteen kernels: the slot
 engine's six and its flow-ordered segment sum, the per-packet
-`jsq_route` and `plb_select`, the prefill and decode attention, and the
-int8 gradient codec.
+`jsq_route` and `plb_select`, the prefill attention (with its
+log-sum-exp) and its backward, the decode attention, and the int8
+gradient codec.
 
 Each function computes, operation for operation, what the reference
 package's jnp oracle computes, and what its CUDA kernel in
@@ -274,13 +275,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     Sq, Sk = q.shape[2], k.shape[2]
     s = sdiv(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()),
              D ** 0.5)
-    qp = torch.arange(Sq, device=q.device)[:, None]
-    kp = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qp >= kp
-    if window > 0:
-        mask &= (qp - kp) < window
+    mask = _keep_mask(Sq, Sk, causal, window, q.device)
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
@@ -298,6 +293,71 @@ def flash_attention_bshd_ref(q, k, v, *, causal: bool = True,
                               v.transpose(1, 2), causal=causal,
                               window=window)
     return out.transpose(1, 2).contiguous()
+
+
+def _keep_mask(Sq: int, Sk: int, causal: bool, window: int, device):
+    """(Sq, Sk) keep-mask of the flash kernels' index masks: query i
+    keeps key j when j <= i (causal) and i - j < window (window > 0)."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= (qp - kp) < window
+    return mask
+
+
+def _bshd_scores(q, k, causal: bool, window: int):
+    """Model layout q (B, Sq, Hq, D), k (B, Sk, Hkv, D): the scaled
+    float32 scores (B, Hq, Sq, Sk) over the kv heads repeated to Hq, and
+    the keep-mask (Sq, Sk)."""
+    Hq, Hkv, D = q.shape[2], k.shape[2], q.shape[-1]
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=2)
+    s = sdiv(torch.einsum("bqhd,bkhd->bhqk", q.float(), kf), D ** 0.5)
+    return s, _keep_mask(q.shape[1], k.shape[1], causal, window, q.device)
+
+
+def flash_attention_lse_ref(q, k, v, *, causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+    """The log-sum-exp of each query row's masked scores, (B, Hq, Sq)
+    float32, for model-layout q (B, Sq, Hq, D) and k/v (B, Sk, Hkv, D):
+    what the flash kernels write beside their output when asked.  A row
+    that sees no key gets NEG_INF (the masked scores' own value)."""
+    s, mask = _bshd_scores(q, k, causal, window)
+    return torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
+                            window: int = 0):
+    """The gradient of `flash_attention_bshd_ref`, written out as the
+    backward kernel computes it, in float32: P recomputed from the
+    scores and the forward's log-sum-exp `lse` (B, Hq, Sq); dV = P^T dO;
+    dP = dO V^T; delta = rowsum(dO * O) over the forward's output `out`;
+    dS = P (dP - delta) on the kept pairs (the masks pass no gradient);
+    dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D); GQA's kv-head gradients
+    summed over each group of Hq / Hkv query heads.  A row that sees no
+    key averages v uniformly (P = 1 / Sk), so only dV gets its share.
+    Model layout: q/out/dout (B, Sq, Hq, D), k/v (B, Sk, Hkv, D).
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    s, mask = _bshd_scores(q, k, causal, window)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    p = torch.where(mask.any(-1)[:, None], p, 1.0 / Sk)
+    do = dout.float()
+    vf = v.float().repeat_interleave(G, dim=2)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    delta = (do * out.float()).sum(-1).transpose(1, 2)       # (B, Hq, Sq)
+    ds = torch.where(mask, p * (dp - delta[..., None]), 0.0)
+    kf = k.float().repeat_interleave(G, dim=2)
+    dq = sdiv(torch.einsum("bhqk,bkhd->bqhd", ds, kf), D ** 0.5)
+    dk = sdiv(torch.einsum("bhqk,bqhd->bkhd", ds, q.float()), D ** 0.5)
+    dk = dk.reshape(B, Sk, Hkv, G, D).sum(3)
+    dv = dv.reshape(B, Sk, Hkv, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k, v, lengths) -> torch.Tensor:

@@ -13,11 +13,17 @@ the reference's weights across, bit for bit.
 The forward runs eagerly: `backbone` loops over the periods with views
 of the stacked leaves (`a[i]`) where the reference runs `lax.scan`, and
 the caches of a pattern position are stacked again after the loop.
-The reference's `_remat_wrap`, `cfg.scan_layers` and `cfg.unroll_loops`
-shape what XLA traces (rematerialisation under autodiff, one scanned
-body or an unrolled stack, scan bodies counted for the dry run); an
-eager forward without autodiff has nothing to do with them, so the port
-reads none of them.  Cross-entropy is taken in sequence chunks
+`loss_fn` is differentiable (autograd; the attention kernels carry
+their own backward on CUDA).  The reference's `_remat_wrap` wraps each
+period in `jax.checkpoint`; here `cfg.remat == "full"` wraps each period
+of a differentiated forward in `torch.utils.checkpoint` (non-reentrant),
+so the backward runs the period's forward again, kernels included, and
+"none" keeps every activation.  The reference's "dots" and "kv"
+policies are set only by its dry run (`launch/dryrun.py`), which waits
+with sharding (ROADMAP queue 1 item 4): they raise
+`NotImplementedError`.  `cfg.scan_layers` and `cfg.unroll_loops` shape
+what XLA traces (one scanned body or an unrolled stack) and have
+nothing to do here.  Cross-entropy is taken in sequence chunks
 (`chunked_ce_loss`), so (B, S, vocab) logits are never whole.  The
 caches are written functionally, as the reference's are: a step returns
 new cache tensors and leaves its input caches as they were, which the
@@ -29,6 +35,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import apply_block, init_block, init_block_cache
 from .config import ModelConfig
@@ -119,6 +126,17 @@ def tree_items(tree, path: KeyPath = ()) -> Iterator[Tuple[KeyPath, object]]:
 def tree_leaves(tree) -> List:
     """The leaves in `jax.tree.leaves` order."""
     return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_unflatten(tree, leaves: List):
+    """`tree` with its leaves replaced, in `tree_leaves` order, by
+    `leaves`."""
+    paths = [path for path, _ in tree_items(tree)]
+    if len(paths) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a tree of "
+                         f"{len(paths)}")
+    by_path = dict(zip(paths, leaves))
+    return _map_items(tree, lambda path, leaf: by_path[path])
 
 
 def _map_items(tree, fn: Callable, path: KeyPath = ()):
@@ -225,11 +243,29 @@ def shard_caches(caches: Dict, ctx: ShardCtx) -> Dict:
 # forward
 # ---------------------------------------------------------------------------
 
+def _remat_wrap(fn: Callable, cfg: ModelConfig) -> Callable:
+    """`fn` (one period of the stack) as the differentiated forward runs
+    it under `cfg.remat`: as it is ("none", or without grad), or under
+    `torch.utils.checkpoint` ("full"), whose backward runs it again."""
+    if cfg.remat in ("dots", "kv"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: the reference's checkpoint policies "
+            "are set only by its dry run, which the port takes up with "
+            "sharding (ROADMAP queue 1 item 4)")
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def backbone(params: Dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, ctx: ShardCtx,
              caches: Optional[Dict] = None,
              ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """x: (B,S,d) embedded input. Returns (hidden, caches', aux)."""
+    body = _remat_wrap(lambda *a: _period(params, cfg, positions, ctx, *a),
+                       cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_prefix = []
     for i, bp in enumerate(params["prefix"]):
@@ -241,15 +277,11 @@ def backbone(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     pcaches = caches["period"] if caches is not None else None
     period_outs = []
     for i in range(cfg.n_periods):
-        new = []
-        for pos, kind in enumerate(cfg.block_pattern):
-            pp = tree_map(params["period"][pos], lambda a: a[i])
-            c = (tree_map(pcaches[pos], lambda a: a[i])
-                 if pcaches is not None else None)
-            x, c, aux = apply_block(pp, cfg, x, positions, kind,
-                                    cfg.is_moe_pos(pos), ctx, c)
-            aux_total = aux_total + aux
-            new.append(c)
+        if pcaches is None:
+            x, aux_total = body(x, aux_total, i)
+            continue
+        x, aux_total, new = _period(params, cfg, positions, ctx, x,
+                                    aux_total, i, pcaches)
         period_outs.append(new)
     new_caches = None
     if pcaches is not None:
@@ -258,6 +290,26 @@ def backbone(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                                  for pos in range(cfg.pattern_len)]}
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return x, new_caches, aux_total
+
+
+def _period(params: Dict, cfg: ModelConfig, positions: torch.Tensor,
+            ctx: ShardCtx, x: torch.Tensor, aux_total: torch.Tensor, i: int,
+            pcaches: Optional[List] = None):
+    """Period `i` of the stack (the reference's `period_core`): its
+    blocks over `x`, the aux losses added to `aux_total`.  Returns (x,
+    aux_total), and the period's new caches when `pcaches` is given."""
+    new = []
+    for pos, kind in enumerate(cfg.block_pattern):
+        pp = tree_map(params["period"][pos], lambda a: a[i])
+        c = (tree_map(pcaches[pos], lambda a: a[i])
+             if pcaches is not None else None)
+        x, c, aux = apply_block(pp, cfg, x, positions, kind,
+                                cfg.is_moe_pos(pos), ctx, c)
+        aux_total = aux_total + aux
+        new.append(c)
+    if pcaches is None:
+        return x, aux_total
+    return x, aux_total, new
 
 
 def embed_input(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -314,9 +366,10 @@ def chunked_ce_loss(params: Dict, cfg: ModelConfig, hidden: torch.Tensor,
 
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, ctx: ShardCtx,
             aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict]:
-    """The training loss, forward only: `batch` holds `tokens` and
-    `labels` (B, S) int tensors, optionally `mask` and
-    `frontend_embeds`.  Returns (loss, {"ce", "aux"})."""
+    """The training loss: `batch` holds `tokens` and `labels` (B, S) int
+    tensors, optionally `mask` and `frontend_embeds`.  Returns (loss,
+    {"ce", "aux"}); differentiable in `params` (`train.make_train_step`
+    takes its gradient by autograd)."""
     tokens = batch["tokens"]
     labels = batch["labels"]
     mask = batch.get("mask")

@@ -31,6 +31,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.telemetry import SymmetryReport, symmetry_check
 from repro_torch.trace import trace_summary
 
 from .compile import CompiledScenario, compile_scenario
@@ -157,33 +158,6 @@ _CSV_COLUMNS: Tuple[Tuple[str, Callable[["ScenarioMetrics"], str]], ...] = (
     ("worst_recovery_slots", lambda m: str(m.worst_recovery())),
     ("tenants",              _fmt_tenants),
 )
-
-
-# ---------------------------------------------------------------------------
-# symmetry groups (§5.1)
-# ---------------------------------------------------------------------------
-
-@dataclass
-class SymmetryReport:
-    group: str
-    uniform: bool
-    cv: float                 # coefficient of variation
-    outliers: List[int]
-
-
-def symmetry_check(group: str, port_bw: np.ndarray,
-                   cv_tol: float = 0.05, z_tol: float = 3.0
-                   ) -> SymmetryReport:
-    """AR produces structurally uniform load across a symmetry group (leaf
-    uplinks, rails, planes); deviations indicate faults/misconfig."""
-    bw = np.asarray(port_bw, np.float64)
-    mu = bw.mean()
-    sd = bw.std()
-    cv = sd / mu if mu > 0 else 0.0
-    z = np.abs(bw - mu) / max(sd, 1e-12)
-    outliers = [int(i) for i in np.nonzero((z > z_tol) & (sd > 1e-9))[0]]
-    return SymmetryReport(group=group, uniform=cv <= cv_tol, cv=float(cv),
-                          outliers=outliers)
 
 
 # ---------------------------------------------------------------------------

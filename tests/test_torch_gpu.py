@@ -22,7 +22,10 @@ series within 1e-12), and the captured batched and traced loops must
 equal their eager loops bit for bit.  The flow-ordered segment sum
 must equal its plain version bit for bit (lanes, skewed and empty
 buckets, chunk folds), and sparse and chunked runs must equal the dense
-run and their own eager loops bit for bit.
+run and their own eager loops bit for bit.  The flash backward must stay
+within BWD_TOL of its plain version times the largest gradient (float32
+2e-5, bfloat16 1e-2: the sums run in another order, and bf16 gradients
+are rounded once more), and repeat bit for bit.
 """
 import numpy as np
 import pytest
@@ -1790,3 +1793,196 @@ def test_reduced_forward_on_cuda_equals_the_cpu_forward(cuda, arch):
     for got, want in zip(runs["cuda"], runs["cpu"]):
         assert bool(got.isfinite().all())
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# the backward against its plain version: max abs error over the largest
+# |gradient| of the plain version (float32: sums over up to 1,000 terms
+# in another order; bfloat16: the gradients are rounded to bf16, 2^-9
+# relative, after float32 sums)
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# the forward's log-sum-exp against its plain version, absolute: the
+# bf16 kernel sums P rounded to bf16 (2^-9 relative each), so log(l)
+# is off by up to about 2e-3
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+
+
+def _bwd_close(got, want, dtype):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        scale = max(1.0, float(w.float().abs().max()))
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * scale, (name, err, scale)
+
+
+def _bwd_inputs(rng, B, Sq, Sk, Hq, Hkv, D, dtype, dev):
+    q = _normal(rng, (B, Sq, Hq, D), dtype, dev)
+    k, v = (_normal(rng, (B, Sk, Hkv, D), dtype, dev) for _ in range(2))
+    dout = _normal(rng, (B, Sq, Hq, D), dtype, dev)
+    return q, k, v, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("Hq,Hkv,Sq,Sk,causal,window", [
+    (4, 4, 100, 100, True, 0),                   # MHA, one ragged tile
+    (8, 2, 130, 130, True, 17),                  # GQA 4, a window
+    (8, 1, 70, 150, True, 0),                    # MQA, Sq < Sk
+    (4, 1, 150, 70, False, 20),                  # rows that see no key
+    (4, 4, 129, 257, False, 0),                  # tails past 64 and 128
+    (8, 1, 257, 129, True, 33)])
+def test_flash_attention_bwd_equals_plain_version(cuda, dtype, D, Hq, Hkv,
+                                                  Sq, Sk, causal, window):
+    """The backward kernel on the forward kernel's output and
+    log-sum-exp against `flash_attention_bwd_ref` on the same tensors;
+    the log-sum-exp against `flash_attention_lse_ref`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq + 7 * Sk + D + Hq)
+    q, k, v, dout = _bwd_inputs(rng, 2, Sq, Sk, Hq, Hkv, D, dtype, cuda)
+    out, lse = _launched("flash_attention", lambda: ops.flash_attention_fwd(
+        q, k, v, causal=causal, window=window))
+    want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                           window=window)
+    assert lse.shape == (2, Hq, Sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=LSE_TOL[dtype])
+    got = _launched("flash_attention_bwd", lambda: ops.flash_attention_bwd(
+        q, k, v, out, dout, lse, causal=causal, window=window))
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                       causal=causal, window=window)
+    _bwd_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_leaves_the_output_and_repeats(cuda, dtype):
+    """The forward's output is the same bits with and without the
+    log-sum-exp; two backward launches on the same inputs are bit-equal;
+    the (B, H, S, D) layout goes through the same kernels."""
+    rng = np.random.default_rng(11)
+    q, k, v, dout = _bwd_inputs(rng, 2, 300, 300, 8, 2, 128, dtype, cuda)
+    for causal, window in ((True, 0), (True, 100), (False, 0)):
+        plain = ops.flash_attention_bshd(q, k, v, causal=causal,
+                                         window=window)
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                           window=window)
+        assert torch.equal(out, plain)
+        g1 = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                     window=window)
+        g2 = ops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                     window=window)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    # (B, H, S, D): MHA views of the same values
+    qh, kh, vh, dh = (t.transpose(1, 2).contiguous()
+                      for t in _bwd_inputs(rng, 1, 200, 200, 4, 4, 64,
+                                           dtype, cuda))
+    out, lse = ops.flash_attention_fwd(qh, kh, vh, layout="bhsd")
+    assert torch.equal(out, ops.flash_attention(qh, kh, vh))
+    got = ops.flash_attention_bwd(qh, kh, vh, out, dh, lse, layout="bhsd")
+    want = ref.flash_attention_bwd_ref(
+        *(t.transpose(1, 2) for t in (qh, kh, vh, out, dh)), lse)
+    _bwd_close(got, tuple(w.transpose(1, 2) for w in want), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_runs_the_kernels(cuda, dtype):
+    """Under grad, `ops.flash_attention_bshd` launches the forward with
+    its log-sum-exp and, at backward, the backward kernel: its gradients
+    are the backward entry's on the same tensors.  Without grad the
+    output carries no graph and nothing else launches."""
+    rng = np.random.default_rng(12)
+    q, k, v, dout = _bwd_inputs(rng, 2, 200, 200, 8, 4, 64, dtype, cuda)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    build.reset_launches()
+    out = ops.flash_attention_bshd(qg, kg, vg, window=50)
+    assert out.requires_grad
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == dict(dict.fromkeys(build.KERNELS, 0),
+                                  flash_attention=1, flash_attention_bwd=1)
+    o2, lse = ops.flash_attention_fwd(q, k, v, window=50)
+    assert torch.equal(out.detach(), o2)
+    want = ops.flash_attention_bwd(q, k, v, o2, dout, lse, window=50)
+    for g, w in zip((qg.grad, kg.grad, vg.grad), want):
+        assert torch.equal(g, w)
+    with torch.no_grad():
+        assert not ops.flash_attention_bshd(qg, kg, vg).requires_grad
+
+
+@pytest.mark.gpu
+def test_decode_attention_refuses_grad(cuda):
+    """No decode backward exists: an input that requires grad raises
+    under grad and launches nothing; under no_grad it runs."""
+    rng = np.random.default_rng(13)
+    q = _normal(rng, (2, 1, 8, 64), torch.float32, cuda).requires_grad_(True)
+    k, v = (_normal(rng, (2, 64, 2, 64), torch.float32, cuda)
+            for _ in range(2))
+    lens = torch.tensor([10, 64], dtype=torch.int32, device=cuda)
+    build.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention_bshd(q, k, v, lens)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention(q.transpose(1, 2).contiguous(),
+                             *(t.repeat_interleave(4, 2).transpose(1, 2)
+                               .contiguous() for t in (k, v)), lens)
+    assert build.LAUNCHES["decode_attention"] == 0
+    with torch.no_grad():
+        ops.decode_attention_bshd(q, k, v, lens)
+    assert build.LAUNCHES["decode_attention"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,remat", [("llama3-8b", "none"),
+                                        ("gemma3-12b", "full"),
+                                        ("phi3.5-moe-42b-a6.6b", "none")])
+def test_train_step_on_cuda_equals_the_cpu_step(cuda, arch, remat):
+    """A reduced config at head_dim 64, float32, through
+    `make_train_step` on the card (the flash kernels forward and
+    backward) and on the CPU (plain attention, autograd) from the same
+    weights: the loss within 1e-4 relative and the grad norm within
+    1e-3, the first moments (0.1 x the gradient after one step) within
+    5e-4 of each leaf's largest, the tolerance the CPU tests hold the
+    port's gradients to the reference's with; one forward launch a
+    layer (two under remat "full") and one backward.  The parameters move by about lr x sign(gradient) on a
+    first step, so a gradient near zero may move its weight either way
+    (2 lr apart): they are held within 1e-3."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import (init_params, standard_attention_layers,
+                                    tree_leaves, tree_map)
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import local_ctx
+    from repro_torch.train import TrainerConfig, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        ARCHS[arch].reduced(head_dim=64, dtype="float32"), remat=remat)
+    tcfg = TrainerConfig(warmup_steps=1, total_steps=4,
+                         cast_params_bf16=False)
+    step = make_train_step(cfg, local_ctx(), tcfg)
+    cpu_p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, (2, 41)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n = standard_attention_layers(cfg)
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(cpu_p, lambda a: a.to(dev))
+        build.reset_launches()
+        p2, st, m = step(p, adamw_init(p), batch, 1)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["flash_attention"] == \
+                n * (2 if remat == "full" else 1)
+            assert build.LAUNCHES["flash_attention_bwd"] == n
+        runs[str(dev)] = (m, [t.cpu() for t in tree_leaves(st["m"])],
+                          [t.cpu() for t in tree_leaves(p2)])
+    (mc, gc, pc), (mg, gg, pg) = runs["cpu"], runs["cuda"]
+    for key, rtol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+        assert abs(float(mg[key]) - float(mc[key])) <= \
+            rtol * abs(float(mc[key])), key
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+        assert err <= 5e-4, (i, tuple(b.shape), err)
+    for a, b in zip(pg, pc):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)

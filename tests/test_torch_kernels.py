@@ -557,6 +557,10 @@ _F32, _BF16 = torch.float32, torch.bfloat16
                             _meta(4, 1, dtype=_F32)),
     lambda: ops.segment_sum(_meta(4, 2), link_load.SegmentPlan(
         _meta(4, dtype=torch.int32), _meta(8, dtype=torch.int32))),
+    lambda: ops.flash_attention_bwd(
+        *(_meta(1, 8, 4, 64, dtype=_BF16),), *(_meta(1, 8, 2, 64,
+                                                     dtype=_BF16),) * 2,
+        *(_meta(1, 8, 4, 64, dtype=_BF16),) * 2, _meta(1, 4, 8, dtype=_F32)),
     lambda: ops.flash_attention_bshd(_meta(1, 8, 4, 64, dtype=_BF16),
                                      _meta(1, 8, 2, 64, dtype=_BF16),
                                      _meta(1, 8, 2, 64, dtype=_BF16)),
