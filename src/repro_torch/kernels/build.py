@@ -70,7 +70,7 @@ _ENTRIES = {
                   (_P, _P, _P, _P, _P, _I64, _I, _D, _D, _D, _P)),
     "plb_select": ("netsim", (torch.float32,),
                    (_P, _P, _P, _P, _P, _P, _I64, _I, _P)),
-    # q, k, v, out, lse (null: not written); B, Hq, Hkv, Sq, Sk, D; the
+    # q, k, v, out, lse (B * Hq * Sq floats); B, Hq, Hkv, Sq, Sk, D; the
     # batch, head and sequence strides of q (and out) and of k (and v);
     # causal, window, the scale
     "flash_attention": ("model", _F32_BF16,

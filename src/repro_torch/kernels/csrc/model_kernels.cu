@@ -211,7 +211,7 @@ struct FlashArgs {
   int Hq, group, Sq, Sk;   // group = Hq / Hkv
   int causal, window;
   float scale;
-  float* lse;              // (B, Hq, Sq) log-sum-exp of each row, or null
+  float* lse;              // (B, Hq, Sq) log-sum-exp of each row
 };
 
 constexpr float kLn2 = 0.6931471805599453f;
@@ -502,7 +502,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = row_lo + 8 * r;
     if (row >= a.Sq) continue;
-    if (a.lse != nullptr && t == 0)
+    if (t == 0)
       a.lse[(static_cast<int64_t>(bh) * a.Sq) + row] = row_lse(m[r], l[r]);
 #pragma unroll
     for (int c = 0; c < DT; ++c)
@@ -955,7 +955,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l[r] = fmaxf(l[r], 1e-30f);
     }
     __nv_bfloat16* op = o + b * a.q_b + h * a.q_h;
-    if (a.lse != nullptr && lane % 4 == 0) {
+    if (lane % 4 == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row_lo + 8 * r;

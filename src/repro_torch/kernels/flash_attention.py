@@ -27,19 +27,19 @@
     that layout through its strides and kv head h // (Hq / Hkv), so
     nothing is copied.
 
-Both entries are differentiable.  With grad enabled and an input that
-requires grad, a CUDA call goes through `_FlashAttention`, a
-`torch.autograd.Function`: its forward launches the kernel with the
-log-sum-exp of each row (`lse`, (B, Hq, Sq) float32; `flash_attention_fwd`)
-and its backward launches `model_flash_attention_bwd`
-(`flash_attention_bwd`), the gradient that the reference takes by
-autodiff of its pure-JAX `chunked_attention` (none of its Pallas
-kernels has a backward).  Otherwise the call launches the forward
-without the log-sum-exp, as before.  The backward replaces no TPU
-kernel.  It is FlashAttention-2's split, three kernels under one entry
-point, on the CUDA cores in float32 (a simple kernel first: at 10 D
-flops a kept pair operations bound it, and the tensor cores are work for
-a later redesign): a pass that takes delta = rowsum(dO * O) a row; a
+Both entries are differentiable: on CUDA they go through
+`_FlashAttention`, a `torch.autograd.Function` whose forward launches the
+kernel, which also writes the log-sum-exp of each row (`lse`, (B, Hq, Sq)
+float32; `flash_attention_fwd`), and whose backward launches
+`model_flash_attention_bwd` (`flash_attention_bwd`), the gradient that
+the reference takes by autodiff of its pure-JAX `chunked_attention`
+(none of its Pallas kernels has a backward).  Under no_grad or with no
+input that requires grad the Function records no graph; writing the
+log-sum-exp costs the forward no measurable time.  The backward replaces
+no TPU kernel.  It is FlashAttention-2's split, three kernels under one
+entry point, on the CUDA cores in float32 (a simple kernel first: at 10
+D flops a kept pair operations bound it, and the tensor cores are work
+for a later redesign): a pass that takes delta = rowsum(dO * O) a row; a
 block a (batch, kv head, 64-key tile) that walks every query head of its
 GQA group and every query tile the masks let see its keys, recomputes
 P from the log-sum-exp and accumulates dK and dV in registers; a block a
@@ -68,7 +68,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window)
-    return _attend(q, k, v, "bhsd", causal, window)
+    return _FlashAttention.apply(q, k, v, "bhsd", causal, window)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor,
@@ -79,57 +79,44 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_attention_bshd_ref(q, k, v, causal=causal,
                                             window=window)
-    return _attend(q, k, v, "bshd", causal, window)
+    return _FlashAttention.apply(q, k, v, "bshd", causal, window)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0,
-                        layout: str = "bshd"):
-    """The forward with the log-sum-exp: (out, lse (B, Hq, Sq) float32),
-    what the backward needs.  CPU tensors take the plain versions."""
+                        *, causal: bool = True, window: int = 0):
+    """Model layout, as `flash_attention_bshd`: (out, lse (B, Hq, Sq)
+    float32), what the backward needs.  CPU tensors take the plain
+    versions."""
     if q.device.type == "cpu":
-        q4, k4, v4 = _to_bshd(layout, q, k, v)
-        out = ref.flash_attention_bshd_ref(q4, k4, v4, causal=causal,
-                                           window=window)
-        lse = ref.flash_attention_lse_ref(q4, k4, v4, causal=causal,
-                                          window=window)
-        return _from_bshd(layout, out)[0], lse
-    return _launch(q, k, v, layout, causal, window, with_lse=True)
+        return (ref.flash_attention_bshd_ref(q, k, v, causal=causal,
+                                             window=window),
+                ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                            window=window))
+    return _launch(q, k, v, "bshd", causal, window)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, layout: str = "bshd"):
-    """(dq, dk, dv) of the attention whose forward gave `out` and `lse`
-    (`flash_attention_fwd`) for the output gradient `dout`, each in its
-    input's dtype and layout.  CPU tensors take
+                        window: int = 0):
+    """Model layout: (dq, dk, dv) of the attention whose forward gave
+    `out` and `lse` (`flash_attention_fwd`) for the output gradient
+    `dout`, each in its input's dtype.  CPU tensors take
     `ref.flash_attention_bwd_ref`; CUDA tensors launch
     `model_flash_attention_bwd`."""
     if q.device.type == "cpu":
-        grads = ref.flash_attention_bwd_ref(
-            *_to_bshd(layout, q, k, v, out, dout), lse, causal=causal,
-            window=window)
-        return _from_bshd(layout, *grads)
-    return _launch_bwd(q, k, v, out, dout, lse, layout, causal, window)
-
-
-def _to_bshd(layout, *ts):
-    return ts if layout == "bshd" else tuple(t.transpose(1, 2) for t in ts)
-
-
-def _from_bshd(layout, *ts):
-    return ts if layout == "bshd" else tuple(
-        t.transpose(1, 2).contiguous() for t in ts)
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                           causal=causal, window=window)
+    return _launch_bwd(q, k, v, out, dout, lse, "bshd", causal, window)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The kernel forward (with the log-sum-exp) and the kernel
-    backward."""
+    backward, in either layout."""
 
     @staticmethod
     def forward(ctx, q, k, v, layout, causal, window):
-        out, lse = _launch(q, k, v, layout, causal, window, with_lse=True)
+        out, lse = _launch(q, k, v, layout, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.meta = (layout, causal, window)
         return out
@@ -141,14 +128,6 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = _launch_bwd(q, k, v, out, dout.contiguous(), lse,
                                  layout, causal, window)
         return dq, dk, dv, None, None, None
-
-
-def _attend(q, k, v, layout, causal, window):
-    """The CUDA route: through `_FlashAttention` when autograd needs the
-    gradient, else the forward launch alone."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, layout, causal, window)
-    return _launch(q, k, v, layout, causal, window)
 
 
 def _check(q, k, v, layout, kernel="flash_attention"):
@@ -185,23 +164,20 @@ def _strides(q, k, h_ax, s_ax):
     return (qs[0], qs[h_ax], qs[s_ax], ks[0], ks[h_ax], ks[s_ax])
 
 
-def _launch(q, k, v, layout, causal, window, with_lse=False):
-    """Check the operands and launch the forward; with `with_lse` the
-    kernel also writes each row's log-sum-exp, returned beside the
-    output."""
+def _launch(q, k, v, layout, causal, window):
+    """Check the operands and launch the forward: (out, lse), the
+    output and each row's log-sum-exp."""
     dev, dt, B, Hq, Hkv, Sq, Sk, D, h_ax, s_ax = _check(q, k, v, layout)
     if dt == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _tma_strides(name, t)
     out = torch.empty_like(q)
-    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
-           if with_lse else None)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
     build.launch("flash_attention", dt, dev, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if with_lse else None, B, Hq, Hkv, Sq, Sk,
-                 D, *_strides(q, k, h_ax, s_ax), int(bool(causal)),
+                 v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Hq, Hkv,
+                 Sq, Sk, D, *_strides(q, k, h_ax, s_ax), int(bool(causal)),
                  int(window), 1.0 / D ** 0.5)
-    return (out, lse) if with_lse else out
+    return out, lse
 
 
 def _launch_bwd(q, k, v, out, dout, lse, layout, causal, window):

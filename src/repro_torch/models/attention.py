@@ -28,8 +28,8 @@ by whether a kernel builds or launches:
 Training differentiates both routes.  On the CPU autograd runs through
 the copied `chunked_attention` (the reference differentiates its own
 with `jax.value_and_grad`).  On CUDA `ops.flash_attention_bshd` is a
-`torch.autograd.Function`: under grad its forward writes each row's
-log-sum-exp and its backward is the hand-written backward kernel, so
+`torch.autograd.Function`: its forward writes each row's log-sum-exp
+and its backward is the hand-written backward kernel, so
 `wq`, `wk`, `wv` and the qk-norm gains get their gradients through the
 kernels.  The decode kernel has no backward and raises under grad.
 

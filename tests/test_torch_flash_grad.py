@@ -122,20 +122,22 @@ def test_plain_backward_matches_jax_grad(B, Sq, Sk, Hq, Hkv, D, causal,
 
 
 def test_bhsd_layout_entries_match_the_model_layout():
-    """`layout="bhsd"` takes (B, H, S, D) operands and returns the same
-    gradients transposed."""
+    """`ops.flash_attention` takes (B, H, S, D) operands: its output and
+    its autograd gradients are the model-layout entries' on the
+    transposed tensors, transposed back (gradients within TOL)."""
     rng = np.random.default_rng(9)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(
         (2, 3, 50, 16)).astype(np.float32)) for _ in range(4))
-    out, lse = ops.flash_attention_fwd(q, k, v, window=9, layout="bhsd")
-    assert torch.equal(out, ops.flash_attention(q, k, v, window=9))
-    got = ops.flash_attention_bwd(q, k, v, out, do, lse, window=9,
-                                  layout="bhsd")
-    want = ref.flash_attention_bwd_ref(
-        *(t.transpose(1, 2) for t in (q, k, v, out, do)), lse, window=9)
-    for g, w in zip(got, want):
-        assert g.shape == (2, 3, 50, 16) and g.is_contiguous()
-        assert torch.equal(g, w.transpose(1, 2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, window=9)
+    out.backward(do)
+    bshd = [t.transpose(1, 2) for t in (q, k, v)]
+    o2, lse = ops.flash_attention_fwd(*bshd, window=9)
+    assert torch.equal(out.detach(), o2.transpose(1, 2))
+    want = ops.flash_attention_bwd(*bshd, o2, do.transpose(1, 2), lse,
+                                   window=9)
+    for t, w in zip(leaves, want):
+        _close(t.grad, w.transpose(1, 2))
 
 
 def test_autograd_of_the_cpu_entry_reaches_every_input():

@@ -1855,9 +1855,9 @@ def test_flash_attention_bwd_equals_plain_version(cuda, dtype, D, Hq, Hkv,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_lse_leaves_the_output_and_repeats(cuda, dtype):
-    """The forward's output is the same bits with and without the
-    log-sum-exp; two backward launches on the same inputs are bit-equal;
-    the (B, H, S, D) layout goes through the same kernels."""
+    """The forward entry with its log-sum-exp gives the model entry's
+    output bits; two backward launches on the same inputs are bit-equal;
+    the (B, H, S, D) entry's autograd goes through the same kernels."""
     rng = np.random.default_rng(11)
     q, k, v, dout = _bwd_inputs(rng, 2, 300, 300, 8, 2, 128, dtype, cuda)
     for causal, window in ((True, 0), (True, 100), (False, 0)):
@@ -1876,12 +1876,20 @@ def test_flash_attention_lse_leaves_the_output_and_repeats(cuda, dtype):
     qh, kh, vh, dh = (t.transpose(1, 2).contiguous()
                       for t in _bwd_inputs(rng, 1, 200, 200, 4, 4, 64,
                                            dtype, cuda))
-    out, lse = ops.flash_attention_fwd(qh, kh, vh, layout="bhsd")
-    assert torch.equal(out, ops.flash_attention(qh, kh, vh))
-    got = ops.flash_attention_bwd(qh, kh, vh, out, dh, lse, layout="bhsd")
+    leaves = [t.clone().requires_grad_(True) for t in (qh, kh, vh)]
+    build.reset_launches()
+    out = ops.flash_attention(*leaves)
+    out.backward(dh)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 1
+    assert build.LAUNCHES["flash_attention_bwd"] == 1
+    o2, lse = ops.flash_attention_fwd(*(t.transpose(1, 2).contiguous()
+                                        for t in (qh, kh, vh)))
+    assert torch.equal(out.detach(), o2.transpose(1, 2))
     want = ref.flash_attention_bwd_ref(
-        *(t.transpose(1, 2) for t in (qh, kh, vh, out, dh)), lse)
-    _bwd_close(got, tuple(w.transpose(1, 2) for w in want), dtype)
+        *(t.transpose(1, 2) for t in (qh, kh, vh, out.detach(), dh)), lse)
+    _bwd_close([t.grad for t in leaves],
+               tuple(w.transpose(1, 2) for w in want), dtype)
 
 
 @pytest.mark.gpu
@@ -1889,8 +1897,8 @@ def test_flash_attention_lse_leaves_the_output_and_repeats(cuda, dtype):
 def test_flash_attention_autograd_runs_the_kernels(cuda, dtype):
     """Under grad, `ops.flash_attention_bshd` launches the forward with
     its log-sum-exp and, at backward, the backward kernel: its gradients
-    are the backward entry's on the same tensors.  Without grad the
-    output carries no graph and nothing else launches."""
+    are the backward entry's on the same tensors.  Under no_grad and
+    inference_mode the output carries no graph and gives the same bits."""
     rng = np.random.default_rng(12)
     q, k, v, dout = _bwd_inputs(rng, 2, 200, 200, 8, 4, 64, dtype, cuda)
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -1907,7 +1915,11 @@ def test_flash_attention_autograd_runs_the_kernels(cuda, dtype):
     for g, w in zip((qg.grad, kg.grad, vg.grad), want):
         assert torch.equal(g, w)
     with torch.no_grad():
-        assert not ops.flash_attention_bshd(qg, kg, vg).requires_grad
+        o3 = ops.flash_attention_bshd(qg, kg, vg, window=50)
+        assert not o3.requires_grad and torch.equal(o3, o2)
+    with torch.inference_mode():
+        o4 = ops.flash_attention_bshd(qg, kg, vg, window=50)
+        assert not o4.requires_grad and torch.equal(o4, o2)
 
 
 @pytest.mark.gpu
