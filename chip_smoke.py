@@ -13,8 +13,17 @@ Phases, each fatal on failure:
             (one nvcc per source, started together, then one link), and
             count the tensor-core instructions that `cuobjdump -sass`
             lists in the flash_attention kernels: HGMMA (wgmma) in the
-            bf16 ones, HMMA (mma.sync, 3xTF32) in the float32 ones
-            (fatal if one has none; "not measured" without cuobjdump).
+            bf16 ones, HMMA (mma.sync, 3xTF32) in the float32 ones, and
+            HMMA in both dtypes' backward dK/dV and dQ kernels (fatal if
+            one has none; "not measured" without cuobjdump).
+  bwd       the flash backward kernel at BWD_CELLS (spx-100m's train
+            shape, llama3-8b's and gemma3-12b's prefill cells) against
+            its plain version, two launches bit-equal, timed beside it,
+            SDPA's backward and the bound (10 D flops a kept pair),
+            with the rate of the work it does (14 D a kept pair, 18 D
+            at head_dim 192 and 256) and its delta, dK/dV and dQ
+            kernels' times apart (torch.profiler; first of the phases,
+            as a profile of them after the others saw none).
   kernels   each of the eight kernels against its plain PyTorch version
             on the same GPU tensors: the five AR/WAR slot kernels at the
             fig9 and giga AR shapes (bottleneck on one pair of links and
@@ -211,8 +220,10 @@ Phases, each fatal on failure:
             flash_attention_bwd call of one step is held to
             `ref.flash_attention_bwd_ref` on its own inputs (BWD_TOL of
             each gradient's largest magnitude), the loss is finite and
-            falls (the weights before and after the run on a batch no
-            step trains on), planes up and the recovery record equal a
+            falls (the weights before and after the run on the first
+            step's batch; a batch no step trains on is printed, not
+            held: on uniform tokens it moves by noise alone), planes up
+            and the recovery record equal a
             CPU `FailoverController`'s, the step-10 checkpoint restores
             bit-equal and steps 10-19 run again bit-equal to the first
             run; median step time, tokens/s,
@@ -222,11 +233,7 @@ Phases, each fatal on failure:
             3 steps of 1 x 2,048 tokens (peak memory).  One float32
             step of spx-100m through the kernels against the same step
             on the plain attention versions (loss 1e-4, grad norm 1e-3
-            relative; bf16's difference printed beside it).  The
-            backward kernel at BWD_CELLS (spx-100m's train shape,
-            llama3-8b's and gemma3-12b's prefill cells) against its
-            plain version, timed beside it, SDPA's backward and the
-            bound (10 D flops a kept pair).
+            relative; bf16's difference printed beside it).
   profile   torch.profiler over 12 giga slots under AR and under ECMP,
             float64 and float32, and in float64 over giga_fat_tree under
             WAR and ECMP and over the giga point under failure reaction,
@@ -537,10 +544,17 @@ def case(kernel, mode, shape, dtype, run, plain, nbytes, ops, *,
                 plain_events=plain_events)
 
 
-# flash_attention kernels and the tensor-core instruction each must
-# hold in its SASS: wgmma (HGMMA) in bf16, mma.sync (HMMA) in float32
-SASS_MMA = {"bf16": ("flash_attention_wgmma_kernel", "HGMMA"),
-            "float32": ("flash_attention_tf32_kernel", "HMMA")}
+# flash_attention kernels (forward, and the backward's dK/dV and dQ)
+# and the tensor-core instruction each must hold in its SASS: wgmma
+# (HGMMA) in the bf16 forward, mma.sync (HMMA) in the others; the
+# mangled template arguments before the head_dim
+SASS_MMA = {"bf16": ("flash_attention_wgmma_kernel", "HGMMA", ""),
+            "float32": ("flash_attention_tf32_kernel", "HMMA", ""),
+            "bf16 dK/dV": ("flash_bwd_dkdv_kernel", "HMMA",
+                           "13__nv_bfloat16"),
+            "bf16 dQ": ("flash_bwd_dq_kernel", "HMMA", "13__nv_bfloat16"),
+            "float32 dK/dV": ("flash_bwd_dkdv_kernel", "HMMA", "f"),
+            "float32 dQ": ("flash_bwd_dq_kernel", "HMMA", "f")}
 
 
 def sass_mma(sass: str) -> str:
@@ -548,11 +562,11 @@ def sass_mma(sass: str) -> str:
     `sass` (the built library as `cuobjdump -sass` lists it), by dtype
     and head_dim; fails if a kernel is missing or has none."""
     out = []
-    for dname, (kernel, instr) in SASS_MMA.items():
+    for dname, (kernel, instr, targs) in SASS_MMA.items():
         counts, head_dim = {}, None      # head_dim -> instruction lines
         for line in sass.splitlines():
             if "Function :" in line:
-                m = re.search(kernel + r"ILi(\d+)E", line)
+                m = re.search(kernel + "I" + targs + r"Li(\d+)E", line)
                 head_dim = int(m.group(1)) if m else None
                 if head_dim is not None:
                     counts[head_dim] = 0
@@ -3929,16 +3943,55 @@ def bwd_errors(got, want) -> float:
     return err
 
 
+# the backward's three kernels, by the name the profiler gives them
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def kernel_split_ms(fn, names, reps: int = 3, sessions: int = 3) -> dict:
+    """Device ms a call of `fn` spends in the kernels whose names hold
+    each of `names` (torch.profiler over `reps` calls after one warm-up,
+    read from its raw device events: kernels launched through ctypes
+    outside any torch op are not in `key_averages`; None where the
+    profiler saw no such kernel).  After long runs of the other phases
+    a session came back without device events while the next one saw
+    them (PERF.md, PR 30), so up to `sessions` are tried."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                with record_function("kernel_split_ms"):
+                    fn()
+            torch.cuda.synchronize()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA:
+                continue
+            for n in names:
+                if n in e.name():
+                    out[n] = (out[n] or 0.0) + (e.end_ns() - e.start_ns()) \
+                        / 1e6 / reps
+        if any(v is not None for v in out.values()):
+            break
+    return out
+
+
 def bwd_cases(report: dict, summary: dict) -> None:
     """The backward kernel at BWD_CELLS on seeded card tensors, against
     its plain version on the forward kernel's output and log-sum-exp;
     two launches bit-equal; timed beside the plain version, SDPA's
     backward (`scaled_dot_product_attention(..., enable_gqa=True)`,
-    the backward alone) and the bound; and the forward kernel on the
-    same inputs."""
+    the backward alone) and the bound, its three kernels apart
+    (`kernel_split_ms`); and the forward kernel on the same inputs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    # the plain versions' float32 einsums in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(29)
     rows = []
     for name, B, S, Hq, Hkv, D, window, dname in BWD_CELLS:
@@ -3983,6 +4036,7 @@ def bwd_cases(report: dict, summary: dict) -> None:
                                        retain_graph=True)
 
         ms = event_ms(run, repeats=5)
+        split = kernel_split_ms(run, BWD_KERNELS)
         plain_ms = event_ms(plain)
         library_ms = event_ms(library, repeats=5)
         # row 9 on these inputs (it writes the log-sum-exp)
@@ -3993,6 +4047,9 @@ def bwd_cases(report: dict, summary: dict) -> None:
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
             + lse.numel() * 4
         nops = 10 * D * B * Hq * pairs
+        # the work the kernels do: S and dP again in dq (14 D), and at
+        # head_dim 192/256 S^T and dP^T twice in dk_dv (18 D)
+        work = (14 if D <= 128 else 18) * D * B * Hq * pairs
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / PEAK_FLOPS[dname] * 1e3
         row = dict(kernel="flash_attention_bwd", case=f"{name} {dname}",
@@ -4001,12 +4058,22 @@ def bwd_cases(report: dict, summary: dict) -> None:
                    ops=nops, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   tflops=nops / ms / 1e9, fwd_ms=fwd_ms)
+                   tflops=nops / ms / 1e9, work=work,
+                   tflops_done=work / ms / 1e9, fwd_ms=fwd_ms,
+                   delta_ms=split["flash_bwd_delta"],
+                   dkdv_ms=split["flash_bwd_dkdv"],
+                   dq_ms=split["flash_bwd_dq"])
+        parts = " ".join(
+            f"{k}_ms={'not measured' if v is None else f'{v:.6f}'}"
+            for k, v in zip(("delta", "dkdv", "dq"),
+                            (row["delta_ms"], row["dkdv_ms"], row["dq_ms"])))
         print(f"model flash_attention_bwd {name} {dname} (B={B} S={S} "
               f"{Hq}/{Hkv} heads D={D} window={window}): ms={ms:.6f} "
               f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
               f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
-              f"tflops={row['tflops']:.1f} err={err:.3g} of the largest "
+              f"tflops={row['tflops']:.1f} of the 10 D work, "
+              f"{row['tflops_done']:.1f} of the {work // (D * B * Hq * pairs)}"
+              f" D it does; profiled {parts}; err={err:.3g} of the largest "
               f"gradient (bound {BWD_TOL[dname]}); two launches bit-equal; "
               f"flash_attention forward ms={fwd_ms:.6f}", flush=True)
         rows.append(row)
@@ -4064,7 +4131,7 @@ def train_batches(cfg, spec: dict, start: int = 0):
         yield {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
 
-def unseen_loss(cfg, params, batch) -> float:
+def batch_loss(cfg, params, batch) -> float:
     """`loss_fn` of `params`, cast as a train step with
     `cast_params_bf16` casts them, on `batch`."""
     import torch
@@ -4121,12 +4188,18 @@ def spx_train(report: dict, total: dict) -> None:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         spec["seed"]), device="cuda")
     n_attn = standard_attention_layers(cfg)
-    # the loss falls: the weights before and after the run on a batch
-    # that no step trains on (the pipeline's step-20 batch), cast as the
-    # step casts them, so the spread between the synthetic batches (about
-    # 1e-2 at 8,192 tokens) does not decide it
+    # the loss falls: the weights before and after the run on the first
+    # step's batch, cast as the step casts them (one batch, so the spread
+    # between the synthetic batches, about 1e-2 at 8,192 tokens, does not
+    # decide it; it fell 0.045-0.086 over six seeds).  On these uniform
+    # tokens a batch no step trains on moves by the run's noise alone
+    # (-0.023 to +0.023 over 20 steps, with the kernels or the plain
+    # float32 backward; PERF.md, PR 30), so its change is printed, not
+    # held
+    first = next(train_batches(cfg, spec))
     unseen = next(train_batches(cfg, spec, start=spec["steps"]))
-    unseen_before = unseen_loss(cfg, params, unseen)
+    first_before = batch_loss(cfg, params, first)
+    unseen_before = batch_loss(cfg, params, unseen)
     tr = Trainer(cfg, local_ctx(), tcfg, params)
     per_step = {"flash_attention": n_attn, "flash_attention_bwd": n_attn}
     hist, counts, held, saved, profiled = [], [], {}, None, None
@@ -4156,10 +4229,11 @@ def spx_train(report: dict, total: dict) -> None:
                              lambda t: t.clone())
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in hist]
-    unseen_after = unseen_loss(cfg, tr.params, unseen)
-    if not all(np.isfinite(losses)) or not unseen_after < unseen_before:
-        fail(f"train {cfg.name}: losses {losses}; an unseen batch "
-             f"{unseen_before} before the run, {unseen_after} after")
+    first_after = batch_loss(cfg, tr.params, first)
+    unseen_after = batch_loss(cfg, tr.params, unseen)
+    if not all(np.isfinite(losses)) or not first_after < first_before:
+        fail(f"train {cfg.name}: losses {losses}; the first step's batch "
+             f"{first_before} before the run, {first_after} after")
     if held.get("calls") != n_attn:
         fail(f"train {cfg.name}: {held.get('calls')} backward calls held, "
              f"expected {n_attn}")
@@ -4204,7 +4278,8 @@ def spx_train(report: dict, total: dict) -> None:
     busy = (profiled["busy_ms"] / profiled["wall_ms"]
             if profiled["busy_ms"] else None)
     out = dict(arch=cfg.name, params=param_count(params), steps=len(hist),
-               losses=losses, unseen_before=unseen_before,
+               losses=losses, first_before=first_before,
+               first_after=first_after, unseen_before=unseen_before,
                unseen_after=unseen_after, rerun_losses=rerun,
                median_step_s=med,
                tokens_per_s=tokens / med, max_memory_allocated=peak,
@@ -4219,8 +4294,10 @@ def spx_train(report: dict, total: dict) -> None:
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
           f"vocab {cfg.vocab}; {out['params']:,} float32 parameters, bf16 "
           f"cast): {len(hist)} steps of {spec['batch']} x {spec['seq']} "
-          f"tokens, loss {losses[0]:.4f} -> {losses[-1]:.4f} (an unseen "
-          f"batch: {unseen_before:.4f} -> {unseen_after:.4f}); median step "
+          f"tokens, loss {losses[0]:.4f} -> {losses[-1]:.4f} (the first "
+          f"step's batch: {first_before:.4f} -> {first_after:.4f}; an "
+          f"unseen batch, not held: {unseen_before:.4f} -> "
+          f"{unseen_after:.4f}); median step "
           f"{med * 1e3:.3f} ms, {tokens / med:,.0f} tokens/s, peak "
           f"{peak / 2**30:.2f} GiB; {per_step} a step; device busy "
           + ("not measured" if busy is None else f"{busy:.1%}")
@@ -4343,9 +4420,9 @@ def f32_step(report: dict, total: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(report: dict, total: dict, summary: dict) -> None:
-    """The training path: TRAIN_RUN, TRAIN_LLAMA, the float32 step and
-    the backward kernel's cells."""
+def train_phase(report: dict, total: dict) -> None:
+    """The training path: TRAIN_RUN, TRAIN_LLAMA and the float32 step
+    (the backward kernel's cells, `bwd_cases`, run first of all)."""
     import torch
     # the plain versions' float32 einsums and the float32 step run in
     # full float32
@@ -4353,7 +4430,6 @@ def train_phase(report: dict, total: dict, summary: dict) -> None:
     spx_train(report, total)
     llama_train(report, total)
     f32_step(report, total)
-    bwd_cases(report, summary)
     torch.cuda.empty_cache()
 
 
@@ -4474,7 +4550,13 @@ def main(argv=None) -> int:
     print(f"build: {sass_check()}", flush=True)
 
     report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
+    # the backward's cells first: after the phases below, profiles of
+    # its three kernels came back without device events (PERF.md, PR
+    # 30), where a fresh process sees them all
+    bwd_summary: dict = {}
+    bwd_cases(report, bwd_summary)
     summary = kernel_phase(report)
+    summary.update(bwd_summary)
     sync_phase()
     total: dict = {}
     # each phase starts from an empty graph cache, so its first run of a
@@ -4487,7 +4569,7 @@ def main(argv=None) -> int:
     graph.clear_graph_cache()
     model_phase(report, total, summary)
     serve_phase(report, total)
-    train_phase(report, total, summary)
+    train_phase(report, total)
     profile_phase(report)
     idle = [k for k in build.KERNELS if not total.get(k)]
     if idle:

@@ -10,12 +10,12 @@
 //   int8_decode         <- int8_codec.py       _decode_kernel
 //   flash_attention_bwd    replaces no TPU kernel: the gradient of the
 //                          first, which the reference takes by autodiff
-//                          of its pure-JAX chunked_attention (its own
-//                          section below)
+//                          of its pure-JAX chunked_attention; three
+//                          kernels (delta, dK/dV, dQ) on mma.sync, bf16
+//                          and 3xTF32 (its own section below)
 //
 // Both flash_attention kernels write each row's log-sum-exp beside the
-// output when the caller passes a buffer for it (the backward reads it);
-// with a null pointer they run as they did before.
+// output, always: the backward reads it.
 //
 // flash_attention is bound by operations (4 D flops per unmasked
 // query-key pair), which only the tensor cores deliver: 989 TFLOP/s in
@@ -284,6 +284,63 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, al, bh);
   mma_tf32(d, ah, bl);
   mma_tf32(d, ah, bh);
+}
+
+// d += a b on the tensor cores: a 16 x 16 (row), b 16 x 8 (col), bf16;
+// the fragments of m16n8k16 for lane (g, t): A holds (g, 2t..2t+1),
+// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); B (2t..2t+1, g) and
+// (2t + 8.., g); C as m16n8k8's
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// four 8 x 8 matrices of 16-bit elements from shared memory, lanes 8 i
+// to 8 i + 7 giving the row addresses of matrix i: lane (g, t) gets
+// row g, columns 2t and 2t + 1 of each (of the transpose with TRANS)
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+        "{%0, %1, %2, %3}, [%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+
+// two floats rounded to bf16, lo in the low half (the lower index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 4 bytes from global to shared memory by cp.async; zero when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // The fragments of m16n8k8, for lane (g, t) = (lane / 4, lane % 4): A
@@ -1062,103 +1119,332 @@ int dispatch_flash(const void* q, const void* k, const void* v, void* o,
 // ---- flash_attention_bwd -----------------------------------------------
 // The gradient of flash_attention (dQ, dK, dV from q, k, v, the output
 // o, its gradient dO and the forward's log-sum-exp), FlashAttention-2's
-// split on the CUDA cores in float32.  Three kernels under one entry:
+// split on the tensor cores.  Three kernels under one entry:
 //   delta  one warp a query row: delta = rowsum(dO * o);
 //   dk_dv  one block a (batch, kv head, key tile): the K and V tile stay
 //          in shared memory while the block walks every query head of
 //          its GQA group and every query tile the masks let see its keys
 //          (and, under a window, the rows that see no key at all, which
-//          average v uniformly and so reach dV); per query tile it
-//          recomputes S = Q K^T and P = exp(S scale - lse), takes
-//          dP = dO V^T and dS = P (dP - delta) (zero where the masks
-//          cut), and accumulates dV += P^T dO and dK += dS^T Q in
-//          registers;
-//   dq     one block a (batch, query head, query tile): Q, dO, lse and
-//          delta stay in shared memory while it walks the key tiles its
-//          rows see and accumulates dQ += dS K.
-// Operations bound it (10 D flops a kept pair for the five products; the
-// split recomputes S and dP, 14 D in all).  A simple kernel first: every
-// product runs on the CUDA cores as a 16 x 16 grid of threads, each with
-// a few rows and columns of the tile a stride of 16 apart (conflict-free
-// shared-memory reads: rows are D + 1 floats apart), fmaf throughout.
-// The tensor cores (mma.sync or wgmma) are a later redesign.  No atomics:
-// every sum has one owner and one order, so a gradient is bitwise
-// repeatable.  dK and dQ are multiplied by the scale once, at the end.
-constexpr int kBwdThreads = 256;            // a 16 x 16 grid of threads
-constexpr int kBwdGrid = 16;
-__host__ __device__ constexpr int bwd_tile(int D) { return D <= 128 ? 64 : 32; }
+//          average v uniformly and so reach dV with P = 1 / Sk);
+//   dq     one block a (batch, query head, tile of 64 query rows): Q and
+//          dO stay in shared memory while it walks the key tiles its
+//          rows see.
+// Operations bound it: 10 D flops a kept pair (0.35 ms for a llama3-8b
+// prefill at the bf16 tensor cores' 989 TFLOP/s), which only the tensor
+// cores deliver; the split does 14 D, recomputing S and dP in dq.
+// Four warps a block, each owning 16 rows of the output: keys in dk_dv,
+// queries in dq.  dk_dv computes the transposes S^T = K Q^T and
+// dP^T = V dO^T, so the warp's keys are the rows of its accumulators;
+// P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T - delta)
+// are taken on the accumulator fragment and are, as they stand, the A
+// fragments of dV += P^T dO and dK += dS^T Q (an accumulator's 16 x 8
+// tiles j and j + 1 hold the 16 x 16 A fragment of k step j / 2), so
+// neither goes through shared memory.  dq does the same with S = Q K^T,
+// dP = dO V^T, dS and dQ += dS K.  Each product is mma.sync, float32
+// accumulators in registers:
+// * bf16: m16n8k16; P and dS rounded to bf16 on the fragment, as row 9
+//   rounds its P, every sum float32.  Tiles are bf16 in shared memory
+//   with their 16-byte chunks XOR-swizzled by row (chunk c of row r at
+//   c ^ (r % 8)), read by ldmatrix (.trans for the B operands taken
+//   along their rows: dO and Q in dk_dv, K in dq) with no bank conflict.
+// * float32: 3xTF32 on m16n8k8 (split_tf32, mma_3xtf32, as row 9f),
+//   tiles as floats with rows D + 4 apart (conflict-free scalar reads),
+//   and each k step of 8 queries or keys taking its columns in the order
+//   0, 2, 4, 6, 1, 3, 5, 7, so the accumulator is the A fragment.  The
+//   tensor cores' adds cut rather than round, so every sum runs in short
+//   chains joined by float32 adds: S over 32 head_dim columns, each dV,
+//   dK and dQ tile over one query or key step.
+// Tiles reach shared memory by 16-byte cp.async in a ring of two
+// stages: dk_dv's next Q and dO tile (lse and delta with it) and dq's
+// next K and V tile are in flight while this one is multiplied.  At
+// head_dim 192 and 256 a warp's dK and dV would not fit in registers, so
+// two warps share 16 keys, each accumulating half the columns, and both
+// recompute the same S^T and dP^T (18 D flops a kept pair there,
+// against 14 D below).  Tiles (keys a dk_dv block / queries a step of
+// it; dq: 64 queries / keys a step), and each instance's registers a
+// thread (ptxas, no spills) and dynamic shared memory in bytes:
+//          bf16                           float32
+//          dk_dv            dq            dk_dv            dq
+//   D 64   64/64 223 50176  64/64 168 49152   64/16 168 52480  64/32 128 69632
+//   D 128  64/32 249 66048  64/64 255 98304   64/16 255 101632 64/16 168 101376
+//   D 192  32/32 241 74240  64/32 253 98304   32/16 255 100608 64/16 168 150528
+//   D 256  32/16 239 65792  64/16 242 98304   32/16 255 133376 64/16 255 199680
+// One step larger spilled: bf16 D 256 with 32 queries (16 bytes) or 32
+// keys (80), float32 dq at D 128 with 32 keys (8).
+// No atomics: every sum has one owner and one order, so a gradient is
+// bitwise repeatable; dQ could instead be summed in dk_dv's walk (FA2's
+// atomic add, or an ordered semaphore per query tile) and save the
+// recompute of S and dP in dq, 4 D of the 14 D.  Blocks go heavy causal
+// tiles first across every head; dK and dQ are scaled once, at the end.
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kDeltaThreads = 256;          // 8 rows a block
 
-template <int D>
-constexpr int bwd_smem_dkdv() {             // K, V, Q, dO, P, dS, lse, delta
-  constexpr int T = bwd_tile(D);
-  return (4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) * 4;
-}
-template <int D>
-constexpr int bwd_smem_dq() {               // Q, dO, K, V, dS, lse, delta
-  constexpr int T = bwd_tile(D);
-  return (4 * T * (D + 1) + T * (T + 1) + 2 * T) * 4;
-}
+// The tiles, fragments and mma of one element type
+template <typename T>
+struct BwdMma;
+
+template <>
+struct BwdMma<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int kK = 16;             // k of one mma
+  static constexpr bool kChains = false;    // sums in one chain each
+  struct A { uint32_t x[4]; };
+  struct B { uint32_t x[2]; };
+  // element (r, c) of a tile of rows of D; c % 8 == 0 for a chunk
+  template <int D>
+  static __device__ __forceinline__ int off(int r, int c) {
+    return r * D + ((((c >> 3) ^ r) & 7) | ((c >> 3) & ~7)) * 8 + (c & 7);
+  }
+  template <int D>
+  static constexpr int row_elems() { return D; }
+  // A of the 16 x 16 block at (r0, k0) of a row-major tile
+  template <int D>
+  static __device__ __forceinline__ void load_a(A& a, const T* s, int r0,
+                                                int k0) {
+    const int lane = threadIdx.x & 31;
+    ldmatrix_x4<false>(a.x, smem_addr(s + off<D>(r0 + (lane & 15),
+                                                 k0 + (lane >> 4) * 8)));
+  }
+  // B of the n8 tiles n0 and n0 + 8 at k step k0 from an [n][k] tile
+  template <int D>
+  static __device__ __forceinline__ void load_b(B (&b)[2], const T* s,
+                                                int n0, int k0) {
+    const int lane = threadIdx.x & 31;
+    uint32_t r[4];
+    ldmatrix_x4<false>(r, smem_addr(s + off<D>(
+                              n0 + (lane & 7) + ((lane >> 4) << 3),
+                              k0 + ((lane >> 3) & 1) * 8)));
+    b[0] = {{r[0], r[1]}};
+    b[1] = {{r[2], r[3]}};
+  }
+  // ... from a [k][n] tile
+  template <int D>
+  static __device__ __forceinline__ void load_bt(B (&b)[2], const T* s,
+                                                 int k0, int n0) {
+    const int lane = threadIdx.x & 31;
+    uint32_t r[4];
+    ldmatrix_x4<true>(r, smem_addr(s + off<D>(
+                             k0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                             n0 + (lane >> 4) * 8)));
+    b[0] = {{r[0], r[1]}};
+    b[1] = {{r[2], r[3]}};
+  }
+  // A of k step i from the 16 x 8 accumulator tiles 2i and 2i + 1,
+  // rounded to bf16
+  template <int NT>
+  static __device__ __forceinline__ void acc_a(A& a, const float (&c)[NT][4],
+                                               int i) {
+    a.x[0] = pack_bf16(c[2 * i][0], c[2 * i][1]);
+    a.x[1] = pack_bf16(c[2 * i][2], c[2 * i][3]);
+    a.x[2] = pack_bf16(c[2 * i + 1][0], c[2 * i + 1][1]);
+    a.x[3] = pack_bf16(c[2 * i + 1][2], c[2 * i + 1][3]);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a,
+                                             const B& b) {
+    mma_bf16(d, a.x, b.x);
+  }
+};
+
+template <>
+struct BwdMma<float> {
+  using T = float;
+  static constexpr int kK = 8;
+  static constexpr bool kChains = true;     // the adds cut: short chains
+  static constexpr int kChainSteps = 4;     // k steps of S in one chain
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+  template <int D>
+  static __device__ __forceinline__ int off(int r, int c) {
+    return r * (D + 4) + c;
+  }
+  template <int D>
+  static constexpr int row_elems() { return D + 4; }
+  // head_dim steps (load_a, load_b) take their columns in order: A's
+  // (g, t) is column k0 + t
+  template <int D>
+  static __device__ __forceinline__ void load_a(A& a, const T* s, int r0,
+                                                int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const T* p = s + off<D>(r0 + g, k0 + t);
+    split_tf32(p[0], a.hi[0], a.lo[0]);
+    split_tf32(p[8 * (D + 4)], a.hi[1], a.lo[1]);
+    split_tf32(p[4], a.hi[2], a.lo[2]);
+    split_tf32(p[8 * (D + 4) + 4], a.hi[3], a.lo[3]);
+  }
+  template <int D>
+  static __device__ __forceinline__ void load_b(B (&b)[2], const T* s,
+                                                int n0, int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const T* p = s + off<D>(n0 + 8 * i + g, k0 + t);
+      split_tf32(p[0], b[i].hi[0], b[i].lo[0]);
+      split_tf32(p[4], b[i].hi[1], b[i].lo[1]);
+    }
+  }
+  // query and key steps (acc_a, load_bt) take 0, 2, 4, 6, 1, 3, 5, 7:
+  // A's (g, t) and (g, t + 4) are columns 2t and 2t + 1 of the step,
+  // where the accumulator holds them; B's (t, g) and (t + 4, g) rows 2t
+  // and 2t + 1
+  template <int D>
+  static __device__ __forceinline__ void load_bt(B (&b)[2], const T* s,
+                                                 int k0, int n0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const T* p = s + off<D>(k0 + 2 * t, n0 + 8 * i + g);
+      split_tf32(p[0], b[i].hi[0], b[i].lo[0]);
+      split_tf32(p[D + 4], b[i].hi[1], b[i].lo[1]);
+    }
+  }
+  template <int NT>
+  static __device__ __forceinline__ void acc_a(A& a, const float (&c)[NT][4],
+                                               int i) {
+    split_tf32(c[i][0], a.hi[0], a.lo[0]);
+    split_tf32(c[i][2], a.hi[1], a.lo[1]);
+    split_tf32(c[i][1], a.hi[2], a.lo[2]);
+    split_tf32(c[i][3], a.hi[3], a.lo[3]);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a,
+                                             const B& b) {
+    mma_3xtf32(d, a.hi, a.lo, b.hi, b.lo);
+  }
+};
+
+// The tiles of one instance (the table in the section comment)
+template <typename T, int D>
+struct BwdTiles {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int kSplit = D <= 128 ? 1 : 2;   // warps a 16-key row
+  static constexpr int kKeys = 16 * kBwdWarps / kSplit;
+  static constexpr int kQStep = !kBf16 || D == 256 ? 16 : D == 64 ? 64 : 32;
+  static constexpr int kQRows = 16 * kBwdWarps;
+  static constexpr int kKStep = kBf16 ? (D <= 128 ? 64 : D == 192 ? 32 : 16)
+                                      : (D == 64 ? 32 : 16);
+  static constexpr int kRow = BwdMma<T>::template row_elems<D>();
+  static constexpr int smem_dkdv() {        // K, V; 2 x (Q, dO, lse, delta)
+    return (2 * kKeys + 4 * kQStep) * kRow * sizeof(T) + 4 * kQStep * 4;
+  }
+  static constexpr int smem_dq() {          // Q, dO; 2 x (K, V)
+    return (2 * kQRows + 4 * kKStep) * kRow * sizeof(T);
+  }
+};
 
 // rows [0, R) x D of src (row stride `stride`, the first n_rows valid,
-// the rest zero) into shared memory as floats, rows D + 1 apart
-template <typename T, int R, int D>
-__device__ __forceinline__ void bwd_load(float* dst,
-                                         const T* __restrict__ src,
+// the rest zero) into the tile at dst by 16-byte cp.async
+template <typename T, int D, int R>
+__device__ __forceinline__ void bwd_copy(T* dst, const T* __restrict__ src,
                                          int64_t stride, int n_rows) {
-  for (int idx = threadIdx.x; idx < R * D; idx += kBwdThreads) {
-    const int r = idx / D, c = idx % D;
-    dst[r * (D + 1) + c] =
-        r < n_rows ? to_float(src[static_cast<int64_t>(r) * stride + c])
-                   : 0.f;
+  constexpr int kPer = 16 / sizeof(T);      // elements a copy
+  constexpr int kChunks = R * D / kPer;
+  static_assert(kChunks % kBwdThreads == 0, "whole passes");
+#pragma unroll
+  for (int it = 0; it < kChunks / kBwdThreads; ++it) {
+    const int i = it * kBwdThreads + threadIdx.x;
+    const int r = i / (D / kPer), c = (i % (D / kPer)) * kPer;
+    const bool ok = r < n_rows;
+    cp_async16(smem_addr(dst + BwdMma<T>::template off<D>(r, c)),
+               src + (ok ? r : 0) * stride + c, ok);
   }
 }
 
-// c[r][s] = sum_d a[m][d] b[n][d] for the thread's rows m = tm + 16 r of
-// a and n = tn + 16 s of b (both rows D + 1 floats apart)
-template <int RM, int RN, int D>
-__device__ __forceinline__ void bwd_dot(float (&c)[RM][RN],
-                                        const float* a, const float* b,
-                                        int tm, int tn) {
+// c[j] (+)= A B^T over head_dim: A the 16 rows at r0 of tile as, B^T the
+// NT * 8 rows of tile bs (both rows of D); in chains of kChainSteps k
+// steps under 3xTF32, each joined to c by a float32 add
+template <typename T, int D, int NT>
+__device__ __forceinline__ void tile_abt(float (&c)[NT][4], const T* as,
+                                        int r0, const T* bs) {
+  using M = BwdMma<T>;
+  static_assert(NT % 2 == 0, "pairs of n8 tiles");
 #pragma unroll
-  for (int r = 0; r < RM; ++r)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int s = 0; s < RN; ++s) c[r][s] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[RM], bv[RN];
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+  if constexpr (!M::kChains) {
 #pragma unroll
-    for (int r = 0; r < RM; ++r) av[r] = a[(tm + kBwdGrid * r) * (D + 1) + d];
+    for (int k0 = 0; k0 < D; k0 += M::kK) {
+      typename M::A a;
+      M::template load_a<D>(a, as, r0, k0);
 #pragma unroll
-    for (int s = 0; s < RN; ++s) bv[s] = b[(tn + kBwdGrid * s) * (D + 1) + d];
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int s = 0; s < RN; ++s) c[r][s] = fmaf(av[r], bv[s], c[r][s]);
-  }
-}
-
-// acc[r][c] += sum_k x(m, k) y[k][n] over k < K for the thread's
-// m = tm + 16 r and n = tn + 16 c; x(m, k) = x[k * ldx + m] when XT (x
-// stored k-major, as P and dS are for dV and dK), else x[m * ldx + k]
-template <int RM, int RN, int K, bool XT>
-__device__ __forceinline__ void bwd_acc(float (&acc)[RM][RN],
-                                        const float* x, int ldx,
-                                        const float* y, int ldy, int tm,
-                                        int tn) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float xv[RM], yv[RN];
-#pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      const int m = tm + kBwdGrid * r;
-      xv[r] = XT ? x[k * ldx + m] : x[m * ldx + k];
+      for (int j = 0; j < NT; j += 2) {
+        typename M::B b[2];
+        M::template load_b<D>(b, bs, 8 * j, k0);
+        M::mma(c[j], a, b[0]);
+        M::mma(c[j + 1], a, b[1]);
+      }
     }
+  } else {
+    constexpr int kCh = M::kChainSteps * M::kK;
+    static_assert(D % kCh == 0, "whole chains");
+#pragma unroll 1
+    for (int kc = 0; kc < D; kc += kCh) {
+      float part[NT][4];
 #pragma unroll
-    for (int c = 0; c < RN; ++c) yv[c] = y[k * ldy + tn + kBwdGrid * c];
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int r = 0; r < RM; ++r)
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
 #pragma unroll
-      for (int c = 0; c < RN; ++c) acc[r][c] = fmaf(xv[r], yv[c], acc[r][c]);
+      for (int k0 = kc; k0 < kc + kCh; k0 += M::kK) {
+        typename M::A a;
+        M::template load_a<D>(a, as, r0, k0);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          typename M::B b[2];
+          M::template load_b<D>(b, bs, 8 * j, k0);
+          M::mma(part[j], a, b[0]);
+          M::mma(part[j + 1], a, b[1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] += part[j][e];
+    }
+  }
+}
+
+// acc[n] += X Y for the NN n8 column tiles at n0 of tile ys ([k][n],
+// rows of D): X the A fragments xa of the KT k steps; under 3xTF32 each
+// tile's chain over the KT steps joins acc by a float32 add
+template <typename T, int D, int KT, int NN>
+__device__ __forceinline__ void tile_acc(float (&acc)[NN][4],
+                                        const typename BwdMma<T>::A (&xa)[KT],
+                                        const T* ys, int n0) {
+  using M = BwdMma<T>;
+  static_assert(NN % 2 == 0, "pairs of n8 tiles");
+#pragma unroll
+  for (int n = 0; n < NN; n += 2) {
+    float part[2][4] = {};
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+      typename M::B b[2];
+      M::template load_bt<D>(b, ys, M::kK * i, n0 + 8 * n);
+      if constexpr (M::kChains) {
+        M::mma(part[0], xa[i], b[0]);
+        M::mma(part[1], xa[i], b[1]);
+      } else {
+        M::mma(acc[n], xa[i], b[0]);
+        M::mma(acc[n + 1], xa[i], b[1]);
+      }
+    }
+    if constexpr (M::kChains) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[n][e] += part[0][e];
+        acc[n + 1][e] += part[1][e];
+      }
+    }
+  }
+}
+
+// two neighbouring elements of a gradient row, scaled
+template <typename T>
+__device__ __forceinline__ void bwd_store2(T* p, float x, float y) {
+  if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
   }
 }
 
@@ -1174,13 +1460,23 @@ __device__ __forceinline__ bool bwd_empty(const FlashArgs& a, int i) {
   return a.window > 0 && i >= a.Sk + a.window - 1;
 }
 
+// whether every query of [q_first, q_last] keeps every key of
+// [k_first, k_last] (then no element needs a mask)
+__device__ __forceinline__ bool bwd_whole(const FlashArgs& a, int q_first,
+                                          int q_last, int k_first,
+                                          int k_last) {
+  return q_last < a.Sq && k_last < a.Sk && (!a.causal || k_last <= q_first)
+      && (a.window <= 0 || q_last - k_first < a.window);
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, const FlashArgs a,
                        int64_t rows) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) +
-                      threadIdx.x / 32;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (kDeltaThreads / 32) +
+      threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
   const int i = static_cast<int>(row % a.Sq);
@@ -1197,184 +1493,252 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, const FlashArgs a) {
-  constexpr int BT = bwd_tile(D), LD = D + 1, LP = BT + 1;
-  constexpr int RT = BT / kBwdGrid, RD = D / kBwdGrid;
-  extern __shared__ float bwd_smem[];
-  float* ks = bwd_smem;                     // [BT][LD] each
-  float* vs = ks + BT * LD;
-  float* qs = vs + BT * LD;
-  float* ds_o = qs + BT * LD;               // dO
-  float* ps = ds_o + BT * LD;               // [BT][LP] each, query-major
-  float* dss = ps + BT * LP;
-  float* lse_s = dss + BT * LP;             // [BT] each
-  float* delta_s = lse_s + BT;
+  using M = BwdMma<T>;
+  using Tl = BwdTiles<T, D>;
+  constexpr int BN = Tl::kKeys, BM = Tl::kQStep, RW = Tl::kRow;
+  constexpr int DH = D / Tl::kSplit;        // a warp's columns of dK, dV
+  constexpr int KT = BM / M::kK;            // query steps of a tile
+  extern __shared__ float4 bwd_smem_v4[];   // 16-byte aligned
+  T* ks = reinterpret_cast<T*>(bwd_smem_v4);  // [BN][RW]
+  T* vs = ks + BN * RW;
+  T* qs = vs + BN * RW;                     // [stage] Q, dO: [BM][RW] each
+  float* stats = reinterpret_cast<float*>(qs + 4 * BM * RW);
+                                            // [stage] lse, delta: [BM] each
 
-  const int kt = blockIdx.x;                // heavy causal tiles first
-  const int bhk = blockIdx.y;
-  const int Hkv = a.Hq / a.group;
-  const int b = bhk / Hkv, hk = bhk % Hkv;
-  const int k0 = kt * BT, k_rows = min(BT, a.Sk - k0);
-  const int tm = threadIdx.x / kBwdGrid, tn = threadIdx.x % kBwdGrid;
-  bwd_load<T, BT, D>(ks, k + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
+  const int hkv = a.Hq / a.group;
+  const int b = blockIdx.x / hkv, hk = blockIdx.x % hkv;
+  const int k0 = blockIdx.y * BN;           // heavy causal tiles first
+  const int k_rows = min(BN, a.Sk - k0);
+  bwd_copy<T, D, BN>(ks, k + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
                      k_rows);
-  bwd_load<T, BT, D>(vs, v + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
+  bwd_copy<T, D, BN>(vs, v + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
                      k_rows);
 
-  // query rows that may keep a key of this tile, and the rows that keep
-  // none at all (they reach dV through their uniform average)
+  // the (head of the group, query tile) steps, g * n_qt + qt: those with
+  // a row that may keep a key of this tile, or that sees no key at all
   const int q_lo = a.causal ? k0 : 0;
-  const int q_hi = a.window > 0 ? min(a.Sq, k0 + BT - 1 + a.window) : a.Sq;
+  const int q_hi = a.window > 0 ? min(a.Sq, k0 + BN - 1 + a.window) : a.Sq;
   const int e_lo = a.window > 0 ? a.Sk + a.window - 1 : a.Sq;
-  const float inv_sk = 1.f / static_cast<float>(a.Sk);
-
-  float dk_acc[RT][RD], dv_acc[RT][RD];
-#pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int c = 0; c < RD; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
-
-  const int n_qt = (a.Sq + BT - 1) / BT;
-  for (int g = 0; g < a.group; ++g) {
-    const int h = hk * a.group + g;
-    const int64_t row0 = (static_cast<int64_t>(b) * a.Hq + h) * a.Sq;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int q0 = qt * BT, q_end = min(a.Sq, q0 + BT);
-      if (!(q0 < q_hi && q_end > q_lo) && !(q_end > e_lo)) continue;
-      const int q_rows = q_end - q0;
-      __syncthreads();                      // the last tile's reads done
-      bwd_load<T, BT, D>(qs, q + b * a.q_b + h * a.q_h + q0 * a.q_s, a.q_s,
-                         q_rows);
-      bwd_load<T, BT, D>(ds_o, dout + b * a.q_b + h * a.q_h + q0 * a.q_s,
-                         a.q_s, q_rows);
-      for (int r = threadIdx.x; r < BT; r += kBwdThreads) {
-        lse_s[r] = r < q_rows ? a.lse[row0 + q0 + r] : 0.f;
-        delta_s[r] = r < q_rows ? delta[row0 + q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      float sc[RT][RT], dp[RT][RT];
-      bwd_dot<RT, RT, D>(sc, qs, ks, tm, tn);
-      bwd_dot<RT, RT, D>(dp, ds_o, vs, tm, tn);
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-#pragma unroll
-        for (int s2 = 0; s2 < RT; ++s2) {
-          const int li = tm + kBwdGrid * r, lj = tn + kBwdGrid * s2;
-          const int i = q0 + li, j = k0 + lj;
-          const bool keep = bwd_keep(a, i, j);
-          float p = 0.f, ds = 0.f;
-          if (keep) {
-            p = expf(fmaf(sc[r][s2], a.scale, -lse_s[li]));
-            ds = p * (dp[r][s2] - delta_s[li]);
-          } else if (i < a.Sq && j < a.Sk && bwd_empty(a, i)) {
-            p = inv_sk;
-          }
-          ps[li * LP + lj] = p;
-          dss[li * LP + lj] = ds;
-        }
-      __syncthreads();
-      bwd_acc<RT, RD, BT, true>(dv_acc, ps, LP, ds_o, LD, tm, tn);
-      bwd_acc<RT, RD, BT, true>(dk_acc, dss, LP, qs, LD, tm, tn);
+  const int n_qt = (a.Sq + BM - 1) / BM, total = a.group * n_qt;
+  auto next = [&](int i) {
+    for (; i < total; ++i) {
+      const int q0 = (i % n_qt) * BM, q_end = min(a.Sq, q0 + BM);
+      if ((q0 < q_hi && q_end > q_lo) || q_end > e_lo) break;
     }
+    return i;
+  };
+  auto load_q = [&](int i, int s) {
+    const int h = hk * a.group + i / n_qt, q0 = (i % n_qt) * BM;
+    const int rows = min(BM, a.Sq - q0);
+    const int64_t off = b * a.q_b + h * a.q_h + q0 * a.q_s;
+    T* qd = qs + s * 2 * BM * RW;
+    bwd_copy<T, D, BM>(qd, q + off, a.q_s, rows);
+    bwd_copy<T, D, BM>(qd + BM * RW, dout + off, a.q_s, rows);
+    const int64_t row0 = (static_cast<int64_t>(b) * a.Hq + h) * a.Sq + q0;
+    float* st = stats + s * 2 * BM;
+    for (int r = threadIdx.x; r < 2 * BM; r += kBwdThreads) {
+      const int rr = r % BM;
+      const bool ok = rr < rows;
+      cp_async4(smem_addr(st + r), (r < BM ? a.lse : delta) + row0 +
+                (ok ? rr : 0), ok);
+    }
+  };
+
+  int cur = next(0);
+  if (cur < total) load_q(cur, 0);
+  cp_async_commit();                        // K, V and the first Q tile
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kw = 16 * (warp / Tl::kSplit);  // the warp's keys in the tile
+  const int d0 = DH * (warp % Tl::kSplit);  // and its columns of dK, dV
+  const int key = k0 + kw + g;              // accumulator rows g, g + 8
+  const float scale_log2 = a.scale * kLog2e;
+  const float inv_sk = 1.f / static_cast<float>(a.Sk);
+  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; cur < total; ++it) {
+    const int nxt = next(cur + 1);
+    if (nxt < total) {                      // the next Q tile in flight
+      load_q(nxt, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                        // this tile visible to all
+    const T* qt = qs + (it & 1) * 2 * BM * RW;
+    const T* dot = qt + BM * RW;
+    const float* lse_s = stats + (it & 1) * 2 * BM;
+    const float* del_s = lse_s + BM;
+    const int q0 = (cur % n_qt) * BM;
+
+    // S^T and dP^T: the warp's 16 keys x the tile's BM queries; element
+    // e of tile j is key `key` + 8 (e / 2), query 8 j + 2t + e % 2
+    float st[BM / 8][4], dpt[BM / 8][4];
+    tile_abt<T, D, BM / 8>(st, ks, kw, qt);
+    tile_abt<T, D, BM / 8>(dpt, vs, kw, dot);
+    const bool whole = bwd_whole(a, q0, q0 + BM - 1, k0 + kw, k0 + kw + 15);
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = 8 * j + 2 * t + (e & 1), qi = q0 + ql;
+        const int kj = key + 8 * (e >> 1);
+        float p = 0.f, ds = 0.f;
+        if (whole || bwd_keep(a, qi, kj)) {
+          p = fast_exp2(fmaf(st[j][e], scale_log2, -lse_s[ql] * kLog2e));
+          ds = p * (dpt[j][e] - del_s[ql]);
+        } else if (qi < a.Sq && kj < a.Sk && bwd_empty(a, qi)) {
+          p = inv_sk;
+        }
+        st[j][e] = p;
+        dpt[j][e] = ds;
+      }
+    typename M::A pa[KT], dsa[KT];
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+      M::acc_a(pa[i], st, i);
+      M::acc_a(dsa[i], dpt, i);
+    }
+    tile_acc<T, D, KT, DH / 8>(dv_acc, pa, dot, d0);
+    tile_acc<T, D, KT, DH / 8>(dk_acc, dsa, qt, d0);
+    __syncthreads();                        // reads done before the refill
+    cur = nxt;
   }
+  cp_async_wait<0>();
 
   T* dkp = dk + b * a.k_b + hk * a.k_h;
   T* dvp = dv + b * a.k_b + hk * a.k_h;
 #pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    const int j = k0 + tm + kBwdGrid * r;
+  for (int r = 0; r < 2; ++r) {
+    const int j = key + 8 * r;
     if (j >= a.Sk) continue;
 #pragma unroll
-    for (int c = 0; c < RD; ++c) {
-      const int d = tn + kBwdGrid * c;
-      dkp[j * a.k_s + d] = from_float<T>(dk_acc[r][c] * a.scale);
-      dvp[j * a.k_s + d] = from_float<T>(dv_acc[r][c]);
+    for (int n = 0; n < DH / 8; ++n) {
+      const int64_t o = j * a.k_s + d0 + 8 * n + 2 * t;
+      bwd_store2(dkp + o, dk_acc[n][2 * r] * a.scale,
+                 dk_acc[n][2 * r + 1] * a.scale);
+      bwd_store2(dvp + o, dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
     }
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     const FlashArgs a) {
-  constexpr int BT = bwd_tile(D), LD = D + 1, LP = BT + 1;
-  constexpr int RT = BT / kBwdGrid, RD = D / kBwdGrid;
-  extern __shared__ float bwd_smem[];
-  float* qs = bwd_smem;                     // [BT][LD] each
-  float* ds_o = qs + BT * LD;               // dO
-  float* ks = ds_o + BT * LD;
-  float* vs = ks + BT * LD;
-  float* dss = vs + BT * LD;                // [BT][LP]
-  float* lse_s = dss + BT * LP;             // [BT] each
-  float* delta_s = lse_s + BT;
+  using M = BwdMma<T>;
+  using Tl = BwdTiles<T, D>;
+  constexpr int BM = Tl::kQRows, BN = Tl::kKStep, RW = Tl::kRow;
+  constexpr int KT = BN / M::kK;            // key steps of a tile
+  extern __shared__ float4 bwd_smem_v4[];
+  T* qs = reinterpret_cast<T*>(bwd_smem_v4);  // [BM][RW]
+  T* dos = qs + BM * RW;
+  T* kvs = dos + BM * RW;                   // [stage] K, V: [BN][RW] each
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.group;
-  const int q0 = qt * BT, q_rows = min(BT, a.Sq - q0);
-  const int64_t row0 = static_cast<int64_t>(bh) * a.Sq + q0;
-  const int tm = threadIdx.x / kBwdGrid, tn = threadIdx.x % kBwdGrid;
-  bwd_load<T, BT, D>(qs, q + b * a.q_b + h * a.q_h + q0 * a.q_s, a.q_s,
-                     q_rows);
-  bwd_load<T, BT, D>(ds_o, dout + b * a.q_b + h * a.q_h + q0 * a.q_s, a.q_s,
-                     q_rows);
-  for (int r = threadIdx.x; r < BT; r += kBwdThreads) {
-    lse_s[r] = r < q_rows ? a.lse[row0 + r] : 0.f;
-    delta_s[r] = r < q_rows ? delta[row0 + r] : 0.f;
-  }
+  const int b = blockIdx.x / a.Hq, h = blockIdx.x % a.Hq, hk = h / a.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heavy causal first
+  const int q_rows = min(BM, a.Sq - q0);
+  const int64_t off = b * a.q_b + h * a.q_h + q0 * a.q_s;
+  bwd_copy<T, D, BM>(qs, q + off, a.q_s, q_rows);
+  bwd_copy<T, D, BM>(dos, dout + off, a.q_s, q_rows);
 
   // keys any row of the tile keeps (rows that keep none get no dQ)
   const int q_last = q0 + q_rows - 1;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int k_hi = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
-  float acc[RT][RD];
-#pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int c = 0; c < RD; ++c) acc[r][c] = 0.f;
+  const int t_begin = k_lo / BN;
+  const int n = k_hi > k_lo ? (k_hi + BN - 1) / BN - t_begin : 0;
+  const T* kp = k + b * a.k_b + hk * a.k_h;
+  const T* vp = v + b * a.k_b + hk * a.k_h;
+  auto load_kv = [&](int i, int s) {
+    const int kb = (t_begin + i) * BN, rows = min(BN, a.Sk - kb);
+    T* kd = kvs + s * 2 * BN * RW;
+    bwd_copy<T, D, BN>(kd, kp + kb * a.k_s, a.k_s, rows);
+    bwd_copy<T, D, BN>(kd + BN * RW, vp + kb * a.k_s, a.k_s, rows);
+  };
+  if (n > 0) load_kv(0, 0);
+  cp_async_commit();                        // Q, dO and the first K, V
 
-  for (int kt = k_lo / BT; kt * BT < k_hi; ++kt) {
-    const int k0 = kt * BT, k_rows = min(BT, a.Sk - k0);
-    __syncthreads();                        // the last tile's reads done
-    bwd_load<T, BT, D>(ks, k + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
-                       k_rows);
-    bwd_load<T, BT, D>(vs, v + b * a.k_b + hk * a.k_h + k0 * a.k_s, a.k_s,
-                       k_rows);
-    __syncthreads();
-    float sc[RT][RT], dp[RT][RT];
-    bwd_dot<RT, RT, D>(sc, qs, ks, tm, tn);
-    bwd_dot<RT, RT, D>(dp, ds_o, vs, tm, tn);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qw = 16 * warp;                 // the warp's rows in the tile
+  const int row = q0 + qw + g;              // accumulator rows g, g + 8
+  const int64_t row0 = static_cast<int64_t>(b * a.Hq + h) * a.Sq;
+  float lse2[2], del[2];
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-      for (int s2 = 0; s2 < RT; ++s2) {
-        const int li = tm + kBwdGrid * r, lj = tn + kBwdGrid * s2;
-        float ds = 0.f;
-        if (bwd_keep(a, q0 + li, k0 + lj)) {
-          const float p = expf(fmaf(sc[r][s2], a.scale, -lse_s[li]));
-          ds = p * (dp[r][s2] - delta_s[li]);
-        }
-        dss[li * LP + lj] = ds;
-      }
-    __syncthreads();
-    bwd_acc<RT, RD, BT, false>(acc, dss, LP, ks, LD, tm, tn);
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = row + 8 * r < a.Sq;
+    lse2[r] = ok ? a.lse[row0 + row + 8 * r] * kLog2e : 0.f;
+    del[r] = ok ? delta[row0 + row + 8 * r] : 0.f;
   }
+  const float scale_log2 = a.scale * kLog2e;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) {                        // the next K, V tile in flight
+      load_kv(i + 1, (i + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* kt = kvs + (i & 1) * 2 * BN * RW;
+    const T* vt = kt + BN * RW;
+    const int kb = (t_begin + i) * BN;
+
+    // S and dP: the warp's 16 rows x the tile's BN keys; element e of
+    // tile j is row `row` + 8 (e / 2), key kb + 8 j + 2t + e % 2
+    float s[BN / 8][4], dp[BN / 8][4];
+    tile_abt<T, D, BN / 8>(s, qs, qw, kt);
+    tile_abt<T, D, BN / 8>(dp, dos, qw, vt);
+    const bool whole = bwd_whole(a, q0 + qw, q0 + qw + 15, kb, kb + BN - 1);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float ds = 0.f;
+        if (whole || bwd_keep(a, row + 8 * r, kb + 8 * j + 2 * t + (e & 1))) {
+          const float p = fast_exp2(fmaf(s[j][e], scale_log2, -lse2[r]));
+          ds = p * (dp[j][e] - del[r]);
+        }
+        s[j][e] = ds;
+      }
+    typename M::A dsa[KT];
+#pragma unroll
+    for (int c = 0; c < KT; ++c) M::acc_a(dsa[c], s, c);
+    tile_acc<T, D, KT, D / 8>(acc, dsa, kt, 0);
+    __syncthreads();                        // reads done before the refill
+  }
+  cp_async_wait<0>();
 
   T* dqp = dq + b * a.q_b + h * a.q_h;
 #pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    const int i = q0 + tm + kBwdGrid * r;
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
     if (i >= a.Sq) continue;
 #pragma unroll
-    for (int c = 0; c < RD; ++c)
-      dqp[i * a.q_s + tn + kBwdGrid * c] = from_float<T>(acc[r][c] * a.scale);
+    for (int c = 0; c < D / 8; ++c)
+      bwd_store2(dqp + i * a.q_s + 8 * c + 2 * t, acc[c][2 * r] * a.scale,
+                 acc[c][2 * r + 1] * a.scale);
   }
 }
 
@@ -1383,7 +1747,7 @@ int launch_flash_bwd(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, void* delta, void* dq,
                      void* dk, void* dv, int B, const FlashArgs& a,
                      void* stream) {
-  constexpr int BT = bwd_tile(D);
+  using Tl = BwdTiles<T, D>;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
@@ -1391,31 +1755,32 @@ int launch_flash_bwd(const void* q, const void* k, const void* v,
   const T* tdo = static_cast<const T*>(dout);
   float* fdelta = static_cast<float*>(delta);
   const int64_t rows = static_cast<int64_t>(B) * a.Hq * a.Sq;
-  constexpr int kRowsABlock = kBwdThreads / 32;
+  constexpr int kRowsABlock = kDeltaThreads / 32;
   flash_bwd_delta_kernel<T, D><<<(rows + kRowsABlock - 1) / kRowsABlock,
-                                 kBwdThreads, 0, st>>>(
+                                 kDeltaThreads, 0, st>>>(
       static_cast<const T*>(o), tdo, fdelta, a, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   auto dkdv = flash_bwd_dkdv_kernel<T, D>;
-  constexpr int kSmemKV = bwd_smem_dkdv<D>();
+  constexpr int kSmemKV = Tl::smem_dkdv();
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemKV);
   if (err != cudaSuccess) return err;
   const int Hkv = a.Hq / a.group;
-  dkdv<<<dim3((a.Sk + BT - 1) / BT, B * Hkv), kBwdThreads, kSmemKV, st>>>(
-      tq, tk, tv, tdo, fdelta, static_cast<T*>(dk), static_cast<T*>(dv), a);
+  dkdv<<<dim3(B * Hkv, (a.Sk + Tl::kKeys - 1) / Tl::kKeys), kBwdThreads,
+         kSmemKV, st>>>(tq, tk, tv, tdo, fdelta, static_cast<T*>(dk),
+                        static_cast<T*>(dv), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   auto dqk = flash_bwd_dq_kernel<T, D>;
-  constexpr int kSmemQ = bwd_smem_dq<D>();
+  constexpr int kSmemQ = Tl::smem_dq();
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemQ);
   if (err != cudaSuccess) return err;
-  dqk<<<dim3((a.Sq + BT - 1) / BT, B * a.Hq), kBwdThreads, kSmemQ, st>>>(
-      tq, tk, tv, tdo, fdelta, static_cast<T*>(dq), a);
+  dqk<<<dim3(B * a.Hq, (a.Sq + Tl::kQRows - 1) / Tl::kQRows), kBwdThreads,
+        kSmemQ, st>>>(tq, tk, tv, tdo, fdelta, static_cast<T*>(dq), a);
   return cudaGetLastError();
 }
 

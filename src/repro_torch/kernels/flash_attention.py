@@ -37,14 +37,20 @@ the reference takes by autodiff of its pure-JAX `chunked_attention`
 input that requires grad the Function records no graph; writing the
 log-sum-exp costs the forward no measurable time.  The backward replaces
 no TPU kernel.  It is FlashAttention-2's split, three kernels under one
-entry point, on the CUDA cores in float32 (a simple kernel first: at 10
-D flops a kept pair operations bound it, and the tensor cores are work
-for a later redesign): a pass that takes delta = rowsum(dO * O) a row; a
-block a (batch, kv head, 64-key tile) that walks every query head of its
-GQA group and every query tile the masks let see its keys, recomputes
-P from the log-sum-exp and accumulates dK and dV in registers; a block a
-(batch, query head, 64-row tile) that walks its key tiles and
-accumulates dQ.  No atomics: a step's gradients are bitwise repeatable.
+entry point, on the tensor cores (`mma.sync`; 10 D flops a kept pair
+bound it, and the split does 14 D): a pass that takes
+delta = rowsum(dO * O) a row; a block a (batch, kv head, key tile of
+32-64 keys) that walks every query head of its GQA group and every query
+tile the masks let see its keys, recomputes S^T = K Q^T and P^T from the
+log-sum-exp and accumulates dK and dV in registers; a block a (batch,
+query head, 64-row tile) that walks its key tiles and accumulates dQ.
+Four warps a block own 16 output rows each, so P and dS stay in the
+accumulator fragments that feed the next product.  bf16 runs m16n8k16
+with P and dS rounded to bf16 there (as the forward rounds P), operands
+read by `ldmatrix` from XOR-swizzled shared memory; float32 runs split
+3xTF32 (m16n8k8), summed in short chains joined by float32 adds; tiles
+arrive by cp.async, two stages.  No atomics: a step's gradients are
+bitwise repeatable.
 
 TMA reads a bf16 tensor through a descriptor whose strides must be
 multiples of 16 bytes and whose base is 16-byte aligned; the wrapper

@@ -12,6 +12,11 @@ to `jax.nn.logsumexp` of the oracle's scores too).  Tolerance: 1e-5 of
 each gradient's largest magnitude (float32 sums over up to 200 keys in
 another order).  Causal, windowed, GQA, MQA, rows that see no key, and
 lengths that are not multiples of 64 (the kernel's tile).
+
+The bf16 kernels' precision model (bf16 inputs, P and dS rounded to bf16
+before their products, float32 sums) is held to the same `jax.grad` on
+bf16-valued inputs within the GPU tests' bf16 bound, 1e-2 of each
+gradient's largest: the rounding points fit the bound.
 """
 import functools
 
@@ -119,6 +124,70 @@ def test_plain_backward_matches_jax_grad(B, Sq, Sk, Hq, Hkv, D, causal,
     for g, g2 in zip(got, ops.flash_attention_bwd(
             tq, tk, tv, out, tdo, lse, causal=causal, window=window)):
         assert torch.equal(g, g2)
+
+
+def _bf16_kernel_model(q, k, v, out, dout, lse, causal, window):
+    """The bf16 backward kernels' precision model on the CPU: bf16
+    inputs, float32 sums, P rounded to bf16 before dV += P^T dO and dS
+    rounded to bf16 before dQ += dS K and dK += dS^T Q (dS itself from
+    the unrounded P), each gradient rounded to bf16 once at the end."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf, kf, vf, do, of = (t.float() for t in (q, k, v, dout, out))
+    kr, vr = (t.repeat_interleave(G, dim=2) for t in (kf, vf))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) / D ** 0.5
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= (qp - kp) < window
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    p = torch.where(mask.any(-1)[:, None], p, 1.0 / Sk)
+    delta = (do * of).sum(-1).transpose(1, 2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vr)
+    ds = torch.where(mask, p * (dp - delta[..., None]), 0.0)
+    pb, dsb = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dv = torch.einsum("bhqk,bqhd->bkhd", pb, do)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsb, kr) / D ** 0.5
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, qf) / D ** 0.5
+    dk = dk.reshape(B, Sk, Hkv, G, D).sum(3)
+    dv = dv.reshape(B, Sk, Hkv, G, D).sum(3)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
+    (2, 64, 64, 4, 4, 64, True, 0),              # MHA, causal
+    (1, 100, 100, 8, 2, 64, True, 17),           # GQA 4, a window
+    (1, 150, 70, 4, 1, 64, False, 20),           # rows that see no key
+    (1, 130, 130, 4, 2, 128, True, 0),           # D 128, ragged
+    (1, 129, 97, 8, 1, 128, True, 33)])          # MQA 8, a window
+def test_bf16_precision_model_within_the_kernel_bound(B, Sq, Sk, Hq, Hkv,
+                                                      D, causal, window):
+    """Rounding P and dS to bf16 before their products, with float32
+    sums, keeps the gradients within the bf16 kernels' bound (1e-2 of
+    each gradient's largest) of jax.grad of the oracle on the same
+    bf16-valued inputs: the rounding points fit the bound."""
+    rng = np.random.default_rng(Sq * 7 + Sk + Hq + D)
+    q, dout = (torch.from_numpy(rng.standard_normal(
+        (B, Sq, Hq, D)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (B, Sk, Hkv, D)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(2))
+    want = _jax_grads(*(jnp.asarray(t.float().numpy())
+                        for t in (q, k, v, dout)), causal=causal,
+                      window=window)
+    out = ref.flash_attention_bshd_ref(q, k, v, causal=causal,
+                                       window=window)
+    lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    got = _bf16_kernel_model(q, k, v, out, dout, lse, causal, window)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _close(g.float(), w, tol=1e-2)
 
 
 def test_bhsd_layout_entries_match_the_model_layout():

@@ -1830,7 +1830,17 @@ def _bwd_inputs(rng, B, Sq, Sk, Hq, Hkv, D, dtype, dev):
     (8, 1, 70, 150, True, 0),                    # MQA, Sq < Sk
     (4, 1, 150, 70, False, 20),                  # rows that see no key
     (4, 4, 129, 257, False, 0),                  # tails past 64 and 128
-    (8, 1, 257, 129, True, 33)])
+    (8, 1, 257, 129, True, 33),
+    # the ragged edges of the tiles: 16 rows an mma, 16-64 queries a
+    # step, 32-64 keys a block
+    (2, 1, 1, 1, True, 0),                       # one query, one key
+    (2, 1, 16, 16, True, 0),
+    (2, 1, 63, 63, True, 0),
+    (2, 1, 65, 65, True, 0),
+    (2, 1, 127, 127, True, 0),
+    (2, 1, 129, 129, True, 0),
+    (2, 1, 1, 300, False, 0),                    # one query, many keys
+    (8, 1, 200, 200, True, 40)])                 # GQA 8 under a window
 def test_flash_attention_bwd_equals_plain_version(cuda, dtype, D, Hq, Hkv,
                                                   Sq, Sk, causal, window):
     """The backward kernel on the forward kernel's output and
