@@ -234,6 +234,30 @@ Phases, each fatal on failure:
             step of spx-100m through the kernels against the same step
             on the plain attention versions (loss 1e-4, grad norm 1e-3
             relative; bf16's difference printed beside it).
+  dp        data parallelism at world 1 over an NCCL process group
+            (a `file://` store in a temporary directory; its mesh from
+            `launch.mesh.make_mesh_for(1, 1)`; no fallback): the train
+            run's step-1 gradients through `plane_allreduce` in each
+            mode (DP_PLANES, the Trainer's key for that step): psum and
+            rs_ag bit-equal to the gradients, rs_ag_int8 one
+            int8_encode and one int8_decode launch a compressed chunk
+            (asserted), each held to its plain version on its own
+            inputs bit for bit, every element within one code step of
+            its gradient row; each mode's wall (CUDA events, median of
+            DP_REPEATS calls; one call profiled: the device's busy
+            share) and the codec kernels at every chunk shape against
+            their plain versions and the bound; spx-100m's step
+            over the world-1 mesh bit-equal to the step without one;
+            then llama3-8b at full width cut as TRAIN_LLAMA under remat
+            "full", "dots" and "kv" (REMAT_RUNS): TRAIN_LLAMA's 3 steps
+            each (step ms, the first a warm-up; peak memory;
+            flash_attention twice a layer a step, asserted), then every
+            recomputed flash forward launch bit-equal
+            to one of the first forward's, and the first batch's
+            gradients against "full"'s (bit-equal, else within
+            BWD_TOL; printed which).  A run of more ranks needs a
+            machine with more cards: NCCL refuses two ranks on one
+            device; the CPU tests carry 2, 4 and 8 ranks over gloo.
   profile   torch.profiler over 12 giga slots under AR and under ECMP,
             float64 and float32, and in float64 over giga_fat_tree under
             WAR and ECMP and over the giga point under failure reaction,
@@ -254,6 +278,7 @@ it exits 2 and prints no result, as it does without a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -4160,9 +4185,30 @@ def expected_failover(spec: dict) -> tuple:
     return up, [dataclasses.astuple(r) for r in fc.records]
 
 
-def spx_train(report: dict, total: dict) -> None:
+@contextmanager
+def kept_grads(keep: dict):
+    """The gradients of the train steps while the block runs, as the
+    step hands them to AdamW: `keep["grads"]` holds a copy of the last
+    step's tree."""
+    from repro_torch.models import tree_map
+    from repro_torch.train import loop
+    update = loop.adamw_update
+
+    def kept(grads, *args, **kwargs):
+        keep["grads"] = tree_map(grads, lambda t: t.clone())
+        return update(grads, *args, **kwargs)
+
+    loop.adamw_update = kept
+    try:
+        yield
+    finally:
+        loop.adamw_update = update
+
+
+def spx_train(report: dict, total: dict, keep: dict) -> None:
     """TRAIN_RUN: the Trainer through 20 steps, the failover, the
-    checkpoint round trip and the rerun from it."""
+    checkpoint round trip and the rerun from it; `keep["grads"]` gets
+    the held step's gradients (the dp phase syncs them)."""
     import shutil
     import numpy as np
     import torch
@@ -4211,7 +4257,7 @@ def spx_train(report: dict, total: dict) -> None:
             tr.heal_plane(spec["heal"][1])
         before = dict(build.LAUNCHES)
         if i == spec["held_step"]:
-            with held_bwd(held):
+            with held_bwd(held), kept_grads(keep):
                 m = tr.train_step(batch)
         elif i == spec["profiled_step"]:
             m, profiled = device_profile("a train step",
@@ -4420,17 +4466,388 @@ def f32_step(report: dict, total: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(report: dict, total: dict) -> None:
+def train_phase(report: dict, total: dict) -> dict:
     """The training path: TRAIN_RUN, TRAIN_LLAMA and the float32 step
-    (the backward kernel's cells, `bwd_cases`, run first of all)."""
+    (the backward kernel's cells, `bwd_cases`, run first of all).
+    Returns TRAIN_RUN's held-step gradients under "grads"."""
     import torch
     # the plain versions' float32 einsums and the float32 step run in
     # full float32
     torch.backends.cuda.matmul.allow_tf32 = False
-    spx_train(report, total)
+    keep: dict = {}
+    spx_train(report, total, keep)
     llama_train(report, total)
     f32_step(report, total)
     torch.cuda.empty_cache()
+    return keep
+
+
+# the dp phase: `plane_allreduce` over an NCCL process group of one rank
+# (a `file://` store in a temporary directory; its mesh from
+# `make_mesh_for(1, 1)`) on TRAIN_RUN's held-step gradients under
+# TRAIN_RUN's plane config (4 planes, 16 micro-chunks) and the Trainer's
+# key for that step; each mode timed over DP_REPEATS calls; the DP train
+# step at world 1; then llama3-8b cut as TRAIN_LLAMA under REMAT_RUNS.
+DP_PLANES = dict(n_planes=4, microchunks=16)
+DP_REPEATS = 5
+REMAT_RUNS = ("full", "dots", "kv")
+
+
+@contextmanager
+def held_codec(stats: dict):
+    """Every codec launch through `kernels.ops` while the block runs held
+    to its plain version on the call's own inputs, bit for bit (`fail`
+    otherwise); `stats[kernel]` counts the calls by (R, C)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    encode, decode = ops.int8_encode, ops.int8_decode
+
+    def same(got, want) -> bool:
+        return all(g.dtype == w.dtype and g.shape == w.shape and
+                   torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+                   for g, w in zip(got, want))
+
+    def count(kernel, x):
+        by = stats.setdefault(kernel, {})
+        by[tuple(x.shape)] = by.get(tuple(x.shape), 0) + 1
+
+    def held_encode(x, noise):
+        got = encode(x, noise)
+        if not same(got, ref.int8_encode_ref(x, noise)):
+            fail(f"int8_encode at {tuple(x.shape)} on the dp path differs "
+                 "from its plain version")
+        count("int8_encode", x)
+        return got
+
+    def held_decode(q, scale, **kw):
+        got = decode(q, scale, **kw)
+        if not same((got,), (ref.int8_decode_ref(q, scale, **kw),)):
+            fail(f"int8_decode at {tuple(q.shape)} on the dp path differs "
+                 "from its plain version")
+        count("int8_decode", q)
+        return got
+
+    ops.int8_encode, ops.int8_decode = held_encode, held_decode
+    try:
+        yield
+    finally:
+        ops.int8_encode, ops.int8_decode = encode, decode
+
+
+def codec_chunks(leaves, microchunks: int) -> dict:
+    """{(R, C): [chunks]} of the chunks `plane_allreduce`'s int8 mode
+    compresses at world 1, by their (rows, last dim) view: each chunk of
+    a leaf of two or more dims and more than `microchunks` elements."""
+    from repro_torch.core.collectives import _chunk_bounds, _scatter_dim
+    out: dict = {}
+    for x in leaves:
+        if x.ndim == 0 or x.numel() <= microchunks:
+            continue
+        for lo, hi in _chunk_bounds(x.shape[0], microchunks):
+            c = x[lo:hi]
+            if 0 <= _scatter_dim(tuple(c.shape), 1) < c.ndim - 1:
+                out.setdefault((c.numel() // c.shape[-1], c.shape[-1]),
+                               []).append(c)
+    return out
+
+
+def dp_allreduce(ctx, grads, total: dict, smi: str) -> dict:
+    """`plane_allreduce` of `grads` in each mode over the context's data
+    group: psum and rs_ag bit-equal to the gradients, rs_ag_int8 with
+    one encode and one decode launch a compressed chunk (each held to
+    its plain version) and every element within one code step of its
+    gradient row; each mode's wall (CUDA events); the codec kernels at
+    each chunk shape against their plain versions and the bound."""
+    import torch
+    from repro_torch.core.collectives import (MODES, chunk_noise, fold_seed,
+                                              plane_allreduce)
+    from repro_torch.core.planes import PlaneConfig
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.models import tree_leaves
+    group = ctx.group(("data",))
+    pcfg = PlaneConfig(**DP_PLANES)
+    key = fold_seed(17, TRAIN_RUN["held_step"])
+    leaves = tree_leaves(grads)
+    by_shape = codec_chunks(leaves, pcfg.microchunks)
+    shapes = {rc: len(cs) for rc, cs in by_shape.items()}
+    chunks = sum(shapes.values())
+    stats: dict = {}
+    walls, profiles = {}, {}
+    for mode in MODES:
+        build.reset_launches()
+        held = held_codec(stats) if mode == "rs_ag_int8" else \
+            contextlib.nullcontext()
+        with held:
+            got = tree_leaves(plane_allreduce(grads, group, pcfg, key=key,
+                                              mode=mode))
+        torch.cuda.synchronize()
+        want = ({"int8_encode": chunks, "int8_decode": chunks}
+                if mode == "rs_ag_int8" else {})
+        check_launches(f"dp plane_allreduce {mode}", dict(build.LAUNCHES),
+                       want, total)
+        if mode != "rs_ag_int8":
+            if not all(torch.equal(a, b) for a, b in zip(got, leaves)):
+                fail(f"dp plane_allreduce {mode} at world 1 does not return "
+                     "the gradients bit for bit")
+        else:
+            worst = 0.0
+            for a, b in zip(got, leaves):
+                if b.ndim < 2:
+                    if not torch.equal(a, b):
+                        fail("dp rs_ag_int8: an uncompressed leaf changed")
+                    continue
+                step = b.abs().amax(-1, keepdim=True) / 127
+                worst = max(worst, float(((a - b).abs() / step.clamp_min(
+                    1e-30)).max()))
+            if not worst <= 1 + 1e-5:
+                fail(f"dp rs_ag_int8: an element {worst:.4g} code steps "
+                     "from its gradient")
+            if stats.get("int8_encode") != shapes or \
+                    stats.get("int8_decode") != shapes:
+                fail(f"dp rs_ag_int8: codec calls {stats}, expected {shapes}")
+        del got
+
+        def call(mode=mode):
+            return plane_allreduce(grads, group, pcfg, key=key, mode=mode)
+
+        walls[mode] = event_ms(call, repeats=DP_REPEATS)
+        _, profiles[mode] = device_profile(f"plane_allreduce {mode}", call)
+    build.reset_launches()
+    rows = []
+    # each shape's first chunk of the gradients, the largest shapes first
+    for (R, C), cs in sorted(by_shape.items(),
+                             key=lambda kv: -kv[0][0] * kv[0][1]):
+        n = len(cs)
+        x = cs[0].reshape(R, C).contiguous()
+        noise = chunk_noise(key, 1, (R, C), "cuda")
+        q, sc = ops.int8_encode(x, noise)
+        row = dict(shape=(R, C), chunks=n)
+        for kernel, run, plain, library, nbytes, flops in (
+                ("int8_encode", lambda: ops.int8_encode(x, noise),
+                 lambda: ref.int8_encode_ref(x, noise), None,
+                 R * C * (4 + 4 + 1) + R * 4, CODEC_FLOPS["int8_encode"]),
+                ("int8_decode", lambda: ops.int8_decode(q, sc),
+                 lambda: ref.int8_decode_ref(q, sc), lambda: q * sc,
+                 R * C * (1 + 4) + R * 4, CODEC_FLOPS["int8_decode"])):
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops * R * C / PEAK_FLOPS["float32"] * 1e3
+            row[kernel] = dict(
+                ms=graph_ms(run), plain_ms=event_ms(plain),
+                library_ms=None if library is None else graph_ms(library),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        rows.append(row)
+    build.reset_launches()
+    calls = {k: sum(r["chunks"] * r[k]["ms"] for r in rows)
+             for k in ("int8_encode", "int8_decode")}
+    bound = {k: sum(r["chunks"] * r[k]["bound_ms"] for r in rows)
+             for k in ("int8_encode", "int8_decode")}
+    n_el = sum(x.numel() for x in leaves)
+    print(f"dp plane_allreduce of {TRAIN_RUN['arch']}'s step-"
+          f"{TRAIN_RUN['held_step']} gradients ({len(leaves)} leaves, "
+          f"{n_el:,} float32; {DP_PLANES}) over an NCCL group of 1 rank: "
+          + ", ".join(f"{m} {walls[m]:.3f} ms" for m in MODES)
+          + f" a call (CUDA events, median of {DP_REPEATS}); psum and "
+          f"rs_ag bit-equal to the gradients; rs_ag_int8 {chunks} encode "
+          f"and {chunks} decode launches a call, each bit-equal to its plain"
+          f" version, every element within one code step ({smi})",
+          flush=True)
+    for r in rows:
+        e, d = r["int8_encode"], r["int8_decode"]
+        print(f"  codec at {r['shape'][0]}x{r['shape'][1]} x{r['chunks']} a "
+              f"call: encode ms={e['ms']:.6f} plain_ms={e['plain_ms']:.6f} "
+              f"bound_ms={e['bound_ms']:.6f}; decode ms={d['ms']:.6f} "
+              f"plain_ms={d['plain_ms']:.6f} library_ms="
+              f"{d['library_ms']:.6f} bound_ms={d['bound_ms']:.6f}",
+              flush=True)
+    print(f"  codec a call: encode {calls['int8_encode']:.3f} ms (bound "
+          f"{bound['int8_encode']:.3f}), decode {calls['int8_decode']:.3f} "
+          f"ms (bound {bound['int8_decode']:.3f}), summed over the chunks "
+          f"({smi})", flush=True)
+    return dict(walls_ms=walls, profiles=profiles, chunks=chunks,
+                codec_rows=rows,
+                codec_ms_per_call=calls, codec_bound_ms_per_call=bound,
+                elements=n_el)
+
+
+def dp_step(ctx, total: dict) -> dict:
+    """TRAIN_RUN's config: one step through `make_train_step` over the
+    world-1 mesh and one without a mesh, from the same weights on the
+    same batch: bit-equal (the plane axes of size 1 are dropped)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.planes import PlaneConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import (init_params, standard_attention_layers,
+                                    tree_leaves)
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import local_ctx
+    from repro_torch.train import TrainerConfig, make_train_step
+    cfg = get_config(TRAIN_RUN["arch"])
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        34), device="cuda")
+    batch = next(train_batches(cfg, TRAIN_RUN))
+    tcfg = TrainerConfig(plane=PlaneConfig(**DP_PLANES), warmup_steps=1,
+                         total_steps=2)
+    runs = []
+    n = standard_attention_layers(cfg)
+    for c in (ctx, local_ctx()):
+        build.reset_launches()
+        p2, st, m = make_train_step(cfg, c, tcfg)(
+            params, adamw_init(params), batch, 1, 5)
+        torch.cuda.synchronize()
+        check_launches(f"dp step {cfg.name}", dict(build.LAUNCHES),
+                       {"flash_attention": n, "flash_attention_bwd": n},
+                       total)
+        runs.append(tree_leaves(p2) + tree_leaves(st) +
+                    [m["loss"], m["grad_norm"]])
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail(f"dp step {cfg.name}: the step over the world-1 mesh differs "
+             "from the step without a mesh")
+    print(f"dp step {cfg.name} over the world-1 mesh: parameters, AdamW "
+          "state, loss and grad norm bit-equal to the step without a mesh",
+          flush=True)
+    return dict(bit_equal=True)
+
+
+def remat_runs(total: dict, smi: str) -> dict:
+    """llama3-8b at full width cut to TRAIN_LLAMA_LAYERS layers, under
+    each of REMAT_RUNS: TRAIN_LLAMA's steps through `make_train_step`
+    (the first a warm-up; peak memory over all of them), then, once
+    every policy's steps have run, the first batch's gradients through
+    `make_grad_fn` against "full"'s (bit-equal, else within BWD_TOL of
+    each leaf's largest), with every flash forward launch's outputs
+    recorded: each recomputed launch must equal one of the first
+    forward's bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params, tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import local_ctx
+    from repro_torch.train import TrainerConfig, make_train_step
+    from repro_torch.train.loop import make_grad_fn
+    spec = TRAIN_LLAMA
+    base = dataclasses.replace(get_config("llama3-8b"),
+                               n_layers=TRAIN_LLAMA_LAYERS)
+    n = base.n_layers
+    params = init_params(base, torch.Generator(device="cuda").manual_seed(
+        spec["seed"]), device="cuda")
+    batches = [b for _, b in zip(range(spec["steps"]),
+                                 train_batches(base, spec))]
+    tcfg = TrainerConfig(warmup_steps=1, total_steps=spec["steps"])
+    out = {}
+    for remat in REMAT_RUNS:
+        cfg = dataclasses.replace(base, remat=remat)
+        step = make_train_step(cfg, local_ctx(), tcfg)
+        reset_peak()
+        build.reset_launches()
+        p, st = params, adamw_init(params)
+        times = []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, st, m = step(p, st, batch, i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(f"train {cfg.name} x{n} remat {remat}",
+                       dict(build.LAUNCHES),
+                       {"flash_attention": 2 * n * len(batches),
+                        "flash_attention_bwd": n * len(batches)}, total)
+        out[remat] = dict(step_ms=times, peak=peak, loss=float(m["loss"]))
+        del p, st, m
+    ref_grads = None
+    for remat in REMAT_RUNS:
+        cfg = dataclasses.replace(base, remat=remat)
+        launched = []
+        launch = fa._launch
+
+        def recorded(*args):
+            got = launch(*args)
+            launched.append(tuple(t.clone() for t in got))
+            return got
+
+        fa._launch = recorded
+        try:
+            _, grads = make_grad_fn(cfg, local_ctx(), tcfg)(params,
+                                                            batches[0])
+            torch.cuda.synchronize()
+        finally:
+            fa._launch = launch
+        # the backward recomputes the periods last first: match each
+        # recomputed launch with a first-forward one, each used once
+        first = launched[:n]
+        for again in launched[n:]:
+            hit = next((i for i, f in enumerate(first) if all(
+                a.shape == b.shape and torch.equal(a, b)
+                for a, b in zip(f, again))), None)
+            if hit is None:
+                fail(f"remat {remat}: a recomputed flash forward differs "
+                     "from every launch of the first forward")
+            first.pop(hit)
+        if len(launched) != 2 * n:
+            fail(f"remat {remat}: {len(launched)} flash forward launches, "
+                 f"expected {2 * n}")
+        del launched, first
+        grads = tree_leaves(grads)
+        if ref_grads is None:
+            ref_grads, err, bits = grads, 0.0, True
+        else:
+            bits = all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+            err = max(float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+                for a, b in zip(grads, ref_grads))
+            if not err <= BWD_TOL["bfloat16"]:
+                fail(f"remat {remat}: gradients {err:.3g} of the largest "
+                     "from remat full's")
+        del grads
+        o = out[remat]
+        o.update(grads_bit_equal_full=bits, grads_err_full=err)
+        warm = float(np.median(o["step_ms"][1:]))
+        print(f"remat {remat}: {base.name} x{n} layers at full width, "
+              f"{spec['batch']} x {spec['seq']} tokens: step ms "
+              f"{[round(t, 3) for t in o['step_ms']]} (median after the "
+              f"first {warm:.3f}), peak {o['peak'] / 2**30:.2f} GiB, loss "
+              f"{o['loss']:.4f}; flash forward twice a layer (recomputed "
+              "outputs bit-equal to the first forward's); first-batch "
+              "gradients "
+              + ("bit-equal to remat full's" if bits else
+                 f"within {err:.3g} of remat full's (bound "
+                 f"{BWD_TOL['bfloat16']})") + f" ({smi})", flush=True)
+    del ref_grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_phase(report: dict, total: dict, grads) -> None:
+    """The data-parallel path at world 1 on the card (`dp_allreduce`,
+    `dp_step`) over an NCCL process group, no fallback; then remat
+    "dots" and "kv" (`remat_runs`)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.parallel import ShardCtx
+    smi = card()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            ctx = ShardCtx(make_mesh_for(1, 1))
+            out = dp_allreduce(ctx, grads, total, smi)
+            del grads
+            out["step"] = dp_step(ctx, total)
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["remat"] = remat_runs(total, smi)
+    report["dp"] = out
 
 
 # the profile phase's loops: (scenario, routing, dtypes)
@@ -4569,7 +4986,8 @@ def main(argv=None) -> int:
     graph.clear_graph_cache()
     model_phase(report, total, summary)
     serve_phase(report, total)
-    train_phase(report, total)
+    kept = train_phase(report, total)
+    dp_phase(report, total, kept.pop("grads"))
     profile_phase(report)
     idle = [k for k in build.KERNELS if not total.get(k)]
     if idle:

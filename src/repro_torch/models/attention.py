@@ -40,6 +40,12 @@ MLA (`apply_mla`) stays in plain PyTorch ops on every device, as the
 reference computes it outside any Pallas kernel: its prefill has
 Dk = nope + rope and Dv = v_head_dim, which the kernels do not take, and
 its decode is the absorbed latent product.
+
+Under `remat="kv"` a differentiated prefill tags K and V with
+`kv_tag`, the identity as a custom op (`repro_torch::kv_tag`, a copy of
+the same values and strides), where the reference names them
+"kv_gathered" (`checkpoint_name`); the checkpoint policy of
+`transformer._remat_wrap` saves what that op returns and nothing else.
 """
 from __future__ import annotations
 
@@ -54,6 +60,21 @@ from ..kernels import ops
 from ..parallel.sharding import ShardCtx, local_ctx, shard_heads
 
 NEG_INF = -1e30
+
+
+@torch.library.custom_op("repro_torch::kv_tag", mutates_args=())
+def kv_tag(x: torch.Tensor) -> torch.Tensor:
+    """K or V as they are (a copy with x's values and strides), tagged
+    for remat "kv"'s policy, which sees this op and saves its output."""
+    return x.clone()
+
+
+@kv_tag.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+kv_tag.register_autograd(lambda ctx, grad: grad)
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +308,8 @@ def apply_attn(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     # may be smaller than the prompt for sliding-window layers; the cache
     # written above is kept for decode).
     q = shard_heads(q, ctx)
+    if cfg.remat == "kv" and torch.is_grad_enabled():
+        k, v = kv_tag(k), kv_tag(v)
     out = _prefill_attention(q, k, v, positions, window, cfg, ctx)
     return torch.einsum("bshk,hkd->bsd", out, wo), cache
 

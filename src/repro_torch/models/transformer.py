@@ -15,15 +15,20 @@ of the stacked leaves (`a[i]`) where the reference runs `lax.scan`, and
 the caches of a pattern position are stacked again after the loop.
 `loss_fn` is differentiable (autograd; the attention kernels carry
 their own backward on CUDA).  The reference's `_remat_wrap` wraps each
-period in `jax.checkpoint`; here `cfg.remat == "full"` wraps each period
-of a differentiated forward in `torch.utils.checkpoint` (non-reentrant),
-so the backward runs the period's forward again, kernels included, and
-"none" keeps every activation.  The reference's "dots" and "kv"
-policies are set only by its dry run (`launch/dryrun.py`), which waits
-with sharding (ROADMAP queue 1 item 4): they raise
-`NotImplementedError`.  `cfg.scan_layers` and `cfg.unroll_loops` shape
-what XLA traces (one scanned body or an unrolled stack) and have
-nothing to do here.  Cross-entropy is taken in sequence chunks
+period in `jax.checkpoint`; here each period of a differentiated
+forward goes through non-reentrant `torch.utils.checkpoint` under
+`cfg.remat`: "full" keeps only the period's inputs, so the backward runs
+the period's forward again, kernels included; "dots" and "kv" are
+selective checkpoints (`create_selective_checkpoint_contexts`) whose
+policies save what the reference's do and recompute the rest: "dots"
+the outputs of matrix products without batch dims (JAX's
+`dots_with_no_batch_dims_saveable`), "kv" only K and V as
+`attention.kv_tag` marks them; "none" keeps every activation.  A
+policy sees only aten ops (and the tag): the attention kernels' ctypes
+launches write into `torch.empty` outputs that no policy saves, so the
+recomputed launch writes fresh ones.  `cfg.scan_layers` and
+`cfg.unroll_loops` shape what XLA traces (one scanned body or an
+unrolled stack) and have nothing to do here.  Cross-entropy is taken in sequence chunks
 (`chunked_ce_loss`), so (B, S, vocab) logits are never whole.  The
 caches are written functionally, as the reference's are: a step returns
 new cache tensors and leaves its input caches as they were, which the
@@ -31,11 +36,13 @@ serving engine relies on when it keeps the other slots' rows.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .blocks import apply_block, init_block, init_block_cache
 from .config import ModelConfig
@@ -243,20 +250,49 @@ def shard_caches(caches: Dict, ctx: ShardCtx) -> Dict:
 # forward
 # ---------------------------------------------------------------------------
 
+_ATEN = torch.ops.aten
+# matrix products without batch dims: einsum lowers one to `bmm` over a
+# batch of one
+_DOTS = (_ATEN.mm.default, _ATEN.addmm.default)
+
+
+def _is_unbatched_dot(op, args) -> bool:
+    return op in _DOTS or (op is _ATEN.bmm.default and
+                           args[0].shape[0] == 1)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat "dots": save the outputs of matrix products without batch
+    dims, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if _is_unbatched_dot(op, args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_kv(ctx, op, *args, **kwargs):
+    """remat "kv": save the tagged K and V only."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.repro_torch
+            .kv_tag.default else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_POLICIES = {"dots": _save_dots, "kv": _save_kv}
+REMAT = ("none", "full", "dots", "kv")
+
+
 def _remat_wrap(fn: Callable, cfg: ModelConfig) -> Callable:
     """`fn` (one period of the stack) as the differentiated forward runs
-    it under `cfg.remat`: as it is ("none", or without grad), or under
-    `torch.utils.checkpoint` ("full"), whose backward runs it again."""
-    if cfg.remat in ("dots", "kv"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: the reference's checkpoint policies "
-            "are set only by its dry run, which the port takes up with "
-            "sharding (ROADMAP queue 1 item 4)")
-    if cfg.remat not in ("none", "full"):
+    it under `cfg.remat`: as it is ("none", or without grad), under
+    `torch.utils.checkpoint` ("full"), whose backward runs it again, or
+    under a selective checkpoint whose backward runs it again but for
+    the ops its policy saved ("dots", "kv")."""
+    if cfg.remat not in REMAT:
         raise ValueError(f"unknown remat {cfg.remat!r}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    kw = {}
+    if cfg.remat in _POLICIES:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _POLICIES[cfg.remat])
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def backbone(params: Dict, cfg: ModelConfig, x: torch.Tensor,

@@ -317,11 +317,11 @@ def test_symmetry_check_matches_reference(bw):
 
 
 def test_core_exports_the_reference_names_it_ports():
-    """The reference's `repro.core` names, but `plane_allreduce` and the
-    int8 codec (ROADMAP queue 1 item 4)."""
+    """The reference's `repro.core` names, `plane_allreduce` and the
+    int8 codec included."""
     names = {n for n in dir(jcore) if not n.startswith("_")
              and not isinstance(getattr(jcore, n), type(jcore))}
-    names -= {"plane_allreduce", "int8_encode", "int8_decode",
-              "annotations"}
+    names -= {"annotations"}
+    assert {"plane_allreduce", "int8_encode", "int8_decode"} <= names
     missing = sorted(n for n in names if not hasattr(core, n))
     assert missing == []

@@ -2008,3 +2008,143 @@ def test_train_step_on_cuda_equals_the_cpu_step(cuda, arch, remat):
         assert err <= 5e-4, (i, tuple(b.shape), err)
     for a, b in zip(pg, pc):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+
+
+@pytest.fixture
+def nccl(cuda, tmp_path):
+    """An NCCL process group of one rank (a `file://` store) and its
+    mesh, `make_mesh_for(1, 1)`; destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh_for(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _held_codec(monkeypatch, calls: dict):
+    """Every codec launch through `kernels.ops` held to its plain version
+    on the call's own inputs, bit for bit; `calls` counts them."""
+    encode, decode = ops.int8_encode, ops.int8_decode
+
+    def held_encode(x, noise):
+        q, s = encode(x, noise)
+        wq, ws = ref.int8_encode_ref(x, noise)
+        assert torch.equal(q, wq) and torch.equal(s, ws)
+        calls["int8_encode"] = calls.get("int8_encode", 0) + 1
+        return q, s
+
+    def held_decode(q, scale, **kw):
+        out = decode(q, scale, **kw)
+        assert torch.equal(out, ref.int8_decode_ref(q, scale))
+        calls["int8_decode"] = calls.get("int8_decode", 0) + 1
+        return out
+
+    monkeypatch.setattr(ops, "int8_encode", held_encode)
+    monkeypatch.setattr(ops, "int8_decode", held_decode)
+
+
+@pytest.mark.gpu
+def test_plane_allreduce_at_nccl_world_one(nccl, monkeypatch):
+    """A reduced config's parameters as a gradient tree: psum and rs_ag
+    return it bit for bit; rs_ag_int8 launches the encode and the decode
+    once for each chunk it compresses (a chunk of two or more dims at
+    world 1), each launch bit-equal to its plain version, and every
+    element lies within one code step of its row of the gradient."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.collectives import _chunk_bounds, plane_allreduce
+    from repro_torch.core.planes import PlaneConfig
+    from repro_torch.models import init_params, tree_leaves
+    from repro_torch.parallel import ShardCtx
+    cfg = ARCHS["spx-100m"].reduced(dtype="float32")
+    grads = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                        device="cuda")
+    group = ShardCtx(nccl).group(("data",))
+    pcfg = PlaneConfig(4, 16)
+    leaves = tree_leaves(grads)
+    for mode in ("psum", "rs_ag"):
+        got = tree_leaves(plane_allreduce(grads, group, pcfg, key=1,
+                                          mode=mode))
+        assert all(torch.equal(a, b) for a, b in zip(got, leaves))
+    chunks = sum(len(_chunk_bounds(x.shape[0], pcfg.microchunks))
+                 for x in leaves if x.ndim >= 2 and x.numel() > 16)
+    calls: dict = {}
+    _held_codec(monkeypatch, calls)
+    build.reset_launches()
+    got = tree_leaves(plane_allreduce(grads, group, pcfg, key=1,
+                                      mode="rs_ag_int8"))
+    torch.cuda.synchronize()
+    assert calls == {"int8_encode": chunks, "int8_decode": chunks}
+    assert build.LAUNCHES["int8_encode"] == chunks
+    assert build.LAUNCHES["int8_decode"] == chunks
+    for a, b in zip(got, leaves):
+        step = b.abs().amax(-1, keepdim=True) / 127 if b.ndim >= 2 else 0
+        assert bool(((a - b).abs() <= step * (1 + 1e-5)).all())
+
+
+@pytest.mark.gpu
+def test_dp_step_at_nccl_world_one_equals_the_step_without_a_mesh(nccl):
+    """The plane axes of size 1 are dropped, as the reference drops
+    them: the step over the mesh is the one-rank step, bit for bit."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params, tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import ShardCtx, local_ctx
+    from repro_torch.train import TrainerConfig, make_train_step
+    cfg = dataclasses.replace(
+        ARCHS["llama3-8b"].reduced(head_dim=64, dtype="bfloat16"),
+        remat="full")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda")
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab, (2, 65)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tcfg = TrainerConfig(warmup_steps=1, total_steps=4)
+    runs = []
+    for ctx in (ShardCtx(nccl), local_ctx()):
+        p2, st, m = make_train_step(cfg, ctx, tcfg)(
+            params, adamw_init(params), batch, 1, 9)
+        runs.append(tree_leaves(p2) + tree_leaves(st["m"]) +
+                    [m["loss"], m["grad_norm"]])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["dots", "kv"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-12b"])
+def test_remat_policies_on_cuda_equal_none(cuda, arch, remat):
+    """A reduced config at head_dim 64 through `make_grad_fn` on the card
+    under remat "dots" and "kv" against "none": the loss and gradients
+    bit for bit; the flash forward launches twice a layer (the backward
+    runs it again), the backward once."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import (init_params, standard_attention_layers,
+                                    tree_leaves)
+    from repro_torch.parallel import local_ctx
+    from repro_torch.train import TrainerConfig
+    from repro_torch.train.loop import make_grad_fn
+    base = ARCHS[arch].reduced(head_dim=64, dtype="bfloat16")
+    params = init_params(base, torch.Generator(device="cuda").manual_seed(7),
+                         device="cuda")
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, base.vocab, (2, 97)).astype(np.int32)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]))}
+    n = standard_attention_layers(base)
+    out = {}
+    for r in ("none", remat):
+        cfg = dataclasses.replace(base, remat=r)
+        build.reset_launches()
+        loss, grads = make_grad_fn(cfg, local_ctx(), TrainerConfig())(
+            params, batch)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["flash_attention"] == n * (1 if r == "none"
+                                                         else 2)
+        assert build.LAUNCHES["flash_attention_bwd"] == n
+        out[r] = [loss] + tree_leaves(grads)
+    assert all(torch.equal(a, b) for a, b in zip(out["none"], out[remat]))

@@ -1,7 +1,8 @@
 """Parts of the port's model forward against the JAX package on the
 CPU: the reference's decode-vs-full-forward cases, the ring cache's
 writes and the decode kernel's valid slots, chunked attention, the SSD
-scan, the frontend stubs, the one-rank `ShardCtx`.
+scan, the frontend stubs, the `ShardCtx` (one rank or a data-parallel
+mesh).
 
 Weights, inputs and tolerances as in `tests/test_torch_models.py`
 (logits within 1e-4 in float32, every decode step teacher-forced).
@@ -218,15 +219,38 @@ def test_frontend_shapes_and_synthetic_embeds():
     assert torch.equal(a, b) and 0 < float(a.float().std()) < 0.05
 
 
-def test_shard_ctx_is_one_rank():
-    ctx = ShardCtx()
-    assert ctx.mesh is None and ctx.tp_size == 1
+def test_shard_ctx_is_one_rank(tmp_path):
+    """Without a mesh and over a data-parallel mesh (a gloo group of one
+    rank in this process, `make_mesh_for(1, 1)`) the `shard_*` functions
+    return their input; a mesh whose model dim is above 1 raises naming
+    ROADMAP queue 1 item 4c (a stand-in with a mesh's `shape` and dim
+    names: one process cannot build it; `tests/test_torch_dp.py` builds
+    it over two and four ranks)."""
+    import types
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
     x = torch.ones(2, 3, 4)
-    for f in (sharding.shard_residual, sharding.shard_heads,
-              sharding.shard_logits, sharding.shard_cache):
-        assert f(x, ctx) is x
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ShardCtx(mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for(1, 1)
+        for ctx in (ShardCtx(), ShardCtx(mesh)):
+            assert ctx.tp_size == 1
+            for f in (sharding.shard_residual, sharding.shard_heads,
+                      sharding.shard_logits, sharding.shard_cache):
+                assert f(x, ctx) is x
+        assert ShardCtx().mesh is None and ShardCtx(mesh).mesh is mesh
+        assert dist.get_process_group_ranks(
+            ShardCtx(mesh).group(("data",))) == [0]
+    finally:
+        dist.destroy_process_group()
+    tp = types.SimpleNamespace(shape=(1, 2), mesh_dim_names=("data", "model"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
+        ShardCtx(mesh=tp)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
+        ShardCtx(mesh=types.SimpleNamespace(
+            shape=(2, 1), mesh_dim_names=("data", "model")),
+            fsdp_axis="data")
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
