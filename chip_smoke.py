@@ -258,6 +258,22 @@ Phases, each fatal on failure:
             BWD_TOL; printed which).  A run of more ranks needs a
             machine with more cards: NCCL refuses two ranks on one
             device; the CPU tests carry 2, 4 and 8 ranks over gloo.
+  tp        tensor parallelism at world 1 over an NCCL process group
+            (`ShardCtx(make_mesh_for(1, 1))`: data 1, model 1), so every
+            TP collective runs on the card as a copy and the rank holds
+            `shard_params` of the weights: phi3.5-moe at full width cut
+            to TP_MOE's 2 layers (bf16 activations) takes a forward loss
+            over 2,048 tokens (MoE "a2a" mode) and serves two 512-token
+            prompts with 16 greedy decode steps through `ServeEngine`
+            at batch 2; llama3-8b at full width cut to 2 layers takes
+            the first batch's gradients through `make_grad_fn` and two
+            steps through `make_train_step`; each bit-equal to the same
+            run without a mesh (loss and aux; logits and tokens;
+            gradients, parameters, AdamW state and metrics), every
+            flash forward, decode and flash backward launch held to its
+            plain version; step, prefill and decode walls, peak memory
+            and the collective calls a step.  A TP run of more ranks
+            waits for a machine with more cards, as DP's does.
   profile   torch.profiler over 12 giga slots under AR and under ECMP,
             float64 and float32, and in float64 over giga_fat_tree under
             WAR and ECMP and over the giga point under failure reaction,
@@ -3372,7 +3388,7 @@ def _serve_cfg(spec):
     return cfg
 
 
-def serve_engine(cfg, params, spec, forced=None) -> dict:
+def serve_engine(cfg, params, spec, forced=None, ctx=None) -> dict:
     """One `ServeEngine.run` over the spec's requests, on whatever
     attention route is in place; its prefill and decode steps are
     wrapped to time them (synchronised) and keep their logits, and with
@@ -3383,8 +3399,8 @@ def serve_engine(cfg, params, spec, forced=None) -> dict:
     import torch
     from repro_torch.parallel import local_ctx
     from repro_torch.train import Request, ServeEngine
-    eng = ServeEngine(cfg, local_ctx(), params, batch=spec["batch"],
-                      max_len=spec["max_len"])
+    eng = ServeEngine(cfg, local_ctx() if ctx is None else ctx, params,
+                      batch=spec["batch"], max_len=spec["max_len"])
     rec = dict(prefill_s=[], decode_s=[], prefill=[], decode=[], tokens=[],
                active=[])
     # the wrappers hold the engine's slot list, not the engine, so no
@@ -3638,7 +3654,7 @@ def held_on_card(tol: float, worst: dict):
     kernel_decode = attention._decode_attention
 
     def hold(name, got, want, q, v):
-        err = float((got.float() - want.float()).abs().max())
+        err = float((got.detach().float() - want.float()).abs().max())
         scaled = err / max(1.0, float(v.abs().max()))
         if got.shape != want.shape or not scaled <= tol:
             fail(f"{name} at q {tuple(q.shape)}, v {tuple(v.shape)} on the "
@@ -4850,6 +4866,275 @@ def dp_phase(report: dict, total: dict, grads) -> None:
     report["dp"] = out
 
 
+# the tp phase: phi3.5-moe at full width, 2 layers, bf16 activations:
+# a loss over one batch of `tokens` and a serve run; llama3-8b at full
+# width, 2 layers: the gradients of the first batch and `steps` steps
+TP_MOE = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, tokens=2048, seed=38,
+              serve=dict(batch=2, max_len=544, prompts=(512, 512),
+                         max_new=16, seed=39))
+TP_LLAMA = dict(arch="llama3-8b", layers=2, steps=2, batch=1, seq=2048,
+                seed=40)
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single", "all_gather")
+
+
+@contextmanager
+def counted_collectives(counts: dict):
+    """Every `torch.distributed` collective the block issues, counted
+    by name into `counts`."""
+    import torch.distributed as dist
+    saved = {n: getattr(dist, n) for n in COLLECTIVES}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    for n, fn in saved.items():
+        setattr(dist, n, counted(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def bit_equal(what: str, got, want) -> None:
+    """`fail` unless the two lists of tensors are equal bit for bit."""
+    import torch
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a.shape != b.shape or not torch.equal(a, b)]
+    if len(got) != len(want) or bad:
+        i = bad[0] if bad else None
+        err = (float((got[i].float() - want[i].float()).abs().max())
+               if bad and got[i].shape == want[i].shape else None)
+        fail(f"{what}: {len(bad)} of {len(want)} tensors differ from the "
+             f"run without a mesh (first {i}, max abs err {err})")
+
+
+def tp_moe(ctx, total: dict, worst: dict) -> dict:
+    """TP_MOE through the TP path and without a mesh (module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import (init_params, loss_fn, param_count,
+                                    param_specs)
+    from repro_torch.models.moe import moe_mode
+    from repro_torch.parallel import local_ctx, shard_params
+    spec = TP_MOE
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    reset_peak()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        spec["seed"]), device="cuda")
+    local = shard_params(params, param_specs(cfg, ctx))
+    mode = moe_mode(cfg, ctx, spec["tokens"])
+    if mode != "a2a":
+        fail(f"tp {cfg.name}: MoE mode {mode}, expected a2a")
+    g = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    toks = torch.randint(0, cfg.vocab, (1, spec["tokens"] + 1),
+                         generator=g, device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n = cfg.n_layers
+    out = dict(arch=cfg.name, layers=n, params=param_count(params))
+    losses = []
+    counts: dict = {}
+    with torch.no_grad():               # a warm-up: the first call's setup
+        loss_fn(params, cfg, batch, local_ctx())
+    with held_on_card(ATTN_TOL["bfloat16"], worst):
+        for c in (ctx, local_ctx()):
+            build.reset_launches()
+            with torch.no_grad(), counted_collectives(
+                    counts if c is ctx else {}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, m = loss_fn(local if c is ctx else params, cfg, batch,
+                                  c)
+                torch.cuda.synchronize()
+            check_launches(f"tp {cfg.name} loss", dict(build.LAUNCHES),
+                           {"flash_attention": n}, total)
+            losses.append((loss, m["ce"], m["aux"],
+                           time.perf_counter() - t0))
+    bit_equal(f"tp {cfg.name} loss, ce and aux", list(losses[0][:3]),
+              list(losses[1][:3]))
+    out.update(loss=float(losses[0][0]), aux=float(losses[0][2]),
+               loss_ms=losses[0][3] * 1e3,
+               loss_ms_no_mesh=losses[1][3] * 1e3, loss_collectives=counts)
+    recs = []
+    with held_on_card(ATTN_TOL["bfloat16"], worst):
+        for c in (ctx, local_ctx()):
+            build.reset_launches()
+            counts = {}
+            with counted_collectives(counts if c is ctx else {}):
+                rec = serve_engine(cfg, local if c is ctx else params,
+                                   spec["serve"], ctx=c)
+            check_launches(f"tp {cfg.name} serve", dict(build.LAUNCHES),
+                           {"flash_attention": n * len(rec["prefill"]),
+                            "decode_attention": n * len(rec["decode"])},
+                           total)
+            recs.append(dict(rec, collectives=counts, caches=None))
+    tp, one = recs
+    bit_equal(f"tp {cfg.name} serve logits", tp["prefill"] + tp["decode"],
+              one["prefill"] + one["decode"])
+    if tp["outs"] != one["outs"]:
+        fail(f"tp {cfg.name} serve: tokens {tp['outs']} against "
+             f"{one['outs']} without a mesh")
+    steps = len(tp["decode"])
+    out.update(prefill_ms=[t * 1e3 for t in tp["prefill_s"]],
+               prefill_ms_no_mesh=[t * 1e3 for t in one["prefill_s"]],
+               decode_ms_median=float(np.median(tp["decode_s"])) * 1e3,
+               decode_ms_median_no_mesh=float(
+                   np.median(one["decode_s"])) * 1e3,
+               decode_steps=steps, serve_collectives=tp["collectives"],
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    print(f"tp {cfg.name} x{n} layers over the world-1 mesh "
+          f"({out['params']:,} float32 parameters): loss over "
+          f"{spec['tokens']} tokens (a2a) {out['loss']:.6f}, aux "
+          f"{out['aux']:.6f}, {out['loss_ms']:.1f} ms (without a mesh "
+          f"{out['loss_ms_no_mesh']:.1f}), collectives "
+          f"{out['loss_collectives']}; serve {len(spec['serve']['prompts'])}"
+          f" prompts of {spec['serve']['prompts']} tokens, prefill "
+          f"ms {[round(t, 1) for t in out['prefill_ms']]} (without a mesh "
+          f"{[round(t, 1) for t in out['prefill_ms_no_mesh']]}), {steps} "
+          f"decode steps median {out['decode_ms_median']:.2f} ms (without a "
+          f"mesh {out['decode_ms_median_no_mesh']:.2f}), collectives "
+          f"{out['serve_collectives']} ({len(tp['prefill'])} prefills, "
+          f"{steps} steps); peak "
+          f"{out['max_memory_allocated'] / 2**30:.2f} GiB; loss, aux, "
+          "logits and tokens bit-equal to the run without a mesh",
+          flush=True)
+    del params, local, recs, tp, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_llama(ctx, total: dict, worst: dict) -> dict:
+    """TP_LLAMA through the TP path and without a mesh (module
+    docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import (init_params, param_count, param_specs,
+                                    tree_leaves)
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import gather_params, local_ctx, shard_params
+    from repro_torch.train import TrainerConfig, make_train_step
+    from repro_torch.train.loop import make_grad_fn
+    spec = TP_LLAMA
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    reset_peak()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        spec["seed"]), device="cuda")
+    specs = param_specs(cfg, ctx)
+    local = shard_params(params, specs)
+    batches = [b for _, b in zip(range(spec["steps"]),
+                                 train_batches(cfg, spec))]
+    tcfg = TrainerConfig(warmup_steps=1, total_steps=spec["steps"])
+    n = cfg.n_layers
+    bwd: dict = {}
+    grads = []
+    with held_on_card(ATTN_TOL["bfloat16"], worst), held_bwd(bwd):
+        for c in (ctx, local_ctx()):
+            build.reset_launches()
+            loss, g = make_grad_fn(cfg, c, tcfg)(
+                local if c is ctx else params, batches[0])
+            torch.cuda.synchronize()
+            check_launches(f"tp {cfg.name} grads", dict(build.LAUNCHES),
+                           {"flash_attention": 2 * n,
+                            "flash_attention_bwd": n}, total)
+            if c is ctx:
+                g = gather_params(g, specs)
+            grads.append([t.cpu() for t in [loss] + tree_leaves(g)])
+            del g
+    bit_equal(f"tp {cfg.name} loss and gradients", *grads)
+    del grads
+    # each run's results go to the host and the slices are dropped after
+    # their run, so the card holds one run's state at a time
+    runs, walls, counts = [], [], {}
+    with held_on_card(ATTN_TOL["bfloat16"], worst), held_bwd(bwd):
+        for c in (ctx, local_ctx()):
+            p = local if c is ctx else params
+            local = None
+            step = make_train_step(cfg, c, tcfg)
+            opt = adamw_init(p)
+            metrics, times = [], []
+            build.reset_launches()
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with counted_collectives(counts if c is ctx and i == 0
+                                         else {}):
+                    p, opt, m = step(p, opt, b, i + 1)
+                    torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                metrics += [m["loss"], m["grad_norm"], m["lr_scale"]]
+            check_launches(f"tp {cfg.name} steps", dict(build.LAUNCHES),
+                           {"flash_attention": 2 * n * len(batches),
+                            "flash_attention_bwd": n * len(batches)},
+                           total)
+            if c is ctx:
+                p = gather_params(p, specs)
+                opt = dict(opt, m=gather_params(opt["m"], specs),
+                           v=gather_params(opt["v"], specs))
+            runs.append([t.cpu() for t in metrics + tree_leaves(p) +
+                         tree_leaves(opt)])
+            walls.append(times)
+            del p, opt
+    bit_equal(f"tp {cfg.name} steps: metrics, parameters and AdamW state",
+              *runs)
+    out = dict(arch=cfg.name, layers=n, params=param_count(params),
+               losses=[float(x) for x in runs[0][:3 * len(batches):3]],
+               step_ms=[t * 1e3 for t in walls[0]],
+               step_ms_no_mesh=[t * 1e3 for t in walls[1]],
+               step_collectives=counts, bwd=bwd,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    print(f"tp {cfg.name} x{n} layers over the world-1 mesh "
+          f"({out['params']:,} float32 parameters): gradients of "
+          f"{spec['batch']} x {spec['seq']} tokens and {len(batches)} steps "
+          f"bit-equal to the run without a mesh (losses "
+          f"{[round(x, 4) for x in out['losses']]}); step ms "
+          f"{[round(t, 1) for t in out['step_ms']]} (without a mesh "
+          f"{[round(t, 1) for t in out['step_ms_no_mesh']]}); collectives "
+          f"a step {counts}; flash_attention_bwd calls held {bwd.get('calls')}"
+          f" (worst {bwd.get('err', 0.0):.3g}); peak "
+          f"{out['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(report: dict, total: dict) -> None:
+    """Tensor parallelism at world 1 on the card over an NCCL process
+    group, no fallback: `tp_moe` and `tp_llama`."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.parallel import ShardCtx
+    smi = card()
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    worst: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            ctx = ShardCtx(make_mesh_for(1, 1))
+            out = dict(moe=tp_moe(ctx, total, worst),
+                       llama=tp_llama(ctx, total, worst))
+        finally:
+            dist.destroy_process_group()
+    out.update(held=worst, wall_s=time.perf_counter() - t0, card=smi)
+    report["tp"] = out
+    print(f"tp phase: {out['wall_s']:.1f} s on {smi}; attention calls held "
+          f"to their plain versions {worst}", flush=True)
+
+
 # the profile phase's loops: (scenario, routing, dtypes)
 PROFILE_RUNS = (("giga_fabric_storage", "ar", ("float64", "float32")),
                 ("giga_fabric_storage", "ecmp", ("float64", "float32")),
@@ -4988,6 +5273,7 @@ def main(argv=None) -> int:
     serve_phase(report, total)
     kept = train_phase(report, total)
     dp_phase(report, total, kept.pop("grads"))
+    tp_phase(report, total)
     profile_phase(report)
     idle = [k for k in build.KERNELS if not total.get(k)]
     if idle:

@@ -12,9 +12,14 @@ joined by "/" (`params/period/0/attn/wq`), as the reference's
 `tree_flatten_with_path` names them, so a restore works even if
 auxiliary fields were added or removed.  A bfloat16 leaf is saved as
 float32 (numpy has no bfloat16 of its own; the widening is exact) and
-cast back to its target's dtype on restore, as every leaf is.  The
-reference's `shardings` re-shard a restore onto a mesh; the port runs on
-one rank (ROADMAP queue 1 item 4), so it takes none.
+cast back to its target's dtype on restore, as every leaf is.
+
+Under tensor parallelism (`shardings`, a tree of `sharding.Spec`s over
+the target's structure, e.g. `param_shardings`): a save gathers every
+split leaf over its group and the mesh's first rank writes the one-rank
+format (the others wait for the commit), so a checkpoint taken under a
+mesh restores into a one-rank run and back; a restore reads each whole
+leaf and returns the rank's slice of it.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import _from_numpy, _map_items, tree_items
+from repro_torch.parallel.sharding import (full_shape, gather_params,
+                                           local_slice, spec_leaves)
 
 
 def _key(path) -> str:
@@ -43,9 +50,30 @@ def _to_numpy(t) -> np.ndarray:
     return np.asarray(t)
 
 
+def _mesh_of(shardings):
+    """The mesh a tree of specs names (None without one)."""
+    return next((s.mesh for s in spec_leaves(shardings)
+                 if s.mesh is not None), None)
+
+
 def save_checkpoint(directory: str, step: int, tree,
-                    extras: Optional[Dict] = None) -> str:
-    """Gather every leaf to the host and commit atomically."""
+                    extras: Optional[Dict] = None, shardings=None) -> str:
+    """Gather every leaf to the host and commit atomically.  With
+    `shardings` naming a mesh every rank takes part: the split leaves
+    are gathered, the mesh's first rank writes, and every rank returns
+    once the commit is written."""
+    mesh = None if shardings is None else _mesh_of(shardings)
+    if mesh is not None:
+        import torch.distributed as dist
+        tree = gather_params(tree, shardings)
+        if all(c == 0 for c in mesh.get_coordinate()):
+            _write(directory, step, tree, extras)
+        dist.barrier()
+        return os.path.join(directory, f"step_{step:08d}")
+    return _write(directory, step, tree, extras)
+
+
+def _write(directory: str, step: int, tree, extras: Optional[Dict]) -> str:
     os.makedirs(directory, exist_ok=True)
     arrays = {_key(path): _to_numpy(leaf) for path, leaf in tree_items(tree)}
     manifest = {
@@ -90,12 +118,10 @@ def restore_checkpoint(directory: str, target_tree, shardings=None,
                        ) -> Tuple[Any, int, Dict]:
     """Restore into the structure of `target_tree`: each leaf takes its
     target's dtype and device; missing keys keep the target's value,
-    extra keys are ignored (forward-compatible).  Raises `ValueError`
-    when a leaf's shape differs from its target's."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=...): the port runs on one rank; "
-            "sharding is ROADMAP queue 1 item 4")
+    extra keys are ignored (forward-compatible).  With `shardings` the
+    targets are the rank's slices: each whole leaf is read and the
+    rank's slice of it returned.  Raises `ValueError` when a leaf's
+    shape differs from its target's (whole) shape."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -105,16 +131,25 @@ def restore_checkpoint(directory: str, target_tree, shardings=None,
         manifest = json.load(f)
     data = np.load(os.path.join(path, "arrays.npz"))
 
+    specs = {} if shardings is None else dict(zip(
+        (p for p, _ in tree_items(target_tree)), spec_leaves(shardings)))
+
     def restore(pth, tgt):
         key = _key(pth)
         if key not in data.files:
             return tgt
         arr = data[key]
-        if list(arr.shape) != list(tgt.shape):
+        spec = specs.get(pth)
+        whole = tuple(tgt.shape) if spec is None else \
+            full_shape(tgt.shape, spec)
+        if list(arr.shape) != list(whole):
             raise ValueError(
                 f"checkpoint leaf {key} shape {arr.shape} != target "
-                f"{tuple(tgt.shape)} — reshard topology mismatch")
-        return _from_numpy(arr).to(device=tgt.device, dtype=tgt.dtype)
+                f"{whole} — reshard topology mismatch")
+        x = _from_numpy(arr)
+        if spec is not None:
+            x = local_slice(x, spec)
+        return x.to(device=tgt.device, dtype=tgt.dtype)
 
     return _map_items(target_tree, restore), step, manifest["extras"]
 

@@ -41,6 +41,13 @@ reference computes it outside any Pallas kernel: its prefill has
 Dk = nope + rope and Dv = v_head_dim, which the kernels do not take, and
 its decode is the absorbed latent product.
 
+Under tensor parallelism (a context with a mesh) a rank computes its q
+heads from its slice of `wq` (or the whole `wq`'s columns of them where
+the model dim does not divide the heads), the kv heads those read
+(`attn_layout`), and its rows of `wo`: its terms of the output, which
+the block sums over the model group.  The kernels then see the rank's
+head counts, a GQA group the whole configs may never produce.
+
 Under `remat="kv"` a differentiated prefill tags K and V with
 `kv_tag`, the identity as a custom op (`repro_torch::kv_tag`, a copy of
 the same values and strides), where the reference names them
@@ -57,7 +64,8 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .layers import Builder, apply_rope, rms_norm
 from ..kernels import ops
-from ..parallel.sharding import ShardCtx, local_ctx, shard_heads
+from ..parallel.sharding import (ShardCtx, cache_kv_heads, head_range,
+                                 local_ctx, shard_heads)
 
 NEG_INF = -1e30
 
@@ -187,10 +195,13 @@ def _maybe_qk_norm(p: Dict, q, k, eps: float):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  kind: str, dtype, device=None) -> Dict:
-    """Ring-buffer cache. 'l' layers cap the buffer at cfg.window."""
+                  kind: str, dtype, device=None,
+                  ctx: Optional[ShardCtx] = None) -> Dict:
+    """Ring-buffer cache. 'l' layers cap the buffer at cfg.window.  Under
+    a mesh it holds this rank's kv heads (`cache_kv_heads`)."""
     size = min(max_len, cfg.window) if kind == "l" else max_len
-    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    hkv = cache_kv_heads(cfg.n_kv_heads, local_ctx() if ctx is None else ctx)
+    dh = cfg.head_dim
     return {
         "k": torch.zeros((batch, size, hkv, dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, size, hkv, dh), dtype=dtype, device=device),
@@ -281,33 +292,87 @@ def _decode_attention(q, cache: Dict, positions, window: int,
     return ops.decode_attention_bshd(q, cache["k"], cache["v"], lengths)
 
 
+def attn_layout(cfg: ModelConfig, ctx: ShardCtx):
+    """(start, count, kv) of this rank's attention: its q heads [start,
+    start + count) (`sharding.head_range`), and `kv`, None where its K/V
+    heads are the ones it computes (no mesh, or the model dim splits the
+    kv heads, whose slice the rank's q heads read), else the kv heads
+    (of all, which every rank computes) its q heads read, in the form
+    the kernels take: head start + j reads kv[j // (count // len(kv))].
+
+    A q head h reads kv head h // (Hq / Hkv), the model's own grouping,
+    at every model dim.  (The reference pads the heads to a multiple of
+    the model dim, which regroups them when the kv heads are not
+    padded too: at Hq 12, Hkv 4 and a model dim of 8 its head 3 reads kv
+    head 0, not 1, so its values under such a mesh differ from its own
+    without one; ROADMAP queue 3.)"""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    start, count = head_range(hq, ctx)
+    if ctx.mesh is None or count == 0 or ctx.splits("kv", hkv):
+        return start, count, None
+    group = hq // hkv
+    reads = [h // group for h in range(start, start + count)]
+    runs = [reads[0]]
+    for a, b in zip(reads, reads[1:]):
+        if b != a:
+            runs.append(b)
+    if count % len(runs) == 0 and reads == [
+            runs[j // (count // len(runs))] for j in range(count)]:
+        return start, count, runs
+    return start, count, reads
+
+
+def _kv_select(x: torch.Tensor, kv) -> torch.Tensor:
+    """K or V (B, S, Hkv, D) at the kv heads `kv` (`attn_layout`)."""
+    if kv is None or kv == list(range(x.shape[2])):
+        return x
+    return x.index_select(2, torch.tensor(kv, device=x.device))
+
+
 def apply_attn(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, kind: str,
                cache: Optional[Dict] = None,
                ctx: Optional[ShardCtx] = None,
                ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x: (B,S,d). positions: (B,S). Returns (out, updated cache)."""
+    """x: (B,S,d), the whole sequence on every rank. positions: (B,S).
+    Returns (out, updated cache).  Under a mesh `out` is this rank's
+    terms of the output, its heads through its rows of `wo`
+    (`attn_layout`; the block sums them over the model group), and the
+    cache holds its kv heads (`sharding.cache_kv_heads`)."""
     ctx = local_ctx() if ctx is None else ctx
     dt = x.dtype
     window = cfg.window if kind == "l" else 0
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    start, count, kv = attn_layout(cfg, ctx)
+    wq, wo = p["wq"], p["wo"]
+    if ctx.mesh is not None and not ctx.splits("heads", cfg.n_heads):
+        # whole on every rank: this rank's heads of them
+        wq, wo = wq.narrow(1, start, count), wo.narrow(0, start, count)
+    q = torch.einsum("bsd,dhk->bshk", x, wq.to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
     q, k = _maybe_qk_norm(p, q, k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_base)
     k = apply_rope(k, positions, cfg.rope_base)
-    wo = p["wo"].to(dt)
+    wo = wo.to(dt)
     if cache is not None:
         cache = _cache_write(cache, ("k", "v"), (k, v), positions)
+    if count == 0:
+        # only padded heads here (the reference's zero rows of wo): no
+        # attention, and the empty product's zeros still hang on x in
+        # autograd, so that the block's sum over the model group runs its
+        # backward on this rank as on the others
+        return torch.einsum("bshk,hkd->bsd", q, wo), cache
 
     if cache is not None and q.shape[1] == 1:
-        out = _decode_attention(q, cache, positions, window, ctx)
+        heads = dict(cache, k=_kv_select(cache["k"], kv),
+                     v=_kv_select(cache["v"], kv))
+        out = _decode_attention(q, heads, positions, window, ctx)
         return torch.einsum("bshk,hkd->bsd", out, wo), cache
 
     # Train / prefill: attend over the prompt's own K/V (the ring cache
     # may be smaller than the prompt for sliding-window layers; the cache
     # written above is kept for decode).
-    q = shard_heads(q, ctx)
+    k, v = _kv_select(k, kv), _kv_select(v, kv)
     if cfg.remat == "kv" and torch.is_grad_enabled():
         k, v = kv_tag(k), kv_tag(v)
     out = _prefill_attention(q, k, v, positions, window, cfg, ctx)

@@ -13,14 +13,25 @@ The apply half follows the reference operation for operation: weights
 are cast to the activations' dtype at each call (`p[...].to(dt)`, as
 the reference's `astype(dt)`), the norm and the rotary embedding run in
 float32 and cast back, and the logits leave in float32.
+
+Under tensor parallelism (`parallel.sharding`) the same code runs on a
+rank's slices: `apply_mlp` on the column slices of `wi`/`wg` and the row
+slice of `wo` gives the rank's terms of the output (`mlp_residual` sums
+them into the residual layout), `lm_logits` on the rank's vocab slice of
+the head gives its slice of the logits, and `embed_tokens` looks up the
+rows its vocab slice holds and sums them over the model group.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import tp as tpc
+from ..parallel.sharding import (ShardCtx, gather_residual, reduce_residual,
+                                 shard_residual)
 
 # A Builder receives (name, shape, logical_axes, scale) and returns a leaf.
 Builder = Callable[[str, Tuple[int, ...], Tuple[str, ...], float], object]
@@ -140,6 +151,19 @@ def apply_mlp(p: Dict, x: torch.Tensor, act: str, dtype) -> torch.Tensor:
     return torch.einsum("bsf,fd->bsd", h, p["wo"].to(dtype))
 
 
+def mlp_residual(p: Dict, x: torch.Tensor, act: str, dtype, ctx: ShardCtx,
+                 seq_len: int, d_ff: int) -> torch.Tensor:
+    """The MLP of x (B, S', D) in the residual layout of a sequence of
+    `seq_len`, returned in that layout: x gathered along S, then
+    column-parallel `wi`/`wg` and row-parallel `wo` with the terms summed
+    (reduce-scattered) when the model dim splits `d_ff`, else the whole
+    MLP on every rank.  Without a mesh, `apply_mlp`."""
+    y = apply_mlp(p, gather_residual(x, ctx, seq_len), act, dtype)
+    if ctx.splits("mlp", d_ff):
+        return reduce_residual(y, ctx)
+    return shard_residual(y, ctx)
+
+
 def init_embed(make: Builder, vocab: int, d_model: int,
                tie: bool) -> Dict:
     # the table's d_model dim has its own logical axis ('embed_t', never
@@ -152,14 +176,29 @@ def init_embed(make: Builder, vocab: int, d_model: int,
     return p
 
 
-def embed_tokens(p: Dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    # rows gathered, then cast: the same values as the reference's cast
-    # of the whole table, then its `take`
-    return p["tok"][tokens.long()].to(dtype)
+def embed_tokens(p: Dict, tokens: torch.Tensor, dtype,
+                 ctx: Optional[ShardCtx] = None,
+                 vocab: int = 0) -> torch.Tensor:
+    """The rows of `tokens`, (B, S, D) whole on every rank.  Rows
+    gathered, then cast: the same values as the reference's cast of the
+    whole table, then its `take`.  Where the model dim splits the vocab
+    (`vocab`, the whole table's rows), each rank looks up the tokens its
+    slice holds, masks the others to zero and the rows are summed over
+    the model group (one term a token is nonzero)."""
+    if ctx is None or not ctx.splits("vocab", vocab):
+        return p["tok"][tokens.long()].to(dtype)
+    start, size = ctx.local_range(vocab)
+    local = tokens.long() - start
+    held = (local >= 0) & (local < size)
+    rows = p["tok"][local.clamp(0, size - 1)].to(dtype)
+    return tpc.reduce(torch.where(held[..., None], rows, 0.0),
+                      ctx.tp_group)
 
 
 def lm_logits(p: Dict, x: torch.Tensor, dtype,
               cap: float = 0.0) -> torch.Tensor:
+    """Float32 logits of x over the head's vocab: a rank's slice under
+    tensor parallelism (`sharding.shard_logits` gathers them)."""
     if "head" in p:
         logits = torch.einsum("bsd,dv->bsv", x, p["head"].to(dtype))
     else:

@@ -2,11 +2,21 @@
 shared experts.
 
 The reference has three execution modes over one local dispatch/combine
-body: without a mesh (`tp_axis is None`), and with a mesh the a2a mode
-(train/prefill: dispatch buffers exchanged with `all_to_all` over the
-tensor axis) and the psum mode (decode).  The port runs on one rank, so
-it has the first alone; the other two wait for sharding over
-`torch.distributed` (ROADMAP queue 1 item 4).
+body, and so has the port (`apply_moe` picks one as the reference does):
+
+  * without a mesh, or under one whose model dim does not divide the
+    experts ("none"): the body on the rank's tokens, every expert here;
+  * "a2a" (the sequence divides the model dim: train and prefill): each
+    model rank routes its own sequence slice, with the capacity of its
+    own token count and the arrival ranks of its own tokens, and the
+    dispatch buffers go to the experts' ranks and back with
+    `all_to_all` over the model group, so token drops depend on the
+    sharding, as the reference's do;
+  * "psum" (decode): every rank routes all tokens, runs its E / m
+    experts and the outputs are summed over the model group in float32.
+
+The router's slices (its "experts" dim is split with the experts) are
+gathered before routing; the aux loss is averaged over the model group.
 
 Order matters where the reference leaves it implicit:
   * `jax.lax.top_k` breaks ties toward the lower expert index;
@@ -23,14 +33,15 @@ Order matters where the reference leaves it implicit:
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import Builder, act_fn, apply_mlp, init_mlp
-from ..parallel.sharding import ShardCtx
+from .layers import Builder, act_fn, init_mlp, mlp_residual
+from ..parallel import tp as tpc
+from ..parallel.sharding import ShardCtx, seq_split
 
 
 def init_moe(make: Builder, cfg: ModelConfig, prefix: str) -> Dict:
@@ -140,27 +151,88 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(8, ((c + 7) // 8) * 8)
 
 
-def _moe_local(p, cfg: ModelConfig, x):
-    """The MoE body on one rank (the reference's `tp_axis is None`)."""
+def _moe_local(p, cfg: ModelConfig, x, router=None, mode: str = "none",
+               ctx: Optional[ShardCtx] = None):
+    """The MoE body on a rank's tokens x (B, S', d) in `mode` (module
+    docstring); `router` is the whole router (d, E), `p`'s own by
+    default, and `p`'s expert weights are the rank's (E / m of them in
+    "a2a" and "psum")."""
     b, s, d = x.shape
     x_flat = x.reshape(b * s, d)
-    w, idx, aux = _topk_route(p["router"], x_flat, cfg)
+    w, idx, aux = _topk_route(p["router"] if router is None else router,
+                              x_flat, cfg)
     ranks = _ranks_within_expert(idx.reshape(-1),
                                  cfg.moe_experts).reshape(idx.shape)
     cap = _capacity(b * s, cfg)
-    buf = _dispatch(x_flat, idx, ranks, cfg.moe_experts, cap)
-    buf = _expert_ffn(p, buf, cfg.act)
-    out = _combine(buf, w, idx, ranks, cap)
-    return out.reshape(b, s, d), aux
+    if ctx is not None:
+        aux = tpc.pmean(aux, ctx.tp_group)
+
+    if mode == "none":
+        buf = _dispatch(x_flat, idx, ranks, cfg.moe_experts, cap)
+        buf = _expert_ffn(p, buf, cfg.act)
+        out = _combine(buf, w, idx, ranks, cap)
+        return out.reshape(b, s, d), aux
+
+    group = ctx.tp_group
+    m = ctx.tp_size
+    e_loc = cfg.moe_experts // m
+    if mode == "a2a":
+        buf = _dispatch(x_flat, idx, ranks, cfg.moe_experts, cap)
+        # (E, C, d) -> (E/m, m*C, d): chunk j of the experts to rank j,
+        # the ranks' chunks side by side along the capacity
+        buf = tpc.all_to_all(buf, group)
+        buf = buf.reshape(m, e_loc, cap, d).transpose(0, 1).reshape(
+            e_loc, m * cap, d)
+        buf = _expert_ffn(p, buf, cfg.act)
+        buf = buf.reshape(e_loc, m, cap, d).transpose(0, 1).reshape(
+            cfg.moe_experts, cap, d)
+        buf = tpc.all_to_all(buf, group)
+        out = _combine(buf, w, idx, ranks, cap)
+        return out.reshape(b, s, d), aux
+
+    if mode == "psum":
+        e0 = ctx.tp_rank * e_loc
+        local = idx - e0
+        here = (local >= 0) & (local < e_loc)
+        local_ids = torch.where(here, local, 0)
+        local_ranks = torch.where(here, ranks, cap)   # force-drop remote
+        buf = _dispatch(x_flat, local_ids, local_ranks, e_loc, cap)
+        buf = _expert_ffn(p, buf, cfg.act)
+        out = _combine(buf, w * here.to(w.dtype), local_ids, local_ranks,
+                       cap)
+        out = tpc.reduce(out.float(), group).to(x.dtype)
+        return out.reshape(b, s, d), aux
+
+    raise ValueError(mode)
+
+
+def moe_mode(cfg: ModelConfig, ctx: ShardCtx, seq_len: int) -> str:
+    """The reference's choice: "a2a" when the residual is split along a
+    sequence of `seq_len`, else "psum"; "none" without a mesh or where
+    the model dim does not divide the experts."""
+    if ctx.mesh is None or cfg.moe_experts % ctx.tp_size:
+        return "none"
+    return "a2a" if seq_split(seq_len, ctx) else "psum"
 
 
 def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx,
+              seq_len: Optional[int] = None,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d). Returns (out, aux_loss)."""
+    """x: (B, S', d) in the residual layout of a sequence of `seq_len`
+    (x's own by default). Returns (out in that layout, aux_loss)."""
+    seq_len = x.shape[1] if seq_len is None else seq_len
     shared_out = None
     if "shared" in p:
-        shared_out = apply_mlp(p["shared"], x, cfg.act, x.dtype)
-    out, aux = _moe_local(p, cfg, x)
+        shared_out = mlp_residual(p["shared"], x, cfg.act, x.dtype, ctx,
+                                  seq_len, cfg.moe_shared * cfg.moe_d_ff)
+    if ctx.mesh is None:
+        out, aux = _moe_local(p, cfg, x)
+    else:
+        mode = moe_mode(cfg, ctx, seq_len)
+        router = p["router"]
+        if ctx.splits("experts", cfg.moe_experts):
+            router = tpc.gather(router, -1, ctx.tp_group)
+        out, aux = _moe_local(p, cfg, x, router, mode, ctx)
     if shared_out is not None:
         out = out + shared_out
     return out, aux

@@ -33,6 +33,12 @@ unrolled stack) and have nothing to do here.  Cross-entropy is taken in sequence
 caches are written functionally, as the reference's are: a step returns
 new cache tensors and leaves its input caches as they were, which the
 serving engine relies on when it keeps the other slots' rows.
+
+Under a mesh (`parallel.sharding`) the tree holds the rank's slices
+(`param_specs`, `shard_params`), the embedded input enters the residual
+layout, the CE is vocab-parallel where the model dim splits the vocab
+(`_nll`), and `prefill_step`/`decode_step` gather the logits over the
+vocab, so a caller sees the reference's shapes on every rank.
 """
 from __future__ import annotations
 
@@ -48,7 +54,9 @@ from .blocks import apply_block, init_block, init_block_cache
 from .config import ModelConfig
 from .layers import (axes_builder, embed_tokens, init_embed, lm_logits,
                      meta_builder, rms_norm, tensor_builder)
-from ..parallel.sharding import (ShardCtx, shard_cache, shard_logits,
+from ..parallel import tp as tpc
+from ..parallel.sharding import (ShardCtx, check_tp_scope, gather_residual,
+                                 param_shardings, shard_cache, shard_logits,
                                  shard_residual)
 
 KeyPath = Tuple                # dict keys (str) and list indices (int)
@@ -115,6 +123,15 @@ def param_shapes(cfg: ModelConfig) -> Dict:
 
 def logical_axes(cfg: ModelConfig) -> Dict:
     return _init_tree(axes_builder(), cfg)
+
+
+def param_specs(cfg: ModelConfig, ctx: ShardCtx) -> Dict:
+    """Every leaf's `sharding.Spec` under `ctx` (the reference's
+    `param_shardings(logical_axes, ctx, shapes)`), the layout
+    `sharding.shard_params` slices by; raises where tensor parallelism
+    does not reach (`check_tp_scope`)."""
+    check_tp_scope(cfg, ctx)
+    return param_shardings(logical_axes(cfg), ctx, param_shapes(cfg))
 
 
 def tree_items(tree, path: KeyPath = ()) -> Iterator[Tuple[KeyPath, object]]:
@@ -221,29 +238,39 @@ def _stack(trees: List):
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                device=None) -> Dict:
+                device=None, ctx: Optional[ShardCtx] = None) -> Dict:
     """Cache tree: a prefix list and, per pattern position, caches
     stacked over the periods (leading axis `n_periods`, then the batch).
-    `dtype` is a torch dtype or its name; `device` defaults to CUDA."""
+    `dtype` is a torch dtype or its name; `device` defaults to CUDA.
+    Under a mesh (`ctx`) each K/V cache holds the rank's kv heads
+    (`sharding.cache_kv_heads`)."""
     from repro_torch.netsim.engine import resolve_device
     device = resolve_device(device)
     if isinstance(dtype, str):
         dtype = torch_dtype(dtype)
     caches: Dict = {
-        "prefix": [init_block_cache(cfg, "a", batch, max_len, dtype, device)
+        "prefix": [init_block_cache(cfg, "a", batch, max_len, dtype, device,
+                                    ctx)
                    for _ in range(cfg.n_prefix_layers)],
         "period": [],
     }
     for kind in cfg.block_pattern:
-        one = init_block_cache(cfg, kind, batch, max_len, dtype, device)
+        one = init_block_cache(cfg, kind, batch, max_len, dtype, device, ctx)
         caches["period"].append(tree_map(one, lambda a: a.expand(
             (cfg.n_periods,) + tuple(a.shape)).contiguous()))
     return caches
 
 
 def shard_caches(caches: Dict, ctx: ShardCtx) -> Dict:
-    return tree_map(caches, lambda x: shard_cache(x, ctx, x.ndim - 2)
-                if x.ndim >= 3 else x)
+    """A whole cache tree -> this rank's: each K/V leaf (kv heads next to
+    last) through `sharding.shard_cache`, the other leaves as they
+    are."""
+    if isinstance(caches, dict):
+        return {k: shard_cache(v, ctx, v.ndim - 2) if k in ("k", "v")
+                else shard_caches(v, ctx) for k, v in caches.items()}
+    if isinstance(caches, list):
+        return [shard_caches(c, ctx) for c in caches]
+    return caches
 
 
 # ---------------------------------------------------------------------------
@@ -352,8 +379,12 @@ def embed_input(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 ctx: ShardCtx,
                 frontend_embeds: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+    """The embedded input in the residual layout (`sharding.
+    shard_residual`); the first forward of a context checks its scope
+    (`check_tp_scope`)."""
+    check_tp_scope(cfg, ctx)
     dtype = torch_dtype(cfg.dtype)
-    x = embed_tokens(params["embed"], tokens, dtype)
+    x = embed_tokens(params["embed"], tokens, dtype, ctx, cfg.vocab)
     if frontend_embeds is not None and cfg.frontend != "none":
         fe = torch.einsum("bfd,de->bfe", frontend_embeds.to(dtype),
                           params["frontend_proj"].to(dtype))
@@ -372,10 +403,45 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
                         device=tokens.device)[None].expand(B, S)
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+         ctx: ShardCtx) -> torch.Tensor:
+    """-log softmax of the logits at `labels`, as `torch.logsumexp`
+    computes its sum (the max, an infinite max taken as 0, the log of the
+    sum of exponentials plus the max) with the max held constant, which
+    it is in the gradient.  Where the model dim splits the vocab the
+    logits are the rank's slice (vocab-parallel): the max is taken over
+    the group (outside autograd), then the sum of exponentials and the
+    target's logit (from the rank that holds it) are summed over the
+    group in one all-reduce.  One rank, with a mesh or without, runs the
+    same operations on the same values."""
+    split = ctx.splits("vocab", cfg.vocab)
+    mx = logits.detach().amax(-1)
+    if split:
+        mx = tpc.all_max(mx, ctx.tp_group)
+    mx = torch.where(mx.abs() == float("inf"), 0.0, mx)
+    if split:
+        start, size = ctx.local_range(cfg.vocab)
+        local = labels.long() - start
+        held = (local >= 0) & (local < size)
+        tgt = logits.gather(-1, local.clamp(0, size - 1)[..., None])[..., 0]
+        tgt = torch.where(held, tgt, 0.0)
+    else:
+        tgt = logits.gather(-1, labels[..., None].long())[..., 0]
+    sumexp = torch.exp(logits - mx[..., None]).sum(-1)
+    if split:
+        sumexp, tgt = tpc.reduce(torch.stack([sumexp, tgt]),
+                                 ctx.tp_group).unbind(0)
+    return sumexp.log() + mx - tgt
+
+
 def chunked_ce_loss(params: Dict, cfg: ModelConfig, hidden: torch.Tensor,
                     labels: torch.Tensor, mask: torch.Tensor, ctx: ShardCtx,
                     chunk: int = 0) -> torch.Tensor:
-    """Next-token CE without materializing full (B,S,V) logits."""
+    """Next-token CE without materializing full (B,S,V) logits.  `hidden`
+    is in the residual layout and is gathered along S; where the model
+    dim splits the vocab each rank computes its slice of the logits and
+    the CE is vocab-parallel (`_nll`)."""
+    hidden = gather_residual(hidden, ctx, labels.shape[1])
     B, S, D = hidden.shape
     chunk = min(chunk or cfg.loss_chunk, S)
     pad = (-S) % chunk
@@ -391,10 +457,7 @@ def chunked_ce_loss(params: Dict, cfg: ModelConfig, hidden: torch.Tensor,
         sl = slice(i * chunk, (i + 1) * chunk)
         h, lab, m = hidden[:, sl], labels[:, sl], mask[:, sl]
         logits = lm_logits(params["embed"], h, dtype, cfg.logit_softcap)
-        logits = shard_logits(logits, ctx)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, lab[..., None].long())[..., 0]
-        nll = (lse - tgt) * m
+        nll = _nll(logits, lab, cfg, ctx) * m
         tot = tot + nll.sum()
         cnt = cnt + m.sum()
     return tot / torch.clamp(cnt, min=1.0)
@@ -431,14 +494,14 @@ def prefill_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                  frontend_embeds: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, Dict]:
     """Process a full prompt, fill caches, return last-token logits
-    (B, 1, vocab) in float32."""
+    (B, 1, vocab) in float32, the whole vocab on every rank."""
     positions = _positions(tokens)
     x = embed_input(params, cfg, tokens, ctx, frontend_embeds)
     hidden, caches, _ = backbone(params, cfg, x, positions, ctx, caches)
-    last = hidden[:, -1:]
+    last = gather_residual(hidden, ctx, tokens.shape[1])[:, -1:]
     logits = lm_logits(params["embed"], last, torch_dtype(cfg.dtype),
                        cfg.logit_softcap)
-    return shard_logits(logits, ctx), caches
+    return shard_logits(logits, ctx, cfg.vocab), caches
 
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -448,6 +511,6 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = position[:, None].to(torch.int32)
     x = embed_input(params, cfg, tokens, ctx)
     hidden, caches, _ = backbone(params, cfg, x, positions, ctx, caches)
-    logits = lm_logits(params["embed"], hidden, torch_dtype(cfg.dtype),
-                       cfg.logit_softcap)
-    return shard_logits(logits, ctx), caches
+    logits = lm_logits(params["embed"], gather_residual(hidden, ctx, 1),
+                       torch_dtype(cfg.dtype), cfg.logit_softcap)
+    return shard_logits(logits, ctx, cfg.vocab), caches

@@ -44,21 +44,37 @@ def adamw_init(params) -> Dict:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, group=None, sharded=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in float32: each leaf's
-    sum, then the sums added in leaf order."""
+    sum, then the sums added in leaf order.  Under tensor parallelism
+    (`group`, the model group, and `sharded`, whether the model dim
+    splits each leaf, in leaf order) a split leaf's sum is its slices'
+    sums added over the group (one all-reduce for all of them) and a
+    replicated leaf, equal on every rank, counts once; the sums are
+    then added in leaf order as without a group, so every rank of the
+    group gets the same norm."""
+    sums = [torch.sum(torch.square(x.to(torch.float32)))
+            for x in tree_leaves(tree)]
+    split = [i for i, s in enumerate(sharded or ()) if s]
+    if group is not None and split:
+        import torch.distributed as dist
+        both = torch.stack([sums[i] for i in split])
+        dist.all_reduce(both, group=group)
+        for i, s in zip(split, both):
+            sums[i] = s
     total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+    for s in sums:
+        total = total + s
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
 def adamw_update(grads, opt_state: Dict, params, cfg: AdamWConfig,
-                 lr_scale: torch.Tensor | float = 1.0,
-                 ) -> Tuple[Dict, Dict, Dict]:
+                 lr_scale: torch.Tensor | float = 1.0, group=None,
+                 sharded=None) -> Tuple[Dict, Dict, Dict]:
     """Returns (new_params, new_opt_state, metrics); the inputs are not
-    written."""
-    gnorm = global_norm(grads)
+    written.  `group` and `sharded` are `global_norm`'s, for a rank's
+    slices under tensor parallelism."""
+    gnorm = global_norm(grads, group, sharded)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                          max=1.0)
              if cfg.clip_norm > 0 else 1.0)

@@ -1,23 +1,78 @@
-"""The `ShardCtx` threaded through the model forward and the train step.
+"""The `ShardCtx` threaded through the model forward and the train step,
+the reference's logical-axis sharding rules, and the layout changes of
+the activations under tensor parallelism.
 
-The reference maps logical axes onto a JAX mesh and constrains
-activations with `with_sharding_constraint`.  This port takes a
-`torch.distributed.device_mesh.DeviceMesh` with named dims
-(`launch.mesh.make_mesh_for`) and data parallelism over it: the batch is
-tiled over the data-parallel dims and the gradients are summed over
-them by the plane collective engine (`core.collectives.plane_allreduce`,
-through `ShardCtx.group`).  Tensor parallelism and FSDP are ROADMAP
-queue 1 item 4c: a mesh whose model dim is above 1, or an FSDP axis,
-raises `NotImplementedError`.  With a model dim of 1 the reference's
-constraints change no layout, so every `shard_*` function the forward
-calls returns its input as it is.
+The reference maps logical axes onto a JAX mesh (`DEFAULT_RULES`,
+`spec_for_axes`, `param_shardings`) and constrains activations with
+`with_sharding_constraint`, leaving the collectives to GSPMD.  This port
+takes a `torch.distributed.device_mesh.DeviceMesh` with named dims
+(`launch.mesh.make_mesh_for`) and the same rules:
+
+  * data parallelism over the DP dims: the batch is tiled over them and
+    the gradients are summed by the plane collective engine
+    (`core.collectives.plane_allreduce`, through `ShardCtx.group`);
+  * tensor parallelism over the model dim: a rank holds only its slice
+    of every leaf the rules shard (`shard_params`, `gather_params`), and
+    activations move between layouts through explicit collectives that
+    carry their gradients (`parallel.tp`), where the reference's
+    constraints stand: `gather_residual`, `reduce_residual` and
+    `shard_residual` (sequence-parallel residual stream), `shard_heads`,
+    `shard_logits`, `shard_cache`.
+
+The TP path is taken whenever the context has a mesh, a model dim of 1
+included, where every collective is a copy.  The MLA and SSM families
+and FSDP under a model dim above 1 are ROADMAP queue 1 item 4c-ii: an
+FSDP axis raises when the context is built, MLA or SSM blocks at the
+first forward or `param_specs` (`check_tp_scope`).
+
+Gradients under TP: a replicated activation's gradient is kept partial,
+each rank holding its own terms and the group's sum being the gradient
+(`parallel.tp`); the train step seeds the loss with 1 / tp and sums the
+gradient of every replicated leaf over the model group once, after
+autograd (`train.loop.make_grad_fn`).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from . import tp as tpc
+
+DEFAULT_RULES: Dict[str, Any] = {
+    "embed": None,          # d_model: replicated
+    "mlp": "model",         # FFN intermediate
+    "heads": "model",       # attention heads
+    "kv": "model",          # kv heads (may be fewer than model size -> None)
+    "head": None,           # per-head dim
+    "vocab": "model",       # embedding/vocab dim
+    "embed_t": None,        # embedding-table d_model dim (never sharded)
+    "experts": "model",     # MoE expert dim
+    "embed_e": None,        # expert d_model dim (contracted; never FSDP)
+    "mlp_e": None,          # expert FFN dim (FSDP-sharded when enabled)
+    "qlora": None,
+    "kvlora": None,
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "conv": "model",
+    "layers": None,         # stacked-scan leading dim
+    "ff_tokens": None,
+}
+
+_SCOPE = "ROADMAP queue 1 item 4c-ii"
+
+
+def make_rules(fsdp_axis: Optional[str] = None) -> Dict[str, Any]:
+    """The parameter rules; `fsdp_axis` also shards the 'embed' (d_model)
+    and 'mlp_e' dims of the weights over a DP axis, as the reference's
+    ZeRO-3 layout does (the port's forward takes these rules only
+    without a mesh: FSDP is ROADMAP queue 1 item 4c-ii)."""
+    rules = dict(DEFAULT_RULES)
+    if fsdp_axis is not None:
+        rules["embed"] = fsdp_axis
+        rules["mlp_e"] = fsdp_axis
+    return rules
 
 
 def axis_size(mesh, name: str) -> int:
@@ -75,12 +130,18 @@ def mesh_group(mesh, dims: Tuple[str, ...]):
 class ShardCtx:
     """Distribution context threaded through model apply functions.
 
-    `mesh` is None (one rank) or a `DeviceMesh` with named dims whose
-    `tp_axis` has size 1; `fsdp_axis` must be None."""
+    `mesh` is None (one rank) or a `DeviceMesh` with named dims: the
+    batch is tiled over `dp_axes`, the leaves and activations the rules
+    shard are split over `tp_axis`, and the residual stream is split
+    along the sequence when `seq_sharded` (and the sequence divides the
+    model dim).  `fsdp_axis` must be None under a mesh (ROADMAP queue 1
+    item 4c-ii)."""
     mesh: Optional[Any] = None
     dp_axes: Tuple[str, ...] = ("data",)
     tp_axis: str = "model"
+    seq_sharded: bool = True          # sequence-parallel residual stream
     fsdp_axis: Optional[str] = None
+    rules: Dict[str, Any] = field(default_factory=lambda: dict(DEFAULT_RULES))
     # the process groups `group` made, by dims (not a field of the
     # context's value: two contexts over one mesh compare equal)
     _groups: Dict[Tuple[str, ...], Any] = field(
@@ -89,13 +150,11 @@ class ShardCtx:
     def __post_init__(self):
         if self.mesh is None:
             return
-        if self.fsdp_axis is not None or self.tp_size > 1:
+        if self.fsdp_axis is not None:
             raise NotImplementedError(
-                f"ShardCtx with tensor parallelism (model dim "
-                f"{self.tp_size}) or FSDP (axis {self.fsdp_axis!r}): the "
-                "port shards data only; TP and FSDP are ROADMAP queue 1 "
-                "item 4c")
-        for a in self.dp_axes:
+                f"ShardCtx with FSDP (axis {self.fsdp_axis!r}): the port "
+                f"shards data and the model dim; FSDP is {_SCOPE}")
+        for a in self.dp_axes + (self.tp_axis,):
             axis_size(self.mesh, a)
 
     @property
@@ -115,6 +174,21 @@ class ShardCtx:
         return tuple(self.dp_axes) if len(self.dp_axes) > 1 else \
             self.dp_axes[0]
 
+    @property
+    def tp_group(self):
+        """The process group of this rank's model dim."""
+        return self.group((self.tp_axis,))
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's coordinate on the model dim (0 without a mesh)."""
+        if self.mesh is None:
+            return 0
+        return int(self.mesh.get_local_rank(self.tp_axis))
+
+    def with_seq(self, seq_sharded: bool) -> "ShardCtx":
+        return replace(self, seq_sharded=seq_sharded, _groups=self._groups)
+
     def group(self, dims: Tuple[str, ...]):
         """The process group over the mesh dims `dims` (`mesh_group`),
         made once a context; every rank must ask for it together the
@@ -124,26 +198,242 @@ class ShardCtx:
             self._groups[dims] = mesh_group(self.mesh, dims)
         return self._groups[dims]
 
+    def splits(self, axis: str, n: int) -> bool:
+        """Whether a dim of logical axis `axis` and size `n` is split over
+        the model dim (`spec_for_axes`'s rule)."""
+        return (self.mesh is not None and
+                self.rules.get(axis) == self.tp_axis and
+                n % self.tp_size == 0)
+
+    def local_range(self, n: int) -> Tuple[int, int]:
+        """(start, size) of this rank's even share of a dim of size `n`
+        split over the model dim."""
+        size = n // self.tp_size
+        return self.tp_rank * size, size
+
 
 def local_ctx() -> ShardCtx:
     return ShardCtx(mesh=None)
 
 
+def check_tp_scope(cfg, ctx: ShardCtx) -> None:
+    """Raise `NotImplementedError` where the port's tensor parallelism
+    does not reach yet (ROADMAP queue 1 item 4c-ii): MLA or SSM blocks
+    under a model dim above 1, or rules other than the default ones
+    under a mesh."""
+    if ctx.mesh is None:
+        return
+    if ctx.rules != DEFAULT_RULES:
+        raise NotImplementedError(
+            f"ShardCtx with other rules than DEFAULT_RULES under a mesh "
+            f"(FSDP's make_rules): {_SCOPE}")
+    if ctx.tp_size > 1 and (cfg.use_mla or "m" in cfg.block_pattern):
+        kind = "MLA" if cfg.use_mla else "SSM"
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} blocks under a model dim of "
+            f"{ctx.tp_size}: tensor parallelism covers the standard "
+            f"attention families; MLA and SSM are {_SCOPE}")
+
+
+# ---------------------------------------------------------------------------
+# parameter sharding
+# ---------------------------------------------------------------------------
+
+class Spec(tuple):
+    """A leaf's layout, the reference's `PartitionSpec`: one mesh-dim name
+    or None a dim, with the mesh it names in `mesh` (None without one)."""
+
+    def __new__(cls, entries=(), mesh=None):
+        spec = super().__new__(cls, entries)
+        spec.mesh = mesh
+        return spec
+
+    def __repr__(self):
+        return f"Spec{tuple(self)}"
+
+
+def spec_for_axes(axes: Tuple[str, ...], ctx: ShardCtx,
+                  shape: Optional[Tuple[int, ...]] = None) -> Spec:
+    """Logical axes -> Spec, dropping shardings that don't divide; a mesh
+    dim appears at most once a spec (the reference's rule)."""
+    out = []
+    for i, ax in enumerate(axes):
+        mesh_ax = ctx.rules.get(ax)
+        if mesh_ax is None or ctx.mesh is None:
+            out.append(None)
+            continue
+        size = axis_size(ctx.mesh, mesh_ax)
+        if shape is not None and shape[i] % size != 0:
+            out.append(None)        # e.g. kv=1 (MQA) cannot shard 16-way
+        else:
+            out.append(mesh_ax)
+    seen = set()
+    for i, ax in enumerate(out):
+        if ax is None:
+            continue
+        if ax in seen:
+            out[i] = None
+        seen.add(ax)
+    return Spec(out, ctx.mesh)
+
+
+def _walk(fn, tree, *others):
+    """`tree` (dicts and lists; a tuple is a leaf) with each leaf replaced
+    by `fn(leaf, *the same leaf of others)`."""
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_walk(fn, v, *(o[i] for o in others))
+                for i, v in enumerate(tree)]
+    return fn(tree, *others)
+
+
+def spec_leaves(specs) -> List[Spec]:
+    """The specs of a tree in `jax.tree.leaves` order (dict keys sorted)."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for x in specs for s in spec_leaves(x)]
+    return [specs]
+
+
+def param_shardings(axes_tree, ctx: ShardCtx, shapes_tree=None):
+    """A tree of `Spec`s mirroring the parameter tree: each leaf's logical
+    axes (`logical_axes`) through `spec_for_axes`, with its shape from
+    `shapes_tree` (anything with `.shape`, e.g. `param_shapes`)."""
+    if shapes_tree is None:
+        return _walk(lambda a: spec_for_axes(tuple(a), ctx), axes_tree)
+    return _walk(lambda a, s: spec_for_axes(tuple(a), ctx, tuple(s.shape)),
+                 axes_tree, shapes_tree)
+
+
+def full_shape(shape, spec: Spec) -> Tuple[int, ...]:
+    """The whole leaf's shape of a rank's slice of `shape`."""
+    return tuple(n * axis_size(spec.mesh, name) if name else n
+                 for n, name in zip(shape, spec))
+
+
+def local_slice(x, spec: Spec):
+    """This rank's slice of the whole leaf `x` under `spec` (a copy)."""
+    for i, name in enumerate(spec):
+        if name:
+            n = x.shape[i] // axis_size(spec.mesh, name)
+            x = x.narrow(i, spec.mesh.get_local_rank(name) * n, n)
+    return x.clone()
+
+
+def shard_params(full_tree, shardings):
+    """Each rank's local slice of every leaf of `full_tree`, by its spec
+    in `shardings` (`param_shardings`)."""
+    return _walk(local_slice, full_tree, shardings)
+
+
+def gather_params(local_tree, shardings):
+    """The whole tree from every rank's slices (`shard_params`'s
+    inverse), gathered over each sharded dim's group on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    def gather(x, spec):
+        for i, name in enumerate(spec):
+            if name:
+                group = spec.mesh.get_group(name)
+                parts = [torch.empty_like(x)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, x.contiguous(), group=group)
+                x = torch.cat(parts, dim=i)
+        return x
+    return _walk(gather, local_tree, shardings)
+
+
+# ---------------------------------------------------------------------------
+# activation layouts
+# ---------------------------------------------------------------------------
+
+def seq_split(seq_len: int, ctx: ShardCtx) -> bool:
+    """Whether the residual stream of a sequence of `seq_len` is split
+    along the sequence over the model dim (the reference's
+    `shard_residual` rule)."""
+    m = ctx.tp_size
+    return (ctx.mesh is not None and ctx.seq_sharded and
+            seq_len % m == 0 and seq_len >= m)
+
+
 def shard_residual(x, ctx: ShardCtx):
-    """(B, S, D): unchanged (no model dim above 1)."""
-    return x
+    """(B, S, D) whole on every rank -> the residual layout: this rank's
+    sequence slice when sequence-parallel (autograd's narrow, whose
+    backward pads with zeros: the gradient of the whole stays partial),
+    else as it is."""
+    if not seq_split(x.shape[1], ctx):
+        return x
+    start, size = ctx.local_range(x.shape[1])
+    return x.narrow(1, start, size)
+
+
+def gather_residual(x, ctx: ShardCtx, seq_len: int):
+    """The residual layout of a sequence of `seq_len` -> (B, S, D) whole
+    on every rank: an all-gather along S when sequence-parallel."""
+    if not seq_split(seq_len, ctx):
+        return x
+    return tpc.gather(x, 1, ctx.tp_group)
+
+
+def reduce_residual(x, ctx: ShardCtx):
+    """(B, S, D) partial sums (a row-parallel product's terms) -> their
+    sum in the residual layout: a reduce-scatter along S when
+    sequence-parallel, else an all-reduce."""
+    if ctx.mesh is None:
+        return x
+    if seq_split(x.shape[1], ctx):
+        return tpc.reduce_scatter(x, 1, ctx.tp_group)
+    return tpc.reduce(x, ctx.tp_group)
+
+
+def head_range(n_heads: int, ctx: ShardCtx) -> Tuple[int, int]:
+    """(start, count) of this rank's heads of `n_heads`.  The reference
+    pads the heads to a multiple of the model dim with zero heads (whose
+    `wo` rows are zero) and splits them evenly; a rank here takes the
+    same range and leaves the padded heads out, since they add exactly
+    0.  The count may be 0 on the last ranks."""
+    if ctx.mesh is None:
+        return 0, n_heads
+    tp = ctx.tp_size
+    per = (n_heads + (-n_heads % tp)) // tp
+    start = ctx.tp_rank * per
+    return start, max(0, min(per, n_heads - start))
 
 
 def shard_heads(x, ctx: ShardCtx):
-    """(B, S, H, D): unchanged (no model dim above 1)."""
-    return x
+    """(B, S, H, D) whole on every rank -> this rank's heads
+    (`head_range`)."""
+    if ctx.mesh is None:
+        return x
+    start, count = head_range(x.shape[2], ctx)
+    return x.narrow(2, start, count)
 
 
-def shard_logits(x, ctx: ShardCtx):
-    """(B, S, V): unchanged (no model dim above 1)."""
-    return x
+def shard_logits(x, ctx: ShardCtx, vocab: int):
+    """(B, S, V') logits -> the whole vocab `vocab` on every rank: an
+    all-gather along V where the model dim splits the vocab (each rank
+    computed its slice), else as they are (computed whole)."""
+    if not ctx.splits("vocab", vocab):
+        return x
+    return tpc.gather(x, x.ndim - 1, ctx.tp_group)
+
+
+def cache_kv_heads(n_kv: int, ctx: ShardCtx) -> int:
+    """The kv heads a rank's K/V cache holds: its share when the kv heads
+    divide the model dim, else all of them."""
+    return n_kv // ctx.tp_size if ctx.splits("kv", n_kv) else n_kv
 
 
 def shard_cache(x, ctx: ShardCtx, kv_heads_axis: int = 2):
-    """A KV or latent cache: unchanged (no model dim above 1)."""
-    return x
+    """A whole K or V cache -> this rank's kv heads when they divide the
+    model dim.  Otherwise the cache stays whole on every rank: the
+    reference then splits it along S (a layout only, with the same
+    values), which is ROADMAP queue 1 item 4c-ii."""
+    if not ctx.splits("kv", x.shape[kv_heads_axis]):
+        return x
+    start, size = ctx.local_range(x.shape[kv_heads_axis])
+    return x.narrow(kv_heads_axis, start, size).clone()

@@ -22,6 +22,20 @@ The `Trainer` threads a host-side `FailoverController` (PLB state) and
 telemetry through the steps; plane failures re-weight the micro-chunk
 streams (`stream_report`) within `recovery_steps` without touching the
 numerics.
+
+Tensor parallelism: under a mesh every rank holds its slices of the
+leaves the rules shard (`sharding.shard_params`) and the whole of the
+others, and every rank of a model group takes the same batch (the batch
+is tiled over the DP dims only).  The loss is replicated over the model
+group and its gradient is seeded with 1 / tp, so a sharded leaf's
+gradient is its own and a replicated leaf's is the rank's terms
+(`parallel.tp`): the norm gains on sequence slices, replicated K/V
+projections, the whole embedding or head of a vocab the model dim does
+not divide.  After autograd those are summed over the model group in
+one all-reduce; then the DP sync runs on the rank's slices, and AdamW's
+clip scale takes the global norm over the model group
+(`optim.adamw.global_norm`), so every rank of the group takes the same
+step.
 """
 from __future__ import annotations
 
@@ -36,11 +50,12 @@ from ..core.collectives import fold_seed, plane_allreduce, stream_report
 from ..core.fault_tolerance import FailoverController
 from ..core.planes import PlaneConfig
 from ..core.telemetry import HFTBuffer, StepTimeTracker
-from ..models import loss_fn, tree_leaves, tree_map, tree_unflatten
+from ..models import (loss_fn, param_specs, tree_leaves, tree_map,
+                      tree_unflatten)
 from ..models.config import ModelConfig
 from ..optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                            cosine_schedule)
-from ..parallel.sharding import ShardCtx, axis_size
+from ..parallel.sharding import ShardCtx, Spec, axis_size, spec_leaves
 
 
 @dataclass(frozen=True)
@@ -71,15 +86,44 @@ def plane_axes(ctx: ShardCtx) -> Tuple[str, ...]:
     return tuple(a for a in ctx.plane_axes if axis_size(ctx.mesh, a) > 1)
 
 
+def tp_sharded(cfg: ModelConfig, ctx: ShardCtx):
+    """(model group, [whether the model dim splits the leaf, in
+    `tree_leaves` order]) under a mesh, else (None, None)."""
+    if ctx.mesh is None:
+        return None, None
+    return ctx.tp_group, [any(s) for s in spec_leaves(param_specs(cfg, ctx))]
+
+
+def _sum_replicated(grads: list, sharded: list, group) -> list:
+    """`grads` with every leaf the model dim does not split summed over
+    the model group: one all-reduce a dtype over the leaves laid end to
+    end."""
+    import torch.distributed as dist
+    out = list(grads)
+    by_dtype: Dict[Any, list] = {}
+    for i, (g, split) in enumerate(zip(grads, sharded)):
+        if not split:
+            by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        for i, part in zip(idx, flat.split([grads[i].numel()
+                                            for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
 def make_grad_fn(cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig):
     """Returns grad(params, batch, key=None) -> (loss, grads): the loss
     (0-d, detached) and the gradient tree of the step, synced over the
-    plane axes (module docstring).  `batch` holds tensors on the
+    model group and the plane axes (module docstring).  `params` are the
+    rank's (its slices under a mesh); `batch` holds tensors on the
     parameters' device; `key` is the step's integer seed for the int8
     codec's noise.  The inputs are not written.  Every rank of the
     group must build it together (the group is made then)."""
     axes = plane_axes(ctx)
     group = ctx.group(axes) if axes else None
+    tp_group, sharded = tp_sharded(cfg, ctx)
 
     def _cast(params):
         if not tcfg.cast_params_bf16:
@@ -93,10 +137,13 @@ def make_grad_fn(cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig):
         with torch.enable_grad():
             loss = loss_fn(_cast(tree_unflatten(params, wrt)), cfg, batch,
                            ctx, tcfg.aux_weight)[0]
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-        return loss.detach(), tree_unflatten(params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
+            seed = torch.full_like(loss, 1.0 / ctx.tp_size)
+            grads = torch.autograd.grad(loss, wrt, seed, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        if tp_group is not None:
+            grads = _sum_replicated(grads, sharded, tp_group)
+        return loss.detach(), tree_unflatten(params, grads)
 
     def grad(params, batch, key=None):
         if group is None:
@@ -121,6 +168,7 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig):
     step's integer seed (`make_grad_fn`); `metrics` holds 0-d tensors
     `loss`, `grad_norm` and `lr_scale`.  The inputs are not written."""
     grad = make_grad_fn(cfg, ctx, tcfg)
+    tp_group, sharded = tp_sharded(cfg, ctx)
 
     def step_fn(params, opt_state, batch, step, key=None):
         device = tree_leaves(params)[0].device
@@ -129,12 +177,24 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig):
             torch.tensor(step, dtype=torch.int32, device=device),
             tcfg.warmup_steps, tcfg.total_steps)
         params, opt_state, om = adamw_update(grads, opt_state, params,
-                                             tcfg.adamw, lr_scale)
+                                             tcfg.adamw, lr_scale,
+                                             tp_group, sharded)
         metrics = {"loss": loss, "grad_norm": om["grad_norm"],
                    "lr_scale": lr_scale}
         return params, opt_state, metrics
 
     return step_fn
+
+
+def state_shardings(cfg: ModelConfig, ctx: ShardCtx):
+    """The specs of a trainer's checkpointed tree ({"params", "opt"}:
+    the moments as the parameters, the step count whole) under a mesh,
+    else None."""
+    if ctx.mesh is None:
+        return None
+    specs = param_specs(cfg, ctx)
+    return {"params": specs, "opt": {"m": specs, "v": specs,
+                                     "count": Spec((), ctx.mesh)}}
 
 
 class Trainer:
@@ -194,11 +254,14 @@ class Trainer:
 
     # -- checkpointing -----------------------------------------------------
     def save(self) -> str:
+        """Commit the parameters and the AdamW state (under a mesh the
+        whole tree, written by the mesh's first rank)."""
         from ..checkpoint.ckpt import prune_checkpoints, save_checkpoint
         path = save_checkpoint(
             self.tcfg.ckpt_dir, self.step,
             {"params": self.params, "opt": self.opt_state},
-            extras={"model": self.cfg.name})
+            extras={"model": self.cfg.name},
+            shardings=state_shardings(self.cfg, self.ctx))
         prune_checkpoints(self.tcfg.ckpt_dir, self.tcfg.ckpt_keep)
         return path
 
@@ -206,10 +269,14 @@ class Trainer:
     def restore(cls, cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig,
                 template_params, shardings=None) -> "Trainer":
         """A trainer at the latest checkpoint of `tcfg.ckpt_dir`, its
-        leaves on `template_params`' devices and dtypes."""
+        leaves on `template_params`' devices and dtypes; under a mesh the
+        template holds the rank's slices and so does the trainer
+        (`shardings` defaults to `state_shardings`)."""
         from ..checkpoint.ckpt import restore_checkpoint
         tmpl = {"params": template_params,
                 "opt": adamw_init(template_params)}
+        if shardings is None:
+            shardings = state_shardings(cfg, ctx)
         tree, step, _ = restore_checkpoint(tcfg.ckpt_dir, tmpl, shardings)
         return cls(cfg, ctx, tcfg, tree["params"], tree["opt"],
                    start_step=step)

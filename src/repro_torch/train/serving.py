@@ -12,6 +12,11 @@ leaf's leading axis equals the batch, which writes along the period axis
 of the stacked leaves, and keeps the whole new prefill otherwise; the
 port restores along the batch axis, as the reference's comment intends
 (ROADMAP queue 3).
+
+Under a mesh (tensor parallelism) every rank runs the engine on its
+slices of the weights with its own caches (`init_caches(..., ctx)`),
+and the steps return the whole vocab's logits on every rank, so every
+rank picks the same greedy tokens.
 """
 from __future__ import annotations
 
@@ -59,7 +64,7 @@ class ServeEngine:
         self.greedy = greedy
         self.device = tree_leaves(params)[0].device
         self.caches = init_caches(cfg, batch, max_len,
-                                  torch_dtype(cfg.dtype), self.device)
+                                  torch_dtype(cfg.dtype), self.device, ctx)
         self.slots: List[Optional[Request]] = [None] * batch
         self.positions = np.zeros(batch, np.int32)
         self.next_tok = np.zeros(batch, np.int32)

@@ -187,8 +187,12 @@ def test_make_mesh_for_builds_the_reference_shapes(runs, world):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_tensor_parallel_mesh_raises_naming_4c(runs, world):
-    for res in runs[world]:
-        assert "queue 1 item 4c" in res["meshes"]["tp_error"]
+    """A context over a model dim of the whole world (which raised naming
+    ROADMAP queue 1 item 4c before tensor parallelism landed; the name
+    is kept) builds: its `tp_size` is the world, its `tp_group` holds
+    every rank in order and each rank's `tp_rank` is its own."""
+    for rank, res in enumerate(runs[world]):
+        assert res["meshes"]["tp"] == (world, list(range(world)), rank)
 
 
 def test_group_in_another_rank_order_raises(runs):

@@ -1862,6 +1862,65 @@ def test_flash_attention_bwd_equals_plain_version(cuda, dtype, D, Hq, Hkv,
     _bwd_close(got, want, dtype)
 
 
+def _tp_rank_heads():
+    """(Hq, Hkv, D) of one rank's attention under tensor parallelism
+    (`models.attention.attn_layout`) for each standard-attention arch at
+    full width over model dims 2, 4, 8 and 16: the per-rank GQA groups
+    the whole configs never produce (spx-100m at 8: 2 q heads on one kv
+    head, or on two)."""
+    import types
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.attention import attn_layout
+    from repro_torch.parallel import ShardCtx
+    out, whole = set(), set()
+    for cfg in ARCHS.values():
+        if cfg.use_mla or "m" in cfg.block_pattern:
+            continue
+        whole.add((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim))
+        for tp in (2, 4, 8, 16):
+            for r in range(tp):
+                mesh = types.SimpleNamespace(
+                    shape=(1, tp), mesh_dim_names=("data", "model"),
+                    get_local_rank=lambda name, r=r: r)
+                _, count, kv = attn_layout(cfg, ShardCtx(mesh=mesh))
+                if count:
+                    hkv = len(kv) if kv else cfg.n_kv_heads // tp
+                    out.add((count, hkv, cfg.head_dim))
+    return sorted(out - whole)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", _tp_rank_heads())
+def test_attention_kernels_at_tp_rank_heads(cuda, dtype, Hq, Hkv, D):
+    """The flash forward and backward (causal, and under a window) and
+    the decode kernel at a rank's head counts, each against its plain
+    version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Hq * 1000 + Hkv * 10 + D)
+    for window in (0, 40):
+        q, k, v, dout = _bwd_inputs(rng, 2, 130, 130, Hq, Hkv, D, dtype,
+                                    cuda)
+        out, lse = _launched("flash_attention", lambda: ops.flash_attention_fwd(
+            q, k, v, causal=True, window=window))
+        want = ref.flash_attention_bshd_ref(q, k, v, causal=True,
+                                            window=window)
+        tol = ATTN_TOL[dtype]
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        got = _launched("flash_attention_bwd", lambda: ops.flash_attention_bwd(
+            q, k, v, out, dout, lse, causal=True, window=window))
+        _bwd_close(got, ref.flash_attention_bwd_ref(
+            q, k, v, out, dout, lse, causal=True, window=window), dtype)
+    q = _normal(rng, (3, 1, Hq, D), dtype, cuda)
+    k, v = (_normal(rng, (3, 300, Hkv, D), dtype, cuda) for _ in range(2))
+    lens = torch.tensor([1, 150, 300], dtype=torch.int32, device=cuda)
+    got = _launched("decode_attention",
+                    lambda: ops.decode_attention_bshd(q, k, v, lens))
+    want = ref.decode_attention_bshd_ref(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_lse_leaves_the_output_and_repeats(cuda, dtype):

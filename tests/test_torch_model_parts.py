@@ -220,34 +220,38 @@ def test_frontend_shapes_and_synthetic_embeds():
 
 
 def test_shard_ctx_is_one_rank(tmp_path):
-    """Without a mesh and over a data-parallel mesh (a gloo group of one
-    rank in this process, `make_mesh_for(1, 1)`) the `shard_*` functions
-    return their input; a mesh whose model dim is above 1 raises naming
-    ROADMAP queue 1 item 4c (a stand-in with a mesh's `shape` and dim
-    names: one process cannot build it; `tests/test_torch_dp.py` builds
-    it over two and four ranks)."""
+    """Without a mesh the `shard_*` functions return their input; over a
+    data-parallel mesh (a gloo group of one rank in this process,
+    `make_mesh_for(1, 1)`) the TP path runs at a model dim of 1 and
+    returns the same values.  A mesh whose model dim is above 1 builds
+    (a stand-in with a mesh's `shape` and dim names: one process cannot
+    build it; `tests/test_torch_tp.py` runs it over two and four ranks),
+    and an FSDP axis raises naming ROADMAP queue 1 item 4c-ii."""
     import types
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh_for
     x = torch.ones(2, 3, 4)
+    shards = (sharding.shard_residual, sharding.shard_heads,
+              lambda x, ctx: sharding.shard_logits(x, ctx, x.shape[-1]),
+              sharding.shard_cache)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
                             rank=0, world_size=1)
     try:
         mesh = make_mesh_for(1, 1)
+        for f in shards:
+            assert f(x, ShardCtx()) is x
+            assert torch.equal(f(x, ShardCtx(mesh)), x)
         for ctx in (ShardCtx(), ShardCtx(mesh)):
-            assert ctx.tp_size == 1
-            for f in (sharding.shard_residual, sharding.shard_heads,
-                      sharding.shard_logits, sharding.shard_cache):
-                assert f(x, ctx) is x
+            assert ctx.tp_size == 1 and ctx.tp_rank == 0
         assert ShardCtx().mesh is None and ShardCtx(mesh).mesh is mesh
         assert dist.get_process_group_ranks(
             ShardCtx(mesh).group(("data",))) == [0]
+        assert dist.get_process_group_ranks(ShardCtx(mesh).tp_group) == [0]
     finally:
         dist.destroy_process_group()
     tp = types.SimpleNamespace(shape=(1, 2), mesh_dim_names=("data", "model"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
-        ShardCtx(mesh=tp)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
+    assert ShardCtx(mesh=tp).tp_size == 2
+    with pytest.raises(NotImplementedError, match="queue 1 item 4c-ii"):
         ShardCtx(mesh=types.SimpleNamespace(
             shape=(2, 1), mesh_dim_names=("data", "model")),
             fsdp_axis="data")

@@ -24,6 +24,7 @@ from repro_torch.checkpoint import (latest_step, prune_checkpoints,
 from repro_torch.models import tree_items, tree_leaves
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule, global_norm)
+from repro_torch.parallel import local_ctx, param_shardings
 
 RTOL = 1e-6
 SHAPES = {"w": (16, 8), "b": (8,), "layers": [{"g": (3, 4, 5)},
@@ -207,7 +208,8 @@ def test_checkpoint_forward_compatible_extra_field():
 
 def test_checkpoint_keeps_target_dtypes():
     """A bfloat16 leaf is stored widened to float32 and comes back
-    bit for bit into a bfloat16 target; shardings are refused."""
+    bit for bit into a bfloat16 target; a restore with the shardings of
+    one rank (every spec empty) returns the leaves whole."""
     with tempfile.TemporaryDirectory() as d:
         x = torch.randn(4, 3, generator=torch.Generator().manual_seed(0))
         tree = {"bf": x.to(torch.bfloat16), "f": x}
@@ -218,5 +220,12 @@ def test_checkpoint_keeps_target_dtypes():
         assert got["bf"].dtype == torch.bfloat16
         assert torch.equal(got["bf"], tree["bf"])
         assert torch.equal(got["f"], x)
-        with pytest.raises(NotImplementedError):
-            restore_checkpoint(d, tree, shardings={"bf": None})
+        specs = param_shardings({"bf": ("embed", "mlp"),
+                                 "f": ("vocab", "embed_t")}, local_ctx(),
+                                tree)
+        whole, _, _ = restore_checkpoint(
+            d, {"bf": torch.zeros(4, 3, dtype=torch.bfloat16),
+                "f": torch.zeros(4, 3)}, shardings=specs)
+        assert whole["bf"].dtype == torch.bfloat16
+        assert torch.equal(whole["bf"], tree["bf"])
+        assert torch.equal(whole["f"], x)

@@ -1,4 +1,4 @@
-"""Rank processes for the port's data-parallel CPU tests.
+"""Rank processes for the port's data- and tensor-parallel CPU tests.
 
 `start_ranks(fn, world, *args)` spawns `world` processes with
 `torch.multiprocessing` (the spawn method), each of which joins a gloo
@@ -23,16 +23,21 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.configs import ARCHS
 from repro_torch.core import collectives
 from repro_torch.core.collectives import MODES, plane_allreduce
 from repro_torch.core.planes import PlaneConfig
 from repro_torch.launch.mesh import make_mesh_for
-from repro_torch.models import tree_leaves
-from repro_torch.optim import adamw_init
-from repro_torch.parallel import ShardCtx, local_ctx
+from repro_torch.models import (decode_step, init_caches, loss_fn, moe,
+                                param_specs, prefill_step, tree_leaves,
+                                tree_map)
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.parallel import (ShardCtx, gather_params, local_ctx,
+                                  shard_params, tp)
 from repro_torch.parallel.sharding import mesh_group
-from repro_torch.train import Trainer, TrainerConfig, make_train_step
+from repro_torch.train import (Request, ServeEngine, Trainer, TrainerConfig,
+                               make_train_step)
 from repro_torch.train.loop import make_grad_fn
 
 
@@ -214,12 +219,11 @@ def _meshes(world):
         ranks = dist.get_process_group_ranks(mesh_group(mesh, dims))
         out["meshes"].append((tuple(mesh.shape), mesh.mesh_dim_names,
                               tuple(mesh.get_coordinate()), ranks))
-    out["tp_error"] = None
+    out["tp"] = None
     if world > 1:
-        try:
-            ShardCtx(make_mesh_for(world, world))
-        except NotImplementedError as e:
-            out["tp_error"] = str(e)
+        ctx = ShardCtx(make_mesh_for(world, world))
+        out["tp"] = (ctx.tp_size,
+                     dist.get_process_group_ranks(ctx.tp_group), ctx.tp_rank)
     out["order_error"] = None
     if world == 4:
         from torch.distributed.device_mesh import DeviceMesh
@@ -230,3 +234,219 @@ def _meshes(world):
         except RuntimeError as e:
             out["order_error"] = str(e)
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def tp_rank(rank, world, cases: list):
+    """What the TP tests need from a world of 2 or 4 ranks: every
+    collective of `parallel.tp` on this rank's draws (`_tp_collectives`)
+    and each case of `cases` (dicts whose "run" names a function of
+    `TP_RUNS`, called with the world and the case), by case name."""
+    out = {"collectives": _tp_collectives(world)}
+    for case in cases:
+        out[case["name"]] = TP_RUNS[case["run"]](world, case)
+    return out
+
+
+def _tp_draw(world, rank, i):
+    """Rank `rank`'s draws for op `i`: (x, upstream gradient), x of
+    (4, 4 * world, 3) float32."""
+    g = torch.Generator().manual_seed(100 * world + 10 * rank + i)
+    x = torch.randn(4, 4 * world, 3, generator=g)
+    return x, g
+
+
+TP_OPS = {
+    "copy_to": lambda x, group: tp.copy_to(x, group),
+    "reduce_from": lambda x, group: tp.reduce_from(x, group),
+    "reduce": lambda x, group: tp.reduce(x, group),
+    "gather": lambda x, group: tp.gather(x, 1, group),
+    "reduce_scatter": lambda x, group: tp.reduce_scatter(x, 1, group),
+    "all_to_all": lambda x, group: tp.all_to_all(x, group),
+    "pmean": lambda x, group: tp.pmean(x, group),
+}
+
+
+def _tp_collectives(world):
+    """Each op of `TP_OPS` over the world's model group: {op: (x, y,
+    upstream gradient, x's gradient)}."""
+    ctx = ShardCtx(make_mesh_for(world, world))
+    out = {}
+    for i, (name, op) in enumerate(TP_OPS.items()):
+        x, g = _tp_draw(world, dist.get_rank(), i)
+        x.requires_grad_(True)
+        y = op(x, ctx.tp_group)
+        gy = torch.randn(y.shape, generator=g)
+        (gx,) = torch.autograd.grad(y, x, gy)
+        out[name] = (x.detach(), y.detach(), gy, gx)
+    return out
+
+
+def _tp_setup(world, case):
+    """(cfg, ctx, whole params, specs, this rank's slices) of a case."""
+    cfg = ARCHS[case["arch"]].reduced(dtype="float32", **case["over"])
+    mesh = make_mesh_for(world, case["model"])
+    ctx = ShardCtx(mesh, dp_axes=("data",))
+    params = torch.load(case["params"])
+    specs = param_specs(cfg, ctx)
+    return cfg, ctx, params, specs, shard_params(params, specs)
+
+
+def _dp_tile(ctx, batch: dict):
+    """This rank's tile of `batch` over the data dim (as `make_grad_fn`
+    tiles it)."""
+    n = ctx.mesh.shape[0]
+    r = ctx.mesh.get_local_rank("data")
+    return {k: v.chunk(n)[r] for k, v in batch.items()}
+
+
+def tp_grad(world, case):
+    """The TP step's loss and gradients (`make_grad_fn`, gathered), the
+    CE and aux of the rank's tile averaged over the data dim, whether
+    gathering the slices gives back the whole tree bit for bit, and (for
+    MoE) each dispatch's per-expert drops, recorded on a no-grad
+    forward."""
+    cfg, ctx, params, specs, lp = _tp_setup(world, case)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    tcfg = TrainerConfig(cast_params_bf16=False)
+    loss, grads = make_grad_fn(cfg, ctx, tcfg)(lp, batch, case.get("key"))
+    drops = []
+    dispatch = moe._dispatch
+
+    def counting(x_flat, eids, ranks, n_experts, capacity):
+        over = (ranks >= capacity).reshape(-1)
+        drops.append(torch.bincount(eids.reshape(-1)[over],
+                                    minlength=n_experts).tolist())
+        return dispatch(x_flat, eids, ranks, n_experts, capacity)
+
+    moe._dispatch = counting
+    try:
+        with torch.no_grad():
+            _, m = loss_fn(lp, cfg, _dp_tile(ctx, batch), ctx)
+    finally:
+        moe._dispatch = dispatch
+    metrics = torch.stack([m["ce"], m["aux"]])
+    data = ctx.group(("data",))
+    dist.all_reduce(metrics, group=data)
+    metrics = metrics / dist.get_world_size(data)
+    back = gather_params(lp, specs)
+    return dict(loss=float(loss), ce=float(metrics[0]),
+                aux=float(metrics[1]),
+                grads=tree_leaves(gather_params(grads, specs)),
+                roundtrip=all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(back), tree_leaves(params))),
+                drops=drops)
+
+
+def tp_decode(world, case):
+    """A prefill of the case's prompts and decode steps on its given
+    tokens (teacher forcing): every step's logits, the whole vocab."""
+    cfg, ctx, _, _, lp = _tp_setup(world, case)
+    prompt = torch.from_numpy(case["prompt"])
+    steps = torch.from_numpy(case["steps"])
+    with torch.inference_mode():
+        caches = init_caches(cfg, prompt.shape[0], case["max_len"],
+                             "float32", "cpu", ctx)
+        logits, caches = prefill_step(lp, cfg, prompt, ctx, caches)
+        out = [logits]
+        for i in range(steps.shape[1]):
+            pos = torch.full((prompt.shape[0],), prompt.shape[1] + i,
+                             dtype=torch.int32)
+            logits, caches = decode_step(lp, cfg, steps[:, i:i + 1], pos,
+                                         ctx, caches)
+            out.append(logits)
+    return out
+
+
+def serve_run(cfg, ctx, params, case):
+    """`prefill_step` and `decode_step` greedily from the case's prompt
+    (every step's logits), then a `ServeEngine` with the case's two
+    requests, the second admitted after `case["later"]` steps (their
+    tokens)."""
+    prompt = torch.from_numpy(case["prompt"])
+    b = prompt.shape[0]
+    with torch.inference_mode():
+        caches = init_caches(cfg, b, case["max_len"], "float32", "cpu", ctx)
+        logits, caches = prefill_step(params, cfg, prompt, ctx, caches)
+        out = [logits]
+        for i in range(case["decode"]):
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            pos = torch.full((b,), prompt.shape[1] + i, dtype=torch.int32)
+            logits, caches = decode_step(params, cfg, tok, pos, ctx, caches)
+            out.append(logits)
+    eng = ServeEngine(cfg, ctx, params, batch=2, max_len=case["max_len"])
+    reqs = [Request(i, p, case["max_new"])
+            for i, p in enumerate(case["requests"])]
+    eng.add_request(reqs[0])
+    for _ in range(case["later"]):
+        eng.step()
+    eng.add_request(reqs[1])
+    while any(eng.slots):
+        eng.step()
+    return out, [r.out for r in reqs]
+
+
+def tp_serve(world, case):
+    """`serve_run` under the case's mesh on the rank's slices."""
+    cfg, ctx, _, _, lp = _tp_setup(world, case)
+    return serve_run(cfg, ctx, lp, case)
+
+
+def train_steps(cfg, ctx, params, case):
+    """`case["steps"]` steps of `make_train_step` on the case's batch
+    with its clip norm: each step's metrics and (gathered under a mesh)
+    parameters."""
+    tcfg = TrainerConfig(adamw=AdamWConfig(clip_norm=case["clip"]),
+                         warmup_steps=1, total_steps=4,
+                         cast_params_bf16=False)
+    step = make_train_step(cfg, ctx, tcfg)
+    opt = adamw_init(params)
+    out = []
+    for i in range(case["steps"]):
+        params, opt, m = step(params, opt, case["batch"], i + 1, 3)
+        full = params if ctx.mesh is None else gather_params(
+            params, param_specs(cfg, ctx))
+        out.append(({k: float(v) for k, v in m.items()}, tree_leaves(full)))
+    return out
+
+
+def tp_train(world, case):
+    """`train_steps` under the case's mesh on the rank's slices."""
+    cfg, ctx, _, _, lp = _tp_setup(world, case)
+    return train_steps(cfg, ctx, lp, case)
+
+
+def tp_ckpt(world, case):
+    """Checkpoints under the case's mesh: the rank's slices restored from
+    the one-rank checkpoint in `case["one_rank"]` with shardings (equal
+    to `shard_params` of the whole tree, bit for bit), a save of the
+    slices into `case["dir"]` restored the same way, a `Trainer`'s save
+    and restore under the mesh, and the error of a restore into a target
+    whose leaf has another shape."""
+    cfg, ctx, params, specs, lp = _tp_setup(world, case)
+    zeros = tree_map(lp, torch.zeros_like)
+    got, step, _ = restore_checkpoint(case["one_rank"], zeros, specs)
+    equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(got), tree_leaves(lp)))
+    save_checkpoint(case["dir"], 2, lp, shardings=specs)
+    again, _, _ = restore_checkpoint(case["dir"], zeros, specs)
+    tcfg = TrainerConfig(ckpt_dir=case["dir"] + "_trainer")
+    Trainer(cfg, ctx, tcfg, lp).save()
+    tr = Trainer.restore(cfg, ctx, tcfg, zeros)
+    equal_again = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(again) + tree_leaves(tr.params), 2 * tree_leaves(lp)))
+    bad = dict(lp, final_ln=torch.zeros(cfg.d_model + 1))
+    try:
+        restore_checkpoint(case["dir"], bad, specs)
+        error = None
+    except ValueError as e:
+        error = str(e)
+    return dict(step=step, equal=equal, equal_again=equal_again,
+                error=error)
+
+
+TP_RUNS = {"grad": tp_grad, "decode": tp_decode, "serve": tp_serve,
+           "train": tp_train, "ckpt": tp_ckpt}
