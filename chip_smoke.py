@@ -258,22 +258,35 @@ Phases, each fatal on failure:
             BWD_TOL; printed which).  A run of more ranks needs a
             machine with more cards: NCCL refuses two ranks on one
             device; the CPU tests carry 2, 4 and 8 ranks over gloo.
-  tp        tensor parallelism at world 1 over an NCCL process group
-            (`ShardCtx(make_mesh_for(1, 1))`: data 1, model 1), so every
-            TP collective runs on the card as a copy and the rank holds
-            `shard_params` of the weights: phi3.5-moe at full width cut
-            to TP_MOE's 2 layers (bf16 activations) takes a forward loss
-            over 2,048 tokens (MoE "a2a" mode) and serves two 512-token
-            prompts with 16 greedy decode steps through `ServeEngine`
-            at batch 2; llama3-8b at full width cut to 2 layers takes
-            the first batch's gradients through `make_grad_fn` and two
-            steps through `make_train_step`; each bit-equal to the same
-            run without a mesh (loss and aux; logits and tokens;
+  tp        tensor parallelism and FSDP at world 1 over an NCCL process
+            group (`launch.mesh.make_mesh_for(1, 1)`: data 1, model 1;
+            contexts from `launch.specs.make_ctx`, FSDP's over "data"
+            with `make_rules("data")`), so every TP and FSDP collective
+            runs on the card as a copy and the rank holds `shard_params`
+            of the weights: phi3.5-moe at full width cut to TP_MOE's 2
+            layers (bf16 activations) takes a forward loss over 2,048
+            tokens (MoE "a2a" mode) and serves two 512-token prompts
+            with 16 greedy decode steps through `ServeEngine` at batch
+            2; deepseek-v2 (MLA) at full width cut to its dense prefix
+            layer and one MoE layer (TP_MLA: d_model 5,120, 128 heads,
+            q_lora 1,536, kv_lora 512, 160 experts top-6 plus 2 shared,
+            vocab 102,400; 5.36 B float32 parameters) the same;
+            mamba2-780m at full width and depth (TP_SSM: 48 layers,
+            d_model 1,536, 48 SSM heads of 64, state 128) takes the
+            first batch's gradients through `make_grad_fn` and two
+            steps of 1 x 1,024 tokens through `make_train_step`, then
+            the same serving and a decode step of each run under
+            torch.profiler (the device's busy share, top kernels);
+            llama3-8b at full width cut to 2 layers (remat "full")
+            takes the first batch's gradients and two steps under TP
+            and again under FSDP (FSDP_LLAMA); each run bit-equal to the
+            same run without a mesh (loss and aux; logits and tokens;
             gradients, parameters, AdamW state and metrics), every
             flash forward, decode and flash backward launch held to its
-            plain version; step, prefill and decode walls, peak memory
-            and the collective calls a step.  A TP run of more ranks
-            waits for a machine with more cards, as DP's does.
+            plain version (MLA and SSM layers launch none, asserted);
+            loss, step, prefill and decode walls, peak memory and the
+            collective calls a step.  A run of more ranks waits for a
+            machine with more cards, as DP's does.
   profile   torch.profiler over 12 giga slots under AR and under ECMP,
             float64 and float32, and in float64 over giga_fat_tree under
             WAR and ECMP and over the giga point under failure reaction,
@@ -286,7 +299,12 @@ reading from one (`reset_peak`), so first runs capture and peaks are
 those of the runs measured.
 
 Prints the card's name and power limit first, a `{"kernels": [...]}`
-line before the last, and `{"ok": true, "device": {...}}` last.
+line before the last, and `{"ok": true, "device": {...}}` last.  On an
+NVIDIA H100 80GB HBM3 at 700 W the whole script took 611.6 s with the
+build before the tp phase carried MLA, SSM and FSDP (that phase 26.3 s),
+and 830.4 s after, on a host whose dp phase ran psum at 55.9 ms a call
+against 8.2 ms on an earlier one (the tp phase 94.9 s, within 90 s of
+its 26.3); the limit is 1,200 s.
 `--report PATH` also writes the full report (every kernel row, the
 registry, scale, packet and profile results) as JSON.  Run from
 anywhere but a checkout of the repo (no `src/repro_torch` beside it),
@@ -3479,19 +3497,21 @@ def device_profile(what: str, fn) -> tuple:
     return result, out
 
 
-def decode_profile(cfg, params, rec) -> dict:
-    """One decode step on the run's last caches, profiled
-    (`device_profile`) after a warm-up step."""
+def decode_profile(cfg, params, rec, ctx=None, what="a decode step"
+                   ) -> dict:
+    """One decode step on the run's last caches (through `ctx`, no mesh
+    by default), profiled (`device_profile`) after a warm-up step."""
     import torch
     from repro_torch.models import decode_step
     from repro_torch.parallel import local_ctx
+    ctx = local_ctx() if ctx is None else ctx
     B = len(rec["positions"])
     toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
     pos = torch.tensor(rec["positions"], device="cuda")
     with torch.inference_mode():
-        decode_step(params, cfg, toks, pos, local_ctx(), rec["caches"])
-        return device_profile("a decode step", lambda: decode_step(
-            params, cfg, toks, pos, local_ctx(), rec["caches"]))[1]
+        decode_step(params, cfg, toks, pos, ctx, rec["caches"])
+        return device_profile(what, lambda: decode_step(
+            params, cfg, toks, pos, ctx, rec["caches"]))[1]
 
 
 def serve_check(cfg, params, spec, report: dict, total: dict,
@@ -3649,13 +3669,14 @@ def held_on_card(tol: float, worst: dict):
     unit-scale inputs, scales with v: the reference's init gives
     llama3-8b v entries of about 10, where one bf16 ulp is 0.0625.
     `worst` gets (calls, max scaled err, max abs err) by kernel."""
+    import torch
     from repro_torch.models import attention
     kernel_prefill = attention._prefill_attention
     kernel_decode = attention._decode_attention
 
     def hold(name, got, want, q, v):
         err = float((got.detach().float() - want.float()).abs().max())
-        scaled = err / max(1.0, float(v.abs().max()))
+        scaled = err / max(1.0, float(v.detach().abs().max()))
         if got.shape != want.shape or not scaled <= tol:
             fail(f"{name} at q {tuple(q.shape)}, v {tuple(v.shape)} on the "
                  f"served path: {tuple(got.shape)} against "
@@ -3666,8 +3687,9 @@ def held_on_card(tol: float, worst: dict):
 
     def prefill(q, k, v, positions, window, cfg, ctx):
         got = kernel_prefill(q, k, v, positions, window, cfg, ctx)
-        hold("flash_attention", got,
-             _plain_prefill(q, k, v, positions, window, cfg, ctx), q, v)
+        with torch.no_grad():       # the plain version keeps no graph
+            want = _plain_prefill(q, k, v, positions, window, cfg, ctx)
+        hold("flash_attention", got, want, q, v)
         return got
 
     def decode(q, cache, positions, window, ctx):
@@ -4867,11 +4889,19 @@ def dp_phase(report: dict, total: dict, grads) -> None:
 
 
 # the tp phase: phi3.5-moe at full width, 2 layers, bf16 activations:
-# a loss over one batch of `tokens` and a serve run; llama3-8b at full
-# width, 2 layers: the gradients of the first batch and `steps` steps
+# a loss over one batch of `tokens` and a serve run; deepseek-v2 (MLA)
+# at full width cut to its dense prefix layer and one MoE layer, the
+# same; mamba2-780m at full width and depth: the gradients of the first
+# batch, `steps` steps and a serve run; llama3-8b at full width, 2
+# layers: the gradients of the first batch and `steps` steps under TP
+# and under FSDP over "data" (FSDP_LLAMA takes TP_LLAMA's spec)
+TP_SERVE = dict(batch=2, max_len=544, prompts=(512, 512), max_new=16)
 TP_MOE = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, tokens=2048, seed=38,
-              serve=dict(batch=2, max_len=544, prompts=(512, 512),
-                         max_new=16, seed=39))
+              serve=dict(TP_SERVE, seed=39))
+TP_MLA = dict(arch="deepseek-v2-236b", layers=2, tokens=2048, seed=41,
+              serve=dict(TP_SERVE, seed=42))
+TP_SSM = dict(arch="mamba2-780m", layers=48, steps=2, batch=1, seq=1024,
+              seed=43, serve=dict(TP_SERVE, seed=44))
 TP_LLAMA = dict(arch="llama3-8b", layers=2, steps=2, batch=1, seq=2048,
                 seed=40)
 COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
@@ -4913,32 +4943,36 @@ def bit_equal(what: str, got, want) -> None:
              f"run without a mesh (first {i}, max abs err {err})")
 
 
-def tp_moe(ctx, total: dict, worst: dict) -> dict:
-    """TP_MOE through the TP path and without a mesh (module docstring)."""
-    import numpy as np
+def tp_model(spec: dict):
+    """(cfg, params on the card from the spec's seed) of a tp-phase run:
+    the arch at full width, cut to the spec's layers."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
-    from repro_torch.models import (init_params, loss_fn, param_count,
-                                    param_specs)
-    from repro_torch.models.moe import moe_mode
-    from repro_torch.parallel import local_ctx, shard_params
-    spec = TP_MOE
+    from repro_torch.models import init_params
     cfg = dataclasses.replace(get_config(spec["arch"]),
                               n_layers=spec["layers"])
-    reset_peak()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+    return cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
         spec["seed"]), device="cuda")
-    local = shard_params(params, param_specs(cfg, ctx))
-    mode = moe_mode(cfg, ctx, spec["tokens"])
-    if mode != "a2a":
-        fail(f"tp {cfg.name}: MoE mode {mode}, expected a2a")
+
+
+def tp_loss(cfg, params, local, ctx, spec, total, worst) -> dict:
+    """A no-grad `loss_fn` over one batch of the spec's tokens, through
+    `ctx` on the rank's slices `local` and without a mesh on `params`:
+    loss, CE and aux bit-equal; walls and collectives."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import loss_fn, standard_attention_layers
+    from repro_torch.models.moe import moe_mode
+    from repro_torch.parallel import local_ctx
+    if cfg.moe_experts:
+        mode = moe_mode(cfg, ctx, spec["tokens"])
+        if mode != "a2a":
+            fail(f"tp {cfg.name}: MoE mode {mode}, expected a2a")
     g = torch.Generator(device="cuda").manual_seed(spec["seed"])
     toks = torch.randint(0, cfg.vocab, (1, spec["tokens"] + 1),
                          generator=g, device="cuda", dtype=torch.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    n = cfg.n_layers
-    out = dict(arch=cfg.name, layers=n, params=param_count(params))
+    n = standard_attention_layers(cfg)
     losses = []
     counts: dict = {}
     with torch.no_grad():               # a warm-up: the first call's setup
@@ -4959,21 +4993,42 @@ def tp_moe(ctx, total: dict, worst: dict) -> dict:
                            time.perf_counter() - t0))
     bit_equal(f"tp {cfg.name} loss, ce and aux", list(losses[0][:3]),
               list(losses[1][:3]))
-    out.update(loss=float(losses[0][0]), aux=float(losses[0][2]),
-               loss_ms=losses[0][3] * 1e3,
-               loss_ms_no_mesh=losses[1][3] * 1e3, loss_collectives=counts)
-    recs = []
+    return dict(loss=float(losses[0][0]), aux=float(losses[0][2]),
+                loss_ms=losses[0][3] * 1e3,
+                loss_ms_no_mesh=losses[1][3] * 1e3, loss_collectives=counts)
+
+
+def tp_serve(cfg, params, local, ctx, spec, total, worst,
+             profile: bool = False) -> dict:
+    """`ServeEngine` over the spec's prompts through `ctx` on `local` and
+    without a mesh on `params`: every prefill's and step's logits and
+    the tokens bit-equal; walls and collectives.  With `profile`, one
+    more decode step of each run on its last caches under
+    `device_profile` (its launches not counted)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import standard_attention_layers
+    from repro_torch.parallel import local_ctx
+    n = standard_attention_layers(cfg)
+    recs, profiles = [], {}
     with held_on_card(ATTN_TOL["bfloat16"], worst):
         for c in (ctx, local_ctx()):
             build.reset_launches()
-            counts = {}
+            counts: dict = {}
             with counted_collectives(counts if c is ctx else {}):
                 rec = serve_engine(cfg, local if c is ctx else params,
-                                   spec["serve"], ctx=c)
+                                   spec, ctx=c)
             check_launches(f"tp {cfg.name} serve", dict(build.LAUNCHES),
                            {"flash_attention": n * len(rec["prefill"]),
                             "decode_attention": n * len(rec["decode"])},
                            total)
+            if profile:
+                label = "TP" if c is ctx else "no mesh"
+                profiles[label] = decode_profile(
+                    cfg, local if c is ctx else params, rec, c,
+                    f"a {cfg.name} decode step ({label})")
+                build.reset_launches()
             recs.append(dict(rec, collectives=counts, caches=None))
     tp, one = recs
     bit_equal(f"tp {cfg.name} serve logits", tp["prefill"] + tp["decode"],
@@ -4981,141 +5036,180 @@ def tp_moe(ctx, total: dict, worst: dict) -> dict:
     if tp["outs"] != one["outs"]:
         fail(f"tp {cfg.name} serve: tokens {tp['outs']} against "
              f"{one['outs']} without a mesh")
-    steps = len(tp["decode"])
-    out.update(prefill_ms=[t * 1e3 for t in tp["prefill_s"]],
-               prefill_ms_no_mesh=[t * 1e3 for t in one["prefill_s"]],
-               decode_ms_median=float(np.median(tp["decode_s"])) * 1e3,
-               decode_ms_median_no_mesh=float(
-                   np.median(one["decode_s"])) * 1e3,
-               decode_steps=steps, serve_collectives=tp["collectives"],
-               max_memory_allocated=torch.cuda.max_memory_allocated())
+    return dict(prefill_ms=[t * 1e3 for t in tp["prefill_s"]],
+                prefill_ms_no_mesh=[t * 1e3 for t in one["prefill_s"]],
+                decode_ms_median=float(np.median(tp["decode_s"])) * 1e3,
+                decode_ms_median_no_mesh=float(
+                    np.median(one["decode_s"])) * 1e3,
+                decode_steps=len(tp["decode"]), prefills=len(tp["prefill"]),
+                serve_collectives=tp["collectives"], profiles=profiles)
+
+
+def fmt_serve(out: dict, spec: dict) -> str:
+    return (f"serve {len(spec['prompts'])} prompts of {spec['prompts']} "
+            f"tokens, prefill ms {[round(t, 1) for t in out['prefill_ms']]}"
+            f" (without a mesh "
+            f"{[round(t, 1) for t in out['prefill_ms_no_mesh']]}), "
+            f"{out['decode_steps']} decode steps median "
+            f"{out['decode_ms_median']:.2f} ms (without a mesh "
+            f"{out['decode_ms_median_no_mesh']:.2f}), collectives "
+            f"{out['serve_collectives']} ({out['prefills']} prefills, "
+            f"{out['decode_steps']} steps)")
+
+
+def tp_loss_serve(spec: dict, ctx, total: dict, worst: dict) -> dict:
+    """TP_MOE or TP_MLA through the TP path and without a mesh (module
+    docstring): `tp_loss`, then `tp_serve`."""
+    import torch
+    from repro_torch.models import param_count, param_specs
+    from repro_torch.parallel import shard_params
+    reset_peak()
+    cfg, params = tp_model(spec)
+    local = shard_params(params, param_specs(cfg, ctx))
+    n = cfg.n_layers
+    out = dict(arch=cfg.name, layers=n, params=param_count(params))
+    out.update(tp_loss(cfg, params, local, ctx, spec, total, worst))
+    out.update(tp_serve(cfg, params, local, ctx, spec["serve"], total,
+                        worst))
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     print(f"tp {cfg.name} x{n} layers over the world-1 mesh "
           f"({out['params']:,} float32 parameters): loss over "
           f"{spec['tokens']} tokens (a2a) {out['loss']:.6f}, aux "
           f"{out['aux']:.6f}, {out['loss_ms']:.1f} ms (without a mesh "
           f"{out['loss_ms_no_mesh']:.1f}), collectives "
-          f"{out['loss_collectives']}; serve {len(spec['serve']['prompts'])}"
-          f" prompts of {spec['serve']['prompts']} tokens, prefill "
-          f"ms {[round(t, 1) for t in out['prefill_ms']]} (without a mesh "
-          f"{[round(t, 1) for t in out['prefill_ms_no_mesh']]}), {steps} "
-          f"decode steps median {out['decode_ms_median']:.2f} ms (without a "
-          f"mesh {out['decode_ms_median_no_mesh']:.2f}), collectives "
-          f"{out['serve_collectives']} ({len(tp['prefill'])} prefills, "
-          f"{steps} steps); peak "
-          f"{out['max_memory_allocated'] / 2**30:.2f} GiB; loss, aux, "
+          f"{out['loss_collectives']}; {fmt_serve(out, spec['serve'])}; "
+          f"peak {out['max_memory_allocated'] / 2**30:.2f} GiB; loss, aux, "
           "logits and tokens bit-equal to the run without a mesh",
           flush=True)
-    del params, local, recs, tp, one
+    del params, local
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def tp_llama(ctx, total: dict, worst: dict) -> dict:
-    """TP_LLAMA through the TP path and without a mesh (module
-    docstring)."""
+def tp_train(spec: dict, ctxs: dict, total: dict, worst: dict,
+             serve: bool = False) -> dict:
+    """The spec's model through `make_grad_fn` (the first batch's loss
+    and gradients) and `spec["steps"]` steps of `make_train_step`
+    (metrics, parameters, AdamW state) without a mesh and through each
+    context of `ctxs` (label: context) on its slices, each bit-equal to
+    the run without a mesh; every flash forward and backward launch held
+    to its plain version.  With `serve`, then `tp_serve` through each
+    context, a decode step of each run profiled."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.models import (init_params, param_count, param_specs,
-                                    tree_leaves)
+    from repro_torch.models import (param_count, param_specs,
+                                    standard_attention_layers, tree_leaves)
     from repro_torch.optim import adamw_init
     from repro_torch.parallel import gather_params, local_ctx, shard_params
     from repro_torch.train import TrainerConfig, make_train_step
     from repro_torch.train.loop import make_grad_fn
-    spec = TP_LLAMA
-    cfg = dataclasses.replace(get_config(spec["arch"]),
-                              n_layers=spec["layers"])
     reset_peak()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        spec["seed"]), device="cuda")
-    specs = param_specs(cfg, ctx)
-    local = shard_params(params, specs)
+    cfg, params = tp_model(spec)
     batches = [b for _, b in zip(range(spec["steps"]),
                                  train_batches(cfg, spec))]
     tcfg = TrainerConfig(warmup_steps=1, total_steps=spec["steps"])
-    n = cfg.n_layers
+    n = standard_attention_layers(cfg)
+    labels = ["no mesh"] + list(ctxs)
+    ctx_of = dict(ctxs, **{"no mesh": local_ctx()})
     bwd: dict = {}
-    grads = []
+    grads, runs, walls, counts = {}, {}, {}, {}
     with held_on_card(ATTN_TOL["bfloat16"], worst), held_bwd(bwd):
-        for c in (ctx, local_ctx()):
+        for label in labels:
+            c = ctx_of[label]
+            specs = param_specs(cfg, c) if c.mesh is not None else None
+            p = params if specs is None else shard_params(params, specs)
             build.reset_launches()
-            loss, g = make_grad_fn(cfg, c, tcfg)(
-                local if c is ctx else params, batches[0])
+            loss, g = make_grad_fn(cfg, c, tcfg)(p, batches[0])
             torch.cuda.synchronize()
-            check_launches(f"tp {cfg.name} grads", dict(build.LAUNCHES),
+            check_launches(f"tp {cfg.name} grads ({label})",
+                           dict(build.LAUNCHES),
                            {"flash_attention": 2 * n,
                             "flash_attention_bwd": n}, total)
-            if c is ctx:
+            if specs is not None:
                 g = gather_params(g, specs)
-            grads.append([t.cpu() for t in [loss] + tree_leaves(g)])
+            grads[label] = [t.cpu() for t in [loss] + tree_leaves(g)]
             del g
-    bit_equal(f"tp {cfg.name} loss and gradients", *grads)
-    del grads
-    # each run's results go to the host and the slices are dropped after
-    # their run, so the card holds one run's state at a time
-    runs, walls, counts = [], [], {}
-    with held_on_card(ATTN_TOL["bfloat16"], worst), held_bwd(bwd):
-        for c in (ctx, local_ctx()):
-            p = local if c is ctx else params
-            local = None
+            # the results go to the host and the slices are dropped after
+            # each run, so the card holds one run's state at a time
             step = make_train_step(cfg, c, tcfg)
             opt = adamw_init(p)
-            metrics, times = [], []
+            metrics, times, counts[label] = [], [], {}
             build.reset_launches()
             for i, b in enumerate(batches):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with counted_collectives(counts if c is ctx and i == 0
-                                         else {}):
+                with counted_collectives(counts[label] if i == 0 else {}):
                     p, opt, m = step(p, opt, b, i + 1)
                     torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 metrics += [m["loss"], m["grad_norm"], m["lr_scale"]]
-            check_launches(f"tp {cfg.name} steps", dict(build.LAUNCHES),
+            check_launches(f"tp {cfg.name} steps ({label})",
+                           dict(build.LAUNCHES),
                            {"flash_attention": 2 * n * len(batches),
                             "flash_attention_bwd": n * len(batches)},
                            total)
-            if c is ctx:
+            if specs is not None:
                 p = gather_params(p, specs)
                 opt = dict(opt, m=gather_params(opt["m"], specs),
                            v=gather_params(opt["v"], specs))
-            runs.append([t.cpu() for t in metrics + tree_leaves(p) +
-                         tree_leaves(opt)])
-            walls.append(times)
+            runs[label] = [t.cpu() for t in metrics + tree_leaves(p) +
+                           tree_leaves(opt)]
+            walls[label] = times
             del p, opt
-    bit_equal(f"tp {cfg.name} steps: metrics, parameters and AdamW state",
-              *runs)
-    out = dict(arch=cfg.name, layers=n, params=param_count(params),
-               losses=[float(x) for x in runs[0][:3 * len(batches):3]],
-               step_ms=[t * 1e3 for t in walls[0]],
-               step_ms_no_mesh=[t * 1e3 for t in walls[1]],
-               step_collectives=counts, bwd=bwd,
-               max_memory_allocated=torch.cuda.max_memory_allocated())
-    print(f"tp {cfg.name} x{n} layers over the world-1 mesh "
-          f"({out['params']:,} float32 parameters): gradients of "
-          f"{spec['batch']} x {spec['seq']} tokens and {len(batches)} steps "
-          f"bit-equal to the run without a mesh (losses "
-          f"{[round(x, 4) for x in out['losses']]}); step ms "
-          f"{[round(t, 1) for t in out['step_ms']]} (without a mesh "
-          f"{[round(t, 1) for t in out['step_ms_no_mesh']]}); collectives "
-          f"a step {counts}; flash_attention_bwd calls held {bwd.get('calls')}"
-          f" (worst {bwd.get('err', 0.0):.3g}); peak "
-          f"{out['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
-    del params, runs
+            gc.collect()
+            torch.cuda.empty_cache()
+    out = dict(arch=cfg.name, layers=cfg.n_layers,
+               params=param_count(params), bwd=bwd,
+               losses=[float(x) for x in
+                       runs["no mesh"][:3 * len(batches):3]],
+               step_ms_no_mesh=[t * 1e3 for t in walls["no mesh"]])
+    for label in ctxs:
+        bit_equal(f"tp {cfg.name} ({label}) loss and gradients",
+                  grads[label], grads["no mesh"])
+        bit_equal(f"tp {cfg.name} ({label}) steps: metrics, parameters and "
+                  "AdamW state", runs[label], runs["no mesh"])
+        out[label] = dict(step_ms=[t * 1e3 for t in walls[label]],
+                          step_collectives=counts[label])
+    del grads, runs
+    if serve:
+        for label, c in ctxs.items():
+            local = shard_params(params, param_specs(cfg, c))
+            out[label].update(tp_serve(cfg, params, local, c, spec["serve"],
+                                       total, worst, profile=True))
+            del local
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    for label in ctxs:
+        o = out[label]
+        print(f"tp {cfg.name} x{cfg.n_layers} layers over the world-1 mesh "
+              f"({label}; {out['params']:,} float32 parameters): gradients "
+              f"of {spec['batch']} x {spec['seq']} tokens and "
+              f"{len(batches)} steps bit-equal to the run without a mesh "
+              f"(losses {[round(x, 4) for x in out['losses']]}); step ms "
+              f"{[round(t, 1) for t in o['step_ms']]} (without a mesh "
+              f"{[round(t, 1) for t in out['step_ms_no_mesh']]}); "
+              f"collectives a step {o['step_collectives']}"
+              + (f"; {fmt_serve(o, spec['serve'])}, logits and tokens "
+                 "bit-equal" if serve else "") +
+              f"; flash_attention_bwd calls held {bwd.get('calls')} (worst "
+              f"{bwd.get('err', 0.0):.3g}); peak "
+              f"{out['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def tp_phase(report: dict, total: dict) -> None:
-    """Tensor parallelism at world 1 on the card over an NCCL process
-    group, no fallback: `tp_moe` and `tp_llama`."""
+    """Tensor parallelism and FSDP at world 1 on the card over an NCCL
+    process group, no fallback: `tp_loss_serve` of TP_MOE and TP_MLA,
+    `tp_train` of TP_SSM (with serving) and of TP_LLAMA under TP and
+    under FSDP (FSDP_LLAMA)."""
     import tempfile
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh_for
-    from repro_torch.parallel import ShardCtx
+    from repro_torch.launch.specs import make_ctx
     smi = card()
     torch.cuda.set_device(0)
     t0 = time.perf_counter()
@@ -5124,9 +5218,15 @@ def tp_phase(report: dict, total: dict) -> None:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
                                 rank=0, world_size=1)
         try:
-            ctx = ShardCtx(make_mesh_for(1, 1))
-            out = dict(moe=tp_moe(ctx, total, worst),
-                       llama=tp_llama(ctx, total, worst))
+            mesh = make_mesh_for(1, 1)
+            ctx = make_ctx(mesh, fsdp=False)
+            fsdp = make_ctx(mesh, fsdp=True)
+            out = dict(moe=tp_loss_serve(TP_MOE, ctx, total, worst),
+                       mla=tp_loss_serve(TP_MLA, ctx, total, worst),
+                       ssm=tp_train(TP_SSM, {"TP": ctx}, total, worst,
+                                    serve=True),
+                       llama=tp_train(TP_LLAMA, {"TP": ctx, "FSDP": fsdp},
+                                      total, worst))
         finally:
             dist.destroy_process_group()
     out.update(held=worst, wall_s=time.perf_counter() - t0, card=smi)

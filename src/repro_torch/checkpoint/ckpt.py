@@ -14,12 +14,13 @@ auxiliary fields were added or removed.  A bfloat16 leaf is saved as
 float32 (numpy has no bfloat16 of its own; the widening is exact) and
 cast back to its target's dtype on restore, as every leaf is.
 
-Under tensor parallelism (`shardings`, a tree of `sharding.Spec`s over
-the target's structure, e.g. `param_shardings`): a save gathers every
-split leaf over its group and the mesh's first rank writes the one-rank
-format (the others wait for the commit), so a checkpoint taken under a
-mesh restores into a one-rank run and back; a restore reads each whole
-leaf and returns the rank's slice of it.
+Under a mesh (`shardings`, a tree of `sharding.Spec`s over the
+target's structure, e.g. `param_shardings`; tensor parallelism, FSDP
+or both): a save gathers every split leaf over the group of each dim
+that splits it and the mesh's first rank writes the one-rank format
+(the others wait for the commit), so a checkpoint taken under a mesh
+restores into a one-rank run and back; a restore reads each whole leaf
+and returns the rank's slice of it.
 """
 from __future__ import annotations
 

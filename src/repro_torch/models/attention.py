@@ -39,7 +39,8 @@ A head_dim the kernels refuse raises on CUDA (the wrappers'
 MLA (`apply_mla`) stays in plain PyTorch ops on every device, as the
 reference computes it outside any Pallas kernel: its prefill has
 Dk = nope + rope and Dv = v_head_dim, which the kernels do not take, and
-its decode is the absorbed latent product.
+its decode is the absorbed latent product.  Under tensor parallelism it
+computes the rank's heads as standard attention does.
 
 Under tensor parallelism (a context with a mesh) a rank computes its q
 heads from its slice of `wq` (or the whole `wq`'s columns of them where
@@ -64,8 +65,9 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .layers import Builder, apply_rope, rms_norm
 from ..kernels import ops
-from ..parallel.sharding import (ShardCtx, cache_kv_heads, head_range,
-                                 local_ctx, shard_heads)
+from ..parallel.sharding import (ShardCtx, cache_kv_heads, group_reads,
+                                 head_range, leaf_specs, local_ctx,
+                                 local_part)
 
 NEG_INF = -1e30
 
@@ -310,16 +312,7 @@ def attn_layout(cfg: ModelConfig, ctx: ShardCtx):
     start, count = head_range(hq, ctx)
     if ctx.mesh is None or count == 0 or ctx.splits("kv", hkv):
         return start, count, None
-    group = hq // hkv
-    reads = [h // group for h in range(start, start + count)]
-    runs = [reads[0]]
-    for a, b in zip(reads, reads[1:]):
-        if b != a:
-            runs.append(b)
-    if count % len(runs) == 0 and reads == [
-            runs[j // (count // len(runs))] for j in range(count)]:
-        return start, count, runs
-    return start, count, reads
+    return start, count, group_reads(start, count, hq // hkv)
 
 
 def _kv_select(x: torch.Tensor, kv) -> torch.Tensor:
@@ -388,41 +381,59 @@ def apply_mla(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               cache: Optional[Dict] = None,
               ctx: Optional[ShardCtx] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: (B,S,d), the whole sequence on every rank.  Returns (out,
+    updated cache).  Under a mesh a rank computes its heads
+    (`sharding.head_range`): its columns of `wq_b` and `wkv_b`
+    (column-parallel) and its rows of `wo` (row-parallel), through
+    `local_part`; `out` is its terms of the output, which the block sums
+    over the model group.  `wq_a`, `wkv_a` and the two norm gains are
+    whole on every rank, and so are the latent cache (B, S, kv_lora) and
+    its rope keys, which every rank writes and its heads read (the
+    reference splits them along S, a layout of the same values)."""
+    ctx = local_ctx() if ctx is None else ctx
     dt = x.dtype
     B, S, _ = x.shape
-    H = cfg.n_heads
     nd, rd = cfg.nope_head_dim, cfg.rope_head_dim
+    start, count = head_range(cfg.n_heads, ctx)
+    specs = leaf_specs(init_mla, cfg, ctx)
+    even = cfg.n_heads % ctx.tp_size == 0
 
+    def heads(name, dim):
+        return local_part(p[name], specs[name], dim, start, count, ctx, even)
+
+    wq_b, wkv_b, wo = heads("wq_b", 1), heads("wkv_b", 1), heads("wo", 0)
     cq = rms_norm(torch.einsum("bsd,dq->bsq", x, p["wq_a"].to(dt)),
                   p["q_gamma"], cfg.norm_eps)
-    qf = torch.einsum("bsq,qhk->bshk", cq, p["wq_b"].to(dt))
-    if ctx is not None:
-        qf = shard_heads(qf, ctx)
-    q_nope, q_rope = qf[..., :nd], qf[..., nd:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_base)
+    qf = torch.einsum("bsq,qhk->bshk", cq, wq_b.to(dt))
 
     kva = torch.einsum("bsd,dk->bsk", x, p["wkv_a"].to(dt))
     ckv = rms_norm(kva[..., :cfg.kv_lora], p["kv_gamma"], cfg.norm_eps)
     k_rope = apply_rope(kva[..., None, cfg.kv_lora:], positions,
                         cfg.rope_base)[:, :, 0]               # (B,S,rd)
+    if cache is not None:
+        cache = _cache_write(cache, ("ckv", "kr"), (ckv, k_rope), positions)
+    if count == 0:
+        # only padded heads here: the empty product's zeros hang on x in
+        # autograd, as `apply_attn`'s do
+        return torch.einsum("bsh,hvd->bsd", qf.sum(-1), wo.to(dt)), cache
 
+    q_nope, q_rope = qf[..., :nd], qf[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_base)
     scale = 1.0 / torch.sqrt(torch.tensor(nd + rd, dtype=torch.float32,
                                           device=x.device))
 
     if cache is None:
         # ---- prefill / train: expand per-head K,V ----
-        kvf = torch.einsum("bsk,khd->bshd", ckv, p["wkv_b"].to(dt))
+        kvf = torch.einsum("bsk,khd->bshd", ckv, wkv_b.to(dt))
         k_nope, vv = kvf[..., :nd], kvf[..., nd:]
         k_full = torch.cat(
-            [k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)], -1)
+            [k_nope, k_rope[:, :, None, :].expand(B, S, count, rd)], -1)
         q_full = torch.cat([q_nope, q_rope], -1)
         out = chunked_attention(q_full, k_full, vv, positions, positions,
                                 chunk=cfg.attn_chunk)
-        new_cache = None
     else:
         # ---- decode: absorbed attention over the latent cache ----
-        cache = _cache_write(cache, ("ckv", "kr"), (ckv, k_rope), positions)
-        wkv_b = p["wkv_b"].to(dt)
+        wkv_b = wkv_b.to(dt)
         w_uk, w_uv = wkv_b[..., :nd], wkv_b[..., nd:]
         q_lat = torch.einsum("bshd,khd->bshk", q_nope, w_uk)  # (B,S,H,kv_lora)
         s = (torch.einsum("bshk,btk->bhst", q_lat, cache["ckv"]) +
@@ -435,7 +446,6 @@ def apply_mla(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         a = torch.softmax(s, dim=-1).to(dt)
         lat = torch.einsum("bhst,btk->bshk", a, cache["ckv"])
         out = torch.einsum("bshk,khd->bshd", lat, w_uv)       # (B,S,H,vd)
-        new_cache = cache
 
-    y = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(dt))
-    return y, new_cache
+    y = torch.einsum("bshv,hvd->bsd", out, wo.to(dt))
+    return y, cache

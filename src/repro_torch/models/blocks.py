@@ -6,13 +6,12 @@ of `cfg.block_pattern`.
 
 Under a mesh the residual stream is in its layout (`parallel.sharding`:
 split along the sequence over the model dim when it divides, else whole
-on every rank).  A normed input is gathered along the sequence for
-attention and the dense MLP, whose row-parallel outputs are the rank's
-terms: they are summed into the residual layout (a reduce-scatter, or
-an all-reduce where the residual is whole) before `x + mix` and
-`x + f`.  The MoE layer takes and returns the residual layout itself;
-MLA and mamba mixers (one rank of the model dim only) compute their
-output whole and take their slice of it.
+on every rank).  A normed input is gathered along the sequence for the
+mixer (attention, MLA or mamba) and the dense MLP, whose row-parallel
+outputs are the rank's terms: they are summed into the residual layout
+(a reduce-scatter, or an all-reduce where the residual is whole) before
+`x + mix` and `x + f`.  The MoE layer takes and returns the residual
+layout itself.
 """
 from __future__ import annotations
 
@@ -26,8 +25,7 @@ from .config import ModelConfig
 from .layers import Builder, init_mlp, mlp_residual, rms_norm
 from .moe import apply_moe, init_moe
 from .ssm import apply_mamba, init_mamba, init_ssm_cache
-from ..parallel.sharding import (ShardCtx, gather_residual, reduce_residual,
-                                 shard_residual)
+from ..parallel.sharding import ShardCtx, gather_residual, reduce_residual
 
 
 def init_block(make: Builder, cfg: ModelConfig, kind: str, moe: bool,
@@ -56,7 +54,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device=None, ctx: Optional[ShardCtx] = None
                      ) -> Dict:
     if kind == "m":
-        return init_ssm_cache(cfg, batch, dtype, device)
+        return init_ssm_cache(cfg, batch, dtype, device, ctx)
     if cfg.use_mla:
         return init_mla_cache(cfg, batch, max_len, dtype, device)
     return init_kv_cache(cfg, batch, max_len, kind, dtype, device, ctx)
@@ -72,16 +70,13 @@ def apply_block(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     seq = positions.shape[1]
     h = gather_residual(rms_norm(x, p["ln1"], cfg.norm_eps), ctx, seq)
     if kind == "m":
-        mix, cache = apply_mamba(p["mixer"], cfg, h, positions, cache)
-        mix = shard_residual(mix, ctx)
+        mix, cache = apply_mamba(p["mixer"], cfg, h, positions, cache, ctx)
     elif cfg.use_mla:
         mix, cache = apply_mla(p["mixer"], cfg, h, positions, cache, ctx)
-        mix = shard_residual(mix, ctx)
     else:
         mix, cache = apply_attn(p["mixer"], cfg, h, positions,
                                 "l" if kind == "l" else "a", cache, ctx)
-        mix = reduce_residual(mix, ctx)
-    x = x + mix
+    x = x + reduce_residual(mix, ctx)
 
     if "mlp" not in p:              # mixer-only block (mamba2)
         return x, cache, aux

@@ -17,6 +17,8 @@ body, and so has the port (`apply_moe` picks one as the reference does):
 
 The router's slices (its "experts" dim is split with the experts) are
 gathered before routing; the aux loss is averaged over the model group.
+Under FSDP the block's leaves come gathered whole over the FSDP dim
+(`transformer`), so the expert banks' "mlp_e" columns are whole here.
 
 Order matters where the reference leaves it implicit:
   * `jax.lax.top_k` breaks ties toward the lower expert index;

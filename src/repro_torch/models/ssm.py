@@ -10,6 +10,21 @@ float32 whatever the model dtype.
 Padded steps of the last chunk have dt = 0, so they neither add to the
 state nor decay it; the intra-chunk decay matrix is
 `exp(where(mask, diff, -1e30))`, an exact 0 above the diagonal.
+
+Under tensor parallelism (a context with a mesh) a rank computes its SSM
+heads [start, start + count) (`ssm_layout`, the padded even split of
+`sharding.head_range`): its columns of `in_z`, `in_x` and `in_dt`, its
+entries of `A_log`, `D`, `dt_bias` and `gamma` (column-parallel), the
+conv over its heads' x channels and all B/C channels, and its rows of
+`out` (row-parallel): `out` is its terms of the output, which the block
+sums over the model group.  `in_bc` is whole on every rank (the
+reference's "ssm_state" rule), so B and C are too, and a head reads
+group h // (ssm_heads / ssm_groups) of them.  Each leaf's columns come
+through `sharding.local_part`: the reference's spec of an SSM leaf is
+often not what a rank computes (the conv weight is split along its
+width at a model dim of 2 or 4, its bias evenly over all channels).  The
+gated norm normalises over all `ssm_heads * ssm_head_dim` channels, so
+its mean of squares is added over the model group (`_gated_norm`).
 """
 from __future__ import annotations
 
@@ -20,6 +35,9 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import Builder, rms_norm
+from ..parallel import tp as tpc
+from ..parallel.sharding import (ShardCtx, group_reads, head_range,
+                                 leaf_specs, local_ctx, local_part)
 
 NEG_INF = -1e30
 
@@ -54,14 +72,33 @@ def init_mamba(make: Builder, cfg: ModelConfig, prefix: str) -> Dict:
     }
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> Dict:
+def ssm_layout(cfg: ModelConfig, ctx: ShardCtx):
+    """(start, count, groups) of this rank's SSM heads [start, start +
+    count) (`sharding.head_range`) and the B/C groups they read, in the
+    form `ssd_scan` takes (`sharding.group_reads`; None where they are
+    all the groups of all the heads, as without a mesh)."""
+    h = cfg.ssm_heads
+    start, count = head_range(h, ctx)
+    if count == h:
+        return start, count, None
+    return start, count, group_reads(start, count, h // _groups(cfg))
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None,
+                   ctx: Optional[ShardCtx] = None) -> Dict:
+    """The SSM state (B, heads, head_dim, state), float32, and the conv's
+    last `conv_width - 1` inputs.  Under a mesh they hold the rank's
+    heads (`ssm_layout`): the state of its heads, the conv inputs of its
+    heads' x channels, then of all B/C channels.  (The reference's cache
+    specs split the conv inputs evenly over all channels instead: a
+    layout of the same values.)"""
     g, n = _groups(cfg), cfg.ssm_state
-    din = cfg.ssm_heads * cfg.ssm_head_dim
-    cc = din + 2 * g * n
+    _, count, _ = ssm_layout(cfg, local_ctx() if ctx is None else ctx)
+    cc = count * cfg.ssm_head_dim + 2 * g * n
     return {
         "conv": torch.zeros((batch, cfg.conv_width - 1, cc), dtype=dtype,
                             device=device),
-        "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, n),
+        "ssm": torch.zeros((batch, count, cfg.ssm_head_dim, n),
                            dtype=torch.float32, device=device),
     }
 
@@ -163,36 +200,88 @@ def _causal_conv(xbc, w, bias, cache: Optional[torch.Tensor]):
     return F.silu(out), new_cache
 
 
+def _gated_norm(y: torch.Tensor, gamma: torch.Tensor, eps: float,
+                ctx: ShardCtx, width: int) -> torch.Tensor:
+    """`rms_norm` of y (B, S, w), the rank's w of all `width` channels,
+    over all of them: the rank's mean of squares weighted by w / width,
+    summed over the model group (`tp.reduce`).  At one rank the weight is
+    1.0 and the sum a copy, so the result is `rms_norm`'s bit for bit."""
+    if ctx.mesh is None:
+        return rms_norm(y, gamma, eps)
+    dt = y.dtype
+    y32 = y.float()
+    sq = torch.square(y32)
+    if y.shape[-1]:
+        part = torch.mean(sq, dim=-1, keepdim=True) * (y.shape[-1] / width)
+    else:
+        part = sq.sum(-1, keepdim=True)     # no channels here: zeros
+    var = tpc.reduce(part, ctx.tp_group)
+    out = y32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + gamma.float())).to(dt)
+
+
 def apply_mamba(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor,
                 cache: Optional[Dict] = None,
+                ctx: Optional[ShardCtx] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x: (B,S,d). Returns (out, new_cache)."""
+    """x: (B,S,d), the whole sequence on every rank.  Returns (out,
+    new_cache); under a mesh `out` is the rank's terms of the output
+    and the cache holds its heads (module docstring)."""
+    ctx = local_ctx() if ctx is None else ctx
     dt_ = x.dtype
     b, s, d = x.shape
     h, pdim, g, n = (cfg.ssm_heads, cfg.ssm_head_dim, _groups(cfg),
                      cfg.ssm_state)
     din = h * pdim
+    start, count, groups = ssm_layout(cfg, ctx)
+    c0, cn = start * pdim, count * pdim         # the rank's x channels
+    specs = leaf_specs(init_mamba, cfg, ctx)
+    even = h % ctx.tp_size == 0
 
-    z = torch.einsum("bsd,de->bse", x, p["in_z"].to(dt_))
-    xs = torch.einsum("bsd,de->bse", x, p["in_x"].to(dt_))
+    def part(name, dim, lo, size):
+        return local_part(p[name], specs[name], dim, lo, size, ctx, even)
+
+    def conv_part(name):
+        # the rank's x channels, then every B/C channel
+        w = local_part(p[name], specs[name], p[name].ndim - 1, 0,
+                       din + 2 * g * n, ctx)
+        if cn == din:
+            return w
+        return torch.cat([w[..., c0:c0 + cn], w[..., din:]], dim=-1)
+
+    z = torch.einsum("bsd,de->bse", x, part("in_z", 1, c0, cn).to(dt_))
+    xs = torch.einsum("bsd,de->bse", x, part("in_x", 1, c0, cn).to(dt_))
     bc = torch.einsum("bsd,de->bse", x, p["in_bc"].to(dt_))
-    dt_raw = torch.einsum("bsd,dh->bsh", x, p["in_dt"].to(dt_))
+    dt_raw = torch.einsum("bsd,dh->bsh", x,
+                          part("in_dt", 1, start, count).to(dt_))
 
     xbc = torch.cat([xs, bc], dim=-1)
     conv_cache = cache["conv"] if cache is not None else None
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_cache)
-    xs, Bm, Cm = (xbc[..., :din],
-                  xbc[..., din:din + g * n],
-                  xbc[..., din + g * n:])
+    xbc, new_conv = _causal_conv(xbc, conv_part("conv_w"),
+                                 conv_part("conv_b"), conv_cache)
+    xs, Bm, Cm = (xbc[..., :cn],
+                  xbc[..., cn:cn + g * n],
+                  xbc[..., cn + g * n:])
 
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
-    xh = xs.reshape(b, s, h, pdim)
+    dt = F.softplus(dt_raw.float() +
+                    part("dt_bias", 0, start, count).float())
+    A = -torch.exp(part("A_log", 0, start, count).float())
+    xh = xs.reshape(b, s, count, pdim)
     Bm = Bm.reshape(b, s, g, n)
     Cm = Cm.reshape(b, s, g, n)
+    if groups is not None:
+        idx = torch.tensor(groups, dtype=torch.long, device=x.device)
+        Bm, Cm = Bm.index_select(2, idx), Cm.index_select(2, idx)
 
-    if cache is None:
+    if count == 0:
+        # only padded heads here: no scan; the norm's sum and `out`'s
+        # empty product still hang on x, so that this rank runs the
+        # model group's collectives as the others do
+        y = torch.zeros_like(xh)
+        new_cache = None if cache is None else {"conv": new_conv,
+                                                "ssm": cache["ssm"]}
+    elif cache is None:
         y, _ = ssd_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
         new_cache = None
     elif s == 1:
@@ -205,8 +294,9 @@ def apply_mamba(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                          init_state=cache["ssm"])
         new_cache = {"conv": new_conv, "ssm": st}
 
-    y = y + xh * p["D"].to(dt_)[None, None, :, None]
-    y = y.reshape(b, s, din)
-    y = rms_norm(y * F.silu(z), p["gamma"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out"].to(dt_))
+    y = y + xh * part("D", 0, start, count).to(dt_)[None, None, :, None]
+    y = y.reshape(b, s, cn)
+    y = _gated_norm(y * F.silu(z), part("gamma", 0, c0, cn), cfg.norm_eps,
+                    ctx, din)
+    out = torch.einsum("bse,ed->bsd", y, part("out", 0, c0, cn).to(dt_))
     return out, new_cache

@@ -39,6 +39,16 @@ Under a mesh (`parallel.sharding`) the tree holds the rank's slices
 layout, the CE is vocab-parallel where the model dim splits the vocab
 (`_nll`), and `prefill_step`/`decode_step` gather the logits over the
 vocab, so a caller sees the reference's shapes on every rank.
+
+Under FSDP (a context with an `fsdp_axis`) the forward is the one place
+that gathers weights: a block's leaves whose specs name the FSDP dim are
+gathered whole over the FSDP group right before the block runs
+(`sharding.fsdp_whole`) and dropped after it, one layer at a time; the
+embedding, the final norm and the head where they are used.  A period's
+gathers sit inside its remat wrapper, so its recomputation gathers
+again and no checkpoint policy saves a gathered weight ("dots" saves
+matrix products' outputs only).  The backward of each gather is the
+reduce-scatter of its gradient over the FSDP ranks.
 """
 from __future__ import annotations
 
@@ -55,9 +65,9 @@ from .config import ModelConfig
 from .layers import (axes_builder, embed_tokens, init_embed, lm_logits,
                      meta_builder, rms_norm, tensor_builder)
 from ..parallel import tp as tpc
-from ..parallel.sharding import (ShardCtx, check_tp_scope, gather_residual,
-                                 param_shardings, shard_cache, shard_logits,
-                                 shard_residual)
+from ..parallel.sharding import (ShardCtx, fsdp_whole, gather_residual,
+                                 head_range, param_shardings, shard_cache,
+                                 shard_logits, shard_residual)
 
 KeyPath = Tuple                # dict keys (str) and list indices (int)
 
@@ -128,10 +138,24 @@ def logical_axes(cfg: ModelConfig) -> Dict:
 def param_specs(cfg: ModelConfig, ctx: ShardCtx) -> Dict:
     """Every leaf's `sharding.Spec` under `ctx` (the reference's
     `param_shardings(logical_axes, ctx, shapes)`), the layout
-    `sharding.shard_params` slices by; raises where tensor parallelism
-    does not reach (`check_tp_scope`)."""
-    check_tp_scope(cfg, ctx)
+    `sharding.shard_params` slices by."""
     return param_shardings(logical_axes(cfg), ctx, param_shapes(cfg))
+
+
+def fsdp_specs(cfg: ModelConfig, ctx: ShardCtx) -> Optional[Dict]:
+    """`param_specs` under an FSDP context with a mesh (what the forward
+    gathers by), else None."""
+    if ctx.mesh is None or ctx.fsdp_axis is None:
+        return None
+    return param_specs(cfg, ctx)
+
+
+def _whole(params: Dict, specs: Optional[Dict], key: str, ctx: ShardCtx):
+    """`params[key]` with its FSDP-split leaves gathered whole (as it is
+    without FSDP)."""
+    if specs is None:
+        return params[key]
+    return fsdp_whole(params[key], specs[key], ctx)
 
 
 def tree_items(tree, path: KeyPath = ()) -> Iterator[Tuple[KeyPath, object]]:
@@ -261,11 +285,28 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return caches
 
 
+def _shard_ssm_cache(c: Dict, ctx: ShardCtx) -> Dict:
+    """A whole SSM cache ({"conv", "ssm"}, any leading dims) -> this
+    rank's (`ssm.init_ssm_cache`'s layout): the state of its heads, the
+    conv inputs of its heads' x channels and of every B/C channel."""
+    h, p = c["ssm"].shape[-3], c["ssm"].shape[-2]
+    start, count = head_range(h, ctx)
+    conv = c["conv"]
+    if count < h:
+        conv = torch.cat([conv[..., start * p:(start + count) * p],
+                          conv[..., h * p:]], dim=-1)
+    return {"conv": conv.clone(),
+            "ssm": c["ssm"].narrow(c["ssm"].ndim - 3, start, count).clone()}
+
+
 def shard_caches(caches: Dict, ctx: ShardCtx) -> Dict:
     """A whole cache tree -> this rank's: each K/V leaf (kv heads next to
-    last) through `sharding.shard_cache`, the other leaves as they
-    are."""
+    last) through `sharding.shard_cache`, each SSM cache to its heads
+    (`_shard_ssm_cache`), the other leaves (MLA's latent cache, the
+    positions) as they are."""
     if isinstance(caches, dict):
+        if "ssm" in caches:
+            return _shard_ssm_cache(caches, ctx)
         return {k: shard_cache(v, ctx, v.ndim - 2) if k in ("k", "v")
                 else shard_caches(v, ctx) for k, v in caches.items()}
     if isinstance(caches, list):
@@ -327,12 +368,15 @@ def backbone(params: Dict, cfg: ModelConfig, x: torch.Tensor,
              caches: Optional[Dict] = None,
              ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """x: (B,S,d) embedded input. Returns (hidden, caches', aux)."""
-    body = _remat_wrap(lambda *a: _period(params, cfg, positions, ctx, *a),
-                       cfg)
+    specs = fsdp_specs(cfg, ctx)
+    body = _remat_wrap(lambda *a: _period(params, cfg, positions, ctx, *a,
+                                          specs=specs), cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_prefix = []
     for i, bp in enumerate(params["prefix"]):
         c = caches["prefix"][i] if caches is not None else None
+        if specs is not None:
+            bp = fsdp_whole(bp, specs["prefix"][i], ctx)
         x, c, aux = apply_block(bp, cfg, x, positions, "a", False, ctx, c)
         aux_total = aux_total + aux
         new_prefix.append(c)
@@ -344,26 +388,30 @@ def backbone(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             x, aux_total = body(x, aux_total, i)
             continue
         x, aux_total, new = _period(params, cfg, positions, ctx, x,
-                                    aux_total, i, pcaches)
+                                    aux_total, i, pcaches, specs=specs)
         period_outs.append(new)
     new_caches = None
     if pcaches is not None:
         new_caches = {"prefix": new_prefix,
                       "period": [_stack([po[pos] for po in period_outs])
                                  for pos in range(cfg.pattern_len)]}
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = rms_norm(x, _whole(params, specs, "final_ln", ctx), cfg.norm_eps)
     return x, new_caches, aux_total
 
 
 def _period(params: Dict, cfg: ModelConfig, positions: torch.Tensor,
             ctx: ShardCtx, x: torch.Tensor, aux_total: torch.Tensor, i: int,
-            pcaches: Optional[List] = None):
+            pcaches: Optional[List] = None, specs: Optional[Dict] = None):
     """Period `i` of the stack (the reference's `period_core`): its
-    blocks over `x`, the aux losses added to `aux_total`.  Returns (x,
-    aux_total), and the period's new caches when `pcaches` is given."""
+    blocks over `x`, the aux losses added to `aux_total`; under FSDP
+    (`specs`, `fsdp_specs`) each block's leaves gathered right before
+    it.  Returns (x, aux_total), and the period's new caches when
+    `pcaches` is given."""
     new = []
     for pos, kind in enumerate(cfg.block_pattern):
         pp = tree_map(params["period"][pos], lambda a: a[i])
+        if specs is not None:
+            pp = fsdp_whole(pp, specs["period"][pos], ctx)
         c = (tree_map(pcaches[pos], lambda a: a[i])
              if pcaches is not None else None)
         x, c, aux = apply_block(pp, cfg, x, positions, kind,
@@ -380,14 +428,14 @@ def embed_input(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """The embedded input in the residual layout (`sharding.
-    shard_residual`); the first forward of a context checks its scope
-    (`check_tp_scope`)."""
-    check_tp_scope(cfg, ctx)
+    shard_residual`).  FSDP never splits the table (its d_model dim is
+    "embed_t"), so only the frontend's projection is gathered."""
     dtype = torch_dtype(cfg.dtype)
     x = embed_tokens(params["embed"], tokens, dtype, ctx, cfg.vocab)
     if frontend_embeds is not None and cfg.frontend != "none":
         fe = torch.einsum("bfd,de->bfe", frontend_embeds.to(dtype),
-                          params["frontend_proj"].to(dtype))
+                          _whole(params, fsdp_specs(cfg, ctx),
+                                 "frontend_proj", ctx).to(dtype))
         f = fe.shape[1]
         x = torch.cat([fe, x[:, f:]], dim=1)
     return shard_residual(x, ctx)
@@ -451,12 +499,13 @@ def chunked_ce_loss(params: Dict, cfg: ModelConfig, hidden: torch.Tensor,
         mask = torch.nn.functional.pad(mask, (0, pad))
     nc = hidden.shape[1] // chunk
     dtype = torch_dtype(cfg.dtype)
+    embed = _whole(params, fsdp_specs(cfg, ctx), "embed", ctx)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(nc):
         sl = slice(i * chunk, (i + 1) * chunk)
         h, lab, m = hidden[:, sl], labels[:, sl], mask[:, sl]
-        logits = lm_logits(params["embed"], h, dtype, cfg.logit_softcap)
+        logits = lm_logits(embed, h, dtype, cfg.logit_softcap)
         nll = _nll(logits, lab, cfg, ctx) * m
         tot = tot + nll.sum()
         cnt = cnt + m.sum()
@@ -499,8 +548,8 @@ def prefill_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_input(params, cfg, tokens, ctx, frontend_embeds)
     hidden, caches, _ = backbone(params, cfg, x, positions, ctx, caches)
     last = gather_residual(hidden, ctx, tokens.shape[1])[:, -1:]
-    logits = lm_logits(params["embed"], last, torch_dtype(cfg.dtype),
-                       cfg.logit_softcap)
+    logits = lm_logits(_whole(params, fsdp_specs(cfg, ctx), "embed", ctx),
+                       last, torch_dtype(cfg.dtype), cfg.logit_softcap)
     return shard_logits(logits, ctx, cfg.vocab), caches
 
 
@@ -511,6 +560,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = position[:, None].to(torch.int32)
     x = embed_input(params, cfg, tokens, ctx)
     hidden, caches, _ = backbone(params, cfg, x, positions, ctx, caches)
-    logits = lm_logits(params["embed"], gather_residual(hidden, ctx, 1),
+    logits = lm_logits(_whole(params, fsdp_specs(cfg, ctx), "embed", ctx),
+                       gather_residual(hidden, ctx, 1),
                        torch_dtype(cfg.dtype), cfg.logit_softcap)
     return shard_logits(logits, ctx, cfg.vocab), caches

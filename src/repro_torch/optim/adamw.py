@@ -44,24 +44,29 @@ def adamw_init(params) -> Dict:
     }
 
 
-def global_norm(tree, group=None, sharded=None) -> torch.Tensor:
+def global_norm(tree, groups=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in float32: each leaf's
-    sum, then the sums added in leaf order.  Under tensor parallelism
-    (`group`, the model group, and `sharded`, whether the model dim
-    splits each leaf, in leaf order) a split leaf's sum is its slices'
-    sums added over the group (one all-reduce for all of them) and a
-    replicated leaf, equal on every rank, counts once; the sums are
-    then added in leaf order as without a group, so every rank of the
-    group gets the same norm."""
+    sum, then the sums added in leaf order.  Under a mesh (`groups`, for
+    each leaf in leaf order the process group over the mesh dims that
+    split it, None for a leaf whole on every rank; `train.loop.
+    norm_groups`) a split leaf's sum is its slices' sums added over that
+    group (one all-reduce a group for all its leaves: the model dim's,
+    the FSDP dim's, or both together) and a whole leaf, equal on every
+    rank, counts once; the sums are then added in leaf order as without
+    groups, so every rank gets the same norm."""
     sums = [torch.sum(torch.square(x.to(torch.float32)))
             for x in tree_leaves(tree)]
-    split = [i for i, s in enumerate(sharded or ()) if s]
-    if group is not None and split:
+    by_group: Dict[int, list] = {}
+    for i, g in enumerate(groups or ()):
+        if g is not None:
+            by_group.setdefault(id(g), [g, []])[1].append(i)
+    if by_group:
         import torch.distributed as dist
-        both = torch.stack([sums[i] for i in split])
-        dist.all_reduce(both, group=group)
-        for i, s in zip(split, both):
-            sums[i] = s
+        for group, idx in by_group.values():
+            both = torch.stack([sums[i] for i in idx])
+            dist.all_reduce(both, group=group)
+            for i, s in zip(idx, both):
+                sums[i] = s
     total = 0
     for s in sums:
         total = total + s
@@ -69,12 +74,12 @@ def global_norm(tree, group=None, sharded=None) -> torch.Tensor:
 
 
 def adamw_update(grads, opt_state: Dict, params, cfg: AdamWConfig,
-                 lr_scale: torch.Tensor | float = 1.0, group=None,
-                 sharded=None) -> Tuple[Dict, Dict, Dict]:
+                 lr_scale: torch.Tensor | float = 1.0,
+                 groups=None) -> Tuple[Dict, Dict, Dict]:
     """Returns (new_params, new_opt_state, metrics); the inputs are not
-    written.  `group` and `sharded` are `global_norm`'s, for a rank's
-    slices under tensor parallelism."""
-    gnorm = global_norm(grads, group, sharded)
+    written.  `groups` is `global_norm`'s, for a rank's slices under a
+    mesh."""
+    gnorm = global_norm(grads, groups)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                          max=1.0)
              if cfg.clip_norm > 0 else 1.0)

@@ -16,14 +16,22 @@ takes a `torch.distributed.device_mesh.DeviceMesh` with named dims
     activations move between layouts through explicit collectives that
     carry their gradients (`parallel.tp`), where the reference's
     constraints stand: `gather_residual`, `reduce_residual` and
-    `shard_residual` (sequence-parallel residual stream), `shard_heads`,
-    `shard_logits`, `shard_cache`.
+    `shard_residual` (sequence-parallel residual stream), the rank's
+    heads (`head_range`, `local_part`), `shard_logits`, `shard_cache`;
+  * FSDP over one DP dim (`fsdp_axis`, with `make_rules(fsdp_axis)`):
+    a rank holds its slice of every leaf whose spec names that dim, the
+    forward gathers a block's such leaves right before the block
+    (`fsdp_whole`, an all-gather whose backward is a reduce-scatter) and
+    drops them after it, as the reference's ZeRO-3 layout does.
 
 The TP path is taken whenever the context has a mesh, a model dim of 1
-included, where every collective is a copy.  The MLA and SSM families
-and FSDP under a model dim above 1 are ROADMAP queue 1 item 4c-ii: an
-FSDP axis raises when the context is built, MLA or SSM blocks at the
-first forward or `param_specs` (`check_tp_scope`).
+included, where every collective is a copy.  It covers every family:
+standard attention, MLA and SSM blocks compute the heads of their rank
+(`head_range`), reading each leaf's columns through `local_part`, which
+joins the reference's parameter layout to the rank's compute layout.
+Caches the reference splits along the sequence (kv heads that do not
+divide the model dim, MLA's latent cache) stay whole on every rank, with
+the same values.
 
 Gradients under TP: a replicated activation's gradient is kept partial,
 each rank holding its own terms and the group's sum being the gradient
@@ -60,14 +68,10 @@ DEFAULT_RULES: Dict[str, Any] = {
     "ff_tokens": None,
 }
 
-_SCOPE = "ROADMAP queue 1 item 4c-ii"
-
-
 def make_rules(fsdp_axis: Optional[str] = None) -> Dict[str, Any]:
     """The parameter rules; `fsdp_axis` also shards the 'embed' (d_model)
     and 'mlp_e' dims of the weights over a DP axis, as the reference's
-    ZeRO-3 layout does (the port's forward takes these rules only
-    without a mesh: FSDP is ROADMAP queue 1 item 4c-ii)."""
+    ZeRO-3 layout does."""
     rules = dict(DEFAULT_RULES)
     if fsdp_axis is not None:
         rules["embed"] = fsdp_axis
@@ -134,8 +138,9 @@ class ShardCtx:
     batch is tiled over `dp_axes`, the leaves and activations the rules
     shard are split over `tp_axis`, and the residual stream is split
     along the sequence when `seq_sharded` (and the sequence divides the
-    model dim).  `fsdp_axis` must be None under a mesh (ROADMAP queue 1
-    item 4c-ii)."""
+    model dim).  `fsdp_axis`, one of `dp_axes` or None, is the DP dim
+    whose ranks split the weights (FSDP; its rules are
+    `make_rules(fsdp_axis)`)."""
     mesh: Optional[Any] = None
     dp_axes: Tuple[str, ...] = ("data",)
     tp_axis: str = "model"
@@ -150,10 +155,10 @@ class ShardCtx:
     def __post_init__(self):
         if self.mesh is None:
             return
-        if self.fsdp_axis is not None:
-            raise NotImplementedError(
-                f"ShardCtx with FSDP (axis {self.fsdp_axis!r}): the port "
-                f"shards data and the model dim; FSDP is {_SCOPE}")
+        if self.fsdp_axis is not None and self.fsdp_axis not in \
+                self.dp_axes:
+            raise ValueError(f"FSDP axis {self.fsdp_axis!r} is not one of "
+                             f"the DP axes {self.dp_axes}")
         for a in self.dp_axes + (self.tp_axis,):
             axis_size(self.mesh, a)
 
@@ -168,6 +173,18 @@ class ShardCtx:
         if self.mesh is None:
             return 1
         return axis_size(self.mesh, self.tp_axis)
+
+    @property
+    def fsdp_size(self) -> int:
+        """The size of the FSDP dim (1 without one or without a mesh)."""
+        if self.mesh is None or self.fsdp_axis is None:
+            return 1
+        return axis_size(self.mesh, self.fsdp_axis)
+
+    @property
+    def fsdp_group(self):
+        """The process group of this rank's FSDP dim."""
+        return self.group((self.fsdp_axis,))
 
     @property
     def dp_spec(self):
@@ -214,25 +231,6 @@ class ShardCtx:
 
 def local_ctx() -> ShardCtx:
     return ShardCtx(mesh=None)
-
-
-def check_tp_scope(cfg, ctx: ShardCtx) -> None:
-    """Raise `NotImplementedError` where the port's tensor parallelism
-    does not reach yet (ROADMAP queue 1 item 4c-ii): MLA or SSM blocks
-    under a model dim above 1, or rules other than the default ones
-    under a mesh."""
-    if ctx.mesh is None:
-        return
-    if ctx.rules != DEFAULT_RULES:
-        raise NotImplementedError(
-            f"ShardCtx with other rules than DEFAULT_RULES under a mesh "
-            f"(FSDP's make_rules): {_SCOPE}")
-    if ctx.tp_size > 1 and (cfg.use_mla or "m" in cfg.block_pattern):
-        kind = "MLA" if cfg.use_mla else "SSM"
-        raise NotImplementedError(
-            f"{cfg.name}: {kind} blocks under a model dim of "
-            f"{ctx.tp_size}: tensor parallelism covers the standard "
-            f"attention families; MLA and SSM are {_SCOPE}")
 
 
 # ---------------------------------------------------------------------------
@@ -347,6 +345,77 @@ def gather_params(local_tree, shardings):
     return _walk(gather, local_tree, shardings)
 
 
+def leaf_specs(init, cfg, ctx: ShardCtx) -> Dict[str, Spec]:
+    """The spec of every leaf `init(make, cfg, prefix)` builds (one
+    mixer's leaves, as a period's leaves are after their stacked dim is
+    sliced off): each leaf's logical axes and shape through
+    `spec_for_axes`, as `param_specs` gives them."""
+    return init(lambda name, shape, axes, scale: spec_for_axes(
+        tuple(axes), ctx, tuple(shape)), cfg, "")
+
+
+def names_dim(spec: Spec, name: Optional[str]) -> bool:
+    """Whether `spec` splits some dim of its leaf over the mesh dim
+    `name` (False for None)."""
+    return name is not None and name in tuple(spec)
+
+
+def fsdp_whole(tree, specs, ctx: ShardCtx):
+    """`tree` (a block's leaves, or any subtree) with every leaf whose
+    spec names the FSDP dim gathered whole along that dim over the FSDP
+    group: an all-gather forward, a reduce-scatter of the gradient
+    backward (each rank gets its own slice's gradient, summed over the
+    FSDP ranks).  `specs` may carry a leading dim more than the leaves
+    (the stacked "layers" dim of a period's leaves, sliced off here).
+    Leaves FSDP does not split are returned as they are."""
+    if ctx.mesh is None or ctx.fsdp_axis is None:
+        return tree
+
+    def whole(x, spec):
+        spec = tuple(spec)[len(spec) - x.ndim:]
+        if not names_dim(spec, ctx.fsdp_axis):
+            return x
+        return tpc.gather(x, spec.index(ctx.fsdp_axis), ctx.fsdp_group)
+    return _walk(whole, tree, specs)
+
+
+def local_part(leaf, spec: Spec, dim: int, start: int, size: int,
+               ctx: ShardCtx, even: bool = False):
+    """The columns [start, start + size) along `dim` of the whole leaf
+    (whole in every other dim), of which this rank holds its slice under
+    `spec` (the model dim's entries; FSDP's are gathered before a block
+    runs, `fsdp_whole`).
+
+    Where the rank's held slice is exactly those columns it is returned
+    as it is; where the leaf is whole, narrowed.  Otherwise the leaf is
+    gathered whole over the model group (`tp.gather` along each dim the
+    model dim splits) and narrowed: the backward reduce-scatters the
+    gradient, so each rank gets its own slice's gradient, complete.  The
+    reference's spec of a leaf need not be the columns a rank computes
+    (an SSM's conv weight is split along its width, its bias evenly over
+    all channels, its heads' columns half a head a rank when the heads
+    do not divide the model dim).
+
+    Every rank of the group must issue the same collectives, so the held
+    slice is taken as it is only for an `even` range: the caller's word
+    that every rank asks for its own share of one size (a rank's heads
+    where the heads divide the model dim), which is then every rank's
+    held slice or none's.  Any other range (a range of padded heads, or
+    one every rank reads alike, e.g. an SSM's B/C channels) is gathered
+    on every rank."""
+    n = leaf.shape[dim]
+    split = [i for i, name in enumerate(spec) if name == ctx.tp_axis]
+    if ctx.mesh is not None and split:
+        if (even and split == [dim] and size == n and
+                start == ctx.tp_rank * n):
+            return leaf
+        for i in split:
+            leaf = tpc.gather(leaf, i, ctx.tp_group)
+    if start == 0 and size == leaf.shape[dim]:
+        return leaf
+    return leaf.narrow(dim, start, size)
+
+
 # ---------------------------------------------------------------------------
 # activation layouts
 # ---------------------------------------------------------------------------
@@ -404,13 +473,23 @@ def head_range(n_heads: int, ctx: ShardCtx) -> Tuple[int, int]:
     return start, max(0, min(per, n_heads - start))
 
 
-def shard_heads(x, ctx: ShardCtx):
-    """(B, S, H, D) whole on every rank -> this rank's heads
-    (`head_range`)."""
-    if ctx.mesh is None:
-        return x
-    start, count = head_range(x.shape[2], ctx)
-    return x.narrow(2, start, count)
+def group_reads(start: int, count: int, per: int):
+    """The groups heads [start, start + count) read, head h reading group
+    h // `per` (a GQA group's kv head, an SSM head's B/C group), in the
+    form the attention kernels and `ssd_scan` take: a list `g` with head
+    start + j reading g[j // (count // len(g))] -- the runs of equal
+    groups where they are of one length, else one entry a head."""
+    reads = [h // per for h in range(start, start + count)]
+    if not reads:
+        return reads
+    runs = [reads[0]]
+    for a, b in zip(reads, reads[1:]):
+        if b != a:
+            runs.append(b)
+    if count % len(runs) == 0 and reads == [
+            runs[j // (count // len(runs))] for j in range(count)]:
+        return runs
+    return reads
 
 
 def shard_logits(x, ctx: ShardCtx, vocab: int):
@@ -432,7 +511,7 @@ def shard_cache(x, ctx: ShardCtx, kv_heads_axis: int = 2):
     """A whole K or V cache -> this rank's kv heads when they divide the
     model dim.  Otherwise the cache stays whole on every rank: the
     reference then splits it along S (a layout only, with the same
-    values), which is ROADMAP queue 1 item 4c-ii."""
+    values; ROADMAP queue 1 item 4c-iii)."""
     if not ctx.splits("kv", x.shape[kv_heads_axis]):
         return x
     start, size = ctx.local_range(x.shape[kv_heads_axis])

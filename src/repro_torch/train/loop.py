@@ -8,15 +8,28 @@ dims goes through a differentiable `.to(bfloat16)` before the layer
 stack consumes it, as the reference casts before the gather, so the
 gradient reaches the float32 master weights through the cast.
 
-Data parallelism: the step syncs over the context's plane axes whose
-mesh dims are above 1 (the reference's `shard_map` body).  Each rank
+Data parallelism: the batch is tiled over the context's DP axes whose
+mesh dims are above 1, FSDP's included (`batch_axes`).  Each rank
 takes its tile (`ShardCtx.group`'s rank) of every batch leaf whose axis
 0 divides by those axes' size, and the whole leaf otherwise; takes the
-loss and gradients of its tile; sums the gradients over the group with
+loss and gradients of its tile; syncs the gradients over the plane axes
+(the DP axes but FSDP's, the reference's `shard_map` body) with
 `plane_allreduce` (the mean, keyed by the step's `key`); and averages
-the loss.  The AdamW update then runs on every rank alike, so the ranks
-keep equal parameters.  With no such axis (one rank, or a mesh of dims
-of 1) the step is the one-rank step, and `key` feeds nothing.
+the loss over every DP axis.  The AdamW update then runs on every rank
+alike, so the ranks keep equal parameters.  With no such axis (one
+rank, or a mesh of dims of 1) the step is the one-rank step, and `key`
+feeds nothing.
+
+FSDP: each rank holds its slice of the leaves whose specs name the FSDP
+dim; the forward gathers them and autograd reduce-scatters their
+gradients over the FSDP ranks (`models.transformer`).  The loss is
+seeded with 1 / (tp x |FSDP dim|), so that sum over the FSDP ranks is
+the mean over their tiles; the leaves FSDP does not split (the
+embedding table, whose d_model dim is never split) have their
+gradients summed over the FSDP group after autograd, to the same mean.
+The plane engine then syncs the other DP axes ("pod" on a (pod, data,
+model) mesh), as the reference's does.  The bf16 cast comes before the
+gathers, so they move bf16.
 
 The `Trainer` threads a host-side `FailoverController` (PLB state) and
 telemetry through the steps; plane failures re-weight the micro-chunk
@@ -33,15 +46,15 @@ gradient is its own and a replicated leaf's is the rank's terms
 projections, the whole embedding or head of a vocab the model dim does
 not divide.  After autograd those are summed over the model group in
 one all-reduce; then the DP sync runs on the rank's slices, and AdamW's
-clip scale takes the global norm over the model group
-(`optim.adamw.global_norm`), so every rank of the group takes the same
+clip scale takes the global norm over every group that splits a leaf
+(`optim.adamw.global_norm`, `norm_groups`), so every rank takes the same
 step.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,29 +93,39 @@ def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 def plane_axes(ctx: ShardCtx) -> Tuple[str, ...]:
     """The context's plane axes whose mesh dims are above 1, the ones a
-    step syncs over (none without a mesh)."""
+    step syncs over with `plane_allreduce` (none without a mesh)."""
     if ctx.mesh is None:
         return ()
     return tuple(a for a in ctx.plane_axes if axis_size(ctx.mesh, a) > 1)
 
 
-def tp_sharded(cfg: ModelConfig, ctx: ShardCtx):
-    """(model group, [whether the model dim splits the leaf, in
-    `tree_leaves` order]) under a mesh, else (None, None)."""
+def batch_axes(ctx: ShardCtx) -> Tuple[str, ...]:
+    """The DP axes whose mesh dims are above 1, FSDP's included: the
+    batch is tiled over them (none without a mesh)."""
     if ctx.mesh is None:
-        return None, None
-    return ctx.tp_group, [any(s) for s in spec_leaves(param_specs(cfg, ctx))]
+        return ()
+    return tuple(a for a in ctx.dp_axes if axis_size(ctx.mesh, a) > 1)
 
 
-def _sum_replicated(grads: list, sharded: list, group) -> list:
-    """`grads` with every leaf the model dim does not split summed over
-    the model group: one all-reduce a dtype over the leaves laid end to
-    end."""
+def leaf_splits(cfg: ModelConfig, ctx: ShardCtx) -> Optional[List[tuple]]:
+    """Under a mesh, the mesh dims that split each leaf (in the mesh's
+    order), in `tree_leaves` order; else None."""
+    if ctx.mesh is None:
+        return None
+    names = tuple(ctx.mesh.mesh_dim_names)
+    return [tuple(d for d in names if d in tuple(s))
+            for s in spec_leaves(param_specs(cfg, ctx))]
+
+
+def _sum_unsplit(grads: list, splits: list, dim: str, group) -> list:
+    """`grads` with every leaf the mesh dim `dim` does not split summed
+    over `group` (that dim's): one all-reduce a dtype over the leaves
+    laid end to end."""
     import torch.distributed as dist
     out = list(grads)
     by_dtype: Dict[Any, list] = {}
-    for i, (g, split) in enumerate(zip(grads, sharded)):
-        if not split:
+    for i, (g, dims) in enumerate(zip(grads, splits)):
+        if dim not in dims:
             by_dtype.setdefault(g.dtype, []).append(i)
     for idx in by_dtype.values():
         flat = torch.cat([grads[i].reshape(-1) for i in idx])
@@ -116,14 +139,18 @@ def _sum_replicated(grads: list, sharded: list, group) -> list:
 def make_grad_fn(cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig):
     """Returns grad(params, batch, key=None) -> (loss, grads): the loss
     (0-d, detached) and the gradient tree of the step, synced over the
-    model group and the plane axes (module docstring).  `params` are the
-    rank's (its slices under a mesh); `batch` holds tensors on the
-    parameters' device; `key` is the step's integer seed for the int8
-    codec's noise.  The inputs are not written.  Every rank of the
-    group must build it together (the group is made then)."""
+    model group, the FSDP dim and the plane axes (module docstring).
+    `params` are the rank's (its slices under a mesh); `batch` holds
+    tensors on the parameters' device; `key` is the step's integer seed
+    for the int8 codec's noise.  The inputs are not written.  Every rank
+    of the mesh must build it together (the groups are made then)."""
     axes = plane_axes(ctx)
     group = ctx.group(axes) if axes else None
-    tp_group, sharded = tp_sharded(cfg, ctx)
+    tiles = batch_axes(ctx)
+    tile_group = ctx.group(tiles) if tiles else None
+    splits = leaf_splits(cfg, ctx)
+    fsdp = ctx.fsdp_axis if ctx.fsdp_size > 1 else None
+    seed_scale = 1.0 / (ctx.tp_size * ctx.fsdp_size)
 
     def _cast(params):
         if not tcfg.cast_params_bf16:
@@ -137,28 +164,42 @@ def make_grad_fn(cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig):
         with torch.enable_grad():
             loss = loss_fn(_cast(tree_unflatten(params, wrt)), cfg, batch,
                            ctx, tcfg.aux_weight)[0]
-            seed = torch.full_like(loss, 1.0 / ctx.tp_size)
+            seed = torch.full_like(loss, seed_scale)
             grads = torch.autograd.grad(loss, wrt, seed, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        if tp_group is not None:
-            grads = _sum_replicated(grads, sharded, tp_group)
+        if splits is not None:
+            grads = _sum_unsplit(grads, splits, ctx.tp_axis, ctx.tp_group)
+        if fsdp is not None:
+            grads = _sum_unsplit(grads, splits, fsdp, ctx.fsdp_group)
         return loss.detach(), tree_unflatten(params, grads)
 
     def grad(params, batch, key=None):
-        if group is None:
+        if tile_group is None:
             return local(params, batch)
         import torch.distributed as dist
-        n, r = dist.get_world_size(group), dist.get_rank(group)
+        n, r = dist.get_world_size(tile_group), dist.get_rank(tile_group)
         batch = {k: v.chunk(n)[r] if v.shape[0] % n == 0 else v
                  for k, v in batch.items()}
         loss, grads = local(params, batch)
-        grads = plane_allreduce(grads, group, tcfg.plane, key=key)
+        if group is not None:
+            grads = plane_allreduce(grads, group, tcfg.plane, key=key)
         loss = loss.clone()
-        dist.all_reduce(loss, group=group)
+        dist.all_reduce(loss, group=tile_group)
         return loss / n, grads
 
     return grad
+
+
+def norm_groups(cfg: ModelConfig, ctx: ShardCtx) -> Optional[list]:
+    """Under a mesh, for each leaf in `tree_leaves` order the group over
+    the mesh dims that split it (`optim.adamw.global_norm`'s `groups`;
+    None for a leaf whole on every rank); else None.  Every rank must
+    ask together (a group over several dims is made then)."""
+    splits = leaf_splits(cfg, ctx)
+    if splits is None:
+        return None
+    return [ctx.group(dims) if dims else None for dims in splits]
 
 
 def make_train_step(cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig):
@@ -168,7 +209,7 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig):
     step's integer seed (`make_grad_fn`); `metrics` holds 0-d tensors
     `loss`, `grad_norm` and `lr_scale`.  The inputs are not written."""
     grad = make_grad_fn(cfg, ctx, tcfg)
-    tp_group, sharded = tp_sharded(cfg, ctx)
+    groups = norm_groups(cfg, ctx)
 
     def step_fn(params, opt_state, batch, step, key=None):
         device = tree_leaves(params)[0].device
@@ -177,8 +218,7 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, tcfg: TrainerConfig):
             torch.tensor(step, dtype=torch.int32, device=device),
             tcfg.warmup_steps, tcfg.total_steps)
         params, opt_state, om = adamw_update(grads, opt_state, params,
-                                             tcfg.adamw, lr_scale,
-                                             tp_group, sharded)
+                                             tcfg.adamw, lr_scale, groups)
         metrics = {"loss": loss, "grad_norm": om["grad_norm"],
                    "lr_scale": lr_scale}
         return params, opt_state, metrics

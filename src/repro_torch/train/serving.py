@@ -13,10 +13,12 @@ of the stacked leaves, and keeps the whole new prefill otherwise; the
 port restores along the batch axis, as the reference's comment intends
 (ROADMAP queue 3).
 
-Under a mesh (tensor parallelism) every rank runs the engine on its
-slices of the weights with its own caches (`init_caches(..., ctx)`),
-and the steps return the whole vocab's logits on every rank, so every
-rank picks the same greedy tokens.
+Under a mesh (tensor parallelism, FSDP or both) every rank runs the
+engine on its slices of the weights with its own caches
+(`init_caches(..., ctx)`: its kv heads, its SSM heads' state and conv
+inputs, the whole MLA latent cache), and the steps return the whole
+vocab's logits on every rank, so every rank picks the same greedy
+tokens; `_keep_slot` restores each rank's own rows.
 """
 from __future__ import annotations
 

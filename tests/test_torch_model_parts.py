@@ -226,12 +226,13 @@ def test_shard_ctx_is_one_rank(tmp_path):
     returns the same values.  A mesh whose model dim is above 1 builds
     (a stand-in with a mesh's `shape` and dim names: one process cannot
     build it; `tests/test_torch_tp.py` runs it over two and four ranks),
-    and an FSDP axis raises naming ROADMAP queue 1 item 4c-ii."""
+    and so does one with an FSDP axis, whose plane axes are the
+    reference's and whose FSDP dim's size is the mesh's."""
     import types
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh_for
     x = torch.ones(2, 3, 4)
-    shards = (sharding.shard_residual, sharding.shard_heads,
+    shards = (sharding.shard_residual,
               lambda x, ctx: sharding.shard_logits(x, ctx, x.shape[-1]),
               sharding.shard_cache)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
@@ -251,10 +252,15 @@ def test_shard_ctx_is_one_rank(tmp_path):
         dist.destroy_process_group()
     tp = types.SimpleNamespace(shape=(1, 2), mesh_dim_names=("data", "model"))
     assert ShardCtx(mesh=tp).tp_size == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 4c-ii"):
-        ShardCtx(mesh=types.SimpleNamespace(
-            shape=(2, 1), mesh_dim_names=("data", "model")),
-            fsdp_axis="data")
+    from repro.parallel.sharding import ShardCtx as JxShardCtx
+    fsdp = ShardCtx(mesh=types.SimpleNamespace(
+        shape=(2, 1), mesh_dim_names=("data", "model")), fsdp_axis="data",
+        rules=sharding.make_rules("data"))
+    ref = JxShardCtx(mesh=types.SimpleNamespace(shape={"data": 2,
+                                                       "model": 1}),
+                     fsdp_axis="data", rules=sharding.make_rules("data"))
+    assert fsdp.plane_axes == ref.plane_axes == ()
+    assert fsdp.fsdp_size == 2 and ShardCtx(mesh=tp).fsdp_size == 1
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))

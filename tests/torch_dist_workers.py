@@ -29,6 +29,7 @@ from repro_torch.core import collectives
 from repro_torch.core.collectives import MODES, plane_allreduce
 from repro_torch.core.planes import PlaneConfig
 from repro_torch.launch.mesh import make_mesh_for
+from repro_torch.launch.specs import make_ctx
 from repro_torch.models import (decode_step, init_caches, loss_fn, moe,
                                 param_specs, prefill_step, tree_leaves,
                                 tree_map)
@@ -38,7 +39,7 @@ from repro_torch.parallel import (ShardCtx, gather_params, local_ctx,
 from repro_torch.parallel.sharding import mesh_group
 from repro_torch.train import (Request, ServeEngine, Trainer, TrainerConfig,
                                make_train_step)
-from repro_torch.train.loop import make_grad_fn
+from repro_torch.train.loop import batch_axes, make_grad_fn
 
 
 def _rank_main(rank, fn, world, store, out, args):
@@ -286,21 +287,27 @@ def _tp_collectives(world):
 
 
 def _tp_setup(world, case):
-    """(cfg, ctx, whole params, specs, this rank's slices) of a case."""
+    """(cfg, ctx, whole params, specs, this rank's slices) of a case: its
+    mesh over `case["model"]` and `case.get("pods", 1)` pods, its
+    context from `launch.specs.make_ctx` (FSDP over "data" when
+    `case.get("fsdp")`)."""
     cfg = ARCHS[case["arch"]].reduced(dtype="float32", **case["over"])
-    mesh = make_mesh_for(world, case["model"])
-    ctx = ShardCtx(mesh, dp_axes=("data",))
+    mesh = make_mesh_for(world, case["model"], case.get("pods", 1))
+    ctx = make_ctx(mesh, fsdp=case.get("fsdp", False))
     params = torch.load(case["params"])
     specs = param_specs(cfg, ctx)
     return cfg, ctx, params, specs, shard_params(params, specs)
 
 
 def _dp_tile(ctx, batch: dict):
-    """This rank's tile of `batch` over the data dim (as `make_grad_fn`
-    tiles it)."""
-    n = ctx.mesh.shape[0]
-    r = ctx.mesh.get_local_rank("data")
-    return {k: v.chunk(n)[r] for k, v in batch.items()}
+    """This rank's tile of `batch` over the DP dims (as `make_grad_fn`
+    tiles it), and the group of those dims (None at one tile)."""
+    axes = batch_axes(ctx)
+    if not axes:
+        return batch, None
+    group = ctx.group(axes)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return {k: v.chunk(n)[r] for k, v in batch.items()}, group
 
 
 def tp_grad(world, case):
@@ -311,7 +318,8 @@ def tp_grad(world, case):
     forward."""
     cfg, ctx, params, specs, lp = _tp_setup(world, case)
     batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
-    tcfg = TrainerConfig(cast_params_bf16=False)
+    tcfg = TrainerConfig(cast_params_bf16=False,
+                         aux_weight=case.get("aux_weight", 0.01))
     loss, grads = make_grad_fn(cfg, ctx, tcfg)(lp, batch, case.get("key"))
     drops = []
     dispatch = moe._dispatch
@@ -323,15 +331,16 @@ def tp_grad(world, case):
         return dispatch(x_flat, eids, ranks, n_experts, capacity)
 
     moe._dispatch = counting
+    tile, group = _dp_tile(ctx, batch)
     try:
         with torch.no_grad():
-            _, m = loss_fn(lp, cfg, _dp_tile(ctx, batch), ctx)
+            _, m = loss_fn(lp, cfg, tile, ctx)
     finally:
         moe._dispatch = dispatch
     metrics = torch.stack([m["ce"], m["aux"]])
-    data = ctx.group(("data",))
-    dist.all_reduce(metrics, group=data)
-    metrics = metrics / dist.get_world_size(data)
+    if group is not None:
+        dist.all_reduce(metrics, group=group)
+        metrics = metrics / dist.get_world_size(group)
     back = gather_params(lp, specs)
     return dict(loss=float(loss), ce=float(metrics[0]),
                 aux=float(metrics[1]),
@@ -397,11 +406,12 @@ def tp_serve(world, case):
 
 def train_steps(cfg, ctx, params, case):
     """`case["steps"]` steps of `make_train_step` on the case's batch
-    with its clip norm: each step's metrics and (gathered under a mesh)
-    parameters."""
+    with its clip norm (and aux weight, 0.01 by default): each step's
+    metrics and (gathered under a mesh) parameters."""
     tcfg = TrainerConfig(adamw=AdamWConfig(clip_norm=case["clip"]),
                          warmup_steps=1, total_steps=4,
-                         cast_params_bf16=False)
+                         cast_params_bf16=False,
+                         aux_weight=case.get("aux_weight", 0.01))
     step = make_train_step(cfg, ctx, tcfg)
     opt = adamw_init(params)
     out = []
