@@ -208,7 +208,16 @@ Phases, each fatal on failure:
             (SERVE_REDUCED: MoE, SSM, hybrid, MLA, a vision frontend) at
             head_dim 64 in float32, its CUDA forward against the CPU
             forward within ATTN_TOL; `decode_attention_bshd` at the
-            serve run's shapes against its plain version and SDPA.
+            serve run's shapes against its plain version and SDPA, and
+            its log-sum-exp entry (`decode_attention_lse`) over that
+            ring cut into 1, 2 and 4 slot ranges, as the ranks of a K/V
+            cache split along S hold it, each range through the kernel
+            with its local lengths and the partials merged
+            (`attention.merge_partials`): one range bit-equal to
+            `decode_attention_bshd`, 2 and 4 within ATTN_TOL of the whole
+            and of the plain version, a row whose valid slots lie on the
+            first range only weighing 0 on the others; timed beside the
+            plain entry, its plain version and the bound.
   train     the training path (`repro_torch.train.Trainer`,
             TRAIN_RUN): spx-100m at full width and depth (12 layers,
             d_model 768, GQA 12/4, head_dim 64, vocab 32,768, 126 M
@@ -270,7 +279,11 @@ Phases, each fatal on failure:
             2; deepseek-v2 (MLA) at full width cut to its dense prefix
             layer and one MoE layer (TP_MLA: d_model 5,120, 128 heads,
             q_lora 1,536, kv_lora 512, 160 experts top-6 plus 2 shared,
-            vocab 102,400; 5.36 B float32 parameters) the same;
+            vocab 102,400; 5.36 B float32 parameters) the same, its
+            latent cache split along S over the mesh (one range at
+            world 1) and its decode in partial form (queries gathered,
+            partials merged: two collectives a layer a step), the decode
+            ms printed against PR 34's with the whole cache;
             mamba2-780m at full width and depth (TP_SSM: 48 layers,
             d_model 1,536, 48 SSM heads of 64, state 128) takes the
             first batch's gradients through `make_grad_fn` and two
@@ -393,6 +406,8 @@ REPLACES = {
     "plb_select": "src/repro/kernels/plb_select.py:24",
     "flash_attention": "src/repro/kernels/flash_attention.py:26",
     "decode_attention": "src/repro/kernels/decode_attention.py:20",
+    # its log-sum-exp entry, over a rank's slots of a ring split along S
+    "decode_attention_lse": "src/repro/kernels/decode_attention.py:20",
     "int8_encode": "src/repro/kernels/int8_codec.py:17",
     "int8_decode": "src/repro/kernels/int8_codec.py:26",
     # not a TPU kernel: XLA's segment_sum (segment_load, and
@@ -3877,12 +3892,13 @@ def reduced_forward(arch: str, total: dict) -> dict:
     return dict(arch=arch, max_err=err)
 
 
-def decode_bshd_case(report: dict) -> None:
+def decode_bshd_case(report: dict, total: dict, summary: dict) -> None:
     """`ops.decode_attention_bshd` at llama3-8b decode shapes: the serve
     run's batch of 4 over a 1024-slot ring (B, S, 8, 128), 32 query heads,
     rows of 1024, 700, 300 and 40 valid slots; against its plain version
-    and SDPA (GQA, the same mask), with the bound.  Then the decode
-    kernel's two instances on the model_kernels decode case's values,
+    and SDPA (GQA, the same mask), with the bound.  Then its log-sum-exp
+    entry on the same ring (`lse_split_case`), and the decode kernel's
+    two instances on the model_kernels decode case's values,
     bit-equal."""
     import numpy as np
     import torch
@@ -3922,6 +3938,7 @@ def decode_bshd_case(report: dict) -> None:
           f"{row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
           f"bound_ms={bound:.6f} (bytes) max_abs_err={err:.3g} (bound "
           f"{ATTN_TOL['bfloat16']})", flush=True)
+    lse_split_case(q, k, v, lens, valid, row["ms"], report, total, summary)
     # the model_kernels decode case's (B, H, S, D) values through both
     # instances: the contiguous tensors (compile-time strides) and views
     # of head-padded buffers (run-time strides), the same bits
@@ -3943,11 +3960,174 @@ def decode_bshd_case(report: dict) -> None:
           f"run-time-stride instances bit-equal", flush=True)
 
 
-def serve_phase(report: dict, total: dict) -> None:
+# the ring of `decode_bshd_case` cut into 1, 2 and 4 slot ranges, as the
+# ranks of a model dim of 1, 2 and 4 hold a K/V cache split along S
+LSE_SPLITS = (1, 2, 4)
+
+
+def lse_split_case(q, k, v, lens, valid, bshd_ms: float, report: dict,
+                   total: dict, summary: dict) -> None:
+    """The decode kernel's log-sum-exp entry on the `decode_bshd_case`
+    ring as the split decode runs it (`attention._split_decode` without
+    the collectives, which one card cannot hold): the ring cut into
+    LSE_SPLITS slot ranges, each range through `attention._decode_partial`
+    (the kernel) with its local lengths (`attention.decode_lengths`),
+    the partials merged by `attention.merge_partials`; its launches
+    counted (one a range).  Held: one range merged and cast to bf16
+    bit-equal to `ops.decode_attention_bshd`, every rank's partial
+    within ATTN_TOL of its plain version (`ref.decode_attention_bshd_
+    lse_ref`), 2 and 4 ranges merged within ATTN_TOL of the whole call
+    and of the plain version, the row of 40 slots weighing 0 on every
+    range but the first.  Timed on the whole ring beside the plain entry
+    (its ms, `bshd_ms`), its plain version, the library's one call for
+    the same output and log-sum-exp (`flex_lse`, held to the plain
+    version too), SDPA (the output alone, printed) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.models import attention
+    B, S, Hq, D = k.shape[0], k.shape[1], q.shape[2], q.shape[3]
+    pos = (lens - 1)[:, None]
+    tol = ATTN_TOL["bfloat16"]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    runs = {}
+    for n in LSE_SPLITS:
+        size = S // n
+        parts = [attention._decode_partial(
+            q, k[:, r * size:(r + 1) * size], v[:, r * size:(r + 1) * size],
+            attention.decode_lengths(pos, size, r * size, S))
+            for r in range(n)]
+        merged = attention.merge_partials(
+            torch.stack([o for o, _ in parts]),
+            torch.stack([x[:, None] for _, x in parts]))
+        runs[n] = (parts, merged)
+    torch.cuda.synchronize()
+    check_launches("decode_attention_lse split", dict(build.LAUNCHES),
+                   {"decode_attention_lse": sum(LSE_SPLITS)}, total)
+    plain = ref.decode_attention_bshd_ref(q, k, v, lens).float()
+    whole = runs[1][1]
+    if not torch.equal(whole.to(q.dtype), ops.decode_attention_bshd(
+            q, k, v, lens)):
+        fail("decode_attention_lse: one range merged differs from "
+             "decode_attention_bshd")
+    err = 0.0
+    for n, (parts, merged) in runs.items():
+        size = S // n
+        for r, (o, x) in enumerate(parts):
+            want, want_lse = ref.decode_attention_bshd_lse_ref(
+                q, k[:, r * size:(r + 1) * size],
+                v[:, r * size:(r + 1) * size],
+                attention.decode_lengths(pos, size, r * size, S))
+            live = torch.isfinite(want_lse)
+            if not torch.equal(live, torch.isfinite(x)):
+                fail(f"decode_attention_lse: {n} ranges, range {r}: empty "
+                     "rows differ from the plain version's")
+            err = max(err, float((o - want).abs().max()),
+                      float((x[live] - want_lse[live]).abs().max())
+                      if bool(live.any()) else 0.0)
+        err = max(err, float((merged - whole).abs().max()),
+                  float((merged - plain).abs().max()))
+        if n > 1:
+            x = torch.stack([x for _, x in parts])[:, 3]
+            o = torch.stack([o for o, _ in parts])[:, 3]
+            if not (bool((x[1:] == -torch.inf).all()) and
+                    not bool(o[1:].any())):
+                fail(f"decode_attention_lse: {n} ranges: the row of 40 "
+                     "slots does not weigh 0 past the first range")
+    if not err <= tol:
+        fail(f"decode_attention_lse: max abs err {err:.3g} > {tol}")
+    library = flex_lse(q, k, v, lens)
+    lib_out, lib_lse = library()
+    want, want_lse = ref.decode_attention_bshd_lse_ref(q, k, v, lens)
+    lib_err = max(float((lib_out.float() - want).abs().max()),
+                  float((lib_lse - want_lse).abs().max()))
+    if not lib_err <= tol:
+        fail(f"flex_attention (library_ms): max abs err {lib_err:.3g} > "
+             f"{tol} from the plain version")
+    keys = int(lens.sum())
+    Hkv = k.shape[2]
+    nbytes = (q.numel() * 2 + 2 * Hkv * D * keys * 2 + 4 * B
+              + q.numel() * 4 + B * Hq * 4)
+    ops_n = 4 * D * Hq * keys
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_n / PEAK_FLOPS["bfloat16"] * 1e3
+    row = dict(case=f"llama3-8b decode_attention_bshd_lse B={B} S={S} GQA "
+                    f"{Hq}/{Hkv}, one range",
+               ms=graph_ms(lambda: ops.decode_attention_bshd_lse(
+                   q, k, v, lens), reps=20),
+               bshd_ms=bshd_ms,
+               plain_ms=event_ms(lambda: ref.decode_attention_bshd_lse_ref(
+                   q, k, v, lens)),
+               library_ms=graph_ms(library, reps=20),
+               library_max_abs_err=lib_err,
+               sdpa_output_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   attn_mask=valid, enable_gqa=True), reps=20),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes=nbytes, ops=ops_n, max_abs_err=err,
+               max_abs_err_all=err, launches=sum(LSE_SPLITS))
+    splits = {}
+    for n in LSE_SPLITS[1:]:
+        size = S // n
+        cut = [(k[:, r * size:(r + 1) * size], v[:, r * size:(r + 1) * size],
+                attention.decode_lengths(pos, size, r * size, S))
+               for r in range(n)]
+        splits[n] = graph_ms(lambda cut=cut: [
+            attention._decode_partial(q, *c) for c in cut], reps=20)
+    row["split_ms"] = splits
+    report["decode_attention_lse"] = row
+    summary["decode_attention_lse"] = row
+    print(f"model {row['case']}: ms={row['ms']:.6f} (the plain entry "
+          f"{bshd_ms:.6f}) plain_ms={row['plain_ms']:.6f} library_ms="
+          f"{row['library_ms']:.6f} (flex_attention compiled, max abs err "
+          f"{lib_err:.3g}; SDPA, output only: {row['sdpa_output_ms']:.6f}) "
+          f"bound_ms="
+          f"{row['bound_ms']:.6f} ({row['bound_by']}); "
+          + ", ".join(f"{n} ranges {t:.6f} ms" for n, t in splits.items())
+          + f"; {sum(LSE_SPLITS)} launches over 1, 2 and 4 ranges merged; "
+          f"one range bit-equal to decode_attention_bshd, max_abs_err="
+          f"{err:.3g} (bound {tol}); the row of 40 slots weighs 0 past "
+          "the first range", flush=True)
+
+
+def flex_lse(q, k, v, lens):
+    """The library's one call for `decode_attention_bshd_lse`'s function:
+    `flex_attention` under `torch.compile` (its decoding kernel) over the
+    (B, H, S, D) views of q (B, 1, Hq, D) and the ring (B, S, Hkv, D),
+    with a block mask of each row's length, `enable_gqa` and the
+    log-sum-exp asked for.  Returns a call giving (out, lse (B, Hq));
+    the mask is built once, outside it.  Timed for library_ms only: the
+    port never calls it.  Inductor's and Triton's caches go under
+    `build/` of the checkout."""
+    import os
+    import torch
+    from torch.nn.attention import flex_attention as fa
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    B, S = k.shape[:2]
+    mask = fa.create_block_mask(lambda b, h, i, j: j < lens[b], B, None, 1,
+                                S, device=q.device)
+    compiled = torch.compile(fa.flex_attention, dynamic=False)
+    aux = (dict(return_aux=fa.AuxRequest(lse=True))
+           if hasattr(fa, "AuxRequest") else dict(return_lse=True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def call():
+        out, extra = compiled(qt, kt, vt, block_mask=mask, enable_gqa=True,
+                              **aux)
+        return out.transpose(1, 2), getattr(extra, "lse", extra)[..., 0]
+    return call
+
+
+def serve_phase(report: dict, total: dict, summary: dict) -> None:
     """The model forward and the serving engine: SERVE_RUNS at full
     width through the attention kernels, each held teacher-forced to the
     plain attention versions; SERVE_REDUCED on the card against the CPU
-    forward; `decode_attention_bshd` timed at the serve run's shapes."""
+    forward; `decode_attention_bshd` and its log-sum-exp entry timed at
+    the serve run's shapes."""
     import torch
     # the plain versions' float32 einsums and the float32 forwards run
     # in full float32
@@ -3956,7 +4136,7 @@ def serve_phase(report: dict, total: dict) -> None:
         serve_run(spec, report, total)
     report["serve_reduced"] = [reduced_forward(a, total)
                                for a in SERVE_REDUCED]
-    decode_bshd_case(report)
+    decode_bshd_case(report, total, summary)
     torch.cuda.empty_cache()
 
 
@@ -4900,6 +5080,10 @@ TP_MOE = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, tokens=2048, seed=38,
               serve=dict(TP_SERVE, seed=39))
 TP_MLA = dict(arch="deepseek-v2-236b", layers=2, tokens=2048, seed=41,
               serve=dict(TP_SERVE, seed=42))
+# TP_MLA's median decode step at the world-1 mesh with the latent cache
+# whole on the rank (PERF.md section 6, PR 34; NVIDIA H100 80GB HBM3,
+# 700 W), the yardstick of the split cache's partial-form decode
+TP_MLA_PR34_MS = 48.99
 TP_SSM = dict(arch="mamba2-780m", layers=48, steps=2, batch=1, seq=1024,
               seed=43, serve=dict(TP_SERVE, seed=44))
 TP_LLAMA = dict(arch="llama3-8b", layers=2, steps=2, batch=1, seq=2048,
@@ -5230,6 +5414,12 @@ def tp_phase(report: dict, total: dict) -> None:
         finally:
             dist.destroy_process_group()
     out.update(held=worst, wall_s=time.perf_counter() - t0, card=smi)
+    mla = out["mla"]
+    print(f"tp {mla['arch']}: decode {mla['decode_ms_median']:.2f} ms a "
+          f"step (median) through the partial-form MLA decode over "
+          f"the world-1 mesh's split latent cache, against {TP_MLA_PR34_MS}"
+          " ms with the whole latent cache (PR 34's run); without a mesh "
+          f"{mla['decode_ms_median_no_mesh']:.2f} ms", flush=True)
     report["tp"] = out
     print(f"tp phase: {out['wall_s']:.1f} s on {smi}; attention calls held "
           f"to their plain versions {worst}", flush=True)
@@ -5370,7 +5560,7 @@ def main(argv=None) -> int:
         phase(report, total)
     graph.clear_graph_cache()
     model_phase(report, total, summary)
-    serve_phase(report, total)
+    serve_phase(report, total, summary)
     kept = train_phase(report, total)
     dp_phase(report, total, kept.pop("grads"))
     tp_phase(report, total)

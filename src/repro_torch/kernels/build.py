@@ -83,6 +83,13 @@ _ENTRIES = {
                          (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                           _I64, _D, _P)),
+    # the same with each row's log-sum-exp: q, k, v, lengths, the
+    # partials, out (float32), lse (float32, B * H); then as
+    # decode_attention
+    "decode_attention_lse": ("model", _F32_BF16,
+                             (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I64, _I64, _I64, _I64, _I64,
+                              _I64, _I64, _I64, _D, _P)),
     # int8_encode in the type of x, with its instance and whether it
     # takes 16-byte loads (int8_codec.encode_instance); int8_decode in
     # the output type

@@ -5,7 +5,9 @@
 // `kernels/ref.py`, and the backward of the first:
 //
 //   flash_attention     <- flash_attention.py  _flash_kernel
-//   decode_attention    <- decode_attention.py _decode_kernel
+//   decode_attention    <- decode_attention.py _decode_kernel, with a
+//                          log-sum-exp entry (decode_attention_lse) for
+//                          a ring split along S
 //   int8_encode         <- int8_codec.py       _encode_kernel
 //   int8_decode         <- int8_codec.py       _decode_kernel
 //   flash_attention_bwd    replaces no TPU kernel: the gradient of the
@@ -89,7 +91,12 @@
 // acc); a second pass per (batch, head) combines the chunks.  It reads
 // q, k and v through strides and kv head h / (H / Hkv), so the model's
 // (B, S, Hkv, D) ring cache is read in place (decode_attention_bshd),
-// with no copy of the kv heads; the (B, H, S, D) entry is Hkv = H.  The
+// with no copy of the kv heads; the (B, H, S, D) entry is Hkv = H.  Its
+// log-sum-exp entry (decode_attention_lse) runs the same two passes over
+// a rank's slots of a ring split along S: the combine writes the output
+// in float32 and each row's M + log(l) beside it, and a row with no
+// valid slot reads nothing (output 0, log-sum-exp -inf), so the ranks'
+// partials merge exactly (models/attention.py merge_partials).  The
 // encoder runs one block a row and reads the row once, from registers
 // or shared memory by its length (the int8 codec section): a
 // max-reduce of |x|, the scale as a true IEEE division, then rintf
@@ -1813,9 +1820,15 @@ constexpr int kDecThreads = 256;    // 8 warps
 constexpr int kDecWarps = kDecThreads / 32;
 static_assert(kDecThreads == kChunk, "one score per thread");
 
+template <bool kLse>
 __device__ __forceinline__ int valid_keys(int len, int S) {
-  // keys a row reads: those below its length, or all of them for a row
-  // of length <= 0 (every score NEG_INF: the uniform mean of v)
+  // keys a row reads: those below its length.  A row of length <= 0
+  // reads all of them in the plain entries (every score NEG_INF: the
+  // uniform mean of v, the reference's rule for a row that sees no key)
+  // and none in the log-sum-exp entry, where it is a rank's empty share
+  // of a ring split along S: output 0, log-sum-exp -inf, weight 0 in
+  // the merge of the ranks' partials
+  if (kLse) return max(0, min(len, S));
   return len > 0 ? min(len, S) : S;
 }
 
@@ -1853,7 +1866,7 @@ struct DecodeArgs {
   float scale;
 };
 
-template <typename T, int D, bool kContig>
+template <typename T, int D, bool kContig, bool kLse>
 __global__ void __launch_bounds__(kDecThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v,
@@ -1869,7 +1882,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
   const int kvh = h / a.G;
   const int len = lengths[b];
-  const int n = valid_keys(len, a.S);
+  const int n = valid_keys<kLse>(len, a.S);
   const int k0 = split * kChunk;
   if (k0 >= n) return;              // the combine pass skips this chunk
   const int kend = min(k0 + kChunk, n);
@@ -1961,15 +1974,21 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+// The combine pass: one block a (batch, head) row, a thread a column.
+// The plain entries write the output in the inputs' type; the
+// log-sum-exp entry (kLse, O = float) writes it in float32 and, beside
+// it, the row's log-sum-exp M + log(l) of the scaled scores (-inf for a
+// row that read no key), for the merge of partials over slot ranges.
+template <typename T, typename O, int D, bool kLse>
 __global__ void decode_combine_kernel(const int32_t* __restrict__ lengths,
                                       const float* __restrict__ part_m,
                                       const float* __restrict__ part_l,
                                       const float* __restrict__ part_acc,
-                                      T* __restrict__ out, int H, int S,
+                                      O* __restrict__ out,
+                                      float* __restrict__ lse, int H, int S,
                                       int n_split) {
   const int bh = blockIdx.x, b = bh / H;
-  const int n = valid_keys(lengths[b], S);
+  const int n = valid_keys<kLse>(lengths[b], S);
   const int used = (n + kChunk - 1) / kChunk;
   const int64_t base = (int64_t)bh * n_split;
   float M = -INFINITY;
@@ -1981,22 +2000,28 @@ __global__ void decode_combine_kernel(const int32_t* __restrict__ lengths,
       l = fmaf(part_l[base + i], w, l);
       acc = fmaf(part_acc[(base + i) * D + d], w, acc);
     }
-    out[(int64_t)bh * D + d] = from_float<T>(acc / fmaxf(l, 1e-30f));
+    out[(int64_t)bh * D + d] = from_float<O>(acc / fmaxf(l, 1e-30f));
+    if constexpr (kLse) {
+      if (d == 0) lse[bh] = used > 0 ? M + logf(l) : -INFINITY;
+    }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* lengths, void* part_m, void* part_l,
-                  void* part_acc, void* out, int BH, int n_split,
-                  const DecodeArgs& a, void* stream) {
+                  void* part_acc, void* out, float* lse, int BH,
+                  int n_split, const DecodeArgs& a, void* stream) {
+  using O = std::conditional_t<kLse, float, T>;
   auto st = static_cast<cudaStream_t>(stream);
   const int64_t SD = (int64_t)a.S * D;
-  const bool contig = a.G == 1 && a.q_h == D && a.q_b == a.H * D &&
+  // the log-sum-exp entry reads the model's ring through its strides
+  // only (no contiguous instance of its own)
+  const bool contig = !kLse && a.G == 1 && a.q_h == D && a.q_b == a.H * D &&
                       a.k_s == D && a.k_h == SD && a.k_b == a.H * SD &&
                       a.v_s == D && a.v_h == SD && a.v_b == a.H * SD;
-  auto kernel = contig ? decode_split_kernel<T, D, true>
-                       : decode_split_kernel<T, D, false>;
+  auto kernel = contig ? decode_split_kernel<T, D, !kLse, kLse>
+                       : decode_split_kernel<T, D, false, kLse>;
   kernel<<<dim3(n_split, BH), kDecThreads, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(lengths),
@@ -2004,24 +2029,25 @@ int launch_decode(const void* q, const void* k, const void* v,
       static_cast<float*>(part_acc), a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T, D><<<BH, D, 0, st>>>(
+  decode_combine_kernel<T, O, D, kLse><<<BH, D, 0, st>>>(
       static_cast<const int32_t*>(lengths),
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<T*>(out), a.H, a.S,
-      n_split);
+      static_cast<const float*>(part_acc), static_cast<O*>(out), lse, a.H,
+      a.S, n_split);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kLse>
 int dispatch_decode(const void* q, const void* k, const void* v,
                     const void* lengths, void* part_m, void* part_l,
-                    void* part_acc, void* out, int BH, int D, int n_split,
-                    const DecodeArgs& a, void* stream) {
+                    void* part_acc, void* out, float* lse, int BH, int D,
+                    int n_split, const DecodeArgs& a, void* stream) {
   if (a.G < 1 || a.H % a.G) return cudaErrorInvalidValue;
 #define DECODE_CASE(DIM)                                                   \
   case DIM:                                                                \
-    return launch_decode<T, DIM>(q, k, v, lengths, part_m, part_l,         \
-                                 part_acc, out, BH, n_split, a, stream);
+    return launch_decode<T, DIM, kLse>(q, k, v, lengths, part_m, part_l,   \
+                                       part_acc, out, lse, BH, n_split, a, \
+                                       stream);
   switch (D) {
     DECODE_CASE(64)
     DECODE_CASE(128)
@@ -2476,8 +2502,22 @@ int launch_int8_decode(const void* q, const void* scale, void* out,
     if (Hkv < 1) return cudaErrorInvalidValue;                              \
     const DecodeArgs a{q_b, q_h, k_b, k_h, k_s, v_b, v_h, v_s, H, H / Hkv,  \
                        S, static_cast<float>(scale)};                       \
-    return dispatch_decode<T>(q, k, v, lengths, part_m, part_l, part_acc,   \
-                              out, BH, D, n_split, a, stream);              \
+    return dispatch_decode<T, false>(q, k, v, lengths, part_m, part_l,      \
+                                     part_acc, out, nullptr, BH, D,         \
+                                     n_split, a, stream);                   \
+  }                                                                         \
+  extern "C" int model_decode_attention_lse_##SUFFIX(                       \
+      const void* q, const void* k, const void* v, const void* lengths,     \
+      void* part_m, void* part_l, void* part_acc, void* out, void* lse,     \
+      int BH, int H, int Hkv, int S, int D, int n_split, int64_t q_b,       \
+      int64_t q_h, int64_t k_b, int64_t k_h, int64_t k_s, int64_t v_b,      \
+      int64_t v_h, int64_t v_s, double scale, void* stream) {               \
+    if (Hkv < 1) return cudaErrorInvalidValue;                              \
+    const DecodeArgs a{q_b, q_h, k_b, k_h, k_s, v_b, v_h, v_s, H, H / Hkv,  \
+                       S, static_cast<float>(scale)};                       \
+    return dispatch_decode<T, true>(q, k, v, lengths, part_m, part_l,       \
+                                    part_acc, out, static_cast<float*>(lse), \
+                                    BH, D, n_split, a, stream);             \
   }                                                                         \
   extern "C" int model_int8_encode_##SUFFIX(                                \
       const void* x, const void* noise, void* q, void* scale, int64_t R,    \

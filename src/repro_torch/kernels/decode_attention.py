@@ -12,7 +12,16 @@ Two entries launch one kernel, `model_decode_attention`:
     so the kv heads are never repeated (at llama3-8b a repeated cache
     of batch 4 would copy 2 GB a step).
 
-CPU tensors take `ref.decode_attention_ref` / `ref.decode_attention_bshd_ref`.
+A third, `decode_attention_bshd_lse`, launches the same passes as
+`model_decode_attention_lse` (counted apart) over a rank's slots of a
+ring split along S (`models.attention._split_decode`): it returns the
+output in float32 and each row's log-sum-exp, and a row of length 0
+reads no key (output 0, log-sum-exp -inf), where the other entries
+average v; the ranks' partials then merge exactly
+(`models.attention.merge_partials`).
+
+CPU tensors take `ref.decode_attention_ref` / `ref.decode_attention_bshd_ref`
+/ `ref.decode_attention_bshd_lse_ref`.
 On CUDA one block per (batch x head, 256-key chunk) reads only the keys
 below `lengths[b]` (each block reads the length itself, there is no
 scalar prefetch) and writes a partial max, sum and weighted v into
@@ -62,6 +71,23 @@ def decode_attention_bshd(q: torch.Tensor, k: torch.Tensor,
     contiguous, in q's dtype."""
     if q.device.type == "cpu":
         return ref.decode_attention_bshd_ref(q, k, v, lengths)
+    return _launch_bshd(q, k, v, lengths, lse=False)
+
+
+def decode_attention_bshd_lse(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, lengths: torch.Tensor):
+    """`decode_attention_bshd` with each row's log-sum-exp, over a rank's
+    slots of a ring split along S: returns (out (B, 1, Hq, D) float32,
+    lse (B, Hq) float32, the log-sum-exp of the scaled scores of the keys
+    below lengths[b]); a row of length <= 0 reads no key and gives 0 and
+    -inf."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_bshd_lse_ref(q, k, v, lengths)
+    return _launch_bshd(q, k, v, lengths, lse=True)
+
+
+def _launch_bshd(q, k, v, lengths, lse: bool):
+    """Check the model layout's operands and launch (`_launch`)."""
     dev = build.cuda_device("decode_attention", q)
     dt = build.float_dtype("decode_attention", q)
     B, _, Hq, D = q.shape
@@ -79,7 +105,7 @@ def decode_attention_bshd(q: torch.Tensor, k: torch.Tensor,
     return _launch(q, k, v, lengths, dev, dt, Hq, Hkv, S,
                    (q.stride(0), q.stride(2)),
                    (k.stride(0), k.stride(2), k.stride(1)),
-                   (v.stride(0), v.stride(2), v.stride(1)))
+                   (v.stride(0), v.stride(2), v.stride(1)), lse)
 
 
 def _vector_strides(name: str, t: torch.Tensor) -> None:
@@ -93,9 +119,12 @@ def _vector_strides(name: str, t: torch.Tensor) -> None:
                          f"multiples of {per16} elements")
 
 
-def _launch(q, k, v, lengths, dev, dt, H, Hkv, S, q_st, k_st, v_st):
+def _launch(q, k, v, lengths, dev, dt, H, Hkv, S, q_st, k_st, v_st,
+            lse: bool = False):
     """Check what both layouts share and launch: q_st = (batch, head)
-    strides of q, k_st / v_st = (batch, head, sequence) strides."""
+    strides of q, k_st / v_st = (batch, head, sequence) strides.  With
+    `lse`, the log-sum-exp entry: returns (out float32, lse (B, H)
+    float32)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("decode_attention: an input requires grad, and "
                            "the decode kernel has no backward (decoding "
@@ -121,10 +150,18 @@ def _launch(q, k, v, lengths, dev, dt, H, Hkv, S, q_st, k_st, v_st):
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((B * H, n_split, D), dtype=torch.float32,
                            device=dev)
-    out = torch.empty(q.shape, dtype=dt, device=dev)   # row b*H + h at D
-    build.launch("decode_attention", dt, dev, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), lengths.data_ptr(), part_m.data_ptr(),
-                 part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-                 B * H, H, Hkv, S, D, n_split, *q_st, *k_st, *v_st,
-                 1.0 / D ** 0.5)
-    return out
+    # row b*H + h at D
+    out = torch.empty(q.shape, dtype=torch.float32 if lse else dt,
+                      device=dev)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+            out.data_ptr())
+    tail = (B * H, H, Hkv, S, D, n_split, *q_st, *k_st, *v_st,
+            1.0 / D ** 0.5)
+    if not lse:
+        build.launch("decode_attention", dt, dev, *head, *tail)
+        return out
+    row_lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    build.launch("decode_attention_lse", dt, dev, *head,
+                 row_lse.data_ptr(), *tail)
+    return out, row_lse

@@ -386,6 +386,29 @@ def decode_attention_bshd_ref(q, k, v, lengths) -> torch.Tensor:
     return out.transpose(1, 2).contiguous()
 
 
+def decode_attention_bshd_lse_ref(q, k, v, lengths):
+    """The log-sum-exp entry's plain version, model layout: q (B, 1, Hq,
+    D), k/v (B, S, Hkv, D), lengths (B,) valid slots a row (0 allowed).
+    Over the keys below lengths[b], with the kernel's steps: the scores
+    s = q . k / sqrt(D), their max m, p = exp(s - m), l = sum p; out (B,
+    1, Hq, D) = p v / l and lse (B, Hq) = m + log l, both float32.  A row
+    of length <= 0 sees no key: out 0, lse -inf (so it weighs 0 in a
+    merge of partials)."""
+    Hq, Hkv, S, D = q.shape[2], k.shape[2], k.shape[1], q.shape[-1]
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=2)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=2)
+    s = sdiv(torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), kf), D ** 0.5)
+    valid = (torch.arange(S, device=q.device)[None, None, :]
+             < lengths.to(q.device)[:, None, None])
+    s = torch.where(valid, s, -torch.inf)
+    m = s.amax(-1)                                            # (B, Hq)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(-1)
+    out = torch.einsum("bhk,bkhd->bhd", p, vf) / torch.clamp(
+        l, min=1e-30)[..., None]
+    return out[:, None], m + torch.log(l)
+
+
 def int8_encode_ref(x, noise):
     """Per-row int8 code with stochastic rounding.  x, noise: (R, C),
     noise ~ U(-0.5, 0.5).  Returns (q int8 (R, C), scale float32

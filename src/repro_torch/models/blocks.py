@@ -56,7 +56,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind == "m":
         return init_ssm_cache(cfg, batch, dtype, device, ctx)
     if cfg.use_mla:
-        return init_mla_cache(cfg, batch, max_len, dtype, device)
+        return init_mla_cache(cfg, batch, max_len, dtype, device, ctx)
     return init_kv_cache(cfg, batch, max_len, kind, dtype, device, ctx)
 
 

@@ -60,14 +60,16 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .attention import _ring
 from .blocks import apply_block, init_block, init_block_cache
 from .config import ModelConfig
 from .layers import (axes_builder, embed_tokens, init_embed, lm_logits,
                      meta_builder, rms_norm, tensor_builder)
 from ..parallel import tp as tpc
-from ..parallel.sharding import (ShardCtx, fsdp_whole, gather_residual,
-                                 head_range, param_shardings, shard_cache,
-                                 shard_logits, shard_residual)
+from ..parallel.sharding import (ShardCtx, cache_split, fsdp_whole,
+                                 gather_residual, head_range,
+                                 param_shardings, shard_cache, shard_logits,
+                                 shard_residual)
 
 KeyPath = Tuple                # dict keys (str) and list indices (int)
 
@@ -266,8 +268,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     """Cache tree: a prefix list and, per pattern position, caches
     stacked over the periods (leading axis `n_periods`, then the batch).
     `dtype` is a torch dtype or its name; `device` defaults to CUDA.
-    Under a mesh (`ctx`) each K/V cache holds the rank's kv heads
-    (`sharding.cache_kv_heads`)."""
+    Under a mesh (`ctx`) each cache holds the rank's part by
+    `sharding.cache_split` (a K/V cache its kv heads or its slots of the
+    ring, MLA's latent cache its slots) and an SSM cache its heads."""
     from repro_torch.netsim.engine import resolve_device
     device = resolve_device(device)
     if isinstance(dtype, str):
@@ -299,16 +302,40 @@ def _shard_ssm_cache(c: Dict, ctx: ShardCtx) -> Dict:
             "ssm": c["ssm"].narrow(c["ssm"].ndim - 3, start, count).clone()}
 
 
+def _shard_ring_cache(c: Dict, ctx: ShardCtx) -> Dict:
+    """A whole K/V or latent cache (any leading dims) -> this rank's by
+    `sharding.cache_split`: its kv heads (K and V), or its slots of the
+    ring (every leaf, and a "ring" leaf recording the ring's size,
+    `attention._ring`), or the whole."""
+    slots = c["pos"].shape[-1]
+    split = cache_split(slots, ctx, c["k"].shape[-2] if "k" in c else None)
+    if split.axis == "whole":
+        return dict(c)
+    if split.axis == "heads":
+        return dict(c, k=shard_cache(c["k"], ctx, c["k"].ndim - 2),
+                    v=shard_cache(c["v"], ctx, c["v"].ndim - 2))
+    out = {}
+    for k, x in c.items():
+        axis = x.ndim - (1 if k == "pos" else 3 if k in ("k", "v") else 2)
+        out[k] = x.narrow(axis, split.start, split.size).clone()
+    pos = c["pos"]
+    ring = _ring(pos[..., 0].numel(), slots, pos.device)
+    out["ring"] = ring.view(tuple(pos.shape) + (0,))
+    return out
+
+
 def shard_caches(caches: Dict, ctx: ShardCtx) -> Dict:
-    """A whole cache tree -> this rank's: each K/V leaf (kv heads next to
-    last) through `sharding.shard_cache`, each SSM cache to its heads
-    (`_shard_ssm_cache`), the other leaves (MLA's latent cache, the
-    positions) as they are."""
+    """A whole cache tree -> this rank's (`init_caches(..., ctx)`'s
+    layout): each K/V cache and each MLA latent cache by
+    `sharding.cache_split` (`_shard_ring_cache`: its kv heads, or its
+    slots of the ring, positions included, or the whole), each SSM cache
+    to its heads (`_shard_ssm_cache`)."""
     if isinstance(caches, dict):
         if "ssm" in caches:
             return _shard_ssm_cache(caches, ctx)
-        return {k: shard_cache(v, ctx, v.ndim - 2) if k in ("k", "v")
-                else shard_caches(v, ctx) for k, v in caches.items()}
+        if "pos" in caches:
+            return _shard_ring_cache(caches, ctx)
+        return {k: shard_caches(v, ctx) for k, v in caches.items()}
     if isinstance(caches, list):
         return [shard_caches(c, ctx) for c in caches]
     return caches

@@ -17,7 +17,8 @@ takes a `torch.distributed.device_mesh.DeviceMesh` with named dims
     carry their gradients (`parallel.tp`), where the reference's
     constraints stand: `gather_residual`, `reduce_residual` and
     `shard_residual` (sequence-parallel residual stream), the rank's
-    heads (`head_range`, `local_part`), `shard_logits`, `shard_cache`;
+    heads (`head_range`, `local_part`), `shard_logits`, the caches
+    (`cache_split`, `shard_cache`);
   * FSDP over one DP dim (`fsdp_axis`, with `make_rules(fsdp_axis)`):
     a rank holds its slice of every leaf whose spec names that dim, the
     forward gathers a block's such leaves right before the block
@@ -29,9 +30,12 @@ included, where every collective is a copy.  It covers every family:
 standard attention, MLA and SSM blocks compute the heads of their rank
 (`head_range`), reading each leaf's columns through `local_part`, which
 joins the reference's parameter layout to the rank's compute layout.
-Caches the reference splits along the sequence (kv heads that do not
-divide the model dim, MLA's latent cache) stay whole on every rank, with
-the same values.
+Caches follow the reference's `shard_cache` rule (`cache_split`): a K/V
+cache holds the rank's kv heads where they divide the model dim, else its
+slots of the ring where the slots divide it; MLA's latent cache holds the
+rank's slots.  A decode step attends over the rank's slots only and the
+ranks' partial softmaxes are merged in rank order
+(`models.attention.merge_partials`).
 
 Gradients under TP: a replicated activation's gradient is kept partial,
 each rank holding its own terms and the group's sum being the gradient
@@ -42,7 +46,7 @@ autograd (`train.loop.make_grad_fn`).
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -507,12 +511,45 @@ def cache_kv_heads(n_kv: int, ctx: ShardCtx) -> int:
     return n_kv // ctx.tp_size if ctx.splits("kv", n_kv) else n_kv
 
 
+class CacheSplit(NamedTuple):
+    """How a rank holds a cache (`cache_split`): `axis` is "heads" (its
+    kv heads), "slots" (its slots [start, start + size) of the ring) or
+    "whole"."""
+    axis: str
+    start: int
+    size: int
+
+
+def cache_split(slots: int, ctx: ShardCtx,
+                kv_heads: Optional[int] = None) -> CacheSplit:
+    """The reference's `shard_cache` rule for a cache of a ring of
+    `slots` (its global S) with `kv_heads` kv heads: "heads" where the
+    model dim splits the kv heads; else "slots", the rank's even share of
+    the ring, where `slots % tp == 0 and slots >= tp`; else "whole".
+    `kv_heads` None is MLA's latent cache (`ckv`, `kr`), which the
+    reference splits along S only.  A cache's positions (`pos`) follow
+    its slots.  Shapes and the context in, ranges out: no tensor."""
+    if ctx.mesh is None:
+        return CacheSplit("whole", 0, slots)
+    if kv_heads is not None and ctx.splits("kv", kv_heads):
+        return CacheSplit("heads", 0, slots)
+    tp = ctx.tp_size
+    if slots % tp == 0 and slots >= tp:
+        return CacheSplit("slots", *ctx.local_range(slots))
+    return CacheSplit("whole", 0, slots)
+
+
 def shard_cache(x, ctx: ShardCtx, kv_heads_axis: int = 2):
-    """A whole K or V cache -> this rank's kv heads when they divide the
-    model dim.  Otherwise the cache stays whole on every rank: the
-    reference then splits it along S (a layout only, with the same
-    values; ROADMAP queue 1 item 4c-iii)."""
-    if not ctx.splits("kv", x.shape[kv_heads_axis]):
+    """A whole K or V cache (..., S, Hkv, D) -> this rank's part by
+    `cache_split`: its kv heads, or the whole.  A split along S raises:
+    a rank's slots need the ring's size beside them (the cache's "ring"
+    leaf), so a whole cache is cut along S by `models.shard_caches`."""
+    split = cache_split(x.shape[kv_heads_axis - 1], ctx,
+                        x.shape[kv_heads_axis])
+    if split.axis == "whole":
         return x
+    if split.axis == "slots":
+        raise ValueError("a K/V leaf split along S alone loses its ring's "
+                         "size: cut the cache with models.shard_caches")
     start, size = ctx.local_range(x.shape[kv_heads_axis])
     return x.narrow(kv_heads_axis, start, size).clone()

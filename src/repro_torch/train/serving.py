@@ -15,10 +15,13 @@ port restores along the batch axis, as the reference's comment intends
 
 Under a mesh (tensor parallelism, FSDP or both) every rank runs the
 engine on its slices of the weights with its own caches
-(`init_caches(..., ctx)`: its kv heads, its SSM heads' state and conv
-inputs, the whole MLA latent cache), and the steps return the whole
-vocab's logits on every rank, so every rank picks the same greedy
-tokens; `_keep_slot` restores each rank's own rows.
+(`init_caches(..., ctx)`: by `sharding.cache_split` a K/V cache's kv
+heads or its slots of the ring, MLA's latent cache's slots, its SSM
+heads' state and conv inputs), and the steps return the whole vocab's
+logits on every rank, so every rank picks the same greedy tokens.  The
+batch axis is never split, so `_keep_slot` restores each rank's own
+rows of whatever part of a cache it holds (a split ring's zero-size
+"ring" leaf included, which holds nothing).
 """
 from __future__ import annotations
 

@@ -1709,6 +1709,52 @@ def test_decode_attention_entries_share_the_kernel(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_decode_attention_lse_entry_merges_over_slot_ranges(cuda, dtype, D,
+                                                            G):
+    """The log-sum-exp entry on a strided ring: one launch of its own
+    kernel; its output and log-sum-exp within ATTN_TOL (the output) and
+    1e-5 (the log-sum-exp) of the plain version; a row of length 0
+    gives 0 and -inf; the other rows' output cast to the inputs' type is
+    the plain entry's bit for bit (one range merges to itself); 2 and 4
+    slot ranges, each with its local lengths, merge to the whole within
+    ATTN_TOL."""
+    from repro_torch.models.attention import decode_lengths, merge_partials
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(D * 10 + G)
+    B, S, Hkv = 4, 1000, 2
+    q = _normal(rng, (B, 1, Hkv * G, D), dtype, cuda)
+    k, v = (_ring(rng, B, S, Hkv, D, dtype, cuda, "period-slice")
+            for _ in range(2))
+    pos = torch.tensor([[998], [1200], [2], [0]], dtype=torch.int32,
+                       device=cuda)
+    lens = decode_lengths(pos, S)
+    lens[3] = 0                                 # a row with no valid slot
+    out, lse = _launched("decode_attention_lse",
+                         lambda: ops.decode_attention_bshd_lse(q, k, v, lens))
+    assert out.dtype == lse.dtype == torch.float32
+    assert out.shape == q.shape and lse.shape == (B, Hkv * G)
+    want, want_lse = ref.decode_attention_bshd_lse_ref(q, k, v, lens)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert not out[3].any() and bool((lse[3] == -torch.inf).all())
+    plain = ops.decode_attention_bshd(q, k, v, lens)
+    assert torch.equal(merge_partials(out[None], lse[:, None][None]), out)
+    assert torch.equal(out[:3].to(dtype), plain[:3])
+    for n in (2, 4):
+        size = S // n
+        parts = [ops.decode_attention_bshd_lse(
+            q, k[:, r * size:(r + 1) * size], v[:, r * size:(r + 1) * size],
+            decode_lengths(pos, size, r * size, S)) for r in range(n)]
+        merged = merge_partials(torch.stack([o for o, _ in parts]),
+                                torch.stack([x[:, None] for _, x in parts]))
+        torch.testing.assert_close(merged[:3], out[:3], rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
 def test_decode_attention_bshd_refuses_bad_operands(cuda):
     x = torch.zeros(2, 64, 4, 64, dtype=torch.bfloat16, device=cuda)
     q = torch.zeros(2, 1, 8, 64, dtype=torch.bfloat16, device=cuda)

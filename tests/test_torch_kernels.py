@@ -505,6 +505,12 @@ _LENGTHS = torch.tensor([3, 0], dtype=torch.int32)
      lambda: ref.decode_attention_ref(_cpu(1, 2, 2, 1, 64),
                                       _cpu(2, 2, 2, 9, 64),
                                       _cpu(3, 2, 2, 9, 64), _LENGTHS)),
+    (lambda: ops.decode_attention_bshd_lse(
+        _cpu(1, 2, 1, 4, 64), _cpu(2, 2, 9, 2, 64), _cpu(3, 2, 9, 2, 64),
+        _LENGTHS),
+     lambda: ref.decode_attention_bshd_lse_ref(
+         _cpu(1, 2, 1, 4, 64), _cpu(2, 2, 9, 2, 64), _cpu(3, 2, 9, 2, 64),
+         _LENGTHS)),
     (lambda: ops.int8_encode(_cpu(1, 4, 33), _cpu(2, 4, 33) * 0.1),
      lambda: ref.int8_encode_ref(_cpu(1, 4, 33), _cpu(2, 4, 33) * 0.1)),
     (lambda: ops.int8_decode(_cpu(1, 4, 33).to(torch.int8), _cpu(2, 4, 1),
@@ -512,7 +518,8 @@ _LENGTHS = torch.tensor([3, 0], dtype=torch.int32)
      lambda: ref.int8_decode_ref(_cpu(1, 4, 33).to(torch.int8),
                                  _cpu(2, 4, 1), torch.bfloat16)),
 ], ids=["plane_split", "flash_attention", "flash_attention_bshd",
-        "decode_attention", "int8_encode", "int8_decode"])
+        "decode_attention", "decode_attention_lse", "int8_encode",
+        "int8_decode"])
 def test_cpu_tensors_take_plain_version_without_launching(call, plain):
     build.reset_launches()
     got, want = call(), plain()
@@ -552,6 +559,9 @@ _F32, _BF16 = torch.float32, torch.bfloat16
                                  _meta(1, 2, 8, 64, dtype=_BF16),
                                  _meta(1, 2, 8, 64, dtype=_BF16),
                                  _meta(1, dtype=torch.int32)),
+    lambda: ops.decode_attention_bshd_lse(
+        _meta(1, 1, 4, 64, dtype=_BF16), _meta(1, 8, 2, 64, dtype=_BF16),
+        _meta(1, 8, 2, 64, dtype=_BF16), _meta(1, dtype=torch.int32)),
     lambda: ops.int8_encode(_meta(4, 8, dtype=_F32), _meta(4, 8, dtype=_F32)),
     lambda: ops.int8_decode(_meta(4, 8, dtype=torch.int8),
                             _meta(4, 1, dtype=_F32)),

@@ -21,6 +21,10 @@ cases:
   * serving MLA and SSM at model 2 and 4 (prefill and greedy decode
     logits, then a `ServeEngine` whose second request is admitted
     mid-run, so the SSM state and the latent cache carry over steps);
+    the latent cache is split along S (each rank holds max_len / tp
+    slots), and the MLA logits are held to the reference's greedy
+    serving without a mesh too; MLA with 6 heads at model 4, whose last
+    rank has none and still attends over its slots for the others;
   * FSDP for llama3-8b and phi3.5-moe reduced at (data 2, model 1),
     (data 2, model 2) and (pod 2, data 2, model 1), the last syncing
     "pod" through `plane_allreduce`; two train steps at (2, 2) and at
@@ -65,9 +69,11 @@ logits move by 1.0e-4, mamba2's by 4.5e-6
     config's move too) and of the reference's within
     REF_TOL (measured 2.1e-4), `test_torch_tp.py`'s bound;
   * serving logits within LOGIT_TOL of the one-rank run (measured
-    3.5e-5, MLA at model 2; above `test_torch_tp.py`'s 1e-5 because one
-    ulp of every weight moves that config's logits by 1.0e-4), greedy
-    tokens identical;
+    3.5e-5, MLA at model 2 over its split latent cache, as over the
+    whole one before; above `test_torch_tp.py`'s 1e-5 because one ulp
+    of every weight moves that config's logits by 1.0e-4), greedy
+    tokens identical; MLA's within REF_LOGIT_TOL of the reference's
+    (`test_torch_tp.py`'s bound; measured 2.2e-5 and 2.8e-5);
   * two FSDP steps, clipped: the grad norm within NORM_RTOL of the
     one-rank step's (measured 9.8e-8 and 5.9e-6), `test_torch_tp.py`'s
     bounds, the parameters within STEP_TOL absolute (measured 1.3e-5;
@@ -105,6 +111,7 @@ LOSS_RTOL = 5e-7
 PORT_TOL = 2e-4
 REF_TOL = 5e-4
 LOGIT_TOL = 1e-4
+REF_LOGIT_TOL = 2.5e-4
 STEP_TOL = 3e-5
 NORM_RTOL = (2e-6, 3e-5)
 REF_PROCS = 3
@@ -147,6 +154,7 @@ GRADS = {
 FSDP = sorted(n for n, c in GRADS.items() if c[3])
 # name: (config, world, model)
 SERVE = {"serve_mla_m2": ("mla", 2, 2), "serve_mla_m4": ("mla", 4, 4),
+         "serve_mla_pad_m4": ("mla_pad", 4, 4),
          "serve_ssm_m2": ("mamba", 2, 2), "serve_ssm_m4": ("mamba", 4, 4)}
 # name: (config, world, mesh shape)
 TRAIN = {"train_llama_f2x2": ("llama", 4, (2, 2)),
@@ -162,9 +170,10 @@ import jax, jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 from repro.core import PlaneConfig, plane_allreduce
 from repro.launch.specs import make_ctx
-from repro.models import init_params, logical_axes, loss_fn
+from repro.models import (decode_step, init_caches, init_params,
+                          logical_axes, loss_fn, prefill_step)
 from repro.models.config import ModelConfig
-from repro.parallel.sharding import param_shardings
+from repro.parallel.sharding import local_ctx, param_shardings
 
 spec = json.load(open(sys.argv[1]))
 z = np.load(sys.argv[2])
@@ -176,6 +185,23 @@ for case in spec:
     with np.load(case["params"]) as zp:
         params = jax.tree.unflatten(tree, [jnp.asarray(zp[f"arr_{i}"])
                                            for i in range(len(zp.files))])
+    if case.get("serve"):
+        # greedy serving without a mesh: the prefill, then steps on the
+        # argmax of the last logits
+        ctx = local_ctx()
+        prompt = jnp.asarray(z["prompt"])
+        b, s = prompt.shape
+        caches = init_caches(cfg, b, case["serve"]["max_len"], cfg.dtype)
+        pre = jax.jit(lambda p, t, c: prefill_step(p, cfg, t, ctx, c))
+        dec = jax.jit(lambda p, t, q, c: decode_step(p, cfg, t, q, ctx, c))
+        logits, caches = pre(params, prompt, caches)
+        out[f"{name}/serve/0"] = np.asarray(logits)
+        for i in range(case["serve"]["decode"]):
+            tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
+            logits, caches = dec(params, tok, jnp.full((b,), s + i,
+                                                       jnp.int32), caches)
+            out[f"{name}/serve/{i + 1}"] = np.asarray(logits)
+        continue
     batch = {k: jnp.asarray(z[k]) for k in ("tokens", "labels")}
     aux_w = case["aux_weight"]
     shape = tuple(case["mesh"])
@@ -254,11 +280,15 @@ def runs(tmp_path_factory):
         np.savez(tmp / f"{name}.npz", *jax.tree.leaves(ref))
 
     batch = _batch()
-    np.savez(tmp / "batch.npz", **batch)
+    np.savez(tmp / "batch.npz", prompt=_serve_case()["prompt"], **batch)
     spec = [dict(name=n, cfg=dataclasses.asdict(_cfg(c)), mesh=list(shape),
                  fsdp=fsdp, aux_weight=CONFIGS[c][2],
                  params=str(tmp / f"{c}.npz"))
             for n, (c, _, shape, fsdp) in GRADS.items()]
+    spec.insert(0, dict(name="serve_mla", cfg=dataclasses.asdict(_cfg("mla")),
+                        params=str(tmp / "mla.npz"), serve=dict(
+                            max_len=_serve_case()["max_len"],
+                            decode=_serve_case()["decode"])))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu")
     procs = []
@@ -303,7 +333,7 @@ def runs(tmp_path_factory):
         loss, grads = make_grad_fn(_cfg(name), local_ctx(), tcfg)(
             params[name], tensors)
         one[name] = (float(loss), tree_leaves(grads))
-    for c in ("mla", "mamba"):
+    for c in ("mla", "mla_pad", "mamba"):
         one[f"serve_{c}"] = w.serve_run(_cfg(c), local_ctx(), params[c],
                                         _serve_case())
     for name, (c, _, _) in TRAIN.items():
@@ -433,13 +463,39 @@ def test_moe_aux_under_fsdp_is_the_tiles(runs):
 @pytest.mark.parametrize("name", sorted(SERVE))
 def test_serving_matches_the_one_rank_run(runs, name):
     res = _results(runs, name)
-    logits0, outs0 = runs["one"][f"serve_{SERVE[name][0]}"]
-    for logits, outs in res:
+    logits0, outs0, _ = runs["one"][f"serve_{SERVE[name][0]}"]
+    for logits, outs, _ in res:
         assert outs == outs0
         for a, b in zip(logits, logits0):
             assert a.shape == b.shape == (2, 1, 256)
             assert float((a - b).abs().max()) <= LOGIT_TOL
             assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+@pytest.mark.parametrize("name", ["serve_mla_m2", "serve_mla_m4"])
+def test_split_latent_serving_matches_the_reference(runs, name):
+    """Over the latent cache split along S, every rank's prefill and greedy
+    decode logits within REF_LOGIT_TOL of the reference's without a
+    mesh, with the same greedy tokens; each rank's `ckv`, `kr` and `pos`
+    hold max_len / tp slots (a "ring" leaf records max_len), their bytes
+    the whole cache's / tp."""
+    model = SERVE[name][2]
+    ref = runs["ref"]
+    for logits, _, layout in _results(runs, name):
+        for i, got in enumerate(logits):
+            want = ref[f"serve_mla/serve/{i}"]
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=REF_LOGIT_TOL)
+            assert np.array_equal(got.numpy().argmax(-1), want.argmax(-1))
+        whole, held = layout["whole"], layout["rank"]
+        assert whole
+        for path, (shape, nbytes) in whole.items():
+            axis = len(shape) - (1 if path[-1] == "pos" else 2)
+            assert held[path][0] == shape[:axis] + (shape[axis] // model,) \
+                + shape[axis + 1:]
+            assert held[path][1] * model == nbytes
+            assert held[path[:-1] + ("ring",)][0] == (
+                whole[path[:-1] + ("pos",)][0] + (0,))
 
 
 @pytest.mark.parametrize("config", ["mamba", "mla"])
@@ -451,11 +507,12 @@ def test_serving_departures_are_within_one_ulp_of_the_weights(runs, config):
     gen = torch.Generator().manual_seed(1)
     moved = tree_map(params, lambda x: x * (1 + 2.0 ** -23 * torch.randint(
         -1, 2, x.shape, generator=gen).float()))
-    logits0, _ = runs["one"][f"serve_{config}"]
-    logits1, _ = w.serve_run(_cfg(config), local_ctx(), moved, _serve_case())
+    logits0, _, _ = runs["one"][f"serve_{config}"]
+    logits1, _, _ = w.serve_run(_cfg(config), local_ctx(), moved,
+                                _serve_case())
     move = max(float((a - b).abs().max()) for a, b in zip(logits1, logits0))
     for name in (n for n, c in SERVE.items() if c[0] == config):
-        for logits, _ in _results(runs, name):
+        for logits, _, _ in _results(runs, name):
             err = max(float((a - b).abs().max())
                       for a, b in zip(logits, logits0))
             assert err <= 2 * move, (name, err, move)

@@ -16,7 +16,8 @@ gather back, bit for bit, run over ranks in `tests/test_torch_tp.py`.
 MLA, SSM and hybrid SSM configs under a model dim above 1 take their
 specs, and each mixer's own specs (`sharding.leaf_specs`, what its
 forward reads its columns by) are the stacked leaves' without the
-layers dim; their caches hold a rank's heads.  An FSDP context builds
+layers dim; an SSM cache holds a rank's heads, MLA's latent cache its
+slots of the ring.  An FSDP context builds
 with the reference's plane axes, and `launch.specs.make_ctx` picks FSDP
 for exactly the configs the reference's does.  The forwards run over
 ranks in `tests/test_torch_tp_fsdp.py`.
@@ -129,8 +130,10 @@ def test_mla_and_ssm_under_tp_raise_naming_4c_ii(arch):
     configs take their specs; each mixer's `leaf_specs` are the stacked
     leaves' specs without the layers dim; rank 1's caches hold its SSM
     heads (the state of half the heads, the conv inputs of their x
-    channels and of every B/C channel) and the whole latent cache, and
-    `shard_caches` cuts a whole cache tree to those."""
+    channels and of every B/C channel) and its half of the latent
+    cache's slots (slots 4-7 of 8: `ckv`, `kr` and `pos`, with a "ring"
+    leaf recording the 8), and `shard_caches` cuts a whole cache tree to
+    those."""
     from repro_torch.models import (init_caches, shard_caches, tree_leaves,
                                     tree_map)
     from repro_torch.models.attention import init_mla
@@ -164,7 +167,14 @@ def test_mla_and_ssm_under_tp_raise_naming_4c_ii(arch):
         [a.shape for a in tree_leaves(caches)]
     c = caches["period"][pos]
     if OUT_OF_SCOPE[arch] == "MLA":
-        assert c["ckv"].shape == (cfg.n_periods, 2, 8, cfg.kv_lora)
+        assert c["ckv"].shape == (cfg.n_periods, 2, 4, cfg.kv_lora)
+        assert c["kr"].shape == (cfg.n_periods, 2, 4, cfg.rope_head_dim)
+        assert c["pos"].shape == (cfg.n_periods, 2, 4)
+        assert c["ring"].shape == (cfg.n_periods, 2, 8, 0)
+        for k in ("ckv", "kr", "pos"):
+            want = whole["period"][pos][k]
+            assert torch.equal(cut["period"][pos][k],
+                               want.narrow(2, 4, 4))
     else:
         half = cfg.ssm_heads // 2
         assert c["ssm"].shape == (cfg.n_periods, 2, half, cfg.ssm_head_dim,

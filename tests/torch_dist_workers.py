@@ -31,8 +31,8 @@ from repro_torch.core.planes import PlaneConfig
 from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.launch.specs import make_ctx
 from repro_torch.models import (decode_step, init_caches, loss_fn, moe,
-                                param_specs, prefill_step, tree_leaves,
-                                tree_map)
+                                param_specs, prefill_step, tree_items,
+                                tree_leaves, tree_map)
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel import (ShardCtx, gather_params, local_ctx,
                                   shard_params, tp)
@@ -370,11 +370,17 @@ def tp_decode(world, case):
     return out
 
 
+def cache_layout(caches) -> dict:
+    """{key path: (shape, bytes)} of every leaf of a cache tree."""
+    return {path: (tuple(x.shape), x.numel() * x.element_size())
+            for path, x in tree_items(caches)}
+
+
 def serve_run(cfg, ctx, params, case):
     """`prefill_step` and `decode_step` greedily from the case's prompt
     (every step's logits), then a `ServeEngine` with the case's two
     requests, the second admitted after `case["later"]` steps (their
-    tokens)."""
+    tokens), and the engine's caches at the end (`cache_layout`)."""
     prompt = torch.from_numpy(case["prompt"])
     b = prompt.shape[0]
     with torch.inference_mode():
@@ -395,13 +401,17 @@ def serve_run(cfg, ctx, params, case):
     eng.add_request(reqs[1])
     while any(eng.slots):
         eng.step()
-    return out, [r.out for r in reqs]
+    return out, [r.out for r in reqs], cache_layout(eng.caches)
 
 
 def tp_serve(world, case):
-    """`serve_run` under the case's mesh on the rank's slices."""
+    """`serve_run` under the case's mesh on the rank's slices: logits,
+    tokens and {"rank": the rank's cache layout, "whole": that of the
+    caches without a mesh}."""
     cfg, ctx, _, _, lp = _tp_setup(world, case)
-    return serve_run(cfg, ctx, lp, case)
+    out, tokens, layout = serve_run(cfg, ctx, lp, case)
+    whole = init_caches(cfg, 2, case["max_len"], "float32", "cpu")
+    return out, tokens, dict(rank=layout, whole=cache_layout(whole))
 
 
 def train_steps(cfg, ctx, params, case):
